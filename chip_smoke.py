@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Secure multiplication on the co-located plane, as ``bench.py`` drives the
-JAX package: ``SimRuntime(3)`` (t = 1), ``SecInt(32)`` (the 64-bit field),
-input, ``np_multiply``, output. Phases, each printing one line with its
-elapsed seconds:
+Three paths on the co-located plane, as ``bench.py`` drives the JAX
+package, all at ``SimRuntime(3)`` (t = 1) and ``SecInt(32)`` (the 64-bit
+field): secure multiplication (input, ``np_multiply``, output), secure
+comparison (``np_less``, ``np_equal``, ``np_sgn``, ``np_maximum`` and the
+BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
+(bench.py:88). Phases, each printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
 2. build: compile the kernels with nvcc (csrc/, sm_90a); print nvcc's
    register and spill report and the build time;
 3. kernels: K1 (keccak_ctr), K2 (squeeze_mont) and K3 (reshare_mul) at the
-   main path's sizes, each equal bit for bit to its plain PyTorch version on
-   the same inputs (tolerance: exact, integer arithmetic), K1 also to
-   hashlib; time each and its plain version with CUDA events;
+   main path's sizes, K4 (split_recombine) with its shares at 2^16 and at
+   the round's 3,010,560 elements, K5 (sgn_step) in its three modes at
+   2^16 and at the comparison's 2^20 elements, each equal bit for bit to its
+   plain PyTorch version on the same inputs (tolerance: exact, integer
+   arithmetic), K1 also to hashlib; time each and its plain version with
+   CUDA events, beside its bound;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
-   plaintext product mod p; the launch counters, zeroed just before, must
-   show every kernel ran;
-5. report: one JSON line of the kernels, the card's name and power limit,
+   plaintext product mod p;
+5. comparison: A, B of 2^20 values in [-2^30, 2^30) (one pair in 8
+   equal, the range ends planted); np_less, np_equal, np_sgn(A - B),
+   np_maximum and the BNN sign np_sgn(A, LT=True) * -2 + 1, every output
+   checked against the plaintext; the median of 7 np_less calls as
+   comparisons/s;
+6. split/recombine: 3,010,560 secrets, 100 chained rounds, the output
+   equal to the input; ms per round;
+7. report: one JSON line of the kernels, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
+
+Each of phases 4-6 zeroes the launch counters just before it and reads them
+just after; each must show that the kernels of its path ran (K1-K3, then
+K2, K3 and K5, then K4).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -45,11 +60,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpyc_tpu_torch import sectypes  # noqa: E402
 from mpyc_tpu_torch.models import pipelines  # noqa: E402
-from mpyc_tpu_torch.ops import keccak, rng  # noqa: E402
+from mpyc_tpu_torch.ops import keccak, limb, rng  # noqa: E402
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx  # noqa: E402
 from mpyc_tpu_torch.parallel.simulator import SimRuntime  # noqa: E402
 
 N_POOL = 256                   # values whose input draws use the pool
+N_CMP = 1 << 20                # comparison: bench.py:203, one K5 chunk
+CMP_CALLS = 7                  # np_less calls timed (median)
+N_KCHECK = 1 << 16             # K4, K5 against their plain versions
+N_SPLIT = 147 * 16 * 128 * 10  # bench.py:105-108 (3,010,560)
+SPLIT_ROUNDS = 100             # chained split/recombine rounds
 N_SMALL = 4096                 # bench.py's in-run correctness check
 N_BIG = 1 << 22                # bench.py's size on the device
 ROUNDS = 10                    # chained np_multiply calls
@@ -72,15 +92,25 @@ KECCAK_F_OPS = 24 * 180
 MONT_MUL_OPS = 36
 ADD_MOD_OPS = 8
 
+SOURCE = 'mpyc_tpu_torch/csrc/kernels.cu'
 KERNELS = {
     'keccak_ctr': dict(replaces='mpyc_tpu/ops/keccak.py:215',
-                       wrapper=keccak.keccak_ctr),
+                       wrapper=keccak.keccak_ctr, source=SOURCE),
     'squeeze_mont': dict(replaces='mpyc_tpu/ops/rng.py:99',
-                         wrapper=rng.squeeze_mont),
+                         wrapper=rng.squeeze_mont, source=SOURCE),
     'reshare_mul': dict(replaces='mpyc_tpu/models/pipelines.py:87',
-                        wrapper=pipelines.reshare_mul),
+                        wrapper=pipelines.reshare_mul, source=SOURCE),
+    'split_recombine': dict(replaces='mpyc_tpu/models/pipelines.py:378',
+                            wrapper=pipelines.split_recombine,
+                            source=SOURCE),
+    'sgn_step': dict(replaces='mpyc_tpu/models/pipelines.py:503',
+                     wrapper=pipelines.sgn_step,
+                     source='mpyc_tpu_torch/csrc/sgn.cuh'),
 }
-SOURCE = 'mpyc_tpu_torch/csrc/kernels.cu'
+# the kernels each path must launch
+PATH_KERNELS = {'main path': ('keccak_ctr', 'squeeze_mont', 'reshare_mul'),
+                'comparison': ('squeeze_mont', 'reshare_mul', 'sgn_step'),
+                'split/recombine': ('split_recombine',)}
 
 
 def say(msg: str) -> None:
@@ -271,6 +301,92 @@ def check_kernels(p: int) -> dict:
     return res
 
 
+def check_slice_kernels(p: int) -> dict:
+    """Phase 3, second part: K4 and K5 against their plain versions (bit
+    for bit) at 2^16 elements and at the paths' shapes, K4 at the round's
+    3,010,560 elements and K5 in each of its three modes at 2^20, each
+    timed, K5 (LT, np_less's mode) and K4 also with their plain versions.
+    Returns per-kernel measurements."""
+    gen = np.random.default_rng(8)
+    res = {}
+    st_np = keccak._absorb_host(bytes(gen.integers(0, 256, 32,
+                                                   dtype=np.uint8))
+                                + bytes(8))
+    st = keccak.state_tensor(st_np, 'cuda')
+
+    # K4 with its shares
+    spec4 = pipelines.SplitSpec(p, T, M)
+    err4 = 0
+    for n in (N_KCHECK, N_SPLIT):
+        sec = random_shares(p, (n,), gen)
+        sh = torch.empty((M, n, 2), dtype=torch.int32, device='cuda')
+        out = pipelines.split_recombine(sec, st, spec4, shares=sh)
+        want, want_sh = pipelines._split_recombine_plain(sec, st, spec4)
+        torch.cuda.synchronize()
+        err4 = max(err4, max_abs_err(out, want), max_abs_err(sh, want_sh),
+                   max_abs_err(out, sec))
+        check(err4 == 0, f'K4 ({n} elements) differs from its plain version')
+        say(f'  K4 split_recombine: {n} elements, output and shares equal '
+            'to plain, output equal to input')
+    del sh, want_sh
+    mont, adds = spec4.field_ops()
+    ops4 = (rng.blocks_needed(T * N_SPLIT, spec4.l_bytes) * KECCAK_F_OPS
+            + draw_ops(T * N_SPLIT, spec4.l_bytes // 4)
+            + N_SPLIT * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+    b, o = bound(N_SPLIT * 2 * 8, ops4)
+    res['split_recombine'] = dict(
+        shape=f'{N_SPLIT} secrets', max_abs_err=err4,
+        ms=cuda_ms(lambda: pipelines.split_recombine(sec, st, spec4), 20),
+        plain_ms=cuda_ms(
+            lambda: pipelines._split_recombine_plain(sec, st, spec4), 2),
+        bound_ms=b, bound_by=o)
+    del sec, out, want
+
+    # K5 in each mode at 2^16 and at the comparison's 2^20 elements
+    err5 = 0
+    nonce = (0xFFFFFFFF, 5)
+    for mode in pipelines.SGN_MODES:
+        spec5 = pipelines.SgnSpec(p, T, M, 32, 30, LT=mode == 'LT',
+                                  EQ=mode == 'EQ')
+        torch.cuda.reset_peak_memory_stats()
+        for n in (N_KCHECK, N_CMP):
+            a = random_shares(p, (M, n), gen)
+            out = pipelines.sgn_step(a, st, nonce, spec5)
+            want = pipelines._sgn_step_plain(a, st, nonce, spec5)
+            torch.cuda.synchronize()
+            err5 = max(err5, max_abs_err(out, want))
+            check(err5 == 0, f'K5 ({mode}, {n} elements) differs from its '
+                  'plain version')
+            del out, want
+        # operations as the kernel does them: its field operations
+        # (SgnSpec.field_ops, held against the source by
+        # tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
+        # reduction of its draws and the stream's blocks
+        draws = N_CMP * spec5.draws_per_element()
+        mont, adds = spec5.field_ops(spec5.l / 2)
+        ops5 = (spec5.blocks(N_CMP) * KECCAK_F_OPS
+                + draw_ops(draws, spec5.l_bytes // 4)
+                + N_CMP * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+        b, o = bound(N_CMP * M * 2 * 4 * 2, ops5)
+        iters = 10 if mode == 'LT' else 5
+        ms = cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec5), iters)
+        say(f'  K5 sgn_step {mode}: {N_KCHECK} and {N_CMP} elements equal '
+            f'to plain (peak {torch.cuda.max_memory_allocated() / 2**30:.1f}'
+            f' GiB allocated); per element {mont} Montgomery products, '
+            f'{adds:.0f} modular adds/subs, {draws // N_CMP} draws, '
+            f'{spec5.blocks(N_CMP) / N_CMP:.4f} stream blocks; {ms:.4f} ms '
+            f'at {N_CMP} elements, bound {b:.4f} ms ({o}), {ms / b:.2f}x')
+        if mode == 'LT':      # np_less's mode goes into the kernels line
+            res['sgn_step'] = dict(
+                shape=f'({M}, {N_CMP}, 2) shares, LT', ms=ms,
+                plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
+                    a, st, nonce, spec5), 1),
+                bound_ms=b, bound_by=o)
+        del a
+    res['sgn_step']['max_abs_err'] = err5
+    return res
+
+
 def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
                   sample=SAMPLE, seed=0) -> dict:
     """The port's main path through the user's entry points; raises on a
@@ -324,6 +440,83 @@ def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
     return dict(p=p, per_call_ms=per_call_ms)
 
 
+def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1) -> dict:
+    """Secure comparison through the user's entry points at n elements;
+    raises on a wrong result. Returns, on the card, the device time of each
+    timed np_less call (ms, CUDA events)."""
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    secint = rt.SecInt(32)
+    gen = np.random.default_rng(seed)
+    half = 1 << 30      # a - b must fit the 32 bits that np_less compares
+    a = gen.integers(-half, half, n, dtype=np.int64)
+    b = gen.integers(-half, half, n, dtype=np.int64)
+    same = gen.choice(n, n // 8, replace=False)
+    b[same] = a[same]
+    ends = [(-half, half - 1), (half - 1, -half), (-half, -half),
+            (half - 1, half - 1), (0, 0)]
+    for i, (x, y) in enumerate(ends[:n]):
+        a[i], b[i] = x, y
+    A = rt.input(secint.array(a))[0]
+    B = rt.input(secint.array(b))[1]
+    cases = {
+        'np_less': (lambda: rt.np_less(A, B), a < b),
+        'np_equal': (lambda: rt.np_equal(A, B), a == b),
+        'np_sgn': (lambda: rt.np_sgn(A - B), np.sign(a - b)),
+        'np_maximum': (lambda: rt.np_maximum(A, B), np.maximum(a, b)),
+        'bnn_sign': (lambda: rt.np_sgn(A, LT=True) * -2 + 1,
+                     np.where(a < 0, -1, 1)),
+    }
+    for name, (secure, want) in cases.items():
+        got = rt.output(secure())
+        check(got.shape == (n,), f'{name}: wrong shape')
+        bad = np.flatnonzero(got != want)
+        check(bad.size == 0, f'{name}: {bad.size} of {n} outputs wrong, '
+              f'first at {bad[:5].tolist()}')
+    per_call_ms = []
+    if torch.device(device).type == 'cuda':
+        for _ in range(calls):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            rt.np_less(A, B)
+            ev1.record()
+            per_call_ms.append((ev0, ev1))
+        torch.cuda.synchronize()
+        per_call_ms = [e0.elapsed_time(e1) for e0, e1 in per_call_ms]
+    rt.shutdown()
+    return dict(per_call_ms=per_call_ms, checked=list(cases))
+
+
+def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
+                        seed=2) -> dict:
+    """bench.py:88's round trip on n secrets, chained rounds; raises unless
+    the output equals the input. Returns, on the card, ms per round."""
+    p = sectypes.SecInt(32, device).field.modulus
+    ctx = prime_field_ctx(p)
+    step = pipelines.make_split_recombine(p, T, M)
+    state = keccak.state_tensor(
+        keccak._absorb_host(b'\x42' * 32 + b'bench-coef-stream'), device)
+    gen = np.random.default_rng(seed)
+    secrets = ctx.encode(gen.integers(0, 1 << 62, n, dtype=np.int64),
+                         device)
+    on_card = torch.device(device).type == 'cuda'
+    if on_card:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    x = secrets
+    for _ in range(rounds):
+        x = step(x, state)
+    ms = None
+    if on_card:
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = ev0.elapsed_time(ev1) / rounds
+    check(torch.equal(x, secrets), 'split/recombine changed its input')
+    return dict(ms_per_round=ms)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t_all = time.perf_counter()
@@ -353,36 +546,69 @@ def main() -> int:
     p = sectypes.SecInt(32, 'cuda').field.modulus
     with Phase('kernels'):
         meas = check_kernels(p)
+        meas.update(check_slice_kernels(p))
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
                 f'({r["bound_by"]}) on {smi}')
         torch.cuda.empty_cache()
 
-    with Phase('main path'):
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def drive(path, fn):
         reset_counts()
-        res = run_main_path('cuda')
-        launches = counts()
-        say(f'  launches: {launches}')
-        for name, n in launches.items():
-            check(n > 0, f'kernel {name} was not launched on the main path')
+        res = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        say(f'  launches: {got}')
+        for name in PATH_KERNELS[path]:
+            check(got[name] > 0, f'kernel {name} was not launched on the '
+                  f'{path}')
+        for name, c in got.items():
+            launches[name] += c
+        return res
+
+    with Phase('main path'):
+        res = drive('main path', lambda: run_main_path('cuda'))
         ms = sorted(res['per_call_ms'])
         med = ms[len(ms) // 2]
         say(f'  np_multiply of {N_BIG} elements: median {med:.4f} ms '
             f'(calls: {", ".join(f"{x:.4f}" for x in res["per_call_ms"])}),'
             f' {N_BIG / (med / 1e3):.6g} multiplications/s on {smi}')
+        torch.cuda.empty_cache()
 
-    kernels = [dict(name=name, route='cuda', source=SOURCE,
-                    replaces=KERNELS[name]['replaces'],
-                    launches=launches[name],
+    with Phase('comparison'):
+        res = drive('comparison', lambda: run_compare('cuda'))
+        ms = sorted(res['per_call_ms'])
+        med_cmp = ms[len(ms) // 2]
+        say(f'  all {N_CMP} outputs correct: {", ".join(res["checked"])}')
+        say(f'  np_less of {N_CMP} elements: median {med_cmp:.4f} ms '
+            f'(calls: {", ".join(f"{x:.4f}" for x in res["per_call_ms"])}),'
+            f' {N_CMP / (med_cmp / 1e3):.6g} comparisons/s on {smi}')
+        torch.cuda.empty_cache()
+
+    with Phase('split/recombine'):
+        res = drive('split/recombine', lambda: run_split_recombine('cuda'))
+        ms_round = res['ms_per_round']
+        say(f'  {SPLIT_ROUNDS} chained rounds of {N_SPLIT} secrets, output '
+            f'equal to input: {ms_round:.4f} ms per round, '
+            f'{N_SPLIT / (ms_round / 1e3):.6g} secrets/s on {smi}')
+
+    say(f'  launches over the three paths: {launches}')
+    kernels = [dict(name=name, route='cuda', source=k['source'],
+                    replaces=k['replaces'], launches=launches[name],
                     max_abs_err=meas[name]['max_abs_err'],
                     ms=meas[name]['ms'], plain_ms=meas[name]['plain_ms'],
                     bound_ms=meas[name]['bound_ms'],
                     bound_by=meas[name]['bound_by'], library_ms=None)
-               for name in KERNELS]
+               for name, k in KERNELS.items()]
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'np_multiply_median_ms': med, 'elements': N_BIG,
-                    'mul_per_s': N_BIG / (med / 1e3), 'card': smi}))
+                    'mul_per_s': N_BIG / (med / 1e3),
+                    'np_less_median_ms': med_cmp, 'cmp_elements': N_CMP,
+                    'cmp_per_s': N_CMP / (med_cmp / 1e3),
+                    'split_recombine_ms_per_round': ms_round,
+                    'split_elements': N_SPLIT, 'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

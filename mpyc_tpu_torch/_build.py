@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
-SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh')
+# SOURCES[0] is compiled and #includes the others; all are hashed
+SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'sgn.cuh')
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -53,11 +54,32 @@ class DrawParams(ctypes.Structure):
 
 
 class ReshareParams(ctypes.Structure):
-    """Mirror of ``struct ReshareParams`` in csrc/kernels.cu."""
+    """Mirror of ``struct ReshareParams`` in csrc/kernels.cu (K3, and K4
+    with lag holding the t + 1 coefficients of the opening)."""
     _fields_ = [('draw', DrawParams), ('lag', _U32xNL * MAX_SEND),
                 ('xs', _U32xNL * MAX_M), ('nonce_lo', ctypes.c_uint32),
                 ('nonce_hi', ctypes.c_uint32), ('t', ctypes.c_int32),
                 ('m', ctypes.c_int32), ('n_send', ctypes.c_int32)]
+
+
+class SgnParams(ctypes.Structure):
+    """Mirror of ``struct SgnParams`` in csrc/sgn.cuh."""
+    _fields_ = [('draw', DrawParams), ('lag_t', _U32xNL * MAX_SEND),
+                ('lag_2t', _U32xNL * MAX_SEND), ('xs', _U32xNL * MAX_M),
+                ('one', _U32xNL), ('three', _U32xNL),
+                ('r2', _U32xNL), ('pow2l', _U32xNL), ('inv2l', _U32xNL),
+                ('pow2l1', _U32xNL), ('powf', _U32xNL),
+                ('nonce_lo', ctypes.c_uint32), ('nonce_hi', ctypes.c_uint32),
+                ('t', ctypes.c_int32), ('m', ctypes.c_int32),
+                ('l', ctypes.c_int32), ('k', ctypes.c_int32),
+                ('mode', ctypes.c_int32), ('has_f', ctypes.c_int32)]
+
+
+# (t, m) of the split/recombine kernel's instantiations (csrc/kernels.cu)
+SPLIT_BUILT = ((1, 3),)
+# (mode, l, t, m) of the comparison kernel's instantiations (csrc/sgn.cuh;
+# mode 0 sgn, 1 LT, 2 EQ), all for two-limb fields
+SGN_BUILT = tuple((mode, 32, 1, 3) for mode in range(3))
 
 
 def draw_params(ctx, n_chunks: int) -> DrawParams:
@@ -82,6 +104,8 @@ _SIGNATURES = {
     'mtt_squeeze_mont': [_C, _C, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, ctypes.c_ulonglong, _C, _C],
     'mtt_reshare': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C, _C],
+    'mtt_split_recombine': [_C, _C, _C, _C, ctypes.c_longlong, _C, _C],
+    'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong, _C, _C],
 }
 
 

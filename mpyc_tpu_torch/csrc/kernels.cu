@@ -1,4 +1,5 @@
-// CUDA kernels of the port's secure-multiplication path (sm_90a).
+// CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication, K4
+// the split/recombine round, K5 the secure comparison (sgn.cuh).
 //
 // Built by mpyc_tpu_torch/_build.py with plain nvcc into one shared library
 // whose extern "C" launchers are called through ctypes. Each launcher takes
@@ -128,43 +129,19 @@ squeeze_mont_kernel(const uint32_t* __restrict__ state,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K3: one whole GRR98 reshare round, with the local product when FUSE.
-// Replaces mpyc_tpu/models/pipelines.py:87 make_reshare_step ->
-// make_pallas.kernel (:179), in the stream layout of its XLA twin
-// step_xla (:145): coefficient C_k of element e is draw k*n + e of the
-// squeeze_mont stream (counter in lane 19) of the absorbed state with the
-// per-call nonce XORed into lane 4. Output row j (party j+1) is
-//   Horner(C, x_j) + S,  S = sum_{i < 2t+1} lag_i * s_i,
-//   s_i = a_i * b_i (FUSE) or a_i.
-// Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
-// and 11 Montgomery multiplies per element, against 72 bytes moved).
-// Design: one thread per group of EPB = 10 consecutive elements, whose
-// k = 0 coefficients are exactly one sponge block: the squeeze, the
-// reduction, the products and the Horner rows all stay in registers, and
-// device memory sees each share read once and each output written once.
-// For k > 0 the group's draws k*n + e may straddle two blocks; the thread
-// then squeezes both (written for general t; built for t = 1, m = 3).
-// ---------------------------------------------------------------------------
-template <bool FUSE, int T, int M>
-__global__ void __launch_bounds__(128)
-reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
-               long long n, ReshareParams P) {
+// The t coefficients of the EPB = 10 elements e0 .. e0 + 9 (e0 a multiple
+// of 10) in the stream layout of the JAX package's XLA steps: coefficient
+// C_k of element e is draw k*n + e of the squeeze_mont stream of the
+// absorbed state S0 (16-byte draws, counter in lane 19). For k = 0 the
+// group's draws are exactly one sponge block; for k > 0 they may straddle
+// two, and the thread then squeezes both (written for general t).
+template <int T>
+__device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
+                                            long long e0,
+                                            const DrawParams& P,
+                                            uint32_t (*C)[RATE_WORDS / 4][NL]) {
   constexpr int W = 4;  // 16-byte draws: fused_draw_bytes(p) for 2 limbs
   constexpr int EPB = RATE_WORDS / W;
-  constexpr int NSEND = 2 * T + 1;
-  static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long e0 = g * EPB;
-  if (e0 >= n) return;
-  uint64_t S0[25];
-  load_state(state, S0);
-  S0[4] ^= ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
-  const uint32_t* p = P.draw.p;
-  const uint32_t n0 = P.draw.n0inv;
-
-  uint32_t C[T][EPB][NL];
 #pragma unroll
   for (int k = 0; k < T; ++k) {
     const long long d0 = (long long)k * n + e0;
@@ -175,7 +152,7 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       A[19] ^= (uint64_t)(d0 / EPB);
       keccak_f1600(A);
 #pragma unroll
-      for (int s = 0; s < EPB; ++s) reduce_draw<W>(A, s, P.draw, C[k][s]);
+      for (int s = 0; s < EPB; ++s) reduce_draw<W>(A, s, P, C[k][s]);
     } else {
       const long long blk = d0 / EPB;
       const int s0 = (int)(d0 % EPB);
@@ -189,7 +166,7 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
         keccak_f1600(A);
 #pragma unroll
         for (int j = 0; j < EPB; ++j)
-          reduce_draw<W>(A, j, P.draw, Rd[h * EPB + j]);
+          reduce_draw<W>(A, j, P, Rd[h * EPB + j]);
       }
 #pragma unroll
       for (int s = 0; s < EPB; ++s) {
@@ -198,6 +175,44 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K3: one whole GRR98 reshare round, with the local product when FUSE.
+// Replaces mpyc_tpu/models/pipelines.py:87 make_reshare_step ->
+// make_pallas.kernel (:179), in the stream layout of its XLA twin
+// step_xla (:145): coefficient C_k of element e is draw k*n + e of the
+// squeeze_mont stream (counter in lane 19) of the absorbed state with the
+// per-call nonce XORed into lane 4. Output row j (party j+1) is
+//   Horner(C, x_j) + S,  S = sum_{i < 2t+1} lag_i * s_i,
+//   s_i = a_i * b_i (FUSE) or a_i.
+// Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
+// and 11 Montgomery multiplies per element, against 72 bytes moved).
+// Design: one thread per group of EPB = 10 consecutive elements, whose
+// k = 0 coefficients are exactly one sponge block (group_coefs): the
+// squeeze, the reduction, the products and the Horner rows all stay in
+// registers, and device memory sees each share read once and each output
+// written once (written for general t; built for t = 1, m = 3).
+// ---------------------------------------------------------------------------
+template <bool FUSE, int T, int M>
+__global__ void __launch_bounds__(128)
+reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
+               long long n, ReshareParams P) {
+  constexpr int EPB = RATE_WORDS / 4;  // 16-byte draws a block
+  constexpr int NSEND = 2 * T + 1;
+  static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long e0 = g * EPB;
+  if (e0 >= n) return;
+  uint64_t S0[25];
+  load_state(state, S0);
+  S0[4] ^= ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
+  const uint32_t* p = P.draw.p;
+  const uint32_t n0 = P.draw.n0inv;
+
+  uint32_t C[T][EPB][NL];
+  group_coefs<T>(S0, n, e0, P.draw, C);
 
 #pragma unroll
   for (int s = 0; s < EPB; ++s) {
@@ -246,6 +261,88 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: one Shamir round trip, split at x = 1..m and recombined at 0.
+// Replaces mpyc_tpu/models/pipelines.py:378 make_split_recombine_fused ->
+// kernel (:415, pallas_call :475), in the stream layout of its XLA twin
+// make_split_recombine (:35): coefficient C_k of element e is draw k*n + e
+// of the squeeze_mont stream of the given state (no call nonce). Share j
+// is Horner(C, x_j) + s; the output is sum_{i < t+1} lag_i * share_i, the
+// secret again. `shares`, when not null, receives the (m, n) shares.
+// Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
+// and 7 Montgomery multiplies per element, against 16 bytes moved).
+// Design: as K3, one thread per group of 10 elements whose coefficients
+// are one sponge block; everything between the read of the secret and
+// the write of the output stays in registers.
+// ---------------------------------------------------------------------------
+template <int T, int M>
+__global__ void __launch_bounds__(128)
+split_recombine_kernel(const uint32_t* __restrict__ sec,
+                       uint32_t* __restrict__ out,
+                       uint32_t* __restrict__ shares,
+                       const uint32_t* __restrict__ state, long long n,
+                       ReshareParams P) {
+  constexpr int EPB = RATE_WORDS / 4;
+  static_assert(T + 1 <= MAX_SEND && M <= MAX_M && T < M, "shape");
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long e0 = g * EPB;
+  if (e0 >= n) return;
+  uint64_t S0[25];
+  load_state(state, S0);
+  const uint32_t* p = P.draw.p;
+  const uint32_t n0 = P.draw.n0inv;
+
+  uint32_t C[T][EPB][NL];
+  group_coefs<T>(S0, n, e0, P.draw, C);
+
+#pragma unroll
+  for (int s = 0; s < EPB; ++s) {
+    const long long e = e0 + s;
+    if (e < n) {
+      uint32_t sv[NL], acc[NL];
+#pragma unroll
+      for (int q = 0; q < NL; ++q) sv[q] = __ldg(sec + e * NL + q);
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        uint32_t y[NL];
+#pragma unroll
+        for (int k = 0; k < T; ++k) {
+          if (k == 0) {
+#pragma unroll
+            for (int q = 0; q < NL; ++q) y[q] = C[0][s][q];
+          } else {
+            add_mod<NL>(y, C[k][s], p, y);
+          }
+          mont_mul<NL>(y, P.xs[j], p, n0, y);
+        }
+        add_mod<NL>(y, sv, p, y);
+        if (shares != nullptr) {
+          const long long o = ((long long)j * n + e) * NL;
+#pragma unroll
+          for (int q = 0; q < NL; ++q) shares[o + q] = y[q];
+        }
+        if (j < T + 1) {
+          mont_mul<NL>(y, P.lag[j], p, n0, y);
+          if (j == 0) {
+#pragma unroll
+            for (int q = 0; q < NL; ++q) acc[q] = y[q];
+          } else {
+            add_mod<NL>(acc, y, p, acc);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NL; ++q) out[e * NL + q] = acc[q];
+    }
+  }
+}
+
+}  // namespace mtt
+
+#include "sgn.cuh"
+
+namespace mtt {
+
 template <int W>
 int launch_squeeze(const void* state, void* out, long long n_draws,
                    int ctr_lane, unsigned long long base,
@@ -270,6 +367,30 @@ int launch_reshare(const void* a, const void* b, void* out, const void* state,
   reshare_kernel<FUSE, 1, 3><<<(unsigned)grid, threads, 0, stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
       (const uint32_t*)state, n, P);
+  return (int)cudaGetLastError();
+}
+
+int launch_split_recombine(const void* sec, void* out, void* shares,
+                           const void* state, long long n,
+                           const ReshareParams& P, cudaStream_t stream) {
+  constexpr int EPB = RATE_WORDS / 4;
+  const long long groups = (n + EPB - 1) / EPB;
+  const int threads = 128;
+  const long long grid = (groups + threads - 1) / threads;
+  split_recombine_kernel<1, 3><<<(unsigned)grid, threads, 0, stream>>>(
+      (const uint32_t*)sec, (uint32_t*)out, (uint32_t*)shares,
+      (const uint32_t*)state, n, P);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_sgn(const void* a, void* out, const void* state, long long n,
+               long long blocks_a, const SgnParams& P, cudaStream_t stream) {
+  const int threads = 128;
+  const long long grid = (n + threads - 1) / threads;
+  sgn_kernel<MODE, 32, 1, 3><<<(unsigned)grid, threads, 0, stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n,
+      blocks_a, P);
   return (int)cudaGetLastError();
 }
 
@@ -314,6 +435,33 @@ int mtt_reshare(const void* a, const void* b, void* out, const void* state,
   const cudaStream_t s = (cudaStream_t)stream;
   return fuse ? mtt::launch_reshare<true>(a, b, out, state, n, P, s)
               : mtt::launch_reshare<false>(a, b, out, state, n, P, s);
+}
+
+// shares may be null. -1: a (t, m) the kernel was not built for.
+int mtt_split_recombine(const void* sec, void* out, void* shares,
+                        const void* state, long long n, const void* params,
+                        void* stream) {
+  const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
+  if (P.t != 1 || P.m != 3 || P.n_send != 2) return -1;
+  if (n <= 0) return 0;
+  return mtt::launch_split_recombine(sec, out, shares, state, n, P,
+                                     (cudaStream_t)stream);
+}
+
+// -1: a (mode, l, t, m, k) the kernel was not built for (l = 32, t = 1,
+// m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py SGN_BUILT).
+int mtt_sgn(const void* a, void* out, const void* state, long long n,
+            long long blocks_a, const void* params, void* stream) {
+  const mtt::SgnParams P = *(const mtt::SgnParams*)params;
+  if (P.t != 1 || P.m != 3 || P.l != 32 || P.k < 0 || P.k > 64) return -1;
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (P.mode) {
+    case 0: return mtt::launch_sgn<0>(a, out, state, n, blocks_a, P, s);
+    case 1: return mtt::launch_sgn<1>(a, out, state, n, blocks_a, P, s);
+    case 2: return mtt::launch_sgn<2>(a, out, state, n, blocks_a, P, s);
+    default: return -1;
+  }
 }
 
 const char* mtt_error_string(int rc) {

@@ -1,7 +1,8 @@
 // Montgomery arithmetic on little-endian 32-bit limbs, R = 2^(32 L).
 //
 // Device counterpart of mpyc_tpu/ops/limb.py (mont_mul :247, add_mod :217,
-// sub_mod :227) and of its plain PyTorch version mpyc_tpu_torch/ops/limb.py.
+// sub_mod :227, iszero_ll :195) and of its plain PyTorch version
+// mpyc_tpu_torch/ops/limb.py.
 // The TPU builds a 32x32->64-bit product from 16-bit halves; here each
 // product is one wide multiply (mul.wide.u32: the low word and __umulhi's
 // high word in one instruction), with the carries in 64-bit adds. Results
@@ -9,12 +10,20 @@
 #pragma once
 #include <cstdint>
 
+// A host build that counts the field operations of a kernel (the bounds'
+// operation counts are held against the source so) defines this: kind 0 a
+// Montgomery product, 1 a modular add or subtract. Empty on the card.
+#ifndef MTT_COUNT_OP
+#define MTT_COUNT_OP(kind)
+#endif
+
 namespace mtt {
 
 // (a + b) mod p for a, b < p.
 template <int L>
 __device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b,
                                         const uint32_t* p, uint32_t* out) {
+  MTT_COUNT_OP(1);
   uint32_t s[L], d[L];
   uint32_t carry = 0;
 #pragma unroll
@@ -35,12 +44,45 @@ __device__ __forceinline__ void add_mod(const uint32_t* a, const uint32_t* b,
   for (int i = 0; i < L; ++i) out[i] = use_d ? d[i] : s[i];
 }
 
+// (a - b) mod p for a, b < p.
+template <int L>
+__device__ __forceinline__ void sub_mod(const uint32_t* a, const uint32_t* b,
+                                        const uint32_t* p, uint32_t* out) {
+  MTT_COUNT_OP(1);
+  uint32_t d[L];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint64_t v = (uint64_t)a[i] - b[i] - borrow;
+    d[i] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  const uint32_t mask = 0u - borrow;  // add p back after a borrow
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint64_t v = (uint64_t)d[i] + (p[i] & mask) + carry;
+    out[i] = (uint32_t)v;
+    carry = (uint32_t)(v >> 32);
+  }
+}
+
+// a == 0 (mpyc_tpu/ops/limb.py:195 iszero_ll).
+template <int L>
+__device__ __forceinline__ bool is_zero(const uint32_t* a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) acc |= a[i];
+  return acc == 0;
+}
+
 // Montgomery product a * b * R^-1 mod p by CIOS. a < R, b < p (or both
 // < p); n0inv = -p^-1 mod 2^32. Result < p.
 template <int L>
 __device__ __forceinline__ void mont_mul(const uint32_t* a, const uint32_t* b,
                                          const uint32_t* p, uint32_t n0inv,
                                          uint32_t* out) {
+  MTT_COUNT_OP(0);
   uint32_t t[L + 2];
 #pragma unroll
   for (int i = 0; i < L + 2; ++i) t[i] = 0;

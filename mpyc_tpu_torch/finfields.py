@@ -1,9 +1,11 @@
 """Prime fields GF(p) with arrays backed by torch tensors.
 
-Port of the part of ``mpyc_tpu/finfields.py`` that the secure-multiplication
-path uses: ``GF(p)``, ``find_prime_root`` (same construction, so the moduli
-agree with the JAX package's), and ``PrimeFieldArray``, whose data is a
-``(..., L)`` int32 tensor of Montgomery limbs on the CPU or the card.
+Port of the part of ``mpyc_tpu/finfields.py`` that secure multiplication
+and comparison use: ``GF(p)``, ``find_prime_root`` (same construction, so
+the moduli agree with the JAX package's), and ``PrimeFieldArray``, whose
+data is a ``(..., L)`` int32 tensor of Montgomery limbs on the CPU or the
+card, with elementwise +, -, * and negation (public int or integer-array
+operands included).
 """
 
 from __future__ import annotations
@@ -111,10 +113,17 @@ class PrimeFieldArray:
         return self.from_data(self.data[idx])
 
     def _operand(self, other):
+        """Data of a field array of this field, the Montgomery limbs of a
+        public int (a tuple), or the encoded data of a public integer
+        array on this array's device; None for anything else."""
         if isinstance(other, PrimeFieldArray):
             if other.field is not self.field:
                 raise TypeError('arrays of different fields')
             return other.data
+        if isinstance(other, (int, np.integer)):
+            return self.ctx.encode_const(int(other))
+        if isinstance(other, (list, tuple, np.ndarray)):
+            return self.ctx.encode(np.asarray(other), self.device)
         return None
 
     def __add__(self, other):
@@ -124,6 +133,21 @@ class PrimeFieldArray:
         return self.from_data(self.ctx.add(self.data, o))
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        o = self._operand(other)
+        if o is None:
+            return NotImplemented
+        return self.from_data(self.ctx.sub(self.data, o))
+
+    def __rsub__(self, other):
+        o = self._operand(other)
+        if o is None:
+            return NotImplemented
+        return self.from_data(self.ctx.sub(o, self.data))
+
+    def __neg__(self):
+        return self.from_data(self.ctx.neg(self.data))
 
     def __mul__(self, other):
         if isinstance(other, (int, np.integer)):

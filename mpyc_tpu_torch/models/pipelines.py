@@ -1,9 +1,13 @@
-"""The fused GRR98 reshare round (with the local product) as one step.
+"""Fused protocol rounds, each one step: reshare, split/recombine, compare.
 
-Port of ``mpyc_tpu/models/pipelines.py`` ``_lagrange_consts_mont`` and
-``make_reshare_step``. On the card the whole round is the kernel K3
-(``csrc/kernels.cu``, ``reshare_kernel``); on the CPU its plain version
-(``_reshare_mul_plain``) runs the same arithmetic in torch.
+Port of ``mpyc_tpu/models/pipelines.py``: ``make_reshare_step`` (the GRR98
+round with the local product, kernel K3), ``make_split_recombine`` (the
+Shamir round trip, kernel K4) and ``make_sgn_step`` (the whole secure
+comparison, kernel K5). On the card each step is one launch of its kernel
+(``csrc/kernels.cu``, ``csrc/sgn.cuh``); on the CPU its plain version
+(``_reshare_mul_plain``, ``_split_recombine_plain``, ``_sgn_step_plain``)
+runs the same arithmetic in torch. The plain versions draw their
+randomness through the plain versions of K1 and K2 on every device.
 
 Stream layout. The JAX package lays out the coefficient stream one way in
 its Pallas kernel (element g*S*1024 + e*1024 + r*128 + c takes slot e of
@@ -11,8 +15,9 @@ sponge g*1024 + r*128 + c, pipelines.py:185-193) and another in its XLA
 twin ``step_xla`` (draw k*n + e comes from block (k*n + e) // epb of the
 ``squeeze_mont`` stream, pipelines.py:151). The port follows the XLA
 layout, which is the one the JAX package runs on the CPU, so the port's
-step equals ``mpyc_tpu``'s bit for bit there, for the same shares, state
-and counter.
+steps equal ``mpyc_tpu``'s bit for bit there, for the same shares, state
+and counter. The same holds for the comparison (Pallas pipelines.py:616-641
+against XLA :859-892).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from mpyc_tpu_torch import finfields, thresha
-from mpyc_tpu_torch.ops import limb
+from mpyc_tpu_torch.ops import keccak, limb
 from mpyc_tpu_torch.ops import rng as rng_mod
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
@@ -66,6 +71,13 @@ class ReshareSpec:
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
         P.t, P.m, P.n_send = self.t, self.m, self.n_send
         return P
+
+
+def _next_ctr(ctr) -> np.ndarray:
+    """The call counter (lo, hi) advanced by one, with the carry."""
+    lo = np.uint32((int(ctr[0]) + 1) & 0xFFFFFFFF)
+    hi = np.uint32((int(ctr[1]) + (lo == 0)) & 0xFFFFFFFF)
+    return np.array([lo, hi], np.uint32)
 
 
 def _nonce_state(state: torch.Tensor, nonce) -> torch.Tensor:
@@ -167,9 +179,7 @@ def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
         ctr = np.asarray(ctr, dtype=np.uint32)
         out = reshare_mul(flat, flat_b, state, (int(ctr[0]), int(ctr[1])),
                           spec)
-        lo = np.uint32((int(ctr[0]) + 1) & 0xFFFFFFFF)
-        hi = np.uint32((int(ctr[1]) + (lo == 0)) & 0xFFFFFFFF)
-        return out.reshape(orig_shape), np.array([lo, hi], np.uint32)
+        return out.reshape(orig_shape), _next_ctr(ctr)
 
     if fuse_mul:
         def step(a, b, state, ctr):
@@ -177,4 +187,502 @@ def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
     else:
         def step(shares, state, ctr):
             return _step(shares, state, ctr)
+    return step
+
+
+# ---------------------------------------------------------------------------
+# K4: the Shamir round trip (split at x = 1..m, recombine at 0)
+# ---------------------------------------------------------------------------
+
+class SplitSpec:
+    """The constants of one (p, t, m) split/recombine round."""
+
+    def __init__(self, p: int, t: int, m: int):
+        if not 1 <= t < m:
+            raise ValueError('the round needs 1 <= t < m')
+        self.p, self.t, self.m = p, t, m
+        self.ctx = ctx = prime_field_ctx(p)
+        self.lag = _lagrange_consts_mont(p, range(1, t + 2))
+        self.xs_mont = [ctx.encode_const(i) for i in range(1, m + 1)]
+        self.l_bytes = rng_mod.fused_draw_bytes(p)
+
+    def field_ops(self) -> tuple:
+        """(Montgomery products, modular adds) per element as K4 computes
+        them, the reduction of its draws left out: m Horner rows of t
+        steps, then the Lagrange sum of t + 1 of them."""
+        t, m = self.t, self.m
+        return m * t + t + 1, m * t + t
+
+    def params(self):
+        """Kernel parameter block (``ReshareParams``, lag of t + 1)."""
+        from mpyc_tpu_torch import _build
+        if self.ctx.L != _build.NL or \
+                (self.t, self.m) not in _build.SPLIT_BUILT:
+            raise NotImplementedError(
+                f'the CUDA split/recombine is built for {_build.NL}-limb '
+                f'fields at (t, m) in {_build.SPLIT_BUILT}, not L = '
+                f'{self.ctx.L}, (t, m) = ({self.t}, {self.m})')
+        P = _build.ReshareParams()
+        P.draw = _build.draw_params(self.ctx, 2)
+        for i, c in enumerate(self.lag):
+            P.lag[i][:] = c
+        for j, x in enumerate(self.xs_mont):
+            P.xs[j][:] = x
+        P.t, P.m, P.n_send = self.t, self.m, self.t + 1
+        return P
+
+
+def _split_recombine_plain(secrets: torch.Tensor, state: torch.Tensor,
+                           spec: SplitSpec):
+    """Plain version of K4, the JAX package's ``make_split_recombine``:
+    (n, L) Montgomery secrets -> (recombined (n, L), shares (m, n, L)).
+
+    Coefficient k of element e is draw k*n + e of the ``squeeze_mont``
+    stream of ``state`` (counter in lane 19, no call nonce)."""
+    ctx, t, m = spec.ctx, spec.t, spec.m
+    n = secrets.shape[0]
+    p_l, n0 = ctx.p_limbs, ctx.n0inv
+    coefs = rng_mod._squeeze_mont_plain(state, t * n, spec.l_bytes, spec.p)
+    C = [limb.unstack(c) for c in coefs.reshape(t, n, ctx.L)]
+    s = limb.unstack(secrets)
+    rows = []
+    for j in range(m):
+        y = None
+        for k in range(t):
+            y = C[k] if y is None else limb.add_mod(y, C[k], p_l)
+            y = limb.mont_mul(y, spec.xs_mont[j], p_l, n0)
+        rows.append(limb.add_mod(y, s, p_l))
+    acc = None
+    for i in range(t + 1):
+        term = limb.mont_mul(rows[i], spec.lag[i], p_l, n0)
+        acc = term if acc is None else limb.add_mod(acc, term, p_l)
+    return limb.stack(acc), torch.stack([limb.stack(r) for r in rows])
+
+
+def split_recombine(secrets: torch.Tensor, state: torch.Tensor,
+                    spec: SplitSpec, shares: torch.Tensor | None = None):
+    """K4: Shamir-split (n, L) int32 Montgomery secrets at x = 1..m with
+    coefficients from the stream of ``state``, and recombine them at 0 from
+    the shares of parties 1..t+1. The output equals the input.
+
+    Replaces ``mpyc_tpu/models/pipelines.py:make_split_recombine_fused`` ->
+    ``kernel``. ``shares``: an optional (m, n, L) int32 tensor that receives
+    the shares (for checks; the round trip passes none). CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    L = spec.ctx.L
+    if secrets.dim() != 2 or secrets.shape[1] != L or \
+            secrets.dtype != torch.int32:
+        raise ValueError(f'secrets must be (n, {L}) int32')
+    if state.device != secrets.device:
+        raise ValueError('state and secrets must be on one device')
+    n = secrets.shape[0]
+    if shares is not None and (
+            shares.shape != (spec.m, n, L) or shares.dtype != torch.int32
+            or shares.device != secrets.device
+            or not shares.is_contiguous()):
+        raise ValueError(f'shares must be a contiguous ({spec.m}, {n}, {L}) '
+                         'int32 tensor on the secrets\' device')
+    if secrets.device.type == 'cpu':
+        out, sh = _split_recombine_plain(secrets, state, spec)
+        if shares is not None:
+            shares.copy_(sh)
+        return out
+    from mpyc_tpu_torch import _build
+    params = spec.params()
+    secrets = secrets.contiguous()
+    state = state.contiguous()
+    out = torch.empty_like(secrets)
+    if n:
+        _build.call('mtt_split_recombine', secrets.data_ptr(),
+                    out.data_ptr(),
+                    shares.data_ptr() if shares is not None else None,
+                    state.data_ptr(), n, ctypes.addressof(params),
+                    _build.stream_of(secrets.device))
+        split_recombine.launches += 1
+    return out
+
+
+split_recombine.launches = 0
+
+
+def make_split_recombine(p: int, t: int, m: int):
+    """One Shamir round per element: step(secrets, state) -> recombined.
+
+    secrets: (n, L) int32 Montgomery limbs; state: (2, 25) int32 absorbed
+    SHAKE128 state on the same device. The counterpart of both
+    ``make_split_recombine`` (XLA) and ``make_split_recombine_fused``
+    (Pallas) of the JAX package: the coefficient randomness is generated
+    inside the step, so its cost covers stream + split (Horner at m
+    points) + recombination (Lagrange at 0 from t + 1 shares)."""
+    spec = SplitSpec(p, t, m)
+
+    def step(secrets, state):
+        return split_recombine(secrets, state, spec)
+    return step
+
+
+# ---------------------------------------------------------------------------
+# K5: the whole Toft-style secure comparison as one step
+# ---------------------------------------------------------------------------
+
+def _tree_mults(w: int) -> int:
+    """Secure products of a log-depth product tree of width w."""
+    total = 0
+    while w > 1:
+        h = w // 2
+        total += h
+        w = h + (w % 2)
+    return total
+
+
+SGN_MODES = ('sgn', 'LT', 'EQ')
+
+
+class SgnSpec:
+    """The constants and stream budget of one comparison step.
+
+    mode 'sgn' gives shares of sgn(a) in {-1, 0, 1}, 'LT' of a < 0, 'EQ'
+    of a == 0, each times 2^f. Inputs are degree-t shares of l-bit signed
+    integers; k is the statistical security parameter of the mask."""
+
+    def __init__(self, p: int, t: int, m: int, l: int, k: int = 30,
+                 LT: bool = False, EQ: bool = False, f: int = 0):
+        if LT and EQ:
+            raise ValueError('LT and EQ exclude each other')
+        if 2 * t + 1 > m or t < 1:
+            raise ValueError('GRR98 needs 1 <= t and 2t+1 <= m')
+        if l < 1 or l + k + 2 > p.bit_length():
+            raise ValueError('the masked open needs l + k + 2 <= '
+                             'bit length of p')
+        self.p, self.t, self.m, self.l, self.k, self.f = p, t, m, l, k, f
+        self.mode = 'LT' if LT else 'EQ' if EQ else 'sgn'
+        self.ctx = ctx = prime_field_ctx(p)
+        self.n_send = 2 * t + 1
+        self.lb = l + (0 if EQ else 1)        # random bits (+ sign bit)
+        self.l_bytes = rng_mod.fused_draw_bytes(p)
+        self.lag_t = _lagrange_consts_mont(p, range(1, t + 2))
+        self.lag_2t = _lagrange_consts_mont(p, range(1, self.n_send + 1))
+        self.xs = [ctx.encode_const(i) for i in range(1, m + 1)]
+        self.one = ctx.one_mont
+        self.two = ctx.encode_const(2)
+        self.three = ctx.encode_const(3)
+        self.r2 = ctx.r2_limbs                # standard -> Montgomery
+        self.pow2 = [ctx.encode_const(pow(2, j, p)) for j in range(l + 1)]
+        self.inv2l = ctx.encode_const(pow(pow(2, l, p), -1, p))
+        self.pow2l1 = ctx.encode_const(pow(2, l - 1, p))
+        self.powf = ctx.encode_const(pow(2, f, p)) if f else None
+        # stream A: per element wb words of bits, then wk words of r_divl
+        self.wb = -(-self.lb // 32)
+        self.wk = -(-k // 32)
+        self.wpe = self.wb + self.wk
+
+    def blocks_a(self, n: int) -> int:
+        """Blocks of stream A (counter 0 on); stream B starts after."""
+        return max(-(-n * self.wpe // (keccak.RATE // 4)), 1)
+
+    def draws_per_element(self) -> int:
+        """Stream-B field draws per element, in the order they are taken:
+        bit-split coefficients, r_divl's, then (unless EQ) the E tree's,
+        the blinder and its coefficients, (unless LT) the ones-minus-xor
+        tree's, and in sgn mode the final reshare's."""
+        t, l = self.t, self.l
+        d = t * self.lb + t
+        if self.mode != 'EQ':
+            d += t * _tree_mults(l + 1) + 1 + t
+        if self.mode != 'LT':
+            d += t * _tree_mults(l)
+        if self.mode == 'sgn':
+            d += t
+        return d
+
+    def blocks(self, n: int) -> int:
+        """Sponge blocks of the whole stream of a call on n elements."""
+        return self.blocks_a(n) + max(rng_mod.blocks_needed(
+            n * self.draws_per_element(), self.l_bytes), 1)
+
+    def field_ops(self, c_ones: float) -> tuple:
+        """(Montgomery products, modular adds and subtracts) per element of
+        the comparison as K5 computes it (csrc/sgn.cuh), the reduction of
+        its stream draws left out: public bits enter by selects, r mod 2^l
+        by doubling, products by 2 and 3 as additions. c_ones is the mean
+        number of ones among the l bits of the opened c mod 2^l, each of
+        which costs a subtraction in the xor vector and, unless EQ, in the
+        E vector; c mod 2^l is uniform (r mod 2^l is), so it is l/2."""
+        t, m, l = self.t, self.m, self.l
+        split = m * t                            # products = adds
+        reshare = (2 * t + 1 + split, 2 * t + split)
+        node = (m + reshare[0], reshare[1])      # one product of a tree
+        # bit splits, r_divl, a + r mod 2^l + 2^l, open c, c mod 2^l
+        mont = self.lb * split + 1 + split + 2 * (t + 1) + 2
+        adds = self.lb * split + split + 2 * l * m + 2 * t + 1 + m
+        adds += m * c_ones                       # xor vector
+        if self.mode != 'EQ':
+            trees = _tree_mults(l + 1)
+            # E vector, its tree, the blinded zero test, h and z
+            mont += trees * node[0] + split + 2 * (2 * t + 1) + 2 * m
+            adds += (5 * l * m + m * c_ones + 6 * m + trees * node[1]
+                     + split + 2 * t + 2 * m)
+        if self.mode != 'LT':
+            trees = _tree_mults(l)
+            mont += trees * node[0]
+            adds += l * m + trees * node[1]
+            if self.mode == 'sgn':
+                mont += m + reshare[0]
+                adds += 3 * m + reshare[1]
+        if self.f:
+            mont += m
+        return mont, adds
+
+    def params(self, nonce):
+        """Kernel parameter block for a call with counter (lo, hi); raises
+        NotImplementedError for a configuration the card has no
+        instantiation of."""
+        from mpyc_tpu_torch import _build
+        key = (SGN_MODES.index(self.mode), self.l, self.t, self.m)
+        if self.ctx.L != _build.NL or key not in _build.SGN_BUILT:
+            built = ', '.join(f'{SGN_MODES[b[0]]} at l={b[1]}, t={b[2]}, '
+                              f'm={b[3]}' for b in _build.SGN_BUILT)
+            raise NotImplementedError(
+                f'the CUDA comparison is built for {_build.NL}-limb fields '
+                f'({built}), not {self.mode} at l={self.l}, t={self.t}, '
+                f'm={self.m}, L={self.ctx.L}')
+        P = _build.SgnParams()
+        P.draw = _build.draw_params(self.ctx, 2)
+        for i, c in enumerate(self.lag_t):
+            P.lag_t[i][:] = c
+        for i, c in enumerate(self.lag_2t):
+            P.lag_2t[i][:] = c
+        for j, x in enumerate(self.xs):
+            P.xs[j][:] = x
+        P.one[:], P.three[:] = self.one, self.three
+        P.r2[:], P.pow2l[:] = self.r2, self.pow2[self.l]
+        P.inv2l[:], P.pow2l1[:] = self.inv2l, self.pow2l1
+        P.powf[:] = self.powf if self.powf else (0,) * _build.NL
+        P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
+        P.t, P.m, P.l, P.k = self.t, self.m, self.l, self.k
+        P.mode, P.has_f = key[0], int(bool(self.f))
+        return P
+
+
+def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
+                    spec: SgnSpec) -> torch.Tensor:
+    """Plain version of K5, the JAX package's XLA comparison step
+    (pipelines.py:847-1061): (m, n, L) degree-t shares -> (m, n, L).
+
+    Randomness: with the call counter XORed into lane 4, stream A is
+    blocks 0..blocks_a-1 (per element wpe words: its random bits, then its
+    r_divl word), stream B the ``squeeze_mont`` draws from block blocks_a
+    on, taken call by call: a call of c draws per element gives element e
+    the draws off + kk*n*c + e*c + i."""
+    ctx = spec.ctx
+    L, t, m, l, lb = ctx.L, spec.t, spec.m, spec.l, spec.lb
+    P, N0 = ctx.p_limbs, ctx.n0inv
+    n = a.shape[1]
+
+    def add(x, y):
+        return limb.add_mod(x, y, P)
+
+    def sub(x, y):
+        return limb.sub_mod(x, y, P)
+
+    def mul(x, y):
+        return limb.mont_mul(x, y, P, N0)
+
+    def at(x, idx):
+        return [v[idx] for v in x]
+
+    def stack(rows, dim):
+        return [torch.stack([r[q] for r in rows], dim) for q in range(L)]
+
+    st = _nonce_state(state, nonce)
+    blocks_a = spec.blocks_a(n)
+    words = keccak._keccak_ctr_plain(st, blocks_a, 19).to(torch.int64) \
+        & limb.M32
+    words = words.reshape(-1)[:n * spec.wpe].reshape(n, spec.wpe)
+    pool = rng_mod._squeeze_mont_plain(st, n * spec.draws_per_element(),
+                                       spec.l_bytes, spec.p, base=blocks_a)
+    cursor = [0]
+
+    def draw(shape):
+        c0 = cursor[0]
+        cursor[0] = c0 + math.prod(shape)
+        return limb.unstack(pool[c0:cursor[0]].reshape(shape + (L,)))
+
+    def split(v, coefs):            # dealer split: (...) -> (m, ...)
+        rows = []
+        for x in spec.xs:
+            y = None
+            for kk in range(t):
+                ck = at(coefs, kk)
+                y = ck if y is None else add(y, ck)
+                y = mul(y, x)
+            rows.append(add(y, v))
+        return stack(rows, 0)
+
+    def open_deg(x, lag):           # (m, ...) -> (...) public
+        acc = None
+        for i, lg in enumerate(lag):
+            term = mul(at(x, i), lg)
+            acc = term if acc is None else add(acc, term)
+        return acc
+
+    def reshare(x):                 # (m, ...) degree 2t -> degree t
+        return split(open_deg(x, spec.lag_2t),
+                     draw((t,) + tuple(x[0].shape[1:])))
+
+    def prod_tree(x):               # (m, n, w) -> (m, n)
+        while x[0].shape[2] > 1:
+            w = x[0].shape[2]
+            h = w // 2
+            y = reshare(mul(at(x, (..., slice(0, h))),
+                            at(x, (..., slice(h, 2 * h)))))
+            if w % 2:
+                y = [torch.cat([u, v[..., 2 * h:]], dim=2)
+                     for u, v in zip(y, x)]
+            x = y
+        return at(x, (..., 0))
+
+    # random bits: a dealer split of stream bits
+    bits = torch.stack([(words[:, j // 32] >> (j % 32)) & 1
+                        for j in range(lb)], dim=1)          # (n, lb)
+    zero = torch.zeros_like(bits)
+    rb = split(mul([bits] + [zero] * (L - 1), spec.r2),
+               draw((t, n, lb)))                             # (m, n, lb)
+
+    # r_divl, uniform below 2^k
+    k_limbs = []
+    for q in range(L):
+        col = torch.zeros_like(words[:, 0])
+        if q < spec.wk:
+            col = words[:, spec.wb + q]
+            if spec.k - 32 * q < 32:
+                col = col & ((1 << (spec.k - 32 * q)) - 1)
+        k_limbs.append(col)
+    r_divl_sh = split(mul(k_limbs, spec.r2), draw((t, n)))   # (m, n)
+
+    # mask and open: c = a + 2^l + r_modl + 2^l r_divl
+    r_modl = None
+    for j in range(l):
+        term = mul(at(rb, (..., j)), spec.pow2[j])
+        r_modl = term if r_modl is None else add(r_modl, term)
+    a_r = add(add(limb.unstack(a), r_modl), spec.pow2[l])
+    c_in = add(a_r, mul(r_divl_sh, spec.pow2[l]))
+    c_std = mul(open_deg(c_in, spec.lag_t), (1,) + (0,) * (L - 1))
+    cm = []
+    for q in range(L):
+        rem = l - 32 * q
+        col = c_std[q]
+        if rem <= 0:
+            col = torch.zeros_like(col)
+        elif rem < 32:
+            col = col & ((1 << rem) - 1)
+        cm.append(col)
+    z = sub(mul(cm, spec.r2), a_r)                           # (m, n)
+
+    # public bits of c mod 2^l; xor = c_bits XOR r_bits
+    cb = torch.stack([(c_std[j // 32] >> (j % 32)) & 1
+                      for j in range(l)], dim=1)             # (n, l)
+    cb_m = [cb * c for c in spec.one]
+    rbl = at(rb, (..., slice(0, l)))
+    xor = add(sub(rbl, mul(rbl, [cb * c for c in spec.two])), cb_m)
+
+    if spec.mode != 'EQ':
+        s_sign = sub(add(at(rb, (..., l)), at(rb, (..., l))), spec.one)
+        incl, acc = [], None
+        for j in range(l):
+            xj = at(xor, (..., j))
+            acc = xj if acc is None else add(acc, xj)
+            incl.append(acc)
+        incl = stack(incl, 2)                                # (m, n, l)
+        total = acc
+        suffix = sub(at(total, (..., None)), incl)
+        e_bits = add(add(at(s_sign, (..., None)), sub(rbl, cb_m)),
+                     mul(suffix, spec.three))
+        e_last = add(sub(s_sign, spec.one), mul(total, spec.three))
+        E = [torch.cat([u, v[..., None]], dim=2)
+             for u, v in zip(e_bits, e_last)]
+        prod_e = prod_tree(E)
+        # blinded public zero test, one blinder per element
+        blind = draw((n,))
+        bz = limb.iszero_ll(blind)
+        blind = [torch.where(bz, torch.full_like(v, c), v)
+                 for v, c in zip(blind, spec.one)]
+        pb = mul(prod_e, split(blind, draw((t, n))))         # degree 2t
+        g = limb.iszero_ll(open_deg(pb, spec.lag_2t)).to(torch.int64)
+        h = add(sub(s_sign, mul(s_sign, [g * c for c in spec.two])),
+                spec.three)
+        z = mul(add(z, mul(h, spec.pow2l1)), spec.inv2l)
+
+    if spec.mode != 'LT':
+        h_all = prod_tree(sub(spec.one, xor))
+        if spec.mode == 'EQ':
+            z = h_all
+        else:
+            u = sub(h_all, spec.one)
+            v = sub(add(z, z), spec.one)
+            z = reshare(mul(u, v))
+
+    if spec.powf is not None:
+        z = mul(z, spec.powf)
+    return limb.stack(z)
+
+
+def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
+             spec: SgnSpec) -> torch.Tensor:
+    """K5: the whole secure comparison on (m, n, L) int32 degree-t shares
+    -> (m, n, L) degree-t shares of the result (``SgnSpec``).
+
+    Replaces ``mpyc_tpu/models/pipelines.py:make_sgn_step`` ->
+    ``_build_pallas.kernel``, in the stream layout of its XLA step.
+    nonce: the call counter (lo, hi). CPU tensors take the plain version;
+    CUDA tensors launch the kernel, or raise NotImplementedError for a
+    configuration it is not built for."""
+    m, L = spec.m, spec.ctx.L
+    if a.dim() != 3 or a.shape[0] != m or a.shape[2] != L or \
+            a.dtype != torch.int32:
+        raise ValueError(f'shares must be ({m}, n, {L}) int32')
+    if state.device != a.device:
+        raise ValueError('state and shares must be on one device')
+    if a.device.type == 'cpu':
+        return _sgn_step_plain(a, state, nonce, spec)
+    from mpyc_tpu_torch import _build
+    params = spec.params(nonce)
+    a = a.contiguous()
+    state = state.contiguous()
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    if n:
+        _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
+                    state.data_ptr(), n, spec.blocks_a(n),
+                    ctypes.addressof(params), _build.stream_of(a.device))
+        sgn_step.launches += 1
+    return out
+
+
+sgn_step.launches = 0
+
+
+def make_sgn_step(p: int, t: int, m: int, l: int, k: int = 30,
+                  LT: bool = False, EQ: bool = False, f: int = 0):
+    """Whole Toft-style secure comparison as one step.
+
+    step(a_sh, state, ctr) -> (out_sh, ctr'):
+      a_sh: (m, n, L) int32 Montgomery degree-t shares of l-bit integers;
+      state: (2, 25) int32 absorbed SHAKE128 prefix, on the shares' device;
+      ctr: (2,) uint32 numpy call counter (lo, hi), kept on the host;
+      out_sh: (m, n, L) degree-t shares of sgn(a), or of the bit a < 0
+        (LT) or a == 0 (EQ), times 2^f.
+
+    The protocol (the JAX package's make_sgn_step): a dealer split of l
+    (+1) stream bits and of r_divl < 2^k; the masked open of
+    c = a + 2^l + r_modl + 2^l r_divl; public bit algebra and prefix sums;
+    log-depth product trees with GRR98 reshares; a blinded public zero
+    test with one blinder per element. Constraints: prime field,
+    1 <= t, 2t+1 <= m, l + k + 2 <= bit length of p."""
+    spec = SgnSpec(p, t, m, l, k, LT=LT, EQ=EQ, f=f)
+
+    def step(a_sh, state, ctr):
+        ctr = np.asarray(ctr, dtype=np.uint32)
+        out = sgn_step(a_sh, state, (int(ctr[0]), int(ctr[1])), spec)
+        return out, _next_ctr(ctr)
     return step

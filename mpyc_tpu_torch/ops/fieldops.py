@@ -1,7 +1,7 @@
 """GF(p) context: Montgomery constants, encode/decode and elementwise ops.
 
 Port of the part of ``mpyc_tpu/ops/fieldops.py`` (``PrimeFieldCtx``) that
-the secure-multiplication path uses. Field data are stored limb tensors:
+secure multiplication and comparison use. Field data are stored limb tensors:
 ``(..., L)`` int32 holding uint32 Montgomery limbs (R = 2^(32 L)), on the
 CPU or the card. The ops here are plain PyTorch (``ops/limb.py``); the
 JAX package runs them as XLA, not as Pallas kernels.
@@ -47,6 +47,8 @@ class PrimeFieldCtx:
         self.n0inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
         self.p_limbs = limb.const_limbs(p, L)
         self.one_limbs = limb.const_limbs(1, L)
+        self.one_mont = tuple(limb.const_limbs(R % p, L))
+        self.r2_limbs = tuple(limb.const_limbs(self.R2, L))
 
     # -- host encode / decode ----------------------------------------------
 
@@ -61,8 +63,9 @@ class PrimeFieldCtx:
                 u = arr.astype(np.int64).view(np.uint64) % np.uint64(p)
                 # a negative x reads as 2^64 + x: subtract 2^64 mod p
                 c = np.uint64((1 << 64) % p)
-                u = np.where(neg & (u >= c), u - c,
-                             np.where(neg, u + (np.uint64(p) - c), u))
+                with np.errstate(over='ignore'):   # unselected branches
+                    u = np.where(neg & (u >= c), u - c,
+                                 np.where(neg, u + (np.uint64(p) - c), u))
             else:
                 u = arr.astype(np.uint64) % np.uint64(p)
             u = np.asarray(u, dtype=np.uint64)
@@ -102,14 +105,27 @@ class PrimeFieldCtx:
                                       self.L))
 
     # -- elementwise ops on stored limb tensors ------------------------------
+    # add and sub also take a public constant for either operand, as the
+    # tuple of its Montgomery limbs (encode_const); shapes broadcast.
+
+    @staticmethod
+    def _limbs(x) -> list:
+        return list(x) if isinstance(x, tuple) else limb.unstack(x)
 
     def add(self, a, b):
-        return limb.stack(limb.add_mod(limb.unstack(a), limb.unstack(b),
+        return limb.stack(limb.add_mod(self._limbs(a), self._limbs(b),
                                        self.p_limbs))
 
     def sub(self, a, b):
-        return limb.stack(limb.sub_mod(limb.unstack(a), limb.unstack(b),
+        return limb.stack(limb.sub_mod(self._limbs(a), self._limbs(b),
                                        self.p_limbs))
+
+    def neg(self, a):
+        return limb.stack(limb.neg_mod(limb.unstack(a), self.p_limbs))
+
+    def is_zero(self, a) -> torch.Tensor:
+        """Boolean tensor of the elements equal to 0."""
+        return limb.iszero_ll(limb.unstack(a))
 
     def mul(self, a, b):
         return limb.stack(limb.mont_mul(limb.unstack(a), limb.unstack(b),

@@ -103,12 +103,21 @@ def _select(mask, a, b):
     return [torch.where(mask, x, y) for x, y in zip(a, b)]
 
 
+def iszero_ll(a):
+    """Boolean tensor: the multi-limb value a is 0."""
+    acc = a[0]
+    for x in a[1:]:
+        acc = acc | x
+    return acc == 0
+
+
 # ---------------------------------------------------------------------------
 # modular add/sub/neg (inputs < p, standard or Montgomery form alike)
 # ---------------------------------------------------------------------------
 
 def add_mod(a, b, p_limbs):
-    """(a + b) mod p for a, b < p; p_limbs: L Python ints."""
+    """(a + b) mod p for a, b < p; p_limbs: L Python ints; b may hold
+    Python ints."""
     s = []
     c = 0
     for x, y in zip(a, b):
@@ -120,7 +129,7 @@ def add_mod(a, b, p_limbs):
 
 
 def sub_mod(a, b, p_limbs):
-    """(a - b) mod p for a, b < p."""
+    """(a - b) mod p for a, b < p; either may hold Python ints."""
     d, brw = _sub_ll(a, b)
     dp = []
     c = 0
@@ -134,10 +143,7 @@ def sub_mod(a, b, p_limbs):
 def neg_mod(a, p_limbs):
     """(-a) mod p for a < p (0 stays 0)."""
     d, _ = _sub_ll(list(p_limbs), a)
-    zero = a[0] == 0
-    for x in a[1:]:
-        zero = zero & (x == 0)
-    return _select(zero, a, d)
+    return _select(iszero_ll(a), a, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Co-located simulator plane: all m parties in one process, on one device.
 
 Port of the part of ``mpyc_tpu/parallel/simulator.py`` that secure
-multiplication uses. A share array carries a leading party axis, (m, ...)
-plus the limb axis, so the whole m-party protocol runs as dense tensor
-programs: input is a Shamir split per sender, a secure product is one
-fused reshare round (kernel K3 on the card), output recombines the first
-t+1 shares at 0.
+multiplication and comparison use. A share array carries a leading party
+axis, (m, ...) plus the limb axis, so the whole m-party protocol runs as
+dense tensor programs: input is a Shamir split per sender, a secure
+product is one fused reshare round (kernel K3 on the card), a product with
+a public operand a local scale, a comparison one fused step per chunk of
+up to 2^20 elements (kernel K5), and output recombines the first t+1
+shares at 0.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
@@ -76,22 +78,39 @@ class SimRuntime(Runtime):
         res.shape = share.shape[1:]
         return res
 
+    @staticmethod
+    def _is_public(x) -> bool:
+        """x is a secure array not yet input: its share has no party axis."""
+        return tuple(x.share.shape) == tuple(x.shape)
+
     def _share(self, x):
         """Party-stacked share of x; public-valued (unshared) arrays are
         the constant polynomial, a broadcast over the party axis."""
         s = x.share
-        if tuple(s.shape) == tuple(x.shape):
+        if self._is_public(x):
             m = len(self.parties)
             return s.from_data(s.data.unsqueeze(0).expand(
                 (m,) + tuple(s.data.shape)))
         return s
 
+    @staticmethod
+    def _broadcast(data, lead: int, shape) -> torch.Tensor:
+        """(lead axes) + logical + (L,) data -> (lead axes) + shape + (L,),
+        the logical axes aligned on the right as numpy broadcasts them."""
+        logical = data.shape[lead:-1]
+        ones = (1,) * (len(shape) - len(logical))
+        data = data.reshape(data.shape[:lead] + ones + logical
+                            + data.shape[-1:])
+        return data.expand(data.shape[:lead] + tuple(shape)
+                           + data.shape[-1:])
+
     def _share2(self, a, b):
+        """Party-stacked shares of a and b, broadcast to one shape."""
         sa, sb = self._share(a), self._share(b)
         if sa.shape != sb.shape:
-            shape = torch.broadcast_shapes(sa.data.shape, sb.data.shape)
-            sa = sa.from_data(sa.data.expand(shape))
-            sb = sb.from_data(sb.data.expand(shape))
+            shape = torch.broadcast_shapes(sa.shape[1:], sb.shape[1:])
+            sa = sa.from_data(self._broadcast(sa.data, 1, shape))
+            sb = sb.from_data(self._broadcast(sb.data, 1, shape))
         return sa, sb
 
     def _fused_state_tensor(self) -> torch.Tensor:
@@ -101,19 +120,22 @@ class SimRuntime(Runtime):
             self._fused_state = keccak.state_tensor(state, self.device)
         return self._fused_state
 
-    def _fused_flat(self, key, build, datas):
+    def _fused_flat(self, key, build, datas, cap=None):
         """Run a fused step on flattened, bucket-padded party-stacked data.
 
         Every fused round flattens its logical dims to (m, n, L) and pads n
-        to a power-of-two bucket (floor 64), as the JAX package does, so the
-        same padded shapes (and zero rows, valid sharings of 0) reach the
-        step. datas: equally shaped (m, ..., L) tensors."""
+        to a power-of-two bucket (floor 64, at most ``cap``), as the JAX
+        package does on the CPU, so the same padded shapes (and zero rows,
+        valid sharings of 0) reach the step. datas: equally shaped
+        (m, ..., L) tensors of at most ``cap`` elements."""
         d0 = datas[0]
         m, L = d0.shape[0], d0.shape[-1]
         n = math.prod(d0.shape[1:-1])
         n_pad = 64
         while n_pad < n:
             n_pad *= 2
+        if cap is not None:
+            n_pad = min(n_pad, cap)
         flats = []
         for d in datas:
             f = d.reshape(m, n, L)
@@ -141,17 +163,75 @@ class SimRuntime(Runtime):
         return field.array.from_data(out)
 
     def mul(self, a, b):
-        """Secure elementwise product of two secure integer arrays."""
-        stype = type(a)
-        if not (isinstance(a, sectypes.SecureIntegerArray)
-                and isinstance(b, sectypes.SecureIntegerArray)
-                and type(b) is stype):
+        """Secure elementwise product of secure integer arrays: one fused
+        round (K3) for two secure operands; a local scale, with no reshare,
+        when one of them is public (an int, an integer array, or a secure
+        array not yet input)."""
+        if not isinstance(a, sectypes.SecureIntegerArray):
+            a, b = b, a
+        if not isinstance(a, sectypes.SecureIntegerArray):
             raise NotImplementedError('the port multiplies secure integer '
-                                      'arrays of one type')
+                                      'arrays')
+        stype = type(a)
+        if isinstance(b, (int, np.integer)):
+            return self._wrap(stype, self._share(a) * int(b))
+        b = self._coerce_op(stype, b)
+        if self._is_public(a):
+            a, b = b, a
+        if self._is_public(b):
+            sa = self._share(a)
+            shape = torch.broadcast_shapes(sa.shape[1:], b.shape)
+            return self._wrap(stype, sa.from_data(sa.ctx.mul(
+                self._broadcast(sa.data, 1, shape),
+                self._broadcast(b.share.data, 0, shape))))
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
         return self._wrap(stype, self._mul_reshare_fused(sa, sb))
+
+    # Largest flat batch of one comparison step: inputs are cut into
+    # chunks of 2^20 elements, each one step call that advances the
+    # counter (the JAX package's _SGN_CHUNK, simulator.py:459).
+    _SGN_CHUNK = 1 << 20
+
+    def np_sgn(self, a, l=None, LT=False, EQ=False):
+        """Secure signum of a secure integer array of l-bit values (default
+        l: its type's bit length): shares of -1, 0 or 1; with LT of the bit
+        a < 0, with EQ of a == 0. Each chunk of up to 2^20 elements is one
+        fused comparison step (``pipelines.make_sgn_step``, kernel K5 on
+        the card), padded to the bucket of the JAX package's CPU plane."""
+        if LT and EQ:
+            raise ValueError('LT and EQ exclude each other')
+        if not isinstance(a, sectypes.SecureIntegerArray):
+            raise NotImplementedError('the port compares secure integer '
+                                      'arrays')
+        if self.threshold == 0:
+            raise NotImplementedError('the port needs t >= 1')
+        stype = type(a)
+        field = stype.field
+        l = l or stype.bit_length
+        sh = self._share(a)
+        m, L = len(self.parties), sh.ctx.L
+        n = math.prod(a.shape)
+        data = sh.data.reshape(m, n, L)
+        chunk = self._SGN_CHUNK
+        outs = [self._sgn_fused_flat(stype, data[:, j0:j0 + chunk], l, LT,
+                                     EQ)
+                for j0 in range(0, n, chunk)] or [data]
+        out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        return self._wrap(stype, field.array.from_data(
+            out.reshape((m,) + tuple(a.shape) + (L,))))
+
+    def _sgn_fused_flat(self, stype, data, l, LT, EQ):
+        """One comparison step on (m, n, L) flat shares, n <= 2^20."""
+        p = stype.field.modulus
+        t, m, k = self.threshold, len(self.parties), self.sec_param
+        f = stype.sectype.frac_length
+        return self._fused_flat(
+            (p, t, l, k, LT, EQ, f),
+            lambda: pipelines.make_sgn_step(p, t, m, l, k, LT=LT, EQ=EQ,
+                                            f=f),
+            [data], cap=self._SGN_CHUNK)
 
     def output(self, x):
         """Open secure arrays: recombine the shares of parties 1..t+1 at 0;

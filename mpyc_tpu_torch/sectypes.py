@@ -1,15 +1,19 @@
 """Secure types: SecInt(l) and its arrays.
 
-Port of the part of ``mpyc_tpu/sectypes.py`` that the secure-multiplication
-path uses: ``SecInt(l)`` with its ``.array`` class, enough to input public
-values, multiply and open the product. A secure array holds a
+Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication
+and comparison use: ``SecInt(l)`` with its ``.array`` class, enough to
+input public values, compute and open the result. A secure array holds a
 ``PrimeFieldArray`` share: logical shape before input, (m, ...) party
-stacked after it.
+stacked after it. The operators of a secure array (-x, +, -, *, <, <=, >,
+>=, ==, !=; the comparisons give secure 0/1 arrays) call the runtime whose
+``SecInt`` made its type (``bind``).
 """
 
 from __future__ import annotations
 
 import functools
+
+import numpy as np
 
 from mpyc_tpu_torch import finfields
 
@@ -42,6 +46,7 @@ class SecureArray(SecureObject):
 
     sectype: type = None
     device = None
+    runtime = None    # the runtime the operators call (bind)
 
     def __init__(self, value=None, shape=None):
         if value is not None and not isinstance(
@@ -51,6 +56,87 @@ class SecureArray(SecureObject):
             shape = value.shape
         self.shape = tuple(shape) if shape is not None else None
         super().__init__(value)
+
+
+    # arithmetic and comparison, forwarded to the runtime; public operands
+    # (ints, integer arrays) pass as they are, and the runtime encodes them.
+    # Arrays of a type that no runtime made (SecInt(l, device)) have none.
+
+    def _coerce(self, other):
+        if isinstance(other, SecureArray):
+            return other if type(other) is type(self) else NotImplemented
+        if isinstance(other, (int, np.integer, list, tuple, np.ndarray)):
+            return other
+        return NotImplemented
+
+    def __neg__(self):
+        return self.runtime.neg(self)
+
+    def __add__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.add(self, other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.sub(self, other)
+
+    def __rsub__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.sub(other, self)
+
+    def __mul__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.mul(self, other)
+
+    __rmul__ = __mul__
+
+    def __lt__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.np_less(self, other)
+
+    def __le__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return 1 - self.runtime.np_less(other, self)
+
+    def __gt__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.np_less(other, self)
+
+    def __ge__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return 1 - self.runtime.np_less(self, other)
+
+    def __eq__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.np_equal(self, other)
+
+    def __ne__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return 1 - self.runtime.np_equal(self, other)
+
+    __hash__ = None
 
 
 class SecureIntegerArray(SecureArray):
@@ -83,3 +169,11 @@ def _SecInt(l, device):
         '__slots__': (), 'sectype': secint, 'field': field,
         'bit_length': l, 'device': device})
     return secint
+
+
+def bind(secint: type, runtime) -> type:
+    """A subtype of secint whose arrays' operators call ``runtime``."""
+    sub = type(secint.__name__, (secint,), {'__slots__': ()})
+    sub.array = type(secint.array.__name__, (secint.array,), {
+        '__slots__': (), 'sectype': sub, 'runtime': runtime})
+    return sub

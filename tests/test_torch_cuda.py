@@ -78,6 +78,55 @@ def test_reshare_kernel_refuses_other_parties(cuda_device):
         pipelines.reshare_mul(a, a, _state(cuda_device), (0, 0), spec)
 
 
+def test_split_recombine_kernel_matches_plain(cuda_device):
+    st = _state(cuda_device)
+    spec = pipelines.SplitSpec(P, 1, 3)
+    sec = _shares(100003, 6, cuda_device)[0].contiguous()
+    shares = torch.empty((3, 100003, 2), dtype=torch.int32,
+                         device=cuda_device)
+    n0 = pipelines.split_recombine.launches
+    got = pipelines.split_recombine(sec, st, spec, shares=shares)
+    assert pipelines.split_recombine.launches == n0 + 1
+    want, want_shares = pipelines._split_recombine_plain(sec, st, spec)
+    assert torch.equal(got, want) and torch.equal(got, sec)
+    assert torch.equal(shares, want_shares)
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_kernel_matches_plain(cuda_device, mode):
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ', f=2 if mode == 'LT' else 0)
+    a = _shares(20011, 7, cuda_device)
+    n0 = pipelines.sgn_step.launches
+    got = pipelines.sgn_step(a, st, (0xFFFFFFFF, 1), spec)
+    assert pipelines.sgn_step.launches == n0 + 1
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, (0xFFFFFFFF, 1),
+                                                      spec))
+
+
+def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
+    """The card's K5 is built for l = 32, t = 1, m = 3: others raise."""
+    st = _state(cuda_device)
+    a = _shares(64, 8, cuda_device)
+    with pytest.raises(NotImplementedError, match='l=32'):
+        pipelines.sgn_step(a, st, (0, 0), pipelines.SgnSpec(P, 1, 3, 16))
+
+
+def test_comparison_and_round_trip_on_the_card(cuda_device):
+    import chip_smoke
+    n3, n4 = pipelines.reshare_mul.launches, pipelines.split_recombine.launches
+    n5 = pipelines.sgn_step.launches
+    res = chip_smoke.run_compare(cuda_device, n=5000, calls=2)
+    assert len(res['per_call_ms']) == 2
+    # np_less, np_equal, np_sgn, np_maximum, the BNN sign, 2 timed np_less
+    assert pipelines.sgn_step.launches == n5 + 7
+    assert pipelines.reshare_mul.launches == n3 + 1     # np_maximum
+    res = chip_smoke.run_split_recombine(cuda_device, n=30011, rounds=3)
+    assert res['ms_per_round'] > 0
+    assert pipelines.split_recombine.launches == n4 + 3
+
+
 def test_main_path_on_the_card(cuda_device):
     import chip_smoke
     n1, n2 = keccak.keccak_ctr.launches, rng.squeeze_mont.launches

@@ -129,3 +129,36 @@ def test_mul32_is_exact_at_the_extremes():
     lo, hi = tlimb.mul32(a, b)
     for x, y, l_, h in zip(a.tolist(), b.tolist(), lo.tolist(), hi.tolist()):
         assert (h << 32) | l_ == x * y
+
+
+@pytest.mark.parametrize('p', PRIMES)
+def test_is_zero_matches_jax(p):
+    """limb.iszero_ll (K5's blinded zero test, csrc/limb.cuh is_zero)."""
+    L = jctx(p).L
+    vals = _rand_field(p, N, 5)
+    vals[4:10] = [0, 0, (1 << 32) % p, p - 1, 0, 1 << (32 * (L - 1))]
+    a = jlimb.ints_to_limbs(np.array(vals, object), L)
+    want = np.asarray(jax.jit(lambda x: jlimb.iszero_ll(
+        jlimb.unstack(x, L)))(jnp.asarray(a)))
+    got = tctx(p).is_zero(limbs_from_numpy(a, 'cpu'))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.numpy().tolist() == [v == 0 for v in vals]
+
+
+@pytest.mark.parametrize('p', PRIMES)
+def test_public_constant_operands(p):
+    """add/sub with a constant's Montgomery limbs on either side, neg."""
+    c = tctx(p)
+    vals = _rand_field(p, N, 6)
+    data = c.encode(np.array(vals, object), 'cpu')
+    k = p - 5
+    kc = c.encode_const(k)
+
+    def ints(t):
+        return [int(v) for v in c.decode(t)]
+    assert ints(c.add(data, kc)) == [(v + k) % p for v in vals]
+    assert ints(c.sub(data, kc)) == [(v - k) % p for v in vals]
+    assert ints(c.sub(kc, data)) == [(k - v) % p for v in vals]
+    assert ints(c.neg(data)) == [(-v) % p for v in vals]
+    assert ints(c.add(kc, data)) == ints(c.add(data, kc))
