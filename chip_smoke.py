@@ -13,14 +13,20 @@ BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
 2. build: compile the kernels with nvcc (csrc/, sm_90a); print nvcc's
-   register and spill report and the build time;
-3. kernels: K1 (keccak_ctr), K2 (squeeze_mont) and K3 (reshare_mul) at the
-   main path's sizes, K4 (split_recombine) with its shares at 2^16 and at
+   warnings, each kernel's registers, stack frame, spills and shared
+   memory as ptxas reports them, K5's thread block size B, and the build
+   time;
+3. kernels: K1 (keccak_ctr), K2 (squeeze_mont) and K3 (reshare_mul, also at
+   a size that is no multiple of its thread block) at the main path's sizes,
+   K4 (split_recombine) with its shares at 2^16 and at
    the round's 3,010,560 elements, K5 (sgn_step) in its three modes at
    2^16 and at the comparison's 2^20 elements, each equal bit for bit to its
    plain PyTorch version on the same inputs (tolerance: exact, integer
    arithmetic), K1 also to hashlib; time each and its plain version with
-   CUDA events, beside its bound;
+   CUDA events, beside its bound; for K5 also the permutations per warp of
+   32 elements that its stage serialises, from a model of the stage
+   (``sgn_squeezes``, held against the kernel source's own count by
+   tests/test_torch_kernels_host.py);
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -29,7 +35,8 @@ BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
    equal, the range ends planted); np_less, np_equal, np_sgn(A - B),
    np_maximum and the BNN sign np_sgn(A, LT=True) * -2 + 1, every output
    checked against the plaintext; the median of 7 np_less calls as
-   comparisons/s;
+   comparisons/s; one try of torch.profiler over 3 more np_less calls:
+   device time by kernel and the device's idle share, or "no device time";
 6. split/recombine: 3,010,560 secrets, 100 chained rounds, the output
    equal to the input; ms per round;
 7. report: one JSON line of the kernels, the card's name and power limit,
@@ -48,6 +55,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,7 +75,9 @@ from mpyc_tpu_torch.parallel.simulator import SimRuntime  # noqa: E402
 N_POOL = 256                   # values whose input draws use the pool
 N_CMP = 1 << 20                # comparison: bench.py:203, one K5 chunk
 CMP_CALLS = 7                  # np_less calls timed (median)
+PROFILE_CALLS = 3              # np_less calls under torch.profiler
 N_KCHECK = 1 << 16             # K4, K5 against their plain versions
+N_RAGGED = 100003              # K3 at no multiple of its thread block
 N_SPLIT = 147 * 16 * 128 * 10  # bench.py:105-108 (3,010,560)
 SPLIT_ROUNDS = 100             # chained split/recombine rounds
 N_SMALL = 4096                 # bench.py's in-run correctness check
@@ -171,6 +181,117 @@ def cuda_ms(fn, iters: int) -> float:
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / iters
+
+
+def short_name(mangled: str) -> str:
+    """name<args> of a mangled kernel name of the port (``_ZN3mtt10sgn_
+    kernelILi1E...``); of a demangled one (a profiler's), the name without
+    its return type and parameters, cut to 100 characters."""
+    m = re.match(r'_ZN3mtt(\d+)', mangled)
+    if not m:
+        name = mangled.removeprefix('void ').replace(
+            '(anonymous namespace)::', '')
+        return name.partition('(')[0].strip()[:100]
+    k = m.end()
+    name = mangled[k:k + int(m.group(1))]
+    rest = mangled[k + int(m.group(1)):]
+    if rest.startswith('I'):
+        args = re.findall(r'L[ib](\d+)E', rest[:rest.find('EE') + 2])
+        name += f'<{",".join(args)}>'
+    return name
+
+
+def ptxas_report(log: str) -> dict:
+    """Per function of nvcc's -Xptxas -v report: registers, stack frame,
+    spill stores and loads, and static shared memory, in bytes."""
+    res, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            fn = short_name(m.group(1))
+            res.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            res[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            res[fn]['registers'] = int(m.group(1))
+            sm = re.search(r'(\d+) bytes smem', line)
+            res[fn]['smem'] = int(sm.group(1)) if sm else 0
+    return res
+
+
+def sgn_squeezes(spec, n: int, threads: int) -> tuple:
+    """Model of K5's stage (csrc/sgn.cuh, csrc/stage.cuh) on n elements in
+    thread blocks (CTAs) of ``threads``: each CTA squeezes every block of
+    each of its ranges once, block b of a range by thread b % threads, so
+    a warp runs a permutation in every round of the range that gives any
+    of its lanes a block. Ranges: the CTA's words of stream A, then per
+    call of stream B (``SgnSpec.draw_calls``) and per set its draws.
+    Returns (blocks squeezed, permutations per warp of 32 elements as the
+    warps serialise them)."""
+    rate_words = keccak.RATE // 4
+    epb = keccak.RATE // 16          # 16-byte draws a block
+    squeezed = warp_perms = 0
+    for e0 in range(0, n, threads):
+        cnt = min(threads, n - e0)
+        spans = [(e0 * spec.wpe, cnt * spec.wpe, rate_words)]
+        off = 0
+        for sets, c in spec.draw_calls():
+            spans += [(off + kk * n * c + e0 * c, cnt * c, epb)
+                      for kk in range(sets)]
+            off += sets * n * c
+        for first, count, per in spans:
+            nb = (first + count - 1) // per - first // per + 1
+            squeezed += nb
+            for k0 in range(0, nb, threads):
+                warp_perms += -(-min(threads, nb - k0) // 32)
+    return squeezed, warp_perms * 32 / n
+
+
+def profile_calls(fn, calls: int) -> list:
+    """One try of torch.profiler over ``calls`` calls of fn: lines of
+    device time by kernel and the device's idle share over the traced
+    window (first to last event), or "no device time"."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return ['no device time']
+    by_name = {}
+    for e in dev:
+        name = short_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    lines = [f'{name}: {us / 1e3:.4f} ms device time'
+             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])]
+    lines.append(f'device busy {busy / 1e3:.4f} ms of a {window / 1e3:.4f} '
+                 f'ms window: idle share {1 - busy / window:.4f}')
+    return lines
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -281,7 +402,15 @@ def check_kernels(p: int) -> dict:
     torch.cuda.synchronize()
     check(max_abs_err(out_k, out_p) == 0,
           'K3 (without the product) differs from its plain version')
-    del out_k, out_p
+    for b_r in (bb[:, :N_RAGGED].contiguous(), None):
+        a_r = a[:, :N_RAGGED].contiguous()
+        out_k = pipelines.reshare_mul(a_r, b_r, st, nonce, spec)
+        out_p = pipelines._reshare_mul_plain(a_r, b_r, st, nonce, spec)
+        torch.cuda.synchronize()
+        err3 = max(err3, max_abs_err(out_k, out_p))
+        check(err3 == 0, f'K3 at {N_RAGGED} elements differs from its plain '
+              'version')
+    del out_k, out_p, a_r, b_r
     W3 = spec.l_bytes // 4
     nb3 = rng.blocks_needed(N_BIG, spec.l_bytes)
     ops3 = (nb3 * KECCAK_F_OPS + draw_ops(N_BIG, W3)
@@ -296,8 +425,8 @@ def check_kernels(p: int) -> dict:
         plain_ms=cuda_ms(
             lambda: pipelines._reshare_mul_plain(a, bb, st, nonce, spec), 2),
         bound_ms=b, bound_by=o)
-    say(f'  K3 reshare_mul: ({M}, {N_BIG}, 2), fused and unfused, '
-        'equal to plain')
+    say(f'  K3 reshare_mul: ({M}, {N_BIG}, 2) and ({M}, {N_RAGGED}, 2), '
+        'fused and unfused, equal to plain')
     return res
 
 
@@ -307,6 +436,8 @@ def check_slice_kernels(p: int) -> dict:
     3,010,560 elements and K5 in each of its three modes at 2^20, each
     timed, K5 (LT, np_less's mode) and K4 also with their plain versions.
     Returns per-kernel measurements."""
+    from mpyc_tpu_torch import _build
+    sgn_threads = _build.library().lib.mtt_sgn_threads()
     gen = np.random.default_rng(8)
     res = {}
     st_np = keccak._absorb_host(bytes(gen.integers(0, 256, 32,
@@ -370,6 +501,11 @@ def check_slice_kernels(p: int) -> dict:
         b, o = bound(N_CMP * M * 2 * 4 * 2, ops5)
         iters = 10 if mode == 'LT' else 5
         ms = cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec5), iters)
+        squeezed, per_warp = sgn_squeezes(spec5, N_CMP, sgn_threads)
+        say(f'  K5 sgn_step {mode} stage model at {N_CMP} elements, B = '
+            f'{sgn_threads}: {squeezed} blocks squeezed against '
+            f'{spec5.blocks(N_CMP)} in the stream, {per_warp:.4f} '
+            'permutations per warp of 32 elements')
         say(f'  K5 sgn_step {mode}: {N_KCHECK} and {N_CMP} elements equal '
             f'to plain (peak {torch.cuda.max_memory_allocated() / 2**30:.1f}'
             f' GiB allocated); per element {mont} Montgomery products, '
@@ -440,10 +576,12 @@ def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
     return dict(p=p, per_call_ms=per_call_ms)
 
 
-def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1) -> dict:
+def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1,
+                profile=False) -> dict:
     """Secure comparison through the user's entry points at n elements;
     raises on a wrong result. Returns, on the card, the device time of each
-    timed np_less call (ms, CUDA events)."""
+    timed np_less call (ms, CUDA events) and, with ``profile``, the lines
+    of ``profile_calls`` over PROFILE_CALLS more."""
     rt = SimRuntime(M, device=device)
     rt.start()
     secint = rt.SecInt(32)
@@ -484,8 +622,14 @@ def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1) -> dict:
             per_call_ms.append((ev0, ev1))
         torch.cuda.synchronize()
         per_call_ms = [e0.elapsed_time(e1) for e0, e1 in per_call_ms]
+    trace = []
+    if profile:
+        try:   # one try: the profiler's tracing of the card is untried
+            trace = profile_calls(lambda: rt.np_less(A, B), PROFILE_CALLS)
+        except Exception as exc:  # noqa: BLE001 (reported, not a check)
+            trace = [f'torch.profiler failed: {exc!r}']
     rt.shutdown()
-    return dict(per_call_ms=per_call_ms, checked=list(cases))
+    return dict(per_call_ms=per_call_ms, checked=list(cases), trace=trace)
 
 
 def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
@@ -537,9 +681,14 @@ def main() -> int:
     with Phase('build'):
         from mpyc_tpu_torch import _build
         lib = _build.library()
-        for line in lib.log.splitlines():
-            if line.strip():
+        for line in lib.log.splitlines():   # all but ptxas' report
+            if line.strip() and not line.startswith('ptxas info') and \
+                    'bytes stack frame' not in line:
                 say(f'  nvcc: {line.strip()}')
+        for fn, r in ptxas_report(lib.log).items():
+            say(f'  ptxas {fn}: ' + ', '.join(f'{k} {v}'
+                                              for k, v in r.items()))
+        say(f'  K5 thread block: B = {lib.lib.mtt_sgn_threads()} elements')
         say(f'  library {lib.path.name}: '
             f'{"built" if lib.built else "found"} in {lib.seconds:.3f} s')
 
@@ -578,13 +727,17 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with Phase('comparison'):
-        res = drive('comparison', lambda: run_compare('cuda'))
+        res = drive('comparison', lambda: run_compare('cuda', profile=True))
         ms = sorted(res['per_call_ms'])
         med_cmp = ms[len(ms) // 2]
         say(f'  all {N_CMP} outputs correct: {", ".join(res["checked"])}')
         say(f'  np_less of {N_CMP} elements: median {med_cmp:.4f} ms '
             f'(calls: {", ".join(f"{x:.4f}" for x in res["per_call_ms"])}),'
             f' {N_CMP / (med_cmp / 1e3):.6g} comparisons/s on {smi}')
+        say(f'  torch.profiler over {PROFILE_CALLS} np_less calls of {N_CMP} '
+            'elements:')
+        for line in res['trace']:
+            say(f'    {line}')
         torch.cuda.empty_cache()
 
     with Phase('split/recombine'):

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # SOURCES[0] is compiled and #includes the others; all are hashed
-SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'sgn.cuh')
+SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh')
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -106,6 +106,7 @@ _SIGNATURES = {
     'mtt_reshare': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C, _C],
     'mtt_split_recombine': [_C, _C, _C, _C, ctypes.c_longlong, _C, _C],
     'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong, _C, _C],
+    'mtt_sgn_threads': [],
 }
 
 

@@ -9,6 +9,12 @@
 #pragma once
 #include <cstdint>
 
+// A host build that counts the permutations a kernel runs defines this
+// (tests/test_torch_kernels_host.py). Empty on the card.
+#ifndef MTT_COUNT_PERM
+#define MTT_COUNT_PERM()
+#endif
+
 namespace mtt {
 
 __constant__ uint64_t kKeccakRC[24] = {
@@ -40,6 +46,7 @@ __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
 // The 24 rounds; the round body is unrolled so every lane index is a
 // constant and the state never leaves registers.
 __device__ __forceinline__ void keccak_f1600(uint64_t* A) {
+  MTT_COUNT_PERM();
 #pragma unroll 1
   for (int round = 0; round < 24; ++round) {
     uint64_t C[5], D[5], B[25];

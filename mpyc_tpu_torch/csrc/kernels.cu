@@ -67,6 +67,12 @@ __device__ __forceinline__ void reduce_draw(const uint64_t* A, int slot,
   }
 }
 
+}  // namespace mtt
+
+#include "stage.cuh"
+
+namespace mtt {
+
 // ---------------------------------------------------------------------------
 // K1: counter-mode SHAKE128 squeeze.
 // Replaces mpyc_tpu/ops/keccak.py:215 _squeeze_ctr_pallas (kernel :235).
@@ -129,7 +135,7 @@ squeeze_mont_kernel(const uint32_t* __restrict__ state,
   }
 }
 
-// The t coefficients of the EPB = 10 elements e0 .. e0 + 9 (e0 a multiple
+// K4's t coefficients of the EPB = 10 elements e0 .. e0 + 9 (e0 a multiple
 // of 10) in the stream layout of the JAX package's XLA steps: coefficient
 // C_k of element e is draw k*n + e of the squeeze_mont stream of the
 // absorbed state S0 (16-byte draws, counter in lane 19). For k = 0 the
@@ -188,75 +194,78 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 //   s_i = a_i * b_i (FUSE) or a_i.
 // Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
 // and 11 Montgomery multiplies per element, against 72 bytes moved).
-// Design: one thread per group of EPB = 10 consecutive elements, whose
-// k = 0 coefficients are exactly one sponge block (group_coefs): the
-// squeeze, the reduction, the products and the Horner rows all stay in
-// registers, and device memory sees each share read once and each output
-// written once (written for general t; built for t = 1, m = 3).
+// Design: a CTA of RESHARE_THREADS = 320 threads takes RESHARE_ELEMS =
+// 3,200 consecutive elements, whose k = 0 coefficients are exactly 320
+// sponge blocks: every thread squeezes one and reduces its ten draws
+// once, through the stage (stage.cuh; for k > 0 the draws may straddle
+// 321 blocks, and thread 0 takes the last), into shared memory. Then each
+// thread takes the elements e0 + r*320 + tid (r < 10): each share is one
+// 8-byte load and each output one 8-byte store, neighbouring lanes on
+// neighbouring elements, so a warp's access is 256 contiguous bytes.
+// (With one element a thread, one warp in ten squeezed while the others
+// waited at the barrier, and K3 took twice as long: PERF.md.) Written for
+// general t; built for t = 1, m = 3.
 // ---------------------------------------------------------------------------
+constexpr int RESHARE_THREADS = 320;
+constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
+
 template <bool FUSE, int T, int M>
-__global__ void __launch_bounds__(128)
-reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
+__global__ void __launch_bounds__(RESHARE_THREADS)
+reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
+               uint2* __restrict__ out, const uint32_t* __restrict__ state,
                long long n, ReshareParams P) {
-  constexpr int EPB = RATE_WORDS / 4;  // 16-byte draws a block
   constexpr int NSEND = 2 * T + 1;
   static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long e0 = g * EPB;
-  if (e0 >= n) return;
-  uint64_t S0[25];
-  load_state(state, S0);
-  S0[4] ^= ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
+  __shared__ uint2 coefs[T * RESHARE_ELEMS];
+  const long long e0 = (long long)blockIdx.x * RESHARE_ELEMS;
+  const int cnt = (int)(n - e0 < RESHARE_ELEMS ? n - e0 : RESHARE_ELEMS);
   const uint32_t* p = P.draw.p;
   const uint32_t n0 = P.draw.n0inv;
+  const uint64_t nonce = ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
+#pragma unroll
+  for (int k = 0; k < T; ++k)
+    stage_draws(state, nonce, 0, (long long)k * n + e0, cnt, 1, P.draw,
+                coefs + k * RESHARE_ELEMS, RESHARE_ELEMS);
+  __syncthreads();
 
-  uint32_t C[T][EPB][NL];
-  group_coefs<T>(S0, n, e0, P.draw, C);
-
+#pragma unroll 1
+  for (int el = threadIdx.x; el < cnt; el += RESHARE_THREADS) {
+    const long long e = e0 + el;
+    uint32_t S[NL];
 #pragma unroll
-  for (int s = 0; s < EPB; ++s) {
-    const long long e = e0 + s;
-    if (e < n) {
-      uint32_t S[NL];
+    for (int i = 0; i < NSEND; ++i) {
+      const uint2 av = __ldg(a + (long long)i * n + e);
+      uint32_t si[NL] = {av.x, av.y}, term[NL];
+      if (FUSE) {
+        const uint2 bv = __ldg(b + (long long)i * n + e);
+        const uint32_t bi[NL] = {bv.x, bv.y};
+        mont_mul<NL>(si, bi, p, n0, si);
+      }
+      mont_mul<NL>(si, P.lag[i], p, n0, term);
+      if (i == 0) {
+        S[0] = term[0];
+        S[1] = term[1];
+      } else {
+        add_mod<NL>(S, term, p, S);
+      }
+    }
 #pragma unroll
-      for (int i = 0; i < NSEND; ++i) {
-        uint32_t si[NL], term[NL];
-        const long long off = ((long long)i * n + e) * NL;
+    for (int j = 0; j < M; ++j) {
+      uint32_t y[NL];
 #pragma unroll
-        for (int q = 0; q < NL; ++q) si[q] = __ldg(a + off + q);
-        if (FUSE) {
-          uint32_t bi[NL];
-#pragma unroll
-          for (int q = 0; q < NL; ++q) bi[q] = __ldg(b + off + q);
-          mont_mul<NL>(si, bi, p, n0, si);
-        }
-        mont_mul<NL>(si, P.lag[i], p, n0, term);
-        if (i == 0) {
-#pragma unroll
-          for (int q = 0; q < NL; ++q) S[q] = term[q];
+      for (int k = 0; k < T; ++k) {
+        const uint2 ck = coefs[k * RESHARE_ELEMS + el];
+        const uint32_t c[NL] = {ck.x, ck.y};
+        if (k == 0) {
+          y[0] = c[0];
+          y[1] = c[1];
         } else {
-          add_mod<NL>(S, term, p, S);
+          add_mod<NL>(y, c, p, y);
         }
+        mont_mul<NL>(y, P.xs[j], p, n0, y);
       }
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        uint32_t y[NL];
-#pragma unroll
-        for (int k = 0; k < T; ++k) {
-          if (k == 0) {
-#pragma unroll
-            for (int q = 0; q < NL; ++q) y[q] = C[0][s][q];
-          } else {
-            add_mod<NL>(y, C[k][s], p, y);
-          }
-          mont_mul<NL>(y, P.xs[j], p, n0, y);
-        }
-        add_mod<NL>(y, S, p, y);
-        const long long o = ((long long)j * n + e) * NL;
-#pragma unroll
-        for (int q = 0; q < NL; ++q) out[o + q] = y[q];
-      }
+      add_mod<NL>(y, S, p, y);
+      out[(long long)j * n + e] = make_uint2(y[0], y[1]);
     }
   }
 }
@@ -271,9 +280,11 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 // secret again. `shares`, when not null, receives the (m, n) shares.
 // Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
 // and 7 Montgomery multiplies per element, against 16 bytes moved).
-// Design: as K3, one thread per group of 10 elements whose coefficients
-// are one sponge block; everything between the read of the secret and
-// the write of the output stays in registers.
+// Design: one thread per group of 10 elements whose coefficients are one
+// sponge block (group_coefs); everything between the read of the secret
+// and the write of the output stays in registers. K4 moves 16 bytes an
+// element, so its strided 4-byte accesses cost little (PERF.md has its
+// time against its bound), and it keeps this layout.
 // ---------------------------------------------------------------------------
 template <int T, int M>
 __global__ void __launch_bounds__(128)
@@ -360,13 +371,10 @@ int launch_squeeze(const void* state, void* out, long long n_draws,
 template <bool FUSE>
 int launch_reshare(const void* a, const void* b, void* out, const void* state,
                    long long n, const ReshareParams& P, cudaStream_t stream) {
-  constexpr int EPB = RATE_WORDS / 4;
-  const long long groups = (n + EPB - 1) / EPB;
-  const int threads = 128;
-  const long long grid = (groups + threads - 1) / threads;
-  reshare_kernel<FUSE, 1, 3><<<(unsigned)grid, threads, 0, stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
-      (const uint32_t*)state, n, P);
+  const long long grid = (n + RESHARE_ELEMS - 1) / RESHARE_ELEMS;
+  reshare_kernel<FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, 0, stream>>>(
+      (const uint2*)a, (const uint2*)b, (uint2*)out, (const uint32_t*)state,
+      n, P);
   return (int)cudaGetLastError();
 }
 
@@ -386,11 +394,14 @@ int launch_split_recombine(const void* sec, void* out, void* shares,
 template <int MODE>
 int launch_sgn(const void* a, void* out, const void* state, long long n,
                long long blocks_a, const SgnParams& P, cudaStream_t stream) {
-  const int threads = 128;
-  const long long grid = (n + threads - 1) / threads;
-  sgn_kernel<MODE, 32, 1, 3><<<(unsigned)grid, threads, 0, stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n,
-      blocks_a, P);
+  const long long grid = (n + SGN_THREADS - 1) / SGN_THREADS;
+  constexpr int smem = sgn_smem_bytes<MODE, 32, 1>();
+  const cudaError_t rc = cudaFuncSetAttribute(
+      sgn_kernel<MODE, 32, 1, 3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  sgn_kernel<MODE, 32, 1, 3><<<(unsigned)grid, SGN_THREADS, smem, stream>>>(
+      (const uint2*)a, (uint2*)out, (const uint32_t*)state, n, blocks_a, P);
   return (int)cudaGetLastError();
 }
 
@@ -463,6 +474,9 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
     default: return -1;
   }
 }
+
+// Elements of a K5 thread block (SGN_THREADS), for models of its stage.
+int mtt_sgn_threads() { return mtt::SGN_THREADS; }
 
 const char* mtt_error_string(int rc) {
   return cudaGetErrorString((cudaError_t)rc);

@@ -4,7 +4,8 @@
 // _build_pallas.kernel (:616, pallas_call :833), in the stream layout of
 // its XLA step (:847-1061), so that the kernel equals its plain version
 // (mpyc_tpu_torch/models/pipelines.py _sgn_step_plain) and the JAX package
-// bit for bit. Included by kernels.cu after DrawParams and reduce_draw.
+// bit for bit. Included by kernels.cu after DrawParams, reduce_draw and
+// the stage (stage.cuh).
 //
 // The stream of a call: the absorbed state with the call counter XORed
 // into lane 4, counter-mode blocks on lane 19.
@@ -23,20 +24,36 @@
 // sees each input share read once and each output share written once.
 //
 // Bound: integer operations (sgn mode at l = 32, t = 1, m = 3: about 10
-// sponge blocks, 900 Montgomery products and 1,430 modular adds per element,
-// the draws' reduction included, against 48 bytes moved; SgnSpec.field_ops). Design, simple first: the bit shares (lb x m), the xor
-// vector (l x m) and the E vector live in thread-private arrays, which go
-// to local memory; the bit and tree loops are not unrolled (build time);
-// the permutation is one out-of-line function behind a one-block cache,
-// so consecutive draws of one call reuse a block. Draws of calls with one
-// draw per element share a block among ten neighbouring elements, and
-// each of their threads squeezes it again: about 25-30 permutations per
-// element against about 10 stream blocks (PERF.md, open questions).
+// sponge blocks, 900 Montgomery products and 1,430 modular adds per
+// element, the draws' reduction included, against 48 bytes moved;
+// SgnSpec.field_ops).
+//
+// Design. Neighbouring elements take neighbouring draws of every call, so
+// a thread squeezing its own draws repeats its neighbours' permutations,
+// and in a warp the lanes whose draws cross a block boundary permute
+// while the others wait: the warp runs a whole permutation for every few
+// lanes. So the CTA of SGN_THREADS elements stages each call: before the
+// call it squeezes every block of the call's draws once, one block a
+// thread (stage.cuh), into shared memory, and after a barrier each thread
+// reads its draws from there. No thread leaves early: lanes past n stage
+// and synchronise, and write nothing. SGN_THREADS = 256: per warp of 32
+// elements in LT mode the stage serialises about 7.4 permutations (8.5 at
+// 128, 10.5 at 64; chip_smoke.sgn_squeezes), where a one-block cache in
+// each thread serialised about 54 (PERF.md). The bit call, the largest,
+// takes t x lb x 256 x 8 = 67,584 bytes at l = 32, so the draws and the
+// words of stream A are dynamic shared memory (sgn_smem_bytes); at about
+// 110 registers (ptxas) 2 CTAs, 16 warps, fit a SM by registers and by
+// shared memory. 256 ran faster than 128 on the card (PERF.md). The bit
+// shares (lb x m) and, in sgn and EQ mode, the xor vector (l x m) live in
+// thread-private arrays in local memory; in LT mode the suffix loop
+// recomputes each xor bit from rb_j and c_j and keeps no xor vector. The
+// bit and tree loops are not unrolled (build time).
 #pragma once
 #include <cstdint>
 
 #include "keccak.cuh"
 #include "limb.cuh"
+#include "stage.cuh"
 
 namespace mtt {
 
@@ -54,65 +71,9 @@ struct SgnParams {
   int32_t t, m, l, k, mode, has_f;
 };
 
-// Block `blk` of the call's stream, as its 21 rate lanes. Out of line:
-// every draw of K5 comes through here, so the permutation is compiled
-// once per instantiation.
-__device__ __noinline__ void sgn_squeeze(const uint32_t* __restrict__ state,
-                                         uint64_t nonce,
-                                         unsigned long long blk,
-                                         uint64_t* rate) {
-  uint64_t A[25];
-  load_state(state, A);
-  A[4] ^= nonce;
-  A[19] ^= blk;
-  keccak_f1600(A);
-#pragma unroll
-  for (int q = 0; q < 21; ++q) rate[q] = A[q];
-}
-
-// The thread's view of the stream: the last block it squeezed.
-struct SgnStream {
-  const uint32_t* state;
-  uint64_t nonce;
-  long long blocks_a;  // stream B starts at this block
-  long long cached;    // the block in `rate`, -1 for none
-  uint64_t rate[21];
-
-  __device__ __forceinline__ void fetch(long long blk) {
-    if (blk != cached) {
-      sgn_squeeze(state, nonce, (unsigned long long)blk, rate);
-      cached = blk;
-    }
-  }
-  // word w of stream A
-  __device__ __forceinline__ uint32_t word_a(long long w) {
-    fetch(w / RATE_WORDS);
-    return rate_word(rate, (int)(w % RATE_WORDS));
-  }
-  // draw d of stream B, in GF(p), Montgomery form
-  __device__ __forceinline__ void draw(long long d, const DrawParams& P,
-                                       uint32_t* out) {
-    constexpr int EPB = RATE_WORDS / 4;
-    fetch(blocks_a + d / EPB);
-    reduce_draw<4>(rate, (int)(d % EPB), P, out);
-  }
-};
-
 __device__ __forceinline__ void fe_copy(const uint32_t* a, uint32_t* out) {
 #pragma unroll
   for (int q = 0; q < NL; ++q) out[q] = a[q];
-}
-
-// The t coefficients of one element's polynomial in a call of c draws per
-// element: draws off + kk*n*c + e*c + i.
-template <int T>
-__device__ __forceinline__ void sgn_coefs(SgnStream& S, const DrawParams& D,
-                                          long long off, long long n,
-                                          long long c, long long e, int i,
-                                          uint32_t (*C)[NL]) {
-#pragma unroll
-  for (int kk = 0; kk < T; ++kk)
-    S.draw(off + (long long)kk * n * c + e * c + i, D, C[kk]);
 }
 
 // Shares of value v at x_j: Horner(C, x_j) + v for the m parties.
@@ -154,39 +115,88 @@ __device__ __forceinline__ void sgn_reshare(const uint32_t (*x)[NL],
   dealer_split<T, M>(S, C, P, out);
 }
 
+constexpr int SGN_THREADS = 256;  // elements (threads) of a K5 CTA
+
+// Dynamic shared memory of a K5 CTA: the draws of its largest call (the
+// bits: t x lb a thread) and its words of stream A (at most lb / 32 + 2 a
+// thread, k <= 64).
+template <int MODE, int LBIT, int T>
+constexpr int sgn_smem_bytes() {
+  constexpr int LB = LBIT + (MODE == 2 ? 0 : 1);
+  return (T * LB * 8 + ((LB + 31) / 32 + 2) * 4) * SGN_THREADS;
+}
+
+// The CTA's view of stream B: the draws of one call at a time, staged in
+// shared memory as [set kk][draw i][element].
+struct SgnDraws {
+  const uint32_t* state;
+  uint64_t nonce;
+  long long n, blocks_a, e0;
+  long long off;  // the first draw of the next call
+  int cnt;        // elements of the CTA below n
+  int c;          // draws per element and set of the staged call
+  uint2* sm;
+
+  // Stage the next call: c draws per element in `reps` sets (set kk of
+  // element e is draws off + kk*n*c + e*c + i, i < c). Every thread of
+  // the CTA calls this, in the same order.
+  __device__ __forceinline__ void stage(int c_, int reps,
+                                        const DrawParams& D) {
+    c = c_;
+    __syncthreads();  // the last call's draws are read
+#pragma unroll 1
+    for (int kk = 0; kk < reps; ++kk)
+      stage_draws(state, nonce, blocks_a, off + kk * n * c + e0 * c, cnt, c,
+                  D, sm + kk * c * SGN_THREADS, SGN_THREADS);
+    __syncthreads();
+    off += (long long)reps * n * c;
+  }
+  // draw i of set kk of this thread's element
+  __device__ __forceinline__ void get(int kk, int i, uint32_t* v) const {
+    const uint2 w = sm[(kk * c + i) * SGN_THREADS + threadIdx.x];
+    v[0] = w.x;
+    v[1] = w.y;
+  }
+  // the t coefficients of draw i
+  template <int T>
+  __device__ __forceinline__ void coefs(int i, uint32_t (*C)[NL]) const {
+#pragma unroll
+    for (int kk = 0; kk < T; ++kk) get(kk, i, C[kk]);
+  }
+};
+
 // Log-depth product of x[0..w-1] (each m shares) into x[0]: level by
 // level, x_j <- reshare(x_j * x_{h+j}) for j < h = w / 2, an odd last one
 // moves to x_h. A level is one call of h draws per element.
 template <int T, int M>
 __device__ __forceinline__ void prod_tree(uint32_t (*x)[M][NL], int w,
-                                          SgnStream& S, const SgnParams& P,
-                                          long long n, long long e,
-                                          long long& off) {
+                                          SgnDraws& S, const SgnParams& P) {
 #pragma unroll 1
   while (w > 1) {
     const int h = w >> 1;
+    S.stage(h, T, P.draw);
 #pragma unroll 1
     for (int j = 0; j < h; ++j) {
       uint32_t y[M][NL], C[T][NL];
 #pragma unroll
       for (int i = 0; i < M; ++i)
         mont_mul<NL>(x[j][i], x[h + j][i], P.draw.p, P.draw.n0inv, y[i]);
-      sgn_coefs<T>(S, P.draw, off, n, h, e, j, C);
+      S.coefs<T>(j, C);
       sgn_reshare<T, M>(y, C, P, x[j]);
     }
     if (w & 1) {
 #pragma unroll
       for (int i = 0; i < M; ++i) fe_copy(x[2 * h][i], x[h][i]);
     }
-    off += (long long)T * n * h;
     w = h + (w & 1);
   }
 }
 
-// MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f.
+// MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f. a and out
+// are (m, n) elements of two limbs.
 template <int MODE, int LBIT, int T, int M>
-__global__ void __launch_bounds__(128)
-sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+__global__ void __launch_bounds__(SGN_THREADS)
+sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
            const uint32_t* __restrict__ state, long long n,
            long long blocks_a, SgnParams P) {
   constexpr bool LT = MODE == 1, EQ = MODE == 2;
@@ -194,30 +204,43 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   constexpr int WB = (LB + 31) / 32;
   static_assert(NL == 2 && LB <= 64 && 2 * T + 1 <= M && M <= MAX_M,
                 "K5 takes two-limb fields and l < 64");
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  extern __shared__ uint2 sgn_smem[];
+  uint2* draws = sgn_smem;
+  uint32_t* words =
+      reinterpret_cast<uint32_t*>(draws + T * LB * SGN_THREADS);
+  const int tid = threadIdx.x;
+  const long long e0 = (long long)blockIdx.x * SGN_THREADS;
+  const long long e = e0 + tid;
+  const bool live = e < n;
   const uint32_t* p = P.draw.p;
   const uint32_t n0 = P.draw.n0inv;
 
-  SgnStream S;
+  SgnDraws S;
   S.state = state;
   S.nonce = ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
+  S.n = n;
   S.blocks_a = blocks_a;
-  S.cached = -1;
+  S.e0 = e0;
+  S.off = 0;
+  S.cnt = (int)(n - e0 < SGN_THREADS ? n - e0 : SGN_THREADS);
+  S.c = 0;
+  S.sm = draws;
 
   // stream A: the random bits and r_divl < 2^k
   const int wk = (P.k + 31) / 32;
-  const long long wa = e * (WB + wk);
+  const int wpe = WB + wk;
+  stage_words(state, S.nonce, e0 * wpe, S.cnt * wpe, words);
+  __syncthreads();
   uint64_t bits = 0;
 #pragma unroll
   for (int w = 0; w < WB; ++w)
-    bits |= (uint64_t)S.word_a(wa + w) << (32 * w);
+    bits |= (uint64_t)words[tid * wpe + w] << (32 * w);
   uint32_t kl[NL];
 #pragma unroll
   for (int q = 0; q < NL; ++q) {
     kl[q] = 0;
     if (q < wk) {
-      const uint32_t v = S.word_a(wa + WB + q);
+      const uint32_t v = words[tid * wpe + WB + q];
       const int rem = P.k - 32 * q;
       kl[q] = rem < 32 ? v & ((1u << rem) - 1u) : v;
     }
@@ -225,28 +248,26 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
   // dealer split of the bits: E holds their shares rb until the E vector
   // replaces them
-  long long off = 0;
   uint32_t E[LB][M][NL];
+  S.stage(LB, T, P.draw);
 #pragma unroll 1
   for (int j = 0; j < LB; ++j) {
     uint32_t bm[NL], C[T][NL];
     const bool bit = (bits >> j) & 1;
 #pragma unroll
     for (int q = 0; q < NL; ++q) bm[q] = bit ? P.one[q] : 0u;
-    sgn_coefs<T>(S, P.draw, off, n, LB, e, j, C);
+    S.coefs<T>(j, C);
     dealer_split<T, M>(bm, C, P, E[j]);
   }
-  off += (long long)T * n * LB;
 
   uint32_t rdiv[M][NL];
   {
     uint32_t v[NL], C[T][NL];
     mont_mul<NL>(kl, P.r2, p, n0, v);
-    sgn_coefs<T>(S, P.draw, off, n, 1, e, 0, C);
+    S.stage(1, T, P.draw);
+    S.coefs<T>(0, C);
     dealer_split<T, M>(v, C, P, rdiv);
   }
-  off += (long long)T * n;
-
   // a_r = a + r_modl + 2^l with r_modl = sum_{j<l} rb_j 2^j (by doubling)
   uint32_t ar[M][NL], z[M][NL];
 #pragma unroll
@@ -258,8 +279,9 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
       add_mod<NL>(acc, acc, p, acc);
       add_mod<NL>(acc, E[j][i], p, acc);
     }
-#pragma unroll
-    for (int q = 0; q < NL; ++q) ai[q] = __ldg(a + ((long long)i * n + e) * NL + q);
+    const uint2 av = live ? __ldg(a + (long long)i * n + e) : make_uint2(0, 0);
+    ai[0] = av.x;
+    ai[1] = av.y;
     add_mod<NL>(ai, acc, p, ar[i]);
     add_mod<NL>(ar[i], P.pow2l, p, ar[i]);
   }
@@ -292,15 +314,18 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
     for (int i = 0; i < M; ++i) sub_mod<NL>(cm, ar[i], p, z[i]);
   }
 
-  // xor_j = c_j XOR r_j, as shares: c_j ? 1 - rb_j : rb_j
-  uint32_t X[LBIT][M][NL];
+  // xor_j = c_j XOR r_j, as shares: c_j ? 1 - rb_j : rb_j (in LT mode
+  // recomputed where the suffix loop needs it)
+  uint32_t X[LT ? 1 : LBIT][M][NL];
+  if constexpr (!LT) {
 #pragma unroll 1
-  for (int j = 0; j < LBIT; ++j) {
-    const bool cb = (cbits >> j) & 1;
+    for (int j = 0; j < LBIT; ++j) {
+      const bool cb = (cbits >> j) & 1;
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      if (cb) sub_mod<NL>(P.one, E[j][i], p, X[j][i]);
-      else fe_copy(E[j][i], X[j][i]);
+      for (int i = 0; i < M; ++i) {
+        if (cb) sub_mod<NL>(P.one, E[j][i], p, X[j][i]);
+        else fe_copy(E[j][i], X[j][i]);
+      }
     }
   }
 
@@ -320,14 +345,20 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
       const bool cb = (cbits >> j) & 1;
 #pragma unroll
       for (int i = 0; i < M; ++i) {
-        uint32_t v[NL], s3[NL];
+        uint32_t v[NL], s3[NL], x[NL];
+        if constexpr (LT) {  // xor_j, from rb_j before E_j replaces it
+          if (cb) sub_mod<NL>(P.one, E[j][i], p, x);
+          else fe_copy(E[j][i], x);
+        } else {
+          fe_copy(X[j][i], x);
+        }
         if (cb) sub_mod<NL>(E[j][i], P.one, p, v);
         else fe_copy(E[j][i], v);
         add_mod<NL>(v, s[i], p, v);
         add_mod<NL>(suf[i], suf[i], p, s3);
         add_mod<NL>(s3, suf[i], p, s3);
         add_mod<NL>(v, s3, p, E[j][i]);
-        add_mod<NL>(suf[i], X[j][i], p, suf[i]);
+        add_mod<NL>(suf[i], x, p, suf[i]);
       }
     }
 #pragma unroll
@@ -338,15 +369,15 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
       sub_mod<NL>(s[i], P.one, p, E[LBIT][i]);
       add_mod<NL>(E[LBIT][i], s3, p, E[LBIT][i]);
     }
-    prod_tree<T, M>(E, LBIT + 1, S, P, n, e, off);
+    prod_tree<T, M>(E, LBIT + 1, S, P);
 
     // blinded public zero test of the product, one blinder per element
     uint32_t bl[NL], C[T][NL], bsh[M][NL];
-    S.draw(off + e, P.draw, bl);
-    off += n;
+    S.stage(1, 1, P.draw);
+    S.get(0, 0, bl);
     if (is_zero<NL>(bl)) fe_copy(P.one, bl);
-    sgn_coefs<T>(S, P.draw, off, n, 1, e, 0, C);
-    off += (long long)T * n;
+    S.stage(1, T, P.draw);
+    S.coefs<T>(0, C);
     dealer_split<T, M>(bl, C, P, bsh);
     uint32_t po[NL];
 #pragma unroll
@@ -376,7 +407,7 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 #pragma unroll
       for (int i = 0; i < M; ++i) sub_mod<NL>(P.one, X[j][i], p, X[j][i]);
     }
-    prod_tree<T, M>(X, LBIT, S, P, n, e, off);
+    prod_tree<T, M>(X, LBIT, S, P);
     if constexpr (EQ) {
 #pragma unroll
       for (int i = 0; i < M; ++i) fe_copy(X[0][i], z[i]);
@@ -391,7 +422,8 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
         sub_mod<NL>(v, P.one, p, v);
         mont_mul<NL>(u, v, p, n0, y[i]);
       }
-      sgn_coefs<T>(S, P.draw, off, n, 1, e, 0, C);
+      S.stage(1, T, P.draw);
+      S.coefs<T>(0, C);
       sgn_reshare<T, M>(y, C, P, z);
     }
   }
@@ -399,8 +431,7 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     if (P.has_f) mont_mul<NL>(z[i], P.powf, p, n0, z[i]);
-#pragma unroll
-    for (int q = 0; q < NL; ++q) out[((long long)i * n + e) * NL + q] = z[i][q];
+    if (live) out[(long long)i * n + e] = make_uint2(z[i][0], z[i][1]);
   }
 }
 

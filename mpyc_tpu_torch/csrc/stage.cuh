@@ -1,0 +1,94 @@
+// The shared squeeze stage of K3 and K5.
+//
+// A thread block (CTA) that needs a range of a stream squeezes each sponge
+// block that the range touches exactly once, one block a thread (so a
+// range of up to 32 blocks is one warp's work, and more take as many warps
+// as there are groups of 32), and hands what the threads need to them
+// through shared memory. Each squeezing thread also reduces its block's
+// draws into GF(p), so every draw is reduced once. A block on the edge
+// between two CTAs, or between two calls of K5, is squeezed by both: about
+// one block per range per CTA.
+//
+// Every draw keeps its index in the stream, so the layout is the JAX
+// package's XLA layout bit for bit (kernels.cu, sgn.cuh).
+//
+// Included by kernels.cu after DrawParams and reduce_draw. Each function
+// is called by every thread of the CTA; the caller synchronises before
+// the threads read what was staged, and before a stage overwrites what
+// they read.
+#pragma once
+#include <cstdint>
+
+#include "keccak.cuh"
+
+namespace mtt {
+
+static_assert(NL == 2, "the stage stores a draw as one uint2");
+
+// Block `blk` of a counter-mode stream: the absorbed state with `nonce`
+// XORed into lane 4 and the block counter into lane 19, permuted.
+__device__ __forceinline__ void squeeze_block(const uint32_t* __restrict__ state,
+                                              uint64_t nonce,
+                                              unsigned long long blk,
+                                              uint64_t* A) {
+  load_state(state, A);
+  A[4] ^= nonce;
+  A[19] ^= blk;
+  keccak_f1600(A);
+}
+
+// Draws d0 + j*c + i (j < cnt, i < c) of the squeeze_mont stream of
+// 16-byte draws, ten a block, draw d in block blk0 + d / 10, each reduced
+// into GF(p) in Montgomery form, to sm[i * stride + j]: the threads of
+// the CTA read draw i of their element j from consecutive words, with no
+// bank conflict. Out of line, so the permutation is compiled once.
+__device__ __noinline__ void stage_draws(const uint32_t* __restrict__ state,
+                                         uint64_t nonce, long long blk0,
+                                         long long d0, int cnt, int c,
+                                         DrawParams P, uint2* sm,
+                                         int stride) {
+  constexpr int W = 4;
+  constexpr int EPB = RATE_WORDS / W;
+  const long long total = (long long)cnt * c;
+  if (total <= 0) return;
+  const long long first = d0 / EPB;
+  const long long nb = (d0 + total - 1) / EPB - first + 1;
+  for (long long b = threadIdx.x; b < nb; b += blockDim.x) {
+    const long long blk = first + b;
+    uint64_t A[25];
+    squeeze_block(state, nonce, (unsigned long long)(blk0 + blk), A);
+#pragma unroll
+    for (int s = 0; s < EPB; ++s) {
+      const long long r = blk * EPB + s - d0;
+      if (r >= 0 && r < total) {
+        const int j = (int)(r / c);
+        const int i = (int)(r - (long long)j * c);
+        uint32_t v[NL];
+        reduce_draw<W>(A, s, P, v);
+        sm[i * stride + j] = make_uint2(v[0], v[1]);
+      }
+    }
+  }
+}
+
+// Raw words w0 .. w0 + cnt - 1 of the stream from block 0 (word w: rate
+// word w % 42 of block w / 42) to sm[w - w0].
+__device__ __noinline__ void stage_words(const uint32_t* __restrict__ state,
+                                         uint64_t nonce, long long w0,
+                                         int cnt, uint32_t* sm) {
+  if (cnt <= 0) return;
+  const long long first = w0 / RATE_WORDS;
+  const long long nb = (w0 + cnt - 1) / RATE_WORDS - first + 1;
+  for (long long b = threadIdx.x; b < nb; b += blockDim.x) {
+    const long long blk = first + b;
+    uint64_t A[25];
+    squeeze_block(state, nonce, (unsigned long long)blk, A);
+#pragma unroll
+    for (int s = 0; s < RATE_WORDS; ++s) {
+      const long long r = blk * RATE_WORDS + s - w0;
+      if (r >= 0 && r < cnt) sm[r] = rate_word(A, s);
+    }
+  }
+}
+
+}  // namespace mtt

@@ -88,6 +88,12 @@ def _nonce_state(state: torch.Tensor, nonce) -> torch.Tensor:
     return st
 
 
+def _check_aligned(*tensors) -> None:
+    """K3 and K5 load and store an element's two limbs as one 8-byte word."""
+    if any(t is not None and t.data_ptr() % 8 for t in tensors):
+        raise ValueError('shares must start on an 8-byte boundary')
+
+
 def _reshare_mul_plain(a: torch.Tensor, b, state: torch.Tensor, nonce,
                        spec: ReshareSpec) -> torch.Tensor:
     """Plain version of K3, the JAX package's ``step_xla``: (m, n, L) shares
@@ -138,6 +144,7 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
     params = spec.params(nonce)
     a = a.contiguous()
     b = b.contiguous() if b is not None else None
+    _check_aligned(a, b)
     state = state.contiguous()
     out = torch.empty_like(a)
     _build.call('mtt_reshare', a.data_ptr(),
@@ -325,14 +332,15 @@ def make_split_recombine(p: int, t: int, m: int):
 # K5: the whole Toft-style secure comparison as one step
 # ---------------------------------------------------------------------------
 
-def _tree_mults(w: int) -> int:
-    """Secure products of a log-depth product tree of width w."""
-    total = 0
+def _tree_levels(w: int) -> list:
+    """Secure products of each level of a log-depth product tree of width
+    w (a level of h products is one call of h draws per element)."""
+    levels = []
     while w > 1:
         h = w // 2
-        total += h
+        levels.append(h)
         w = h + (w % 2)
-    return total
+    return levels
 
 
 SGN_MODES = ('sgn', 'LT', 'EQ')
@@ -380,20 +388,26 @@ class SgnSpec:
         """Blocks of stream A (counter 0 on); stream B starts after."""
         return max(-(-n * self.wpe // (keccak.RATE // 4)), 1)
 
-    def draws_per_element(self) -> int:
-        """Stream-B field draws per element, in the order they are taken:
-        bit-split coefficients, r_divl's, then (unless EQ) the E tree's,
-        the blinder and its coefficients, (unless LT) the ones-minus-xor
-        tree's, and in sgn mode the final reshare's."""
+    def draw_calls(self) -> list:
+        """The calls of stream B in the order they are taken, each as
+        (sets, c): a call gives element e of n the draws
+        off + kk*n*c + e*c + i (kk < sets, i < c). Bit-split coefficients,
+        r_divl's, then (unless EQ) each level of the E tree, the blinder
+        and its coefficients, (unless LT) each level of the ones-minus-xor
+        tree, and in sgn mode the final reshare's."""
         t, l = self.t, self.l
-        d = t * self.lb + t
+        calls = [(t, self.lb), (t, 1)]
         if self.mode != 'EQ':
-            d += t * _tree_mults(l + 1) + 1 + t
+            calls += [(t, h) for h in _tree_levels(l + 1)] + [(1, 1), (t, 1)]
         if self.mode != 'LT':
-            d += t * _tree_mults(l)
+            calls += [(t, h) for h in _tree_levels(l)]
         if self.mode == 'sgn':
-            d += t
-        return d
+            calls.append((t, 1))
+        return calls
+
+    def draws_per_element(self) -> int:
+        """Stream-B field draws per element."""
+        return sum(sets * c for sets, c in self.draw_calls())
 
     def blocks(self, n: int) -> int:
         """Sponge blocks of the whole stream of a call on n elements."""
@@ -417,13 +431,13 @@ class SgnSpec:
         adds = self.lb * split + split + 2 * l * m + 2 * t + 1 + m
         adds += m * c_ones                       # xor vector
         if self.mode != 'EQ':
-            trees = _tree_mults(l + 1)
+            trees = sum(_tree_levels(l + 1))
             # E vector, its tree, the blinded zero test, h and z
             mont += trees * node[0] + split + 2 * (2 * t + 1) + 2 * m
             adds += (5 * l * m + m * c_ones + 6 * m + trees * node[1]
                      + split + 2 * t + 2 * m)
         if self.mode != 'LT':
-            trees = _tree_mults(l)
+            trees = sum(_tree_levels(l))
             mont += trees * node[0]
             adds += l * m + trees * node[1]
             if self.mode == 'sgn':
@@ -648,6 +662,7 @@ def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
     from mpyc_tpu_torch import _build
     params = spec.params(nonce)
     a = a.contiguous()
+    _check_aligned(a)
     state = state.contiguous()
     out = torch.empty_like(a)
     n = a.shape[1]

@@ -193,13 +193,23 @@ class SimRuntime(Runtime):
     # chunks of 2^20 elements, each one step call that advances the
     # counter (the JAX package's _SGN_CHUNK, simulator.py:459).
     _SGN_CHUNK = 1 << 20
+    # Chunk of fields of more than two limbs (SecInt(64)'s 96-bit field).
+    # The JAX package cuts these to 1024 for its compile time
+    # (simulator.py:470-475); the port has no such cost but cuts the same,
+    # so that its call counter, and with it the stream, stays the JAX
+    # package's.
+    _SGN_CHUNK_WIDE = 1024
+
+    def _sgn_chunk(self, L: int) -> int:
+        return self._SGN_CHUNK if L <= 2 else self._SGN_CHUNK_WIDE
 
     def np_sgn(self, a, l=None, LT=False, EQ=False):
         """Secure signum of a secure integer array of l-bit values (default
         l: its type's bit length): shares of -1, 0 or 1; with LT of the bit
         a < 0, with EQ of a == 0. Each chunk of up to 2^20 elements is one
         fused comparison step (``pipelines.make_sgn_step``, kernel K5 on
-        the card), padded to the bucket of the JAX package's CPU plane."""
+        the card), padded to the bucket of the JAX package's CPU plane;
+        fields of more than two limbs are cut into chunks of 1024."""
         if LT and EQ:
             raise ValueError('LT and EQ exclude each other')
         if not isinstance(a, sectypes.SecureIntegerArray):
@@ -214,7 +224,7 @@ class SimRuntime(Runtime):
         m, L = len(self.parties), sh.ctx.L
         n = math.prod(a.shape)
         data = sh.data.reshape(m, n, L)
-        chunk = self._SGN_CHUNK
+        chunk = self._sgn_chunk(L)
         outs = [self._sgn_fused_flat(stype, data[:, j0:j0 + chunk], l, LT,
                                      EQ)
                 for j0 in range(0, n, chunk)] or [data]
@@ -223,7 +233,8 @@ class SimRuntime(Runtime):
             out.reshape((m,) + tuple(a.shape) + (L,))))
 
     def _sgn_fused_flat(self, stype, data, l, LT, EQ):
-        """One comparison step on (m, n, L) flat shares, n <= 2^20."""
+        """One comparison step on (m, n, L) flat shares, n at most the
+        field's chunk."""
         p = stype.field.modulus
         t, m, k = self.threshold, len(self.parties), self.sec_param
         f = stype.sectype.frac_length
@@ -231,7 +242,7 @@ class SimRuntime(Runtime):
             (p, t, l, k, LT, EQ, f),
             lambda: pipelines.make_sgn_step(p, t, m, l, k, LT=LT, EQ=EQ,
                                             f=f),
-            [data], cap=self._SGN_CHUNK)
+            [data], cap=self._sgn_chunk(data.shape[-1]))
 
     def output(self, x):
         """Open secure arrays: recombine the shares of parties 1..t+1 at 0;

@@ -232,3 +232,26 @@ def test_bucket_and_chunk_rule(monkeypatch):
         assert [c for (_, (c, _)) in seen] == \
             list(range(ctr, ctr + len(chunks)))
         np.testing.assert_array_equal(rt.output(Z), np.sign(v))
+
+
+@pytest.mark.parametrize('case', ['np_less', 'np_sgn'])
+def test_wide_field_comparison_chunks_at_1024(case):
+    """SecInt(64) (a three-limb field) at n = 1,100: cut into chunks of
+    1024 and 76 as the JAX package cuts them (simulator.py:475), so the
+    call counter advances by two steps; every output opened."""
+    rt = TorchSim(3, device='cpu')
+    s64 = rt.SecInt(64)
+    gen = np.random.default_rng(14)
+    n = 1100
+    a = gen.integers(-(1 << 62), 1 << 62, n)
+    b = gen.integers(-(1 << 62), 1 << 62, n)
+    b[::9] = a[::9]
+    A = rt.input(s64.array(a))[0]
+    B = rt.input(s64.array(b))[1]
+    ctr = int(rt._fused_ctr[0])
+    if case == 'np_less':
+        got, want = rt.output(rt.np_less(A, B)), a < b
+    else:
+        got, want = rt.output(rt.np_sgn(A - B)), np.sign(a - b)
+    assert int(rt._fused_ctr[0]) == ctr + 2
+    np.testing.assert_array_equal(got, np.asarray(want, np.int64))

@@ -57,17 +57,31 @@ def test_squeeze_mont_kernel_matches_plain(cuda_device, l_bytes):
                                                     5, 9))
 
 
+@pytest.mark.parametrize('n', [100003, 641])
 @pytest.mark.parametrize('fuse', [True, False])
-def test_reshare_kernel_matches_plain(cuda_device, fuse):
+def test_reshare_kernel_matches_plain(cuda_device, fuse, n):
+    """Neither size a multiple of K3's 320-element thread block."""
     st = _state(cuda_device)
     spec = pipelines.ReshareSpec(P, 1, 3)
-    a = _shares(100003, 4, cuda_device)
-    b = _shares(100003, 5, cuda_device) if fuse else None
+    a = _shares(n, 4, cuda_device)
+    b = _shares(n, 5, cuda_device) if fuse else None
     n0 = pipelines.reshare_mul.launches
     got = pipelines.reshare_mul(a, b, st, (0xFFFFFFFF, 2), spec)
     assert pipelines.reshare_mul.launches == n0 + 1
     want = pipelines._reshare_mul_plain(a, b, st, (0xFFFFFFFF, 2), spec)
     assert torch.equal(got, want)
+
+
+def test_kernels_refuse_shares_off_an_8_byte_boundary(cuda_device):
+    """K3 and K5 load an element as one 8-byte word."""
+    st = _state(cuda_device)
+    flat = _shares(65, 9, cuda_device).reshape(-1)
+    a = flat[1:1 + 3 * 64 * 2].reshape(3, 64, 2)
+    with pytest.raises(ValueError, match='8-byte'):
+        pipelines.reshare_mul(a, None, st, (0, 0),
+                              pipelines.ReshareSpec(P, 1, 3))
+    with pytest.raises(ValueError, match='8-byte'):
+        pipelines.sgn_step(a, st, (0, 0), pipelines.SgnSpec(P, 1, 3, 32))
 
 
 def test_reshare_kernel_refuses_other_parties(cuda_device):
@@ -92,12 +106,14 @@ def test_split_recombine_kernel_matches_plain(cuda_device):
     assert torch.equal(shares, want_shares)
 
 
+@pytest.mark.parametrize('n', [20011, 100003])
 @pytest.mark.parametrize('mode', pipelines.SGN_MODES)
-def test_sgn_kernel_matches_plain(cuda_device, mode):
+def test_sgn_kernel_matches_plain(cuda_device, mode, n):
+    """Neither size a multiple of K5's 128-element thread block."""
     st = _state(cuda_device)
     spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ', f=2 if mode == 'LT' else 0)
-    a = _shares(20011, 7, cuda_device)
+    a = _shares(n, 7, cuda_device)
     n0 = pipelines.sgn_step.launches
     got = pipelines.sgn_step(a, st, (0xFFFFFFFF, 1), spec)
     assert pipelines.sgn_step.launches == n0 + 1

@@ -2,11 +2,15 @@
 PyTorch versions.
 
 There is no nvcc here, so ``mpyc_tpu_torch/csrc/kernels.cu`` is compiled
-with g++ against a small header that defines CUDA's qualifiers away and
-runs every launch as a loop over blocks and threads. That checks the
-kernels' arithmetic, indexing and launch geometry (not their CUDA code
-generation, which only the card shows: chip_smoke.py and the ``cuda``
-tests). Tolerance: exact equality.
+with g++ (C++20) against a small header that defines CUDA's qualifiers
+away and runs every launch block by block, the threads of a block as
+``std::thread``s: ``__syncthreads()`` is a ``std::barrier`` of the block,
+``__shared__`` arrays are ``static`` (one block runs at a time), dynamic
+shared memory is a buffer of the launch's size, and ``blockIdx``/
+``threadIdx`` are ``thread_local``. That checks the kernels'
+arithmetic, indexing, staging through shared memory and launch geometry
+(not their CUDA code generation, which only the card shows: chip_smoke.py
+and the ``cuda`` tests). Tolerance: exact equality.
 """
 import ctypes
 import re
@@ -26,36 +30,83 @@ P = 18446744073709551427
 
 _SHIM = '''
 #pragma once
+#include <barrier>
 #include <cstdint>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __constant__
+#define __shared__ static
 #define __forceinline__ inline
 #define __noinline__
 #define __launch_bounds__(x)
 #define __restrict__
 struct HostDim3 { unsigned x, y, z; };
-static HostDim3 blockIdx, blockDim, threadIdx;
+static thread_local HostDim3 blockIdx, blockDim, threadIdx;
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 typedef struct CUstream_st* cudaStream_t;
 typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline unsigned __ldg(const unsigned* p) { return *p; }
-extern "C" { unsigned long long mtt_op_counts[2]; }
-#define MTT_COUNT_OP(kind) (++mtt_op_counts[kind])
+inline uint2 __ldg(const uint2* p) { return *p; }
+extern "C" { unsigned long long mtt_op_counts[2], mtt_perm_count; }
+#define MTT_COUNT_OP(kind) \\
+  __atomic_fetch_add(&mtt_op_counts[kind], 1ull, __ATOMIC_RELAXED)
+#define MTT_COUNT_PERM() \\
+  __atomic_fetch_add(&mtt_perm_count, 1ull, __ATOMIC_RELAXED)
+static std::barrier<>* mtt_block_barrier;
+static std::vector<uint64_t> mtt_dynamic_smem;
+inline void __syncthreads() { mtt_block_barrier->arrive_and_wait(); }
+// One launch: the blocks in turn, the threads of a block at once. A
+// thread that returns leaves the barrier, as on the card.
+template <class F>
+void mtt_host_launch(unsigned grid, unsigned threads, unsigned smem,
+                     F body) {
+  for (unsigned b = 0; b < grid; ++b) {
+    std::barrier<> bar(threads);
+    mtt_block_barrier = &bar;
+    mtt_dynamic_smem.assign((smem + 7) / 8, 0);
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < threads; ++t)
+      pool.emplace_back([&, b, t] {
+        blockIdx = {b, 0, 0};
+        threadIdx = {t, 0, 0};
+        blockDim = {threads, 1, 1};
+        body();
+        bar.arrive_and_drop();
+      });
+    for (auto& th : pool) th.join();
+  }
+}
 '''
 
 _LAUNCH = re.compile(r'([\w:]+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);', re.S)
+_DYNAMIC_SMEM = re.compile(r'extern __shared__ (\w+) (\w+)\[\];')
 
 
 def _as_loop(m):
     kernel, config, args = m.groups()
-    grid, threads = [c.strip() for c in config.split(',')[:2]]
-    return (f'for (unsigned b_ = 0; b_ < (unsigned)({grid}); ++b_) '
-            f'for (unsigned t_ = 0; t_ < (unsigned)({threads}); ++t_) {{ '
-            f'blockIdx.x = b_; threadIdx.x = t_; blockDim.x = {threads}; '
-            f'{kernel}({args}); }}')
+    grid, threads, smem = [c.strip() for c in config.split(',')[:3]]
+    return (f'mtt_host_launch((unsigned)({grid}), (unsigned)({threads}), '
+            f'(unsigned)({smem}), [&] {{ {kernel}({args}); }});')
+
+
+def _host_source(src: str) -> str:
+    """A source as the shim builds it: launches as host loops, dynamic
+    shared memory as the launch's buffer."""
+    return _DYNAMIC_SMEM.sub(
+        r'\1* \2 = reinterpret_cast<\1*>(mtt_dynamic_smem.data());',
+        _LAUNCH.sub(_as_loop, src))
 
 
 @pytest.fixture(scope='module')
@@ -65,14 +116,16 @@ def host_lib(tmp_path_factory):
         pytest.skip('needs g++ to build the kernel source for the host')
     d = tmp_path_factory.mktemp('kernels_host')
     for name in _build.SOURCES[1:]:
-        shutil.copy(_build.CSRC / name, d / name)
+        (d / name).write_text(_host_source((_build.CSRC / name).read_text()))
     (d / 'cuda_runtime.h').write_text(_SHIM)
-    src, n = _LAUNCH.subn(_as_loop, (_build.CSRC / 'kernels.cu').read_text())
-    assert n == 5, 'every launch must become a host loop'
-    (d / 'kernels_host.cpp').write_text(src)
+    src = (_build.CSRC / 'kernels.cu').read_text()
+    assert len(_LAUNCH.findall(src)) == 5, \
+        'every launch must become a host loop'
+    (d / 'kernels_host.cpp').write_text(_host_source(src))
     so = d / 'libkernels_host.so'
-    subprocess.run([gxx, '-std=c++17', '-O1', '-w', '-shared', '-fPIC',
-                    f'-I{d}', '-o', str(so), str(d / 'kernels_host.cpp')],
+    subprocess.run([gxx, '-std=c++20', '-O1', '-w', '-shared', '-fPIC',
+                    '-pthread', f'-I{d}', '-o', str(so),
+                    str(d / 'kernels_host.cpp')],
                    check=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build._SIGNATURES.items():
@@ -118,9 +171,11 @@ def test_squeeze_mont_source_matches_plain(host_lib, state, l_bytes):
                                                     5))
 
 
-@pytest.mark.parametrize('n', [7, 64, 1003])
+@pytest.mark.parametrize('n', [7, 64, 1003, 6407])
 @pytest.mark.parametrize('fuse', [True, False])
 def test_reshare_source_matches_plain(host_lib, state, n, fuse):
+    """3,200 elements a thread block of 320 threads: 6,407 elements span
+    three blocks, the last ragged."""
     st, _ = state
     spec = pipelines.ReshareSpec(P, 1, 3)
     a, b = _shares(n, 1), _shares(n, 2)
@@ -167,13 +222,14 @@ def test_split_recombine_source_matches_plain(host_lib, state, n):
     assert torch.equal(shares, want_shares)
 
 
+@pytest.mark.parametrize('n', [100, 641])
 @pytest.mark.parametrize('mode', pipelines.SGN_MODES)
-def test_sgn_source_matches_plain(host_lib, state, mode):
-    """K5 at its built width (l = 32, k = 30), 100 elements."""
+def test_sgn_source_matches_plain(host_lib, state, mode, n):
+    """K5 at its built width (l = 32, k = 30): one ragged thread block of
+    256, and three blocks, the last ragged."""
     st, _ = state
     spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ')
-    n = 100
     a = _shares(n, 5)
     nonce = (0xFFFFFFFF, 4)
     out = torch.empty_like(a)
@@ -198,13 +254,17 @@ DRAW_OPS = (2, 1)
 def test_sgn_field_ops_match_the_source(host_lib, state, mode, f):
     """SgnSpec.field_ops, from which chip_smoke.py bounds K5, counts the
     products the kernel's source runs exactly, and its adds up to the
-    subtractions that the ones of c mod 2^l select: n is prime to 6, so
-    an error of 1-5 adds per element leaves a remainder, and c mod 2^l is
-    uniform, so its ones lie within 5 standard deviations of n l / 2."""
+    subtractions that the ones of c mod 2^l select. n = 1280 fills whole
+    CTAs (the lanes of a CTA past n run the protocol on zeros, and their
+    operations would count too); c mod 2^l is uniform, so its ones lie
+    within 5 standard deviations (506) of n l / 2, and n = 2 mod 6, so an
+    error of 1, 2, 4 or 5 adds per element leaves a remainder and one of
+    3 moves the ones by n / 2."""
     st, _ = state
     spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ', f=f)
-    n = 641
+    n = 1280
+    assert n % host_lib.mtt_sgn_threads() == 0
     a = _shares(n, 8)
     out = torch.empty_like(a)
     params = spec.params((3, 0))
@@ -240,14 +300,15 @@ def test_split_field_ops_match_the_source(host_lib, state):
                              n * (adds + spec.t * DRAW_OPS[1]))
 
 
-def test_sgn_source_scales_by_2f(host_lib, state):
+@pytest.mark.parametrize('n', [20, 641])
+def test_sgn_source_scales_by_2f(host_lib, state, n):
     st, _ = state
     spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=True, f=3)
-    a = _shares(20, 6)
+    a = _shares(n, 6)
     out = torch.empty_like(a)
     params = spec.params((1, 0))
-    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), 20,
-                            spec.blocks_a(20), ctypes.addressof(params),
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            spec.blocks_a(n), ctypes.addressof(params),
                             None) == 0
     assert torch.equal(out, pipelines._sgn_step_plain(a, st, (1, 0), spec))
 
@@ -270,3 +331,30 @@ def test_comparison_and_round_trip_refuse_what_was_not_built(host_lib,
     assert host_lib.mtt_split_recombine(a.data_ptr(), a.data_ptr(), None,
                                         st.data_ptr(), 10,
                                         ctypes.addressof(params), None) == -1
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_source_squeezes_each_block_once_per_thread_block(host_lib,
+                                                              state, mode):
+    """K5's stage squeezes every block of a range once per thread block
+    (CTA): its permutations are those of chip_smoke.sgn_squeezes, the model
+    whose warp count chip_smoke.py reports, and at most the stream's
+    blocks plus two for each range and CTA (a block on the edge of two
+    CTAs, or of two calls, is squeezed by both)."""
+    import chip_smoke
+    st, _ = state
+    spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    n = 1007
+    a = _shares(n, 10)
+    out = torch.empty_like(a)
+    perms = ctypes.c_ulonglong.in_dll(host_lib, 'mtt_perm_count')
+    perms.value = 0
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            spec.blocks_a(n),
+                            ctypes.addressof(spec.params((2, 0))), None) == 0
+    threads = host_lib.mtt_sgn_threads()
+    ctas = -(-n // threads)
+    ranges = 1 + sum(sets for sets, _ in spec.draw_calls())
+    assert perms.value == chip_smoke.sgn_squeezes(spec, n, threads)[0]
+    assert perms.value <= spec.blocks(n) + 2 * ranges * ctas
