@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Three paths on the co-located plane, as ``bench.py`` drives the JAX
-package, all at ``SimRuntime(3)`` (t = 1) and ``SecInt(32)`` (the 64-bit
-field): secure multiplication (input, ``np_multiply``, output), secure
-comparison (``np_less``, ``np_equal``, ``np_sgn``, ``np_maximum`` and the
-BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
-(bench.py:88). Phases, each printing one line with its elapsed seconds:
+Paths on the co-located plane, all at ``SimRuntime(3)`` (t = 1): three as
+``bench.py`` drives the JAX package, at ``SecInt(32)`` (the 64-bit field):
+secure multiplication (input, ``np_multiply``, output), secure comparison
+(``np_less``, ``np_equal``, ``np_sgn``, ``np_maximum`` and the BNN sign at
+2^20 elements, bench.py:203) and the split/recombine round (bench.py:88);
+and the BNN flagship (``demos/np_bnnmnist.py``) at ``SecInt(14)``, through
+the port's runner ``mpyc_tpu_torch/demos/np_bnnmnist.py``: the MNIST flow
+at full width and its selftest. Phases, each printing one line with its
+elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -20,7 +23,9 @@ BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
    a size that is no multiple of its thread block) at the main path's sizes,
    K4 (split_recombine) with its shares at 2^16 and at
    the round's 3,010,560 elements, K5 (sgn_step) in its three modes at
-   2^16 and at the comparison's 2^20 elements, each equal bit for bit to its
+   2^16 and at the comparison's 2^20 elements, and in LT mode at the BNN's
+   l = 14 and l = 10 (SecInt(14)'s field) at 2^16 and at a BNN layer's
+   bucket of 2^19 elements, each equal bit for bit to its
    plain PyTorch version on the same inputs (tolerance: exact, integer
    arithmetic), K1 also to hashlib; time each and its plain version with
    CUDA events, beside its bound; for K5 also the permutations per warp of
@@ -39,12 +44,22 @@ BNN sign at 2^20 elements, bench.py:203) and the split/recombine round
    device time by kernel and the device's idle share, or "no device time";
 6. split/recombine: 3,010,560 secrets, 100 chained rounds, the output
    equal to the input; ms per round;
-7. report: one JSON line of the kernels, the card's name and power limit,
+7. bnn: the MNIST flow on test images 0-99 (B = 100; fc 784-4096-4096-
+   4096-10, SecInt(14)), twice (cold, warm): all 100 predictions equal
+   to the plaintext model of the protocol (``plain_forward``), the count
+   correct against the labels, seconds a pass and images/s; then, outside
+   the counted run, per layer at its shapes the device ms of the plane
+   GEMM (``torch._int_mm``), the planes and the GEMM, the carry and fold,
+   K3 and K5 (CUDA events); one try of torch.profiler over a warm pass;
+8. selftest: the runner's 64-32-10 network with ``rt.input`` at B = 100
+   (SecInt(14)'s 22-byte input draws: K1 and the split), predictions
+   equal to the plaintext forward pass;
+9. report: one JSON line of the kernels, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-6 zeroes the launch counters just before it and reads them
+Each of phases 4-8 zeroes the launch counters just before it and reads them
 just after; each must show that the kernels of its path ran (K1-K3, then
-K2, K3 and K5, then K4).
+K2, K3 and K5, then K4, then K3 and K5, then K1, K3 and K5).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -84,6 +99,9 @@ N_SMALL = 4096                 # bench.py's in-run correctness check
 N_BIG = 1 << 22                # bench.py's size on the device
 ROUNDS = 10                    # chained np_multiply calls
 SAMPLE = 4096                  # opened outputs checked against plaintext
+N_BNN = 100                    # images of the bnn phase (B), 0-99
+N_BNN_BUCKET = 1 << 19         # bucket of a BNN layer's 100 x 4096 sums
+N_SELFTEST = 100               # batch of the selftest phase
 M, T = 3, 1
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
@@ -93,6 +111,7 @@ DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 # lanes, 2 flops per FMA).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
+INT8_TENSOR_OPS_PER_S = 1979e12   # dense int8 tensor-core peak
 # 32-bit instructions, counted at their fewest: a Keccak-f round is 20
 # three-input XORs (column parities) + 10 funnel shifts (theta rotations)
 # + 50 XORs (theta) + 48 funnel shifts (rho) + 50 three-input chi ops + 2
@@ -120,7 +139,9 @@ KERNELS = {
 # the kernels each path must launch
 PATH_KERNELS = {'main path': ('keccak_ctr', 'squeeze_mont', 'reshare_mul'),
                 'comparison': ('squeeze_mont', 'reshare_mul', 'sgn_step'),
-                'split/recombine': ('split_recombine',)}
+                'split/recombine': ('split_recombine',),
+                'bnn': ('reshare_mul', 'sgn_step'),
+                'selftest': ('keccak_ctr', 'reshare_mul', 'sgn_step')}
 
 
 def say(msg: str) -> None:
@@ -255,10 +276,11 @@ def sgn_squeezes(spec, n: int, threads: int) -> tuple:
     return squeezed, warp_perms * 32 / n
 
 
-def profile_calls(fn, calls: int) -> list:
+def profile_calls(fn, calls: int, top: int | None = None) -> list:
     """One try of torch.profiler over ``calls`` calls of fn: lines of
-    device time by kernel and the device's idle share over the traced
-    window (first to last event), or "no device time"."""
+    device time by kernel (the ``top`` largest and the rest summed, if
+    given) and the device's idle share over the traced window (first to
+    last event), or "no device time"."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -287,8 +309,13 @@ def profile_calls(fn, calls: int) -> list:
     busy += cur_e - cur_s
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     lines = [f'{name}: {us / 1e3:.4f} ms device time'
-             for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])]
+             for name, us in ranked[:top]]
+    if top is not None and len(ranked) > top:
+        rest = sum(us for _, us in ranked[top:])
+        lines.append(f'{len(ranked) - top} other kernels: {rest / 1e3:.4f} '
+                     'ms device time')
     lines.append(f'device busy {busy / 1e3:.4f} ms of a {window / 1e3:.4f} '
                  f'ms window: idle share {1 - busy / window:.4f}')
     return lines
@@ -489,15 +516,7 @@ def check_slice_kernels(p: int) -> dict:
             check(err5 == 0, f'K5 ({mode}, {n} elements) differs from its '
                   'plain version')
             del out, want
-        # operations as the kernel does them: its field operations
-        # (SgnSpec.field_ops, held against the source by
-        # tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
-        # reduction of its draws and the stream's blocks
-        draws = N_CMP * spec5.draws_per_element()
-        mont, adds = spec5.field_ops(spec5.l / 2)
-        ops5 = (spec5.blocks(N_CMP) * KECCAK_F_OPS
-                + draw_ops(draws, spec5.l_bytes // 4)
-                + N_CMP * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+        mont, adds, ops5 = sgn_ops(spec5, N_CMP)
         b, o = bound(N_CMP * M * 2 * 4 * 2, ops5)
         iters = 10 if mode == 'LT' else 5
         ms = cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec5), iters)
@@ -509,7 +528,8 @@ def check_slice_kernels(p: int) -> dict:
         say(f'  K5 sgn_step {mode}: {N_KCHECK} and {N_CMP} elements equal '
             f'to plain (peak {torch.cuda.max_memory_allocated() / 2**30:.1f}'
             f' GiB allocated); per element {mont} Montgomery products, '
-            f'{adds:.0f} modular adds/subs, {draws // N_CMP} draws, '
+            f'{adds:.0f} modular adds/subs, {spec5.draws_per_element()} '
+            'draws, '
             f'{spec5.blocks(N_CMP) / N_CMP:.4f} stream blocks; {ms:.4f} ms '
             f'at {N_CMP} elements, bound {b:.4f} ms ({o}), {ms / b:.2f}x')
         if mode == 'LT':      # np_less's mode goes into the kernels line
@@ -520,7 +540,59 @@ def check_slice_kernels(p: int) -> dict:
                 bound_ms=b, bound_by=o)
         del a
     res['sgn_step']['max_abs_err'] = err5
+
+    # K5 (LT) at the BNN's widths, on SecInt(14)'s field: l = 14 (fc1, the
+    # argmax) and l = 10 (fc2, fc3), at 2^16 and at a layer's bucket
+    p14 = sectypes.SecInt(14, 'cuda').field.modulus
+    for l in (14, 10):
+        spec5 = pipelines.SgnSpec(p14, T, M, l, 30, LT=True)
+        for n in (N_KCHECK, N_BNN_BUCKET):
+            a = random_shares(p14, (M, n), gen)
+            out = pipelines.sgn_step(a, st, nonce, spec5)
+            want = pipelines._sgn_step_plain(a, st, nonce, spec5)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want)
+            check(err == 0, f'K5 (LT, l = {l}, {n} elements) differs from '
+                  'its plain version')
+            del out, want
+        res[f'sgn_step (LT, l = {l})'] = sgn_meas(
+            spec5, a, st, nonce, N_BNN_BUCKET, err)
+        r = res[f'sgn_step (LT, l = {l})']
+        say(f'  K5 sgn_step LT at l = {l}: {N_KCHECK} and {N_BNN_BUCKET} '
+            f'elements equal to plain; per element {r["mont"]} Montgomery '
+            f'products, {r["adds"]:.0f} modular adds/subs; {r["ms"]:.4f} ms '
+            f'at {N_BNN_BUCKET} elements, bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x')
+        del a
     return res
+
+
+def sgn_ops(spec, n: int) -> tuple:
+    """(field products, adds/subs per element, integer instructions) of
+    K5 on n elements as the kernel does them: its field operations
+    (SgnSpec.field_ops, held against the source by
+    tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
+    reduction of its draws and the stream's blocks."""
+    draws = n * spec.draws_per_element()
+    mont, adds = spec.field_ops(spec.l / 2)
+    ops = (spec.blocks(n) * KECCAK_F_OPS
+           + draw_ops(draws, spec.l_bytes // 4)
+           + n * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+    return mont, adds, ops
+
+
+def sgn_meas(spec, a, st, nonce, n: int, err: int) -> dict:
+    """K5's time at n elements (a: (m, n, 2) shares), its plain version's
+    and its bound."""
+    mont, adds, ops = sgn_ops(spec, n)
+    b, o = bound(n * M * 2 * 4 * 2, ops)
+    return dict(
+        shape=f'({M}, {n}, 2) shares, {spec.mode}, l = {spec.l}',
+        max_abs_err=err, mont=mont, adds=adds,
+        ms=cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec), 10),
+        plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
+            a, st, nonce, spec), 1),
+        bound_ms=b, bound_by=o)
 
 
 def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
@@ -661,6 +733,127 @@ def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
     return dict(ms_per_round=ms)
 
 
+def run_bnn(device, batch=N_BNN, passes=2, profile=False) -> dict:
+    """The runner's MNIST flow on test images 0..batch-1 through the user's
+    entry points, ``passes`` times (the first cold); raises unless every
+    pass's predictions equal the plaintext model of the protocol. Returns
+    the count correct against the labels, the set-up seconds (weights
+    loaded and encoded on the device), the seconds of each pass and, with
+    ``profile``, the lines of ``profile_calls`` over one more pass."""
+    from mpyc_tpu_torch.demos import np_bnnmnist as bnn
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    secint = rt.SecInt(bnn.L_IN)
+    labels, images = bnn.load_mnist(0, batch)
+    on_card = torch.device(device).type == 'cuda'
+    t0 = time.perf_counter()
+    layers = {name: bnn.load_layer(name) for name in bnn.LAYERS}
+    slayers = bnn.secure_layers(secint, layers)
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats = {}
+    model = bnn.plain_forward(images, layers, stats)
+    pass_s = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        preds = bnn.secure_forward(rt, secint, images, slayers)
+        pass_s.append(time.perf_counter() - t0)   # output is on the host
+        bad = np.flatnonzero(preds != model)
+        check(preds.shape == (batch,) and bad.size == 0,
+              f'bnn: {bad.size} of {batch} predictions differ from the '
+              f'plaintext model, first at {bad[:5].tolist()}')
+    trace = []
+    if profile:
+        try:   # one try, as in the comparison phase
+            trace = profile_calls(
+                lambda: bnn.secure_forward(rt, secint, images, slayers), 1,
+                top=20)
+        except Exception as exc:  # noqa: BLE001 (reported, not a check)
+            trace = [f'torch.profiler failed: {exc!r}']
+    rt.shutdown()
+    return dict(correct=int((preds == labels).sum()), setup_s=setup_s,
+                pass_s=pass_s, trace=trace, stats=stats)
+
+
+def bnn_components(batch=N_BNN) -> list:
+    """Device ms of each BNN layer's parts at the flow's shapes (CUDA
+    events, random shares of SecInt(14)'s field): the plane GEMM alone
+    (``torch._int_mm``), the planes and the GEMM (``plane_gemm``), the
+    bucket sums, carry and fold (``fold_planes``), K3 without the product
+    on the layer's bucket of 3 x B x N shares, and K5 (LT) at the sign's
+    l on that bucket; for fc4 K5 at the argmax's four calls (buckets of
+    5, 2, 1 and 1 columns). Each layer's matmul bound: its plane
+    contractions' int8 operations over the dense int8 peak, or its bytes
+    (operands read, product written) over the memory rate."""
+    from mpyc_tpu_torch.demos import np_bnnmnist as bnn
+    from mpyc_tpu_torch.ops import fieldops
+    p = sectypes.SecInt(bnn.L_IN, 'cuda').field.modulus
+    ctx = prime_field_ctx(p)
+    gen = np.random.default_rng(9)
+    st = keccak.state_tensor(keccak._absorb_host(b'\x07' * 40), 'cuda')
+    nonce = (1, 0)
+    spec3 = pipelines.ReshareSpec(p, T, M)
+    P = 8 * ctx.L
+
+    def bucket(n):
+        return max(64, 1 << (n - 1).bit_length())
+
+    rows = []
+    shapes = {'fc1': (batch, 784, 4096), 'fc2': (M * batch, 4096, 4096),
+              'fc3': (M * batch, 4096, 4096), 'fc4': (M * batch, 4096, 10)}
+    for name, (rows_a, K, N) in shapes.items():
+        a = random_shares(p, (rows_a, K), gen)
+        b = random_shares(p, (K, N), gen)
+        pa = fieldops._nibble_planes(a).reshape(P * rows_a, K)
+        pb = fieldops._nibble_planes(b.transpose(0, 1)).reshape(P * N, K)
+        gemm = cuda_ms(lambda: fieldops._int8_gemm(pa, pb), 5)
+        del pa, pb
+        planes = cuda_ms(lambda: ctx.plane_gemm(a, b), 3)
+        prod = ctx.plane_gemm(a, b)
+        fold = cuda_ms(lambda: ctx.fold_planes(prod), 3)
+        del prod
+        nb = bucket(batch * N)
+        x = random_shares(p, (M, nb), gen)
+        k3 = cuda_ms(lambda: pipelines.reshare_mul(x, None, st, nonce,
+                                                   spec3), 10)
+        if name == 'fc4':
+            k5 = 0.0
+            for cols in (5, 2, 1, 1):
+                spec5 = pipelines.SgnSpec(p, T, M, bnn.L_IN, 30, LT=True)
+                y = random_shares(p, (M, bucket(batch * cols)), gen)
+                k5 += cuda_ms(lambda: pipelines.sgn_step(y, st, nonce,
+                                                         spec5), 10)
+        else:
+            l = bnn.L_IN if name == 'fc1' else bnn.L_HIDDEN
+            spec5 = pipelines.SgnSpec(p, T, M, l, 30, LT=True)
+            k5 = cuda_ms(lambda: pipelines.sgn_step(x, st, nonce, spec5), 5)
+        ops = 2 * (P * rows_a) * K * (P * N)
+        b_ms, b_by = bound((rows_a * K + K * N + rows_a * N) * ctx.L * 4, 0)
+        t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
+        if t_ops >= b_ms:
+            b_ms, b_by = t_ops, 'operations'
+        rows.append(dict(layer=name, M=rows_a, K=K, N=N, gemm_ms=gemm,
+                         planes_gemm_ms=planes, fold_ms=fold, k3_ms=k3,
+                         k5_ms=k5, matmul_bound_ms=b_ms,
+                         matmul_bound_by=b_by))
+        del a, b, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_selftest(device, batch=N_SELFTEST) -> None:
+    """The runner's selftest network through ``rt.input`` (SecInt(14)):
+    raises unless its predictions equal the plaintext forward pass."""
+    from mpyc_tpu_torch.demos import np_bnnmnist as bnn
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    got, expect = bnn.selftest(rt, rt.SecInt(bnn.L_IN), batch)
+    rt.shutdown()
+    check(got.shape == (batch,) and (got == expect).all(),
+          f'selftest: predictions {got.tolist()} differ from {expect.tolist()}')
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t_all = time.perf_counter()
@@ -747,7 +940,38 @@ def main() -> int:
             f'equal to input: {ms_round:.4f} ms per round, '
             f'{N_SPLIT / (ms_round / 1e3):.6g} secrets/s on {smi}')
 
-    say(f'  launches over the three paths: {launches}')
+    with Phase('bnn'):
+        res_bnn = res = drive('bnn', lambda: run_bnn('cuda', profile=True))
+        cold, warm = res['pass_s']
+        say(f'  MNIST images 0-{N_BNN - 1}, fc 784-4096-4096-4096-10, '
+            f'SecInt(14), m = {M}: all {N_BNN} predictions equal the '
+            f'plaintext model; {res["correct"]}/{N_BNN} correct against the '
+            'labels')
+        for name, (lo, hi, wide) in res['stats'].items():
+            say(f'  plaintext model, {name}: sums in [{lo}, {hi}], {wide} '
+                f'of {N_BNN * 4096} activations not +-1')
+        say(f'  weights loaded and encoded in {res["setup_s"]:.3f} s; pass '
+            f'cold {cold:.4f} s, warm {warm:.4f} s: {N_BNN / warm:.6g} '
+            f'images/s on {smi}')
+        layers = bnn_components()
+        for r in layers:
+            say(f'  {r["layer"]} ({r["M"]} x {r["K"]} @ {r["K"]} x '
+                f'{r["N"]}): plane GEMM {r["gemm_ms"]:.4f} ms (bound '
+                f'{r["matmul_bound_ms"]:.4f} ms, {r["matmul_bound_by"]}), '
+                f'planes + GEMM {r["planes_gemm_ms"]:.4f} ms, carry and fold '
+                f'{r["fold_ms"]:.4f} ms, K3 {r["k3_ms"]:.4f} ms, K5 '
+                f'{r["k5_ms"]:.4f} ms')
+        say('  torch.profiler over one warm pass:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('selftest'):
+        drive('selftest', lambda: run_selftest('cuda'))
+        say(f'  {N_SELFTEST} x 64 -> 32 -> 10 with rt.input at SecInt(14): '
+            'predictions equal the plaintext forward pass')
+
+    say(f'  launches over the five paths: {launches}')
     kernels = [dict(name=name, route='cuda', source=k['source'],
                     replaces=k['replaces'], launches=launches[name],
                     max_abs_err=meas[name]['max_abs_err'],
@@ -761,7 +985,11 @@ def main() -> int:
                     'np_less_median_ms': med_cmp, 'cmp_elements': N_CMP,
                     'cmp_per_s': N_CMP / (med_cmp / 1e3),
                     'split_recombine_ms_per_round': ms_round,
-                    'split_elements': N_SPLIT, 'card': smi}))
+                    'split_elements': N_SPLIT,
+                    'bnn_images': N_BNN, 'bnn_correct': res_bnn['correct'],
+                    'bnn_cold_s': cold, 'bnn_warm_s': warm,
+                    'bnn_images_per_s': N_BNN / warm, 'bnn_layers': layers,
+                    'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

@@ -78,8 +78,10 @@ class SgnParams(ctypes.Structure):
 # (t, m) of the split/recombine kernel's instantiations (csrc/kernels.cu)
 SPLIT_BUILT = ((1, 3),)
 # (mode, l, t, m) of the comparison kernel's instantiations (csrc/sgn.cuh;
-# mode 0 sgn, 1 LT, 2 EQ), all for two-limb fields
-SGN_BUILT = tuple((mode, 32, 1, 3) for mode in range(3))
+# mode 0 sgn, 1 LT, 2 EQ), all for two-limb fields: l = 32 for SecInt(32),
+# l = 14 and 10 for the BNN (SecInt(14), whose demo compares at 10 after
+# its first layer)
+SGN_BUILT = tuple((mode, l, 1, 3) for l in (32, 14, 10) for mode in range(3))
 
 
 def draw_params(ctx, n_chunks: int) -> DrawParams:

@@ -391,18 +391,30 @@ int launch_split_recombine(const void* sec, void* out, void* shares,
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, int LBIT>
 int launch_sgn(const void* a, void* out, const void* state, long long n,
                long long blocks_a, const SgnParams& P, cudaStream_t stream) {
   const long long grid = (n + SGN_THREADS - 1) / SGN_THREADS;
-  constexpr int smem = sgn_smem_bytes<MODE, 32, 1>();
+  constexpr int smem = sgn_smem_bytes<MODE, LBIT, 1>();
   const cudaError_t rc = cudaFuncSetAttribute(
-      sgn_kernel<MODE, 32, 1, 3>,
+      sgn_kernel<MODE, LBIT, 1, 3>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
-  sgn_kernel<MODE, 32, 1, 3><<<(unsigned)grid, SGN_THREADS, smem, stream>>>(
+  sgn_kernel<MODE, LBIT, 1, 3><<<(unsigned)grid, SGN_THREADS, smem, stream>>>(
       (const uint2*)a, (uint2*)out, (const uint32_t*)state, n, blocks_a, P);
   return (int)cudaGetLastError();
+}
+
+template <int LBIT>
+int launch_sgn_modes(const void* a, void* out, const void* state,
+                     long long n, long long blocks_a, const SgnParams& P,
+                     cudaStream_t s) {
+  switch (P.mode) {
+    case 0: return launch_sgn<0, LBIT>(a, out, state, n, blocks_a, P, s);
+    case 1: return launch_sgn<1, LBIT>(a, out, state, n, blocks_a, P, s);
+    case 2: return launch_sgn<2, LBIT>(a, out, state, n, blocks_a, P, s);
+    default: return -1;
+  }
 }
 
 }  // namespace mtt
@@ -459,19 +471,20 @@ int mtt_split_recombine(const void* sec, void* out, void* shares,
                                      (cudaStream_t)stream);
 }
 
-// -1: a (mode, l, t, m, k) the kernel was not built for (l = 32, t = 1,
-// m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py SGN_BUILT).
+// -1: a (mode, l, t, m, k) the kernel was not built for (l = 32, 14 or
+// 10, t = 1, m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py SGN_BUILT).
 int mtt_sgn(const void* a, void* out, const void* state, long long n,
             long long blocks_a, const void* params, void* stream) {
   const mtt::SgnParams P = *(const mtt::SgnParams*)params;
-  if (P.t != 1 || P.m != 3 || P.l != 32 || P.k < 0 || P.k > 64) return -1;
+  if (P.t != 1 || P.m != 3 || P.k < 0 || P.k > 64) return -1;
+  if (P.l != 32 && P.l != 14 && P.l != 10) return -1;
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (P.mode) {
-    case 0: return mtt::launch_sgn<0>(a, out, state, n, blocks_a, P, s);
-    case 1: return mtt::launch_sgn<1>(a, out, state, n, blocks_a, P, s);
-    case 2: return mtt::launch_sgn<2>(a, out, state, n, blocks_a, P, s);
-    default: return -1;
+  using mtt::launch_sgn_modes;
+  switch (P.l) {
+    case 32: return launch_sgn_modes<32>(a, out, state, n, blocks_a, P, s);
+    case 14: return launch_sgn_modes<14>(a, out, state, n, blocks_a, P, s);
+    default: return launch_sgn_modes<10>(a, out, state, n, blocks_a, P, s);
   }
 }
 

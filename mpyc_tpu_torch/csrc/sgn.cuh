@@ -23,6 +23,9 @@
 // and the blinded zero test with one blinder per element. Device memory
 // sees each input share read once and each output share written once.
 //
+// Instantiated for l = 32 (SecInt(32)) and l = 14 and 10 (the BNN's
+// SecInt(14)), t = 1, m = 3 (kernels.cu, mtt_sgn).
+//
 // Bound: integer operations (sgn mode at l = 32, t = 1, m = 3: about 10
 // sponge blocks, 900 Montgomery products and 1,430 modular adds per
 // element, the draws' reduction included, against 48 bytes moved;

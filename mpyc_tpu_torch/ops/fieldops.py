@@ -1,10 +1,14 @@
 """GF(p) context: Montgomery constants, encode/decode and elementwise ops.
 
 Port of the part of ``mpyc_tpu/ops/fieldops.py`` (``PrimeFieldCtx``) that
-secure multiplication and comparison use. Field data are stored limb tensors:
-``(..., L)`` int32 holding uint32 Montgomery limbs (R = 2^(32 L)), on the
-CPU or the card. The ops here are plain PyTorch (``ops/limb.py``); the
-JAX package runs them as XLA, not as Pallas kernels.
+secure multiplication, comparison and matrix products use. Field data are
+stored limb tensors: ``(..., L)`` int32 holding uint32 Montgomery limbs
+(R = 2^(32 L)), on the CPU or the card. The ops here are plain PyTorch
+(``ops/limb.py``); the JAX package runs them as XLA, not as Pallas
+kernels. The matrix product contracts 4-bit planes of its operands with
+one int8 GEMM (``torch._int_mm``, as the JAX package leaves its plane
+contractions to XLA's integer matmul) and assembles and folds the sums in
+plain torch.
 """
 
 from __future__ import annotations
@@ -15,6 +19,36 @@ import numpy as np
 import torch
 
 from mpyc_tpu_torch.ops import limb
+
+
+# The plane contractions are exact in int32 while K * 15 * 15 * 16 < 2^31
+# (the JAX package's _matmul_mxu limit); longer contractions are cut.
+_MATMUL_K_MAX = 70000
+
+
+def _nibble_planes(x: torch.Tensor) -> torch.Tensor:
+    """(..., L) int32 limbs -> (8 L, ...) int8 4-bit planes, plane 8 i + s
+    holding bits 4 s .. 4 s + 3 of limb i."""
+    L = x.shape[-1]
+    return torch.stack([(x[..., i] >> 4 * s) & 0xF
+                        for i in range(L) for s in range(8)]).to(torch.int8)
+
+
+def _int8_gemm(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """a @ bt.T for (M, K) and (N, K) int8 -> (M, N) int32, exact. The
+    second operand enters column-major, the layout of cuBLAS's int8 GEMM;
+    zero rows and columns pad the operands to what ``torch._int_mm`` takes
+    on the card (M > 16; K and N multiples of 8); zero planes add
+    nothing."""
+    M, K = a.shape
+    N = bt.shape[0]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
+    if (Np, Kp) != (N, K):
+        bt = torch.nn.functional.pad(bt, (0, Kp - K, 0, Np - N))
+    out = torch._int_mm(a, bt.t())
+    return out[:M, :N] if (Mp, Np) != (M, N) else out
 
 
 @functools.cache
@@ -154,3 +188,102 @@ class PrimeFieldCtx:
         chunks = [limb.unstack(wide[..., c, :]) for c in range(n_chunks)]
         return limb.stack(limb.reduce_wide(
             chunks, self.radix_limbs(n_chunks), self.p_limbs, self.n0inv))
+
+    def sum(self, a: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum of stored limb data along logical axis ``dim`` (modular adds
+        in a halving tree)."""
+        a = a.movedim(dim % (a.dim() - 1), 0)
+        if a.shape[0] == 0:
+            return torch.zeros_like(a[0:1].sum(0))
+        while a.shape[0] > 1:
+            h = a.shape[0] // 2
+            s = self.add(a[:h], a[h:2 * h])
+            a = torch.cat([s, a[2 * h:]]) if a.shape[0] % 2 else s
+        return a[0]
+
+    # -- matrix product --------------------------------------------------------
+
+    def matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(..., M, K, L) @ (..., K, N, L) -> (..., M, N, L), batch axes
+        broadcast as numpy's matmul does.
+
+        Counterpart of ``mpyc_tpu/ops/fieldops.py`` ``PrimeFieldCtx.matmul``
+        (its ``_matmul_mxu`` for every K). The outputs are canonical
+        Montgomery limbs, so they equal the JAX package's bit for bit in
+        all of its branches. A batch of a's against a b without one folds
+        into a's rows: one GEMM."""
+        L = self.L
+        M, K = a.shape[-3], a.shape[-2]
+        N = b.shape[-2]
+        if b.shape[-3] != K:
+            raise ValueError(f'matmul: contraction {K} against '
+                             f'{b.shape[-3]}')
+        if b.dim() == 3:
+            lead = a.shape[:-3]
+            out = self._matmul2d(a.reshape(-1, K, L), b)
+            return out.reshape(lead + (M, N, L))
+        batch = torch.broadcast_shapes(a.shape[:-3], b.shape[:-3])
+        a = a.expand(batch + a.shape[-3:]).reshape(-1, M, K, L)
+        b = b.expand(batch + b.shape[-3:]).reshape(-1, K, N, L)
+        return torch.stack([self._matmul2d(x, y) for x, y in zip(a, b)]
+                           ).reshape(batch + (M, N, L))
+
+    def _matmul2d(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(M, K, L) @ (K, N, L) -> (M, N, L) by the JAX package's
+        nibble-plane scheme (``plane_gemm``, then ``fold_planes``), in
+        chunks of K that keep the plane sums exact."""
+        K = a.shape[1]
+        out = None
+        for k0 in range(0, max(K, 1), _MATMUL_K_MAX):
+            part = self.fold_planes(self.plane_gemm(
+                a[:, k0:k0 + _MATMUL_K_MAX], b[k0:k0 + _MATMUL_K_MAX]))
+            out = part if out is None else self.add(out, part)
+        return out
+
+    def plane_gemm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(M, K, L) @ (K, N, L) -> (P, M, P, N) int32 contractions of all
+        pairs of 4-bit planes, P = 8 L (plane 8 i + s holds bits 4 s ..
+        4 s + 3 of limb i), as one int8 GEMM over stacked planes,
+        (P M, K) @ (K, P N); exact for K <= _MATMUL_K_MAX."""
+        M, K, L = a.shape
+        N = b.shape[1]
+        P = 8 * L
+        pa = _nibble_planes(a).reshape(P * M, K)
+        pb = _nibble_planes(b.transpose(0, 1)).reshape(P * N, K)
+        return _int8_gemm(pa, pb).view(P, M, P, N)
+
+    def fold_planes(self, prod: torch.Tensor) -> torch.Tensor:
+        """(P, M, P, N) plane contractions -> (M, N, L) Montgomery limbs of
+        the product:
+
+        * bucket sums S_e = sum_{d1 + d2 = e} prod[d1, :, d2], the
+          anti-diagonals, in int64 (each < 2^28);
+        * the wide value V = sum_e S_e 16^e as 32-bit limbs, by a carry
+          chain;
+        * a fold of V's L-limb chunks by Montgomery products with
+          2^(32 L i) mod p, which also removes one R of the product of two
+          Montgomery operands: the output is a b R mod p."""
+        P, M, _, N = prod.shape
+        L = self.L
+        dev = prod.device
+        E = 2 * P - 1                        # buckets, d1 + d2 = e
+        nj = -(-E // 8)                      # 32-bit limbs they start in
+        S = torch.zeros((M, nj * 8, N), dtype=torch.int64, device=dev)
+        for d1 in range(P):
+            S[:, d1:d1 + P] += prod[d1]
+        shifts = 4 * torch.arange(8, device=dev).view(1, 1, 8, 1)
+        T = S.view(M, nj, 8, N) << shifts    # < 2^56
+        lo = (T & limb.M32).sum(2)           # limb j gets the low words
+        hi = (T >> 32).sum(2)                # of its buckets, limb j + 1
+        W = torch.cat([lo, lo.new_zeros((M, 1, N))], 1)  # the high ones
+        W[:, 1:] += hi
+        for j in range(nj):                  # carry chain
+            W[:, j + 1] += W[:, j] >> 32
+            W[:, j] &= limb.M32
+        n_c = -(-(nj + 1) // L)
+        W = torch.nn.functional.pad(W, (0, 0, 0, n_c * L - nj - 1))
+        chunks = [[W[:, c * L + q] for q in range(L)] for c in range(n_c)]
+        fold = [limb.const_limbs(pow(2, 32 * L * c, self.p), L)
+                for c in range(n_c)]
+        return limb.stack(limb.reduce_wide(chunks, fold, self.p_limbs,
+                                           self.n0inv))

@@ -7,6 +7,8 @@ field elements:
 
 * protocol randomness (``field_uniform``) takes byte_length(p-1) + 16
   bytes a value and reduces it mod p (statistical distance < 2^-128);
+  draws that are not a whole number of words (SecInt(14)'s 22 bytes) are
+  split out of the squeezed blocks byte by byte;
 * fused reshare streams (``squeeze_mont``) take word-aligned draws of
   ``fused_draw_bytes(p)`` bytes (64-bit widening).
 """
@@ -43,18 +45,23 @@ def blocks_needed(n: int, l: int) -> int:
 
 
 def words_to_elements(blocks: torch.Tensor, n: int, l: int, L: int):
-    """(n_blocks, 42) int32 words -> (n, n_chunks, L) wide values.
+    """(n_blocks, 42) int32 words -> (n, n_chunks, L) wide values,
+    n_chunks = ceil(ceil(l / 4) / L).
 
-    Draw i takes words (i % epb) W .. of block i // epb, epb = 168 // l;
-    block tails are discarded. Only word-aligned draws (l % 4 == 0, l <=
-    168) are ported: those are the draws of every prime field of two or
-    more limbs and of the fused streams."""
-    if l % 4 or l > keccak.RATE:
-        raise NotImplementedError(f'{l}-byte draws are not ported')
-    W = l // 4
+    A draw of l <= 168 bytes takes bytes (i % epb) l .. of block i // epb,
+    epb = 168 // l, and never straddles two blocks (block tails are
+    discarded); a larger draw owns ceil(l / 168) whole consecutive blocks.
+    Each draw is read as little-endian words, its last word zero-padded
+    (``mpyc_tpu/ops/rng.py`` ``words_to_elements``)."""
+    W = -(-l // 4)
     n_chunks = -(-W // L)
-    epb = keccak.RATE // l
-    usable = blocks[:, :epb * W].reshape(-1, W)[:n]
+    rows = blocks.contiguous().view(torch.uint8)
+    if l > keccak.RATE:
+        rows = rows.reshape(-1, -(-l // keccak.RATE) * keccak.RATE)
+    else:
+        rows = rows[:, :keccak.RATE // l * l].reshape(-1, l)
+    rows = torch.nn.functional.pad(rows[:n, :l], (0, 4 * W - l))
+    usable = rows.contiguous().view(torch.int32)
     pad_w = n_chunks * L - W
     if pad_w:
         usable = torch.nn.functional.pad(usable, (0, pad_w))
@@ -114,9 +121,10 @@ class KeccakRNG:
     Every draw is a set of distinct (key, nonce, counter) single-block
     sponge instances. Draws of up to ``_POOL_MAX_DRAW`` blocks come from a
     pooled refill of ``_POOL_BLOCKS`` blocks per nonce (K1 on the card), as
-    in the JAX package. Larger draws take a nonce of their own and squeeze
-    straight into the field (K2 on the card): the same elements as the JAX
-    package's squeeze of the blocks followed by their reduction. Not
+    in the JAX package. Larger draws take a nonce of their own; word-aligned
+    ones squeeze straight into the field (K2 on the card), the same
+    elements as the JAX package's squeeze of the blocks followed by their
+    reduction, and the others squeeze the blocks (K1) and split them. Not
     thread-safe: the pool offsets and nonce are updated without a lock.
 
     ``device``: where draws land (default: the card).
@@ -166,14 +174,17 @@ class KeccakRNG:
         if p & (p - 1):
             l += _WIDEN_BYTES
         n_blocks = max(blocks_needed(n, l), 1)
-        if n_blocks > _POOL_MAX_DRAW:
+        if n_blocks > _POOL_MAX_DRAW and l % 4 == 0 and l <= keccak.RATE:
             state, lane = keccak.ctr_state(self._next_prefix())
             mont = squeeze_mont(keccak.state_tensor(state, self.device), n,
                                 l, p, ctr_lane=lane)
         else:
-            wide = words_to_elements(self._pool_blocks(n_blocks), n, l,
-                                     ctx.L)
-            mont = ctx.reduce_chunks(wide)
+            if n_blocks <= _POOL_MAX_DRAW:
+                blocks = self._pool_blocks(n_blocks)
+            else:   # K2 takes word-aligned draws only: squeeze, then split
+                blocks = keccak.shake128_ctr_blocks(self._next_prefix(),
+                                                    n_blocks, self.device)
+            mont = ctx.reduce_chunks(words_to_elements(blocks, n, l, ctx.L))
         return field.array.from_data(
             mont.reshape(tuple(shape) + (ctx.L,)))
 

@@ -1,13 +1,14 @@
 """Co-located simulator plane: all m parties in one process, on one device.
 
 Port of the part of ``mpyc_tpu/parallel/simulator.py`` that secure
-multiplication and comparison use. A share array carries a leading party
-axis, (m, ...) plus the limb axis, so the whole m-party protocol runs as
-dense tensor programs: input is a Shamir split per sender, a secure
-product is one fused reshare round (kernel K3 on the card), a product with
-a public operand a local scale, a comparison one fused step per chunk of
-up to 2^20 elements (kernel K5), and output recombines the first t+1
-shares at 0.
+multiplication, comparison and matrix products use. A share array carries
+a leading party axis, (m, ...) plus the limb axis, so the whole m-party
+protocol runs as dense tensor programs: input is a Shamir split per
+sender, a secure product is one fused reshare round (kernel K3 on the
+card), a product with a public operand a local scale, a matrix product of
+two secure operands a field matmul and one reshare round (K3 without the
+product), a comparison one fused step per chunk of up to 2^20 elements
+(kernel K5), and output recombines the first t+1 shares at 0.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
@@ -149,6 +150,94 @@ class SimRuntime(Runtime):
                                     self._fused_ctr)
         return out[:, :n].reshape(d0.shape)
 
+    def _local(self, a, fn):
+        """Secure array of fn(party-stacked share data): a local shape
+        operation that keeps the party axis first and the limb axis last."""
+        share = self._share(a)
+        return self._wrap(type(a), share.from_data(fn(share.data)))
+
+    def np_getitem(self, a, idx):
+        """a[idx] along the logical axes (local)."""
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        return self._local(a, lambda d: d[(slice(None),) + idx])
+
+    def np_sum(self, a, axis=None, keepdims=False):
+        """Secure sum over the logical axes ``axis`` (int, tuple or None:
+        all), local."""
+        share = self._share(a)
+        nd = len(a.shape)
+        if axis is None:
+            axes = list(range(nd))
+        elif isinstance(axis, int):
+            axes = [axis % nd]
+        else:
+            axes = sorted(i % nd for i in axis)
+        data = share.data
+        for ax in reversed(axes):
+            data = share.ctx.sum(data, ax + 1)
+        if keepdims:
+            data = data.reshape(data.shape[:1] + tuple(
+                1 if i in axes else s for i, s in enumerate(a.shape))
+                + data.shape[-1:])
+        return self._wrap(type(a), share.from_data(data))
+
+    def _reshare(self, x):
+        """GRR98 degree reduction of party-stacked field-array shares, one
+        fused round (K3 without the local product) of any logical shape."""
+        if self.threshold == 0:
+            return x
+        field = x.field
+        t, m = self.threshold, len(self.parties)
+        out = self._fused_flat(
+            (field.modulus, t, 'reshare'),
+            lambda: pipelines.make_reshare_step(field.modulus, t, m),
+            [x.data])
+        return field.array.from_data(out)
+
+    def np_matmul(self, a, b):
+        """Secure matrix product, numpy's matmul semantics on the logical
+        shapes (vectors promoted; the party axis broadcasts as the leading
+        batch axis). Two secure operands (public-valued secure arrays
+        included) take a field matmul of the shares and one reshare; a
+        public operand (an integer array) gives a local product."""
+        stype = self._sectype(a, b)
+        both_sec = all(isinstance(x, sectypes.SecureArray) for x in (a, b))
+        m = len(self.parties)
+        ops = []
+        for x in (a, b):
+            x = self._coerce_op(stype, x)
+            # public-valued arrays enter without a party axis: the matmul
+            # broadcasts them, as the constant sharing would be
+            party = not self._is_public(x)
+            d = x.share.data
+            ops.append([d, party, tuple(d.shape[1 if party else 0:-1])])
+        (da, pa, la), (db, pb, lb) = ops
+        a_vec, b_vec = len(la) == 1, len(lb) == 1
+        if a_vec:
+            da, la = da.unsqueeze(-3), (1,) + la
+        if b_vec:
+            db, lb = db.unsqueeze(-2), lb + (1,)
+        rank = max(len(la), len(lb))
+        L = da.shape[-1]
+        if pa and len(la) < rank:
+            da = da.reshape((m,) + (1,) * (rank - len(la)) + la + (L,))
+        if pb and len(lb) < rank:
+            db = db.reshape((m,) + (1,) * (rank - len(lb)) + lb + (L,))
+        c = stype.field.array.ctx.matmul(da, db)
+        if a_vec:
+            c = c[..., 0, :, :]
+        if b_vec:
+            c = c[..., 0, :]
+        c = stype.field.array.from_data(c)
+        if not (pa or pb):
+            if not both_sec:
+                return stype(c)
+            c = c.from_data(c.data.expand((m,) + tuple(c.data.shape)))
+        if both_sec:
+            c = self._reshare(c)
+        return self._wrap(stype, c)
+
     def _mul_reshare_fused(self, sa, sb):
         """Whole secure multiplication (local product + GRR98 reshare) as
         one fused step: kernel K3 on the card."""
@@ -219,7 +308,7 @@ class SimRuntime(Runtime):
             raise NotImplementedError('the port needs t >= 1')
         stype = type(a)
         field = stype.field
-        l = l or stype.bit_length
+        l = l or stype.sectype.bit_length
         sh = self._share(a)
         m, L = len(self.parties), sh.ctx.L
         n = math.prod(a.shape)

@@ -1,14 +1,17 @@
 """The MPC runtime's user surface: secure multiplication and comparison.
 
 Port of the part of ``mpyc_tpu/runtime.py`` that the port's slices need:
-``input``, ``SecInt``, ``start`` and ``shutdown``; the local share
-arithmetic ``add``, ``sub``, ``neg`` (public operands broadcast as the
-constant polynomial); ``np_multiply``; and the comparison surface
-``np_less``, ``np_equal``, ``np_minimum``, ``np_maximum``,
-``np_absolute`` on top of ``np_sgn``. The co-located plane
-(``parallel/simulator.py``) adds the protocol steps ``_distribute``,
-``mul``, ``np_sgn`` and ``output``, and the share bookkeeping ``_share``,
-``_share2`` and ``_wrap``.
+``input``, ``SecInt``, ``start``, ``shutdown``, ``barrier`` and
+``gather``; the local share arithmetic ``add``, ``sub``, ``neg`` (public
+operands broadcast as the constant polynomial); ``np_multiply``; the
+comparison surface ``np_less``, ``np_equal``, ``np_minimum``,
+``np_maximum``, ``np_absolute`` on top of ``np_sgn``; ``np_argmax`` and
+``np_argmin``; and the local shape operations they use (``np_reshape``,
+``np_swapaxes``, ``np_expand_dims``, ``np_concatenate``, ``np_stack``).
+The co-located plane (``parallel/simulator.py``) adds the protocol steps
+``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare`` and
+``output``, the local ``np_getitem`` and ``np_sum``, and the share
+bookkeeping ``_share``, ``_share2``, ``_local`` and ``_wrap``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from mpyc_tpu_torch import resolve_device, sectypes
 
@@ -49,6 +53,22 @@ class Runtime:
 
     def shutdown(self):
         self.start_time = None
+
+    def barrier(self, name=None):
+        """Synchronisation point of the parties: nothing to wait for when
+        one process plays them all."""
+
+    def gather(self, *obj):
+        """The local shares of secure objects (lists and tuples walked)."""
+        def g(x):
+            if isinstance(x, sectypes.SecureObject):
+                return self._share(x)
+            if isinstance(x, (list, tuple)):
+                return type(x)(map(g, x))
+            return x
+        if len(obj) == 1:
+            return g(obj[0])
+        return tuple(map(g, obj))
 
     def SecInt(self, l: int = 32) -> type:
         """Secure l-bit integers on this runtime's device, whose arrays'
@@ -142,12 +162,12 @@ class Runtime:
         """Secure elementwise a == b, as 0/1."""
         d = self.sub(a, b)
         stype = self._sectype(d)
-        if stype.bit_length / 2 > self.sec_param >= 8 and \
-                stype.field.modulus % 4 == 3:
+        l = stype.sectype.bit_length
+        if l / 2 > self.sec_param >= 8 and stype.field.modulus % 4 == 3:
             # the JAX package takes the [NO07] probabilistic zero test
             # (_np_is_zero) here; the port has no counterpart yet
             raise NotImplementedError(
-                f'np_equal for SecInt({stype.bit_length}): the [NO07] zero '
+                f'np_equal for SecInt({l}): the [NO07] zero '
                 'test is not ported')
         return self.np_sgn(d, EQ=True)
 
@@ -164,3 +184,131 @@ class Runtime:
     def np_absolute(self, a, l=None):
         """Secure elementwise |a|."""
         return self.mul(self.np_sgn(a, l=l, LT=True) * -2 + 1, a)
+
+    # -- shape operations (local) --------------------------------------------
+
+    def np_reshape(self, a, shape):
+        """Secure array reshaped to ``shape`` (one -1 allowed)."""
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return self._local(a, lambda d: d.reshape(
+            d.shape[:1] + shape + d.shape[-1:]))
+
+    def np_swapaxes(self, a, i, j):
+        nd = len(a.shape)
+        return self._local(a, lambda d: d.transpose(i % nd + 1, j % nd + 1))
+
+    def np_expand_dims(self, a, axis):
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        out_nd = len(a.shape) + len(axes)
+        norm = [ax % out_nd for ax in axes]
+        it = iter(a.shape)
+        return self.np_reshape(a, tuple(1 if i in norm else next(it)
+                                        for i in range(out_nd)))
+
+    def _shares_of(self, arrays):
+        """The type and party-stacked shares of secure arrays and public
+        integer arrays (constant sharings)."""
+        stype = self._sectype(*arrays)
+        return stype, [self._share(self._coerce_op(stype, x))
+                       for x in arrays]
+
+    def np_concatenate(self, arrays, axis=0):
+        stype, shares = self._shares_of(arrays)
+        nd = len(shares[0].shape) - 1
+        data = torch.cat([s.data for s in shares], dim=axis % nd + 1)
+        return self._wrap(stype, shares[0].from_data(data))
+
+    def np_stack(self, arrays, axis=0):
+        stype, shares = self._shares_of(arrays)
+        nd = len(shares[0].shape)             # logical ndim of the result
+        data = torch.stack([s.data for s in shares], dim=axis % nd + 1)
+        return self._wrap(stype, shares[0].from_data(data))
+
+    # -- arg extrema ---------------------------------------------------------
+
+    def np_argmax(self, a, axis=None, keepdims=False, arg_unary=False,
+                  arg_only=True):
+        """Secure indices of the maximum values along an axis, the first
+        occurrence on ties; unit vectors when arg_unary; with the maxima
+        when not arg_only (``mpyc_tpu/runtime.py`` np_argmax)."""
+        return self._np_argminmax(a, axis, keepdims, arg_unary, arg_only,
+                                  is_min=False)
+
+    def np_argmin(self, a, axis=None, keepdims=False, arg_unary=False,
+                  arg_only=True):
+        """Secure indices of the minimum values along an axis; see
+        np_argmax."""
+        return self._np_argminmax(a, axis, keepdims, arg_unary, arg_only,
+                                  is_min=True)
+
+    def _np_argminmax(self, a, axis, keepdims, arg_unary, arg_only, is_min):
+        """The reference's shape semantics (``mpyc_tpu/runtime.py``
+        ``_np_argminmax``): the axis goes last, the rest flattens into
+        rows, and one odd-even tournament runs on every row at once."""
+        shape = a.shape
+        ndim = len(shape)
+        if axis is None:
+            a = self.np_reshape(a, (1, a.size))
+        else:
+            a = self.np_swapaxes(a, axis, -1)
+            a = self.np_reshape(a, (-1, a.shape[-1]))
+        u, m = self._np_argext(a, is_min)
+        if not arg_unary:
+            u = self.np_sum(self.mul(u, np.arange(u.shape[1])), axis=-1)
+        if axis is None:
+            if not arg_unary and keepdims:
+                u = self.np_reshape(u, (1,) * ndim)
+            else:
+                u = self.np_getitem(u, 0)
+        else:
+            shape = list(shape)
+            if arg_unary:
+                shape[axis], shape[-1] = shape[-1], shape[axis]
+            elif keepdims:
+                shape[axis] = 1
+            else:
+                del shape[axis]
+            u = self.np_reshape(u, tuple(shape))
+            if arg_unary:
+                u = self.np_swapaxes(u, axis, -1)
+        if arg_only:
+            return u
+        if axis is None:
+            m = self.np_reshape(m, (1,) * ndim) if keepdims else \
+                self.np_getitem(m, (0, 0))
+        elif keepdims:
+            if arg_unary:
+                shape[axis], shape[-1] = shape[-1], shape[axis]
+                shape[axis] = 1
+            m = self.np_reshape(m, tuple(shape))
+        return u, m
+
+    def _np_argext(self, a, is_min):
+        """(unit vectors u, extrema m) along axis 1 of a 2D secure array:
+        neighbours (odd, even) are compared, the winners recurse, and u is
+        unfolded level by level; pairing from the end makes the first
+        occurrence win a tie (``mpyc_tpu/runtime.py`` ``_np_argext``)."""
+        stype = type(a)
+        n = a.shape[1]
+        if n == 1:
+            ones = self._share(stype(np.ones(a.shape[:2], np.int64)))
+            return self._wrap(stype, ones.from_data(
+                ones.data.contiguous())), a
+        n0 = n % 2
+        a1 = self.np_getitem(a, (slice(None), slice(n0, None, 2)))
+        a2 = self.np_getitem(a, (slice(None), slice(n0 + 1, None, 2)))
+        c = self.np_less(a2, a1) if is_min else self.np_less(a1, a2)
+        m = self.add(self.mul(c, self.sub(a2, a1)), a1)
+        if n0:
+            m = self.np_concatenate(
+                [self.np_getitem(a, (slice(None), slice(0, 1))), m], axis=1)
+        u, m = self._np_argext(m, is_min)
+        if n0:
+            u0 = self.np_getitem(u, (slice(None), slice(0, 1)))
+            u = self.np_getitem(u, (slice(None), slice(1, None)))
+        u2 = self.mul(u, c)
+        inter = self.np_stack([self.sub(u, u2), u2], axis=-1)
+        u = self.np_reshape(inter, (inter.shape[0], 2 * u2.shape[1]))
+        if n0:
+            u = self.np_concatenate([u0, u], axis=1)
+        return u, m

@@ -1,12 +1,14 @@
 """Secure types: SecInt(l) and its arrays.
 
-Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication
-and comparison use: ``SecInt(l)`` with its ``.array`` class, enough to
-input public values, compute and open the result. A secure array holds a
-``PrimeFieldArray`` share: logical shape before input, (m, ...) party
-stacked after it. The operators of a secure array (-x, +, -, *, <, <=, >,
->=, ==, !=; the comparisons give secure 0/1 arrays) call the runtime whose
-``SecInt`` made its type (``bind``).
+Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication,
+comparison and matrix products use: ``SecInt(l)`` with its ``.array``
+class, enough to input public values, compute and open the result. A
+secure array holds a ``PrimeFieldArray`` share: logical shape before input
+(``secint.array(values)`` of public values, the constant sharing), (m, ...)
+party stacked after it. The operators of a secure array (-x, +, -, *, @,
+<, <=, >, >=, ==, !=, indexing; the comparisons give secure 0/1 arrays)
+call the runtime whose ``SecInt`` made its type (``bind``). A type's
+``bit_length`` may be reassigned; comparisons read it at call time.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class SecureArray(SecureObject):
     sectype: type = None
     device = None
     runtime = None    # the runtime the operators call (bind)
+    __array_ufunc__ = None   # numpy operands defer to the operators below
 
     def __init__(self, value=None, shape=None):
         if value is not None and not isinstance(
@@ -57,6 +60,16 @@ class SecureArray(SecureObject):
         self.shape = tuple(shape) if shape is not None else None
         super().__init__(value)
 
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __getitem__(self, idx):
+        return self.runtime.np_getitem(self, idx)
 
     # arithmetic and comparison, forwarded to the runtime; public operands
     # (ints, integer arrays) pass as they are, and the runtime encodes them.
@@ -99,6 +112,18 @@ class SecureArray(SecureObject):
         return self.runtime.mul(self, other)
 
     __rmul__ = __mul__
+
+    def __matmul__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.np_matmul(self, other)
+
+    def __rmatmul__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.np_matmul(other, self)
 
     def __lt__(self, other):
         other = self._coerce(other)
@@ -167,7 +192,7 @@ def _SecInt(l, device):
                                             'bit_length': l})
     secint.array = type(f'Array{name}', (SecureIntegerArray,), {
         '__slots__': (), 'sectype': secint, 'field': field,
-        'bit_length': l, 'device': device})
+        'device': device})
     return secint
 
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from mpyc_tpu import sectypes as jsectypes
 from mpyc_tpu.models import pipelines as jpipe
 from mpyc_tpu.ops import keccak as jkeccak
 from mpyc_tpu.parallel.simulator import SimRuntime as JaxSim
@@ -167,8 +168,17 @@ def test_runtime_sgn_matches_jax_step_bit_for_bit(monkeypatch):
     step run on the same bucket-padded shares with the JAX runtime's fused
     state and counter (both runtimes loaded with one randomness state)."""
     monkeypatch.setenv('MPYC_TPU_CACHE', '0')
+    old = jsectypes.runtime   # wired back after: other test files use it
     jr = JaxSim(3, _Options())
     jr._wire_modules()
+    try:
+        _runtime_sgn_matches_jax_step(jr)
+    finally:
+        if old is not None:
+            old._wire_modules()
+
+
+def _runtime_sgn_matches_jax_step(jr):
     jr.start()
     tr = TorchSim(3, device='cpu')
     tr.start()

@@ -13,11 +13,12 @@ import torch
 
 from mpyc_tpu_torch.models import pipelines
 from mpyc_tpu_torch.ops import keccak, rng
-from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy
+from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, prime_field_ctx
 
 pytestmark = pytest.mark.cuda
 
 P = 18446744073709551427   # SecInt(32)'s field
+P46 = 70368744177643       # SecInt(14)'s field (the BNN's)
 
 
 @pytest.fixture
@@ -32,10 +33,10 @@ def _state(device):
     return keccak.state_tensor(st, device)
 
 
-def _shares(n, seed, device):
+def _shares(n, seed, device, p=P):
     g = np.random.default_rng(seed)
     lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
-    hi = g.integers(0, P >> 32, (3, n), dtype=np.uint64)
+    hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
     return limbs_from_numpy(np.stack([lo, hi], -1).astype(np.uint32), device)
 
 
@@ -121,8 +122,23 @@ def test_sgn_kernel_matches_plain(cuda_device, mode, n):
                                                       spec))
 
 
+@pytest.mark.parametrize('l', [14, 10])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_kernel_matches_plain_at_bnn_widths(cuda_device, mode, l):
+    """The instantiations for the BNN, on SecInt(14)'s field."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P46, 1, 3, l, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    a = _shares(100003, 12, cuda_device, P46)
+    n0 = pipelines.sgn_step.launches
+    got = pipelines.sgn_step(a, st, (5, 0), spec)
+    assert pipelines.sgn_step.launches == n0 + 1
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, (5, 0), spec))
+
+
 def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
-    """The card's K5 is built for l = 32, t = 1, m = 3: others raise."""
+    """The card's K5 is built for l = 32, 14 and 10, t = 1, m = 3: others
+    raise."""
     st = _state(cuda_device)
     a = _shares(64, 8, cuda_device)
     with pytest.raises(NotImplementedError, match='l=32'):
@@ -155,3 +171,37 @@ def test_main_path_on_the_card(cuda_device):
     assert keccak.keccak_ctr.launches > n1
     assert rng.squeeze_mont.launches == n2 + 12
     assert pipelines.reshare_mul.launches == n3 + 6
+
+
+@pytest.mark.parametrize('M,K,N', [(1, 7, 5), (300, 784, 64),
+                                   (300, 4096, 10), (17, 70003, 8)])
+def test_field_matmul_on_the_card_equals_the_cpu(M, K, N, cuda_device):
+    """The plane GEMM on the card (torch._int_mm, padded) and the fold give
+    the bits of the same product on the CPU; K = 70,003 takes two chunks."""
+    ctx = prime_field_ctx(P46)
+    g = np.random.default_rng(M + K)
+    a = ctx.encode(g.integers(0, 1 << 46, (M, K), dtype=np.int64), 'cpu')
+    b = ctx.encode(g.integers(0, 1 << 46, (K, N), dtype=np.int64), 'cpu')
+    got = ctx.matmul(a.to(cuda_device), b.to(cuda_device))
+    assert torch.equal(got.cpu(), ctx.matmul(a, b))
+
+
+def test_bnn_on_the_card(cuda_device):
+    """The MNIST flow at full width on 4 images: predictions equal the
+    plaintext model (run_bnn checks), through K3 and K5."""
+    import chip_smoke
+    n3, n5 = pipelines.reshare_mul.launches, pipelines.sgn_step.launches
+    res = chip_smoke.run_bnn(cuda_device, batch=4, passes=1)
+    assert res['correct'] == 4
+    # a reshare per layer, one sign per hidden layer; the argmax's four
+    # comparisons and two products each
+    assert pipelines.reshare_mul.launches == n3 + 4 + 8
+    assert pipelines.sgn_step.launches == n5 + 3 + 4
+
+
+def test_bnn_selftest_on_the_card(cuda_device):
+    """SecInt(14) input (22-byte draws: K1 and the split) on the card."""
+    import chip_smoke
+    n1 = keccak.keccak_ctr.launches
+    chip_smoke.run_selftest(cuda_device, batch=8)
+    assert keccak.keccak_ctr.launches > n1

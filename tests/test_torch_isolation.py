@@ -3,8 +3,9 @@
 The card's machine has no JAX. In a fresh interpreter whose imports of
 jax, jaxlib and mpyc_tpu (the package or any module of it, but not
 mpyc_tpu_torch) raise, chip_smoke is imported and the port's paths run on
-the CPU: the main path at 4096 elements, the comparison at 300 and the
-split/recombine round at 4096."""
+the CPU: the main path at 4096 elements, the comparison at 300, the
+split/recombine round at 4096 and the BNN runner's selftest at a batch of
+4 (SecInt(14) input, matmul, sign, argmax)."""
 import os
 import subprocess
 import sys
@@ -33,6 +34,7 @@ _SCRIPT = textwrap.dedent('''
                                    rounds=2, sample=512)
     chip_smoke.run_compare('cpu', n=300, calls=0)
     chip_smoke.run_split_recombine('cpu', n=4096, rounds=2)
+    chip_smoke.run_selftest('cpu', batch=4)
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded

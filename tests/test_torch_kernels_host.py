@@ -27,6 +27,7 @@ from mpyc_tpu_torch.ops import keccak, rng
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 P = 18446744073709551427
+P46 = 70368744177643         # SecInt(14)'s field (the BNN's)
 
 _SHIM = '''
 #pragma once
@@ -140,10 +141,10 @@ def state():
     return keccak.state_tensor(st, 'cpu'), lane
 
 
-def _shares(n, seed):
+def _shares(n, seed, p=P):
     g = np.random.default_rng(seed)
     lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
-    hi = g.integers(0, P >> 32, (3, n), dtype=np.uint64)
+    hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
     limbs = np.stack([lo, hi], -1).astype(np.uint32)
     return torch.from_numpy(limbs.view(np.int32))
 
@@ -240,6 +241,25 @@ def test_sgn_source_matches_plain(host_lib, state, mode, n):
     assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
 
 
+@pytest.mark.parametrize('l', [14, 10])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_source_matches_plain_at_bnn_widths(host_lib, state, mode, l):
+    """K5's instantiations for the BNN (SecInt(14)'s 46-bit field, k = 30)
+    on three thread blocks, the last ragged."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P46, 1, 3, l, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    n = 641
+    a = _shares(n, 11, P46)
+    nonce = (7, 0)
+    out = torch.empty_like(a)
+    params = spec.params(nonce)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            spec.blocks_a(n), ctypes.addressof(params),
+                            None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
 def _op_counts(host_lib):
     """The host build's counts of Montgomery products and modular adds."""
     return (ctypes.c_ulonglong * 2).in_dll(host_lib, 'mtt_op_counts')
@@ -252,20 +272,31 @@ DRAW_OPS = (2, 1)
 @pytest.mark.parametrize('mode,f', [('sgn', 0), ('LT', 0), ('EQ', 0),
                                     ('LT', 3)])
 def test_sgn_field_ops_match_the_source(host_lib, state, mode, f):
+    _check_sgn_field_ops(host_lib, state, mode, f, 32, P)
+
+
+@pytest.mark.parametrize('l', [14, 10])
+def test_sgn_field_ops_match_the_source_at_bnn_widths(host_lib, state, l):
+    """As below, LT mode at the BNN's widths: 5 standard deviations of
+    the ones are 335 (l = 14) and 283 (l = 10), below n / 2 = 640."""
+    _check_sgn_field_ops(host_lib, state, 'LT', 0, l, P46)
+
+
+def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     """SgnSpec.field_ops, from which chip_smoke.py bounds K5, counts the
     products the kernel's source runs exactly, and its adds up to the
     subtractions that the ones of c mod 2^l select. n = 1280 fills whole
     CTAs (the lanes of a CTA past n run the protocol on zeros, and their
     operations would count too); c mod 2^l is uniform, so its ones lie
-    within 5 standard deviations (506) of n l / 2, and n = 2 mod 6, so an
-    error of 1, 2, 4 or 5 adds per element leaves a remainder and one of
-    3 moves the ones by n / 2."""
+    within 5 standard deviations (506 at l = 32) of n l / 2, and n = 2 mod
+    6, so an error of 1, 2, 4 or 5 adds per element leaves a remainder and
+    one of 3 moves the ones by n / 2."""
     st, _ = state
-    spec = pipelines.SgnSpec(P, 1, 3, 32, 30, LT=mode == 'LT',
+    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ', f=f)
     n = 1280
     assert n % host_lib.mtt_sgn_threads() == 0
-    a = _shares(n, 8)
+    a = _shares(n, 8, p)
     out = torch.empty_like(a)
     params = spec.params((3, 0))
     counts = _op_counts(host_lib)

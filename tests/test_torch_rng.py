@@ -95,3 +95,41 @@ def test_generator_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match='no card'):
             trng.KeccakRNG(KEY)
+
+
+# Fields whose protocol draws are not a whole number of words: SecInt(14)'s
+# (46 bits: 6 + 16 = 22 bytes, two limbs), SecInt(20)'s (52 bits: 23 bytes)
+# and a 70-bit one (9 + 16 = 25 bytes, three limbs)
+P46 = 70368744177643
+P52 = tfinfields.find_prime_root(52, n=2)[0]
+P70 = tfinfields.find_prime_root(70, n=2)[0]
+
+
+@pytest.mark.parametrize('n,l,L', [(300, 22, 2), (200, 23, 2), (150, 25, 3),
+                                   (30, 170, 2), (20, 171, 3)])
+def test_byte_granular_words_to_elements_matches_jax(n, l, L):
+    """Draws that are not word-aligned, within a block (l <= 168) and over
+    whole blocks (l > 168)."""
+    st = _state(b'b' * 40)
+    blocks = np.asarray(jkeccak._squeeze_ctr(jnp.asarray(st), 64, 19))
+    want = np.asarray(jrng.words_to_elements(blocks, n, l, L))
+    got = trng.words_to_elements(
+        torch.from_numpy(blocks.view(np.int32).copy()), n, l, L)
+    np.testing.assert_array_equal(limbs_to_numpy(got), want)
+
+
+@pytest.mark.parametrize('p', [P46, P52, P70])
+@pytest.mark.parametrize('shape', [(1, 40), (3, 100), (2048,), (4, 2000)])
+def test_unaligned_field_uniform_matches_jax(p, shape):
+    """The pool (<= 64 blocks: (1, 40), (3, 100)) and the path above it,
+    where the blocks are squeezed (K1 on the card) and split, as the JAX
+    package does: the same elements and nonces."""
+    assert (((p - 1).bit_length() + 7 >> 3) + 16) % 4
+    jr, tr = jrng.KeccakRNG(KEY), trng.KeccakRNG(KEY, device='cpu')
+    jf, tf = jfinfields.GF(p), tfinfields.GF(p)
+    for _ in range(2):
+        want = np.asarray(jr.field_uniform(jf, shape).data)
+        got = tr.field_uniform(tf, shape)
+        assert got.shape == shape
+        np.testing.assert_array_equal(limbs_to_numpy(got.data), want)
+    assert tr._nonce == jr._nonce

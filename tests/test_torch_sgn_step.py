@@ -121,3 +121,27 @@ def test_stream_budget_at_full_width():
         spec = tpipe.SgnSpec(p, 1, 3, 32, 30, **kw)
         got[mode] = (spec.draws_per_element(), spec.wpe)
     assert got == {'sgn': (100, 3), 'LT': (68, 3), 'EQ': (64, 2)}
+
+
+P46 = 70368744177643   # SecInt(14)'s field: the BNN's, two limbs
+
+
+@pytest.mark.parametrize('l', [14, 10])
+def test_bnn_widths_match_jax_beyond_the_range(l):
+    """LT mode at the BNN's widths on SecInt(14)'s field (k = 30), with
+    inputs beyond [-2^l, 2^l) as the demo's layer sums are (fc1's reach
+    -27,486..25,986 at l = 14): shares and counter bit for bit with the
+    JAX step, and the rule both follow: the step opens to
+    LT(a) = -floor(a / 2^l), which is the bit a < 0 inside the range and
+    a negative or larger integer outside it (the masked open
+    c = a + 2^l + r does not wrap mod p while |a| << 2^(l + k))."""
+    g = np.random.default_rng(l)
+    v = g.integers(-(1 << (l + 2)), 1 << (l + 2), N)
+    v[:8] = [-27486, 25986, -(1 << l), (1 << l) - 1, 1 << l, -(1 << l) - 1,
+             0, -1]
+    a = shares_of(P46, v, 7)
+    jout, jctr, tout, tctr = run_both(P46, l, 30, 'LT', a,
+                                      np.array([3, 0], np.uint32))
+    np.testing.assert_array_equal(tout, jout)
+    np.testing.assert_array_equal(tctr, jctr)
+    assert opened(P46, tout) == [-(int(x) >> l) for x in v]

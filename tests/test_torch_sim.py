@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpyc_tpu import sectypes as jsectypes
 from mpyc_tpu.parallel.simulator import SimRuntime as JaxSim
 from mpyc_tpu.runtime import _Options
 from mpyc_tpu_torch.ops.fieldops import limbs_to_numpy
@@ -31,6 +32,10 @@ def runtimes():
 
 
 def _runtimes():
+    # the JAX runtime is wired into the JAX package's type layer for the
+    # module, and the package's own runtime wired back after it: other
+    # test files in this process use that one
+    old = jsectypes.runtime
     jr = JaxSim(3, _Options())
     jr._wire_modules()
     jr.start()
@@ -38,9 +43,13 @@ def _runtimes():
     tr.start()
     tr.load_state(jr._fused_key, np.zeros(2, np.uint32), jr._rng.key,
                   jr._rng._nonce)
-    yield jr, tr
-    jr.shutdown()
-    tr.shutdown()
+    try:
+        yield jr, tr
+    finally:
+        jr.shutdown()
+        tr.shutdown()
+        if old is not None:
+            old._wire_modules()
 
 
 def _same(jax_share, torch_share):
@@ -83,6 +92,31 @@ def test_input_multiply_output_bit_identical(runtimes, n):
     p = ts.field.modulus
     want = [int(x) * int(y) ** 2 % p for x, y in zip(a, b)]
     assert [int(v) % p for v in got] == want
+
+
+@pytest.mark.parametrize('n', [100, 4096])
+def test_secint14_input_output_bit_identical(runtimes, n):
+    """SecInt(14), the BNN's type: its 46-bit field draws 22 bytes a
+    value. n=100: host-drawn coefficients; 4096: blocks squeezed (K1's
+    plain version here) and split byte by byte. Shares, nonce, a product's
+    shares and the opened values equal the JAX package's."""
+    jr, tr = runtimes
+    js, ts = jr.SecInt(14), tr.SecInt(14)
+    assert js.field.modulus == ts.field.modulus == 70368744177643
+    gen = np.random.default_rng(n + 14)
+    a = gen.integers(-(1 << 13), 1 << 13, n, dtype=np.int64)
+    b = gen.integers(-(1 << 13), 1 << 13, n, dtype=np.int64)
+    JA, JB = (jr.input(js.array(v.astype(object)))[0] for v in (a, b))
+    TA, TB = (tr.input(ts.array(v))[0] for v in (a, b))
+    _same(JA.share, TA.share)
+    _same(JB.share, TB.share)
+    assert tr._rng._nonce == jr._rng._nonce
+    JC = jr.np_multiply(_on_jax_device(JA), _on_jax_device(JB))
+    TC = tr.np_multiply(TA, TB)
+    _same(JC.share, TC.share)
+    assert [int(v) for v in tr.output(TA)] == [int(v) for v in jr.output(JA)]
+    assert [int(v) for v in tr.output(TC)] == [int(x) * int(y)
+                                              for x, y in zip(a, b)]
 
 
 def test_small_product_opens_to_plaintext():
