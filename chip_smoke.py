@@ -8,10 +8,13 @@ Paths on the co-located plane, all at ``SimRuntime(3)`` (t = 1): three as
 secure multiplication (input, ``np_multiply``, output), secure comparison
 (``np_less``, ``np_equal``, ``np_sgn``, ``np_maximum`` and the BNN sign at
 2^20 elements, bench.py:203) and the split/recombine round (bench.py:88);
-and the BNN flagship (``demos/np_bnnmnist.py``) at ``SecInt(14)``, through
+the BNN flagship (``demos/np_bnnmnist.py``) at ``SecInt(14)``, through
 the port's runner ``mpyc_tpu_torch/demos/np_bnnmnist.py``: the MNIST flow
-at full width and its selftest. Phases, each printing one line with its
-elapsed seconds:
+at full width and its selftest; a secure product at ``SecInt(64)`` (a
+three-limb field); and the CNN (``demos/cnnmnist.py``) at ``SecInt(37)``
+(a three-limb field), through ``mpyc_tpu_torch/demos/np_cnnmnist.py``:
+the MNIST flow at full width and its selftest. Phases, each printing one
+line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -25,10 +28,17 @@ elapsed seconds:
    the round's 3,010,560 elements, K5 (sgn_step) in its three modes at
    2^16 and at the comparison's 2^20 elements, and in LT mode at the BNN's
    l = 14 and l = 10 (SecInt(14)'s field) at 2^16 and at a BNN layer's
-   bucket of 2^19 elements, each equal bit for bit to its
-   plain PyTorch version on the same inputs (tolerance: exact, integer
-   arithmetic), K1 also to hashlib; time each and its plain version with
-   CUDA events, beside its bound; for K5 also the permutations per warp of
+   call (409,600 elements on their bucket of 2^19), each equal bit for bit
+   to its plain PyTorch version on the same inputs (tolerance: exact,
+   integer arithmetic), K1 also to hashlib; then at three limbs K2
+   (SecInt(64)'s 28-byte draws), K3 (both modes, at conv1's reshare
+   bucket and at a ragged size) and K5 (LT at the CNN's l = 16, 23, 30,
+   37: at 2^14 elements, and one launch of many chunks of 1024 against the
+   plain version chunk by chunk, outputs and counters: 7 chunks with a
+   ragged tail, and each width's largest comparison in the CNN, the
+   counter carried into its high word in both); time each and its plain
+   version (for K5 the same chunks) with CUDA events, beside its bound;
+   for K5 also the permutations per warp of
    32 elements that its stage serialises, from a model of the stage
    (``sgn_squeezes``, held against the kernel source's own count by
    tests/test_torch_kernels_host.py);
@@ -54,12 +64,30 @@ elapsed seconds:
 8. selftest: the runner's 64-32-10 network with ``rt.input`` at B = 100
    (SecInt(14)'s 22-byte input draws: K1 and the split), predictions
    equal to the plaintext forward pass;
-9. report: one JSON line of the kernels, the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+9. wide product: 2^20 SecInt(64) values input by two parties (28-byte
+   draws: K2 at three limbs), multiplied (K3 at three limbs), every
+   output checked;
+10. cnn: the MNIST flow on test images 0-99 (B = 100; conv 5x5x32,
+   maxpool, conv 5x5x64, maxpool, fc 3136x1024, fc 1024x10, SecInt(37),
+   comparisons at l = 16, 23, 30 and 37), twice (cold, warm): all 100
+   predictions equal to the plaintext model of the protocol, the counts
+   equal to the float model and correct against the labels, seconds a
+   pass and images/s; the host seconds of encoding the pixels and the
+   weights (the encoder of int64 values against its general path of
+   Python ints); a marked pass: each layer's device ms and peak
+   memory, K5's launches against the comparisons' chunks of 1024; per
+   layer at its shapes the device ms of the planes and GEMM, the carry
+   and fold, K3 and K5; one try of torch.profiler over a warm pass;
+11. cnn selftest: the runner's random CNN on 8 x 8 images with
+   ``rt.input`` at SecInt(37) (25-byte draws: K1 and the split), B = 100,
+   predictions equal to the plaintext model;
+12. report: one JSON line of the kernels (every instantiation that a path
+   launches), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-8 zeroes the launch counters just before it and reads them
-just after; each must show that the kernels of its path ran (K1-K3, then
-K2, K3 and K5, then K4, then K3 and K5, then K1, K3 and K5).
+Each of phases 4-11 zeroes the launch counters just before it and reads
+them just after; each must show that the instantiations of its path ran
+(``PATH_ENTRIES``).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -83,7 +111,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpyc_tpu_torch import sectypes  # noqa: E402
 from mpyc_tpu_torch.models import pipelines  # noqa: E402
-from mpyc_tpu_torch.ops import keccak, limb, rng  # noqa: E402
+from mpyc_tpu_torch.ops import keccak, rng  # noqa: E402
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx  # noqa: E402
 from mpyc_tpu_torch.parallel.simulator import SimRuntime  # noqa: E402
 
@@ -100,8 +128,22 @@ N_BIG = 1 << 22                # bench.py's size on the device
 ROUNDS = 10                    # chained np_multiply calls
 SAMPLE = 4096                  # opened outputs checked against plaintext
 N_BNN = 100                    # images of the bnn phase (B), 0-99
-N_BNN_BUCKET = 1 << 19         # bucket of a BNN layer's 100 x 4096 sums
+N_BNN_CMP = N_BNN * 4096       # a BNN layer's comparison (100 x 4096)
 N_SELFTEST = 100               # batch of the selftest phase
+N_WIDE = 1 << 20               # SecInt(64) values of the wide product phase
+N_CNN = 100                    # images of the cnn phase (B), 0-99
+N_CNN_SELFTEST = 100           # batch of the cnn selftest phase (8 x 8)
+N_K5_WIDE = 1 << 14            # K5 at L = 3 against its plain version
+N_CHUNKED = 6 * 1024 + 100     # K5 at L = 3 in one launch of 7 chunks
+CNN_WIDTHS = (16, 23, 30, 37)  # the CNN's comparison widths
+# comparisons of a CNN pass: two a maxpool, three ReLUs, and the argmax's
+# four rounds on 10 columns (5, 2, 1 and 1 pairs)
+CNN_COMPARISONS = 11
+# elements of each width's largest comparison at B = 100 (maxpool1's
+# first round, maxpool2's, ReLU after fc1); the argmax's calls (l = 37)
+# have at most 500, so K5 at l = 37 is timed at 2^14
+CNN_CMP = {16: N_CNN * 32 * 14 * 28, 23: N_CNN * 64 * 7 * 14,
+           30: N_CNN * 1024, 37: 1 << 14}
 M, T = 3, 1
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
@@ -115,11 +157,23 @@ INT8_TENSOR_OPS_PER_S = 1979e12   # dense int8 tensor-core peak
 # 32-bit instructions, counted at their fewest: a Keccak-f round is 20
 # three-input XORs (column parities) + 10 funnel shifts (theta rotations)
 # + 50 XORs (theta) + 48 funnel shifts (rho) + 50 three-input chi ops + 2
-# (iota) on the 32-bit halves; a two-limb Montgomery product 10 32x32-bit
-# products of 2 instructions each + 16 adds/selects; a modular add 8.
+# (iota) on the 32-bit halves. An L-limb Montgomery product (CIOS,
+# csrc/limb.cuh mont_mul): in each of its L steps L + 1 + L 32x32-bit
+# products (a_j b_i, m = t_0 n0inv, m p_j) of 2 instructions each (low
+# and high word) and 3 L adds of the carries, then L subtractions and L
+# selects: 7 L^2 + 4 L, 36 at L = 2 and 75 at L = 3. A modular add
+# (add_mod): L adds, L subtractions, L selects and 2 for the carry and
+# borrow: 3 L + 2, 8 at L = 2 and 11 at L = 3.
 KECCAK_F_OPS = 24 * 180
-MONT_MUL_OPS = 36
-ADD_MOD_OPS = 8
+
+
+def mont_mul_ops(L: int) -> int:
+    return 7 * L * L + 4 * L
+
+
+def add_mod_ops(L: int) -> int:
+    return 3 * L + 2
+
 
 SOURCE = 'mpyc_tpu_torch/csrc/kernels.cu'
 KERNELS = {
@@ -136,12 +190,45 @@ KERNELS = {
                      wrapper=pipelines.sgn_step,
                      source='mpyc_tpu_torch/csrc/sgn.cuh'),
 }
-# the kernels each path must launch
-PATH_KERNELS = {'main path': ('keccak_ctr', 'squeeze_mont', 'reshare_mul'),
-                'comparison': ('squeeze_mont', 'reshare_mul', 'sgn_step'),
-                'split/recombine': ('split_recombine',),
-                'bnn': ('reshare_mul', 'sgn_step'),
-                'selftest': ('keccak_ctr', 'reshare_mul', 'sgn_step')}
+# Every instantiation that a path launches, as the kernels line lists it:
+# entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
+# a kernel of one instantiation). Keys: K2 (limbs, words a draw), K3
+# (limbs, fused), K5 (mode, l, limbs).
+ENTRIES = {
+    'keccak_ctr': ('keccak_ctr', None),
+    'squeeze_mont<L=2, W=6>': ('squeeze_mont', (2, 6)),
+    'squeeze_mont<L=3, W=7>': ('squeeze_mont', (3, 7)),
+    'reshare_mul<L=2, fused>': ('reshare_mul', (2, True)),
+    'reshare_mul<L=2>': ('reshare_mul', (2, False)),
+    'reshare_mul<L=3, fused>': ('reshare_mul', (3, True)),
+    'reshare_mul<L=3>': ('reshare_mul', (3, False)),
+    'split_recombine': ('split_recombine', None),
+    **{f'sgn_step<{mode}, l=32, L=2>': ('sgn_step', (mode, 32, 2))
+       for mode in pipelines.SGN_MODES},
+    **{f'sgn_step<LT, l={l}, L=2>': ('sgn_step', ('LT', l, 2))
+       for l in (14, 10)},
+    **{f'sgn_step<LT, l={l}, L=3>': ('sgn_step', ('LT', l, 3))
+       for l in CNN_WIDTHS},
+}
+# the instantiations each path must launch
+PATH_ENTRIES = {
+    'main path': ('keccak_ctr', 'squeeze_mont<L=2, W=6>',
+                  'reshare_mul<L=2, fused>'),
+    'comparison': ('squeeze_mont<L=2, W=6>', 'reshare_mul<L=2, fused>',
+                   'sgn_step<sgn, l=32, L=2>', 'sgn_step<LT, l=32, L=2>',
+                   'sgn_step<EQ, l=32, L=2>'),
+    'split/recombine': ('split_recombine',),
+    'bnn': ('reshare_mul<L=2>', 'reshare_mul<L=2, fused>',
+            'sgn_step<LT, l=14, L=2>', 'sgn_step<LT, l=10, L=2>'),
+    'selftest': ('keccak_ctr', 'reshare_mul<L=2>', 'reshare_mul<L=2, fused>',
+                 'sgn_step<LT, l=14, L=2>'),
+    'wide product': ('squeeze_mont<L=3, W=7>', 'reshare_mul<L=3, fused>'),
+    'cnn': ('reshare_mul<L=3>', 'reshare_mul<L=3, fused>',
+            *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
+    'cnn selftest': ('keccak_ctr', 'reshare_mul<L=3>',
+                     'reshare_mul<L=3, fused>',
+                     *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
+}
 
 
 def say(msg: str) -> None:
@@ -172,10 +259,17 @@ def check(cond: bool, what: str) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k['wrapper'].launches = 0
+        if hasattr(k['wrapper'], 'by_key'):
+            k['wrapper'].by_key.clear()
 
 
 def counts() -> dict:
-    return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+    """Launches of each instantiation of ENTRIES since reset_counts."""
+    res = {}
+    for entry, (name, key) in ENTRIES.items():
+        w = KERNELS[name]['wrapper']
+        res[entry] = w.launches if key is None else w.by_key[key]
+    return res
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -187,7 +281,7 @@ def bound(n_bytes: float, n_ops: float):
 def draw_ops(n_draws: int, W: int, L: int = 2) -> int:
     """Montgomery work to map n_draws W-word draws into GF(p)."""
     nc = -(-W // L)
-    return n_draws * (nc * MONT_MUL_OPS + (nc - 1) * ADD_MOD_OPS)
+    return n_draws * (nc * mont_mul_ops(L) + (nc - 1) * add_mod_ops(L))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -258,7 +352,7 @@ def sgn_squeezes(spec, n: int, threads: int) -> tuple:
     Returns (blocks squeezed, permutations per warp of 32 elements as the
     warps serialise them)."""
     rate_words = keccak.RATE // 4
-    epb = keccak.RATE // 16          # 16-byte draws a block
+    epb = keccak.RATE // spec.l_bytes    # fused draws a block
     squeezed = warp_perms = 0
     for e0 in range(0, n, threads):
         cnt = min(threads, n - e0)
@@ -280,7 +374,8 @@ def profile_calls(fn, calls: int, top: int | None = None) -> list:
     """One try of torch.profiler over ``calls`` calls of fn: lines of
     device time by kernel (the ``top`` largest and the rest summed, if
     given) and the device's idle share over the traced window (first to
-    last event), or "no device time"."""
+    last event), or "no device time"; with ``top``, also the 8 operators
+    with the most self CPU time (the host's share of the window)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -318,6 +413,11 @@ def profile_calls(fn, calls: int, top: int | None = None) -> list:
                      'ms device time')
     lines.append(f'device busy {busy / 1e3:.4f} ms of a {window / 1e3:.4f} '
                  f'ms window: idle share {1 - busy / window:.4f}')
+    if top is not None:    # where the host's time went
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+        lines += [f'host: {e.key[:60]}: {e.self_cpu_time_total / 1e3:.4f} ms '
+                  f'self CPU time in {e.count} calls' for e in host[:8]]
     return lines
 
 
@@ -328,14 +428,13 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
     return int((xa - ya).abs().max().item()) if x.numel() else 0
 
 
-def random_shares(p: int, shape, gen: np.random.Generator) -> torch.Tensor:
-    """Canonical (< p) random two-limb field data, as stored limbs."""
-    lo = gen.integers(0, 1 << 32, shape, dtype=np.uint64)
-    hi = gen.integers(0, p >> 32, shape, dtype=np.uint64)
-    u = (hi << np.uint64(32)) | lo
-    limbs = np.stack([(u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
-                      (u >> np.uint64(32)).astype(np.uint32)], axis=-1)
-    return torch.from_numpy(limbs.view(np.int32)).cuda()
+def random_field(p: int, shape, gen: np.random.Generator) -> torch.Tensor:
+    """Canonical (< p) random field data of any limb count, as stored
+    limbs on the card."""
+    L = prime_field_ctx(p).L
+    words = gen.integers(0, 1 << 32, tuple(shape) + (L,), dtype=np.uint64)
+    words[..., -1] = gen.integers(0, p >> 32 * (L - 1), tuple(shape))
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
 
 
 def check_kernels(p: int) -> dict:
@@ -393,15 +492,8 @@ def check_kernels(p: int) -> dict:
               'plain')
         say(f'  K2 squeeze_mont: {n} draws of {l_bytes} bytes, '
             'equal to plain')
-    W = l_in // 4
-    nb = rng.blocks_needed(N_BIG, l_in)
-    b, o = bound(N_BIG * 8 + 200, nb * KECCAK_F_OPS + draw_ops(N_BIG, W))
-    res['squeeze_mont'] = dict(
-        shape=f'{N_BIG} draws of {l_in} bytes', max_abs_err=err2,
-        ms=cuda_ms(lambda: rng.squeeze_mont(st, N_BIG, l_in, p, lane), 20),
-        plain_ms=cuda_ms(
-            lambda: rng._squeeze_mont_plain(st, N_BIG, l_in, p, lane), 2),
-        bound_ms=b, bound_by=o)
+    res['squeeze_mont<L=2, W=6>'] = squeeze_meas(st, lane, N_BIG, l_in, p,
+                                                 err2)
 
     # A draw too large for the pool (the 4096-element input's 586 blocks)
     # squeezes into the field with K2; the other way to the same elements
@@ -416,8 +508,8 @@ def check_kernels(p: int) -> dict:
 
     # K3 on (3, 2^22, 2) shares, fused product
     spec = pipelines.ReshareSpec(p, T, M)
-    a = random_shares(p, (M, N_BIG), gen)
-    bb = random_shares(p, (M, N_BIG), gen)
+    a = random_field(p, (M, N_BIG), gen)
+    bb = random_field(p, (M, N_BIG), gen)
     nonce = (0xFFFFFFFF, 3)
     out_k = pipelines.reshare_mul(a, bb, st, nonce, spec)
     out_p = pipelines._reshare_mul_plain(a, bb, st, nonce, spec)
@@ -438,20 +530,9 @@ def check_kernels(p: int) -> dict:
         check(err3 == 0, f'K3 at {N_RAGGED} elements differs from its plain '
               'version')
     del out_k, out_p, a_r, b_r
-    W3 = spec.l_bytes // 4
-    nb3 = rng.blocks_needed(N_BIG, spec.l_bytes)
-    ops3 = (nb3 * KECCAK_F_OPS + draw_ops(N_BIG, W3)
-            + N_BIG * spec.n_send * 2 * MONT_MUL_OPS
-            + N_BIG * (spec.n_send - 1) * ADD_MOD_OPS
-            + N_BIG * M * (MONT_MUL_OPS + ADD_MOD_OPS))
-    b, o = bound(N_BIG * (M * 2 * 8 + M * 8), ops3)
-    res['reshare_mul'] = dict(
-        shape=f'({M}, {N_BIG}, 2) shares, fused product', max_abs_err=err3,
-        ms=cuda_ms(lambda: pipelines.reshare_mul(a, bb, st, nonce, spec),
-                   20),
-        plain_ms=cuda_ms(
-            lambda: pipelines._reshare_mul_plain(a, bb, st, nonce, spec), 2),
-        bound_ms=b, bound_by=o)
+    res['reshare_mul<L=2, fused>'] = reshare_meas(spec, a, bb, st, nonce,
+                                                  err3)
+    res['reshare_mul<L=2>'] = reshare_meas(spec, a, None, st, nonce, err3)
     say(f'  K3 reshare_mul: ({M}, {N_BIG}, 2) and ({M}, {N_RAGGED}, 2), '
         'fused and unfused, equal to plain')
     return res
@@ -476,7 +557,7 @@ def check_slice_kernels(p: int) -> dict:
     spec4 = pipelines.SplitSpec(p, T, M)
     err4 = 0
     for n in (N_KCHECK, N_SPLIT):
-        sec = random_shares(p, (n,), gen)
+        sec = random_field(p, (n,), gen)
         sh = torch.empty((M, n, 2), dtype=torch.int32, device='cuda')
         out = pipelines.split_recombine(sec, st, spec4, shares=sh)
         want, want_sh = pipelines._split_recombine_plain(sec, st, spec4)
@@ -490,7 +571,7 @@ def check_slice_kernels(p: int) -> dict:
     mont, adds = spec4.field_ops()
     ops4 = (rng.blocks_needed(T * N_SPLIT, spec4.l_bytes) * KECCAK_F_OPS
             + draw_ops(T * N_SPLIT, spec4.l_bytes // 4)
-            + N_SPLIT * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+            + N_SPLIT * (mont * mont_mul_ops(2) + adds * add_mod_ops(2)))
     b, o = bound(N_SPLIT * 2 * 8, ops4)
     res['split_recombine'] = dict(
         shape=f'{N_SPLIT} secrets', max_abs_err=err4,
@@ -508,7 +589,7 @@ def check_slice_kernels(p: int) -> dict:
                                   EQ=mode == 'EQ')
         torch.cuda.reset_peak_memory_stats()
         for n in (N_KCHECK, N_CMP):
-            a = random_shares(p, (M, n), gen)
+            a = random_field(p, (M, n), gen)
             out = pipelines.sgn_step(a, st, nonce, spec5)
             want = pipelines._sgn_step_plain(a, st, nonce, spec5)
             torch.cuda.synchronize()
@@ -532,67 +613,242 @@ def check_slice_kernels(p: int) -> dict:
             'draws, '
             f'{spec5.blocks(N_CMP) / N_CMP:.4f} stream blocks; {ms:.4f} ms '
             f'at {N_CMP} elements, bound {b:.4f} ms ({o}), {ms / b:.2f}x')
-        if mode == 'LT':      # np_less's mode goes into the kernels line
-            res['sgn_step'] = dict(
-                shape=f'({M}, {N_CMP}, 2) shares, LT', ms=ms,
-                plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
-                    a, st, nonce, spec5), 1),
-                bound_ms=b, bound_by=o)
+        res[f'sgn_step<{mode}, l=32, L=2>'] = dict(
+            shape=f'({M}, {N_CMP}, 2) shares, {mode}', ms=ms,
+            plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
+                a, st, nonce, spec5), 1),
+            bound_ms=b, bound_by=o)
         del a
-    res['sgn_step']['max_abs_err'] = err5
+    for mode in pipelines.SGN_MODES:
+        res[f'sgn_step<{mode}, l=32, L=2>']['max_abs_err'] = err5
 
     # K5 (LT) at the BNN's widths, on SecInt(14)'s field: l = 14 (fc1, the
-    # argmax) and l = 10 (fc2, fc3), at 2^16 and at a layer's bucket
+    # argmax) and l = 10 (fc2, fc3), one call at 2^16, and a layer's
+    # comparison as np_sgn makes it (409,600 elements: one chunk, launched
+    # on its bucket of 2^19), held and timed against the plain version on
+    # the zero-padded bucket
     p14 = sectypes.SecInt(14, 'cuda').field.modulus
     for l in (14, 10):
         spec5 = pipelines.SgnSpec(p14, T, M, l, 30, LT=True)
-        for n in (N_KCHECK, N_BNN_BUCKET):
-            a = random_shares(p14, (M, n), gen)
-            out = pipelines.sgn_step(a, st, nonce, spec5)
-            want = pipelines._sgn_step_plain(a, st, nonce, spec5)
-            torch.cuda.synchronize()
-            err = max_abs_err(out, want)
-            check(err == 0, f'K5 (LT, l = {l}, {n} elements) differs from '
-                  'its plain version')
-            del out, want
-        res[f'sgn_step (LT, l = {l})'] = sgn_meas(
-            spec5, a, st, nonce, N_BNN_BUCKET, err)
-        r = res[f'sgn_step (LT, l = {l})']
-        say(f'  K5 sgn_step LT at l = {l}: {N_KCHECK} and {N_BNN_BUCKET} '
-            f'elements equal to plain; per element {r["mont"]} Montgomery '
-            f'products, {r["adds"]:.0f} modular adds/subs; {r["ms"]:.4f} ms '
-            f'at {N_BNN_BUCKET} elements, bound {r["bound_ms"]:.4f} ms '
-            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x')
+        a = random_field(p14, (M, N_KCHECK), gen)
+        out = pipelines.sgn_step(a, st, nonce, spec5)
+        want = pipelines._sgn_step_plain(a, st, nonce, spec5)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f'K5 (LT, l = {l}, {N_KCHECK} elements) differs '
+              'from its plain version')
+        del out, want
+        a = random_field(p14, (M, N_BNN_CMP), gen)
+        err = max(err, sgn_chunks_check(spec5, a, st, nonce,
+                                        SimRuntime._SGN_CHUNK))
+        r = res[f'sgn_step<LT, l={l}, L=2>'] = sgn_meas(
+            spec5, a, st, nonce, SimRuntime._SGN_CHUNK, err)
+        say(f'  K5 sgn_step LT at l = {l}: {N_KCHECK} elements and a '
+            f'layer\'s call ({r["shape"]}) equal to plain; per element '
+            f'{r["mont"]} Montgomery products, {r["adds"]:.0f} modular '
+            f'adds/subs; {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, '
+            f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'{r["ms"] / r["bound_ms"]:.2f}x')
         del a
     return res
 
 
-def sgn_ops(spec, n: int) -> tuple:
+def sgn_ops(spec, n: int, chunk: int | None = None) -> tuple:
     """(field products, adds/subs per element, integer instructions) of
     K5 on n elements as the kernel does them: its field operations
     (SgnSpec.field_ops, held against the source by
     tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
-    reduction of its draws and the stream's blocks."""
+    reduction of its draws and the stream's blocks, these of each call
+    when the n elements are cut into chunks of ``chunk``."""
+    L = spec.ctx.L
     draws = n * spec.draws_per_element()
     mont, adds = spec.field_ops(spec.l / 2)
-    ops = (spec.blocks(n) * KECCAK_F_OPS
-           + draw_ops(draws, spec.l_bytes // 4)
-           + n * (mont * MONT_MUL_OPS + adds * ADD_MOD_OPS))
+    sizes = [n] if chunk is None else \
+        [min(chunk, n - j0) for j0 in range(0, n, chunk)]
+    ops = (sum(spec.blocks(c) for c in sizes) * KECCAK_F_OPS
+           + draw_ops(draws, spec.l_bytes // 4, L)
+           + n * (mont * mont_mul_ops(L) + adds * add_mod_ops(L)))
     return mont, adds, ops
 
 
-def sgn_meas(spec, a, st, nonce, n: int, err: int) -> dict:
-    """K5's time at n elements (a: (m, n, 2) shares), its plain version's
-    and its bound."""
-    mont, adds, ops = sgn_ops(spec, n)
-    b, o = bound(n * M * 2 * 4 * 2, ops)
+def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> int:
+    """K5's launch of a's chunks ((m, n, L) shares cut into chunks of
+    ``chunk`` as np_sgn cuts them: ``pipelines.sgn_chunks``) against its
+    plain version chunk by chunk (``pipelines._sgn_chunks_plain``): raises
+    unless the outputs are equal bit for bit and both counters are ctr
+    advanced by the number of chunks. Returns the error (0)."""
+    n = a.shape[1]
+    out, ctr_k = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
+    want, ctr_p = pipelines._sgn_chunks_plain(a, st, ctr, spec, chunk)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, want)
+    chunks = -(-n // chunk)
+    v = (ctr[0] | ctr[1] << 32) + chunks
+    check(err == 0 and list(ctr_k) == list(ctr_p)
+          == [v & 0xFFFFFFFF, v >> 32],
+          f'K5 ({spec.mode}, l = {spec.l}, L = {spec.ctx.L}) in one launch '
+          f'of {chunks} chunks of {chunk} ({n} elements) differs from its '
+          'plain version chunk by chunk')
+    return err
+
+
+def sgn_meas(spec, a, st, nonce, chunk: int, err: int) -> dict:
+    """K5's time on a's chunks ((m, n, L) shares in chunks of ``chunk``:
+    one launch), its plain version's on the same chunks
+    (``pipelines._sgn_chunks_plain``) and its bound."""
+    L, n = spec.ctx.L, a.shape[1]
+    mont, adds, ops = sgn_ops(spec, n, chunk)
+    b, o = bound(n * M * L * 4 * 2, ops)
+    chunks = -(-n // chunk)
+    where = f' in {chunks} chunks of {chunk}' if chunks > 1 else \
+        f' on a bucket of {pipelines.bucket(n, chunk)}'
     return dict(
-        shape=f'({M}, {n}, 2) shares, {spec.mode}, l = {spec.l}',
+        shape=f'({M}, {n}, {L}) shares, {spec.mode}, l = {spec.l}{where}',
         max_abs_err=err, mont=mont, adds=adds,
-        ms=cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec), 10),
-        plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
-            a, st, nonce, spec), 1),
+        ms=cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec, chunk),
+                   10),
+        plain_ms=cuda_ms(lambda: pipelines._sgn_chunks_plain(
+            a, st, nonce, spec, chunk), 1),
         bound_ms=b, bound_by=o)
+
+
+def reshare_meas(spec, a, b, st, nonce, err: int) -> dict:
+    """K3's time on (m, n, L) shares a (times b's when b is given), its
+    plain version's and its bound: the stream's blocks and the reduction
+    of its draws, the products (the local one when fused, the Lagrange
+    sum, Horner at m points), against the shares read and written."""
+    L, n = spec.ctx.L, a.shape[1]
+    W = spec.l_bytes // 4
+    n_prod = spec.n_send * (2 if b is not None else 1) + M
+    ops = (rng.blocks_needed(n, spec.l_bytes) * KECCAK_F_OPS
+           + draw_ops(n, W, L) + n * n_prod * mont_mul_ops(L)
+           + n * (spec.n_send - 1 + M) * add_mod_ops(L))
+    reads = 2 if b is not None else 1
+    bd, o = bound(n * M * L * 4 * (reads + 1), ops)
+    what = 'fused product' if b is not None else 'no product'
+    return dict(
+        shape=f'({M}, {n}, {L}) shares, {what}', max_abs_err=err,
+        ms=cuda_ms(lambda: pipelines.reshare_mul(a, b, st, nonce, spec), 10),
+        plain_ms=cuda_ms(lambda: pipelines._reshare_mul_plain(
+            a, b, st, nonce, spec), 1),
+        bound_ms=bd, bound_by=o)
+
+
+def squeeze_meas(st, lane, n: int, l_bytes: int, p: int, err: int) -> dict:
+    """K2's time on n draws of l_bytes into GF(p), its plain version's and
+    its bound (the blocks' permutations and the draws' reduction, against
+    the draws written)."""
+    L = prime_field_ctx(p).L
+    ops = (rng.blocks_needed(n, l_bytes) * KECCAK_F_OPS
+           + draw_ops(n, l_bytes // 4, L))
+    b, o = bound(n * L * 4 + 200, ops)
+    return dict(
+        shape=f'{n} draws of {l_bytes} bytes, L = {L}', max_abs_err=err,
+        ms=cuda_ms(lambda: rng.squeeze_mont(st, n, l_bytes, p, lane), 10),
+        plain_ms=cuda_ms(lambda: rng._squeeze_mont_plain(
+            st, n, l_bytes, p, lane), 1),
+        bound_ms=b, bound_by=o)
+
+
+def check_three_limb_kernels() -> dict:
+    """Phase 3, third part: K2, K3 (both modes) and K5 (LT at the CNN's
+    l = 16, 23, 30, 37) on three-limb fields against their plain versions
+    (bit for bit): K2 at the 28-byte input draws of SecInt(64)'s field;
+    K3 on SecInt(37)'s field at conv1's reshare bucket and at a ragged
+    size; K5 at 2^14 elements in one call, and in one launch of many
+    chunks of 1024 against the plain version chunk by chunk: 7 chunks
+    with a ragged tail, and each width's largest comparison in the CNN.
+    Each timed at the paths' shapes beside its plain version and bound.
+    Returns per-instantiation measurements."""
+    gen = np.random.default_rng(10)
+    res = {}
+    p69 = sectypes.SecInt(37, 'cuda').field.modulus
+    p96 = sectypes.SecInt(64, 'cuda').field.modulus
+    key = bytes(gen.integers(0, 256, 32, dtype=np.uint8))
+    st_np, lane = keccak.ctr_state(key + (9).to_bytes(8, 'little'))
+    st = keccak.state_tensor(st_np, 'cuda')
+
+    # K2: SecInt(64)'s input draws (28 bytes)
+    err = 0
+    for n in (N_KCHECK + 3, N_WIDE):
+        out_k = rng.squeeze_mont(st, n, 28, p96, lane)
+        out_p = rng._squeeze_mont_plain(st, n, 28, p96, lane)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(out_k, out_p))
+        check(err == 0, f'K2 ({n} draws of 28 bytes, L = 3) differs from '
+              'its plain version')
+    del out_k, out_p
+    say(f'  K2 squeeze_mont at L = 3: {N_KCHECK + 3} and {N_WIDE} draws of '
+        '28 bytes, equal to plain')
+    res['squeeze_mont<L=3, W=7>'] = squeeze_meas(st, lane, N_WIDE, 28, p96,
+                                                 err)
+
+    # K3 on SecInt(37)'s field, fused and not, at conv1's reshare bucket
+    spec3 = pipelines.ReshareSpec(p69, T, M)
+    nb = pipelines.bucket(N_CNN * 784 * 32)
+    a = random_field(p69, (M, nb), gen)
+    b = random_field(p69, (M, nb), gen)
+    nonce = (0xFFFFFFFF, 11)
+    err3 = 0
+    for n in (N_RAGGED, nb):
+        for bb in (b, None):
+            a_n = a[:, :n].contiguous()
+            b_n = bb[:, :n].contiguous() if bb is not None else None
+            out_k = pipelines.reshare_mul(a_n, b_n, st, nonce, spec3)
+            out_p = pipelines._reshare_mul_plain(a_n, b_n, st, nonce, spec3)
+            torch.cuda.synchronize()
+            err3 = max(err3, max_abs_err(out_k, out_p))
+            check(err3 == 0, f'K3 (L = 3, {n} elements, '
+                  f'{"fused" if bb is not None else "unfused"}) differs '
+                  'from its plain version')
+            del out_k, out_p, a_n, b_n
+    say(f'  K3 reshare_mul at L = 3: ({M}, {N_RAGGED}, 3) and ({M}, {nb}, '
+        '3), fused and unfused, equal to plain')
+    res['reshare_mul<L=3, fused>'] = reshare_meas(spec3, a, b, st, nonce,
+                                                  err3)
+    res['reshare_mul<L=3>'] = reshare_meas(spec3, a, None, st, nonce, err3)
+    del a, b
+
+    # K5 (LT) at the CNN's widths: bit for bit at 2^14 elements (l = 16
+    # and 37) in one call; one launch of 7 chunks with a ragged tail and
+    # one of the width's largest comparison, each against the plain
+    # version chunk by chunk, the counter carried into its high word; the
+    # width timed at that comparison
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    for l in CNN_WIDTHS:
+        spec5 = pipelines.SgnSpec(p69, T, M, l, 30, LT=True)
+        err5 = 0
+        if l in (16, 37):
+            a = random_field(p69, (M, N_K5_WIDE), gen)
+            out = pipelines.sgn_step(a, st, nonce, spec5)
+            want = pipelines._sgn_step_plain(a, st, nonce, spec5)
+            torch.cuda.synchronize()
+            err5 = max_abs_err(out, want)
+            check(err5 == 0, f'K5 (LT, l = {l}, L = 3, {N_K5_WIDE} '
+                  'elements) differs from its plain version')
+            del out, want
+        a = random_field(p69, (M, N_CHUNKED), gen)
+        err5 = max(err5, sgn_chunks_check(spec5, a, st, (0xFFFFFFFD, 4),
+                                          chunk))
+        n = CNN_CMP[l]
+        a = random_field(p69, (M, n), gen)
+        err5 = max(err5, sgn_chunks_check(spec5, a, st, (0xFFFFFFF8, 4),
+                                          chunk))
+        r = res[f'sgn_step<LT, l={l}, L=3>'] = sgn_meas(
+            spec5, a, st, nonce, chunk, err5)
+        say(f'  K5 sgn_step LT at l = {l}, L = 3: '
+            + (f'{N_K5_WIDE} elements, ' if l in (16, 37) else '')
+            + f'one launch of {-(-N_CHUNKED // chunk)} chunks of {chunk} '
+            f'({N_CHUNKED} elements, the last {N_CHUNKED % chunk} on a '
+            f'bucket of {pipelines.bucket(N_CHUNKED % chunk, chunk)}) and '
+            f'one of {r["shape"]} equal to plain chunk by chunk; per '
+            f'element {r["mont"]} Montgomery products, {r["adds"]:.0f} '
+            f'modular adds/subs, {spec5.draws_per_element()} draws; '
+            f'{r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} ms, bound '
+            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'{r["ms"] / r["bound_ms"]:.2f}x')
+        del a
+    return res
 
 
 def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
@@ -782,10 +1038,11 @@ def bnn_components(batch=N_BNN) -> list:
     (``torch._int_mm``), the planes and the GEMM (``plane_gemm``), the
     bucket sums, carry and fold (``fold_planes``), K3 without the product
     on the layer's bucket of 3 x B x N shares, and K5 (LT) at the sign's
-    l on that bucket; for fc4 K5 at the argmax's four calls (buckets of
-    5, 2, 1 and 1 columns). Each layer's matmul bound: its plane
-    contractions' int8 operations over the dense int8 peak, or its bytes
-    (operands read, product written) over the memory rate."""
+    l on the B x N sums (one launch on their bucket); for fc4 K5 at the
+    argmax's four calls (5, 2, 1 and 1 columns). Each layer's matmul
+    bound: its plane contractions' int8 operations over the dense int8
+    peak, or its bytes (operands read, product written) over the memory
+    rate."""
     from mpyc_tpu_torch.demos import np_bnnmnist as bnn
     from mpyc_tpu_torch.ops import fieldops
     p = sectypes.SecInt(bnn.L_IN, 'cuda').field.modulus
@@ -803,8 +1060,8 @@ def bnn_components(batch=N_BNN) -> list:
     shapes = {'fc1': (batch, 784, 4096), 'fc2': (M * batch, 4096, 4096),
               'fc3': (M * batch, 4096, 4096), 'fc4': (M * batch, 4096, 10)}
     for name, (rows_a, K, N) in shapes.items():
-        a = random_shares(p, (rows_a, K), gen)
-        b = random_shares(p, (K, N), gen)
+        a = random_field(p, (rows_a, K), gen)
+        b = random_field(p, (K, N), gen)
         pa = fieldops._nibble_planes(a).reshape(P * rows_a, K)
         pb = fieldops._nibble_planes(b.transpose(0, 1)).reshape(P * N, K)
         gemm = cuda_ms(lambda: fieldops._int8_gemm(pa, pb), 5)
@@ -814,20 +1071,22 @@ def bnn_components(batch=N_BNN) -> list:
         fold = cuda_ms(lambda: ctx.fold_planes(prod), 3)
         del prod
         nb = bucket(batch * N)
-        x = random_shares(p, (M, nb), gen)
+        x = random_field(p, (M, nb), gen)
         k3 = cuda_ms(lambda: pipelines.reshare_mul(x, None, st, nonce,
                                                    spec3), 10)
         if name == 'fc4':
             k5 = 0.0
             for cols in (5, 2, 1, 1):
                 spec5 = pipelines.SgnSpec(p, T, M, bnn.L_IN, 30, LT=True)
-                y = random_shares(p, (M, bucket(batch * cols)), gen)
-                k5 += cuda_ms(lambda: pipelines.sgn_step(y, st, nonce,
-                                                         spec5), 10)
+                y = random_field(p, (M, batch * cols), gen)
+                k5 += cuda_ms(lambda: pipelines.sgn_chunks(
+                    y, st, nonce, spec5, SimRuntime._SGN_CHUNK), 10)
         else:
             l = bnn.L_IN if name == 'fc1' else bnn.L_HIDDEN
             spec5 = pipelines.SgnSpec(p, T, M, l, 30, LT=True)
-            k5 = cuda_ms(lambda: pipelines.sgn_step(x, st, nonce, spec5), 5)
+            y = random_field(p, (M, batch * N), gen)
+            k5 = cuda_ms(lambda: pipelines.sgn_chunks(
+                y, st, nonce, spec5, SimRuntime._SGN_CHUNK), 5)
         ops = 2 * (P * rows_a) * K * (P * N)
         b_ms, b_by = bound((rows_a * K + K * N + rows_a * N) * ctx.L * 4, 0)
         t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
@@ -852,6 +1111,221 @@ def run_selftest(device, batch=N_SELFTEST) -> None:
     rt.shutdown()
     check(got.shape == (batch,) and (got == expect).all(),
           f'selftest: predictions {got.tolist()} differ from {expect.tolist()}')
+
+
+def run_wide(device, n=N_WIDE, seed=3) -> None:
+    """A secure product at SecInt(64) (the 96-bit, three-limb field):
+    n values input by party 1 and n by party 2 (28-byte draws: K2 at three
+    limbs), np_multiply (K3, fused, at three limbs), every output opened
+    and checked."""
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    s64 = rt.SecInt(64)
+    gen = np.random.default_rng(seed)
+    a = gen.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    b = gen.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    A = rt.input(s64.array(a), senders=0)
+    B = rt.input(s64.array(b), senders=1)
+    got = rt.output(rt.np_multiply(A, B))
+    rt.shutdown()
+    bad = np.flatnonzero(got != a * b)
+    check(got.shape == (n,) and bad.size == 0,
+          f'wide product: {bad.size} of {n} outputs wrong')
+
+
+def run_cnn(device, batch=N_CNN, passes=2, profile=False) -> dict:
+    """The CNN runner's MNIST flow on test images 0..batch-1 through the
+    user's entry points, ``passes`` times (the first cold; a pass is the
+    pixels in as public values to the predictions opened); raises unless
+    every pass's predictions equal the plaintext model of the protocol.
+    Then one more pass with the layers marked: each layer's device ms
+    (CUDA events at the runner's barriers), its peak memory, and the
+    comparisons' chunks of 1024 against K5's launches (the counts of
+    ``sgn_step``); with ``profile``,
+    the lines of ``profile_calls`` over one more pass. Returns the counts
+    against the labels and the float model, the set-up seconds and the
+    seconds of each pass, and the host seconds of encoding a pass's
+    pixels and all the weights into the field: the encoder of int64
+    values against its general path of Python ints."""
+    from mpyc_tpu_torch.demos import np_cnnmnist as cnn
+    from mpyc_tpu_torch.ops import limb
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    secint = rt.SecInt(cnn.L_TYPE)
+    labels, images = cnn.load_mnist(0, batch)
+    on_card = torch.device(device).type == 'cuda'
+    t0 = time.perf_counter()
+    weights = cnn.load_weights()
+    sweights = cnn.scaled_weights(weights)
+    slayers = cnn.secure_layers(secint, sweights)
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ctx = prime_field_ctx(secint.field.modulus)
+    encode_s = {}
+    for what, arrays in (('pixels', [cnn.images_int(images)]),
+                         ('weights', [w for wb in sweights.values()
+                                      for w in wb])):
+        t0 = time.perf_counter()
+        fast = [ctx._standard_limbs(x) for x in arrays]
+        t1 = time.perf_counter()
+        general = [limb.ints_to_limbs(np.asarray(x, dtype=object) % ctx.p,
+                                      ctx.L) for x in arrays]
+        t2 = time.perf_counter()
+        check(all(np.array_equal(u, v) for u, v in zip(fast, general)),
+              f'cnn: the {what} encode other than by the general path')
+        encode_s[what] = dict(int64=t1 - t0, general=t2 - t1)
+    stats = {}
+    model = cnn.plain_forward(cnn.images_int(images), sweights, stats)
+    floats = np.argmax(cnn.float_forward(
+        images.reshape(-1, 1, 28, 28) / 255, weights), axis=1)
+
+    def one_pass(barrier=None):
+        x = secint.array(cnn.images_int(images))
+        return cnn.secure_forward(rt, secint, x, slayers, barrier)
+
+    pass_s = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        preds = one_pass()
+        pass_s.append(time.perf_counter() - t0)   # output is on the host
+        bad = np.flatnonzero(preds != model)
+        check(preds.shape == (batch,) and bad.size == 0,
+              f'cnn: {bad.size} of {batch} predictions differ from the '
+              f'plaintext model, first at {bad[:5].tolist()}')
+    layers, k5, chunks = {}, None, None
+    if on_card:
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev, torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+
+        k5, chunks = pipelines.sgn_step.launches, pipelines.sgn_step.chunks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark('start')
+        check((one_pass(mark) == model).all(), 'cnn: marked pass wrong')
+        torch.cuda.synchronize()
+        k5 = pipelines.sgn_step.launches - k5
+        chunks = pipelines.sgn_step.chunks - chunks
+        for (_, e0, _), (name, e1, peak) in zip(marks, marks[1:]):
+            layers[name.removeprefix('after-')] = dict(
+                ms=e0.elapsed_time(e1), peak_gib=peak / 2**30)
+    trace = []
+    if profile:
+        try:   # one try, as in the comparison phase
+            trace = profile_calls(one_pass, 1, top=25)
+        except Exception as exc:  # noqa: BLE001 (reported, not a check)
+            trace = [f'torch.profiler failed: {exc!r}']
+    rt.shutdown()
+    return dict(correct=int((preds == labels).sum()),
+                floats=int((preds == floats).sum()), setup_s=setup_s,
+                pass_s=pass_s, trace=trace, stats=stats, layers=layers,
+                k5_launches=k5, chunks=chunks, encode_s=encode_s)
+
+
+def matmul_parts(ctx, a, b, reps: int = 1) -> tuple:
+    """Device ms of the field matmul a @ b ((M, K, L) @ (K, N, L)) in the
+    row blocks the runtime cuts it into: (planes + GEMM, carry and
+    fold), times ``reps`` (the parties' products of a batched call)."""
+    from mpyc_tpu_torch.ops import fieldops
+    M_, K, L = a.shape
+    rows = max(1, fieldops._MATMUL_BLOCK_BYTES // (64 * L * L * b.shape[1]
+                                                   * 4))
+    gemm = fold = 0.0
+    for r0 in range(0, M_, rows):
+        blk = a[r0:r0 + rows]
+        gemm += cuda_ms(lambda: ctx.plane_gemm(blk, b), 2)
+        prod = ctx.plane_gemm(blk, b)
+        fold += cuda_ms(lambda: ctx.fold_planes(prod), 2)
+        del prod
+    return gemm * reps, fold * reps
+
+
+def cnn_components(batch=N_CNN) -> list:
+    """Device ms of each CNN layer's parts at the flow's shapes (CUDA
+    events, random shares of SecInt(37)'s field): the field matmul's
+    planes + GEMM and carry and fold (conv1 and conv2 as the runtime does
+    them, one product a party; fc1 and fc2 as one), K3 without the product
+    on the layer's reshare bucket and fused at the buckets of its secure
+    products (maxpool's np_where, ReLU; the argmax's after fc2), and K5
+    (LT) at each of its comparisons, one launch each. Each layer's matmul
+    bound: its plane contractions' int8 operations over the dense int8
+    peak, or its bytes over the memory rate."""
+    from mpyc_tpu_torch.demos import np_cnnmnist as cnn
+    p = sectypes.SecInt(cnn.L_TYPE, 'cuda').field.modulus
+    ctx = prime_field_ctx(p)
+    gen = np.random.default_rng(11)
+    st = keccak.state_tensor(keccak._absorb_host(b'\x09' * 40), 'cuda')
+    nonce = (1, 0)
+    spec3 = pipelines.ReshareSpec(p, T, M)
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    B = batch
+    pool1, pool2 = (B * 32 * 14 * 28, B * 32 * 14 * 14), \
+        (B * 64 * 7 * 14, B * 64 * 7 * 7)
+    argmax = (5 * B, 2 * B, B, B)      # the tournament's calls over 10
+    # (rows a party, K, N, parties' products, reshare n, products, (l,
+    # comparisons))
+    shapes = {
+        'conv1': (B * 784, 25, 32, M, B * 784 * 32,
+                  (pool1[0], pool1[1], pool1[1]),
+                  (16, (pool1[0], pool1[1], pool1[1]))),
+        'conv2': (B * 196, 800, 64, M, B * 196 * 64,
+                  (pool2[0], pool2[1], pool2[1]),
+                  (23, (pool2[0], pool2[1], pool2[1]))),
+        'fc1': (M * B, 3136, 1024, 1, B * 1024, (B * 1024,),
+                (30, (B * 1024,))),
+        'fc2': (M * B, 1024, 10, 1, B * 10, argmax + argmax,
+                (37, argmax))}
+    rows = []
+    for name, (rows_a, K, N, reps, n_sh, prods, (l, cmps)) in shapes.items():
+        a = random_field(p, (rows_a, K), gen)
+        b = random_field(p, (K, N), gen)
+        gemm, fold = matmul_parts(ctx, a, b, reps)
+        del a, b
+        x = random_field(p, (M, pipelines.bucket(n_sh)), gen)
+        k3 = cuda_ms(lambda: pipelines.reshare_mul(x, None, st, nonce,
+                                                   spec3), 5)
+        for n in prods:
+            y = random_field(p, (M, pipelines.bucket(n)), gen)
+            k3 += cuda_ms(lambda: pipelines.reshare_mul(y, y, st, nonce,
+                                                        spec3), 5)
+        spec5 = pipelines.SgnSpec(p, T, M, l, 30, LT=True)
+        k5 = 0.0
+        for n in cmps:
+            y = random_field(p, (M, n), gen)
+            k5 += cuda_ms(lambda: pipelines.sgn_chunks(y, st, nonce, spec5,
+                                                       chunk), 3)
+        P = 8 * ctx.L
+        ops = reps * 2 * (P * rows_a) * K * (P * N)
+        b_ms, b_by = bound(reps * (rows_a * K + K * N + rows_a * N)
+                           * ctx.L * 4, 0)
+        t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
+        if t_ops >= b_ms:
+            b_ms, b_by = t_ops, 'operations'
+        rows.append(dict(layer=name, M=rows_a, K=K, N=N, reps=reps,
+                         planes_gemm_ms=gemm, fold_ms=fold, k3_ms=k3,
+                         k5_ms=k5, matmul_bound_ms=b_ms,
+                         matmul_bound_by=b_by))
+        del x, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_cnn_selftest(device, batch=N_CNN_SELFTEST) -> None:
+    """The CNN runner's selftest network through ``rt.input`` at
+    SecInt(37): raises unless its predictions equal the plaintext model."""
+    from mpyc_tpu_torch.demos import np_cnnmnist as cnn
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    got, expect = cnn.selftest(rt, rt.SecInt(cnn.L_TYPE), batch)
+    rt.shutdown()
+    check(got.shape == (batch,) and (got == expect).all(),
+          f'cnn selftest: predictions {got.tolist()} differ from '
+          f'{expect.tolist()}')
 
 
 def main() -> int:
@@ -889,21 +1363,22 @@ def main() -> int:
     with Phase('kernels'):
         meas = check_kernels(p)
         meas.update(check_slice_kernels(p))
+        meas.update(check_three_limb_kernels())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
                 f'({r["bound_by"]}) on {smi}')
         torch.cuda.empty_cache()
 
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(ENTRIES, 0)
 
     def drive(path, fn):
         reset_counts()
         res = fn()
         torch.cuda.synchronize()
         got = counts()
-        say(f'  launches: {got}')
-        for name in PATH_KERNELS[path]:
+        say(f'  launches: {({k: v for k, v in got.items() if v})}')
+        for name in PATH_ENTRIES[path]:
             check(got[name] > 0, f'kernel {name} was not launched on the '
                   f'{path}')
         for name, c in got.items():
@@ -971,14 +1446,67 @@ def main() -> int:
         say(f'  {N_SELFTEST} x 64 -> 32 -> 10 with rt.input at SecInt(14): '
             'predictions equal the plaintext forward pass')
 
-    say(f'  launches over the five paths: {launches}')
-    kernels = [dict(name=name, route='cuda', source=k['source'],
-                    replaces=k['replaces'], launches=launches[name],
-                    max_abs_err=meas[name]['max_abs_err'],
-                    ms=meas[name]['ms'], plain_ms=meas[name]['plain_ms'],
-                    bound_ms=meas[name]['bound_ms'],
-                    bound_by=meas[name]['bound_by'], library_ms=None)
-               for name, k in KERNELS.items()]
+    with Phase('wide product'):
+        drive('wide product', lambda: run_wide('cuda'))
+        say(f'  {N_WIDE} x {N_WIDE} SecInt(64) values input (28-byte draws) '
+            'and multiplied on the 96-bit field: every output correct')
+        torch.cuda.empty_cache()
+
+    with Phase('cnn'):
+        res_cnn = res = drive('cnn', lambda: run_cnn('cuda', profile=True))
+        cold_c, warm_c = res['pass_s']
+        say(f'  MNIST images 0-{N_CNN - 1}, conv 5x5x32, maxpool, conv '
+            f'5x5x64, maxpool, fc 3136x1024, fc 1024x10, SecInt(37), m = '
+            f'{M}: all {N_CNN} predictions equal the plaintext model; '
+            f'{res["correct"]}/{N_CNN} correct against the labels, '
+            f'{res["floats"]}/{N_CNN} equal to the float model')
+        for name, (lo, hi) in res['stats'].items():
+            say(f'  plaintext model, {name}: outputs in [{lo}, {hi}]')
+        say(f'  weights loaded and encoded in {res["setup_s"]:.3f} s; pass '
+            f'cold {cold_c:.4f} s, warm {warm_c:.4f} s: '
+            f'{N_CNN / warm_c:.6g} images/s on {smi}')
+        say(f'  K5 per pass: {res["k5_launches"]} launches for '
+            f'{CNN_COMPARISONS} comparisons in {res["chunks"]} chunks of '
+            f'{SimRuntime._SGN_CHUNK_WIDE}')
+        for what, r in res['encode_s'].items():
+            say(f'  {what} encoded on the host in {r["int64"]:.4f} s as '
+                f'int64 values, {r["general"]:.4f} s by the general path '
+                'of Python ints')
+        for name, r in res['layers'].items():
+            say(f'  {name} in a marked pass: {r["ms"]:.4f} ms device time '
+                f'between the barriers, peak {r["peak_gib"]:.3f} GiB '
+                'allocated')
+        check(res['k5_launches'] == CNN_COMPARISONS < res['chunks'],
+              'cnn: K5 launched other than once per comparison')
+        cnn_layers = cnn_components()
+        for r in cnn_layers:
+            say(f'  {r["layer"]} ({r["reps"]} x {r["M"]} x {r["K"]} @ '
+                f'{r["K"]} x {r["N"]}): planes + GEMM '
+                f'{r["planes_gemm_ms"]:.4f} ms (bound '
+                f'{r["matmul_bound_ms"]:.4f} ms, {r["matmul_bound_by"]}), '
+                f'carry and fold {r["fold_ms"]:.4f} ms, K3 '
+                f'{r["k3_ms"]:.4f} ms, K5 {r["k5_ms"]:.4f} ms')
+        say('  torch.profiler over one warm pass:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('cnn selftest'):
+        drive('cnn selftest', lambda: run_cnn_selftest('cuda'))
+        say(f'  {N_CNN_SELFTEST} random 8 x 8 images through a random CNN '
+            'with rt.input at SecInt(37): predictions equal the plaintext '
+            'model')
+
+    say(f'  launches over the paths: {launches}')
+    kernels = []
+    for entry, (name, _) in ENTRIES.items():
+        k, r = KERNELS[name], meas[entry]
+        kernels.append(dict(
+            name=entry, route='cuda', source=k['source'],
+            replaces=k['replaces'], launches=launches[entry],
+            max_abs_err=r['max_abs_err'], ms=r['ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+            bound_by=r['bound_by'], library_ms=None))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'np_multiply_median_ms': med, 'elements': N_BIG,
                     'mul_per_s': N_BIG / (med / 1e3),
@@ -989,7 +1517,15 @@ def main() -> int:
                     'bnn_images': N_BNN, 'bnn_correct': res_bnn['correct'],
                     'bnn_cold_s': cold, 'bnn_warm_s': warm,
                     'bnn_images_per_s': N_BNN / warm, 'bnn_layers': layers,
-                    'card': smi}))
+                    'cnn_images': N_CNN, 'cnn_correct': res_cnn['correct'],
+                    'cnn_equal_to_float': res_cnn['floats'],
+                    'cnn_cold_s': cold_c, 'cnn_warm_s': warm_c,
+                    'cnn_images_per_s': N_CNN / warm_c,
+                    'cnn_k5_launches': res_cnn['k5_launches'],
+                    'cnn_chunks': res_cnn['chunks'],
+                    'cnn_encode_s': res_cnn['encode_s'],
+                    'cnn_marked_layers': res_cnn['layers'],
+                    'cnn_layers': cnn_layers, 'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

@@ -39,18 +39,19 @@ LIB_NAME = 'libmpyc_tpu_torch_kernels.so'
 BUILD_TIMEOUT_S = 600
 
 # limits of the kernels' parameter blocks (csrc/kernels.cu)
-NL = 2           # limbs of the fields the kernels take (p < 2^64)
+MAX_NL = 3       # limbs of a field element (p < 2^96)
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_M = 16       # parties
 
-_U32xNL = ctypes.c_uint32 * NL
+_U32xNL = ctypes.c_uint32 * MAX_NL
 
 
 class DrawParams(ctypes.Structure):
-    """Mirror of ``struct DrawParams`` in csrc/kernels.cu."""
+    """Mirror of ``struct DrawParams`` in csrc/kernels.cu: field constants
+    fill the first ``nl`` limbs."""
     _fields_ = [('p', _U32xNL), ('n0inv', ctypes.c_uint32),
-                ('radix', _U32xNL * MAX_NC)]
+                ('radix', _U32xNL * MAX_NC), ('nl', ctypes.c_int32)]
 
 
 class ReshareParams(ctypes.Structure):
@@ -75,27 +76,41 @@ class SgnParams(ctypes.Structure):
                 ('mode', ctypes.c_int32), ('has_f', ctypes.c_int32)]
 
 
-# (t, m) of the split/recombine kernel's instantiations (csrc/kernels.cu)
+# limb counts of the fields K2, K3 and K5 are built for (csrc/kernels.cu)
+BUILT_NL = (2, 3)
+# (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
-# (mode, l, t, m) of the comparison kernel's instantiations (csrc/sgn.cuh;
-# mode 0 sgn, 1 LT, 2 EQ), all for two-limb fields: l = 32 for SecInt(32),
-# l = 14 and 10 for the BNN (SecInt(14), whose demo compares at 10 after
-# its first layer)
-SGN_BUILT = tuple((mode, l, 1, 3) for l in (32, 14, 10) for mode in range(3))
+# (mode, l, t, m, limbs) of the comparison kernel's instantiations
+# (csrc/sgn.cuh; mode 0 sgn, 1 LT, 2 EQ): on two-limb fields every mode at
+# l = 32 for SecInt(32) and l = 14 and 10 for the BNN (SecInt(14), whose
+# demo compares at 10 after its first layer); on three-limb fields LT at
+# l = 16, 23, 30 and 37 for the CNN (SecInt(37), whose demo compares at
+# those widths after its layers)
+SGN_BUILT = (tuple((mode, l, 1, 3, 2) for l in (32, 14, 10)
+                   for mode in range(3))
+             + tuple((1, l, 1, 3, 3) for l in (16, 23, 30, 37)))
+
+
+def set_limbs(dst, limbs) -> None:
+    """Fill the first len(limbs) words of a ctypes limb array."""
+    for q, v in enumerate(limbs):
+        dst[q] = v
 
 
 def draw_params(ctx, n_chunks: int) -> DrawParams:
     """The field constants a squeeze-to-field kernel needs."""
-    if ctx.L != NL:
+    if ctx.L not in BUILT_NL:
         raise NotImplementedError(
-            f'the CUDA kernels take {NL}-limb fields, not {ctx.L}-limb')
+            f'the CUDA kernels take fields of {BUILT_NL} limbs, not '
+            f'{ctx.L}')
     if n_chunks > MAX_NC:
         raise NotImplementedError(f'{n_chunks} chunks per draw')
     P = DrawParams()
-    P.p[:] = ctx.p_limbs
+    set_limbs(P.p, ctx.p_limbs)
     P.n0inv = ctx.n0inv
     for c, rad in enumerate(ctx.radix_limbs(n_chunks)):
-        P.radix[c][:] = rad
+        set_limbs(P.radix[c], rad)
+    P.nl = ctx.L
     return P
 
 
@@ -107,7 +122,8 @@ _SIGNATURES = {
                          ctypes.c_int, ctypes.c_ulonglong, _C, _C],
     'mtt_reshare': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C, _C],
     'mtt_split_recombine': [_C, _C, _C, _C, ctypes.c_longlong, _C, _C],
-    'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong, _C, _C],
+    'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_longlong, _C, _C],
     'mtt_sgn_threads': [],
 }
 

@@ -7,9 +7,12 @@
 // stream, launches, and returns cudaGetLastError().
 //
 // Field elements are little-endian 32-bit limbs in Montgomery form with
-// R = 2^64: the kernels take two-limb fields (p < 2^64), the field of
-// SecInt(32). Every result is canonical, so each kernel equals its plain
-// PyTorch version (and the JAX package) bit for bit.
+// R = 2^(32 NL). K2, K3 and K5 are built for two-limb fields (p < 2^64:
+// SecInt(32)'s and SecInt(14)'s) and three-limb fields (p < 2^96:
+// SecInt(37)'s 69-bit field and SecInt(64)'s 96-bit one), K4 for two-limb
+// fields; each launcher picks the instantiation from the parameter
+// block's limb count. Every result is canonical, so each kernel equals
+// its plain PyTorch version (and the JAX package) bit for bit.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -18,32 +21,42 @@
 
 namespace mtt {
 
-constexpr int NL = 2;          // limbs per element
+constexpr int MAX_NL = 3;      // limbs per element
 constexpr int MAX_NC = 4;      // chunks per draw
 constexpr int MAX_SEND = 9;    // senders aggregated by a reshare (2t + 1)
 constexpr int MAX_M = 16;      // parties
 constexpr int RATE_WORDS = 42; // 32-bit words in a 168-byte block
 
 // Mirrored by ctypes structures in mpyc_tpu_torch/_build.py.
+// Field constants fill the first nl limbs of their MAX_NL.
 struct DrawParams {
-  uint32_t p[NL];
+  uint32_t p[MAX_NL];
   uint32_t n0inv;
-  uint32_t radix[MAX_NC][NL];  // 2^(32 NL c) R^2 mod p, chunk c
+  uint32_t radix[MAX_NC][MAX_NL];  // 2^(32 nl c) R^2 mod p, chunk c
+  int32_t nl;                      // limbs of the field
 };
 
 struct ReshareParams {
   DrawParams draw;
-  uint32_t lag[MAX_SEND][NL];  // Lagrange coefficients at 0, Montgomery
-  uint32_t xs[MAX_M][NL];      // evaluation points 1..m, Montgomery
+  uint32_t lag[MAX_SEND][MAX_NL];  // Lagrange coefficients at 0, Montgomery
+  uint32_t xs[MAX_M][MAX_NL];      // evaluation points 1..m, Montgomery
   uint32_t nonce_lo, nonce_hi; // per-call counter, XORed into lane 4
   int32_t t, m, n_send;
 };
+
+// Words a draw of the fused streams (K3, K4, K5) takes: fused_draw_bytes(p)
+// / 4 = NL + 2 for 2 <= NL <= 3 (p's bytes and 8 of widening, in words).
+template <int NL>
+__host__ __device__ constexpr int fused_words() {
+  static_assert(NL == 2 || NL == 3, "fused draws of two or three limbs");
+  return NL + 2;
+}
 
 // Draw `slot` of a squeezed block (W words a draw) mapped into GF(p),
 // Montgomery form: sum over chunks c of chunk_c * 2^(32 NL c) mod p, one
 // Montgomery multiply by radix[c] per chunk (mpyc_tpu/ops/limb.py
 // reduce_wide). With `slot` a constant every word index is one too.
-template <int W>
+template <int NL, int W>
 __device__ __forceinline__ void reduce_draw(const uint64_t* A, int slot,
                                             const DrawParams& P,
                                             uint32_t* out) {
@@ -106,11 +119,13 @@ keccak_ctr_kernel(const uint32_t* __restrict__ state,
 // Block b holds EPB = 42 / W draws; draw d = b * EPB + j takes words
 // j*W .. j*W+W-1 of block d / EPB (the JAX package's stream order).
 // Bound: integer operations (a permutation per EPB draws plus one
-// Montgomery multiply per chunk; 8 bytes written per draw). Design: one
+// Montgomery multiply per chunk; 4 NL bytes written per draw). Design: one
 // sponge per thread; the rate words stay in registers and only the
-// reduced draws are written, instead of the 168-byte blocks.
+// reduced draws are written, instead of the 168-byte blocks. Built for
+// (NL, W) = (2, 4), (2, 6), (3, 7): the fused streams' draws of two-limb
+// fields and the word-aligned input draws of SecInt(32) and SecInt(64).
 // ---------------------------------------------------------------------------
-template <int W>
+template <int NL, int W>
 __global__ void __launch_bounds__(256)
 squeeze_mont_kernel(const uint32_t* __restrict__ state,
                     uint32_t* __restrict__ out, long long n_draws,
@@ -128,9 +143,8 @@ squeeze_mont_kernel(const uint32_t* __restrict__ state,
     const long long d = b * EPB + j;
     if (d < n_draws) {
       uint32_t v[NL];
-      reduce_draw<W>(A, j, P, v);
-#pragma unroll
-      for (int q = 0; q < NL; ++q) out[d * NL + q] = v[q];
+      reduce_draw<NL, W>(A, j, P, v);
+      store_fe<NL>(out, d, v);
     }
   }
 }
@@ -145,8 +159,8 @@ template <int T>
 __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
                                             long long e0,
                                             const DrawParams& P,
-                                            uint32_t (*C)[RATE_WORDS / 4][NL]) {
-  constexpr int W = 4;  // 16-byte draws: fused_draw_bytes(p) for 2 limbs
+                                            uint32_t (*C)[RATE_WORDS / 4][2]) {
+  constexpr int NL = 2, W = fused_words<NL>();  // 16-byte draws
   constexpr int EPB = RATE_WORDS / W;
 #pragma unroll
   for (int k = 0; k < T; ++k) {
@@ -158,7 +172,7 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
       A[19] ^= (uint64_t)(d0 / EPB);
       keccak_f1600(A);
 #pragma unroll
-      for (int s = 0; s < EPB; ++s) reduce_draw<W>(A, s, P, C[k][s]);
+      for (int s = 0; s < EPB; ++s) reduce_draw<NL, W>(A, s, P, C[k][s]);
     } else {
       const long long blk = d0 / EPB;
       const int s0 = (int)(d0 % EPB);
@@ -172,7 +186,7 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
         keccak_f1600(A);
 #pragma unroll
         for (int j = 0; j < EPB; ++j)
-          reduce_draw<W>(A, j, P, Rd[h * EPB + j]);
+          reduce_draw<NL, W>(A, j, P, Rd[h * EPB + j]);
       }
 #pragma unroll
       for (int s = 0; s < EPB; ++s) {
@@ -200,23 +214,29 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 // once, through the stage (stage.cuh; for k > 0 the draws may straddle
 // 321 blocks, and thread 0 takes the last), into shared memory. Then each
 // thread takes the elements e0 + r*320 + tid (r < 10): each share is one
-// 8-byte load and each output one 8-byte store, neighbouring lanes on
-// neighbouring elements, so a warp's access is 256 contiguous bytes.
-// (With one element a thread, one warp in ten squeezed while the others
-// waited at the barrier, and K3 took twice as long: PERF.md.) Written for
-// general t; built for t = 1, m = 3.
+// 8-byte load and each output one 8-byte store at NL = 2, neighbouring
+// lanes on neighbouring elements, so a warp's access is 256 contiguous
+// bytes. At NL = 3 an element is 12 bytes, which no vector access loads:
+// a share is three 4-byte loads, each of a warp's 32 lanes 12 bytes apart,
+// so the three together read the warp's 384 contiguous bytes. (With one
+// element a thread, one warp in ten squeezed while the others waited at
+// the barrier, and K3 took twice as long: PERF.md.) Written for general
+// t; built for t = 1, m = 3 and NL = 2 and 3; draws of W = NL + 2 words.
 // ---------------------------------------------------------------------------
 constexpr int RESHARE_THREADS = 320;
 constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
 
-template <bool FUSE, int T, int M>
+template <int NL, bool FUSE, int T, int M>
 __global__ void __launch_bounds__(RESHARE_THREADS)
-reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
-               uint2* __restrict__ out, const uint32_t* __restrict__ state,
+reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
                long long n, ReshareParams P) {
   constexpr int NSEND = 2 * T + 1;
   static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
-  __shared__ uint2 coefs[T * RESHARE_ELEMS];
+  // the staged coefficients, NL words an element (8-byte aligned: an
+  // element is one 8-byte word at NL = 2)
+  __shared__ uint2 coef_words[(T * RESHARE_ELEMS * NL + 1) / 2];
+  uint32_t* coefs = reinterpret_cast<uint32_t*>(coef_words);
   const long long e0 = (long long)blockIdx.x * RESHARE_ELEMS;
   const int cnt = (int)(n - e0 < RESHARE_ELEMS ? n - e0 : RESHARE_ELEMS);
   const uint32_t* p = P.draw.p;
@@ -224,8 +244,9 @@ reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
   const uint64_t nonce = ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
 #pragma unroll
   for (int k = 0; k < T; ++k)
-    stage_draws(state, nonce, 0, (long long)k * n + e0, cnt, 1, P.draw,
-                coefs + k * RESHARE_ELEMS, RESHARE_ELEMS);
+    stage_draws<NL, fused_words<NL>()>(
+        state, nonce, 0, (long long)k * n + e0, cnt, 1, P.draw,
+        coefs + k * RESHARE_ELEMS * NL, RESHARE_ELEMS);
   __syncthreads();
 
 #pragma unroll 1
@@ -234,17 +255,16 @@ reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
     uint32_t S[NL];
 #pragma unroll
     for (int i = 0; i < NSEND; ++i) {
-      const uint2 av = __ldg(a + (long long)i * n + e);
-      uint32_t si[NL] = {av.x, av.y}, term[NL];
+      uint32_t si[NL], term[NL];
+      ldg_fe<NL>(a, (long long)i * n + e, si);
       if (FUSE) {
-        const uint2 bv = __ldg(b + (long long)i * n + e);
-        const uint32_t bi[NL] = {bv.x, bv.y};
+        uint32_t bi[NL];
+        ldg_fe<NL>(b, (long long)i * n + e, bi);
         mont_mul<NL>(si, bi, p, n0, si);
       }
       mont_mul<NL>(si, P.lag[i], p, n0, term);
       if (i == 0) {
-        S[0] = term[0];
-        S[1] = term[1];
+        fe_copy<NL>(term, S);
       } else {
         add_mod<NL>(S, term, p, S);
       }
@@ -254,18 +274,17 @@ reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
       uint32_t y[NL];
 #pragma unroll
       for (int k = 0; k < T; ++k) {
-        const uint2 ck = coefs[k * RESHARE_ELEMS + el];
-        const uint32_t c[NL] = {ck.x, ck.y};
+        uint32_t c[NL];
+        load_fe<NL>(coefs + k * RESHARE_ELEMS * NL, el, c);
         if (k == 0) {
-          y[0] = c[0];
-          y[1] = c[1];
+          fe_copy<NL>(c, y);
         } else {
           add_mod<NL>(y, c, p, y);
         }
         mont_mul<NL>(y, P.xs[j], p, n0, y);
       }
       add_mod<NL>(y, S, p, y);
-      out[(long long)j * n + e] = make_uint2(y[0], y[1]);
+      store_fe<NL>(out, (long long)j * n + e, y);
     }
   }
 }
@@ -284,7 +303,8 @@ reshare_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b,
 // sponge block (group_coefs); everything between the read of the secret
 // and the write of the output stays in registers. K4 moves 16 bytes an
 // element, so its strided 4-byte accesses cost little (PERF.md has its
-// time against its bound), and it keeps this layout.
+// time against its bound), and it keeps this layout. Built for two-limb
+// fields.
 // ---------------------------------------------------------------------------
 template <int T, int M>
 __global__ void __launch_bounds__(128)
@@ -293,7 +313,8 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
                        uint32_t* __restrict__ shares,
                        const uint32_t* __restrict__ state, long long n,
                        ReshareParams P) {
-  constexpr int EPB = RATE_WORDS / 4;
+  constexpr int NL = 2;
+  constexpr int EPB = RATE_WORDS / fused_words<NL>();
   static_assert(T + 1 <= MAX_SEND && M <= MAX_M && T < M, "shape");
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long e0 = g * EPB;
@@ -354,7 +375,7 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 
 namespace mtt {
 
-template <int W>
+template <int NL, int W>
 int launch_squeeze(const void* state, void* out, long long n_draws,
                    int ctr_lane, unsigned long long base,
                    const DrawParams& P, cudaStream_t stream) {
@@ -362,19 +383,20 @@ int launch_squeeze(const void* state, void* out, long long n_draws,
   const long long n_blocks = (n_draws + EPB - 1) / EPB;
   const int threads = 256;
   const long long grid = (n_blocks + threads - 1) / threads;
-  squeeze_mont_kernel<W><<<(unsigned)grid, threads, 0, stream>>>(
+  squeeze_mont_kernel<NL, W><<<(unsigned)grid, threads, 0, stream>>>(
       (const uint32_t*)state, (uint32_t*)out, n_draws, n_blocks, ctr_lane,
       base, P);
   return (int)cudaGetLastError();
 }
 
-template <bool FUSE>
+template <int NL, bool FUSE>
 int launch_reshare(const void* a, const void* b, void* out, const void* state,
                    long long n, const ReshareParams& P, cudaStream_t stream) {
   const long long grid = (n + RESHARE_ELEMS - 1) / RESHARE_ELEMS;
-  reshare_kernel<FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, 0, stream>>>(
-      (const uint2*)a, (const uint2*)b, (uint2*)out, (const uint32_t*)state,
-      n, P);
+  reshare_kernel<NL, FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, 0,
+                                   stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
+      (const uint32_t*)state, n, P);
   return (int)cudaGetLastError();
 }
 
@@ -391,28 +413,39 @@ int launch_split_recombine(const void* sec, void* out, void* shares,
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int LBIT>
+// One launch of every chunk: the CTAs of each full chunk, then those of the
+// last chunk's given elements.
+template <int MODE, int LBIT, int NL>
 int launch_sgn(const void* a, void* out, const void* state, long long n,
-               long long blocks_a, const SgnParams& P, cudaStream_t stream) {
-  const long long grid = (n + SGN_THREADS - 1) / SGN_THREADS;
-  constexpr int smem = sgn_smem_bytes<MODE, LBIT, 1>();
+               long long chunk, long long n_last, const SgnParams& P,
+               cudaStream_t stream) {
+  const long long per_chunk = (chunk + SGN_THREADS - 1) / SGN_THREADS;
+  const long long full = (n - 1) / chunk;
+  const long long grid =
+      full * per_chunk + (n - full * chunk + SGN_THREADS - 1) / SGN_THREADS;
+  constexpr int smem = sgn_smem_bytes<MODE, LBIT, 1, NL>();
   const cudaError_t rc = cudaFuncSetAttribute(
-      sgn_kernel<MODE, LBIT, 1, 3>,
+      sgn_kernel<MODE, LBIT, 1, 3, NL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
-  sgn_kernel<MODE, LBIT, 1, 3><<<(unsigned)grid, SGN_THREADS, smem, stream>>>(
-      (const uint2*)a, (uint2*)out, (const uint32_t*)state, n, blocks_a, P);
+  sgn_kernel<MODE, LBIT, 1, 3, NL><<<(unsigned)grid, SGN_THREADS, smem,
+                                     stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n, chunk,
+      n_last, P);
   return (int)cudaGetLastError();
 }
 
 template <int LBIT>
 int launch_sgn_modes(const void* a, void* out, const void* state,
-                     long long n, long long blocks_a, const SgnParams& P,
-                     cudaStream_t s) {
+                     long long n, long long chunk, long long n_last,
+                     const SgnParams& P, cudaStream_t s) {
   switch (P.mode) {
-    case 0: return launch_sgn<0, LBIT>(a, out, state, n, blocks_a, P, s);
-    case 1: return launch_sgn<1, LBIT>(a, out, state, n, blocks_a, P, s);
-    case 2: return launch_sgn<2, LBIT>(a, out, state, n, blocks_a, P, s);
+    case 0: return launch_sgn<0, LBIT, 2>(a, out, state, n, chunk, n_last,
+                                          P, s);
+    case 1: return launch_sgn<1, LBIT, 2>(a, out, state, n, chunk, n_last,
+                                          P, s);
+    case 2: return launch_sgn<2, LBIT, 2>(a, out, state, n, chunk, n_last,
+                                          P, s);
     default: return -1;
   }
 }
@@ -432,59 +465,95 @@ int mtt_keccak_ctr(const void* state, void* out, long long n, int ctr_lane,
   return (int)cudaGetLastError();
 }
 
-// l_words: words per draw (4 for the reshare stream's 16-byte draws, 6 for
-// the 24-byte draws of the input randomness). -1: a width not built.
+// l_words: words per draw: (limbs, l_words) = (2, 4) for the fused
+// streams' draws, (2, 6) and (3, 7) for the input draws of SecInt(32) and
+// SecInt(64). -1: a width not built.
 int mtt_squeeze_mont(const void* state, void* out, long long n_draws,
                      int l_words, int ctr_lane, unsigned long long base,
                      const void* params, void* stream) {
   if (n_draws <= 0) return 0;
   const mtt::DrawParams P = *(const mtt::DrawParams*)params;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (l_words) {
-    case 4: return mtt::launch_squeeze<4>(state, out, n_draws, ctr_lane,
-                                          base, P, s);
-    case 6: return mtt::launch_squeeze<6>(state, out, n_draws, ctr_lane,
-                                          base, P, s);
+  using mtt::launch_squeeze;
+  switch (P.nl * 16 + l_words) {
+    case 2 * 16 + 4:
+      return launch_squeeze<2, 4>(state, out, n_draws, ctr_lane, base, P, s);
+    case 2 * 16 + 6:
+      return launch_squeeze<2, 6>(state, out, n_draws, ctr_lane, base, P, s);
+    case 3 * 16 + 7:
+      return launch_squeeze<3, 7>(state, out, n_draws, ctr_lane, base, P, s);
     default: return -1;
   }
 }
 
-// b is ignored unless fuse. -1: a (t, m) the kernel was not built for.
+// b is ignored unless fuse. -1: a (t, m) or limb count the kernel was not
+// built for.
 int mtt_reshare(const void* a, const void* b, void* out, const void* state,
                 long long n, int fuse, const void* params, void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
   if (P.t != 1 || P.m != 3 || P.n_send != 3) return -1;
+  if (P.draw.nl != 2 && P.draw.nl != 3) return -1;
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return fuse ? mtt::launch_reshare<true>(a, b, out, state, n, P, s)
-              : mtt::launch_reshare<false>(a, b, out, state, n, P, s);
+  using mtt::launch_reshare;
+  if (P.draw.nl == 2)
+    return fuse ? launch_reshare<2, true>(a, b, out, state, n, P, s)
+                : launch_reshare<2, false>(a, b, out, state, n, P, s);
+  return fuse ? launch_reshare<3, true>(a, b, out, state, n, P, s)
+              : launch_reshare<3, false>(a, b, out, state, n, P, s);
 }
 
-// shares may be null. -1: a (t, m) the kernel was not built for.
+// shares may be null. -1: a (t, m) or limb count the kernel was not built
+// for.
 int mtt_split_recombine(const void* sec, void* out, void* shares,
                         const void* state, long long n, const void* params,
                         void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
-  if (P.t != 1 || P.m != 3 || P.n_send != 2) return -1;
+  if (P.t != 1 || P.m != 3 || P.n_send != 2 || P.draw.nl != 2) return -1;
   if (n <= 0) return 0;
   return mtt::launch_split_recombine(sec, out, shares, state, n, P,
                                      (cudaStream_t)stream);
 }
 
-// -1: a (mode, l, t, m, k) the kernel was not built for (l = 32, 14 or
-// 10, t = 1, m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py SGN_BUILT).
+// n elements in calls of `chunk` (counters P's, P's + 1, ...), the last on
+// n_last >= its given elements (mtt_sgn(a, out, state, n, n, n, ...) is
+// one call). -1: a (mode, l, limbs, t, m, k) the kernel was not built for
+// (two limbs: l = 32, 14 or 10 in every mode; three limbs: LT mode at l =
+// 16, 23, 30 or 37; t = 1, m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py
+// SGN_BUILT), or a chunk geometry that does not hold.
 int mtt_sgn(const void* a, void* out, const void* state, long long n,
-            long long blocks_a, const void* params, void* stream) {
+            long long chunk, long long n_last, const void* params,
+            void* stream) {
   const mtt::SgnParams P = *(const mtt::SgnParams*)params;
   if (P.t != 1 || P.m != 3 || P.k < 0 || P.k > 64) return -1;
-  if (P.l != 32 && P.l != 14 && P.l != 10) return -1;
   if (n <= 0) return 0;
+  if (chunk <= 0 || n_last > chunk || n_last < n - (n - 1) / chunk * chunk)
+    return -1;
   const cudaStream_t s = (cudaStream_t)stream;
+  using mtt::launch_sgn;
   using mtt::launch_sgn_modes;
+  if (P.draw.nl == 2) {
+    switch (P.l) {
+      case 32: return launch_sgn_modes<32>(a, out, state, n, chunk, n_last,
+                                           P, s);
+      case 14: return launch_sgn_modes<14>(a, out, state, n, chunk, n_last,
+                                           P, s);
+      case 10: return launch_sgn_modes<10>(a, out, state, n, chunk, n_last,
+                                           P, s);
+      default: return -1;
+    }
+  }
+  if (P.draw.nl != 3 || P.mode != 1) return -1;
   switch (P.l) {
-    case 32: return launch_sgn_modes<32>(a, out, state, n, blocks_a, P, s);
-    case 14: return launch_sgn_modes<14>(a, out, state, n, blocks_a, P, s);
-    default: return launch_sgn_modes<10>(a, out, state, n, blocks_a, P, s);
+    case 16: return launch_sgn<1, 16, 3>(a, out, state, n, chunk, n_last, P,
+                                         s);
+    case 23: return launch_sgn<1, 23, 3>(a, out, state, n, chunk, n_last, P,
+                                         s);
+    case 30: return launch_sgn<1, 30, 3>(a, out, state, n, chunk, n_last, P,
+                                         s);
+    case 37: return launch_sgn<1, 37, 3>(a, out, state, n, chunk, n_last, P,
+                                         s);
+    default: return -1;
   }
 }
 

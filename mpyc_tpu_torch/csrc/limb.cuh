@@ -1,4 +1,6 @@
 // Montgomery arithmetic on little-endian 32-bit limbs, R = 2^(32 L).
+// Every function is a template on the limb count; the kernels are built
+// for two-limb fields (p < 2^64) and three-limb fields (p < 2^96).
 //
 // Device counterpart of mpyc_tpu/ops/limb.py (mont_mul :247, add_mod :217,
 // sub_mod :227, iszero_ll :195) and of its plain PyTorch version
@@ -18,6 +20,53 @@
 #endif
 
 namespace mtt {
+
+// Element e of an array of L-limb elements, the limbs consecutive words:
+// one 8-byte access at L = 2, L 4-byte accesses otherwise (there is no
+// 12-byte one). ldg_fe reads device memory that the kernel only reads;
+// load_fe and store_fe read and write any memory, shared memory included.
+template <int L>
+__device__ __forceinline__ void ldg_fe(const uint32_t* __restrict__ base,
+                                       long long e, uint32_t* v) {
+  if constexpr (L == 2) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(base) + e);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < L; ++q) v[q] = __ldg(base + e * L + q);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void load_fe(const uint32_t* base, long long e,
+                                        uint32_t* v) {
+  if constexpr (L == 2) {
+    const uint2 w = reinterpret_cast<const uint2*>(base)[e];
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < L; ++q) v[q] = base[e * L + q];
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void store_fe(uint32_t* base, long long e,
+                                         const uint32_t* v) {
+  if constexpr (L == 2) {
+    reinterpret_cast<uint2*>(base)[e] = make_uint2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < L; ++q) base[e * L + q] = v[q];
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void fe_copy(const uint32_t* a, uint32_t* out) {
+#pragma unroll
+  for (int q = 0; q < L; ++q) out[q] = a[q];
+}
 
 // (a + b) mod p for a, b < p.
 template <int L>

@@ -11,8 +11,9 @@
 // into lane 4, counter-mode blocks on lane 19.
 //   stream A, blocks 0 .. blocks_a-1: element e takes words e*wpe + w,
 //     first wb words of random bits, then wk words of r_divl;
-//   stream B, from block blocks_a on: 16-byte draws into GF(p), ten a
-//     block (draw d: block blocks_a + d / 10, slot d % 10), taken call by
+//   stream B, from block blocks_a on: draws of 4 (NL + 2) bytes into
+//     GF(p), EPB a block (ten of 16 bytes at NL = 2, eight of 20 at NL =
+//     3; draw d: block blocks_a + d / EPB, slot d % EPB), taken call by
 //     call in the order of the XLA step; a call of c draws per element
 //     gives element e the draws off + kk*n*c + e*c + i (kk < t, i < c).
 //
@@ -23,13 +24,21 @@
 // and the blinded zero test with one blinder per element. Device memory
 // sees each input share read once and each output share written once.
 //
-// Instantiated for l = 32 (SecInt(32)) and l = 14 and 10 (the BNN's
-// SecInt(14)), t = 1, m = 3 (kernels.cu, mtt_sgn).
+// A launch may take many calls: the chunks of 1024 (or 2^20) elements
+// into which the runtime cuts a comparison, each a call of its own with
+// counter ctr + c (chunk c), its own stream and its own n (the last
+// chunk's padded to its bucket). A CTA works in one chunk.
+//
+// Instantiated at t = 1, m = 3 (kernels.cu, mtt_sgn) for two-limb fields
+// at l = 32 (SecInt(32)) and l = 14 and 10 (the BNN's SecInt(14)) in all
+// three modes, and for three-limb fields in LT mode at l = 16, 23, 30 and
+// 37 (the CNN's SecInt(37), whose demo compares at those widths).
 //
 // Bound: integer operations (sgn mode at l = 32, t = 1, m = 3: about 10
 // sponge blocks, 900 Montgomery products and 1,430 modular adds per
 // element, the draws' reduction included, against 48 bytes moved;
-// SgnSpec.field_ops).
+// SgnSpec.field_ops; a three-limb product costs about twice a two-limb
+// one, chip_smoke.mont_mul_ops).
 //
 // Design. Neighbouring elements take neighbouring draws of every call, so
 // a thread squeezing its own draws repeats its neighbours' permutations,
@@ -50,7 +59,10 @@
 // shares (lb x m) and, in sgn and EQ mode, the xor vector (l x m) live in
 // thread-private arrays in local memory; in LT mode the suffix loop
 // recomputes each xor bit from rb_j and c_j and keeps no xor vector. The
-// bit and tree loops are not unrolled (build time).
+// bit and tree loops are not unrolled (build time). At NL = 3 a draw is 12
+// bytes of shared memory, so LT mode at l = 37 takes 120,832 bytes a CTA
+// and one CTA fits a SM; the stack grows with the E array (chip_smoke.py
+// prints ptxas's report).
 #pragma once
 #include <cstdint>
 
@@ -64,23 +76,18 @@ namespace mtt {
 // constants are Montgomery limbs unless named otherwise.
 struct SgnParams {
   DrawParams draw;
-  uint32_t lag_t[MAX_SEND][NL];   // Lagrange at 0 from shares 1..t+1
-  uint32_t lag_2t[MAX_SEND][NL];  // Lagrange at 0 from shares 1..2t+1
-  uint32_t xs[MAX_M][NL];         // evaluation points 1..m
-  uint32_t one[NL], three[NL];
-  uint32_t r2[NL];                // R^2 mod p: standard -> Montgomery
-  uint32_t pow2l[NL], inv2l[NL], pow2l1[NL], powf[NL];
-  uint32_t nonce_lo, nonce_hi;    // call counter, XORed into lane 4
+  uint32_t lag_t[MAX_SEND][MAX_NL];   // Lagrange at 0 from shares 1..t+1
+  uint32_t lag_2t[MAX_SEND][MAX_NL];  // Lagrange at 0 from shares 1..2t+1
+  uint32_t xs[MAX_M][MAX_NL];         // evaluation points 1..m
+  uint32_t one[MAX_NL], three[MAX_NL];
+  uint32_t r2[MAX_NL];                // R^2 mod p: standard -> Montgomery
+  uint32_t pow2l[MAX_NL], inv2l[MAX_NL], pow2l1[MAX_NL], powf[MAX_NL];
+  uint32_t nonce_lo, nonce_hi;        // counter of the first call
   int32_t t, m, l, k, mode, has_f;
 };
 
-__device__ __forceinline__ void fe_copy(const uint32_t* a, uint32_t* out) {
-#pragma unroll
-  for (int q = 0; q < NL; ++q) out[q] = a[q];
-}
-
 // Shares of value v at x_j: Horner(C, x_j) + v for the m parties.
-template <int T, int M>
+template <int NL, int T, int M>
 __device__ __forceinline__ void dealer_split(const uint32_t* v,
                                              const uint32_t (*C)[NL],
                                              const SgnParams& P,
@@ -89,7 +96,7 @@ __device__ __forceinline__ void dealer_split(const uint32_t* v,
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     uint32_t y[NL];
-    fe_copy(C[0], y);
+    fe_copy<NL>(C[0], y);
     mont_mul<NL>(y, P.xs[j], p, P.draw.n0inv, y);
 #pragma unroll
     for (int kk = 1; kk < T; ++kk) {
@@ -102,7 +109,7 @@ __device__ __forceinline__ void dealer_split(const uint32_t* v,
 
 // GRR98 reshare of degree-2t shares x into degree-t shares (x and out may
 // be the same array): S = sum_i lag_2t[i] x_i, out_j = Horner(C, x_j) + S.
-template <int T, int M>
+template <int NL, int T, int M>
 __device__ __forceinline__ void sgn_reshare(const uint32_t (*x)[NL],
                                             const uint32_t (*C)[NL],
                                             const SgnParams& P,
@@ -112,33 +119,34 @@ __device__ __forceinline__ void sgn_reshare(const uint32_t (*x)[NL],
   for (int i = 0; i < 2 * T + 1; ++i) {
     uint32_t term[NL];
     mont_mul<NL>(x[i], P.lag_2t[i], P.draw.p, P.draw.n0inv, term);
-    if (i == 0) fe_copy(term, S);
+    if (i == 0) fe_copy<NL>(term, S);
     else add_mod<NL>(S, term, P.draw.p, S);
   }
-  dealer_split<T, M>(S, C, P, out);
+  dealer_split<NL, T, M>(S, C, P, out);
 }
 
 constexpr int SGN_THREADS = 256;  // elements (threads) of a K5 CTA
 
 // Dynamic shared memory of a K5 CTA: the draws of its largest call (the
-// bits: t x lb a thread) and its words of stream A (at most lb / 32 + 2 a
-// thread, k <= 64).
-template <int MODE, int LBIT, int T>
+// bits: t x lb a thread, 4 NL bytes each) and its words of stream A (at
+// most lb / 32 + 2 a thread, k <= 64).
+template <int MODE, int LBIT, int T, int NL>
 constexpr int sgn_smem_bytes() {
   constexpr int LB = LBIT + (MODE == 2 ? 0 : 1);
-  return (T * LB * 8 + ((LB + 31) / 32 + 2) * 4) * SGN_THREADS;
+  return (T * LB * NL * 4 + ((LB + 31) / 32 + 2) * 4) * SGN_THREADS;
 }
 
 // The CTA's view of stream B: the draws of one call at a time, staged in
 // shared memory as [set kk][draw i][element].
+template <int NL>
 struct SgnDraws {
   const uint32_t* state;
   uint64_t nonce;
-  long long n, blocks_a, e0;
+  long long n, blocks_a, e0;  // the call's n, its stream A, the CTA's first
   long long off;  // the first draw of the next call
-  int cnt;        // elements of the CTA below n
+  int cnt;        // live elements of the CTA
   int c;          // draws per element and set of the staged call
-  uint2* sm;
+  uint32_t* sm;
 
   // Stage the next call: c draws per element in `reps` sets (set kk of
   // element e is draws off + kk*n*c + e*c + i, i < c). Every thread of
@@ -149,16 +157,15 @@ struct SgnDraws {
     __syncthreads();  // the last call's draws are read
 #pragma unroll 1
     for (int kk = 0; kk < reps; ++kk)
-      stage_draws(state, nonce, blocks_a, off + kk * n * c + e0 * c, cnt, c,
-                  D, sm + kk * c * SGN_THREADS, SGN_THREADS);
+      stage_draws<NL, fused_words<NL>()>(
+          state, nonce, blocks_a, off + kk * n * c + e0 * c, cnt, c, D,
+          sm + (long long)kk * c * SGN_THREADS * NL, SGN_THREADS);
     __syncthreads();
     off += (long long)reps * n * c;
   }
   // draw i of set kk of this thread's element
   __device__ __forceinline__ void get(int kk, int i, uint32_t* v) const {
-    const uint2 w = sm[(kk * c + i) * SGN_THREADS + threadIdx.x];
-    v[0] = w.x;
-    v[1] = w.y;
+    load_fe<NL>(sm, (long long)(kk * c + i) * SGN_THREADS + threadIdx.x, v);
   }
   // the t coefficients of draw i
   template <int T>
@@ -171,9 +178,10 @@ struct SgnDraws {
 // Log-depth product of x[0..w-1] (each m shares) into x[0]: level by
 // level, x_j <- reshare(x_j * x_{h+j}) for j < h = w / 2, an odd last one
 // moves to x_h. A level is one call of h draws per element.
-template <int T, int M>
+template <int NL, int T, int M>
 __device__ __forceinline__ void prod_tree(uint32_t (*x)[M][NL], int w,
-                                          SgnDraws& S, const SgnParams& P) {
+                                          SgnDraws<NL>& S,
+                                          const SgnParams& P) {
 #pragma unroll 1
   while (w > 1) {
     const int h = w >> 1;
@@ -184,54 +192,64 @@ __device__ __forceinline__ void prod_tree(uint32_t (*x)[M][NL], int w,
 #pragma unroll
       for (int i = 0; i < M; ++i)
         mont_mul<NL>(x[j][i], x[h + j][i], P.draw.p, P.draw.n0inv, y[i]);
-      S.coefs<T>(j, C);
-      sgn_reshare<T, M>(y, C, P, x[j]);
+      S.template coefs<T>(j, C);
+      sgn_reshare<NL, T, M>(y, C, P, x[j]);
     }
     if (w & 1) {
 #pragma unroll
-      for (int i = 0; i < M; ++i) fe_copy(x[2 * h][i], x[h][i]);
+      for (int i = 0; i < M; ++i) fe_copy<NL>(x[2 * h][i], x[h][i]);
     }
     w = h + (w & 1);
   }
 }
 
 // MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f. a and out
-// are (m, n) elements of two limbs.
-template <int MODE, int LBIT, int T, int M>
+// are (m, n) elements of NL limbs. The n elements are cut into chunks of
+// `chunk`, each a call with counter P's + c; the last chunk's call is on
+// n_last elements (its bucket), of which the first n - c * chunk are
+// given: the rest are the zero rows that pad it, and no thread takes them
+// (an element's draws depend on its index and the call's n only).
+template <int MODE, int LBIT, int T, int M, int NL>
 __global__ void __launch_bounds__(SGN_THREADS)
-sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
-           const uint32_t* __restrict__ state, long long n,
-           long long blocks_a, SgnParams P) {
+sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+           const uint32_t* __restrict__ state, long long n, long long chunk,
+           long long n_last, SgnParams P) {
   constexpr bool LT = MODE == 1, EQ = MODE == 2;
   constexpr int LB = LBIT + (EQ ? 0 : 1);  // random bits (+ sign bit)
   constexpr int WB = (LB + 31) / 32;
-  static_assert(NL == 2 && LB <= 64 && 2 * T + 1 <= M && M <= MAX_M,
-                "K5 takes two-limb fields and l < 64");
+  static_assert(LB <= 64 && LBIT <= 32 * NL && 2 * T + 1 <= M && M <= MAX_M,
+                "K5 takes l < 64");
   extern __shared__ uint2 sgn_smem[];
-  uint2* draws = sgn_smem;
-  uint32_t* words =
-      reinterpret_cast<uint32_t*>(draws + T * LB * SGN_THREADS);
+  uint32_t* draws = reinterpret_cast<uint32_t*>(sgn_smem);
+  uint32_t* words = draws + T * LB * NL * SGN_THREADS;
   const int tid = threadIdx.x;
-  const long long e0 = (long long)blockIdx.x * SGN_THREADS;
-  const long long e = e0 + tid;
-  const bool live = e < n;
+  // the CTA's chunk c, its call (n_c elements, counter + c) and elements
+  const long long per_chunk = (chunk + SGN_THREADS - 1) / SGN_THREADS;
+  const long long ch = blockIdx.x / per_chunk;
+  const long long first = ch * chunk;
+  const long long given = n - first < chunk ? n - first : chunk;
+  const long long n_c = first + chunk < n ? chunk : n_last;
+  const long long e0 = (blockIdx.x - ch * per_chunk) * SGN_THREADS;
+  const long long e = first + e0 + tid;       // index into a and out
+  const bool live = e0 + tid < given;
   const uint32_t* p = P.draw.p;
   const uint32_t n0 = P.draw.n0inv;
 
-  SgnDraws S;
+  SgnDraws<NL> S;
   S.state = state;
-  S.nonce = ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
-  S.n = n;
-  S.blocks_a = blocks_a;
+  S.nonce = (((uint64_t)P.nonce_hi << 32) | P.nonce_lo) + (uint64_t)ch;
+  S.n = n_c;
   S.e0 = e0;
   S.off = 0;
-  S.cnt = (int)(n - e0 < SGN_THREADS ? n - e0 : SGN_THREADS);
+  S.cnt = (int)(given - e0 < SGN_THREADS ? given - e0 : SGN_THREADS);
   S.c = 0;
   S.sm = draws;
 
   // stream A: the random bits and r_divl < 2^k
   const int wk = (P.k + 31) / 32;
   const int wpe = WB + wk;
+  S.blocks_a = (n_c * wpe + RATE_WORDS - 1) / RATE_WORDS;
+  if (S.blocks_a < 1) S.blocks_a = 1;
   stage_words(state, S.nonce, e0 * wpe, S.cnt * wpe, words);
   __syncthreads();
   uint64_t bits = 0;
@@ -259,8 +277,8 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
     const bool bit = (bits >> j) & 1;
 #pragma unroll
     for (int q = 0; q < NL; ++q) bm[q] = bit ? P.one[q] : 0u;
-    S.coefs<T>(j, C);
-    dealer_split<T, M>(bm, C, P, E[j]);
+    S.template coefs<T>(j, C);
+    dealer_split<NL, T, M>(bm, C, P, E[j]);
   }
 
   uint32_t rdiv[M][NL];
@@ -268,23 +286,26 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
     uint32_t v[NL], C[T][NL];
     mont_mul<NL>(kl, P.r2, p, n0, v);
     S.stage(1, T, P.draw);
-    S.coefs<T>(0, C);
-    dealer_split<T, M>(v, C, P, rdiv);
+    S.template coefs<T>(0, C);
+    dealer_split<NL, T, M>(v, C, P, rdiv);
   }
   // a_r = a + r_modl + 2^l with r_modl = sum_{j<l} rb_j 2^j (by doubling)
   uint32_t ar[M][NL], z[M][NL];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     uint32_t acc[NL], ai[NL];
-    fe_copy(E[LBIT - 1][i], acc);
+    fe_copy<NL>(E[LBIT - 1][i], acc);
 #pragma unroll 1
     for (int j = LBIT - 2; j >= 0; --j) {
       add_mod<NL>(acc, acc, p, acc);
       add_mod<NL>(acc, E[j][i], p, acc);
     }
-    const uint2 av = live ? __ldg(a + (long long)i * n + e) : make_uint2(0, 0);
-    ai[0] = av.x;
-    ai[1] = av.y;
+    if (live) {
+      ldg_fe<NL>(a, (long long)i * n + e, ai);
+    } else {
+#pragma unroll
+      for (int q = 0; q < NL; ++q) ai[q] = 0u;
+    }
     add_mod<NL>(ai, acc, p, ar[i]);
     add_mod<NL>(ar[i], P.pow2l, p, ar[i]);
   }
@@ -297,11 +318,11 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
     mont_mul<NL>(rdiv[i], P.pow2l, p, n0, ci);
     add_mod<NL>(ar[i], ci, p, ci);
     mont_mul<NL>(ci, P.lag_t[i], p, n0, ci);
-    if (i == 0) fe_copy(ci, c);
+    if (i == 0) fe_copy<NL>(ci, c);
     else add_mod<NL>(c, ci, p, c);
   }
   {
-    const uint32_t unit[NL] = {1u, 0u};
+    uint32_t unit[NL] = {1u};
     mont_mul<NL>(c, unit, p, n0, c);
   }
   const uint64_t cbits = (uint64_t)c[0] | ((uint64_t)c[1] << 32);
@@ -327,7 +348,7 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
 #pragma unroll
       for (int i = 0; i < M; ++i) {
         if (cb) sub_mod<NL>(P.one, E[j][i], p, X[j][i]);
-        else fe_copy(E[j][i], X[j][i]);
+        else fe_copy<NL>(E[j][i], X[j][i]);
       }
     }
   }
@@ -351,12 +372,12 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
         uint32_t v[NL], s3[NL], x[NL];
         if constexpr (LT) {  // xor_j, from rb_j before E_j replaces it
           if (cb) sub_mod<NL>(P.one, E[j][i], p, x);
-          else fe_copy(E[j][i], x);
+          else fe_copy<NL>(E[j][i], x);
         } else {
-          fe_copy(X[j][i], x);
+          fe_copy<NL>(X[j][i], x);
         }
         if (cb) sub_mod<NL>(E[j][i], P.one, p, v);
-        else fe_copy(E[j][i], v);
+        else fe_copy<NL>(E[j][i], v);
         add_mod<NL>(v, s[i], p, v);
         add_mod<NL>(suf[i], suf[i], p, s3);
         add_mod<NL>(s3, suf[i], p, s3);
@@ -372,23 +393,23 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
       sub_mod<NL>(s[i], P.one, p, E[LBIT][i]);
       add_mod<NL>(E[LBIT][i], s3, p, E[LBIT][i]);
     }
-    prod_tree<T, M>(E, LBIT + 1, S, P);
+    prod_tree<NL, T, M>(E, LBIT + 1, S, P);
 
     // blinded public zero test of the product, one blinder per element
     uint32_t bl[NL], C[T][NL], bsh[M][NL];
     S.stage(1, 1, P.draw);
     S.get(0, 0, bl);
-    if (is_zero<NL>(bl)) fe_copy(P.one, bl);
+    if (is_zero<NL>(bl)) fe_copy<NL>(P.one, bl);
     S.stage(1, T, P.draw);
-    S.coefs<T>(0, C);
-    dealer_split<T, M>(bl, C, P, bsh);
+    S.template coefs<T>(0, C);
+    dealer_split<NL, T, M>(bl, C, P, bsh);
     uint32_t po[NL];
 #pragma unroll
     for (int i = 0; i < 2 * T + 1; ++i) {
       uint32_t pb[NL];
       mont_mul<NL>(E[0][i], bsh[i], p, n0, pb);
       mont_mul<NL>(pb, P.lag_2t[i], p, n0, pb);
-      if (i == 0) fe_copy(pb, po);
+      if (i == 0) fe_copy<NL>(pb, po);
       else add_mod<NL>(po, pb, p, po);
     }
     const bool g = is_zero<NL>(po);
@@ -410,10 +431,10 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
 #pragma unroll
       for (int i = 0; i < M; ++i) sub_mod<NL>(P.one, X[j][i], p, X[j][i]);
     }
-    prod_tree<T, M>(X, LBIT, S, P);
+    prod_tree<NL, T, M>(X, LBIT, S, P);
     if constexpr (EQ) {
 #pragma unroll
-      for (int i = 0; i < M; ++i) fe_copy(X[0][i], z[i]);
+      for (int i = 0; i < M; ++i) fe_copy<NL>(X[0][i], z[i]);
     } else {
       // sgn = reshare((h_all - 1) (2z - 1))
       uint32_t y[M][NL], C[T][NL];
@@ -426,15 +447,15 @@ sgn_kernel(const uint2* __restrict__ a, uint2* __restrict__ out,
         mont_mul<NL>(u, v, p, n0, y[i]);
       }
       S.stage(1, T, P.draw);
-      S.coefs<T>(0, C);
-      sgn_reshare<T, M>(y, C, P, z);
+      S.template coefs<T>(0, C);
+      sgn_reshare<NL, T, M>(y, C, P, z);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     if (P.has_f) mont_mul<NL>(z[i], P.powf, p, n0, z[i]);
-    if (live) out[(long long)i * n + e] = make_uint2(z[i][0], z[i][1]);
+    if (live) store_fe<NL>(out, (long long)i * n + e, z[i]);
   }
 }
 

@@ -23,8 +23,6 @@
 
 namespace mtt {
 
-static_assert(NL == 2, "the stage stores a draw as one uint2");
-
 // Block `blk` of a counter-mode stream: the absorbed state with `nonce`
 // XORed into lane 4 and the block counter into lane 19, permuted.
 __device__ __forceinline__ void squeeze_block(const uint32_t* __restrict__ state,
@@ -38,16 +36,19 @@ __device__ __forceinline__ void squeeze_block(const uint32_t* __restrict__ state
 }
 
 // Draws d0 + j*c + i (j < cnt, i < c) of the squeeze_mont stream of
-// 16-byte draws, ten a block, draw d in block blk0 + d / 10, each reduced
-// into GF(p) in Montgomery form, to sm[i * stride + j]: the threads of
-// the CTA read draw i of their element j from consecutive words, with no
-// bank conflict. Out of line, so the permutation is compiled once.
+// W-word draws, EPB = 42 / W a block (ten of 16 bytes at NL = 2, eight of
+// 20 bytes at NL = 3), draw d in block blk0 + d / EPB, each reduced into
+// GF(p) in Montgomery form, to element i * stride + j of sm (NL words an
+// element): the threads of the CTA read draw i of their element j from
+// consecutive elements, with no bank conflict (8-byte words at NL = 2; at
+// NL = 3 a stride of three words, which is odd). Out of line, so the
+// permutation is compiled once per instantiation.
+template <int NL, int W>
 __device__ __noinline__ void stage_draws(const uint32_t* __restrict__ state,
                                          uint64_t nonce, long long blk0,
                                          long long d0, int cnt, int c,
-                                         DrawParams P, uint2* sm,
+                                         DrawParams P, uint32_t* sm,
                                          int stride) {
-  constexpr int W = 4;
   constexpr int EPB = RATE_WORDS / W;
   const long long total = (long long)cnt * c;
   if (total <= 0) return;
@@ -64,8 +65,8 @@ __device__ __noinline__ void stage_draws(const uint32_t* __restrict__ state,
         const int j = (int)(r / c);
         const int i = (int)(r - (long long)j * c);
         uint32_t v[NL];
-        reduce_draw<W>(A, s, P, v);
-        sm[i * stride + j] = make_uint2(v[0], v[1]);
+        reduce_draw<NL, W>(A, s, P, v);
+        store_fe<NL>(sm, (long long)i * stride + j, v);
       }
     }
   }

@@ -1,0 +1,323 @@
+"""Secure CNN inference on MNIST, on the port.
+
+    python -m mpyc_tpu_torch.demos.np_cnnmnist [-b B] [-o OFFSET]
+        [--selftest] [--device cuda|cpu]
+
+The co-located integer path of ``demos/cnnmnist.py`` on ``SimRuntime(3)``
+(t = 1) with SecInt(37): the published MNIST CNN (conv 5x5x32, maxpool,
+conv 5x5x64, maxpool, fc 3136x1024, fc 1024x10; weights from
+``demos/data/cnn``) on MNIST test images B from OFFSET. The pixels, scaled
+by 2^6, enter as public values (``secint.array(scale_int(x, 2^6))``), the
+weights at 2^6 and the biases at 2^(6 a) as public-valued secure arrays
+(``load``). A convolution is im2col and one secure matrix product (a field
+matmul and one reshare round, kernel K3 on the card); maxpool is two
+``np_where(a >= b, a, b)`` rounds and ReLU ``(x >= 0) * x`` (comparisons:
+kernel K5; products: K3). The bit length of the type is set to 16, 23, 30
+and 37 between the layers, as the demo does, and one batched
+``np_argmax(x, axis=1)`` gives the predictions. They must equal
+``plain_forward``, the same network in int64 with the comparison's
+integer semantics; they are also counted against the demo's float
+forward pass (``float_forward``) and against the MNIST labels.
+
+``--selftest``: a random CNN of the same structure on small images, input
+with ``rt.input`` at SecInt(37), whose predictions must equal
+``plain_forward``'s.
+
+The demo's fixed-point path (``SecFxp(14, 6)``, batch ``B.5``) needs the
+secure truncation, which the port does not have yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mpyc_tpu_torch.demos.np_bnnmnist import (load_mnist, plain_argmax,
+                                              plain_less)
+from mpyc_tpu_torch.parallel.simulator import SimRuntime
+
+DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'cnn'
+L_TYPE = 37      # SecInt(37): the field, and the bit length of the argmax
+F = 6            # fractional bits of the pixels and weights
+# (name, a) of each layer: its bias is scaled by 2^(a F)
+LAYERS = (('conv1', 2), ('conv2', 3), ('fc1', 4), ('fc2', 5))
+# the demo's bit length after conv1, conv2 and fc1 (cnnmnist.py:161-190)
+L_AFTER = {'conv1': 16, 'conv2': 23, 'fc1': 30}
+
+
+def scale_int(x, f2):
+    """x * f2 rounded to Python ints (the demo's ``scale_int``)."""
+    return np.vectorize(round, otypes=[object])(x * f2)
+
+
+def load_weights() -> dict:
+    """The published float weights and biases of each layer."""
+    return {name: (np.load(DATA / f'W_{name}.npy').astype(np.float64),
+                   np.load(DATA / f'b_{name}.npy').astype(np.float64))
+            for name, _ in LAYERS}
+
+
+def scaled_weights(weights) -> dict:
+    """Each layer's (W, b) as Python-int object arrays: W at 2^F, b at
+    2^(a F) (the demo's ``load``)."""
+    return {name: (scale_int(weights[name][0], 1 << F),
+                   scale_int(weights[name][1], 1 << (a * F)))
+            for name, a in LAYERS}
+
+
+def images_int(images) -> np.ndarray:
+    """uint8 (B, 784) images -> (B, 1, 28, 28) pixels / 255 at 2^F, as
+    Python ints (the demo's input)."""
+    x = np.asarray(images).reshape(-1, 1, 28, 28) / 255
+    return scale_int(x, 1 << F)
+
+
+# -- the plaintext models -----------------------------------------------------
+
+def _im2col(x, s):
+    """(k, r, m, n) -> (k m n, r s s) 'same' patches of an s x s kernel,
+    in the order of the demo's conv2d."""
+    k, r, m, n = x.shape
+    pad = (s - 1) // 2
+    xp = np.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)))
+    cols = np.stack([xp[:, :, di:di + m, dj:dj + n]
+                     for di in range(s) for dj in range(s)], axis=2)
+    return cols.transpose(0, 3, 4, 1, 2).reshape(k * m * n, r * s * s)
+
+
+def _matmul(x, W):
+    """x @ W, exact for int64 (in torch on the CPU: numpy's integer matmul
+    has no fast path), as it is for float64."""
+    if x.dtype != np.int64:
+        return x @ W
+    return (torch.from_numpy(np.ascontiguousarray(x))
+            @ torch.from_numpy(np.ascontiguousarray(W))).numpy()
+
+
+def _conv(x, W, b):
+    k, _, m, n = x.shape
+    v, _, s, _ = W.shape
+    out = _matmul(_im2col(x, s), W.reshape(v, -1).T) + b
+    return out.reshape(k, m, n, v).transpose(0, 3, 1, 2)
+
+
+def plain_stages(x, sweights) -> dict:
+    """The network in int64 with the protocol's semantics, stage by stage:
+    a >= b is 1 - LT(a - b) with LT(d) = -floor(d / 2^l) (exact for
+    |d| < 2^l), ``np_where(c, a, b)`` is c (a - b) + b, and the argmax is
+    the runtime's tournament. ``sweights``: scaled_weights. Returns each
+    stage's output by name: conv1, pool1 (maxpool and ReLU), conv2, pool2,
+    fc1, relu3, fc2 (the logits) and argmax (the predictions)."""
+    def ge(a, b, l):
+        return 1 - plain_less(a, b, l)
+
+    def pool_relu(x, l):
+        a, b = x[:, :, ::2, :], x[:, :, 1::2, :]
+        x = ge(a, b, l) * (a - b) + b
+        a, b = x[:, :, :, ::2], x[:, :, :, 1::2]
+        x = ge(a, b, l) * (a - b) + b
+        return ge(x, 0, l) * x
+
+    w = {name: (W.astype(np.int64), b.astype(np.int64))
+         for name, (W, b) in sweights.items()}
+    st = {}
+    x = np.asarray(x, dtype=np.int64)
+    for i, name in enumerate(('conv1', 'conv2')):
+        x = st[name] = _conv(x, *w[name])
+        x = st[f'pool{i + 1}'] = pool_relu(x, L_AFTER[name])
+    x = st['fc1'] = _matmul(x.reshape(x.shape[0], -1), w['fc1'][0]) \
+        + w['fc1'][1]
+    x = st['relu3'] = ge(x, 0, L_AFTER['fc1']) * x
+    x = st['fc2'] = _matmul(x, w['fc2'][0]) + w['fc2'][1]
+    st['argmax'] = plain_argmax(x, L_TYPE)
+    return st
+
+
+def plain_forward(x, sweights, stats=None) -> np.ndarray:
+    """Predictions of ``plain_stages``' network. A ``stats`` dict gets each
+    layer's least and largest output."""
+    st = plain_stages(x, sweights)
+    if stats is not None:
+        for name in ('conv1', 'conv2', 'fc1', 'fc2'):
+            stats[name] = (int(st[name].min()), int(st[name].max()))
+    return st['argmax']
+
+
+def float_forward(x, weights) -> np.ndarray:
+    """The demo's float forward pass (``demos/cnnmnist.py``
+    ``plain_forward``): logits of (B, 1, 28, 28) pixels in [0, 1]."""
+    def pool(x):
+        x = np.maximum(x[:, :, ::2, :], x[:, :, 1::2, :])
+        return np.maximum(x[:, :, :, ::2], x[:, :, :, 1::2])
+
+    x = np.maximum(pool(_conv(x, *weights['conv1'])), 0)
+    x = np.maximum(pool(_conv(x, *weights['conv2'])), 0)
+    x = np.maximum(x.reshape(x.shape[0], -1) @ weights['fc1'][0]
+                   + weights['fc1'][1], 0)
+    return x @ weights['fc2'][0] + weights['fc2'][1]
+
+
+# -- the secure network -------------------------------------------------------
+
+def conv2d(rt, x, W, b):
+    """Secure 'same' 2-D convolution: im2col and one secure matmul (the
+    demo's conv2d)."""
+    k, r, m, n = x.shape
+    v, _, s, _ = W.shape
+    pad = (s - 1) // 2
+    zrows = np.zeros((k, r, pad, n), dtype=object)
+    xp = rt.np_concatenate((zrows, x, zrows), axis=2)
+    zcols = np.zeros((k, r, m + 2 * pad, pad), dtype=object)
+    xp = rt.np_concatenate((zcols, xp, zcols), axis=3)
+    patches = rt.np_stack([xp[:, :, di:di + m, dj:dj + n]
+                           for di in range(s) for dj in range(s)], axis=2)
+    patches = rt.np_transpose(patches, (0, 3, 4, 1, 2))
+    patches = rt.np_reshape(patches, (k * m * n, r * s * s))
+    Wmat = rt.np_transpose(rt.np_reshape(W, (v, r * s * s)))
+    out = patches @ Wmat + b
+    out = rt.np_reshape(out, (k, m, n, v))
+    return rt.np_transpose(out, (0, 3, 1, 2))
+
+
+def maxpool(rt, x):
+    """(2, 2) maxpool with stride 2: two rounds of np_where(a >= b, a, b)."""
+    def maximum(a, b):
+        return rt.np_where(a >= b, a, b)
+    x = maximum(x[:, :, ::2, :], x[:, :, 1::2, :])
+    return maximum(x[:, :, :, ::2], x[:, :, :, 1::2])
+
+
+def relu(x):
+    return (x >= 0) * x
+
+
+def secure_layers(secint, sweights) -> dict:
+    """Each layer's (W, b) as public-valued secure arrays on the device."""
+    return {name: (secint.array(W), secint.array(b))
+            for name, (W, b) in sweights.items()}
+
+
+def secure_forward(rt, secint, x, slayers, barrier=None) -> np.ndarray:
+    """The secure network on a batch x, a secure (B, 1, H, W) array (public
+    pixel values or input shares): the opened predictions. ``barrier``,
+    if given, is called with each layer's name after it (a hook for
+    timing)."""
+    barrier = barrier or rt.barrier
+    try:
+        for name in ('conv1', 'conv2'):
+            x = conv2d(rt, x, *slayers[name])
+            secint.bit_length = L_AFTER[name]
+            x = relu(maxpool(rt, x))
+            barrier(f'after-{name}')
+        x = rt.np_reshape(x, (x.shape[0], -1))
+        W, b = slayers['fc1']
+        x = x @ W + b
+        secint.bit_length = L_AFTER['fc1']
+        x = relu(x)
+        barrier('after-fc1')
+        W, b = slayers['fc2']
+        x = x @ W + b
+        secint.bit_length = L_TYPE
+        preds = rt.output(rt.np_argmax(x, axis=1))
+        barrier('after-fc2')
+    finally:
+        secint.bit_length = L_TYPE
+    return np.asarray(preds, dtype=np.int64)
+
+
+def random_cnn(gen, size: int, c1: int, c2: int, hidden: int,
+               out: int = 10) -> dict:
+    """A random network of the CNN's structure on size x size images (size
+    a multiple of 4): small integer weights and biases, so that every
+    comparison's operands stay within the bit lengths the network
+    compares at."""
+    q = size // 4
+    return {'conv1': (gen.integers(-3, 4, (c1, 1, 5, 5)),
+                      gen.integers(-99, 100, c1)),
+            'conv2': (gen.integers(-3, 4, (c2, c1, 5, 5)),
+                      gen.integers(-999, 1000, c2)),
+            'fc1': (gen.integers(-3, 4, (c2 * q * q, hidden)),
+                    gen.integers(-9999, 10000, hidden)),
+            'fc2': (gen.integers(-3, 4, (hidden, out)),
+                    gen.integers(-9999, 10000, out))}
+
+
+def selftest(rt, secint, batch: int, size: int = 8, seed: int = 42):
+    """A random CNN (1 -> 4 -> 4 channels, fc 4 (size/4)^2 -> 8 -> 10) on
+    random size x size images at 2^F, input by party 1 with ``rt.input``;
+    returns (predictions, plain_forward's)."""
+    gen = np.random.default_rng(seed)
+    sweights = {name: (W.astype(object), b.astype(object)) for name, (W, b)
+                in random_cnn(gen, size, 4, 4, 8).items()}
+    x = gen.integers(0, 1 << F, (batch, 1, size, size))
+    expect = plain_forward(x, sweights)
+    X = rt.input(secint.array(x.astype(object)), senders=0)
+    rt.barrier()
+    got = secure_forward(rt, secint, X, secure_layers(secint, sweights))
+    return got, expect
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('-b', '--batch-size', type=int, default=1,
+                        help='number of images to classify')
+    parser.add_argument('-o', '--offset', type=int, default=0,
+                        help='offset into the MNIST test set')
+    parser.add_argument('--selftest', action='store_true',
+                        help='random small network, no data files needed')
+    parser.add_argument('--device', default='cuda',
+                        help="where the shares live (default: the card; "
+                        "'cpu' runs the kernels' plain versions)")
+    args = parser.parse_args(argv)
+
+    rt = SimRuntime(3, device=args.device)
+    secint = rt.SecInt(L_TYPE)
+    rt.start()
+    B = args.batch_size
+    if args.selftest:
+        t0 = time.time()
+        got, expect = selftest(rt, secint, B)
+        ok = bool((got == expect).all())
+        print(f'secure CNN selftest ({B} images of 8x8, SecInt({L_TYPE}) '
+              f'input) {"OK" if ok else "FAILED"} in {time.time() - t0:.2f}s;'
+              f' predictions {got.tolist()}')
+        rt.shutdown()
+        return 0 if ok else 1
+
+    labels, images = load_mnist(args.offset, B)
+    print(f'Type = {secint.__name__}, range = ({args.offset}, '
+          f'{args.offset + B}), device = {rt.device}')
+    print('Labels:', labels.tolist())
+    weights = load_weights()
+    sweights = scaled_weights(weights)
+    x = images_int(images)
+    t0 = time.time()
+    preds = secure_forward(rt, secint, secint.array(x),
+                           secure_layers(secint, sweights))
+    elapsed = time.time() - t0
+    stats = {}
+    model = plain_forward(x, sweights, stats)
+    floats = np.argmax(float_forward(np.asarray(images).reshape(-1, 1, 28, 28)
+                                     / 255, weights), axis=1)
+    for name, (lo, hi) in stats.items():
+        print(f'{name} outputs in [{lo}, {hi}]')
+    for i in range(B):
+        tag = '' if preds[i] == labels[i] else '******* ERROR *******'
+        print(f'Image #{args.offset + i} with label {labels[i]}: '
+              f'{preds[i]} predicted. {tag}')
+    agree = bool((preds == model).all())
+    print(f'{int((preds == labels).sum())}/{B} correct against the labels, '
+          f'{int((preds == floats).sum())}/{B} equal to the float model, in '
+          f'{elapsed:.2f}s; predictions '
+          f'{"equal" if agree else "DIFFER from"} the plaintext model')
+    rt.shutdown()
+    return 0 if agree else 1
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -18,10 +18,17 @@ layout, which is the one the JAX package runs on the CPU, so the port's
 steps equal ``mpyc_tpu``'s bit for bit there, for the same shares, state
 and counter. The same holds for the comparison (Pallas pipelines.py:616-641
 against XLA :859-892).
+
+Launch counts. Each wrapper of a kernel adds one to its ``launches`` where
+it launches the kernel, and to ``by_key[instantiation]`` beside it (K3:
+(L, fused); K5: (mode, l, L)), so a caller can tell which instantiations
+a path ran. K5 also adds the launch's comparison calls (chunks) to
+``sgn_step.chunks``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -57,27 +64,27 @@ class ReshareSpec:
     def params(self, nonce):
         """Kernel parameter block for a call with counter (lo, hi)."""
         from mpyc_tpu_torch import _build
-        W = self.l_bytes // 4
-        if W != 4:
-            raise NotImplementedError(f'{self.l_bytes}-byte reshare draws')
+        W, L = self.l_bytes // 4, self.ctx.L
+        if L not in _build.BUILT_NL or W != L + 2:
+            raise NotImplementedError(
+                f'{self.l_bytes}-byte reshare draws of a {L}-limb field')
         if self.m > _build.MAX_M:
             raise NotImplementedError(f'{self.m} parties')
         P = _build.ReshareParams()
-        P.draw = _build.draw_params(self.ctx, -(-W // self.ctx.L))
+        P.draw = _build.draw_params(self.ctx, -(-W // L))
         for i, c in enumerate(self.lag):
-            P.lag[i][:] = c
+            _build.set_limbs(P.lag[i], c)
         for j, x in enumerate(self.xs_mont):
-            P.xs[j][:] = x
+            _build.set_limbs(P.xs[j], x)
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
         P.t, P.m, P.n_send = self.t, self.m, self.n_send
         return P
 
 
-def _next_ctr(ctr) -> np.ndarray:
-    """The call counter (lo, hi) advanced by one, with the carry."""
-    lo = np.uint32((int(ctr[0]) + 1) & 0xFFFFFFFF)
-    hi = np.uint32((int(ctr[1]) + (lo == 0)) & 0xFFFFFFFF)
-    return np.array([lo, hi], np.uint32)
+def _add_ctr(ctr, k: int = 1) -> np.ndarray:
+    """The call counter (lo, hi) advanced by k, with the carry."""
+    v = (int(ctr[0]) | int(ctr[1]) << 32) + k
+    return np.array([v & 0xFFFFFFFF, v >> 32 & 0xFFFFFFFF], np.uint32)
 
 
 def _nonce_state(state: torch.Tensor, nonce) -> torch.Tensor:
@@ -89,8 +96,10 @@ def _nonce_state(state: torch.Tensor, nonce) -> torch.Tensor:
 
 
 def _check_aligned(*tensors) -> None:
-    """K3 and K5 load and store an element's two limbs as one 8-byte word."""
-    if any(t is not None and t.data_ptr() % 8 for t in tensors):
+    """K3 and K5 load and store an element of a two-limb field as one
+    8-byte word (three limbs as three 4-byte words)."""
+    if any(t is not None and t.shape[-1] == 2 and t.data_ptr() % 8
+           for t in tensors):
         raise ValueError('shares must start on an 8-byte boundary')
 
 
@@ -152,10 +161,12 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
                 state.data_ptr(), a.shape[1], int(b is not None),
                 ctypes.addressof(params), _build.stream_of(a.device))
     reshare_mul.launches += 1
+    reshare_mul.by_key[(L, b is not None)] += 1
     return out
 
 
 reshare_mul.launches = 0
+reshare_mul.by_key = collections.Counter()
 
 
 def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
@@ -186,7 +197,7 @@ def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
         ctr = np.asarray(ctr, dtype=np.uint32)
         out = reshare_mul(flat, flat_b, state, (int(ctr[0]), int(ctr[1])),
                           spec)
-        return out.reshape(orig_shape), _next_ctr(ctr)
+        return out.reshape(orig_shape), _add_ctr(ctr)
 
     if fuse_mul:
         def step(a, b, state, ctr):
@@ -223,18 +234,17 @@ class SplitSpec:
     def params(self):
         """Kernel parameter block (``ReshareParams``, lag of t + 1)."""
         from mpyc_tpu_torch import _build
-        if self.ctx.L != _build.NL or \
-                (self.t, self.m) not in _build.SPLIT_BUILT:
+        if self.ctx.L != 2 or (self.t, self.m) not in _build.SPLIT_BUILT:
             raise NotImplementedError(
-                f'the CUDA split/recombine is built for {_build.NL}-limb '
-                f'fields at (t, m) in {_build.SPLIT_BUILT}, not L = '
-                f'{self.ctx.L}, (t, m) = ({self.t}, {self.m})')
+                f'the CUDA split/recombine is built for 2-limb fields at '
+                f'(t, m) in {_build.SPLIT_BUILT}, not L = {self.ctx.L}, '
+                f'(t, m) = ({self.t}, {self.m})')
         P = _build.ReshareParams()
         P.draw = _build.draw_params(self.ctx, 2)
         for i, c in enumerate(self.lag):
-            P.lag[i][:] = c
+            _build.set_limbs(P.lag[i], c)
         for j, x in enumerate(self.xs_mont):
-            P.xs[j][:] = x
+            _build.set_limbs(P.xs[j], x)
         P.t, P.m, P.n_send = self.t, self.m, self.t + 1
         return P
 
@@ -452,26 +462,28 @@ class SgnSpec:
         NotImplementedError for a configuration the card has no
         instantiation of."""
         from mpyc_tpu_torch import _build
-        key = (SGN_MODES.index(self.mode), self.l, self.t, self.m)
-        if self.ctx.L != _build.NL or key not in _build.SGN_BUILT:
+        key = (SGN_MODES.index(self.mode), self.l, self.t, self.m,
+               self.ctx.L)
+        if key not in _build.SGN_BUILT:
             built = ', '.join(f'{SGN_MODES[b[0]]} at l={b[1]}, t={b[2]}, '
-                              f'm={b[3]}' for b in _build.SGN_BUILT)
+                              f'm={b[3]}, L={b[4]}' for b in _build.SGN_BUILT)
             raise NotImplementedError(
-                f'the CUDA comparison is built for {_build.NL}-limb fields '
-                f'({built}), not {self.mode} at l={self.l}, t={self.t}, '
-                f'm={self.m}, L={self.ctx.L}')
+                f'the CUDA comparison is built for {built}; not '
+                f'{self.mode} at l={self.l}, t={self.t}, m={self.m}, '
+                f'L={self.ctx.L}')
         P = _build.SgnParams()
         P.draw = _build.draw_params(self.ctx, 2)
         for i, c in enumerate(self.lag_t):
-            P.lag_t[i][:] = c
+            _build.set_limbs(P.lag_t[i], c)
         for i, c in enumerate(self.lag_2t):
-            P.lag_2t[i][:] = c
+            _build.set_limbs(P.lag_2t[i], c)
         for j, x in enumerate(self.xs):
-            P.xs[j][:] = x
-        P.one[:], P.three[:] = self.one, self.three
-        P.r2[:], P.pow2l[:] = self.r2, self.pow2[self.l]
-        P.inv2l[:], P.pow2l1[:] = self.inv2l, self.pow2l1
-        P.powf[:] = self.powf if self.powf else (0,) * _build.NL
+            _build.set_limbs(P.xs[j], x)
+        for name, v in (('one', self.one), ('three', self.three),
+                        ('r2', self.r2), ('pow2l', self.pow2[self.l]),
+                        ('inv2l', self.inv2l), ('pow2l1', self.pow2l1),
+                        ('powf', self.powf or ())):
+            _build.set_limbs(getattr(P, name), v)
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
         P.t, P.m, P.l, P.k = self.t, self.m, self.l, self.k
         P.mode, P.has_f = key[0], int(bool(self.f))
@@ -641,6 +653,37 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
     return limb.stack(z)
 
 
+def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
+                spec: SgnSpec, chunk: int, n_last: int) -> torch.Tensor:
+    """K5 on the card: the calls of a's chunks in one launch (``mtt_sgn``),
+    counted on ``sgn_step``."""
+    from mpyc_tpu_torch import _build
+    params = spec.params(nonce)
+    a = a.contiguous()
+    _check_aligned(a)
+    state = state.contiguous()
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    if n:
+        _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
+                    state.data_ptr(), n, chunk, n_last,
+                    ctypes.addressof(params), _build.stream_of(a.device))
+        sgn_step.launches += 1
+        sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L)] += 1
+        sgn_step.chunks += -(-n // chunk)
+    return out
+
+
+def _check_sgn_operands(a: torch.Tensor, state: torch.Tensor,
+                        spec: SgnSpec) -> None:
+    m, L = spec.m, spec.ctx.L
+    if a.dim() != 3 or a.shape[0] != m or a.shape[2] != L or \
+            a.dtype != torch.int32:
+        raise ValueError(f'shares must be ({m}, n, {L}) int32')
+    if state.device != a.device:
+        raise ValueError('state and shares must be on one device')
+
+
 def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
              spec: SgnSpec) -> torch.Tensor:
     """K5: the whole secure comparison on (m, n, L) int32 degree-t shares
@@ -651,30 +694,94 @@ def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
     nonce: the call counter (lo, hi). CPU tensors take the plain version;
     CUDA tensors launch the kernel, or raise NotImplementedError for a
     configuration it is not built for."""
-    m, L = spec.m, spec.ctx.L
-    if a.dim() != 3 or a.shape[0] != m or a.shape[2] != L or \
-            a.dtype != torch.int32:
-        raise ValueError(f'shares must be ({m}, n, {L}) int32')
-    if state.device != a.device:
-        raise ValueError('state and shares must be on one device')
+    _check_sgn_operands(a, state, spec)
     if a.device.type == 'cpu':
         return _sgn_step_plain(a, state, nonce, spec)
-    from mpyc_tpu_torch import _build
-    params = spec.params(nonce)
-    a = a.contiguous()
-    _check_aligned(a)
-    state = state.contiguous()
-    out = torch.empty_like(a)
     n = a.shape[1]
-    if n:
-        _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
-                    state.data_ptr(), n, spec.blocks_a(n),
-                    ctypes.addressof(params), _build.stream_of(a.device))
-        sgn_step.launches += 1
-    return out
+    return _launch_sgn(a, state, nonce, spec, n, n)
 
 
 sgn_step.launches = 0
+sgn_step.by_key = collections.Counter()
+sgn_step.chunks = 0
+
+
+def bucket(n: int, cap: int | None = None) -> int:
+    """The padded size of a fused call on n elements: the least power of
+    two >= n, at least 64 (and at most cap); the JAX package's CPU buckets
+    (mpyc_tpu/parallel/simulator.py:300-302, :516-523)."""
+    n_pad = 64
+    while n_pad < n:
+        n_pad *= 2
+    return n_pad if cap is None else min(n_pad, cap)
+
+
+def sgn_chunks(a: torch.Tensor, state: torch.Tensor, ctr, spec: SgnSpec,
+               chunk: int):
+    """The comparison of (m, n, L) shares cut into chunks of ``chunk``
+    elements, each one comparison call on its shares padded with zero rows
+    to its bucket (``bucket(size, chunk)``), with the counters ctr, ctr +
+    1, ...: -> (out, ctr + number of chunks), as the JAX package's
+    ``SimRuntime._np_sgn_fused`` calls its step chunk by chunk.
+
+    On the CPU each chunk is one call of ``sgn_step`` (the plain version);
+    on the card all of them are one launch of K5, bit for bit the same."""
+    _check_sgn_operands(a, state, spec)
+    n = a.shape[1]
+    ctr = np.asarray(ctr, dtype=np.uint32)
+    if n == 0:
+        return a, ctr
+    starts = range(0, n, chunk)
+    n_last = bucket(n - starts[-1], chunk)
+    if a.device.type != 'cpu':
+        out = _launch_sgn(a, state, (int(ctr[0]), int(ctr[1])), spec, chunk,
+                          n_last)
+        return out, _add_ctr(ctr, len(starts))
+    outs = []
+    for c, j0 in enumerate(starts):
+        part = a[:, j0:j0 + chunk]
+        size = part.shape[1]
+        pad = chunk if j0 + chunk < n else n_last
+        if pad != size:
+            part = torch.cat([part, part.new_zeros((a.shape[0], pad - size,
+                                                    a.shape[2]))], dim=1)
+        nonce = _add_ctr(ctr, c)
+        outs.append(sgn_step(part, state, (int(nonce[0]), int(nonce[1])),
+                             spec)[:, :size])
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out, _add_ctr(ctr, len(outs))
+
+
+def _sgn_chunks_plain(a: torch.Tensor, state: torch.Tensor, ctr,
+                      spec: SgnSpec, chunk: int):
+    """Plain version of K5's launch of many chunks (``sgn_chunks``), on
+    any device: chunk c is one call of ``_sgn_step_plain`` with the
+    counter ctr + c, as ``sgn_chunks`` makes them on the CPU, but the full
+    chunks run as one batch (``torch.func.vmap`` over them, each with its
+    own counter's state) and the ragged last one alone on its bucket. On
+    the card it is the reference a launch is held against: one batch of
+    small operations, not one for each of a thousand chunks."""
+    m, n, L = a.shape
+    n_full = n // chunk
+    outs = []
+    if n_full:
+        states = torch.stack([_nonce_state(state, _add_ctr(ctr, c))
+                              for c in range(n_full)])
+        parts = a[:, :n_full * chunk].reshape(m, n_full, chunk, L)
+        step = torch.func.vmap(
+            lambda x, st: _sgn_step_plain(x, st, (0, 0), spec),
+            in_dims=(1, 0), out_dims=1)
+        outs.append(step(parts, states).reshape(m, n_full * chunk, L))
+    size = n - n_full * chunk
+    if size:
+        part = torch.cat([a[:, n_full * chunk:], a.new_zeros(
+            (m, bucket(size, chunk) - size, L))], dim=1)
+        nonce = _add_ctr(ctr, n_full)
+        outs.append(_sgn_step_plain(part, state, (int(nonce[0]),
+                                                  int(nonce[1])),
+                                    spec)[:, :size])
+    out = torch.cat(outs, dim=1) if outs else a
+    return out, _add_ctr(ctr, -(-n // chunk))
 
 
 def make_sgn_step(p: int, t: int, m: int, l: int, k: int = 30,
@@ -699,5 +806,5 @@ def make_sgn_step(p: int, t: int, m: int, l: int, k: int = 30,
     def step(a_sh, state, ctr):
         ctr = np.asarray(ctr, dtype=np.uint32)
         out = sgn_step(a_sh, state, (int(ctr[0]), int(ctr[1])), spec)
-        return out, _next_ctr(ctr)
+        return out, _add_ctr(ctr)
     return step

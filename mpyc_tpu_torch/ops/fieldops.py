@@ -24,6 +24,11 @@ from mpyc_tpu_torch.ops import limb
 # The plane contractions are exact in int32 while K * 15 * 15 * 16 < 2^31
 # (the JAX package's _matmul_mxu limit); longer contractions are cut.
 _MATMUL_K_MAX = 70000
+# Rows of a are cut into blocks whose plane GEMM output (int32, 64 L^2 N
+# words a row) stays below this many bytes: each row's product is
+# computed alone, so the bits are the same, and device memory holds one
+# block's planes, GEMM output and bucket sums at a time.
+_MATMUL_BLOCK_BYTES = 1 << 31
 
 
 def _nibble_planes(x: torch.Tensor) -> torch.Tensor:
@@ -88,9 +93,34 @@ class PrimeFieldCtx:
 
     def _standard_limbs(self, xs) -> np.ndarray:
         """Values (int64/uint64/bool numpy, or ints) -> (..., L) uint32 limbs
-        of x mod p in standard form; numeric arrays without a Python loop."""
+        of x mod p in standard form; numeric arrays, and object arrays of
+        ints that fit int64, without a Python loop."""
         p, L = self.p, self.L
         arr = np.asarray(xs)
+        if arr.dtype == object and arr.size:
+            try:
+                ints = arr.astype(np.int64)
+                if (ints == arr).all():     # ints only, none cut
+                    arr = ints
+            except (OverflowError, TypeError):
+                pass
+        if arr.dtype.kind in 'iu' and L > 2:
+            # p > 2^64: x >= 0 is its own residue; x < 0 is p - |x|
+            u = arr.astype(np.int64).view(np.uint64) if arr.dtype.kind == \
+                'i' else arr.astype(np.uint64)
+            neg = (arr < 0) if arr.dtype.kind == 'i' else \
+                np.zeros(arr.shape, bool)
+            with np.errstate(over='ignore'):     # -x as 2^64 - x
+                mag = np.where(neg, ~u + np.uint64(1), u)
+            out = np.zeros(arr.shape + (L,), np.int64)
+            out[..., 0] = (mag & np.uint64(limb.M32)).astype(np.int64)
+            out[..., 1] = (mag >> np.uint64(32)).astype(np.int64)
+            borrow = np.zeros(arr.shape, np.int64)
+            for q, pq in enumerate(limb.const_limbs(p, L)):
+                d = pq - out[..., q] - borrow
+                borrow = (d < 0).astype(np.int64)
+                out[..., q] = np.where(neg, d + (borrow << 32), out[..., q])
+            return out.astype(np.uint32)
         if arr.dtype.kind in 'iub' and L <= 2:
             if arr.dtype.kind == 'i':
                 neg = arr < 0
@@ -108,7 +138,7 @@ class PrimeFieldCtx:
             if L == 2:
                 out[..., 1] = (u >> np.uint64(32)).astype(np.uint32)
             return out
-        vals = np.asarray(xs, dtype=object) % p
+        vals = np.asarray(arr, dtype=object) % p
         return limb.ints_to_limbs(vals, L)
 
     def encode(self, xs, device) -> torch.Tensor:
@@ -231,8 +261,14 @@ class PrimeFieldCtx:
     def _matmul2d(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """(M, K, L) @ (K, N, L) -> (M, N, L) by the JAX package's
         nibble-plane scheme (``plane_gemm``, then ``fold_planes``), in
-        chunks of K that keep the plane sums exact."""
-        K = a.shape[1]
+        chunks of K that keep the plane sums exact and blocks of rows that
+        bound the GEMM's output (``_MATMUL_BLOCK_BYTES``)."""
+        M, K, L = a.shape
+        N = b.shape[1]
+        rows = max(1, _MATMUL_BLOCK_BYTES // (64 * L * L * max(N, 1) * 4))
+        if M > rows:
+            return torch.cat([self._matmul2d(a[r0:r0 + rows], b)
+                              for r0 in range(0, M, rows)])
         out = None
         for k0 in range(0, max(K, 1), _MATMUL_K_MAX):
             part = self.fold_planes(self.plane_gemm(

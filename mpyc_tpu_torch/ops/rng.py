@@ -15,6 +15,7 @@ field elements:
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 import secrets
@@ -55,13 +56,19 @@ def words_to_elements(blocks: torch.Tensor, n: int, l: int, L: int):
     (``mpyc_tpu/ops/rng.py`` ``words_to_elements``)."""
     W = -(-l // 4)
     n_chunks = -(-W // L)
-    rows = blocks.contiguous().view(torch.uint8)
-    if l > keccak.RATE:
-        rows = rows.reshape(-1, -(-l // keccak.RATE) * keccak.RATE)
+    if l % 4 == 0 and l <= keccak.RATE:
+        # whole words: draw i is words (i % epb) W .. of block i // epb,
+        # with no dtype view, which torch.func.vmap may not batch
+        # (pipelines._sgn_chunks_plain runs the comparison's draws so)
+        usable = blocks[:, :keccak.RATE // l * W].reshape(-1, W)[:n]
     else:
-        rows = rows[:, :keccak.RATE // l * l].reshape(-1, l)
-    rows = torch.nn.functional.pad(rows[:n, :l], (0, 4 * W - l))
-    usable = rows.contiguous().view(torch.int32)
+        rows = blocks.contiguous().view(torch.uint8)
+        if l > keccak.RATE:
+            rows = rows.reshape(-1, -(-l // keccak.RATE) * keccak.RATE)
+        else:
+            rows = rows[:, :keccak.RATE // l * l].reshape(-1, l)
+        rows = torch.nn.functional.pad(rows[:n, :l], (0, 4 * W - l))
+        usable = rows.contiguous().view(torch.int32)
     pad_w = n_chunks * L - W
     if pad_w:
         usable = torch.nn.functional.pad(usable, (0, pad_w))
@@ -106,10 +113,12 @@ def squeeze_mont(state: torch.Tensor, n_draws: int, l_bytes: int, p: int,
                     ctypes.addressof(params),
                     _build.stream_of(state.device))
         squeeze_mont.launches += 1
+        squeeze_mont.by_key[(ctx.L, W)] += 1
     return out
 
 
 squeeze_mont.launches = 0
+squeeze_mont.by_key = collections.Counter()   # launches by (L, words)
 
 _POOL_BLOCKS = 512    # pooled refill for small draws, as in the JAX package
 _POOL_MAX_DRAW = 64   # draws of more blocks than this skip the pool

@@ -8,7 +8,8 @@ sender, a secure product is one fused reshare round (kernel K3 on the
 card), a product with a public operand a local scale, a matrix product of
 two secure operands a field matmul and one reshare round (K3 without the
 product), a comparison one fused step per chunk of up to 2^20 elements
-(kernel K5), and output recombines the first t+1 shares at 0.
+(kernel K5; on the card the chunks of one comparison are one launch), and
+output recombines the first t+1 shares at 0.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
@@ -44,6 +45,7 @@ class SimRuntime(Runtime):
         self._fused_state = None
         self._fused_ctr = np.zeros(2, np.uint32)
         self._fused_steps = {}
+        self._sgn_specs = {}
 
     def load_state(self, fused_key: bytes, ctr, rng_key: bytes,
                    rng_nonce: int) -> None:
@@ -121,22 +123,17 @@ class SimRuntime(Runtime):
             self._fused_state = keccak.state_tensor(state, self.device)
         return self._fused_state
 
-    def _fused_flat(self, key, build, datas, cap=None):
+    def _fused_flat(self, key, build, datas):
         """Run a fused step on flattened, bucket-padded party-stacked data.
 
         Every fused round flattens its logical dims to (m, n, L) and pads n
-        to a power-of-two bucket (floor 64, at most ``cap``), as the JAX
-        package does on the CPU, so the same padded shapes (and zero rows,
-        valid sharings of 0) reach the step. datas: equally shaped
-        (m, ..., L) tensors of at most ``cap`` elements."""
+        to a power-of-two bucket (floor 64), as the JAX package does on the
+        CPU, so the same padded shapes (and zero rows, valid sharings of 0)
+        reach the step. datas: equally shaped (m, ..., L) tensors."""
         d0 = datas[0]
         m, L = d0.shape[0], d0.shape[-1]
         n = math.prod(d0.shape[1:-1])
-        n_pad = 64
-        while n_pad < n:
-            n_pad *= 2
-        if cap is not None:
-            n_pad = min(n_pad, cap)
+        n_pad = pipelines.bucket(n)
         flats = []
         for d in datas:
             f = d.reshape(m, n, L)
@@ -157,9 +154,15 @@ class SimRuntime(Runtime):
         return self._wrap(type(a), share.from_data(fn(share.data)))
 
     def np_getitem(self, a, idx):
-        """a[idx] along the logical axes (local)."""
+        """a[idx] along the logical axes (local): integers, slices with a
+        positive step, None and one Ellipsis."""
         if not isinstance(idx, tuple):
             idx = (idx,)
+        if Ellipsis in idx:
+            k = idx.index(Ellipsis)
+            used = sum(i is not None for i in idx) - 1
+            idx = idx[:k] + (slice(None),) * (len(a.shape) - used) + \
+                idx[k + 1:]
         return self._local(a, lambda d: d[(slice(None),) + idx])
 
     def np_sum(self, a, axis=None, keepdims=False):
@@ -282,11 +285,11 @@ class SimRuntime(Runtime):
     # chunks of 2^20 elements, each one step call that advances the
     # counter (the JAX package's _SGN_CHUNK, simulator.py:459).
     _SGN_CHUNK = 1 << 20
-    # Chunk of fields of more than two limbs (SecInt(64)'s 96-bit field).
-    # The JAX package cuts these to 1024 for its compile time
-    # (simulator.py:470-475); the port has no such cost but cuts the same,
-    # so that its call counter, and with it the stream, stays the JAX
-    # package's.
+    # Chunk of fields of more than two limbs (SecInt(37)'s 69-bit field,
+    # SecInt(64)'s 96-bit one). The JAX package cuts these to 1024 for its
+    # compile time (simulator.py:470-475); the port has no such cost but
+    # cuts the same, so that its call counter, and with it the stream, stays
+    # the JAX package's. On the card one launch of K5 takes all the chunks.
     _SGN_CHUNK_WIDE = 1024
 
     def _sgn_chunk(self, L: int) -> int:
@@ -294,11 +297,13 @@ class SimRuntime(Runtime):
 
     def np_sgn(self, a, l=None, LT=False, EQ=False):
         """Secure signum of a secure integer array of l-bit values (default
-        l: its type's bit length): shares of -1, 0 or 1; with LT of the bit
-        a < 0, with EQ of a == 0. Each chunk of up to 2^20 elements is one
-        fused comparison step (``pipelines.make_sgn_step``, kernel K5 on
-        the card), padded to the bucket of the JAX package's CPU plane;
-        fields of more than two limbs are cut into chunks of 1024."""
+        l: its type's bit length, read at call time): shares of -1, 0 or 1;
+        with LT of the bit a < 0, with EQ of a == 0. The input is cut into
+        chunks of up to 2^20 elements (1024 for fields of more than two
+        limbs), each one comparison call on its shares padded to the bucket
+        of the JAX package's CPU plane, with a counter of its own
+        (``pipelines.sgn_chunks``): on the CPU one call of the plain
+        version a chunk, on the card one launch of kernel K5 for all."""
         if LT and EQ:
             raise ValueError('LT and EQ exclude each other')
         if not isinstance(a, sectypes.SecureIntegerArray):
@@ -307,31 +312,23 @@ class SimRuntime(Runtime):
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         stype = type(a)
-        field = stype.field
-        l = l or stype.sectype.bit_length
-        sh = self._share(a)
-        m, L = len(self.parties), sh.ctx.L
-        n = math.prod(a.shape)
-        data = sh.data.reshape(m, n, L)
-        chunk = self._sgn_chunk(L)
-        outs = [self._sgn_fused_flat(stype, data[:, j0:j0 + chunk], l, LT,
-                                     EQ)
-                for j0 in range(0, n, chunk)] or [data]
-        out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
-        return self._wrap(stype, field.array.from_data(
-            out.reshape((m,) + tuple(a.shape) + (L,))))
-
-    def _sgn_fused_flat(self, stype, data, l, LT, EQ):
-        """One comparison step on (m, n, L) flat shares, n at most the
-        field's chunk."""
         p = stype.field.modulus
+        l = l or stype.sectype.bit_length
         t, m, k = self.threshold, len(self.parties), self.sec_param
         f = stype.sectype.frac_length
-        return self._fused_flat(
-            (p, t, l, k, LT, EQ, f),
-            lambda: pipelines.make_sgn_step(p, t, m, l, k, LT=LT, EQ=EQ,
-                                            f=f),
-            [data], cap=self._sgn_chunk(data.shape[-1]))
+        key = (p, t, l, k, LT, EQ, f)
+        spec = self._sgn_specs.get(key)
+        if spec is None:
+            spec = self._sgn_specs[key] = pipelines.SgnSpec(
+                p, t, m, l, k, LT=LT, EQ=EQ, f=f)
+        sh = self._share(a)
+        L = sh.ctx.L
+        n = math.prod(a.shape)
+        out, self._fused_ctr = pipelines.sgn_chunks(
+            sh.data.reshape(m, n, L), self._fused_state_tensor(),
+            self._fused_ctr, spec, self._sgn_chunk(L))
+        return self._wrap(stype, stype.field.array.from_data(
+            out.reshape((m,) + tuple(a.shape) + (L,))))
 
     def output(self, x):
         """Open secure arrays: recombine the shares of parties 1..t+1 at 0;

@@ -5,9 +5,11 @@ Port of the part of ``mpyc_tpu/runtime.py`` that the port's slices need:
 ``gather``; the local share arithmetic ``add``, ``sub``, ``neg`` (public
 operands broadcast as the constant polynomial); ``np_multiply``; the
 comparison surface ``np_less``, ``np_equal``, ``np_minimum``,
-``np_maximum``, ``np_absolute`` on top of ``np_sgn``; ``np_argmax`` and
-``np_argmin``; and the local shape operations they use (``np_reshape``,
-``np_swapaxes``, ``np_expand_dims``, ``np_concatenate``, ``np_stack``).
+``np_maximum``, ``np_absolute`` on top of ``np_sgn``; ``np_where``;
+``np_argmax`` and ``np_argmin``; and the local shape operations
+(``np_reshape``, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
+``np_concatenate``, ``np_stack``; public numpy operands of the last two
+enter as constant sharings).
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare`` and
 ``output``, the local ``np_getitem`` and ``np_sum``, and the share
@@ -185,6 +187,12 @@ class Runtime:
         """Secure elementwise |a|."""
         return self.mul(self.np_sgn(a, l=l, LT=True) * -2 + 1, a)
 
+    def np_where(self, c, a, b):
+        """Secure selection c * a + (1 - c) * b for a secure 0/1 array c
+        (numpy broadcasting): one secure product, c * (a - b) + b, as the
+        JAX package computes it (``mpyc_tpu/runtime.py`` np_where)."""
+        return self.add(self.mul(c, self.sub(a, b)), b)
+
     # -- shape operations (local) --------------------------------------------
 
     def np_reshape(self, a, shape):
@@ -192,6 +200,14 @@ class Runtime:
         shape = (shape,) if isinstance(shape, int) else tuple(shape)
         return self._local(a, lambda d: d.reshape(
             d.shape[:1] + shape + d.shape[-1:]))
+
+    def np_transpose(self, a, axes=None):
+        """Secure array with its logical axes permuted (default: reversed)."""
+        nd = len(a.shape)
+        axes = tuple(range(nd))[::-1] if axes is None else \
+            tuple(ax % nd for ax in axes)
+        return self._local(a, lambda d: d.permute(
+            (0,) + tuple(ax + 1 for ax in axes) + (nd + 1,)))
 
     def np_swapaxes(self, a, i, j):
         nd = len(a.shape)

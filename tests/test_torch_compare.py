@@ -19,6 +19,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu import sectypes as jsectypes
 from mpyc_tpu.models import pipelines as jpipe
@@ -244,6 +245,34 @@ def test_bucket_and_chunk_rule(monkeypatch):
         np.testing.assert_array_equal(rt.output(Z), np.sign(v))
 
 
+@pytest.mark.parametrize('l', [16, 23, 30, 37])
+def test_three_limb_comparison_at_the_cnn_widths(l):
+    """SecInt(37) (the CNN's 69-bit field) with its bit length set to each
+    width the CNN compares at: np_less, a >= b and ReLU's (x >= 0) * x
+    opened against the plaintext, a - b within [-2^l, 2^l) and the ends
+    of the range planted."""
+    rt = TorchSim(3, device='cpu')
+    secint = rt.SecInt(37)
+    assert secint.field.modulus.bit_length() == 69
+    gen = np.random.default_rng(l)
+    half = 1 << (l - 1)
+    a = gen.integers(-half, half, N)
+    b = gen.integers(-half, half, N)
+    b[::8] = a[::8]
+    a[:4] = [-half, half - 1, -half, half - 1]
+    b[:4] = [half - 1, -half, -half, half - 1]
+    A = rt.input(secint.array(a))[0]
+    B = rt.input(secint.array(b))[1]
+    secint.bit_length = l
+    try:
+        np.testing.assert_array_equal(rt.output(rt.np_less(A, B)), a < b)
+        np.testing.assert_array_equal(rt.output(A >= B), a >= b)
+        np.testing.assert_array_equal(rt.output((A >= 0) * A),
+                                      np.maximum(a, 0))
+    finally:
+        secint.bit_length = 37
+
+
 @pytest.mark.parametrize('case', ['np_less', 'np_sgn'])
 def test_wide_field_comparison_chunks_at_1024(case):
     """SecInt(64) (a three-limb field) at n = 1,100: cut into chunks of
@@ -265,3 +294,28 @@ def test_wide_field_comparison_chunks_at_1024(case):
         got, want = rt.output(rt.np_sgn(A - B)), np.sign(a - b)
     assert int(rt._fused_ctr[0]) == ctr + 2
     np.testing.assert_array_equal(got, np.asarray(want, np.int64))
+
+
+@pytest.mark.parametrize('bits,l,n', [(32, 32, 300), (37, 16, 3 * 128 + 37),
+                                      (37, 37, 2 * 128), (37, 23, 50)])
+def test_batched_plain_chunks_equal_a_call_per_chunk(bits, l, n):
+    """``_sgn_chunks_plain`` (the full chunks as one vmapped batch, the
+    reference a K5 launch of many chunks is held against on the card)
+    equals ``sgn_chunks`` on the CPU, one plain call per chunk: chunks of
+    128 with a ragged tail, all full, and one short chunk, the counter
+    carried into its high word; outputs and counters bit for bit."""
+    p = TorchSim(3, device='cpu').SecInt(bits).field.modulus
+    L = prime_field_ctx(p).L
+    spec = tpipe.SgnSpec(p, 1, 3, l, 30, LT=l != 32)
+    gen = np.random.default_rng(n)
+    words = gen.integers(0, 1 << 32, (3, n, L), dtype=np.uint64)
+    words[..., -1] = gen.integers(0, p >> 32 * (L - 1), (3, n))
+    a = limbs_from_numpy(words, 'cpu')
+    st = tkeccak.state_tensor(tkeccak._absorb_host(bytes(range(40))), 'cpu')
+    ctr = (0xFFFFFFFE, 6)
+    want, want_ctr = tpipe.sgn_chunks(a, st, ctr, spec, 128)
+    got, got_ctr = tpipe._sgn_chunks_plain(a, st, ctr, spec, 128)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got_ctr, want_ctr)
+    v = (ctr[0] | ctr[1] << 32) + -(-n // 128)
+    np.testing.assert_array_equal(want_ctr, [v & 0xFFFFFFFF, v >> 32])

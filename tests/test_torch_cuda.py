@@ -19,6 +19,8 @@ pytestmark = pytest.mark.cuda
 
 P = 18446744073709551427   # SecInt(32)'s field
 P46 = 70368744177643       # SecInt(14)'s field (the BNN's)
+P69 = 590295810358705651619   # SecInt(37)'s field (the CNN's), three limbs
+P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
 
 
 @pytest.fixture
@@ -34,10 +36,17 @@ def _state(device):
 
 
 def _shares(n, seed, device, p=P):
+    """(3, n) canonical field elements (< p) as stored limbs."""
     g = np.random.default_rng(seed)
-    lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
-    hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
-    return limbs_from_numpy(np.stack([lo, hi], -1).astype(np.uint32), device)
+    L = prime_field_ctx(p).L
+    if L == 2:
+        lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
+        hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
+        return limbs_from_numpy(np.stack([lo, hi], -1).astype(np.uint32),
+                                device)
+    words = g.integers(0, 1 << 32, (3, n, L), dtype=np.uint64)
+    words[..., -1] = g.integers(0, p >> 32 * (L - 1), (3, n))
+    return limbs_from_numpy(words.astype(np.uint32), device)
 
 
 def test_keccak_ctr_kernel_matches_plain(cuda_device):
@@ -56,6 +65,32 @@ def test_squeeze_mont_kernel_matches_plain(cuda_device, l_bytes):
     assert rng.squeeze_mont.launches == n0 + 1
     assert torch.equal(got, rng._squeeze_mont_plain(st, 70001, l_bytes, P,
                                                     5, 9))
+
+
+@pytest.mark.parametrize('p,l_bytes', [(P96, 28)])
+def test_squeeze_mont_kernel_matches_plain_at_three_limbs(cuda_device, p,
+                                                          l_bytes):
+    st = _state(cuda_device)
+    n0 = rng.squeeze_mont.launches
+    got = rng.squeeze_mont(st, 70001, l_bytes, p, 5, 9)
+    assert rng.squeeze_mont.launches == n0 + 1
+    assert torch.equal(got, rng._squeeze_mont_plain(st, 70001, l_bytes, p,
+                                                    5, 9))
+
+
+@pytest.mark.parametrize('n', [100003, 641])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_kernel_matches_plain_at_three_limbs(cuda_device, fuse, n):
+    """SecInt(37)'s field: 12-byte shares, 20-byte draws."""
+    st = _state(cuda_device)
+    spec = pipelines.ReshareSpec(P69, 1, 3)
+    a = _shares(n, 14, cuda_device, P69)
+    b = _shares(n, 15, cuda_device, P69) if fuse else None
+    n0 = pipelines.reshare_mul.launches
+    got = pipelines.reshare_mul(a, b, st, (0xFFFFFFFF, 2), spec)
+    assert pipelines.reshare_mul.launches == n0 + 1
+    want = pipelines._reshare_mul_plain(a, b, st, (0xFFFFFFFF, 2), spec)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize('n', [100003, 641])
@@ -136,6 +171,36 @@ def test_sgn_kernel_matches_plain_at_bnn_widths(cuda_device, mode, l):
     assert torch.equal(got, pipelines._sgn_step_plain(a, st, (5, 0), spec))
 
 
+@pytest.mark.parametrize('l', [16, 23, 30, 37])
+def test_sgn_kernel_matches_plain_at_three_limbs(cuda_device, l):
+    """The instantiations for the CNN (LT), on SecInt(37)'s field."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P69, 1, 3, l, 30, LT=True)
+    a = _shares(20011, 16, cuda_device, P69)
+    n0 = pipelines.sgn_step.launches
+    got = pipelines.sgn_step(a, st, (5, 0), spec)
+    assert pipelines.sgn_step.launches == n0 + 1
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, (5, 0), spec))
+
+
+@pytest.mark.parametrize('p,l,n,chunk', [(P69, 16, 5000, 1024),
+                                         (P46, 14, 70000, 1 << 15)])
+def test_sgn_kernel_takes_many_chunks_in_one_launch(cuda_device, p, l, n,
+                                                    chunk):
+    """One launch on every chunk equals the plain version chunk by chunk
+    (sgn_chunks on the CPU), the last chunk ragged."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=True)
+    a = _shares(n, 17, cuda_device, p)
+    n0 = pipelines.sgn_step.launches
+    got, ctr = pipelines.sgn_chunks(a, st, (0xFFFFFFFE, 3), spec, chunk)
+    assert pipelines.sgn_step.launches == n0 + 1
+    want, want_ctr = pipelines.sgn_chunks(a.cpu(), st.cpu(), (0xFFFFFFFE, 3),
+                                          spec, chunk)
+    assert torch.equal(got.cpu(), want)
+    assert ctr.tolist() == want_ctr.tolist()
+
+
 def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
     """The card's K5 is built for l = 32, 14 and 10, t = 1, m = 3: others
     raise."""
@@ -204,4 +269,40 @@ def test_bnn_selftest_on_the_card(cuda_device):
     import chip_smoke
     n1 = keccak.keccak_ctr.launches
     chip_smoke.run_selftest(cuda_device, batch=8)
+    assert keccak.keccak_ctr.launches > n1
+
+
+def test_wide_product_on_the_card(cuda_device):
+    """SecInt(64) input (28-byte draws: K2 at three limbs) and a product
+    (K3 at three limbs), every output checked by run_wide."""
+    import chip_smoke
+    n2, n3 = rng.squeeze_mont.launches, pipelines.reshare_mul.launches
+    chip_smoke.run_wide(cuda_device, n=20000)
+    assert rng.squeeze_mont.launches == n2 + 2
+    assert pipelines.reshare_mul.launches == n3 + 1
+
+
+def test_cnn_on_the_card(cuda_device):
+    """The CNN's MNIST flow at full width on 3 images: predictions equal
+    the plaintext model (run_cnn checks); each comparison one K5 launch,
+    however many chunks of 1024 it has (``sgn_step.chunks``)."""
+    import chip_smoke
+    n3, n5 = pipelines.reshare_mul.launches, pipelines.sgn_step.launches
+    res = chip_smoke.run_cnn(cuda_device, batch=3, passes=1)
+    assert res['correct'] == 3
+    # maxpool (2 a layer), ReLU (3), the argmax's four: one launch each
+    assert res['k5_launches'] == chip_smoke.CNN_COMPARISONS == 11
+    assert res['chunks'] > res['k5_launches']
+    # two passes (the timed and the marked): per pass four reshares,
+    # six np_where and ReLU products, the argmax's eight
+    assert pipelines.sgn_step.launches == n5 + 2 * 11
+    assert pipelines.reshare_mul.launches == n3 + 2 * (4 + 7 + 8)
+
+
+def test_cnn_selftest_on_the_card(cuda_device):
+    """SecInt(37) input (25-byte draws: K1 and the split) on the card: 32
+    images of 64 pixels are 342 blocks, above what hashlib squeezes."""
+    import chip_smoke
+    n1 = keccak.keccak_ctr.launches
+    chip_smoke.run_cnn_selftest(cuda_device, batch=32)
     assert keccak.keccak_ctr.launches > n1

@@ -4,8 +4,10 @@ The card's machine has no JAX. In a fresh interpreter whose imports of
 jax, jaxlib and mpyc_tpu (the package or any module of it, but not
 mpyc_tpu_torch) raise, chip_smoke is imported and the port's paths run on
 the CPU: the main path at 4096 elements, the comparison at 300, the
-split/recombine round at 4096 and the BNN runner's selftest at a batch of
-4 (SecInt(14) input, matmul, sign, argmax)."""
+split/recombine round at 4096, the BNN runner's selftest at a batch of
+4 (SecInt(14) input, matmul, sign, argmax), the SecInt(64) product at 500
+and the CNN runner's selftest at a batch of 2 (SecInt(37) input, im2col
+matmuls, maxpool, ReLU, argmax)."""
 import os
 import subprocess
 import sys
@@ -35,6 +37,8 @@ _SCRIPT = textwrap.dedent('''
     chip_smoke.run_compare('cpu', n=300, calls=0)
     chip_smoke.run_split_recombine('cpu', n=4096, rounds=2)
     chip_smoke.run_selftest('cpu', batch=4)
+    chip_smoke.run_wide('cpu', n=500)
+    chip_smoke.run_cnn_selftest('cpu', batch=2)
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded

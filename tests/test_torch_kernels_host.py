@@ -28,6 +28,8 @@ from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 P = 18446744073709551427
 P46 = 70368744177643         # SecInt(14)'s field (the BNN's)
+P69 = 590295810358705651619  # SecInt(37)'s field (the CNN's), three limbs
+P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
 
 _SHIM = '''
 #pragma once
@@ -142,11 +144,17 @@ def state():
 
 
 def _shares(n, seed, p=P):
+    """(3, n) canonical field elements (< p) as stored limbs."""
     g = np.random.default_rng(seed)
-    lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
-    hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
-    limbs = np.stack([lo, hi], -1).astype(np.uint32)
-    return torch.from_numpy(limbs.view(np.int32))
+    L = prime_field_ctx(p).L
+    if L == 2:
+        lo = g.integers(0, 1 << 32, (3, n), dtype=np.uint64)
+        hi = g.integers(0, p >> 32, (3, n), dtype=np.uint64)
+        limbs = np.stack([lo, hi], -1).astype(np.uint32)
+        return torch.from_numpy(limbs.view(np.int32))
+    words = g.integers(0, 1 << 32, (3, n, L), dtype=np.uint64)
+    words[..., -1] = g.integers(0, p >> 32 * (L - 1), (3, n))
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
 
 
 def test_keccak_ctr_source_matches_plain(host_lib, state):
@@ -191,10 +199,51 @@ def test_reshare_source_matches_plain(host_lib, state, n, fuse):
     assert torch.equal(out, want)
 
 
+@pytest.mark.parametrize('p,l_bytes', [(P96, 28)])
+def test_squeeze_mont_source_matches_plain_at_three_limbs(host_lib, state,
+                                                          p, l_bytes):
+    """The 28-byte input draws of SecInt(64)'s field."""
+    st, lane = state
+    n = 2003
+    W = l_bytes // 4
+    params = _build.draw_params(prime_field_ctx(p), -(-W // 3))
+    out = torch.empty((n, 3), dtype=torch.int32)
+    assert host_lib.mtt_squeeze_mont(st.data_ptr(), out.data_ptr(), n, W,
+                                     lane, 5, ctypes.addressof(params),
+                                     None) == 0
+    assert torch.equal(out, rng._squeeze_mont_plain(st, n, l_bytes, p, lane,
+                                                    5))
+
+
+@pytest.mark.parametrize('n', [7, 6407])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_source_matches_plain_at_three_limbs(host_lib, state, n,
+                                                     fuse):
+    """K3 on SecInt(37)'s 69-bit field: 12-byte shares, 20-byte draws."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P69, 1, 3)
+    a, b = _shares(n, 21, P69), _shares(n, 22, P69)
+    nonce = (0xFFFFFFFF, 9)
+    params = spec.params(nonce)
+    out = torch.empty_like(a)
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr() if fuse else None,
+                                out.data_ptr(), st.data_ptr(), n, int(fuse),
+                                ctypes.addressof(params), None) == 0
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, nonce,
+                                        spec)
+    assert torch.equal(out, want)
+
+
 def test_launchers_refuse_what_was_not_built(host_lib, state):
     st, lane = state
     params = _build.draw_params(prime_field_ctx(P), 3)
     out = torch.empty((10, 2), dtype=torch.int32)
+    assert host_lib.mtt_squeeze_mont(st.data_ptr(), out.data_ptr(), 10, 5,
+                                     lane, 0, ctypes.addressof(params),
+                                     None) == -1
+    # no path draws 20-byte values into a three-limb field through K2
+    params = _build.draw_params(prime_field_ctx(P69), 2)
+    out = torch.empty((10, 3), dtype=torch.int32)
     assert host_lib.mtt_squeeze_mont(st.data_ptr(), out.data_ptr(), 10, 5,
                                      lane, 0, ctypes.addressof(params),
                                      None) == -1
@@ -236,8 +285,7 @@ def test_sgn_source_matches_plain(host_lib, state, mode, n):
     out = torch.empty_like(a)
     params = spec.params(nonce)
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            spec.blocks_a(n), ctypes.addressof(params),
-                            None) == 0
+                            n, n, ctypes.addressof(params), None) == 0
     assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
 
 
@@ -255,9 +303,58 @@ def test_sgn_source_matches_plain_at_bnn_widths(host_lib, state, mode, l):
     out = torch.empty_like(a)
     params = spec.params(nonce)
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            spec.blocks_a(n), ctypes.addressof(params),
-                            None) == 0
+                            n, n, ctypes.addressof(params), None) == 0
     assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
+@pytest.mark.parametrize('l', [16, 37])
+def test_sgn_source_matches_plain_at_three_limbs(host_lib, state, l):
+    """K5 (LT) on SecInt(37)'s 69-bit field at the CNN's first and last
+    widths, on two thread blocks, the last ragged."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P69, 1, 3, l, 30, LT=True)
+    n = 300
+    a = _shares(n, 23, P69)
+    nonce = (0xFFFFFFFF, 2)
+    out = torch.empty_like(a)
+    params = spec.params(nonce)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
+@pytest.mark.parametrize('p,l,n,chunk', [(P69, 23, 1100, 1024),
+                                         (P69, 30, 300, 256),
+                                         (P46, 14, 1100, 512)])
+def test_sgn_source_takes_many_chunks_in_one_launch(host_lib, state, p, l,
+                                                    n, chunk):
+    """One launch of K5 on n elements in chunks equals one plain call per
+    chunk, chunk c with counter ctr + c (carried into the high word) on its
+    shares padded to its bucket (the last: 1100 - 1024 = 76 given of a
+    bucket of 128; 300 - 256 = 44 of 64; 1100 - 1024 = 76 of 128)."""
+    st, _ = state
+    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=True)
+    a = _shares(n, 24, p)
+    ctr = (0xFFFFFFFE, 7)
+    starts = list(range(0, n, chunk))
+    n_last = pipelines.bucket(n - starts[-1], chunk)
+    out = torch.empty_like(a)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            chunk, n_last, ctypes.addressof(spec.params(ctr)),
+                            None) == 0
+    for c, j0 in enumerate(starts):
+        part = a[:, j0:j0 + chunk]
+        size = part.shape[1]
+        pad = chunk if j0 + chunk < n else n_last
+        part = torch.cat([part, torch.zeros((3, pad - size, a.shape[2]),
+                                            dtype=torch.int32)], dim=1)
+        lo = (ctr[0] + c) & 0xFFFFFFFF
+        hi = ctr[1] + ((ctr[0] + c) >> 32)
+        want = pipelines._sgn_step_plain(part, st, (lo, hi), spec)
+        assert torch.equal(out[:, j0:j0 + size], want[:, :size]), c
+    got, ctr2 = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
+    assert torch.equal(got, out)
+    assert ctr2.tolist() == [(ctr[0] + len(starts)) & 0xFFFFFFFF, ctr[1] + 1]
 
 
 def _op_counts(host_lib):
@@ -282,6 +379,15 @@ def test_sgn_field_ops_match_the_source_at_bnn_widths(host_lib, state, l):
     _check_sgn_field_ops(host_lib, state, 'LT', 0, l, P46)
 
 
+@pytest.mark.parametrize('l', [16, 37])
+def test_sgn_field_ops_match_the_source_at_three_limbs(host_lib, state, l):
+    """As below, LT mode on SecInt(37)'s field at the CNN's first and last
+    widths: 5 standard deviations of the ones are 358 (l = 16) and 544
+    (l = 37), below n / 2 = 640; a 20-byte draw is two products and an add
+    there too."""
+    _check_sgn_field_ops(host_lib, state, 'LT', 0, l, P69)
+
+
 def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     """SgnSpec.field_ops, from which chip_smoke.py bounds K5, counts the
     products the kernel's source runs exactly, and its adds up to the
@@ -302,8 +408,7 @@ def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            spec.blocks_a(n), ctypes.addressof(params),
-                            None) == 0
+                            n, n, ctypes.addressof(params), None) == 0
     draws = spec.draws_per_element()
     mont, adds = spec.field_ops(0)
     per_one = spec.field_ops(1)[1] - adds
@@ -339,8 +444,7 @@ def test_sgn_source_scales_by_2f(host_lib, state, n):
     out = torch.empty_like(a)
     params = spec.params((1, 0))
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            spec.blocks_a(n), ctypes.addressof(params),
-                            None) == 0
+                            n, n, ctypes.addressof(params), None) == 0
     assert torch.equal(out, pipelines._sgn_step_plain(a, st, (1, 0), spec))
 
 
@@ -356,7 +460,7 @@ def test_comparison_and_round_trip_refuse_what_was_not_built(host_lib,
     params.l = 16
     a = _shares(10, 7)
     assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(), 10,
-                            1, ctypes.addressof(params), None) == -1
+                            10, 10, ctypes.addressof(params), None) == -1
     params = pipelines.SplitSpec(P, 1, 3).params()
     params.m = 4
     assert host_lib.mtt_split_recombine(a.data_ptr(), a.data_ptr(), None,
@@ -382,8 +486,8 @@ def test_sgn_source_squeezes_each_block_once_per_thread_block(host_lib,
     perms = ctypes.c_ulonglong.in_dll(host_lib, 'mtt_perm_count')
     perms.value = 0
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            spec.blocks_a(n),
-                            ctypes.addressof(spec.params((2, 0))), None) == 0
+                            n, n, ctypes.addressof(spec.params((2, 0))),
+                            None) == 0
     threads = host_lib.mtt_sgn_threads()
     ctas = -(-n // threads)
     ranges = 1 + sum(sets for sets, _ in spec.draw_calls())

@@ -30,6 +30,7 @@ from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, limbs_to_numpy
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
 P46 = 70368744177643            # SecInt(14)'s field, two limbs
+P69 = 590295810358705651619     # SecInt(37)'s field (the CNN's), three limbs
 P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
 
 
@@ -42,7 +43,7 @@ def _field_data(p, shape, seed):
     return limbs_to_numpy(ctx.encode(vals, 'cpu'))
 
 
-@pytest.mark.parametrize('p', [P46, P96])
+@pytest.mark.parametrize('p', [P46, P69, P96])
 @pytest.mark.parametrize('sa,sb,branch', [
     ((3, 5, 1), (1, 7), 'host'),              # K = 1, tiny
     ((3, 16, 1), (1, 100), 'unrolled'),       # K = 1
@@ -54,7 +55,8 @@ def _field_data(p, shape, seed):
 ])
 def test_field_matmul_matches_jax(p, sa, sb, branch):
     """Every K of {1, 7, 8, 33, 300}, batched and vector operands, two-
-    and three-limb fields."""
+    and three-limb fields (the CNN's 69-bit field among them: 24 nibble
+    planes, 47 buckets)."""
     a, b = _field_data(p, sa, 1), _field_data(p, sb, 2)
     if len(sa) == 1:                    # numpy's vector promotion
         a = a[None]
@@ -65,6 +67,22 @@ def test_field_matmul_matches_jax(p, sa, sb, branch):
     want = np.asarray(jctx.matmul(jnp.asarray(a), jnp.asarray(b)))
     got = tctx.matmul(limbs_from_numpy(a, 'cpu'), limbs_from_numpy(b, 'cpu'))
     np.testing.assert_array_equal(limbs_to_numpy(got), want)
+
+
+def test_field_matmul_cuts_rows_into_blocks(monkeypatch):
+    """Rows of a product whose GEMM output exceeds the block budget are
+    cut into blocks (conv1's at B = 100 into nine): the same bits."""
+    a, b = _field_data(P69, (37, 33), 7), _field_data(P69, (33, 5), 8)
+    ctx = tfieldops.prime_field_ctx(P69)
+    ta, tb = limbs_from_numpy(a, 'cpu'), limbs_from_numpy(b, 'cpu')
+    whole = ctx.matmul(ta, tb)
+    monkeypatch.setattr(tfieldops, '_MATMUL_BLOCK_BYTES', 64 * 9 * 5 * 4 * 8)
+    np.testing.assert_array_equal(limbs_to_numpy(ctx.matmul(ta, tb)),
+                                  limbs_to_numpy(whole))
+    jctx = jfieldops.prime_field_ctx(P69)
+    np.testing.assert_array_equal(
+        limbs_to_numpy(whole),
+        np.asarray(jctx.matmul(jnp.asarray(a), jnp.asarray(b))))
 
 
 def test_field_matmul_cuts_long_contractions(monkeypatch):

@@ -61,6 +61,47 @@ def test_reshare_step_matches_jax(n, fuse):
     assert list(tctr) == [1, 7]
 
 
+P69 = 590295810358705651619   # SecInt(37)'s field, three limbs
+
+
+@functools.cache
+def _jax_step_69(fuse):
+    return jpipe.make_reshare_step(P69, T, M, fuse_mul=fuse)
+
+
+def _shares69(n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 32, (M, n, 3), dtype=np.uint64)
+    a[..., 2] = rng.integers(0, P69 >> 64, (M, n))
+    return a.astype(np.uint32)
+
+
+@pytest.mark.parametrize('n', [64, 1000])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_step_matches_jax_at_three_limbs(n, fuse):
+    """SecInt(37)'s 69-bit field: 20-byte draws, eight a block. Two
+    chained calls from a counter whose low word wraps give the JAX step's
+    shares and counters bit for bit."""
+    st = _state()
+    a, b = _shares69(n, 4), _shares69(n, 5)
+    jstep, tstep = _jax_step_69(fuse), tpipe.make_reshare_step(P69, T, M,
+                                                               fuse)
+    jctr = jnp.asarray(np.array([0xFFFFFFFF, 2], np.uint32))
+    tctr = np.array([0xFFFFFFFF, 2], np.uint32)
+    tst = tkeccak.state_tensor(st, 'cpu')
+    for _ in range(2):
+        jargs = (jnp.asarray(a), jnp.asarray(b)) if fuse \
+            else (jnp.asarray(a),)
+        targs = (limbs_from_numpy(a, 'cpu'), limbs_from_numpy(b, 'cpu')) \
+            if fuse else (limbs_from_numpy(a, 'cpu'),)
+        jout, jctr = jstep(*jargs, jnp.asarray(st), jctr)
+        tout, tctr = tstep(*targs, tst, tctr)
+        np.testing.assert_array_equal(limbs_to_numpy(tout), np.asarray(jout))
+        np.testing.assert_array_equal(tctr, np.asarray(jctr))
+        a = np.asarray(jout)
+    assert list(tctr) == [1, 3]
+
+
 def test_reshare_step_keeps_logical_shape():
     st = tkeccak.state_tensor(_state(), 'cpu')
     a = limbs_from_numpy(_shares(60, 3, (4, 15)), 'cpu')
