@@ -13,8 +13,9 @@ the port's runner ``mpyc_tpu_torch/demos/np_bnnmnist.py``: the MNIST flow
 at full width and its selftest; a secure product at ``SecInt(64)`` (a
 three-limb field); and the CNN (``demos/cnnmnist.py``) at ``SecInt(37)``
 (a three-limb field), through ``mpyc_tpu_torch/demos/np_cnnmnist.py``:
-the MNIST flow at full width and its selftest. Phases, each printing one
-line with its elapsed seconds:
+the MNIST flow at full width and its selftest; and the CNN's fixed-point
+path at ``SecFxp(14, 6)`` (a 52-bit field of two limbs), through the same
+runner. Phases, each printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -55,9 +56,10 @@ line with its elapsed seconds:
 6. split/recombine: 3,010,560 secrets, 100 chained rounds, the output
    equal to the input; ms per round;
 7. bnn: the MNIST flow on test images 0-99 (B = 100; fc 784-4096-4096-
-   4096-10, SecInt(14)), twice (cold, warm): all 100 predictions equal
-   to the plaintext model of the protocol (``plain_forward``), the count
-   correct against the labels, seconds a pass and images/s; then, outside
+   4096-10, SecInt(14)), cold and 3 times warm: all 100 predictions
+   equal to the plaintext model of the protocol (``plain_forward``), the
+   count correct against the labels, seconds a pass (cold; warm median,
+   least and largest) and images/s; then, outside
    the counted run, per layer at its shapes the device ms of the plane
    GEMM (``torch._int_mm``), the planes and the GEMM, the carry and fold,
    K3 and K5 (CUDA events); one try of torch.profiler over a warm pass;
@@ -69,10 +71,11 @@ line with its elapsed seconds:
    output checked;
 10. cnn: the MNIST flow on test images 0-99 (B = 100; conv 5x5x32,
    maxpool, conv 5x5x64, maxpool, fc 3136x1024, fc 1024x10, SecInt(37),
-   comparisons at l = 16, 23, 30 and 37), twice (cold, warm): all 100
+   comparisons at l = 16, 23, 30 and 37), cold and 3 times warm: all 100
    predictions equal to the plaintext model of the protocol, the counts
    equal to the float model and correct against the labels, seconds a
-   pass and images/s; the host seconds of encoding the pixels and the
+   pass (cold; warm median, least and largest) and images/s; the host
+   seconds of encoding the pixels and the
    weights (the encoder of int64 values against its general path of
    Python ints); a marked pass: each layer's device ms and peak
    memory, K5's launches against the comparisons' chunks of 1024; per
@@ -81,13 +84,37 @@ line with its elapsed seconds:
 11. cnn selftest: the runner's random CNN on 8 x 8 images with
    ``rt.input`` at SecInt(37) (25-byte draws: K1 and the split), B = 100,
    predictions equal to the plaintext model;
-12. report: one JSON line of the kernels (every instantiation that a path
+12. fxp kernels: at SecFxp(14, 6)'s field, K6 (mont_pow, the inverse
+   square root's power (3p - 5) / 4) at conv1's random bits (15,052,800
+   elements, L = 2) and at 2^22 elements of SecInt(37)'s three-limb
+   field, and K5 (LT, l = 14) with the fixed-point scale 2^6 at the
+   flow's largest comparison (maxpool1's first round, 1,254,400 elements
+   in two chunks of 2^20, one launch, outputs and counters), each equal
+   bit for bit to its plain version and timed beside it and its bound;
+   then through the runtime one ``np_random_bits`` of 15,052,800 bits
+   (every opened value 0 or 1, the share of ones within 6 standard
+   deviations of 1/2) and one ``np_trunc`` of conv1's 2,508,800 products
+   (every opened value floor(x / 2^6) or one more, the share rounded up
+   within 6 standard deviations of the mean of (x mod 2^6) / 2^6), each
+   timed;
+13. cnn fxp: the MNIST flow at SecFxp(14, 6) (``--fxp``) on test images
+   0-99, cold and 3 times warm, every pass's every layer held by the
+   runner's stage-local check (a product layer's output minus its bias
+   floor(v / 2^6) or one more, v the exact product of its opened input;
+   maxpool, ReLU and the argmax equal to numpy's on their opened inputs),
+   the counts against the labels and the float model (and the images
+   where fixed point and float differ), each layer's opened range against
+   the comparison's 14 bits, seconds a pass (cold; warm median, least and
+   largest) and images/s, K5's and K6's launches a pass; a marked pass:
+   each layer's device ms and peak memory; one try of torch.profiler over
+   a warm pass;
+14. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11 zeroes the launch counters just before it and reads
-them just after; each must show that the instantiations of its path ran
-(``PATH_ENTRIES``).
+Each of phases 4-11 and 13 zeroes the launch counters just before it and
+reads them just after; each must show that the instantiations of its path
+ran (``PATH_ENTRIES``).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -97,6 +124,7 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import math
 import os
 import re
 import subprocess
@@ -111,7 +139,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpyc_tpu_torch import sectypes  # noqa: E402
 from mpyc_tpu_torch.models import pipelines  # noqa: E402
-from mpyc_tpu_torch.ops import keccak, rng  # noqa: E402
+from mpyc_tpu_torch.ops import fieldops, keccak, rng  # noqa: E402
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx  # noqa: E402
 from mpyc_tpu_torch.parallel.simulator import SimRuntime  # noqa: E402
 
@@ -144,35 +172,55 @@ CNN_COMPARISONS = 11
 # have at most 500, so K5 at l = 37 is timed at 2^14
 CNN_CMP = {16: N_CNN * 32 * 14 * 28, 23: N_CNN * 64 * 7 * 14,
            30: N_CNN * 1024, 37: 1 << 14}
+WARM = 3                       # warm passes of a network (median)
+N_FXP = 100                    # images of the cnn fxp phase (B), 0-99
+FXP_L, FXP_F = 14, 6           # SecFxp(14, 6), the demo's fixed point
+FXP_CONV1 = N_FXP * 784 * 32   # conv1's products, each truncated
+FXP_BITS = FXP_F * FXP_CONV1   # their random bits (K6's elements)
+FXP_POOL1 = N_FXP * 32 * 14 * 28   # maxpool1's first comparison
+N_POW_WIDE = 1 << 22           # K6 at three limbs
 M, T = 3, 1
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
-# Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). The integer rate is
-# the card's 64 INT32 lanes per SM: 132 SMs x 64 x 1.98 GHz = 16.7e12 32-bit
-# integer instructions/s, a quarter of the 67 TFLOP/s float32 peak (128
-# lanes, 2 flops per FMA).
+# Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
+# counted in 32-bit instructions of three classes, a vector (mul, add,
+# logic): multiplies run only on the FMA pipe, logic ops (three-input
+# LOP3, funnel shifts) only on the integer ALU pipe, adds, subtractions
+# and selects on either (IADD3 or IMAD.IADD). Each pipe retires 64
+# instructions a clock per SM (132 SMs x 64 x 1.98 GHz = 16.7e12/s) and
+# the SM issues at most 128 a clock, so the least time is the largest of
+# mul, logic and (mul + add + logic) / 2 over that rate
+# (``int_lane_ops``).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1979e12   # dense int8 tensor-core peak
-# 32-bit instructions, counted at their fewest: a Keccak-f round is 20
-# three-input XORs (column parities) + 10 funnel shifts (theta rotations)
-# + 50 XORs (theta) + 48 funnel shifts (rho) + 50 three-input chi ops + 2
-# (iota) on the 32-bit halves. An L-limb Montgomery product (CIOS,
-# csrc/limb.cuh mont_mul): in each of its L steps L + 1 + L 32x32-bit
-# products (a_j b_i, m = t_0 n0inv, m p_j) of 2 instructions each (low
-# and high word) and 3 L adds of the carries, then L subtractions and L
-# selects: 7 L^2 + 4 L, 36 at L = 2 and 75 at L = 3. A modular add
+# Counted at their fewest: a Keccak-f round is 20 three-input XORs (column
+# parities) + 10 funnel shifts (theta rotations) + 50 XORs (theta) + 48
+# funnel shifts (rho) + 50 three-input chi ops + 2 (iota) on the 32-bit
+# halves, all logic. An L-limb Montgomery product (CIOS, csrc/limb.cuh
+# mont_mul): in each of its L steps 2 L + 1 multiplies (a_j b_i and m p_j
+# one wide multiply each, m = t_0 n0inv its low word) and 3 L adds of the
+# carries, then L subtractions and L selects: 2 L^2 + L multiplies and
+# 3 L^2 + 2 L adds, (10, 16) at L = 2 and (21, 33) at L = 3. A modular add
 # (add_mod): L adds, L subtractions, L selects and 2 for the carry and
-# borrow: 3 L + 2, 8 at L = 2 and 11 at L = 3.
-KECCAK_F_OPS = 24 * 180
+# borrow: 3 L + 2 adds, 8 at L = 2 and 11 at L = 3.
+KECCAK_F_OPS = np.array([0, 0, 24 * 180])
 
 
-def mont_mul_ops(L: int) -> int:
-    return 7 * L * L + 4 * L
+def mont_mul_ops(L: int) -> np.ndarray:
+    return np.array([2 * L * L + L, 3 * L * L + 2 * L, 0])
 
 
-def add_mod_ops(L: int) -> int:
-    return 3 * L + 2
+def add_mod_ops(L: int) -> np.ndarray:
+    return np.array([0, 3 * L + 2, 0])
+
+
+def int_lane_ops(ops) -> float:
+    """Instructions a lane of one pipe retires at the least for the
+    (mul, add, logic) counts ops: the busier of the two pipes, with the
+    adds spread between them."""
+    mul, add, logic = np.broadcast_to(np.asarray(ops, dtype=np.float64), 3)
+    return float(max(mul, logic, (mul + add + logic) / 2))
 
 
 SOURCE = 'mpyc_tpu_torch/csrc/kernels.cu'
@@ -189,11 +237,16 @@ KERNELS = {
     'sgn_step': dict(replaces='mpyc_tpu/models/pipelines.py:503',
                      wrapper=pipelines.sgn_step,
                      source='mpyc_tpu_torch/csrc/sgn.cuh'),
+    # no Pallas kernel: XLA runs the JAX package's power ladder
+    'mont_pow': dict(replaces='mpyc_tpu/ops/limb.py:330',
+                     wrapper=fieldops.mont_pow,
+                     source='mpyc_tpu_torch/csrc/pow.cuh'),
 }
 # Every instantiation that a path launches, as the kernels line lists it:
 # entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
 # a kernel of one instantiation). Keys: K2 (limbs, words a draw), K3
-# (limbs, fused), K5 (mode, l, limbs).
+# (limbs, fused), K5 (mode, l, limbs, f: the fixed-point scale, a
+# parameter of the launch), K6 (limbs).
 ENTRIES = {
     'keccak_ctr': ('keccak_ctr', None),
     'squeeze_mont<L=2, W=6>': ('squeeze_mont', (2, 6)),
@@ -203,12 +256,14 @@ ENTRIES = {
     'reshare_mul<L=3, fused>': ('reshare_mul', (3, True)),
     'reshare_mul<L=3>': ('reshare_mul', (3, False)),
     'split_recombine': ('split_recombine', None),
-    **{f'sgn_step<{mode}, l=32, L=2>': ('sgn_step', (mode, 32, 2))
+    **{f'sgn_step<{mode}, l=32, L=2>': ('sgn_step', (mode, 32, 2, 0))
        for mode in pipelines.SGN_MODES},
-    **{f'sgn_step<LT, l={l}, L=2>': ('sgn_step', ('LT', l, 2))
+    **{f'sgn_step<LT, l={l}, L=2>': ('sgn_step', ('LT', l, 2, 0))
        for l in (14, 10)},
-    **{f'sgn_step<LT, l={l}, L=3>': ('sgn_step', ('LT', l, 3))
+    **{f'sgn_step<LT, l={l}, L=3>': ('sgn_step', ('LT', l, 3, 0))
        for l in CNN_WIDTHS},
+    'sgn_step<LT, l=14, L=2, f=6>': ('sgn_step', ('LT', FXP_L, 2, FXP_F)),
+    'mont_pow<L=2>': ('mont_pow', 2),
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -228,6 +283,12 @@ PATH_ENTRIES = {
     'cnn selftest': ('keccak_ctr', 'reshare_mul<L=3>',
                      'reshare_mul<L=3, fused>',
                      *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
+    # PRSS streams (K1), every product's reshare (by a comparison's
+    # integral bit, or a matmul's before its truncation: K3 without the
+    # product), the comparisons at 2^6 (K5), the random bits' inverse
+    # square roots (K6)
+    'cnn fxp': ('keccak_ctr', 'reshare_mul<L=2>',
+                'sgn_step<LT, l=14, L=2, f=6>', 'mont_pow<L=2>'),
 }
 
 
@@ -272,13 +333,15 @@ def counts() -> dict:
     return res
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops):
+    """The least ms for n_bytes moved and the integer instructions n_ops
+    ((mul, add, logic) counts), and which of the two bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    t_ops = int_lane_ops(n_ops) / INT_OPS_PER_S * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
-def draw_ops(n_draws: int, W: int, L: int = 2) -> int:
+def draw_ops(n_draws: int, W: int, L: int = 2) -> np.ndarray:
     """Montgomery work to map n_draws W-word draws into GF(p)."""
     nc = -(-W // L)
     return n_draws * (nc * mont_mul_ops(L) + (nc - 1) * add_mod_ops(L))
@@ -989,7 +1052,7 @@ def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
     return dict(ms_per_round=ms)
 
 
-def run_bnn(device, batch=N_BNN, passes=2, profile=False) -> dict:
+def run_bnn(device, batch=N_BNN, passes=1 + WARM, profile=False) -> dict:
     """The runner's MNIST flow on test images 0..batch-1 through the user's
     entry points, ``passes`` times (the first cold); raises unless every
     pass's predictions equal the plaintext model of the protocol. Returns
@@ -1133,7 +1196,7 @@ def run_wide(device, n=N_WIDE, seed=3) -> None:
           f'wide product: {bad.size} of {n} outputs wrong')
 
 
-def run_cnn(device, batch=N_CNN, passes=2, profile=False) -> dict:
+def run_cnn(device, batch=N_CNN, passes=1 + WARM, profile=False) -> dict:
     """The CNN runner's MNIST flow on test images 0..batch-1 through the
     user's entry points, ``passes`` times (the first cold; a pass is the
     pixels in as public values to the predictions opened); raises unless
@@ -1328,6 +1391,246 @@ def run_cnn_selftest(device, batch=N_CNN_SELFTEST) -> None:
           f'{expect.tolist()}')
 
 
+def chain_products(e: int) -> int:
+    """The fewest Montgomery products that any addition chain for x^e
+    takes: Schoenhage's lower bound on the length of an addition chain,
+    log2 e + log2 v(e) - 2.13 with v(e) the number of set bits (Knuth,
+    TAOCP 2, 4.6.3), and never fewer than log2 e."""
+    if e < 2:
+        return 0
+    lg = math.log2(e)
+    return max(math.ceil(lg),
+               math.ceil(lg + math.log2(bin(e).count('1')) - 2.13))
+
+
+def pow_meas(ctx, x, e: int, err: int) -> dict:
+    """K6's time on the elements x ((n, L) Montgomery limbs) at exponent
+    e, its plain version's and its bound: the fewest products any chain
+    for e takes (``chain_products``; the kernel's ladder takes a squaring
+    per bit and a product per set bit below the top one,
+    ``fieldops.pow_products``, held against the source by
+    tests/test_torch_kernels_host.py), against the elements read and
+    written."""
+    n = x.shape[0]
+    k, least = fieldops.pow_products(e), chain_products(e)
+    b, o = bound(n * ctx.L * 4 * 2, n * least * mont_mul_ops(ctx.L))
+    return dict(
+        shape=f'{n} elements, L = {ctx.L}, a {e.bit_length()}-bit exponent '
+        f'({k} products; any chain {least} at the least)', max_abs_err=err,
+        ms=cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 10),
+        plain_ms=cuda_ms(lambda: fieldops._mont_pow_plain(x, e, ctx), 1),
+        bound_ms=b, bound_by=o)
+
+
+def check_fxp_kernels() -> dict:
+    """Phase 12's kernels against their plain versions (bit for bit): K6 at
+    the inverse square root's exponent (3p - 5) / 4 on SecFxp(14, 6)'s
+    field at conv1's random bits (15,052,800 elements) and on SecInt(37)'s
+    three-limb field at 2^22, with 0 and 1 among the inputs; K5 (LT, l =
+    14) with the scale 2^6 at maxpool1's first comparison in one launch
+    of two chunks of 2^20 against the plain version chunk by chunk,
+    outputs and counters. Each timed beside its plain version and bound.
+    Returns per-instantiation measurements."""
+    gen = np.random.default_rng(12)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    p52 = sectypes.SecFxp(FXP_L, FXP_F, 'cuda').field.modulus
+    p69 = sectypes.SecInt(37, 'cuda').field.modulus
+    for p, n, entry in ((p52, FXP_BITS, 'mont_pow<L=2>'),
+                        (p69, N_POW_WIDE, 'mont_pow<L=3>')):
+        ctx = prime_field_ctx(p)
+        x = random_field(p, (n,), gen)
+        x[0] = 0
+        x[1] = torch.tensor(ctx.one_mont, dtype=torch.int64).to(torch.int32)
+        e = (3 * p - 5) // 4
+        got = fieldops.mont_pow(x, e, ctx)
+        want = fieldops._mont_pow_plain(x, e, ctx)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0, f'K6 ({n} elements, L = {ctx.L}) differs from its '
+              'plain version')
+        del got, want
+        r = res[entry] = pow_meas(ctx, x, e, err)
+        say(f'  K6 mont_pow: {r["shape"]} equal to plain; {r["ms"]:.4f} ms, '
+            f'plain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x')
+        del x
+        torch.cuda.empty_cache()
+
+    spec5 = pipelines.SgnSpec(p52, T, M, FXP_L, 30, LT=True, f=FXP_F)
+    chunk = SimRuntime._SGN_CHUNK
+    a = random_field(p52, (M, FXP_POOL1), gen)
+    err5 = sgn_chunks_check(spec5, a, st, (0xFFFFFFFF, 6), chunk)
+    r = res['sgn_step<LT, l=14, L=2, f=6>'] = sgn_meas(
+        spec5, a, st, (3, 0), chunk, err5)
+    say(f'  K5 sgn_step LT at l = {FXP_L}, f = {FXP_F} (SecFxp({FXP_L}, '
+        f'{FXP_F})\'s field): one launch of {r["shape"]} equal to plain '
+        f'chunk by chunk, counters too; per element {r["mont"]} Montgomery '
+        f'products, {r["adds"]:.0f} modular adds/subs; {r["ms"]:.4f} ms, '
+        f'plain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+        f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x')
+    del a
+    torch.cuda.empty_cache()
+    return res
+
+
+def _timed(fn, on_card: bool):
+    """fn()'s result, its host seconds (to a synchronize) and, on the card,
+    its device ms (CUDA events)."""
+    if on_card:
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    t0 = time.perf_counter()
+    out = fn()
+    ms = None
+    if on_card:
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = ev0.elapsed_time(ev1)
+    return out, time.perf_counter() - t0, ms
+
+
+def run_fxp_rounds(device, n=FXP_CONV1, seed=13) -> dict:
+    """Phase 12's protocol rounds through the runtime at SecFxp(14, 6):
+    ``np_random_bits`` of 6 n bits (conv1's truncations' bits), every
+    opened value 0 or 1; ``np_trunc`` of n values x in [-2^19, 2^19) (the
+    range of a product at 2^12 that the truncation takes, l = 20), every
+    opened value floor(x / 2^6) or one more. Returns the host seconds and
+    device ms of each, the share of ones and of values rounded up."""
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    sfx = rt.SecFxp(FXP_L, FXP_F)
+    on_card = torch.device(device).type == 'cuda'
+    bits, bits_s, bits_ms = _timed(
+        lambda: rt.np_random_bits(sfx.field, FXP_F * n), on_card)
+    vals = rt.output(bits).value
+    check(vals.shape == (FXP_F * n,) and np.isin(vals, (0, 1)).all(),
+          'np_random_bits: an opened bit other than 0 or 1')
+    ones = float(vals.mean())
+    sd = 0.5 / math.sqrt(vals.size)
+    check(abs(ones - 0.5) < 6 * sd, f'np_random_bits: {ones:.6f} of the '
+          f'bits are 1, more than 6 standard deviations ({sd:.2e}) from 0.5')
+    del bits, vals
+    gen = np.random.default_rng(seed)
+    half = 1 << (FXP_L + FXP_F - 1)
+    x = gen.integers(-half, half, n)
+    X = rt.input(sfx.array(x / (1 << FXP_F)), senders=0)
+    Y, trunc_s, trunc_ms = _timed(lambda: rt.np_trunc(X), on_card)
+    d = np.round(rt.output(Y) * (1 << FXP_F)).astype(np.int64) \
+        - np.floor_divide(x, 1 << FXP_F)
+    bad = np.flatnonzero((d != 0) & (d != 1))
+    check(bad.size == 0, f'np_trunc: {bad.size} of {n} opened values not '
+          f'floor(x / 2^{FXP_F}) or one more, first at {bad[:5].tolist()}')
+    # x is rounded up with probability q = (x mod 2^f) / 2^f
+    q = np.mod(x, 1 << FXP_F) / (1 << FXP_F)
+    up, want = float((d == 1).mean()), float(q.mean())
+    sd = math.sqrt(float((q * (1 - q)).mean()) / n)
+    check(abs(up - want) < 6 * sd, f'np_trunc: {up:.6f} of the values '
+          f'rounded up, more than 6 standard deviations ({sd:.2e}) from '
+          f'{want:.6f}')
+    rt.shutdown()
+    return dict(bits_s=bits_s, bits_ms=bits_ms, ones=ones, trunc_s=trunc_s,
+                trunc_ms=trunc_ms, up=up, up_want=want)
+
+
+def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
+                profile=False) -> dict:
+    """The CNN runner's fixed-point flow (``--fxp``: SecFxp(14, 6)) on
+    MNIST test images 0..batch-1 through the user's entry points,
+    ``passes`` times (the first cold; a pass is the float pixels in as
+    public values to the predictions opened). Every pass keeps its stages,
+    opened after it, and raises unless each passes the runner's
+    stage-local check (``check_fxp_stages``). Then one more pass with the
+    layers marked: each layer's device ms (CUDA events at the runner's
+    barriers) and peak memory; with ``profile``, the lines of
+    ``profile_calls`` over one more pass. Returns per pass the seconds and
+    the counts against the labels and the float model, the images where
+    the predictions and the float model differ, the layers' ranges, and
+    K5's and K6's launches a pass."""
+    from mpyc_tpu_torch.demos import np_cnnmnist as cnn
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    sfx = rt.SecFxp(cnn.L_FXP, cnn.F)
+    labels, images = cnn.load_mnist(0, batch)
+    xf = images.reshape(-1, 1, 28, 28) / 255
+    on_card = torch.device(device).type == 'cuda'
+    t0 = time.perf_counter()
+    weights = cnn.load_weights()
+    slayers = cnn.secure_layers(sfx, weights)
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    floats = np.argmax(cnn.float_forward(xf, weights), axis=1)
+
+    def checked_pass(barrier=None):
+        kept = {}
+        preds = cnn.secure_forward(rt, sfx, sfx.array(xf), slayers,
+                                   barrier, kept)
+        return preds, kept
+
+    def verify(preds, kept, what):
+        opened = cnn.open_stages(rt, kept, preds)
+        checks = cnn.check_fxp_stages(xf, weights, opened)
+        bad = {k: c['bad'] for k, c in checks.items() if c['bad']}
+        check(preds.shape == (batch,) and not bad,
+              f'cnn fxp: {what}: stages fail the stage-local check: {bad}')
+        return checks, cnn.fxp_ranges(opened)
+
+    runs = []
+    for i in range(passes):
+        n5, n6 = pipelines.sgn_step.launches, fieldops.mont_pow.launches
+        t0 = time.perf_counter()
+        preds, kept = checked_pass()
+        dt = time.perf_counter() - t0        # output is on the host
+        k5 = pipelines.sgn_step.launches - n5
+        k6 = fieldops.mont_pow.launches - n6
+        checks, ranges = verify(preds, kept, f'pass {i}')
+        del kept
+        runs.append(dict(s=dt, correct=int((preds == labels).sum()),
+                         floats=int((preds == floats).sum()),
+                         differ=np.flatnonzero(preds != floats).tolist(),
+                         k5=k5, k6=k6))
+    layers = {}
+    if on_card:
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev, torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mark('start')
+        preds, kept = checked_pass(mark)
+        torch.cuda.synchronize()
+        verify(preds, kept, 'marked pass')
+        del kept
+        for (_, e0, _), (name, e1, peak) in zip(marks, marks[1:]):
+            layers[name.removeprefix('after-')] = dict(
+                ms=e0.elapsed_time(e1), peak_gib=peak / 2**30)
+    trace = []
+    if profile:
+        try:   # one try, as in the comparison phase
+            trace = profile_calls(lambda: cnn.secure_forward(
+                rt, sfx, sfx.array(xf), slayers), 1, top=25)
+        except Exception as exc:  # noqa: BLE001 (reported, not a check)
+            trace = [f'torch.profiler failed: {exc!r}']
+    rt.shutdown()
+    return dict(runs=runs, checks=checks, ranges=ranges, setup_s=setup_s,
+                layers=layers, trace=trace)
+
+
+def warm_stats(pass_s: list) -> tuple:
+    """(median, least, largest) of the warm passes (all but the first)."""
+    warm = sorted(pass_s[1:])
+    return warm[len(warm) // 2], warm[0], warm[-1]
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t_all = time.perf_counter()
@@ -1417,7 +1720,8 @@ def main() -> int:
 
     with Phase('bnn'):
         res_bnn = res = drive('bnn', lambda: run_bnn('cuda', profile=True))
-        cold, warm = res['pass_s']
+        cold = res['pass_s'][0]
+        warm, warm_lo, warm_hi = warm_stats(res['pass_s'])
         say(f'  MNIST images 0-{N_BNN - 1}, fc 784-4096-4096-4096-10, '
             f'SecInt(14), m = {M}: all {N_BNN} predictions equal the '
             f'plaintext model; {res["correct"]}/{N_BNN} correct against the '
@@ -1426,7 +1730,8 @@ def main() -> int:
             say(f'  plaintext model, {name}: sums in [{lo}, {hi}], {wide} '
                 f'of {N_BNN * 4096} activations not +-1')
         say(f'  weights loaded and encoded in {res["setup_s"]:.3f} s; pass '
-            f'cold {cold:.4f} s, warm {warm:.4f} s: {N_BNN / warm:.6g} '
+            f'cold {cold:.4f} s, warm median {warm:.4f} s of {WARM} (least '
+            f'{warm_lo:.4f}, largest {warm_hi:.4f}): {N_BNN / warm:.6g} '
             f'images/s on {smi}')
         layers = bnn_components()
         for r in layers:
@@ -1454,7 +1759,8 @@ def main() -> int:
 
     with Phase('cnn'):
         res_cnn = res = drive('cnn', lambda: run_cnn('cuda', profile=True))
-        cold_c, warm_c = res['pass_s']
+        cold_c = res['pass_s'][0]
+        warm_c, warm_c_lo, warm_c_hi = warm_stats(res['pass_s'])
         say(f'  MNIST images 0-{N_CNN - 1}, conv 5x5x32, maxpool, conv '
             f'5x5x64, maxpool, fc 3136x1024, fc 1024x10, SecInt(37), m = '
             f'{M}: all {N_CNN} predictions equal the plaintext model; '
@@ -1463,7 +1769,8 @@ def main() -> int:
         for name, (lo, hi) in res['stats'].items():
             say(f'  plaintext model, {name}: outputs in [{lo}, {hi}]')
         say(f'  weights loaded and encoded in {res["setup_s"]:.3f} s; pass '
-            f'cold {cold_c:.4f} s, warm {warm_c:.4f} s: '
+            f'cold {cold_c:.4f} s, warm median {warm_c:.4f} s of {WARM} '
+            f'(least {warm_c_lo:.4f}, largest {warm_c_hi:.4f}): '
             f'{N_CNN / warm_c:.6g} images/s on {smi}')
         say(f'  K5 per pass: {res["k5_launches"]} launches for '
             f'{CNN_COMPARISONS} comparisons in {res["chunks"]} chunks of '
@@ -1497,6 +1804,65 @@ def main() -> int:
             'with rt.input at SecInt(37): predictions equal the plaintext '
             'model')
 
+    with Phase('fxp kernels'):
+        fxp_meas = check_fxp_kernels()
+        for name, r in fxp_meas.items():
+            say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
+                f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
+                f'({r["bound_by"]}) on {smi}')
+        meas.update(fxp_meas)
+        res = run_fxp_rounds('cuda')
+        say(f'  np_random_bits of {FXP_BITS} bits at SecFxp({FXP_L}, '
+            f'{FXP_F}) (conv1\'s truncations): {res["bits_ms"]:.4f} ms on the '
+            f'device, {res["bits_s"]:.4f} s on the host clock; every opened '
+            f'bit 0 or 1, {res["ones"]:.6f} of them 1 (expected 0.5), on '
+            f'{smi}')
+        say(f'  np_trunc of {FXP_CONV1} values (conv1\'s products): '
+            f'{res["trunc_ms"]:.4f} ms on the device, {res["trunc_s"]:.4f} s '
+            f'on the host clock; every opened value floor(x / 2^{FXP_F}) or '
+            f'one more, {res["up"]:.6f} of them one more (expected '
+            f'{res["up_want"]:.6f}), on {smi}')
+        res_fxp_rounds = res
+        torch.cuda.empty_cache()
+
+    with Phase('cnn fxp'):
+        res_fxp = res = drive('cnn fxp',
+                              lambda: run_cnn_fxp('cuda', profile=True))
+        runs = res['runs']
+        cold_f = runs[0]['s']
+        warm_f, warm_f_lo, warm_f_hi = warm_stats([r['s'] for r in runs])
+        say(f'  MNIST images 0-{N_FXP - 1}, the CNN at SecFxp({FXP_L}, '
+            f'{FXP_F}), m = {M}: every layer of all {len(runs) + 1} passes '
+            'passes the stage-local check')
+        for i, r in enumerate(runs):
+            say(f'  pass {i} ({"cold" if i == 0 else "warm"}): {r["s"]:.4f} '
+                f's, {r["correct"]}/{N_FXP} correct against the labels, '
+                f'{r["floats"]}/{N_FXP} equal to the float model (differ on '
+                f'images {r["differ"]}); K5 {r["k5"]} launches, K6 '
+                f'{r["k6"]}')
+        for name, c in res['checks'].items():
+            up = f', {c["up"]} rounded up' if 'up' in c else ''
+            say(f'  {name} (last pass): {c["n"]} elements pass the '
+                f'stage-local check{up}')
+        for name, r in res['ranges'].items():
+            say(f'  {name} outputs (last pass) in [{r["lo"]}, {r["hi"]}] at '
+                f'2^{FXP_F}: {"within" if r["fits"] else "BEYOND"} the '
+                f'comparison\'s {FXP_L} bits')
+            check(r['fits'], f'cnn fxp: {name} outputs beyond the '
+                  'comparison\'s width')
+        say(f'  weights loaded and encoded in {res["setup_s"]:.3f} s; pass '
+            f'cold {cold_f:.4f} s, warm median {warm_f:.4f} s of {WARM} '
+            f'(least {warm_f_lo:.4f}, largest {warm_f_hi:.4f}): '
+            f'{N_FXP / warm_f:.6g} images/s on {smi}')
+        for name, r in res['layers'].items():
+            say(f'  {name} in a marked pass: {r["ms"]:.4f} ms device time '
+                f'between the barriers, peak {r["peak_gib"]:.3f} GiB '
+                'allocated')
+        say(f'  torch.profiler over one warm pass on {smi}:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
     say(f'  launches over the paths: {launches}')
     kernels = []
     for entry, (name, _) in ENTRIES.items():
@@ -1516,16 +1882,26 @@ def main() -> int:
                     'split_elements': N_SPLIT,
                     'bnn_images': N_BNN, 'bnn_correct': res_bnn['correct'],
                     'bnn_cold_s': cold, 'bnn_warm_s': warm,
+                    'bnn_warm_range_s': [warm_lo, warm_hi],
                     'bnn_images_per_s': N_BNN / warm, 'bnn_layers': layers,
                     'cnn_images': N_CNN, 'cnn_correct': res_cnn['correct'],
                     'cnn_equal_to_float': res_cnn['floats'],
                     'cnn_cold_s': cold_c, 'cnn_warm_s': warm_c,
+                    'cnn_warm_range_s': [warm_c_lo, warm_c_hi],
                     'cnn_images_per_s': N_CNN / warm_c,
                     'cnn_k5_launches': res_cnn['k5_launches'],
                     'cnn_chunks': res_cnn['chunks'],
                     'cnn_encode_s': res_cnn['encode_s'],
                     'cnn_marked_layers': res_cnn['layers'],
-                    'cnn_layers': cnn_layers, 'card': smi}))
+                    'cnn_layers': cnn_layers,
+                    'fxp_images': N_FXP, 'fxp_cold_s': cold_f,
+                    'fxp_warm_s': warm_f,
+                    'fxp_warm_range_s': [warm_f_lo, warm_f_hi],
+                    'fxp_images_per_s': N_FXP / warm_f,
+                    'fxp_passes': res_fxp['runs'],
+                    'fxp_ranges': res_fxp['ranges'],
+                    'fxp_marked_layers': res_fxp['layers'],
+                    'fxp_rounds': res_fxp_rounds, 'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

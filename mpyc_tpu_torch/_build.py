@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # SOURCES[0] is compiled and #includes the others; all are hashed
-SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh')
+SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh',
+           'pow.cuh')
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -76,7 +77,15 @@ class SgnParams(ctypes.Structure):
                 ('mode', ctypes.c_int32), ('has_f', ctypes.c_int32)]
 
 
-# limb counts of the fields K2, K3 and K5 are built for (csrc/kernels.cu)
+class PowParams(ctypes.Structure):
+    """Mirror of ``struct PowParams`` in csrc/pow.cuh."""
+    _fields_ = [('p', _U32xNL), ('n0inv', ctypes.c_uint32),
+                ('one', _U32xNL), ('e', _U32xNL), ('nbits', ctypes.c_int32),
+                ('nl', ctypes.c_int32)]
+
+
+# limb counts of the fields K2, K3, K5 and K6 are built for
+# (csrc/kernels.cu)
 BUILT_NL = (2, 3)
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
@@ -114,6 +123,22 @@ def draw_params(ctx, n_chunks: int) -> DrawParams:
     return P
 
 
+def pow_params(ctx, e: int) -> PowParams:
+    """K6's parameter block for the power a^e in ctx's field."""
+    if ctx.L not in BUILT_NL:
+        raise NotImplementedError(
+            f'the CUDA kernels take fields of {BUILT_NL} limbs, not '
+            f'{ctx.L}')
+    P = PowParams()
+    set_limbs(P.p, ctx.p_limbs)
+    P.n0inv = ctx.n0inv
+    set_limbs(P.one, ctx.one_mont)
+    set_limbs(P.e, [(e >> 32 * q) & 0xFFFFFFFF for q in range(MAX_NL)])
+    P.nbits = e.bit_length()
+    P.nl = ctx.L
+    return P
+
+
 _C = ctypes.c_void_p
 _SIGNATURES = {
     'mtt_keccak_ctr': [_C, _C, ctypes.c_longlong, ctypes.c_int,
@@ -125,6 +150,7 @@ _SIGNATURES = {
     'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_longlong, _C, _C],
     'mtt_sgn_threads': [],
+    'mtt_mont_pow': [_C, _C, ctypes.c_longlong, _C, _C],
 }
 
 

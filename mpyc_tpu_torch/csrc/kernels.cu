@@ -1,5 +1,6 @@
 // CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication, K4
-// the split/recombine round, K5 the secure comparison (sgn.cuh).
+// the split/recombine round, K5 the secure comparison (sgn.cuh), K6 a
+// power with a public exponent (pow.cuh).
 //
 // Built by mpyc_tpu_torch/_build.py with plain nvcc into one shared library
 // whose extern "C" launchers are called through ctypes. Each launcher takes
@@ -372,8 +373,19 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 }  // namespace mtt
 
 #include "sgn.cuh"
+#include "pow.cuh"
 
 namespace mtt {
+
+template <int NL>
+int launch_mont_pow(const void* a, void* out, long long n,
+                    const PowParams& P, cudaStream_t stream) {
+  const int threads = 256;
+  const long long grid = (n + threads - 1) / threads;
+  mont_pow_kernel<NL><<<(unsigned)grid, threads, 0, stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, n, P);
+  return (int)cudaGetLastError();
+}
 
 template <int NL, int W>
 int launch_squeeze(const void* state, void* out, long long n_draws,
@@ -555,6 +567,19 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
                                          s);
     default: return -1;
   }
+}
+
+// a^e R mod p for n elements (K6). -1: a limb count the kernel was not
+// built for, or an exponent wider than the parameter block.
+int mtt_mont_pow(const void* a, void* out, long long n, const void* params,
+                 void* stream) {
+  const mtt::PowParams P = *(const mtt::PowParams*)params;
+  if (P.nbits < 0 || P.nbits > 32 * mtt::MAX_NL) return -1;
+  if (P.nl != 2 && P.nl != 3) return -1;
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return P.nl == 2 ? mtt::launch_mont_pow<2>(a, out, n, P, s)
+                   : mtt::launch_mont_pow<3>(a, out, n, P, s);
 }
 
 // Elements of a K5 thread block (SGN_THREADS), for models of its stage.

@@ -1,11 +1,12 @@
 """Prime fields GF(p) with arrays backed by torch tensors.
 
-Port of the part of ``mpyc_tpu/finfields.py`` that secure multiplication
-and comparison use: ``GF(p)``, ``find_prime_root`` (same construction, so
-the moduli agree with the JAX package's), and ``PrimeFieldArray``, whose
-data is a ``(..., L)`` int32 tensor of Montgomery limbs on the CPU or the
-card, with elementwise +, -, * and negation (public int or integer-array
-operands included).
+Port of the part of ``mpyc_tpu/finfields.py`` that secure multiplication,
+comparison and truncation use: ``GF(p)``, ``find_prime_root`` (same
+construction, so the moduli agree with the JAX package's), and
+``PrimeFieldArray``, whose data is a ``(..., L)`` int32 tensor of
+Montgomery limbs on the CPU or the card, with elementwise +, -, * and
+negation (public int or integer-array operands included), (inverse)
+square roots, shifts by a public power of two and the values mod 2^f.
 """
 
 from __future__ import annotations
@@ -158,6 +159,35 @@ class PrimeFieldArray:
         return self.from_data(self.ctx.mul(self.data, o))
 
     __rmul__ = __mul__
+
+    def __lshift__(self, n):
+        """Times 2^n (``mpyc_tpu/finfields.py:1450``)."""
+        if not isinstance(n, (int, np.integer)):
+            return NotImplemented
+        return self * (1 << int(n))
+
+    def __rshift__(self, n):
+        """Times 2^-n mod p (``mpyc_tpu/finfields.py:1455``): an exact
+        division for a multiple of 2^n."""
+        if not isinstance(n, (int, np.integer)):
+            return NotImplemented
+        return self * pow(1 << int(n), -1, self.field.modulus)
+
+    def sqrt(self, INV=False):
+        """Square roots of quadratic residues (with INV their inverses,
+        and then no element may be 0)."""
+        if INV and self.ctx.any_zero(self.data):
+            raise ZeroDivisionError('no inverse sqrt of 0')
+        return self._sqrt_unchecked(INV)
+
+    def _sqrt_unchecked(self, INV=False):
+        """sqrt without the read back of the zero test, for callers that
+        have rejected zeros already (``np_random_bits``)."""
+        return self.from_data(self.ctx.sqrt(self.data, INV))
+
+    def mod_pow2(self, f: int):
+        """Each value mod 2^f (``mpyc_tpu/finfields.py:1511``)."""
+        return self.from_data(self.ctx.mod_pow2(self.data, f))
 
     @property
     def value(self) -> np.ndarray:

@@ -21,7 +21,7 @@ against XLA :859-892).
 
 Launch counts. Each wrapper of a kernel adds one to its ``launches`` where
 it launches the kernel, and to ``by_key[instantiation]`` beside it (K3:
-(L, fused); K5: (mode, l, L)), so a caller can tell which instantiations
+(L, fused); K5: (mode, l, L, f)), so a caller can tell which instantiations
 a path ran. K5 also adds the launch's comparison calls (chunks) to
 ``sgn_step.chunks``.
 """
@@ -669,7 +669,7 @@ def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
                     state.data_ptr(), n, chunk, n_last,
                     ctypes.addressof(params), _build.stream_of(a.device))
         sgn_step.launches += 1
-        sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L)] += 1
+        sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L, spec.f)] += 1
         sgn_step.chunks += -(-n // chunk)
     return out
 

@@ -8,11 +8,17 @@ stored limb tensors: ``(..., L)`` int32 holding uint32 Montgomery limbs
 kernels. The matrix product contracts 4-bit planes of its operands with
 one int8 GEMM (``torch._int_mm``, as the JAX package leaves its plane
 contractions to XLA's integer matmul) and assembles and folds the sums in
+plain torch. A power with a public exponent (``pow_const``, and through
+it ``sqrt``) is the one program here with a hand-written kernel, K6
+(``mont_pow``), though the JAX package leaves it to XLA too: it is a
+hundred Montgomery products an element, thousands of small launches in
 plain torch.
 """
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
 
 import numpy as np
@@ -54,6 +60,52 @@ def _int8_gemm(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
         bt = torch.nn.functional.pad(bt, (0, Kp - K, 0, Np - N))
     out = torch._int_mm(a, bt.t())
     return out[:M, :N] if (Mp, Np) != (M, N) else out
+
+
+def _mont_pow_plain(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
+    """Plain version of K6: a^e R mod p elementwise
+    (``limb.mont_pow_const``)."""
+    return limb.stack(limb.mont_pow_const(limb.unstack(data), e, ctx.p_limbs,
+                                          ctx.n0inv, ctx.one_mont))
+
+
+def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
+    """K6: a^e R mod p for every Montgomery element of ``data`` ((..., L)
+    int32 limbs of ``ctx``'s field) and a public exponent 0 <= e < 2^(32 L).
+
+    No Pallas kernel of the JAX package computes it: XLA runs its
+    ``mpyc_tpu/ops/limb.py:330 mont_pow_const`` (via ``fieldops.py:549
+    pow_const``). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (``csrc/pow.cuh``, ``mont_pow_kernel``), or raises
+    NotImplementedError for a limb count it is not built for."""
+    if data.dtype != torch.int32 or data.shape[-1:] != (ctx.L,):
+        raise ValueError(f'data must be (..., {ctx.L}) int32 limbs')
+    if not 0 <= e < 1 << 32 * ctx.L:
+        raise ValueError('exponent outside [0, 2^(32 L))')
+    if data.device.type == 'cpu':
+        return _mont_pow_plain(data, e, ctx)
+    from mpyc_tpu_torch import _build
+    params = _build.pow_params(ctx, e)
+    data = data.contiguous()
+    out = torch.empty_like(data)
+    n = data.numel() // ctx.L
+    if n:
+        _build.call('mtt_mont_pow', data.data_ptr(), out.data_ptr(), n,
+                    ctypes.addressof(params), _build.stream_of(data.device))
+        mont_pow.launches += 1
+        mont_pow.by_key[ctx.L] += 1
+    return out
+
+
+mont_pow.launches = 0
+mont_pow.by_key = collections.Counter()   # launches by limb count
+
+
+def pow_products(e: int) -> int:
+    """Montgomery products K6 and its plain version spend on an exponent
+    e: a squaring per bit below the top one and a product per set bit
+    below it."""
+    return max(e.bit_length() - 1, 0) + max(bin(e).count('1') - 1, 0)
 
 
 @functools.cache
@@ -190,6 +242,44 @@ class PrimeFieldCtx:
     def is_zero(self, a) -> torch.Tensor:
         """Boolean tensor of the elements equal to 0."""
         return limb.iszero_ll(limb.unstack(a))
+
+    def any_zero(self, a) -> bool:
+        """Whether any element of the array is 0 (one read back)."""
+        return bool(self.is_zero(a).any())
+
+    def pow_const(self, a, e: int):
+        """a^e elementwise for a public integer e (K6 on the card). As in
+        ``mpyc_tpu/ops/fieldops.py:549``, e outside [0, p - 1) is reduced
+        mod p - 1 to a positive exponent, so that 0^e stays 0."""
+        e = int(e)
+        if e < 0 or e >= self.p - 1:
+            e = e % (self.p - 1) or self.p - 1
+        return mont_pow(a, e, self)
+
+    def sqrt(self, a, INV=False):
+        """Square roots (or their inverses) of quadratic residues, by the
+        exponent (p + 1) / 4 (INV: (3 p - 5) / 4) for p = 3 mod 4, as
+        ``mpyc_tpu/ops/fieldops.py:616``; sqrt(0) = 0. Fields with p = 1
+        mod 4 (the JAX package's Tonelli-Shanks) are not ported."""
+        if self.p % 4 != 3:
+            raise NotImplementedError('sqrt for p = 1 mod 4 (Tonelli-'
+                                      'Shanks) is not ported')
+        return self.pow_const(a, (3 * self.p - 5) >> 2 if INV
+                              else (self.p + 1) >> 2)
+
+    def mod_pow2(self, a, f: int):
+        """Each value mod 2^f, Montgomery in and out
+        (``mpyc_tpu/ops/fieldops.py:867``): the standard form's low f bits,
+        back into Montgomery form."""
+        if not 0 <= f < 32 * self.L:
+            raise ValueError('f outside [0, 32 L)')
+        std = limb.mont_mul(limb.unstack(a), self.one_limbs, self.p_limbs,
+                            self.n0inv)
+        w, rem = divmod(f, 32)
+        masked = [x if i < w else x & ((1 << rem) - 1) if i == w
+                  else torch.zeros_like(x) for i, x in enumerate(std)]
+        return limb.stack(limb.mont_mul(masked, list(self.r2_limbs),
+                                        self.p_limbs, self.n0inv))
 
     def mul(self, a, b):
         return limb.stack(limb.mont_mul(limb.unstack(a), limb.unstack(b),

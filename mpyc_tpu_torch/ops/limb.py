@@ -179,6 +179,21 @@ def mont_mul(a, b, p_limbs, n0inv):
     return _select((t[L] == 1) | (brw == 0), d, res)
 
 
+def mont_pow_const(a, e: int, p_limbs, n0inv, one_mont):
+    """a^e R mod p for Montgomery-form a and a public exponent e >= 0
+    (``mpyc_tpu/ops/limb.py`` mont_pow_const): left-to-right square and
+    multiply over e's bits, a product only where a bit is set. one_mont:
+    the limbs of R mod p, the result for e = 0 (also for a = 0)."""
+    if e == 0:
+        return [torch.full_like(a[0], x) for x in one_mont]
+    res = list(a)
+    for bit in bin(e)[3:]:
+        res = mont_mul(res, res, p_limbs, n0inv)
+        if bit == '1':
+            res = mont_mul(res, a, p_limbs, n0inv)
+    return res
+
+
 def reduce_wide(chunks, radix_pows_mont, p_limbs, n0inv):
     """Reduce a wide little-endian value mod p into Montgomery form.
 

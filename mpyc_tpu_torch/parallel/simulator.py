@@ -13,8 +13,14 @@ output recombines the first t+1 shares at 0.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
-package. ``load_state`` takes the JAX runtime's key, counter and input
-generator, after which both runtimes give the same shares bit for bit.
+package. Pseudorandom secret sharing (PRSS) draws from one key per
+(m - t)-subset of the parties, named by the program counter: random
+values (``_np_randoms``), random bits (``np_random_bits``: a PRSS value r,
+r^2 opened at threshold 2t, r / sqrt(r^2), kernel K6 for the inverse
+square root on the card) and the truncation of fixed-point products
+(``_trunc_field``). ``load_state`` takes the JAX runtime's key, counter
+and input generator, and its PRSS keys and program counter, after which
+both runtimes give the same shares bit for bit.
 
 Trust model: one process holds all shares, so this plane is for
 benchmarks, tests and co-located deployments only.
@@ -22,6 +28,7 @@ benchmarks, tests and co-located deployments only.
 
 from __future__ import annotations
 
+import itertools
 import math
 import secrets as _secrets
 
@@ -46,18 +53,30 @@ class SimRuntime(Runtime):
         self._fused_ctr = np.zeros(2, np.uint32)
         self._fused_steps = {}
         self._sgn_specs = {}
+        # all PRSS keys live here, one per (m - t)-subset
+        self._prss_keys = {
+            S: _secrets.token_bytes(16)
+            for S in itertools.combinations(range(m), m - self.threshold)}
 
     def load_state(self, fused_key: bytes, ctr, rng_key: bytes,
-                   rng_nonce: int) -> None:
+                   rng_nonce: int, prss_keys=None, pc=None) -> None:
         """Continue from another runtime's randomness state: the fused
-        reshare key and call counter (lo, hi), and the input generator's
-        key and nonce (the JAX package's ``SimRuntime._fused_key``,
-        ``_fused_ctr``, ``_rng.key`` and ``_rng._nonce``)."""
+        reshare key and call counter (lo, hi), the input generator's key
+        and nonce, and, if given, the PRSS keys (subset -> 16-byte key)
+        and the program counter (the JAX package's
+        ``SimRuntime._fused_key``, ``_fused_ctr``, ``_rng.key``,
+        ``_rng._nonce``, ``_prss_keys`` and ``_program_counter[0]``)."""
         self._fused_key = bytes(fused_key)
         self._fused_state = None
         self._fused_ctr = np.array(np.asarray(ctr, dtype=np.uint32)
                                    .reshape(2))
         self._rng.load(rng_key, rng_nonce)
+        if prss_keys is not None:
+            self._prss_keys = {tuple(S): bytes(k)
+                               for S, k in prss_keys.items()}
+            self._prfs = {}
+        if pc is not None:
+            self._program_counter[0] = int(pc)
 
     def _distribute(self, x, senders):
         m = len(self.parties)
@@ -71,14 +90,19 @@ class SimRuntime(Runtime):
                 secret = xi.share
                 flat = secret.flatten() if secret.shape else secret.reshape(1)
                 sh = thresha.np_random_split(field, flat, t, m, self._rng)
-                objs.append(self._wrap(stype, sh.reshape((m,) + xi.shape)))
+                objs.append(self._wrap(stype, sh.reshape((m,) + xi.shape),
+                                       self._integral(xi)))
             y.append(objs)
         return y
 
     @staticmethod
-    def _wrap(stype, share):
+    def _wrap(stype, share, integral=None):
+        """Secure array of type stype holding party-stacked shares; a
+        fixed-point array gets the flag ``integral`` (None: False)."""
         res = stype(share)
         res.shape = share.shape[1:]
+        if issubclass(stype, sectypes.SecureFixedPointArray):
+            res.integral = bool(integral)
         return res
 
     @staticmethod
@@ -151,7 +175,8 @@ class SimRuntime(Runtime):
         """Secure array of fn(party-stacked share data): a local shape
         operation that keeps the party axis first and the limb axis last."""
         share = self._share(a)
-        return self._wrap(type(a), share.from_data(fn(share.data)))
+        return self._wrap(type(a), share.from_data(fn(share.data)),
+                          self._integral(a))
 
     def np_getitem(self, a, idx):
         """a[idx] along the logical axes (local): integers, slices with a
@@ -183,7 +208,7 @@ class SimRuntime(Runtime):
             data = data.reshape(data.shape[:1] + tuple(
                 1 if i in axes else s for i, s in enumerate(a.shape))
                 + data.shape[-1:])
-        return self._wrap(type(a), share.from_data(data))
+        return self._wrap(type(a), share.from_data(data), self._integral(a))
 
     def _reshare(self, x):
         """GRR98 degree reduction of party-stacked field-array shares, one
@@ -206,6 +231,7 @@ class SimRuntime(Runtime):
         public operand (an integer array) gives a local product."""
         stype = self._sectype(a, b)
         both_sec = all(isinstance(x, sectypes.SecureArray) for x in (a, b))
+        a_int, b_int = self._integral(a), self._integral(b)
         m = len(self.parties)
         ops = []
         for x in (a, b):
@@ -233,13 +259,21 @@ class SimRuntime(Runtime):
         if b_vec:
             c = c[..., 0, :]
         c = stype.field.array.from_data(c)
+        f = stype.sectype.frac_length
         if not (pa or pb):
-            if not both_sec:
+            if not (both_sec or f):
                 return stype(c)
             c = c.from_data(c.data.expand((m,) + tuple(c.data.shape)))
+        # fixed point (mpyc_tpu/parallel/simulator.py:890-929): by an
+        # integral operand an exact division by 2^f before the reshare,
+        # else a truncation after it
+        if f and (a_int or b_int):
+            c = c >> f
         if both_sec:
             c = self._reshare(c)
-        return self._wrap(stype, c)
+        if f and not (a_int or b_int):
+            c = self._trunc_field(c, f, stype.sectype.bit_length + f)
+        return self._wrap(stype, c, a_int and b_int)
 
     def _mul_reshare_fused(self, sa, sb):
         """Whole secure multiplication (local product + GRR98 reshare) as
@@ -255,31 +289,50 @@ class SimRuntime(Runtime):
         return field.array.from_data(out)
 
     def mul(self, a, b):
-        """Secure elementwise product of secure integer arrays: one fused
-        round (K3) for two secure operands; a local scale, with no reshare,
-        when one of them is public (an int, an integer array, or a secure
-        array not yet input)."""
-        if not isinstance(a, sectypes.SecureIntegerArray):
+        """Secure elementwise product of secure arrays: one fused round
+        (K3) for two secure operands; a local scale, with no reshare, when
+        one of them is public (an int, a numpy array, or a secure array
+        not yet input). Fixed point (``mpyc_tpu/runtime.py:1415``,
+        ``parallel/simulator.py:388-419``): by an integral operand the
+        local product is divided by 2^f, exactly, and then reshared (K3
+        without the product); any other product is truncated after it."""
+        if not isinstance(a, sectypes.SecureArray):
             a, b = b, a
-        if not isinstance(a, sectypes.SecureIntegerArray):
+        if not isinstance(a, (sectypes.SecureIntegerArray,
+                              sectypes.SecureFixedPointArray)):
             raise NotImplementedError('the port multiplies secure integer '
-                                      'arrays')
+                                      'and fixed-point arrays')
         stype = type(a)
+        f = stype.sectype.frac_length
         if isinstance(b, (int, np.integer)):
-            return self._wrap(stype, self._share(a) * int(b))
+            return self._wrap(stype, self._share(a) * int(b),
+                              self._integral(a))
+        a_int, b_int = self._integral(a), self._integral(b)
+        l_f = stype.sectype.bit_length + f
         b = self._coerce_op(stype, b)
         if self._is_public(a):
             a, b = b, a
         if self._is_public(b):
             sa = self._share(a)
             shape = torch.broadcast_shapes(sa.shape[1:], b.shape)
-            return self._wrap(stype, sa.from_data(sa.ctx.mul(
+            c = sa.from_data(sa.ctx.mul(
                 self._broadcast(sa.data, 1, shape),
-                self._broadcast(b.share.data, 0, shape))))
+                self._broadcast(b.share.data, 0, shape)))
+            if f:
+                c = c >> f if a_int or b_int else \
+                    self._trunc_field(c, f, l_f)
+            return self._wrap(stype, c, a_int and b_int)
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
-        return self._wrap(stype, self._mul_reshare_fused(sa, sb))
+        if f and (a_int or b_int):
+            c = self._reshare(sa.from_data(sa.ctx.mul(sa.data, sb.data))
+                              >> f)
+        else:
+            c = self._mul_reshare_fused(sa, sb)
+            if f:
+                c = self._trunc_field(c, f, l_f)
+        return self._wrap(stype, c, a_int and b_int)
 
     # Largest flat batch of one comparison step: inputs are cut into
     # chunks of 2^20 elements, each one step call that advances the
@@ -306,9 +359,10 @@ class SimRuntime(Runtime):
         version a chunk, on the card one launch of kernel K5 for all."""
         if LT and EQ:
             raise ValueError('LT and EQ exclude each other')
-        if not isinstance(a, sectypes.SecureIntegerArray):
+        if not isinstance(a, (sectypes.SecureIntegerArray,
+                              sectypes.SecureFixedPointArray)):
             raise NotImplementedError('the port compares secure integer '
-                                      'arrays')
+                                      'and fixed-point arrays')
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         stype = type(a)
@@ -328,19 +382,133 @@ class SimRuntime(Runtime):
             sh.data.reshape(m, n, L), self._fused_state_tensor(),
             self._fused_ctr, spec, self._sgn_chunk(L))
         return self._wrap(stype, stype.field.array.from_data(
-            out.reshape((m,) + tuple(a.shape) + (L,))))
+            out.reshape((m,) + tuple(a.shape) + (L,))), True)
 
-    def output(self, x):
-        """Open secure arrays: recombine the shares of parties 1..t+1 at 0;
-        SecInt arrays open to signed int64 values."""
+    def output(self, x, threshold=None, raw=False):
+        """Open secure arrays, or party-stacked field arrays: recombine the
+        shares of parties 1..threshold+1 (default t + 1) at 0
+        (``mpyc_tpu/parallel/simulator.py:183``). Secure arrays open to
+        their values (SecInt: signed int64, SecFxp: float64), or with
+        ``raw`` to the field array; field arrays to field arrays."""
         x_is_list = isinstance(x, list)
         xl = list(x) if x_is_list else [x]
-        t = self.threshold
+        t = self.threshold if threshold is None else threshold
         ys = []
         for xi in xl:
-            field = type(xi).field
-            s = self._share(xi)
+            secure = isinstance(xi, sectypes.SecureArray)
+            s = self._share(xi) if secure else xi
             pts = [(i + 1, s[i].flatten()) for i in range(t + 1)]
-            rec = thresha.np_recombine(field, pts).reshape(s.shape[1:])
-            ys.append(type(xi)._output_conversion(rec))
+            rec = thresha.np_recombine(s.field, pts).reshape(s.shape[1:])
+            ys.append(type(xi)._output_conversion(rec)
+                      if secure and not raw else rec)
         return ys if x_is_list else ys[0]
+
+    # -- PRSS, random bits and truncation -------------------------------------
+
+    def _stacked_prss(self, field, prfs, uci: bytes, n: int, zero=False):
+        """Party-stacked PRSS shares (m, n) of n pseudorandom values, or
+        with ``zero`` of n zeros at degree 2t (``mpyc_tpu/parallel/
+        simulator.py:648``): per subset S its PRF's values, times f_S at
+        each member of S."""
+        m = len(self.parties)
+        acc = None
+        for S, prf in prfs.items():
+            d = m - len(S)
+            vals = prf.field_array(field, uci, (n, d) if zero else (n,),
+                                   self.device)
+            rows = []
+            for i in range(m):
+                if i not in S:
+                    rows.append(None)
+                    continue
+                y = vals
+                if zero:
+                    y = None
+                    for j in range(d):
+                        v = vals[:, j]
+                        y = v if y is None else y + v
+                        y = y * (i + 1)
+                rows.append((y * thresha._f_S_i(field, m, i, S)).data)
+            zeros = torch.zeros_like(next(r for r in rows if r is not None))
+            stacked = field.array.from_data(torch.stack(
+                [zeros if r is None else r for r in rows]))
+            acc = stacked if acc is None else acc + stacked
+        return acc
+
+    def _np_randoms(self, sftype, n: int, bound=None):
+        """n PRSS random values of a field type (party-stacked field
+        array) or a secure type (secure array), uniform mod p, or with a
+        bound the sum over the C(m, t) subsets of values below 1 <<
+        ((bound // C(m, t)).bit_length() - 1), a power of two
+        (``mpyc_tpu/parallel/simulator.py:697``). One PRSS draw."""
+        secure = issubclass(sftype, sectypes.SecureObject)
+        field = sftype.field if secure else sftype
+        m, t = len(self.parties), self.threshold
+        if bound is None:
+            bound = field.modulus
+        else:
+            bound = 1 << max(0, (bound // math.comb(m, t)).bit_length() - 1)
+        x = self._stacked_prss(field, self.prfs(bound), self._prss_uci(), n)
+        return self._wrap(sftype.array, x) if secure else x
+
+    def np_random_bits(self, sftype, n: int, signed=False):
+        """n secret random bits (-1/1 with ``signed``), in a fixed-point
+        type times 2^f (``mpyc_tpu/parallel/simulator.py:732``). A round
+        draws PRSS values r and a PRSS zero-sharing z (two draws), opens
+        r^2 + z at threshold 2t and keeps the r whose r^2 is not 0 (a
+        tensor test); until n are kept. The bit of r is (r / sqrt(r^2) +
+        1) / 2, the inverse square root one power (K6 on the card)."""
+        secure = issubclass(sftype, sectypes.SecureObject)
+        field = sftype.field if secure else sftype
+        f = sftype.frac_length if secure else 0
+        ctx = field.array.ctx
+        prfs = self.prfs(field.modulus)
+        parts_r, parts_r2 = [], []
+        need = n
+        while need:
+            r = self._stacked_prss(field, prfs, self._prss_uci(), need)
+            z = self._stacked_prss(field, prfs, self._prss_uci(), need,
+                                   zero=True)
+            r2 = self.output(r * r + z, threshold=2 * self.threshold)
+            good = ~ctx.is_zero(r2.data)
+            if not parts_r and bool(good.all()):
+                parts_r, parts_r2 = [r], [r2]
+                break
+            idx = torch.nonzero(good).flatten()
+            parts_r.append(r[:, idx])
+            parts_r2.append(r2[idx])
+            need -= int(idx.numel())
+        if len(parts_r) > 1:
+            r = field.array.from_data(torch.cat([x.data for x in parts_r],
+                                                dim=1))
+            r2 = field.array.from_data(torch.cat([x.data for x in parts_r2]))
+        else:
+            r, r2 = parts_r[0], parts_r2[0]
+        bits = r * r2._sqrt_unchecked(INV=True)
+        if not signed:
+            bits = (bits + 1) >> 1
+        if f:
+            bits = bits << f
+        return self._wrap(sftype.array, bits) if secure else bits
+
+    def _trunc_field(self, arr, f: int, l: int):
+        """Party-stacked shares of l-bit values x -> shares of
+        floor((x + r) / 2^f), r < 2^f from f secret random bits: x
+        truncated, rounded up with probability (x mod 2^f) / 2^f
+        (``mpyc_tpu/parallel/simulator.py:988``). Opens x + r + 2^(l - 1)
+        + 2^f r', r' a PRSS value below 2^(k + l - f); f n random bits
+        and one PRSS draw."""
+        field = arr.field
+        m = len(self.parties)
+        logical = arr.shape[1:]
+        n = math.prod(logical)
+        flat = arr.reshape(m, n)
+        bits = self.np_random_bits(field, f * n).reshape(m, n, f)
+        r_modf = bits[:, :, f - 1]
+        for j in range(f - 2, -1, -1):       # sum of bit j times 2^j
+            r_modf = r_modf + r_modf + bits[:, :, j]
+        r_divf = self._np_randoms(field, n, 1 << (self.sec_param + l - f))
+        ar = flat + r_modf
+        c = self.output(ar + ((1 << (l - 1)) + (r_divf << f)))
+        y = (ar - c.mod_pow2(f)) >> f
+        return y.reshape((m,) + logical)

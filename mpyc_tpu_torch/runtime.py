@@ -1,19 +1,29 @@
 """The MPC runtime's user surface: secure multiplication and comparison.
 
 Port of the part of ``mpyc_tpu/runtime.py`` that the port's slices need:
-``input``, ``SecInt``, ``start``, ``shutdown``, ``barrier`` and
-``gather``; the local share arithmetic ``add``, ``sub``, ``neg`` (public
-operands broadcast as the constant polynomial); ``np_multiply``; the
-comparison surface ``np_less``, ``np_equal``, ``np_minimum``,
+``input``, ``SecInt``, ``SecFxp``, ``start``, ``shutdown``, ``barrier``
+and ``gather``; the local share arithmetic ``add``, ``sub``, ``neg``
+(public operands broadcast as the constant polynomial); ``np_multiply``;
+the comparison surface ``np_less``, ``np_equal``, ``np_minimum``,
 ``np_maximum``, ``np_absolute`` on top of ``np_sgn``; ``np_where``;
-``np_argmax`` and ``np_argmin``; and the local shape operations
+``np_argmax`` and ``np_argmin``; the local shape operations
 (``np_reshape``, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
 ``np_concatenate``, ``np_stack``; public numpy operands of the last two
-enter as constant sharings).
+enter as constant sharings); the PRSS keys' PRFs (``prfs``) and program
+counter (``_prss_uci``); and secure truncation (``trunc``,
+``np_trunc``).
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
-``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare`` and
-``output``, the local ``np_getitem`` and ``np_sum``, and the share
-bookkeeping ``_share``, ``_share2``, ``_local`` and ``_wrap``.
+``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
+``output``, the PRSS draws ``_np_randoms`` and ``np_random_bits`` and
+the truncation round ``_trunc_field``, the local ``np_getitem`` and
+``np_sum``, and the share bookkeeping ``_share``, ``_share2``, ``_local``
+and ``_wrap``.
+
+Fixed-point arrays (``SecFxp``) keep an ``integral`` flag through every
+operation, as the JAX package does: a sum or a shape operation is
+integral where all its operands are, a comparison always; a product by an
+integral operand is exact (a division by 2^f before the reshare), any
+other product of fixed-point values is truncated.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from mpyc_tpu_torch import resolve_device, sectypes
+from mpyc_tpu_torch import resolve_device, sectypes, thresha
 
 
 class Party:
@@ -49,6 +59,13 @@ class Runtime:
         self.device = resolve_device(device)
         self.start_time = None
         self._secints = {}
+        self._secfxps = {}
+        # PRSS: one key per (m - t)-subset of the parties (the co-located
+        # plane holds them all) and the program counter, whose every
+        # increment names one PRSS draw
+        self._prss_keys = {}
+        self._program_counter = [0]
+        self._prfs = {}
 
     def start(self):
         self.start_time = time.time()
@@ -81,6 +98,33 @@ class Runtime:
                 sectypes.SecInt(l, self.device), self)
         return secint
 
+    def SecFxp(self, l: int = 32, f: int = None) -> type:
+        """Secure l-bit fixed-point numbers with f fractional bits
+        (default l // 2) on this runtime's device, whose arrays' operators
+        call this runtime."""
+        f = l // 2 if f is None else f
+        secfxp = self._secfxps.get((l, f))
+        if secfxp is None:
+            secfxp = self._secfxps[l, f] = sectypes.bind(
+                sectypes.SecFxp(l, f, self.device), self)
+        return secfxp
+
+    def prfs(self, bound: int) -> dict:
+        """Map from party subsets to PRFs with codomain range(bound)
+        (``mpyc_tpu/runtime.py:232``)."""
+        res = self._prfs.get(bound)
+        if res is None:
+            res = self._prfs[bound] = {
+                S: thresha.DevicePRF(key, bound)
+                for S, key in self._prss_keys.items()}
+        return res
+
+    def _prss_uci(self) -> bytes:
+        """Unique common input of a PRSS draw: the program counter, first
+        incremented (``mpyc_tpu/runtime.py:237``)."""
+        self._program_counter[0] += 1
+        return self._program_counter[0].to_bytes(8, 'little', signed=True)
+
     def input(self, x, senders=None):
         """Input x; every sender Shamir-splits it. Returns one secure object
         (or list) per sender, or one if ``senders`` is an int."""
@@ -110,6 +154,27 @@ class Runtime:
         raise TypeError('no secure operand')
 
     @staticmethod
+    def _integral(x) -> bool:
+        """Whether x is known to hold integers: a fixed-point array by its
+        flag, any other secure array always, a public value by its values
+        (a float array never, as in the JAX package: its products get a
+        proper truncation)."""
+        if isinstance(x, sectypes.SecureFixedPointArray):
+            return bool(x.integral)
+        if isinstance(x, sectypes.SecureObject):
+            return True
+        if isinstance(x, (float, np.floating)):
+            return float(x).is_integer()
+        if isinstance(x, np.ndarray):
+            if x.dtype.kind == 'f':
+                return False
+            if x.dtype == object:
+                return sectypes._all_integral(x)
+        if isinstance(x, (list, tuple)):
+            return all(Runtime._integral(v) for v in x)
+        return True
+
+    @staticmethod
     def _coerce_op(stype, x):
         """A secure array of type stype as it is; a public int or integer
         array as an un-input secure array of its values."""
@@ -122,20 +187,23 @@ class Runtime:
     def add(self, a, b):
         """Secure elementwise a + b (either may be public)."""
         stype = self._sectype(a, b)
-        sa, sb = self._share2(self._coerce_op(stype, a),
-                              self._coerce_op(stype, b))
-        return self._wrap(stype, sa + sb)
+        a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
+        sa, sb = self._share2(a, b)
+        return self._wrap(stype, sa + sb,
+                          self._integral(a) and self._integral(b))
 
     def sub(self, a, b):
         """Secure elementwise a - b (either may be public)."""
         stype = self._sectype(a, b)
-        sa, sb = self._share2(self._coerce_op(stype, a),
-                              self._coerce_op(stype, b))
-        return self._wrap(stype, sa - sb)
+        a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
+        sa, sb = self._share2(a, b)
+        return self._wrap(stype, sa - sb,
+                          self._integral(a) and self._integral(b))
 
     def neg(self, a):
         """Secure elementwise -a."""
-        return self._wrap(self._sectype(a), -self._share(a))
+        return self._wrap(self._sectype(a), -self._share(a),
+                          self._integral(a))
 
     def np_add(self, a, b):
         return self.add(a, b)
@@ -146,6 +214,39 @@ class Runtime:
     def np_multiply(self, a, b):
         """Elementwise secure product (b may be public: a local scale)."""
         return self.mul(a, b)
+
+    # -- truncation -----------------------------------------------------------
+
+    def trunc(self, x, f=None, l=None):
+        """Secure truncation of the f (default: the type's) least
+        significant bits of secure arrays of l-bit values (default: the
+        type's bit length, plus f for fixed point): floor(x / 2^f), or one
+        more, with probability the f bits over 2^f
+        (``mpyc_tpu/runtime.py:1663``). A list is truncated array by
+        array, a round each, as the JAX package's co-located plane does
+        (``mpyc_tpu/parallel/simulator.py:931``)."""
+        if isinstance(x, list):
+            return [self.np_trunc(xi, f, l) for xi in x]
+        return self.np_trunc(x, f, l)
+
+    def np_trunc(self, a, f=None, l=None):
+        """Elementwise secure truncation of a secure array
+        (``mpyc_tpu/runtime.py:1691``); see trunc."""
+        stype = self._sectype(a)
+        f, l = self._trunc_widths(stype, f, l)
+        return self._wrap(stype, self._trunc_field(self._share(a), f, l),
+                          False)
+
+    @staticmethod
+    def _trunc_widths(stype, f, l) -> tuple:
+        """(f, l) of a truncation: by default the type's f and bit length,
+        l plus f for fixed point."""
+        f = stype.sectype.frac_length if f is None else f
+        if l is None:
+            l = stype.sectype.bit_length
+            if issubclass(stype, sectypes.SecureFixedPointArray):
+                l += f
+        return f, l
 
     # -- comparison (np_sgn: the co-located plane's fused step, K5) ----------
 
@@ -232,13 +333,15 @@ class Runtime:
         stype, shares = self._shares_of(arrays)
         nd = len(shares[0].shape) - 1
         data = torch.cat([s.data for s in shares], dim=axis % nd + 1)
-        return self._wrap(stype, shares[0].from_data(data))
+        return self._wrap(stype, shares[0].from_data(data),
+                          self._integral(list(arrays)))
 
     def np_stack(self, arrays, axis=0):
         stype, shares = self._shares_of(arrays)
         nd = len(shares[0].shape)             # logical ndim of the result
         data = torch.stack([s.data for s in shares], dim=axis % nd + 1)
-        return self._wrap(stype, shares[0].from_data(data))
+        return self._wrap(stype, shares[0].from_data(data),
+                          self._integral(list(arrays)))
 
     # -- arg extrema ---------------------------------------------------------
 
@@ -309,7 +412,7 @@ class Runtime:
         if n == 1:
             ones = self._share(stype(np.ones(a.shape[:2], np.int64)))
             return self._wrap(stype, ones.from_data(
-                ones.data.contiguous())), a
+                ones.data.contiguous()), True), a
         n0 = n % 2
         a1 = self.np_getitem(a, (slice(None), slice(n0, None, 2)))
         a2 = self.np_getitem(a, (slice(None), slice(n0 + 1, None, 2)))

@@ -1,14 +1,19 @@
-"""Secure types: SecInt(l) and its arrays.
+"""Secure types: SecInt(l), SecFxp(l, f) and their arrays.
 
 Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication,
-comparison and matrix products use: ``SecInt(l)`` with its ``.array``
-class, enough to input public values, compute and open the result. A
-secure array holds a ``PrimeFieldArray`` share: logical shape before input
+comparison, truncation and matrix products use: ``SecInt(l)`` and
+``SecFxp(l, f)`` with their ``.array`` classes, enough to input public
+values, compute and open the result. A secure array holds a
+``PrimeFieldArray`` share: logical shape before input
 (``secint.array(values)`` of public values, the constant sharing), (m, ...)
-party stacked after it. The operators of a secure array (-x, +, -, *, @,
-<, <=, >, >=, ==, !=, indexing; the comparisons give secure 0/1 arrays)
-call the runtime whose ``SecInt`` made its type (``bind``). A type's
-``bit_length`` may be reassigned; comparisons read it at call time.
+party stacked after it. A fixed-point array holds its values times 2^f
+and an ``integral`` flag: whether every value is known to be an integer,
+so that a product by it is exact and needs no truncation. The operators
+of a secure array (-x, +, -, *, @, <, <=, >, >=, ==, !=, indexing; the
+comparisons give secure 0/1 arrays, times 2^f in a fixed-point type) call
+the runtime whose ``SecInt`` or ``SecFxp`` made its type (``bind``). A
+type's ``bit_length`` may be reassigned; comparisons read it at call
+time.
 """
 
 from __future__ import annotations
@@ -41,6 +46,17 @@ class SecureInteger(SecureObject):
     array: type = None
 
 
+class SecureFixedPoint(SecureObject):
+    """Secret-shared fixed-point number: l bits in all, f of them after
+    the point (its class carries field, bit length and f)."""
+
+    __slots__ = ()
+
+    bit_length: int = None
+    frac_length: int = None
+    array: type = None
+
+
 class SecureArray(SecureObject):
     """Secure array: ``shape`` is the logical shape (no party axis)."""
 
@@ -54,11 +70,32 @@ class SecureArray(SecureObject):
     def __init__(self, value=None, shape=None):
         if value is not None and not isinstance(
                 value, finfields.PrimeFieldArray):
-            value = self.sectype.field.array(value, self.device)
+            value = self._encode_public(value)
         if value is not None:
             shape = value.shape
         self.shape = tuple(shape) if shape is not None else None
         super().__init__(value)
+
+    @classmethod
+    def _encode_public(cls, value):
+        """Public values as a field array on the type's device
+        (``mpyc_tpu/sectypes.py:943``): integers as they are, and in a
+        fixed-point type times 2^f, floats as round(v 2^f) (half to even,
+        numpy's and Python's rounding)."""
+        f = cls.sectype.frac_length
+        arr = np.asarray(value)
+        if not f and arr.dtype.kind == 'f':
+            raise TypeError('float values need a fixed-point type')
+        if f:
+            if arr.dtype.kind in 'iub':
+                arr = arr.astype(np.int64) << f
+            elif arr.dtype.kind == 'f':
+                arr = np.round(arr * (1 << f)).astype(np.int64)
+            else:
+                arr = np.vectorize(
+                    lambda v: round(v * (1 << f)) if isinstance(v, float)
+                    else int(v) << f, otypes=[object])(arr)
+        return cls.sectype.field.array(arr, cls.device)
 
     @property
     def size(self) -> int:
@@ -72,13 +109,15 @@ class SecureArray(SecureObject):
         return self.runtime.np_getitem(self, idx)
 
     # arithmetic and comparison, forwarded to the runtime; public operands
-    # (ints, integer arrays) pass as they are, and the runtime encodes them.
+    # (ints, floats, numpy arrays) pass as they are, and the runtime
+    # encodes them.
     # Arrays of a type that no runtime made (SecInt(l, device)) have none.
 
     def _coerce(self, other):
         if isinstance(other, SecureArray):
             return other if type(other) is type(self) else NotImplemented
-        if isinstance(other, (int, np.integer, list, tuple, np.ndarray)):
+        if isinstance(other, (int, float, np.integer, np.floating, list,
+                              tuple, np.ndarray)):
             return other
         return NotImplemented
 
@@ -174,6 +213,38 @@ class SecureIntegerArray(SecureArray):
         return a.signed()
 
 
+class SecureFixedPointArray(SecureArray):
+    """Secure fixed-point array; ``integral``: every value is an integer.
+    Public values given without the flag decide it (floats that are whole
+    numbers count as integers)."""
+
+    __slots__ = ('integral',)
+
+    def __init__(self, value=None, shape=None, integral=None):
+        if integral is None and value is not None and not isinstance(
+                value, finfields.PrimeFieldArray):
+            integral = _all_integral(np.asarray(value))
+        self.integral = integral
+        super().__init__(value, shape)
+
+    @classmethod
+    def _output_conversion(cls, a):
+        """Opened field array -> float64 values v / 2^f
+        (``mpyc_tpu/sectypes.py:1328``), exact below 2^53."""
+        return a.signed().astype(np.float64) / (1 << cls.sectype.frac_length)
+
+
+def _all_integral(arr: np.ndarray) -> bool:
+    """Whether every value of a public array is an integer."""
+    if arr.dtype.kind in 'iub':
+        return True
+    if arr.dtype.kind == 'f':
+        return bool(np.all(np.mod(arr, 1) == 0))
+    return all(isinstance(v, (int, np.integer))
+               or (isinstance(v, (float, np.floating)) and
+                   float(v).is_integer()) for v in arr.reshape(-1))
+
+
 _SEC_PARAM = 30   # the JAX package's default security parameter
 
 
@@ -194,6 +265,27 @@ def _SecInt(l, device):
         '__slots__': (), 'sectype': secint, 'field': field,
         'device': device})
     return secint
+
+
+def SecFxp(l: int, f: int, device) -> type:
+    """Secure l-bit fixed-point numbers with f fractional bits over GF(p),
+    p the largest Blum prime below 2^(l + f + 32) (the JAX package's
+    ``_pfield`` at its default security parameter; SecFxp(14, 6): a 52-bit
+    field of two limbs), with arrays encoded on ``device``."""
+    return _SecFxp(int(l), int(f), str(device))
+
+
+@functools.cache
+def _SecFxp(l, f, device):
+    field = finfields.GF(finfields.find_prime_root(l + f + _SEC_PARAM + 2,
+                                                   n=2))
+    name = f'SecFxp{l}:{f}'
+    secfxp = type(name, (SecureFixedPoint,), {
+        '__slots__': (), 'field': field, 'bit_length': l, 'frac_length': f})
+    secfxp.array = type(f'Array{name}', (SecureFixedPointArray,), {
+        '__slots__': (), 'sectype': secfxp, 'field': field,
+        'device': device})
+    return secfxp
 
 
 def bind(secint: type, runtime) -> type:

@@ -1,20 +1,23 @@
 """Shamir secret sharing over GF(p) on field arrays.
 
-Port of the part of ``mpyc_tpu/thresha.py`` that the secure-multiplication
-path uses: ``_recombination_vector``, ``np_random_split`` and
-``np_recombine``, with the JAX package's randomness conventions, so the
-same generator state gives the same shares.
+Port of the part of ``mpyc_tpu/thresha.py`` that secure multiplication
+and pseudorandom secret sharing (PRSS) use: ``_recombination_vector``,
+``np_random_split`` and ``np_recombine``, and for PRSS ``_f_S_i`` and
+``DevicePRF``, with the JAX package's randomness conventions, so the same
+generator state and keys give the same shares.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
-from mpyc_tpu_torch.ops import limb
-from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy
+from mpyc_tpu_torch.ops import keccak, limb
+from mpyc_tpu_torch.ops import rng as rng_mod
+from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, prime_field_ctx
 
 # Host-int split for arrays the JAX package keeps on the host: at most this
 # many limbs (finfields.py "tiny arrays stay host-side") and values.
@@ -99,3 +102,63 @@ def np_recombine(field, points, x_rs=0):
             acc = term if acc is None else acc + term
         outs.append(acc)
     return outs[0] if single else outs
+
+
+@functools.cache
+def _f_S_i(field, m: int, i: int, S: tuple) -> int:
+    """f_S(i + 1) for the polynomial f_S of degree m - |S| that is 1 at 0
+    and 0 at the parties outside S (``mpyc_tpu/thresha.py:126``)."""
+    xs = [0] + [x + 1 for x in range(m) if x not in S]
+    return _recombination_vector(field, xs, i + 1)[0]
+
+
+class DevicePRF:
+    """Counter-mode SHAKE128 PRF with codomain range(bound), giving field
+    arrays (``mpyc_tpu/thresha.py:298``, prime fields): value j of input s
+    is byte_length little-endian bytes of the stream of ``key || s``, a
+    draw never straddling two 168-byte blocks, masked to its bits for a
+    power-of-two bound and reduced mod p. A bound that is no power of two
+    takes 16 more bytes a value (statistical distance < 2^-128); it must
+    then be the field's modulus. Parties with the same key and input get
+    the same values.
+
+    The JAX package draws up to 256 values on the host (hashlib and
+    Python ints) and more on its device, with the same bits; here the
+    stream's blocks come from hashlib up to 256 blocks and from K1 above
+    (``keccak.shake128_ctr_blocks``), the same bits again."""
+
+    def __init__(self, key: bytes, bound: int):
+        self.key = bytes(key)
+        self.max = bound
+        self.byte_length = ((bound - 1).bit_length() + 7) // 8
+        self.is_pow2 = not (bound & (bound - 1))
+        if not self.is_pow2:
+            self.byte_length += rng_mod._WIDEN_BYTES
+
+    def field_array(self, field, s: bytes, shape, device):
+        """The values of input s as a ``field.array`` of the given shape on
+        ``device``."""
+        if not (self.max == field.modulus or self.is_pow2):
+            raise ValueError('a PRF bound must be the modulus or a power '
+                             'of two')
+        ctx = prime_field_ctx(field.modulus)
+        n = math.prod(shape)
+        l = max(self.byte_length, 1)
+        blocks = keccak.shake128_ctr_blocks(
+            self.key + s, max(rng_mod.blocks_needed(n, l), 1), device)
+        wide = rng_mod.words_to_elements(blocks, n, l, ctx.L)
+        if self.is_pow2:
+            wide = _mask_bits(wide, (self.max - 1).bit_length())
+        mont = ctx.reduce_chunks(wide)
+        return field.array.from_data(mont.reshape(tuple(shape) + (ctx.L,)))
+
+
+def _mask_bits(wide: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., n_chunks, L) wide values masked to their low k bits
+    (``mpyc_tpu/thresha.py:422``)."""
+    flat = wide.reshape(wide.shape[:-2] + (-1,))
+    w, rem = divmod(k, 32)
+    cols = [flat[..., i] if i < w else flat[..., i] & ((1 << rem) - 1)
+            if i == w else torch.zeros_like(flat[..., i])
+            for i in range(flat.shape[-1])]
+    return torch.stack(cols, dim=-1).reshape(wide.shape)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from mpyc_tpu_torch.models import pipelines
-from mpyc_tpu_torch.ops import keccak, rng
+from mpyc_tpu_torch.ops import fieldops, keccak, rng
 from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, prime_field_ctx
 
 pytestmark = pytest.mark.cuda
@@ -21,6 +21,7 @@ P = 18446744073709551427   # SecInt(32)'s field
 P46 = 70368744177643       # SecInt(14)'s field (the BNN's)
 P69 = 590295810358705651619   # SecInt(37)'s field (the CNN's), three limbs
 P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
+P52 = 4503599627370323       # SecFxp(14, 6)'s field (the fixed-point CNN's)
 
 
 @pytest.fixture
@@ -306,3 +307,67 @@ def test_cnn_selftest_on_the_card(cuda_device):
     n1 = keccak.keccak_ctr.launches
     chip_smoke.run_cnn_selftest(cuda_device, batch=32)
     assert keccak.keccak_ctr.launches > n1
+
+
+@pytest.mark.parametrize('e', ['0', '1', 'p-2', '(3p-5)/4', '(p+1)/4'])
+@pytest.mark.parametrize('p', [P52, P69])
+def test_mont_pow_kernel_matches_plain(cuda_device, p, e):
+    """K6 at two and three limbs, 0 and 1 among the inputs, n no multiple
+    of its 256-thread block."""
+    ctx = prime_field_ctx(p)
+    x = _shares(100003, 18, cuda_device, p)[0].contiguous()
+    x[0] = 0
+    x[1] = torch.tensor(ctx.one_mont, dtype=torch.int64).to(torch.int32)
+    e = {'0': 0, '1': 1, 'p-2': p - 2, '(3p-5)/4': (3 * p - 5) // 4,
+         '(p+1)/4': (p + 1) // 4}[e]
+    n0 = fieldops.mont_pow.launches
+    got = fieldops.mont_pow(x, e, ctx)
+    assert fieldops.mont_pow.launches == n0 + 1
+    assert torch.equal(got, fieldops._mont_pow_plain(x, e, ctx))
+    assert torch.equal(got.cpu(), fieldops.mont_pow(x.cpu(), e, ctx))
+
+
+def test_sgn_kernel_with_the_fixed_point_scale(cuda_device):
+    """K5 (LT, l = 14) with f = 6 on SecFxp(14, 6)'s field, in one launch
+    of three chunks, equal to the plain version chunk by chunk."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P52, 1, 3, 14, 30, LT=True, f=6)
+    a = _shares(70000, 19, cuda_device, P52)
+    n0 = pipelines.sgn_step.by_key[('LT', 14, 2, 6)]
+    got, ctr = pipelines.sgn_chunks(a, st, (7, 1), spec, 1 << 15)
+    assert pipelines.sgn_step.by_key[('LT', 14, 2, 6)] == n0 + 1
+    want, want_ctr = pipelines.sgn_chunks(a.cpu(), st.cpu(), (7, 1), spec,
+                                          1 << 15)
+    assert torch.equal(got.cpu(), want)
+    assert ctr.tolist() == want_ctr.tolist() == [10, 1]
+
+
+def test_fxp_rounds_on_the_card(cuda_device):
+    """np_random_bits and np_trunc at SecFxp(14, 6) on the card (checked by
+    run_fxp_rounds): one K6 launch each for the inverse square roots."""
+    import chip_smoke
+    n6 = fieldops.mont_pow.launches
+    res = chip_smoke.run_fxp_rounds(cuda_device, n=20000)
+    assert 0.45 < res['ones'] < 0.55 and res['bits_ms'] > 0
+    assert fieldops.mont_pow.launches == n6 + 2
+
+
+def test_cnn_fxp_on_the_card(cuda_device):
+    """The fixed-point MNIST flow at full width on 3 images: every stage of
+    both passes (the timed and the marked) passes the stage-local check
+    (run_cnn_fxp checks). A pass: 11 comparisons (K5 with f), 4 truncations
+    (K6), and 19 reshares without a product (K3): the four layers' and
+    maxpool's, ReLU's and the argmax's products by an integral bit."""
+    import chip_smoke
+    n3 = pipelines.reshare_mul.by_key[(2, False)]
+    n3f = pipelines.reshare_mul.by_key[(2, True)]
+    n5 = pipelines.sgn_step.by_key[('LT', 14, 2, 6)]
+    n6 = fieldops.mont_pow.by_key[2]
+    res = chip_smoke.run_cnn_fxp(cuda_device, batch=3, passes=1)
+    run, = res['runs']
+    assert run['k5'] == 11 and run['k6'] == 4
+    assert pipelines.sgn_step.by_key[('LT', 14, 2, 6)] == n5 + 2 * 11
+    assert fieldops.mont_pow.by_key[2] == n6 + 2 * 4
+    assert pipelines.reshare_mul.by_key[(2, False)] == n3 + 2 * 19
+    assert pipelines.reshare_mul.by_key[(2, True)] == n3f
+    assert all(r['fits'] for r in res['ranges'].values())

@@ -5,9 +5,11 @@ jax, jaxlib and mpyc_tpu (the package or any module of it, but not
 mpyc_tpu_torch) raise, chip_smoke is imported and the port's paths run on
 the CPU: the main path at 4096 elements, the comparison at 300, the
 split/recombine round at 4096, the BNN runner's selftest at a batch of
-4 (SecInt(14) input, matmul, sign, argmax), the SecInt(64) product at 500
-and the CNN runner's selftest at a batch of 2 (SecInt(37) input, im2col
-matmuls, maxpool, ReLU, argmax)."""
+4 (SecInt(14) input, matmul, sign, argmax), the SecInt(64) product at 500,
+the CNN runner's selftest at a batch of 2 (SecInt(37) input, im2col
+matmuls, maxpool, ReLU, argmax), random bits and a truncation at
+SecFxp(14, 6) on 500 values, and the CNN runner's fixed-point selftest at
+a batch of 2 (PRSS, truncated matmuls, comparisons at 2^6)."""
 import os
 import subprocess
 import sys
@@ -39,6 +41,12 @@ _SCRIPT = textwrap.dedent('''
     chip_smoke.run_selftest('cpu', batch=4)
     chip_smoke.run_wide('cpu', n=500)
     chip_smoke.run_cnn_selftest('cpu', batch=2)
+    chip_smoke.run_fxp_rounds('cpu', n=500)
+    from mpyc_tpu_torch.demos import np_cnnmnist
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    rt = SimRuntime(3, device='cpu')
+    _, checks = np_cnnmnist.selftest_fxp(rt, rt.SecFxp(14, 6), 2)
+    assert all(c['bad'] == 0 for c in checks.values()), checks
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded

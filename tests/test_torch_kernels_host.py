@@ -23,13 +23,14 @@ import torch
 
 from mpyc_tpu_torch import _build
 from mpyc_tpu_torch.models import pipelines
-from mpyc_tpu_torch.ops import keccak, rng
+from mpyc_tpu_torch.ops import fieldops, keccak, rng
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 P = 18446744073709551427
 P46 = 70368744177643         # SecInt(14)'s field (the BNN's)
 P69 = 590295810358705651619  # SecInt(37)'s field (the CNN's), three limbs
 P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
+P52 = 4503599627370323       # SecFxp(14, 6)'s field (the fixed-point CNN's)
 
 _SHIM = '''
 #pragma once
@@ -122,7 +123,7 @@ def host_lib(tmp_path_factory):
         (d / name).write_text(_host_source((_build.CSRC / name).read_text()))
     (d / 'cuda_runtime.h').write_text(_SHIM)
     src = (_build.CSRC / 'kernels.cu').read_text()
-    assert len(_LAUNCH.findall(src)) == 5, \
+    assert len(_LAUNCH.findall(src)) == 6, \
         'every launch must become a host loop'
     (d / 'kernels_host.cpp').write_text(_host_source(src))
     so = d / 'libkernels_host.so'
@@ -493,3 +494,58 @@ def test_sgn_source_squeezes_each_block_once_per_thread_block(host_lib,
     ranges = 1 + sum(sets for sets, _ in spec.draw_calls())
     assert perms.value == chip_smoke.sgn_squeezes(spec, n, threads)[0]
     assert perms.value <= spec.blocks(n) + 2 * ranges * ctas
+
+
+def _pow_inputs(p, n, seed):
+    """n canonical Montgomery elements of GF(p), 0 and 1 among them."""
+    ctx = prime_field_ctx(p)
+    x = _shares(n, seed, p)[0].contiguous()
+    x[0] = 0
+    x[1] = torch.tensor(ctx.one_mont, dtype=torch.int64).to(torch.int32)
+    return ctx, x
+
+
+@pytest.mark.parametrize('e', ['0', '1', 'p-2', '(3p-5)/4', '(p+1)/4'])
+@pytest.mark.parametrize('p', [P52, P69, P96])
+def test_mont_pow_source_matches_plain(host_lib, p, e):
+    """K6 (a^e R mod p, one thread an element, 256 a block) on two thread
+    blocks, the last ragged, at two and three limbs."""
+    ctx, x = _pow_inputs(p, 300, 31)
+    e = {'0': 0, '1': 1, 'p-2': p - 2, '(3p-5)/4': (3 * p - 5) // 4,
+         '(p+1)/4': (p + 1) // 4}[e]
+    out = torch.empty_like(x)
+    params = _build.pow_params(ctx, e)
+    assert host_lib.mtt_mont_pow(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                 ctypes.addressof(params), None) == 0
+    assert torch.equal(out, fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('p', [P52, P69])
+def test_mont_pow_products_match_the_source(host_lib, p):
+    """fieldops.pow_products, from which chip_smoke.py bounds K6, counts
+    the Montgomery products the source runs: 99 an element at the Blum
+    inverse-sqrt exponent of SecFxp(14, 6)'s field."""
+    ctx, x = _pow_inputs(p, 256, 32)
+    e = (3 * p - 5) // 4
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    out = torch.empty_like(x)
+    assert host_lib.mtt_mont_pow(
+        x.data_ptr(), out.data_ptr(), x.shape[0],
+        ctypes.addressof(_build.pow_params(ctx, e)), None) == 0
+    assert tuple(counts) == (x.shape[0] * fieldops.pow_products(e), 0)
+    assert p != P52 or fieldops.pow_products(e) == 99
+
+
+def test_mont_pow_refuses_what_was_not_built(host_lib):
+    ctx, x = _pow_inputs(P52, 10, 33)
+    params = _build.pow_params(ctx, 5)
+    params.nl = 4
+    assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
+                                 ctypes.addressof(params), None) == -1
+    params = _build.pow_params(ctx, 5)
+    params.nbits = 97
+    assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
+                                 ctypes.addressof(params), None) == -1
+    with pytest.raises(NotImplementedError, match='limbs'):
+        _build.pow_params(prime_field_ctx((1 << 127) - 1), 3)
