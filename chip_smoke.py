@@ -21,8 +21,10 @@ runner. Phases, each printing one line with its elapsed seconds:
    name and its power limit as nvidia-smi reports them;
 2. build: compile the kernels with nvcc (csrc/, sm_90a); print nvcc's
    warnings, each kernel's registers, stack frame, spills and shared
-   memory as ptxas reports them, K5's thread block size B, and the build
-   time;
+   memory as ptxas reports them, K5's thread block size B, each K6 and K7
+   instantiation's SASS instructions by class (``cuobjdump -sass``: the
+   whole kernel, and its squaring loop per product beside the bound
+   model's lazy square), and the build time;
 3. kernels: K1 (keccak_ctr), K2 (squeeze_mont) and K3 (reshare_mul, also at
    a size that is no multiple of its thread block) at the main path's sizes,
    K4 (split_recombine) with its shares at 2^16 and at
@@ -85,14 +87,22 @@ runner. Phases, each printing one line with its elapsed seconds:
    ``rt.input`` at SecInt(37) (25-byte draws: K1 and the split), B = 100,
    predictions equal to the plaintext model;
 12. fxp kernels: at SecFxp(14, 6)'s field, K6 (mont_pow, the inverse
-   square root's power (3p - 5) / 4) at conv1's random bits (15,052,800
-   elements, L = 2) and at 2^22 elements of SecInt(37)'s three-limb
-   field, and K5 (LT, l = 14) with the fixed-point scale 2^6 at the
-   flow's largest comparison (maxpool1's first round, 1,254,400 elements
-   in two chunks of 2^20, one launch, outputs and counters), each equal
-   bit for bit to its plain version and timed beside it and its bound;
-   then through the runtime one ``np_random_bits`` of 15,052,800 bits
-   (every opened value 0 or 1, the share of ones within 6 standard
+   square root's power (3p - 5) / 4 by its plan) at conv1's random bits
+   (15,052,800 elements, L = 2) and at 2^22 elements of SecInt(37)'s
+   three-limb field, equal bit for bit to
+   the ladder (its plain version) and timed beside it, its bound and its
+   ladder kernel's time before its redesign; K7 (random_bits_tail) at
+   conv1's bits on random shares and on shares with one r in 1,000
+   planted to 0, bits, zero flags and
+   their count equal to its plain version (the tail before K7), timed
+   beside it and its bound; K5 (LT, l = 14) with the fixed-point scale 2^6 at the flow's
+   largest comparison (maxpool1's first round, 1,254,400 elements in two
+   chunks of 2^20, one launch, outputs and counters), equal bit for bit
+   to its plain version and timed beside it and its bound; one round of
+   conv1's random bits split into its PRSS draws and its tail (CUDA
+   events, K7 and the plain tail); then through the runtime one
+   ``np_random_bits`` of 15,052,800 bits (every opened value 0 or 1, the
+   share of ones within 6 standard
    deviations of 1/2) and one ``np_trunc`` of conv1's 2,508,800 products
    (every opened value floor(x / 2^6) or one more, the share rounded up
    within 6 standard deviations of the mean of (x mod 2^6) / 2^6), each
@@ -105,11 +115,13 @@ runner. Phases, each printing one line with its elapsed seconds:
    the counts against the labels and the float model (and the images
    where fixed point and float differ), each layer's opened range against
    the comparison's 14 bits, seconds a pass (cold; warm median, least and
-   largest) and images/s, K5's and K6's launches a pass; a marked pass:
-   each layer's device ms and peak memory; one try of torch.profiler over
-   a warm pass;
+   largest) and images/s, K5's, K6's and K7's launches a pass; a marked
+   pass: each layer's device ms and peak memory; one try of
+   torch.profiler over a warm pass;
 14. report: one JSON line of the kernels (every instantiation that a path
-   launches), the card's name and power limit, and last
+   launches, and K6, whose power runs inside K7 on the fixed-point path
+   and which no path launches on its own), the card's name and power
+   limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Each of phases 4-11 and 13 zeroes the launch counters just before it and
@@ -127,10 +139,12 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from hashlib import shake_128
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -215,6 +229,18 @@ def add_mod_ops(L: int) -> np.ndarray:
     return np.array([0, 3 * L + 2, 0])
 
 
+# A lazy Montgomery square (csrc/limb.cuh mont_sqr_lazy, the cheapest
+# product K6 and K7 use): L (L - 1) / 2 cross products and L squares, one
+# wide multiply and one add each (the square's add into the next word
+# too), 2 L - 1 funnel shifts to double the cross products, and L rows of
+# reduction of L + 1 multiplies (m and m p_j) and L + 1 adds; no final
+# subtraction: (9, 11, 3) at L = 2, (18, 21, 5) at L = 3.
+def mont_sqr_lazy_ops(L: int) -> np.ndarray:
+    cross = L * (L - 1) // 2
+    return np.array([cross + L + L * (L + 1), cross + 2 * L + L * (L + 1),
+                     2 * L - 1])
+
+
 def int_lane_ops(ops) -> float:
     """Instructions a lane of one pipe retires at the least for the
     (mul, add, logic) counts ops: the busier of the two pipes, with the
@@ -237,16 +263,23 @@ KERNELS = {
     'sgn_step': dict(replaces='mpyc_tpu/models/pipelines.py:503',
                      wrapper=pipelines.sgn_step,
                      source='mpyc_tpu_torch/csrc/sgn.cuh'),
-    # no Pallas kernel: XLA runs the JAX package's power ladder
+    # no Pallas kernel: XLA runs the JAX package's power ladder, and the
+    # tail of its random bits
     'mont_pow': dict(replaces='mpyc_tpu/ops/limb.py:330',
                      wrapper=fieldops.mont_pow,
                      source='mpyc_tpu_torch/csrc/pow.cuh'),
+    'random_bits_tail': dict(
+        replaces='mpyc_tpu/parallel/simulator.py:732',
+        wrapper=pipelines.random_bits_tail,
+        source='mpyc_tpu_torch/csrc/pow.cuh'),
 }
 # Every instantiation that a path launches, as the kernels line lists it:
 # entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
 # a kernel of one instantiation). Keys: K2 (limbs, words a draw), K3
 # (limbs, fused), K5 (mode, l, limbs, f: the fixed-point scale, a
-# parameter of the launch), K6 (limbs).
+# parameter of the launch), K6 and K7 (limbs, lazy: 4p < R). K6 is
+# listed though no path launches it since K7 took its place on the
+# fixed-point path: its power runs inside K7.
 ENTRIES = {
     'keccak_ctr': ('keccak_ctr', None),
     'squeeze_mont<L=2, W=6>': ('squeeze_mont', (2, 6)),
@@ -263,7 +296,8 @@ ENTRIES = {
     **{f'sgn_step<LT, l={l}, L=3>': ('sgn_step', ('LT', l, 3, 0))
        for l in CNN_WIDTHS},
     'sgn_step<LT, l=14, L=2, f=6>': ('sgn_step', ('LT', FXP_L, 2, FXP_F)),
-    'mont_pow<L=2>': ('mont_pow', 2),
+    'mont_pow<L=2, lazy>': ('mont_pow', (2, True)),
+    'random_bits_tail<L=2, lazy>': ('random_bits_tail', (2, True)),
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -285,10 +319,11 @@ PATH_ENTRIES = {
                      *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
     # PRSS streams (K1), every product's reshare (by a comparison's
     # integral bit, or a matmul's before its truncation: K3 without the
-    # product), the comparisons at 2^6 (K5), the random bits' inverse
-    # square roots (K6)
+    # product), the comparisons at 2^6 (K5), the random bits' tails with
+    # their inverse square roots (K7)
     'cnn fxp': ('keccak_ctr', 'reshare_mul<L=2>',
-                'sgn_step<LT, l=14, L=2, f=6>', 'mont_pow<L=2>'),
+                'sgn_step<LT, l=14, L=2, f=6>',
+                'random_bits_tail<L=2, lazy>'),
 }
 
 
@@ -402,6 +437,75 @@ def ptxas_report(log: str) -> dict:
             res[fn]['registers'] = int(m.group(1))
             sm = re.search(r'(\d+) bytes smem', line)
             res[fn]['smem'] = int(sm.group(1)) if sm else 0
+    return res
+
+
+# elements a thread of K6 and K7 (csrc/pow.cuh), read from the source
+POW_EPT = int(re.search(r'constexpr int POW_EPT = (\d+);', (
+    Path(__file__).resolve().parent / 'mpyc_tpu_torch' / 'csrc' /
+    'pow.cuh').read_text()).group(1))
+
+# SASS opcodes by class: the wide and plain multiplies (the FMA pipe), the
+# moves and adds the compiler puts on the FMA pipe, three-input adds with
+# their carries, logic and funnel shifts (the ALU pipe), compares and
+# selects, and the rest (loads, stores, branches, ...)
+SASS_CLASSES = (
+    ('IMAD/IMAD.WIDE/IMAD.HI', lambda op: op.startswith('IMAD') and not
+     op.startswith(('IMAD.MOV', 'IMAD.IADD', 'IMAD.SHL'))),
+    ('IMAD.MOV/IADD/SHL', lambda op: op.startswith('IMAD')),
+    ('IADD3', lambda op: op.startswith('IADD3')),
+    ('LOP3/SHF', lambda op: op.startswith(('LOP3', 'SHF'))),
+    ('ISETP/SEL', lambda op: op.startswith(('ISETP', 'SEL'))),
+    ('rest', lambda op: True))
+
+
+def sass_classes(ops) -> dict:
+    res = dict.fromkeys([c for c, _ in SASS_CLASSES], 0)
+    for op in ops:
+        res[next(c for c, f in SASS_CLASSES if f(op))] += 1
+    return res
+
+
+def sass_report(so, prefixes=('mont_pow_kernel', 'random_bits_tail_kernel')
+                ) -> dict:
+    """Per instantiation of the kernels named by ``prefixes`` in the built
+    library, from ``cuobjdump -sass``: its SASS instructions by class, and
+    those of its innermost loop that multiplies (the squaring loop of a
+    power's step: a squaring for each of a thread's POW_EPT elements and
+    the loop's count), by class and per product."""
+    from mpyc_tpu_torch import _build
+    exe = shutil.which('cuobjdump') or str(
+        Path(_build._nvcc()).with_name('cuobjdump'))
+    out = subprocess.run([exe, '-sass', str(so)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            name = short_name(m.group(1))
+            if name.startswith(prefixes):
+                funcs[name] = []
+            continue
+        m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?'
+                     r'([A-Z][A-Z0-9_.]*)([^;]*);', line)
+        if m and name in funcs:
+            funcs[name].append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    res = {}
+    for fn, ins in funcs.items():
+        loops = []
+        for addr, op, args in ins:
+            t = re.search(r'0x([0-9a-f]+)', args) if op == 'BRA' else None
+            if t and int(t.group(1), 16) < addr:
+                body = [o for a, o, _ in ins
+                        if int(t.group(1), 16) <= a <= addr]
+                if any(o.startswith('IMAD.WIDE') for o in body):
+                    loops.append(body)
+        inner = min(loops, key=len) if loops else []
+        res[fn] = dict(total=len(ins), classes=sass_classes(
+            o for _, o, _ in ins), loop=len(inner),
+            loop_classes=sass_classes(inner),
+            per_product=len(inner) / POW_EPT)
     return res
 
 
@@ -1403,22 +1507,74 @@ def chain_products(e: int) -> int:
                math.ceil(lg + math.log2(bin(e).count('1')) - 2.13))
 
 
+# K6's time as a binary ladder, before its redesign, on this phase's
+# inputs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table)
+K6_LADDER_MS = {2: 3.3170, 3: 2.4700}
+
+
+def least_product_ops(ctx) -> np.ndarray:
+    """The instructions of the cheapest Montgomery product K6 and K7 use
+    on ctx's field: a lazy square where 4p < R, else the square with its
+    final subtraction (L subtractions and L selects more)."""
+    ops = mont_sqr_lazy_ops(ctx.L)
+    return ops if ctx.lazy else ops + np.array([0, 2 * ctx.L, 0])
+
+
 def pow_meas(ctx, x, e: int, err: int) -> dict:
-    """K6's time on the elements x ((n, L) Montgomery limbs) at exponent
-    e, its plain version's and its bound: the fewest products any chain
-    for e takes (``chain_products``; the kernel's ladder takes a squaring
-    per bit and a product per set bit below the top one,
-    ``fieldops.pow_products``, held against the source by
-    tests/test_torch_kernels_host.py), against the elements read and
-    written."""
+    """K6's time on the elements x ((n, L) Montgomery limbs) at exponent e,
+    its plain version's and its bound: the
+    fewest products any addition chain for e takes (``chain_products``),
+    each at the cost of the cheapest product the kernel uses
+    (``least_product_ops``), against the elements read and written. The
+    kernel runs e's plan (``fieldops.plan_products``, held against the
+    source by tests/test_torch_kernels_host.py); the plain version the
+    ladder (``fieldops.pow_products``)."""
     n = x.shape[0]
-    k, least = fieldops.pow_products(e), chain_products(e)
-    b, o = bound(n * ctx.L * 4 * 2, n * least * mont_mul_ops(ctx.L))
+    k, least = fieldops.plan_products(e), chain_products(e)
+    b, o = bound(n * ctx.L * 4 * 2, n * least * least_product_ops(ctx))
     return dict(
-        shape=f'{n} elements, L = {ctx.L}, a {e.bit_length()}-bit exponent '
-        f'({k} products; any chain {least} at the least)', max_abs_err=err,
-        ms=cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 10),
+        shape=f'{n} elements, L = {ctx.L}, a {e.bit_length()}-bit exponent: '
+        f'the plan\'s {k} products (the ladder\'s '
+        f'{fieldops.pow_products(e)}; any chain {least} at the least)',
+        max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 10),
         plain_ms=cuda_ms(lambda: fieldops._mont_pow_plain(x, e, ctx), 1),
+        bound_ms=b, bound_by=o, products=k, least=least)
+
+
+def tail_shares(p: int, n: int, gen, every: int = 0) -> tuple:
+    """(3, n, L) random shares r and z on the card; with ``every``, each
+    every-th element's r set to 0 and z to a sharing of 0 of degree 2 (x +
+    x^2 at 1, 2, 3), so that r^2 + z opens to 0 there."""
+    r = random_field(p, (M, n), gen)
+    z = random_field(p, (M, n), gen)
+    if every:
+        r[:, ::every] = 0
+        z[:, ::every] = prime_field_ctx(p).encode(
+            np.array([[2], [6], [12]]), 'cuda')
+    return r, z
+
+
+def tail_meas(field, r, z, err: int) -> dict:
+    """K7's time on shares r and z (bits in {0, 1}, f = 0: the runtime's
+    call), its plain version's and its bound: r and z read, the bits and
+    flags written; every product
+    (``pipelines.random_bits_tail_ops``, the power's at the fewest any
+    chain takes) at the cost of the cheapest product the kernel uses, and
+    its modular adds."""
+    p, ctx = field.modulus, field.array.ctx
+    n, L = r.shape[1], ctx.L
+    e = (3 * p - 5) // 4
+    mont, adds = pipelines.random_bits_tail_ops(p, False, 0)
+    least = mont - fieldops.plan_products(e) + chain_products(e)
+    b, o = bound(n * (3 * M * L * 4 + 1),
+                 n * (least * least_product_ops(ctx) + adds * add_mod_ops(L)))
+    return dict(
+        shape=f'(3, {n}, {L}) shares: {mont} products an element ('
+        f'{least} at the least), {adds} modular adds', max_abs_err=err,
+        ms=cuda_ms(lambda: pipelines.random_bits_tail(r, z, field, False, 0,
+                                                      T), 10),
+        plain_ms=cuda_ms(lambda: pipelines._random_bits_tail_plain(
+            r, z, field, False, 0, T), 1),
         bound_ms=b, bound_by=o)
 
 
@@ -1426,37 +1582,71 @@ def check_fxp_kernels() -> dict:
     """Phase 12's kernels against their plain versions (bit for bit): K6 at
     the inverse square root's exponent (3p - 5) / 4 on SecFxp(14, 6)'s
     field at conv1's random bits (15,052,800 elements) and on SecInt(37)'s
-    three-limb field at 2^22, with 0 and 1 among the inputs; K5 (LT, l =
-    14) with the scale 2^6 at maxpool1's first comparison in one launch
-    of two chunks of 2^20 against the plain version chunk by chunk,
-    outputs and counters. Each timed beside its plain version and bound.
-    Returns per-instantiation measurements."""
+    three-limb field at 2^22, with 0 and 1 among the inputs, against the
+    ladder; K7 at conv1's random bits on random shares and on shares with
+    one r in 1,000 planted to 0 (bits, flags and count); K5 (LT, l = 14) with
+    the scale 2^6 at maxpool1's first comparison in one launch of two
+    chunks of 2^20 against the plain version chunk by chunk, outputs and
+    counters. Each timed beside its plain version and bound. Returns
+    per-instantiation measurements."""
+    from mpyc_tpu_torch import finfields
     gen = np.random.default_rng(12)
     res = {}
     st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
         0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
     p52 = sectypes.SecFxp(FXP_L, FXP_F, 'cuda').field.modulus
     p69 = sectypes.SecInt(37, 'cuda').field.modulus
-    for p, n, entry in ((p52, FXP_BITS, 'mont_pow<L=2>'),
-                        (p69, N_POW_WIDE, 'mont_pow<L=3>')):
+    for p, n in ((p52, FXP_BITS), (p69, N_POW_WIDE)):
         ctx = prime_field_ctx(p)
         x = random_field(p, (n,), gen)
         x[0] = 0
         x[1] = torch.tensor(ctx.one_mont, dtype=torch.int64).to(torch.int32)
         e = (3 * p - 5) // 4
-        got = fieldops.mont_pow(x, e, ctx)
         want = fieldops._mont_pow_plain(x, e, ctx)
+        got = fieldops.mont_pow(x, e, ctx)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        check(err == 0, f'K6 ({n} elements, L = {ctx.L}) differs from its '
-              'plain version')
+        check(err == 0, f'K6 ({n} elements, L = {ctx.L}) differs from the '
+              'ladder')
         del got, want
-        r = res[entry] = pow_meas(ctx, x, e, err)
-        say(f'  K6 mont_pow: {r["shape"]} equal to plain; {r["ms"]:.4f} ms, '
-            f'plain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
-            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x')
+        r = res[f'mont_pow<L={ctx.L}, lazy>'] = pow_meas(ctx, x, e, err)
+        say(f'  K6 mont_pow: {r["shape"]} equal to the ladder; '
+            f'{r["ms"]:.4f} ms (ladder kernel before: '
+            f'{K6_LADDER_MS[ctx.L]:.4f} ms), plain {r["plain_ms"]:.4f} ms, '
+            f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'{r["ms"] / r["bound_ms"]:.2f}x')
         del x
         torch.cuda.empty_cache()
+
+    field = finfields.GF(p52)
+    for every in (0, 1000):
+        r, z = tail_shares(p52, FXP_BITS, gen, every)
+        want = pipelines._random_bits_tail_plain(r, z, field, False, 0, T)
+        got = pipelines.random_bits_tail(r, z, field, False, 0, T)
+        torch.cuda.synchronize()
+        err = max_abs_err(got[0], want[0])
+        check(err == 0 and torch.equal(got[1], want[1])
+              and got[2].item() == want[2].item(),
+              f'K7 ({FXP_BITS} elements, planted {every}) differs from its '
+              'plain version')
+        del got
+        zeros = want[2].item()
+        check(zeros == (-(-FXP_BITS // every) if every else 0),
+              f'K7: {zeros} zero openings')
+        del want
+        if not every:
+            res['random_bits_tail<L=2, lazy>'] = tail_meas(field, r, z, err)
+        say(f'  K7 random_bits_tail at {FXP_BITS} elements, '
+            + ('random shares' if not every
+               else f'one r in {every} planted to 0')
+            + f': bits, flags and count ({zeros} zeros) equal to plain')
+        del r, z
+        torch.cuda.empty_cache()
+    r = res['random_bits_tail<L=2, lazy>']
+    say(f'  K7 random_bits_tail: {r["shape"]}; {r["ms"]:.4f} ms, plain '
+        f'(the tail before K7) {r["plain_ms"]:.4f} ms, bound '
+        f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+        f'{r["ms"] / r["bound_ms"]:.2f}x')
 
     spec5 = pipelines.SgnSpec(p52, T, M, FXP_L, 30, LT=True, f=FXP_F)
     chunk = SimRuntime._SGN_CHUNK
@@ -1491,6 +1681,41 @@ def _timed(fn, on_card: bool):
         torch.cuda.synchronize()
         ms = ev0.elapsed_time(ev1)
     return out, time.perf_counter() - t0, ms
+
+
+def random_bits_split(n=FXP_BITS, reps=3) -> dict:
+    """Device ms of the parts of one ``np_random_bits`` round of n bits at
+    SecFxp(14, 6)'s field on the card, CUDA events around each: the PRSS
+    draw of r and the PRSS zero-sharing z (``_stacked_prss`` twice), then
+    the tail on those r and z as the runtime runs it (K7,
+    ``pipelines.random_bits_tail``) and as its plain version (the tail
+    before K7: plain torch, K6 for the power). After a warm-up round, the
+    least of ``reps`` rounds each."""
+    rt = SimRuntime(M, device='cuda')
+    rt.start()
+    field = rt.SecFxp(FXP_L, FXP_F).field
+    prfs = rt.prfs(field.modulus)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    res = {k: [] for k in ('r', 'z', 'tail', 'tail_plain')}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        ev[0].record()
+        r = rt._stacked_prss(field, prfs, rt._prss_uci(), n)
+        ev[1].record()
+        z = rt._stacked_prss(field, prfs, rt._prss_uci(), n, zero=True)
+        ev[2].record()
+        pipelines.random_bits_tail(r.data, z.data, field, False, 0, T)
+        ev[3].record()
+        pipelines._random_bits_tail_plain(r.data, z.data, field, False, 0, T)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep:
+            for k, (e0, e1) in zip(res, zip(ev, ev[1:])):
+                res[k].append(e0.elapsed_time(e1))
+        del r, z
+        torch.cuda.empty_cache()
+    rt.shutdown()
+    return {k: min(v) for k, v in res.items()}
 
 
 def run_fxp_rounds(device, n=FXP_CONV1, seed=13) -> dict:
@@ -1549,7 +1774,7 @@ def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
     ``profile_calls`` over one more pass. Returns per pass the seconds and
     the counts against the labels and the float model, the images where
     the predictions and the float model differ, the layers' ranges, and
-    K5's and K6's launches a pass."""
+    K5's, K6's and K7's launches a pass."""
     from mpyc_tpu_torch.demos import np_cnnmnist as cnn
     rt = SimRuntime(M, device=device)
     rt.start()
@@ -1582,17 +1807,19 @@ def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
     runs = []
     for i in range(passes):
         n5, n6 = pipelines.sgn_step.launches, fieldops.mont_pow.launches
+        n7 = pipelines.random_bits_tail.launches
         t0 = time.perf_counter()
         preds, kept = checked_pass()
         dt = time.perf_counter() - t0        # output is on the host
         k5 = pipelines.sgn_step.launches - n5
         k6 = fieldops.mont_pow.launches - n6
+        k7 = pipelines.random_bits_tail.launches - n7
         checks, ranges = verify(preds, kept, f'pass {i}')
         del kept
         runs.append(dict(s=dt, correct=int((preds == labels).sum()),
                          floats=int((preds == floats).sum()),
                          differ=np.flatnonzero(preds != floats).tolist(),
-                         k5=k5, k6=k6))
+                         k5=k5, k6=k6, k7=k7))
     layers = {}
     if on_card:
         marks = []
@@ -1659,6 +1886,14 @@ def main() -> int:
             say(f'  ptxas {fn}: ' + ', '.join(f'{k} {v}'
                                               for k, v in r.items()))
         say(f'  K5 thread block: B = {lib.lib.mtt_sgn_threads()} elements')
+        model = {L: int(mont_sqr_lazy_ops(L).sum()) for L in (2, 3)}
+        for fn, r in sass_report(lib.path).items():
+            say(f'  SASS {fn}: {r["total"]} instructions, ' + ', '.join(
+                f'{k} {v}' for k, v in r['classes'].items()))
+            say(f'    its squaring loop: {r["loop"]} instructions ('
+                + ', '.join(f'{k} {v}' for k, v in r['loop_classes'].items())
+                + f'), {r["per_product"]:.1f} a product (the bound model\'s '
+                f'lazy square: {model[int(fn.split("<")[1][0])]})')
         say(f'  library {lib.path.name}: '
             f'{"built" if lib.built else "found"} in {lib.seconds:.3f} s')
 
@@ -1811,6 +2046,11 @@ def main() -> int:
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
                 f'({r["bound_by"]}) on {smi}')
         meas.update(fxp_meas)
+        split = random_bits_split()
+        say(f'  one round of np_random_bits\' {FXP_BITS} bits, device ms '
+            f'(least of 3): PRSS draw of r {split["r"]:.4f}, zero-sharing z '
+            f'{split["z"]:.4f}, tail: K7 {split["tail"]:.4f} (plain, the '
+            f'tail before K7: {split["tail_plain"]:.4f}), on {smi}')
         res = run_fxp_rounds('cuda')
         say(f'  np_random_bits of {FXP_BITS} bits at SecFxp({FXP_L}, '
             f'{FXP_F}) (conv1\'s truncations): {res["bits_ms"]:.4f} ms on the '
@@ -1839,7 +2079,7 @@ def main() -> int:
                 f's, {r["correct"]}/{N_FXP} correct against the labels, '
                 f'{r["floats"]}/{N_FXP} equal to the float model (differ on '
                 f'images {r["differ"]}); K5 {r["k5"]} launches, K6 '
-                f'{r["k6"]}')
+                f'{r["k6"]}, K7 {r["k7"]}')
         for name, c in res['checks'].items():
             up = f', {c["up"]} rounded up' if 'up' in c else ''
             say(f'  {name} (last pass): {c["n"]} elements pass the '
@@ -1901,7 +2141,8 @@ def main() -> int:
                     'fxp_passes': res_fxp['runs'],
                     'fxp_ranges': res_fxp['ranges'],
                     'fxp_marked_layers': res_fxp['layers'],
-                    'fxp_rounds': res_fxp_rounds, 'card': smi}))
+                    'fxp_rounds': res_fxp_rounds, 'random_bits_split': split,
+                    'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

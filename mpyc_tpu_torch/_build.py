@@ -44,6 +44,7 @@ MAX_NL = 3       # limbs of a field element (p < 2^96)
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_M = 16       # parties
+POW_MAX_STEPS = 32 * MAX_NL   # a step of a power's plan a bit at most
 
 _U32xNL = ctypes.c_uint32 * MAX_NL
 
@@ -78,13 +79,25 @@ class SgnParams(ctypes.Structure):
 
 
 class PowParams(ctypes.Structure):
-    """Mirror of ``struct PowParams`` in csrc/pow.cuh."""
+    """Mirror of ``struct PowParams`` in csrc/pow.cuh: the field and the
+    plan of the exponent (``fieldops.pow_plan``)."""
     _fields_ = [('p', _U32xNL), ('n0inv', ctypes.c_uint32),
-                ('one', _U32xNL), ('e', _U32xNL), ('nbits', ctypes.c_int32),
-                ('nl', ctypes.c_int32)]
+                ('one', _U32xNL), ('nbits', ctypes.c_int32),
+                ('nl', ctypes.c_int32), ('n_table', ctypes.c_int32),
+                ('first', ctypes.c_int32), ('n_steps', ctypes.c_int32),
+                ('tail', ctypes.c_int32),
+                ('step', ctypes.c_uint32 * POW_MAX_STEPS)]
 
 
-# limb counts of the fields K2, K3, K5 and K6 are built for
+class TailParams(ctypes.Structure):
+    """Mirror of ``struct TailParams`` in csrc/pow.cuh (K7)."""
+    _fields_ = [('pow', PowParams), ('lag', _U32xNL * 3),
+                ('scale', _U32xNL), ('offset', _U32xNL),
+                ('has_scale', ctypes.c_int32), ('has_offset', ctypes.c_int32),
+                ('t', ctypes.c_int32), ('m', ctypes.c_int32)]
+
+
+# limb counts of the fields K2, K3, K5, K6 and K7 are built for
 # (csrc/kernels.cu)
 BUILT_NL = (2, 3)
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
@@ -124,18 +137,24 @@ def draw_params(ctx, n_chunks: int) -> DrawParams:
 
 
 def pow_params(ctx, e: int) -> PowParams:
-    """K6's parameter block for the power a^e in ctx's field."""
+    """K6's parameter block for the power a^e in ctx's field: the field
+    and e's plan (``fieldops.pow_plan``)."""
+    from mpyc_tpu_torch.ops.fieldops import pow_plan
     if ctx.L not in BUILT_NL:
         raise NotImplementedError(
             f'the CUDA kernels take fields of {BUILT_NL} limbs, not '
             f'{ctx.L}')
+    plan = pow_plan(e)
     P = PowParams()
     set_limbs(P.p, ctx.p_limbs)
     P.n0inv = ctx.n0inv
     set_limbs(P.one, ctx.one_mont)
-    set_limbs(P.e, [(e >> 32 * q) & 0xFFFFFFFF for q in range(MAX_NL)])
     P.nbits = e.bit_length()
     P.nl = ctx.L
+    P.n_table, P.first, P.tail = plan.n_table, plan.first, plan.tail
+    P.n_steps = len(plan.steps)
+    for k, (sq, j) in enumerate(plan.steps):
+        P.step[k] = sq | j << 8
     return P
 
 
@@ -151,6 +170,7 @@ _SIGNATURES = {
                 ctypes.c_longlong, _C, _C],
     'mtt_sgn_threads': [],
     'mtt_mont_pow': [_C, _C, ctypes.c_longlong, _C, _C],
+    'mtt_random_bits_tail': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C, _C],
 }
 
 

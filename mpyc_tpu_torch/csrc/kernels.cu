@@ -1,6 +1,7 @@
 // CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication, K4
 // the split/recombine round, K5 the secure comparison (sgn.cuh), K6 a
-// power with a public exponent (pow.cuh).
+// power with a public exponent and K7 the tail of a round of random bits
+// around it (pow.cuh).
 //
 // Built by mpyc_tpu_torch/_build.py with plain nvcc into one shared library
 // whose extern "C" launchers are called through ctypes. Each launcher takes
@@ -377,13 +378,56 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 
 namespace mtt {
 
-template <int NL>
-int launch_mont_pow(const void* a, void* out, long long n,
-                    const PowParams& P, cudaStream_t stream) {
-  const int threads = 256;
-  const long long grid = (n + threads - 1) / threads;
-  mont_pow_kernel<NL><<<(unsigned)grid, threads, 0, stream>>>(
+// The instantiation of K6 and K7 for a plan's field: LAZY where 4p < R
+// (p's top limb below 2^30).
+template <int NL, bool LAZY>
+struct PowKind {};
+
+template <class F>
+int pow_dispatch(const PowParams& P, F launch) {
+  if (P.nl != 2 && P.nl != 3) return -1;
+  const bool lazy = P.p[P.nl - 1] < (1u << 30);
+  switch (P.nl * 10 + lazy) {
+    case 20: return launch(PowKind<2, false>());
+    case 21: return launch(PowKind<2, true>());
+    case 30: return launch(PowKind<3, false>());
+    default: return launch(PowKind<3, true>());
+  }
+}
+
+// Whether a plan fits the kernels: its exponent's width, its table and
+// steps within their arrays, every table index within the table.
+inline bool plan_ok(const PowParams& P) {
+  if (P.nbits < 0 || P.nbits > 32 * MAX_NL) return false;
+  if (P.n_table < 1 || P.n_table > POW_TABLE) return false;
+  if (P.n_steps < 0 || P.n_steps > POW_MAX_STEPS || P.tail < 0) return false;
+  if (P.first < 0 || P.first >= P.n_table) return false;
+  for (int k = 0; k < P.n_steps; ++k)
+    if ((int)(P.step[k] >> 8) >= P.n_table) return false;
+  return true;
+}
+
+template <int NL, bool LAZY>
+int launch_mont_pow(PowKind<NL, LAZY>, const void* a, void* out,
+                    long long n, const PowParams& P, cudaStream_t stream) {
+  constexpr int EPB = POW_THREADS * POW_EPT;
+  const long long grid = (n + EPB - 1) / EPB;
+  mont_pow_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, 0, stream>>>(
       (const uint32_t*)a, (uint32_t*)out, n, P);
+  return (int)cudaGetLastError();
+}
+
+template <int NL, bool LAZY>
+int launch_random_bits_tail(PowKind<NL, LAZY>, const void* r,
+                            const void* z, void* bits, void* flags,
+                            void* count, long long n, const TailParams& P,
+                            cudaStream_t stream) {
+  constexpr int EPB = POW_THREADS * POW_EPT;
+  const long long grid = (n + EPB - 1) / EPB;
+  random_bits_tail_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, 0,
+                                     stream>>>(
+      (const uint32_t*)r, (const uint32_t*)z, (uint32_t*)bits,
+      (uint8_t*)flags, (int*)count, n, P);
   return (int)cudaGetLastError();
 }
 
@@ -569,17 +613,32 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
   }
 }
 
-// a^e R mod p for n elements (K6). -1: a limb count the kernel was not
-// built for, or an exponent wider than the parameter block.
+// a^e R mod p for n elements (K6), e by its plan in params. -1: a limb
+// count the kernel was not built for, or a plan that does not fit it.
 int mtt_mont_pow(const void* a, void* out, long long n, const void* params,
                  void* stream) {
   const mtt::PowParams P = *(const mtt::PowParams*)params;
-  if (P.nbits < 0 || P.nbits > 32 * mtt::MAX_NL) return -1;
-  if (P.nl != 2 && P.nl != 3) return -1;
-  if (n <= 0) return 0;
+  if (!mtt::plan_ok(P)) return -1;
   const cudaStream_t s = (cudaStream_t)stream;
-  return P.nl == 2 ? mtt::launch_mont_pow<2>(a, out, n, P, s)
-                   : mtt::launch_mont_pow<3>(a, out, n, P, s);
+  return mtt::pow_dispatch(P, [&](auto kind) {
+    return n <= 0 ? 0 : mtt::launch_mont_pow(kind, a, out, n, P, s);
+  });
+}
+
+// The tail of a round of random bits (K7) on (3, n, limbs) shares r and
+// z: bits (3, n, limbs), flags (n bytes) and count (one int, which the
+// launch adds to). -1: a (t, m) or limb count the kernel was not built
+// for, or a plan that does not fit it.
+int mtt_random_bits_tail(const void* r, const void* z, void* bits,
+                         void* flags, void* count, long long n,
+                         const void* params, void* stream) {
+  const mtt::TailParams P = *(const mtt::TailParams*)params;
+  if (P.t != 1 || P.m != 3 || !mtt::plan_ok(P.pow)) return -1;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return mtt::pow_dispatch(P.pow, [&](auto kind) {
+    return n <= 0 ? 0 : mtt::launch_random_bits_tail(kind, r, z, bits, flags,
+                                                      count, n, P, s);
+  });
 }
 
 // Elements of a K5 thread block (SGN_THREADS), for models of its stage.

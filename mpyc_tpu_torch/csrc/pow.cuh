@@ -1,23 +1,44 @@
 // K6: a power with a public exponent, a^e R mod p for every Montgomery
-// element of an array.
+// element of an array; K7: the tail of a round of random bits, built
+// around the same power.
 //
-// No Pallas kernel of the JAX package computes it: XLA runs
+// No Pallas kernel of the JAX package computes either: XLA runs
 // mpyc_tpu/ops/limb.py:330 mont_pow_const (a lax.scan over e's bits, via
-// mpyc_tpu/ops/fieldops.py:549 pow_const); the port's plain version is
-// mpyc_tpu_torch/ops/limb.py mont_pow_const. Its caller on the
-// fixed-point path is the inverse square root of np_random_bits, for a
-// Blum prime the exponent (3p - 5) / 4 (fieldops.py:616): at SecFxp(14,
-// 6)'s 52-bit field 51 squarings and 48 products an element.
+// mpyc_tpu/ops/fieldops.py:549 pow_const) and the tail of
+// mpyc_tpu/parallel/simulator.py:732 np_random_bits (:759-785). The plain
+// versions are mpyc_tpu_torch/ops/limb.py mont_pow_const and
+// mpyc_tpu_torch/models/pipelines.py _random_bits_tail_plain.
 //
-// Bound: integer operations (an L-limb product is 2 L^2 + L multiplies
-// and 3 L^2 + 2 L adds, and any addition chain for that exponent takes at
-// least 56 products, against 16 bytes moved an element at L = 2).
-// Design: one thread per element, the value and the running power in
-// registers; left-to-right square and multiply, a product only where a
-// bit of e is set. e is the same for every thread, so the branch on its
-// bit never diverges; its words come from the parameter block one at a
-// time with a constant index (a word read at a run-time index would put
-// the block in local memory). Built for two- and three-limb fields.
+// What bounds them: integer instructions. A power is a chain of
+// dependent Montgomery products (at SecFxp(14, 6)'s 52-bit field, e =
+// (3p - 5) / 4 has 52 bits, 49 of them set), against 16 bytes moved an
+// element at two limbs (K7: 73 bytes, r and z of three parties in, three
+// bit shares and a flag out). So the design spends as few instructions on
+// a product as it can:
+// - The exponent is planned on the host (mpyc_tpu_torch/ops/fieldops.py
+//   pow_plan): a left-to-right sliding window of up to 4 bits, a table
+//   of the odd powers x^1..x^15 that the plan uses, then steps "square s
+//   times, multiply by table entry j". 68 products at that e, where the
+//   binary ladder does 99; there is no loop over e's bits, only a tight
+//   loop of squarings a step.
+// - The steps come in the parameter block and are copied once into
+//   shared memory; the table lives in shared memory too, word (entry,
+//   limb, slot) of a thread at [((entry NL + limb) POW_EPT + slot)
+//   threads + thread], so a warp reads 32 consecutive words. The entry is known
+//   only at run time: in registers the table would go to local memory.
+// - A squaring computes each cross product once and doubles it
+//   (mont_sqr: 3 wide products where a general one takes 4 at two limbs,
+//   6 where it takes 9 at three).
+// - Where 4p < R (the 52-bit and 69-bit fields), every product of the
+//   chain skips its final subtraction (values stay below 2p) and one
+//   canonical() ends it (LAZY). SecInt(32)'s 64-bit field takes the
+//   canonical products. At two limbs the lazy products are PTX (limb.cuh):
+//   a wide multiply for each 32 x 32-bit product and every carry in an
+//   add.cc chain: 26 SASS instructions a squaring, where the C++ form
+//   took 36.5 and moved its carries into registers on the multiply pipe.
+// - Two elements a thread (POW_EPT): two independent chains let the
+//   scheduler fill one's multiply latency with the other's. One element
+//   a thread was 15-18% slower on the card (PERF.md, PR 10).
 #pragma once
 #include <cstdint>
 
@@ -25,41 +46,225 @@
 
 namespace mtt {
 
+constexpr int POW_WINDOW = 4;                       // the widest window
+constexpr int POW_TABLE = 1 << (POW_WINDOW - 1);    // x^1, x^3, .., x^15
+constexpr int POW_MAX_STEPS = 32 * MAX_NL;           // a step a bit at most
+constexpr int POW_THREADS = 128;
+constexpr int POW_EPT = 2;                           // elements a thread
+static_assert(POW_THREADS >= POW_MAX_STEPS, "load_plan: a thread a step");
+
 // Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py. Field
-// constants fill the first nl limbs of their MAX_NL; e < 2^(32 MAX_NL).
+// constants fill the first nl limbs of their MAX_NL. The plan of e
+// (pow_plan): x^(2 first + 1), then per step k square (step[k] & 0xFF)
+// times and multiply by x^(2 (step[k] >> 8) + 1), then square tail times.
 struct PowParams {
   uint32_t p[MAX_NL];
   uint32_t n0inv;
   uint32_t one[MAX_NL];   // R mod p: the power for e = 0
-  uint32_t e[MAX_NL];     // exponent, little-endian words
   int32_t nbits;          // bit length of e
   int32_t nl;             // limbs of the field
+  int32_t n_table;        // odd powers the plan uses, 1..POW_TABLE
+  int32_t first;
+  int32_t n_steps;
+  int32_t tail;
+  uint32_t step[POW_MAX_STEPS];
 };
 
-template <int NL>
-__global__ void __launch_bounds__(256)
-mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
-                long long n, PowParams P) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[NL], r[NL];
-  ldg_fe<NL>(a, i, x);
-  if (P.nbits == 0) {
-    fe_copy<NL>(P.one, r);
-  } else {
-    fe_copy<NL>(x, r);   // the top bit
+// Copy the plan's steps into shared memory, each word at a constant index
+// of the parameter block (a run-time index would put the block in local
+// memory), before any thread leaves.
+__device__ __forceinline__ void load_plan(const PowParams& P,
+                                          uint32_t* steps) {
 #pragma unroll
-    for (int w = MAX_NL - 1; w >= 0; --w) {
-      const uint32_t word = P.e[w];
+  for (int k = 0; k < POW_MAX_STEPS; ++k)
+    if ((int)threadIdx.x == k) steps[k] = P.step[k];
+  __syncthreads();
+}
+
+template <int NL>
+__device__ __forceinline__ void table_put(uint32_t* col, int k,
+                                          const uint32_t (&x)[POW_EPT][NL]) {
+#pragma unroll
+  for (int q = 0; q < NL; ++q)
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s)
+      col[((k * NL + q) * POW_EPT + s) * POW_THREADS] = x[s][q];
+}
+
+template <int NL>
+__device__ __forceinline__ void table_get(const uint32_t* col, int k,
+                                          uint32_t (&x)[POW_EPT][NL]) {
+#pragma unroll
+  for (int q = 0; q < NL; ++q)
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s)
+      x[s][q] = col[((k * NL + q) * POW_EPT + s) * POW_THREADS];
+}
+
+template <int NL, bool LAZY>
+__device__ __forceinline__ void pow_sqr(const uint32_t* a,
+                                        const PowParams& P, uint32_t* out) {
+  if constexpr (LAZY) mont_sqr_lazy<NL>(a, P.p, P.n0inv, out);
+  else mont_sqr<NL>(a, P.p, P.n0inv, out);
+}
+
+template <int NL, bool LAZY>
+__device__ __forceinline__ void pow_mul(const uint32_t* a, const uint32_t* b,
+                                        const PowParams& P, uint32_t* out) {
+  if constexpr (LAZY) mont_mul_lazy<NL>(a, b, P.p, P.n0inv, out);
+  else mont_mul<NL>(a, b, P.p, P.n0inv, out);
+}
+
+// x[s] <- x[s]^e R mod p for the POW_EPT elements of this thread (each
+// < p), by the plan in P and `steps` (load_plan). tab: the block's
+// table, POW_TABLE * NL * POW_EPT * POW_THREADS words of shared memory.
+// Canonical results.
+template <int NL, bool LAZY>
+__device__ __forceinline__ void pow_by_plan(uint32_t (&x)[POW_EPT][NL],
+                                            const PowParams& P,
+                                            const uint32_t* steps,
+                                            uint32_t* tab) {
+  if (P.nbits == 0) {
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s) fe_copy<NL>(P.one, x[s]);
+    return;
+  }
+  uint32_t* col = tab + threadIdx.x;
+  table_put<NL>(col, 0, x);
+  if (P.n_table > 1) {
+    uint32_t x2[POW_EPT][NL];
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x2[s]);
 #pragma unroll 1
-      for (int b = 31; b >= 0; --b) {
-        if (w * 32 + b >= P.nbits - 1) continue;
-        mont_mul<NL>(r, r, P.p, P.n0inv, r);
-        if ((word >> b) & 1u) mont_mul<NL>(r, x, P.p, P.n0inv, r);
-      }
+    for (int k = 1; k < P.n_table; ++k) {
+#pragma unroll
+      for (int s = 0; s < POW_EPT; ++s)
+        pow_mul<NL, LAZY>(x[s], x2[s], P, x[s]);
+      table_put<NL>(col, k, x);
     }
   }
-  store_fe<NL>(out, i, r);
+  table_get<NL>(col, P.first, x);
+#pragma unroll 1
+  for (int k = 0; k < P.n_steps; ++k) {
+    const uint32_t st = steps[k];
+#pragma unroll 1
+    for (int q = st & 0xFF; q > 0; --q) {
+#pragma unroll
+      for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
+    }
+    uint32_t y[POW_EPT][NL];
+    table_get<NL>(col, st >> 8, y);
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s) pow_mul<NL, LAZY>(x[s], y[s], P, x[s]);
+  }
+#pragma unroll 1
+  for (int q = P.tail; q > 0; --q) {
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
+  }
+  if constexpr (LAZY) {
+#pragma unroll
+    for (int s = 0; s < POW_EPT; ++s) canonical<NL>(x[s], P.p, x[s]);
+  }
+}
+
+// K6: POW_EPT elements a thread, POW_THREADS threads a block; slot s of
+// a thread takes element blockIdx.x * POW_THREADS * POW_EPT + s *
+// POW_THREADS + threadIdx.x. A slot past n computes on 0 and stores nothing.
+template <int NL, bool LAZY>
+__global__ void __launch_bounds__(POW_THREADS)
+mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+                long long n, PowParams P) {
+  __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
+  __shared__ uint32_t steps[POW_MAX_STEPS];
+  load_plan(P, steps);
+  const long long base =
+      (long long)blockIdx.x * (POW_THREADS * POW_EPT) + threadIdx.x;
+  uint32_t x[POW_EPT][NL];
+#pragma unroll
+  for (int s = 0; s < POW_EPT; ++s) {
+    const long long e = base + s * POW_THREADS;
+    if (e < n) {
+      ldg_fe<NL>(a, e, x[s]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < NL; ++q) x[s][q] = 0;
+    }
+  }
+  pow_by_plan<NL, LAZY>(x, P, steps, tab);
+#pragma unroll
+  for (int s = 0; s < POW_EPT; ++s) {
+    const long long e = base + s * POW_THREADS;
+    if (e < n) store_fe<NL>(out, e, x[s]);
+  }
+}
+
+// Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py (K7).
+struct TailParams {
+  PowParams pow;             // the plan of (3p - 5) / 4
+  uint32_t lag[3][MAX_NL];   // recombination at 0 of points 1, 2, 3
+  uint32_t scale[MAX_NL];    // a bit is r s scale (+ offset), Montgomery
+  uint32_t offset[MAX_NL];
+  int32_t has_scale, has_offset;
+  int32_t t, m;
+};
+
+// K7 on (3, n, NL) shares r and z: per element u = sum_i lag_i (r_i^2 +
+// z_i), the opening of r^2 + z at threshold 2 from parties 1..3; flag
+// u == 0 (and count it); s = u^((3p - 5) / 4) = 1 / sqrt(u) by the plan;
+// bit_i = r_i (s scale) + offset, with scale, offset = 2^(f - 1) for bits
+// in {0, 1} ((r / sqrt(u) + 1) / 2 times 2^f) and scale = 2^f, no offset,
+// for signed bits. Exact field values, so equal to the plain version.
+// Geometry as K6's; r_i stays in registers across the power.
+template <int NL, bool LAZY>
+__global__ void __launch_bounds__(POW_THREADS)
+random_bits_tail_kernel(const uint32_t* __restrict__ r,
+                        const uint32_t* __restrict__ z,
+                        uint32_t* __restrict__ bits,
+                        uint8_t* __restrict__ flags, int* __restrict__ count,
+                        long long n, TailParams P) {
+  __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
+  __shared__ uint32_t steps[POW_MAX_STEPS];
+  load_plan(P.pow, steps);
+  const uint32_t* p = P.pow.p;
+  const uint32_t n0inv = P.pow.n0inv;
+  const long long base =
+      (long long)blockIdx.x * (POW_THREADS * POW_EPT) + threadIdx.x;
+  uint32_t rs[POW_EPT][3][NL], u[POW_EPT][NL];
+#pragma unroll
+  for (int s = 0; s < POW_EPT; ++s) {
+    const long long e = base + s * POW_THREADS;
+    const long long ee = e < n ? e : n - 1;   // a slot past n: a copy
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      uint32_t zi[NL], v[NL];
+      ldg_fe<NL>(r + i * n * NL, ee, rs[s][i]);
+      ldg_fe<NL>(z + i * n * NL, ee, zi);
+      mont_sqr<NL>(rs[s][i], p, n0inv, v);
+      add_mod<NL>(v, zi, p, v);
+      mont_mul<NL>(v, P.lag[i], p, n0inv, v);
+      if (i == 0) fe_copy<NL>(v, u[s]);
+      else add_mod<NL>(u[s], v, p, u[s]);
+    }
+    if (e < n) {
+      const bool zero = is_zero<NL>(u[s]);
+      flags[e] = (uint8_t)zero;
+      if (zero) atomicAdd(count, 1);
+    }
+  }
+  pow_by_plan<NL, LAZY>(u, P.pow, steps, tab);
+#pragma unroll
+  for (int s = 0; s < POW_EPT; ++s) {
+    const long long e = base + s * POW_THREADS;
+    if (P.has_scale) mont_mul<NL>(u[s], P.scale, p, n0inv, u[s]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      uint32_t b[NL];
+      mont_mul<NL>(rs[s][i], u[s], p, n0inv, b);
+      if (P.has_offset) add_mod<NL>(b, P.offset, p, b);
+      if (e < n) store_fe<NL>(bits + i * n * NL, e, b);
+    }
+  }
 }
 
 }  // namespace mtt

@@ -3,10 +3,13 @@
 Port of ``mpyc_tpu/models/pipelines.py``: ``make_reshare_step`` (the GRR98
 round with the local product, kernel K3), ``make_split_recombine`` (the
 Shamir round trip, kernel K4) and ``make_sgn_step`` (the whole secure
-comparison, kernel K5). On the card each step is one launch of its kernel
-(``csrc/kernels.cu``, ``csrc/sgn.cuh``); on the CPU its plain version
-(``_reshare_mul_plain``, ``_split_recombine_plain``, ``_sgn_step_plain``)
-runs the same arithmetic in torch. The plain versions draw their
+comparison, kernel K5), and the tail of a round of random bits around its
+inverse square root (``random_bits_tail``, kernel K7, which the JAX
+package leaves to XLA). On the card each step is one launch of its kernel
+(``csrc/kernels.cu``, ``csrc/sgn.cuh``, ``csrc/pow.cuh``); on the CPU its
+plain version (``_reshare_mul_plain``, ``_split_recombine_plain``,
+``_sgn_step_plain``, ``_random_bits_tail_plain``) runs the same
+arithmetic in torch. The plain versions draw their
 randomness through the plain versions of K1 and K2 on every device.
 
 Stream layout. The JAX package lays out the coefficient stream one way in
@@ -21,7 +24,7 @@ against XLA :859-892).
 
 Launch counts. Each wrapper of a kernel adds one to its ``launches`` where
 it launches the kernel, and to ``by_key[instantiation]`` beside it (K3:
-(L, fused); K5: (mode, l, L, f)), so a caller can tell which instantiations
+(L, fused); K5: (mode, l, L, f); K7: (L, lazy)), so a caller can tell which instantiations
 a path ran. K5 also adds the launch's comparison calls (chunks) to
 ``sgn_step.chunks``.
 """
@@ -808,3 +811,107 @@ def make_sgn_step(p: int, t: int, m: int, l: int, k: int = 30,
         out = sgn_step(a_sh, state, (int(ctr[0]), int(ctr[1])), spec)
         return out, _add_ctr(ctr)
     return step
+
+
+def _random_bits_tail_plain(r: torch.Tensor, z: torch.Tensor, field,
+                            signed: bool, f: int, t: int = 1):
+    """Plain version of K7, the tail of a round of ``np_random_bits``
+    (``mpyc_tpu/parallel/simulator.py:759-785``): party-stacked PRSS
+    shares r and zero-sharing z ((m, n, L) int32 limbs of ``field``) ->
+    the shares of the bits, the n flags of the opening u = r^2 + z at
+    threshold 2t equal to 0 (uint8) and their count ((1,) int32). The bit
+    of r is (r / sqrt(u) + 1) / 2 (with ``signed`` r / sqrt(u)), times
+    2^f; where u is 0 it is not a bit, and the caller drops it."""
+    ra, za = field.array.from_data(r), field.array.from_data(z)
+    s = ra * ra + za
+    u = thresha.np_recombine(field, [(i + 1, s[i].flatten())
+                                     for i in range(2 * t + 1)])
+    flags = u.ctx.is_zero(u.data).to(torch.uint8)
+    bits = ra * u._sqrt_unchecked(INV=True)
+    if not signed:
+        bits = (bits + 1) >> 1
+    if f:
+        bits = bits << f
+    return bits.data, flags, flags.sum(dtype=torch.int32).reshape(1)
+
+
+def _tail_params(field, t: int, m: int, signed: bool, f: int):
+    """K7's parameter block: the plan of (3p - 5) / 4, the recombination
+    vector at 0 of points 1..2t+1, and a bit's scale and offset."""
+    from mpyc_tpu_torch import _build
+    p, ctx = field.modulus, field.array.ctx
+    if (t, m) != (1, 3):
+        raise NotImplementedError(f'K7 is built for (t, m) = (1, 3), not '
+                                  f'({t}, {m})')
+    if p % 4 != 3:
+        raise NotImplementedError('the random bits\' inverse square root '
+                                  'needs p = 3 mod 4')
+    P = _build.TailParams()
+    P.pow = _build.pow_params(ctx, (3 * p - 5) // 4)
+    for i, c in enumerate(_lagrange_consts_mont(p, range(1, 2 * t + 2))):
+        _build.set_limbs(P.lag[i], c)
+    # bits in {0, 1}: (r s + 1) / 2 * 2^f = r s c + c with c = 2^f / 2
+    c = pow(2, f, p) * (1 if signed else pow(2, -1, p)) % p
+    P.has_scale = int(c != 1)
+    _build.set_limbs(P.scale, ctx.encode_const(c))
+    P.has_offset = int(not signed)
+    _build.set_limbs(P.offset, ctx.encode_const(c))
+    P.t, P.m = t, m
+    return P
+
+
+def random_bits_tail_ops(p: int, signed: bool, f: int) -> tuple:
+    """(Montgomery products, modular adds) of K7 an element, as its source
+    computes them (held against it by tests/test_torch_kernels_host.py):
+    per party r_i^2, + z_i, times lag_i, the opening's two adds; the power
+    by its plan (``fieldops.plan_products``); a bit's scale, once, unless
+    it is 1; per party r_i s and the offset of bits in {0, 1}."""
+    from mpyc_tpu_torch.ops.fieldops import plan_products
+    scale = int(not signed or f > 0)
+    return (3 + 3 + plan_products((3 * p - 5) // 4) + scale + 3,
+            3 + 2 + (0 if signed else 3))
+
+
+def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
+                     f: int, t: int = 1):
+    """K7: the tail of a round of ``np_random_bits`` on party-stacked PRSS
+    shares r and zero-sharing z ((m, n, L) int32 limbs of ``field``) ->
+    (bits (m, n, L), flags (n,) uint8 of the opening u = r^2 + z at
+    threshold 2t equal to 0, their count (1,) int32), as
+    ``_random_bits_tail_plain``.
+
+    Replaces the XLA tail of ``mpyc_tpu/parallel/simulator.py:732
+    np_random_bits`` (:759-785): no Pallas kernel computes it. CPU tensors
+    take the plain version; CUDA tensors launch the kernel
+    (``csrc/pow.cuh random_bits_tail_kernel``), or raise
+    NotImplementedError for a configuration it is not built for ((t, m) =
+    (1, 3), two or three limbs, p = 3 mod 4)."""
+    m = r.shape[0]
+    L = field.array.ctx.L
+    if r.dim() != 3 or r.shape[2] != L or r.dtype != torch.int32 or \
+            z.shape != r.shape or z.dtype != r.dtype or z.device != r.device:
+        raise ValueError(f'r and z must be ({m}, n, {L}) int32 on one '
+                         'device')
+    if 2 * t + 1 > m:
+        raise ValueError('the opening at 2t needs 2t + 1 <= m')
+    if r.device.type == 'cpu':
+        return _random_bits_tail_plain(r, z, field, signed, f, t)
+    from mpyc_tpu_torch import _build
+    params = _tail_params(field, t, m, signed, f)
+    r, z = r.contiguous(), z.contiguous()
+    _check_aligned(r, z)
+    n = r.shape[1]
+    bits = torch.empty_like(r)
+    flags = torch.empty(n, dtype=torch.uint8, device=r.device)
+    count = torch.zeros(1, dtype=torch.int32, device=r.device)
+    if n:
+        _build.call('mtt_random_bits_tail', r.data_ptr(), z.data_ptr(),
+                    bits.data_ptr(), flags.data_ptr(), count.data_ptr(), n,
+                    ctypes.addressof(params), _build.stream_of(r.device))
+        random_bits_tail.launches += 1
+        random_bits_tail.by_key[(L, field.array.ctx.lazy)] += 1
+    return bits, flags, count
+
+
+random_bits_tail.launches = 0
+random_bits_tail.by_key = collections.Counter()   # by (limbs, lazy)

@@ -10,9 +10,11 @@ one int8 GEMM (``torch._int_mm``, as the JAX package leaves its plane
 contractions to XLA's integer matmul) and assembles and folds the sums in
 plain torch. A power with a public exponent (``pow_const``, and through
 it ``sqrt``) is the one program here with a hand-written kernel, K6
-(``mont_pow``), though the JAX package leaves it to XLA too: it is a
-hundred Montgomery products an element, thousands of small launches in
-plain torch.
+(``mont_pow``), though the JAX package leaves it to XLA too: it is dozens
+of Montgomery products an element, thousands of small launches in plain
+torch. The kernel runs a plan of the exponent made here on the host
+(``pow_plan``: a sliding window, 68 products at SecFxp(14, 6)'s inverse
+square root where the plain ladder does 99).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -62,6 +65,72 @@ def _int8_gemm(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return out[:M, :N] if (Mp, Np) != (M, N) else out
 
 
+class PowPlan(typing.NamedTuple):
+    """A left-to-right sliding-window program for x^e: the odd
+    powers x^1, x^3, .., x^(2 n_table - 1) in a table (x^2 and n_table - 1
+    products to build, none for n_table = 1); start from entry ``first``
+    (x^(2 first + 1)); per step (s, j) square s times and multiply by
+    entry j; then square ``tail`` times."""
+    n_table: int
+    first: int
+    steps: tuple
+    tail: int
+
+
+# the widest window of a plan: K6's table holds x^1, x^3, .., x^15
+# (POW_WINDOW in csrc/pow.cuh)
+POW_WINDOW = 4
+
+
+@functools.cache
+def pow_plan(e: int) -> PowPlan:
+    """The plan of x^e with windows of at most POW_WINDOW bits, the width
+    of the fewest products (``plan_products``; width 1 is the binary
+    ladder, so a plan never takes more products than the ladder). e = 0
+    has the empty plan (the kernels give R mod p for it)."""
+    if e < 0:
+        raise ValueError('a plan needs e >= 0')
+    if e == 0:
+        return PowPlan(1, 0, (), 0)
+    return min((_window_plan(e, v) for v in range(1, POW_WINDOW + 1)),
+               key=_products)
+
+
+def _window_plan(e: int, w: int) -> PowPlan:
+    """x^e's left-to-right sliding window of w bits: from the top bit
+    down, each window is the next w bits from a set bit, cut after its
+    lowest set bit, so its value is odd; the bits between windows are
+    squarings."""
+    bits = bin(e)[2:]
+    n, i, zeros = len(bits), 0, 0
+    windows = []            # (squarings before it, its odd value)
+    while i < n:
+        if bits[i] == '0':
+            zeros += 1
+            i += 1
+            continue
+        j = min(i + w, n)
+        while bits[j - 1] == '0':
+            j -= 1
+        windows.append((zeros + j - i, int(bits[i:j], 2)))
+        zeros, i = 0, j
+    n_table = (max(v for _, v in windows) + 1) // 2
+    return PowPlan(n_table, windows[0][1] // 2,
+                   tuple((s, v // 2) for s, v in windows[1:]), zeros)
+
+
+def _products(plan: PowPlan) -> int:
+    return ((plan.n_table if plan.n_table > 1 else 0) + plan.tail
+            + sum(s + 1 for s, _ in plan.steps))
+
+
+def plan_products(e: int) -> int:
+    """Montgomery products K6 and K7 spend on x^e by its plan (``pow_plan``:
+    x^2 and a product for each odd power of the table past x, then each
+    step's squarings and product, then the tail's squarings)."""
+    return _products(pow_plan(e))
+
+
 def _mont_pow_plain(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     """Plain version of K6: a^e R mod p elementwise
     (``limb.mont_pow_const``)."""
@@ -76,8 +145,9 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     No Pallas kernel of the JAX package computes it: XLA runs its
     ``mpyc_tpu/ops/limb.py:330 mont_pow_const`` (via ``fieldops.py:549
     pow_const``). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (``csrc/pow.cuh``, ``mont_pow_kernel``), or raises
-    NotImplementedError for a limb count it is not built for."""
+    launches the kernel (``csrc/pow.cuh``, ``mont_pow_kernel``, by e's
+    plan), or raises NotImplementedError for a limb count it is not built
+    for."""
     if data.dtype != torch.int32 or data.shape[-1:] != (ctx.L,):
         raise ValueError(f'data must be (..., {ctx.L}) int32 limbs')
     if not 0 <= e < 1 << 32 * ctx.L:
@@ -93,18 +163,18 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
         _build.call('mtt_mont_pow', data.data_ptr(), out.data_ptr(), n,
                     ctypes.addressof(params), _build.stream_of(data.device))
         mont_pow.launches += 1
-        mont_pow.by_key[ctx.L] += 1
+        mont_pow.by_key[(ctx.L, ctx.lazy)] += 1
     return out
 
 
 mont_pow.launches = 0
-mont_pow.by_key = collections.Counter()   # launches by limb count
+mont_pow.by_key = collections.Counter()   # launches by (limbs, lazy)
 
 
 def pow_products(e: int) -> int:
-    """Montgomery products K6 and its plain version spend on an exponent
-    e: a squaring per bit below the top one and a product per set bit
-    below it."""
+    """Montgomery products the plain ladder (``limb.mont_pow_const``)
+    spends on an exponent e: a squaring per bit below the top one and a
+    product per set bit below it."""
     return max(e.bit_length() - 1, 0) + max(bin(e).count('1') - 1, 0)
 
 
@@ -140,6 +210,9 @@ class PrimeFieldCtx:
         self.one_limbs = limb.const_limbs(1, L)
         self.one_mont = tuple(limb.const_limbs(R % p, L))
         self.r2_limbs = tuple(limb.const_limbs(self.R2, L))
+        # 4p < R: K6 and K7 chain products below 2p with no final
+        # subtraction (csrc/limb.cuh mont_mul_lazy)
+        self.lazy = 4 * p < R
 
     # -- host encode / decode ----------------------------------------------
 

@@ -15,10 +15,10 @@ The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
 package. Pseudorandom secret sharing (PRSS) draws from one key per
 (m - t)-subset of the parties, named by the program counter: random
-values (``_np_randoms``), random bits (``np_random_bits``: a PRSS value r,
-r^2 opened at threshold 2t, r / sqrt(r^2), kernel K6 for the inverse
-square root on the card) and the truncation of fixed-point products
-(``_trunc_field``). ``load_state`` takes the JAX runtime's key, counter
+values (``_np_randoms``), random bits (``np_random_bits``: a PRSS value r
+and zero-sharing z, r^2 + z opened at threshold 2t and r / sqrt(r^2 +
+z), the round's tail one launch of kernel K7 on the card) and the
+truncation of fixed-point products (``_trunc_field``). ``load_state`` takes the JAX runtime's key, counter
 and input generator, and its PRSS keys and program counter, after which
 both runtimes give the same shares bit for bit.
 
@@ -454,41 +454,33 @@ class SimRuntime(Runtime):
     def np_random_bits(self, sftype, n: int, signed=False):
         """n secret random bits (-1/1 with ``signed``), in a fixed-point
         type times 2^f (``mpyc_tpu/parallel/simulator.py:732``). A round
-        draws PRSS values r and a PRSS zero-sharing z (two draws), opens
-        r^2 + z at threshold 2t and keeps the r whose r^2 is not 0 (a
-        tensor test); until n are kept. The bit of r is (r / sqrt(r^2) +
-        1) / 2, the inverse square root one power (K6 on the card)."""
+        draws PRSS values r and a PRSS zero-sharing z (two draws); its
+        tail (``pipelines.random_bits_tail``, one launch of K7 on the card)
+        opens u = r^2 + z at threshold 2t, flags u = 0 and counts the
+        flags, and gives the bit of every r, (r / sqrt(u) + 1) / 2. A first
+        round with no flag is the result (one read back, the count);
+        otherwise the unflagged bits of each round are kept, in order,
+        until n are kept."""
         secure = issubclass(sftype, sectypes.SecureObject)
         field = sftype.field if secure else sftype
         f = sftype.frac_length if secure else 0
-        ctx = field.array.ctx
         prfs = self.prfs(field.modulus)
-        parts_r, parts_r2 = [], []
+        parts = []
         need = n
         while need:
             r = self._stacked_prss(field, prfs, self._prss_uci(), need)
             z = self._stacked_prss(field, prfs, self._prss_uci(), need,
                                    zero=True)
-            r2 = self.output(r * r + z, threshold=2 * self.threshold)
-            good = ~ctx.is_zero(r2.data)
-            if not parts_r and bool(good.all()):
-                parts_r, parts_r2 = [r], [r2]
+            bits, flags, zeros = pipelines.random_bits_tail(
+                r.data, z.data, field, signed, f, self.threshold)
+            if not parts and int(zeros) == 0:
+                parts = [bits]
                 break
-            idx = torch.nonzero(good).flatten()
-            parts_r.append(r[:, idx])
-            parts_r2.append(r2[idx])
+            idx = torch.nonzero(flags == 0).flatten()
+            parts.append(bits[:, idx])
             need -= int(idx.numel())
-        if len(parts_r) > 1:
-            r = field.array.from_data(torch.cat([x.data for x in parts_r],
-                                                dim=1))
-            r2 = field.array.from_data(torch.cat([x.data for x in parts_r2]))
-        else:
-            r, r2 = parts_r[0], parts_r2[0]
-        bits = r * r2._sqrt_unchecked(INV=True)
-        if not signed:
-            bits = (bits + 1) >> 1
-        if f:
-            bits = bits << f
+        bits = field.array.from_data(parts[0] if len(parts) == 1
+                                     else torch.cat(parts, dim=1))
         return self._wrap(sftype.array, bits) if secure else bits
 
     def _trunc_field(self, arr, f: int, l: int):

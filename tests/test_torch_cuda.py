@@ -342,32 +342,95 @@ def test_sgn_kernel_with_the_fixed_point_scale(cuda_device):
     assert ctr.tolist() == want_ctr.tolist() == [10, 1]
 
 
+@pytest.mark.parametrize('e', ['2^k-1', '(3p-5)/4'])
+@pytest.mark.parametrize('n', [100003, 129])
+@pytest.mark.parametrize('p', [P52, P, P69, P96])
+def test_mont_pow_kernel_by_field(cuda_device, p, n, e):
+    """K6 on lazy (4p < R) and canonical fields (SecInt(32)'s and
+    SecInt(64)'s) of two and three limbs, n no multiple of its block of
+    256 (129: the second element of a thread holds one element)."""
+    ctx = prime_field_ctx(p)
+    x = _shares(n, 20, cuda_device, p)[0].contiguous()
+    x[0] = 0
+    e = {'2^k-1': (1 << 32 * ctx.L) - 1, '(3p-5)/4': (3 * p - 5) // 4}[e]
+    n0 = fieldops.mont_pow.by_key[(ctx.L, ctx.lazy)]
+    got = fieldops.mont_pow(x, e, ctx)
+    assert fieldops.mont_pow.by_key[(ctx.L, ctx.lazy)] == n0 + 1
+    assert torch.equal(got, fieldops._mont_pow_plain(x, e, ctx))
+
+
+def _tail_shares(p, n, seed, device, every=1000):
+    """(3, n, L) random shares r and z, every ``every``-th element's r set
+    to 0 and z to a sharing of 0 of degree 2 (x + x^2 at 1, 2, 3), so that
+    r^2 + z opens to 0."""
+    ctx = prime_field_ctx(p)
+    r = _shares(n, seed, device, p)
+    z = _shares(n, seed + 1, device, p)
+    r[:, ::every] = 0
+    z[:, ::every] = ctx.encode(np.array([[2], [6], [12]]), device)
+    return r, z
+
+
+@pytest.mark.parametrize('signed,f', [(False, 0), (True, 0), (False, 6)])
+@pytest.mark.parametrize('p', [P52, P69])
+def test_random_bits_tail_kernel_matches_plain(cuda_device, p, signed, f):
+    """K7 equals its plain version on random shares with one r in 1,000
+    planted to 0: bits, flags and count."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = _tail_shares(p, 100003, 21, cuda_device)
+    n0 = pipelines.random_bits_tail.launches
+    got = pipelines.random_bits_tail(r, z, field, signed, f)
+    assert pipelines.random_bits_tail.launches == n0 + 1
+    want = pipelines._random_bits_tail_plain(r, z, field, signed, f)
+    assert got[2].item() == want[2].item() == 101
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+def test_np_random_bits_launches_k7(cuda_device):
+    """Every np_random_bits launches K7 (once a round), and K6 not at
+    all."""
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    rt = SimRuntime(3, device=cuda_device)
+    rt.start()
+    field = rt.SecFxp(14, 6).field
+    for n in (1, 1000, 70000):
+        n7, n6 = pipelines.random_bits_tail.launches, fieldops.mont_pow.launches
+        bits = rt.output(rt.np_random_bits(field, n)).value
+        assert pipelines.random_bits_tail.launches == n7 + 1
+        assert fieldops.mont_pow.launches == n6
+        assert bits.shape == (n,) and np.isin(bits, (0, 1)).all()
+    rt.shutdown()
+
+
 def test_fxp_rounds_on_the_card(cuda_device):
     """np_random_bits and np_trunc at SecFxp(14, 6) on the card (checked by
-    run_fxp_rounds): one K6 launch each for the inverse square roots."""
+    run_fxp_rounds): one K7 launch each for the random bits' tail."""
     import chip_smoke
-    n6 = fieldops.mont_pow.launches
+    n7 = pipelines.random_bits_tail.launches
     res = chip_smoke.run_fxp_rounds(cuda_device, n=20000)
     assert 0.45 < res['ones'] < 0.55 and res['bits_ms'] > 0
-    assert fieldops.mont_pow.launches == n6 + 2
+    assert pipelines.random_bits_tail.launches == n7 + 2
 
 
 def test_cnn_fxp_on_the_card(cuda_device):
     """The fixed-point MNIST flow at full width on 3 images: every stage of
     both passes (the timed and the marked) passes the stage-local check
     (run_cnn_fxp checks). A pass: 11 comparisons (K5 with f), 4 truncations
-    (K6), and 19 reshares without a product (K3): the four layers' and
-    maxpool's, ReLU's and the argmax's products by an integral bit."""
+    (K7 for their random bits, K6 not at all), and 19 reshares without a
+    product (K3): the four layers' and maxpool's, ReLU's and the argmax's
+    products by an integral bit."""
     import chip_smoke
     n3 = pipelines.reshare_mul.by_key[(2, False)]
     n3f = pipelines.reshare_mul.by_key[(2, True)]
     n5 = pipelines.sgn_step.by_key[('LT', 14, 2, 6)]
-    n6 = fieldops.mont_pow.by_key[2]
+    n7 = pipelines.random_bits_tail.by_key[(2, True)]
     res = chip_smoke.run_cnn_fxp(cuda_device, batch=3, passes=1)
     run, = res['runs']
-    assert run['k5'] == 11 and run['k6'] == 4
+    assert run['k5'] == 11 and run['k6'] == 0 and run['k7'] == 4
     assert pipelines.sgn_step.by_key[('LT', 14, 2, 6)] == n5 + 2 * 11
-    assert fieldops.mont_pow.by_key[2] == n6 + 2 * 4
+    assert pipelines.random_bits_tail.by_key[(2, True)] == n7 + 2 * 4
     assert pipelines.reshare_mul.by_key[(2, False)] == n3 + 2 * 19
     assert pipelines.reshare_mul.by_key[(2, True)] == n3f
     assert all(r['fits'] for r in res['ranges'].values())

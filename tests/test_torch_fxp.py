@@ -15,7 +15,11 @@ Powers: the port's ``limb.mont_pow_const`` (K6's plain version),
 ``fieldops.pow_const`` and ``sqrt(INV)`` against the JAX package's at two
 and three limbs (SecFxp(14, 6)'s 52-bit field, SecInt(37)'s 69-bit one),
 e = 0, 1, p - 2, (3p - 5) / 4 and (p + 1) / 4 and exponents it reduces,
-on inputs with 0 and 1; ``mod_pow2``.
+on inputs with 0 and 1; ``mod_pow2``. The program of K6's plan
+(``fieldops.pow_plan``, a sliding window) with the plain limb product
+against the ladders, the JAX package's included, at named and at
+exponents drawn from a seeded generator, also on SecInt(32)'s 64-bit
+field.
 
 SecFxp(14, 6) arithmetic through the port's operators on the CPU, opened
 against numpy: +, -, products (truncated: floor(v / 2^6) or one more, v
@@ -29,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu import finfields as jfinfields
 from mpyc_tpu import sectypes as jsectypes
@@ -43,6 +48,7 @@ from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
 P52 = 4503599627370323        # SecFxp(14, 6)'s field: two limbs, 3 mod 4
 P69 = 590295810358705651619   # SecInt(37)'s field: three limbs, 3 mod 4
+P64 = 18446744073709551427    # SecInt(32)'s field: two limbs, 4p > R
 F = 6
 SIZES = (1, 7, 300, 1000)
 
@@ -206,6 +212,88 @@ def test_mont_pow_const_matches_the_jax_limb_ladder(p):
     np.testing.assert_array_equal(limbs_to_numpy(got),
                                   _jax_ladder(p, e, data))
     assert fieldops.pow_products(e) == {P52: 99, P69: 132}[p]
+
+
+def _plan_pow(data, e, ctx):
+    """x^e R mod p by the program of e's plan (``fieldops.pow_plan``, as K6
+    and K7 run it) with the plain limb product."""
+    def mul(a, b):
+        return limb.mont_mul(a, b, ctx.p_limbs, ctx.n0inv)
+    a = limb.unstack(data)
+    if e == 0:
+        return limb.stack([torch.full_like(a[0], x) for x in ctx.one_mont])
+    plan = fieldops.pow_plan(e)
+    table = [a]
+    if plan.n_table > 1:
+        x2 = mul(a, a)
+        for _ in range(plan.n_table - 1):
+            table.append(mul(table[-1], x2))
+    res = table[plan.first]
+    for sq, j in plan.steps:
+        for _ in range(sq):
+            res = mul(res, res)
+        res = mul(res, table[j])
+    for _ in range(plan.tail):
+        res = mul(res, res)
+    return limb.stack(res)
+
+
+PLAN_EXPONENTS = ('0', '1', '2', '2^k', '2^k-1', 'p-2', '(p-1)/2',
+                  '(p+1)/4', '(3p-5)/4')
+
+
+@pytest.mark.parametrize('e', PLAN_EXPONENTS)
+@pytest.mark.parametrize('p', [P52, P64, P69])
+def test_pow_plan_matches_the_ladders(p, e):
+    """The plan's program equals the port's ladder (K6's plain version),
+    the JAX package's jitted lax.scan ladder and Python's pow, in no more
+    products than the ladder; 2^k is the largest power of two below
+    2^(32 L), 2^k - 1 the largest exponent K6 takes."""
+    ctx = prime_field_ctx(p)
+    k = 32 * ctx.L
+    e = {'0': 0, '1': 1, '2': 2, '2^k': 1 << k - 1, '2^k-1': (1 << k) - 1,
+         'p-2': p - 2, '(p-1)/2': (p - 1) // 2, '(p+1)/4': (p + 1) // 4,
+         '(3p-5)/4': (3 * p - 5) // 4}[e]
+    data = ctx.encode(_inputs(p), 'cpu')
+    got = _plan_pow(data, e, ctx)
+    assert torch.equal(got, fieldops._mont_pow_plain(data, e, ctx))
+    np.testing.assert_array_equal(limbs_to_numpy(got),
+                                  _jax_ladder(p, e, data))
+    np.testing.assert_array_equal(
+        ctx.decode(got).astype(object),
+        np.array([pow(int(v), e, p) for v in _inputs(p)], dtype=object))
+    assert fieldops.plan_products(e) <= fieldops.pow_products(e)
+
+
+def test_pow_plan_of_the_inverse_square_root():
+    """At SecFxp(14, 6)'s e = (3p - 5) / 4 (52 bits, 49 set) the plan is 4-bit
+    windows over a table of x^1..x^15: 8 products to build it, 48
+    squarings and 12 products, 68 in all (the ladder's 99)."""
+    e = (3 * P52 - 5) // 4
+    plan = fieldops.pow_plan(e)
+    assert plan.n_table == 8 and len(plan.steps) == 12 and plan.tail == 0
+    assert sum(sq for sq, _ in plan.steps) == 48
+    assert fieldops.plan_products(e) == 68
+    assert fieldops.pow_plan(0) == fieldops.PowPlan(1, 0, (), 0)
+
+
+@pytest.mark.parametrize('p', [P52, P64, P69])
+def test_pow_plan_matches_the_ladder_on_drawn_exponents(p):
+    """25 exponents drawn below 2^(32 L), of every bit length: the
+    plan's program equals the port's ladder and Python's pow."""
+    ctx = prime_field_ctx(p)
+    g = np.random.default_rng(p % 1000)
+    for _ in range(25):
+        e = int.from_bytes(g.bytes(4 * ctx.L), 'little')
+        e >>= int(g.integers(0, 32 * ctx.L))
+        x = _inputs(p, 8, seed=e % 1000)
+        got = _plan_pow(ctx.encode(x, 'cpu'), e, ctx)
+        assert torch.equal(got, fieldops._mont_pow_plain(
+            ctx.encode(x, 'cpu'), e, ctx))
+        np.testing.assert_array_equal(
+            ctx.decode(got).astype(object),
+            np.array([pow(int(v), e, p) for v in x], dtype=object))
+        assert fieldops.plan_products(e) <= fieldops.pow_products(e)
 
 
 @pytest.mark.parametrize('INV', [False, True])

@@ -63,6 +63,9 @@ inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline unsigned __ldg(const unsigned* p) { return *p; }
 inline uint2 __ldg(const uint2* p) { return *p; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 extern "C" { unsigned long long mtt_op_counts[2], mtt_perm_count; }
 #define MTT_COUNT_OP(kind) \\
   __atomic_fetch_add(&mtt_op_counts[kind], 1ull, __ATOMIC_RELAXED)
@@ -123,7 +126,7 @@ def host_lib(tmp_path_factory):
         (d / name).write_text(_host_source((_build.CSRC / name).read_text()))
     (d / 'cuda_runtime.h').write_text(_SHIM)
     src = (_build.CSRC / 'kernels.cu').read_text()
-    assert len(_LAUNCH.findall(src)) == 6, \
+    assert len(_LAUNCH.findall(src)) == 7, \
         'every launch must become a host loop'
     (d / 'kernels_host.cpp').write_text(_host_source(src))
     so = d / 'libkernels_host.so'
@@ -522,9 +525,10 @@ def test_mont_pow_source_matches_plain(host_lib, p, e):
 
 @pytest.mark.parametrize('p', [P52, P69])
 def test_mont_pow_products_match_the_source(host_lib, p):
-    """fieldops.pow_products, from which chip_smoke.py bounds K6, counts
-    the Montgomery products the source runs: 99 an element at the Blum
-    inverse-sqrt exponent of SecFxp(14, 6)'s field."""
+    """fieldops.plan_products, K6's product count, counts the Montgomery
+    products the source runs: 68 an element at the Blum inverse-sqrt
+    exponent of SecFxp(14, 6)'s field (the ladder's 99), 90 at SecInt(37)'s
+    (132)."""
     ctx, x = _pow_inputs(p, 256, 32)
     e = (3 * p - 5) // 4
     counts = _op_counts(host_lib)
@@ -533,8 +537,145 @@ def test_mont_pow_products_match_the_source(host_lib, p):
     assert host_lib.mtt_mont_pow(
         x.data_ptr(), out.data_ptr(), x.shape[0],
         ctypes.addressof(_build.pow_params(ctx, e)), None) == 0
-    assert tuple(counts) == (x.shape[0] * fieldops.pow_products(e), 0)
-    assert p != P52 or fieldops.pow_products(e) == 99
+    assert tuple(counts) == (x.shape[0] * fieldops.plan_products(e), 0)
+    assert fieldops.plan_products(e) == {P52: 68, P69: 90}[p]
+    assert fieldops.pow_products(e) == {P52: 99, P69: 132}[p]
+
+
+# fields of each instantiation of K6 and K7: (limbs, lazy) = (2, True),
+# (2, False) (SecInt(32)'s 64-bit field, 4p > R), (3, True), (3, False)
+POW_FIELDS = [P52, P, P69, P96]
+
+
+def _pow_exponent(name, p):
+    k = 32 * prime_field_ctx(p).L
+    return {'2^k': 1 << k - 1, '2^k-1': (1 << k) - 1, '9': 9, 'p-2': p - 2,
+            '(3p-5)/4': (3 * p - 5) // 4}[name]
+
+
+@pytest.mark.parametrize('e', ['2^k', '2^k-1', '9', 'p-2', '(3p-5)/4'])
+@pytest.mark.parametrize('n', [300, 129])
+@pytest.mark.parametrize('p', POW_FIELDS)
+def test_mont_pow_source_matches_plain_by_field_and_threads(host_lib, p,
+                                                            n, e):
+    """K6 (two elements a thread, 128 threads a block: 256 elements a
+    block) on ragged last blocks (300: the first slot part-filled and the
+    second empty; 129: the second slot holds one element), on lazy and
+    canonical fields of two and three limbs: the plan's table in shared
+    memory, its steps, a plan of no steps and 2^k - 1 squarings (2^k), of
+    the most windows (2^k - 1), of the ladder (9: windows of one bit)."""
+    ctx, x = _pow_inputs(p, n, 34)
+    assert ctx.lazy == (p in (P52, P69))
+    e = _pow_exponent(e, p)
+    out = torch.empty_like(x)
+    params = _build.pow_params(ctx, e)
+    assert host_lib.mtt_mont_pow(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                 ctypes.addressof(params), None) == 0
+    assert torch.equal(out, fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('e', ['(3p-5)/4', 'p-2'])
+@pytest.mark.parametrize('p', POW_FIELDS)
+def test_mont_pow_products_match_the_plan(host_lib, p, e):
+    """The products of every instantiation are the plan's, at e = (3p -
+    5) / 4 and at p - 2, on whole blocks."""
+    ctx, x = _pow_inputs(p, 256, 35)
+    e = _pow_exponent(e, p)
+    counts = _op_counts(host_lib)
+    out = torch.empty_like(x)
+    counts[0] = counts[1] = 0
+    assert host_lib.mtt_mont_pow(
+        x.data_ptr(), out.data_ptr(), x.shape[0],
+        ctypes.addressof(_build.pow_params(ctx, e)), None) == 0
+    assert tuple(counts) == (x.shape[0] * fieldops.plan_products(e), 0)
+    assert fieldops.plan_products(e) < fieldops.pow_products(e)
+
+
+def _tail_shares(p, n, seed, every=7):
+    """(3, n, L) shares r and z, every ``every``-th element planted so that
+    the opening of r^2 + z at threshold 2 is 0 with no share 0 (r a
+    sharing of 0 of degree 1, z one of degree 2), the rest random."""
+    g = np.random.default_rng(seed)
+    ctx = prime_field_ctx(p)
+    rv = np.empty((3, n), dtype=object)
+    zv = np.empty((3, n), dtype=object)
+    for j in range(n):
+        a, b, c = (int(v) for v in g.integers(1, 1 << 62, 3))
+        for i in range(3):
+            x = i + 1
+            if j % every == 0:
+                rv[i, j], zv[i, j] = a * x % p, (b * x + c * x * x) % p
+            else:
+                rv[i, j], zv[i, j] = (a * (i + 5)) ** 3 % p, b * c * x % p
+    return ctx.encode(rv, 'cpu'), ctx.encode(zv, 'cpu')
+
+
+def _tail_launch(host_lib, r, z, field, signed, f):
+    n = r.shape[1]
+    bits = torch.empty_like(r)
+    flags = torch.empty(n, dtype=torch.uint8)
+    count = torch.zeros(1, dtype=torch.int32)
+    params = pipelines._tail_params(field, 1, 3, signed, f)
+    assert host_lib.mtt_random_bits_tail(
+        r.data_ptr(), z.data_ptr(), bits.data_ptr(), flags.data_ptr(),
+        count.data_ptr(), n, ctypes.addressof(params), None) == 0
+    return bits, flags, count
+
+
+@pytest.mark.parametrize('n', [300, 129])
+@pytest.mark.parametrize('f', [0, 6])
+@pytest.mark.parametrize('signed', [False, True])
+@pytest.mark.parametrize('p', [P52, P69])
+def test_random_bits_tail_source_matches_plain(host_lib, p, signed, f, n):
+    """K7 (two and three limbs) equals _random_bits_tail_plain on n
+    elements (ragged last blocks, as K6's test), one in 7 planted to open
+    to 0: bits, flags and count."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = _tail_shares(p, n, 36)
+    bits, flags, count = _tail_launch(host_lib, r, z, field, signed, f)
+    want = pipelines._random_bits_tail_plain(r, z, field, signed, f)
+    assert torch.equal(flags, want[1])
+    assert count.item() == want[2].item() == -(-n // 7)
+    assert torch.equal(bits, want[0])
+
+
+@pytest.mark.parametrize('signed,f', [(False, 0), (True, 0), (True, 6)])
+def test_random_bits_tail_field_ops_match_the_source(host_lib, signed, f):
+    """pipelines.random_bits_tail_ops, from which chip_smoke.py counts K7's
+    work, counts the source's products and modular adds (whole blocks)."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P52)
+    r, z = _tail_shares(P52, 256, 37)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    _tail_launch(host_lib, r, z, field, signed, f)
+    mont, adds = pipelines.random_bits_tail_ops(P52, signed, f)
+    assert tuple(counts) == (256 * mont, 256 * adds)
+    assert mont == 3 + 3 + 68 + int(not signed or f > 0) + 3
+
+
+def test_random_bits_tail_refuses_what_was_not_built(host_lib):
+    """The Python side names what K7 is built for; the launcher refuses
+    the rest."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P52)
+    with pytest.raises(NotImplementedError, match='built for'):
+        pipelines._tail_params(field, 1, 4, False, 0)
+    with pytest.raises(NotImplementedError, match='3 mod 4'):
+        pipelines._tail_params(finfields.GF(4503599627370449), 1, 3, False,
+                               0)
+    r, z = _tail_shares(P52, 10, 38)
+    params = pipelines._tail_params(field, 1, 3, False, 0)
+    params.m = 4
+    assert host_lib.mtt_random_bits_tail(
+        r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
+        r.data_ptr(), 10, ctypes.addressof(params), None) == -1
+    params = pipelines._tail_params(field, 1, 3, False, 0)
+    params.pow.nl = 4
+    assert host_lib.mtt_random_bits_tail(
+        r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
+        r.data_ptr(), 10, ctypes.addressof(params), None) == -1
 
 
 def test_mont_pow_refuses_what_was_not_built(host_lib):
