@@ -13,15 +13,21 @@ the port's runner ``mpyc_tpu_torch/demos/np_bnnmnist.py``: the MNIST flow
 at full width and its selftest; a secure product at ``SecInt(64)`` (a
 three-limb field); and the CNN (``demos/cnnmnist.py``) at ``SecInt(37)``
 (a three-limb field), through ``mpyc_tpu_torch/demos/np_cnnmnist.py``:
-the MNIST flow at full width and its selftest; and the CNN's fixed-point
+the MNIST flow at full width and its selftest; the CNN's fixed-point
 path at ``SecFxp(14, 6)`` (a 52-bit field of two limbs), through the same
-runner. Phases, each printing one line with its elapsed seconds:
+runner; and the secure LP solver (``demos/np_lpsolver.py``) through
+``mpyc_tpu_torch/demos/np_lpsolver.py`` on its datasets, from SecInt(6)
+and SecInt(8) (two limbs) to SecInt(70) (four) and SecInt(104) and
+SecInt(110) (five). Phases, each printing one line with its elapsed
+seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
-2. build: compile the kernels with nvcc (csrc/, sm_90a); print nvcc's
+2. build: compile the kernels with nvcc (csrc/, sm_90a; one nvcc a
+   translation unit, all at once, then a link); print nvcc's
    warnings, each kernel's registers, stack frame, spills and shared
-   memory as ptxas reports them, K5's thread block size B, each K6 and K7
+   memory as ptxas reports them, K5's thread block size B at SecInt(32)
+   and at SecInt(110), each K6 and K7
    instantiation's SASS instructions by class (``cuobjdump -sass``: the
    whole kernel, and its squaring loop per product beside the bound
    model's lazy square), and the build time;
@@ -44,7 +50,15 @@ runner. Phases, each printing one line with its elapsed seconds:
    for K5 also the permutations per warp of
    32 elements that its stage serialises, from a model of the stage
    (``sgn_squeezes``, held against the kernel source's own count by
-   tests/test_torch_kernels_host.py);
+   tests/test_torch_kernels_host.py); then the LP solver's
+   instantiations (``check_lp_kernels``): K3 at four and five limbs at
+   the rank-1 updates of LPExample_R20 and LPExample (441 and 58,667
+   elements), K5 in LT and EQ mode at l = 8 and 6 (two limbs), 70
+   (four), 104 and 110 (five) at each path's widest comparison, and at
+   l = 20 and 45 (two and three limbs, checked only), K6 at four and five
+   limbs at e = p - 2 and (p - 1) / 2, K7 at four and five limbs with
+   planted zero openings, each bit for bit against its plain version and
+   timed beside it and its bound;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -118,15 +132,21 @@ runner. Phases, each printing one line with its elapsed seconds:
    largest) and images/s, K5's, K6's and K7's launches a pass; a marked
    pass: each layer's device ms and peak memory; one try of
    torch.profiler over a warm pass;
-14. report: one JSON line of the kernels (every instantiation that a path
-   launches, and K6, whose power runs inside K7 on the fixed-point path
-   and which no path launches on its own), the card's name and power
-   limit, and last
+14. lp: the LP solver on datasets 0-5 and 7 (uvlp, wiki, tb2x2, woody,
+   LPExample_R20, sc50b, LPExample; SimRuntime(3)): each with the demo's
+   pivot count, its opened max, common denominator and solution equal to
+   the plain exact solver's (``plain_solve``, Python ints), and its
+   certificate true; seconds a solve and a pivot, launches a solve by
+   instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
+   naming its limb count; one try of torch.profiler over pivots 11 and 12
+   of LPExample (device time by kernel, idle share, the host's operators);
+15. report: one JSON line of the kernels (every instantiation that a path
+   launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11 and 13 zeroes the launch counters just before it and
-reads them just after; each must show that the instantiations of its path
-ran (``PATH_ENTRIES``).
+Each of phases 4-11, 13 and 14 zeroes the launch counters just before it
+and reads them just after; each must show that the instantiations of its
+path ran (``PATH_ENTRIES``).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -134,6 +154,7 @@ line. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import faulthandler
 import json
 import math
@@ -194,6 +215,19 @@ FXP_BITS = FXP_F * FXP_CONV1   # their random bits (K6's elements)
 FXP_POOL1 = N_FXP * 32 * 14 * 28   # maxpool1's first comparison
 N_POW_WIDE = 1 << 22           # K6 at three limbs
 M, T = 3, 1
+# the LP solver (demos/np_lpsolver.py): the datasets the lp phase solves
+# (kb2, dataset 6, needs 19 limbs and raises on the card), and each
+# field's widest comparison on its path (the elements of the widest
+# np_less: a cost row or a certificate's row) and the secure numbers of
+# a [NO07] zero test (one: c.x == y.b) with its k = 30 random bits
+LP_DATASETS = (0, 1, 2, 3, 4, 5, 7)
+LP_KB2 = 6
+LP_PROFILE = 7                 # the dataset traced by torch.profiler,
+LP_WINDOW = (11, 13)           # over its pivots 11 and 12 (of 175)
+LP_FIELDS = {                  # l -> (m + n, the widest comparison)
+    8: (5, 3), 6: (5, 3), 70: (40, 20), 104: (118, 70), 110: (490, 288)}
+LP_UPDATE = {70: 21 * 21, 104: 71 * 49, 110: 203 * 289}  # rank-1 update
+LP_NO07_BITS = 30
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -276,10 +310,10 @@ KERNELS = {
 # Every instantiation that a path launches, as the kernels line lists it:
 # entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
 # a kernel of one instantiation). Keys: K2 (limbs, words a draw), K3
-# (limbs, fused), K5 (mode, l, limbs, f: the fixed-point scale, a
-# parameter of the launch), K6 and K7 (limbs, lazy: 4p < R). K6 is
-# listed though no path launches it since K7 took its place on the
-# fixed-point path: its power runs inside K7.
+# (limbs, fused), K5 (mode, l, limbs, f: the width and the fixed-point
+# scale are parameters of the launch), K6 and K7 (limbs, lazy: 4p < R).
+# The LP solver launches K6 at two, four and five limbs (its reciprocals'
+# public inverses, its zero tests' Legendre symbols).
 ENTRIES = {
     'keccak_ctr': ('keccak_ctr', None),
     'squeeze_mont<L=2, W=6>': ('squeeze_mont', (2, 6)),
@@ -296,8 +330,19 @@ ENTRIES = {
     **{f'sgn_step<LT, l={l}, L=3>': ('sgn_step', ('LT', l, 3, 0))
        for l in CNN_WIDTHS},
     'sgn_step<LT, l=14, L=2, f=6>': ('sgn_step', ('LT', FXP_L, 2, FXP_F)),
+    # the LP solver: two limbs at l = 6 and 8, four at l = 70, five at
+    # l = 104 and 110 (no EQ mode there: [NO07], K7 and K6)
+    **{f'sgn_step<{mode}, l={l}, L=2>': ('sgn_step', (mode, l, 2, 0))
+       for l in (8, 6) for mode in ('LT', 'EQ')},
+    **{f'sgn_step<LT, l={l}, L={L}>': ('sgn_step', ('LT', l, L, 0))
+       for l, L in ((70, 4), (104, 5), (110, 5))},
+    **{f'reshare_mul<L={L}{s}>': ('reshare_mul', (L, fused))
+       for L in (4, 5) for fused, s in ((True, ', fused'), (False, ''))},
     'mont_pow<L=2, lazy>': ('mont_pow', (2, True)),
+    **{f'mont_pow<L={L}, lazy>': ('mont_pow', (L, True)) for L in (4, 5)},
     'random_bits_tail<L=2, lazy>': ('random_bits_tail', (2, True)),
+    **{f'random_bits_tail<L={L}, lazy>': ('random_bits_tail', (L, True))
+       for L in (4, 5)},
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -324,6 +369,20 @@ PATH_ENTRIES = {
     'cnn fxp': ('keccak_ctr', 'reshare_mul<L=2>',
                 'sgn_step<LT, l=14, L=2, f=6>',
                 'random_bits_tail<L=2, lazy>'),
+    # every secure product and matmul's reshare (K3), the comparisons
+    # (K5; EQ at l = 6 and 8 for the certificate's c.x == y.b), the
+    # reciprocals' public inverses and the zero tests' Legendre symbols
+    # (K6), the zero tests' random bits (K7); the PRSS draws are of 256
+    # blocks or fewer, which the host squeezes (no K1)
+    'lp': ('reshare_mul<L=2, fused>', 'reshare_mul<L=2>',
+           *(f'reshare_mul<L={L}{s}>' for L in (4, 5)
+             for s in (', fused', '')),
+           *(f'sgn_step<{mode}, l={l}, L=2>' for l in (8, 6)
+             for mode in ('LT', 'EQ')),
+           'sgn_step<LT, l=70, L=4>', 'sgn_step<LT, l=104, L=5>',
+           'sgn_step<LT, l=110, L=5>',
+           *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
+           *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5))),
 }
 
 
@@ -550,6 +609,11 @@ def profile_calls(fn, calls: int, top: int | None = None) -> list:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return trace_lines(prof, top)
+
+
+def trace_lines(prof, top: int | None = None) -> list:
+    """profile_calls' lines of a finished torch.profiler run."""
     events = list(prof.events())
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -711,8 +775,6 @@ def check_slice_kernels(p: int) -> dict:
     3,010,560 elements and K5 in each of its three modes at 2^20, each
     timed, K5 (LT, np_less's mode) and K4 also with their plain versions.
     Returns per-kernel measurements."""
-    from mpyc_tpu_torch import _build
-    sgn_threads = _build.library().lib.mtt_sgn_threads()
     gen = np.random.default_rng(8)
     res = {}
     st_np = keccak._absorb_host(bytes(gen.integers(0, 256, 32,
@@ -768,6 +830,8 @@ def check_slice_kernels(p: int) -> dict:
         b, o = bound(N_CMP * M * 2 * 4 * 2, ops5)
         iters = 10 if mode == 'LT' else 5
         ms = cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec5), iters)
+        sgn_threads = _build_lib().mtt_sgn_threads(ctypes.addressof(
+            spec5.params(nonce)))
         squeezed, per_warp = sgn_squeezes(spec5, N_CMP, sgn_threads)
         say(f'  K5 sgn_step {mode} stage model at {N_CMP} elements, B = '
             f'{sgn_threads}: {squeezed} blocks squeezed against '
@@ -1852,6 +1916,199 @@ def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
                 layers=layers, trace=trace)
 
 
+def lp_field(l: int) -> int:
+    """The LP solver's prime for SecInt(l) with a root of unity of order
+    at least m + n (``SimRuntime.SecInt(l, n=m + n)``)."""
+    return sectypes.SecInt(l, 'cuda', n=LP_FIELDS[l][0]).field.modulus
+
+
+def check_lp_kernels() -> dict:
+    """Phase "kernels", the LP solver's part: each instantiation its path
+    launches that no earlier path did, bit for bit against its plain
+    version (tolerance: exact) and timed at the path's shapes beside its
+    plain version and bound. K3 (fused and not) at the rank-1 update of
+    LPExample_R20 (four limbs, 441 elements) and of LPExample (five, 58,667:
+    no multiple of its block); K5 in LT and EQ mode at each dataset's width
+    on its field (l = 8 and 6 at two limbs, 70 at four, 104 and 110 at
+    five) at the widest comparison of its path, and at widths that no
+    instantiation took before the width became a launch parameter (l =
+    20 at two limbs, 45 at three), checked only; K6 at four and five
+    limbs at e = p - 2 (the reciprocal's public inverse, one element;
+    checked at 1,000 too) and (p - 1) / 2 (the Legendre symbols of a
+    [NO07] test, 30 elements); K7 at four and five limbs on a zero test's
+    30 bits and on 1,000 shares, one element in 7 planted to open to 0
+    (bits, flags and count). Returns per-instantiation measurements."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(14)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFE, 3)
+    # K3 at the rank-1 updates
+    for l in (70, 110):
+        p = lp_field(l)
+        spec = pipelines.ReshareSpec(p, T, M)
+        L, n = spec.ctx.L, LP_UPDATE[l]
+        a, b = random_field(p, (M, n), gen), random_field(p, (M, n), gen)
+        for bb, s in ((b, ', fused'), (None, '')):
+            out = pipelines.reshare_mul(a, bb, st, nonce, spec)
+            want = pipelines._reshare_mul_plain(a, bb, st, nonce, spec)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want)
+            check(err == 0, f'K3 (L = {L}, {n} elements{s}) differs from '
+                  'its plain version')
+            res[f'reshare_mul<L={L}{s}>'] = reshare_meas(spec, a, bb, st,
+                                                         nonce, err)
+        say(f'  K3 reshare_mul at L = {L}: ({M}, {n}, {L}), fused and '
+            'unfused, equal to plain')
+    # K5 at each width of the path, and at widths new to the kernel
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    cases = [(lp_field(l), l, LP_FIELDS[l][1], mode, True)
+             for l in (8, 6) for mode in ('LT', 'EQ')]
+    cases += [(lp_field(l), l, LP_FIELDS[l][1], mode, mode == 'LT')
+              for l in (70, 104, 110) for mode in ('LT', 'EQ')]
+    cases += [(sectypes.SecInt(32, 'cuda').field.modulus, 20, 300, mode,
+               False) for mode in ('LT', 'EQ')]
+    cases += [(sectypes.SecInt(64, 'cuda').field.modulus, 45, 300, mode,
+               False) for mode in ('LT', 'EQ')]
+    for p, l, n, mode, entry in cases:
+        spec = pipelines.SgnSpec(p, T, M, l, 30, LT=mode == 'LT',
+                                 EQ=mode == 'EQ')
+        L = spec.ctx.L
+        ch = SimRuntime._SGN_CHUNK if L <= 2 else chunk
+        a = random_field(p, (M, n), gen)
+        err = sgn_chunks_check(spec, a, st, nonce, ch)
+        threads = _build_lib().mtt_sgn_threads(ctypes.addressof(
+            spec.params(nonce)))
+        say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, {n}, {L}) on '
+            f'a bucket of {pipelines.bucket(n, ch)}, equal to plain; CTAs '
+            f'of {threads} elements')
+        if entry:
+            res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
+                spec, a, st, nonce, ch, err)
+    # K6: the reciprocal's inverse and the Legendre symbols
+    for l in (70, 110):
+        p = lp_field(l)
+        ctx = prime_field_ctx(p)
+        x = random_field(p, (1000,), gen)
+        x[0] = 0
+        for e in (p - 2, (p - 1) // 2):
+            out = fieldops.mont_pow(x, e, ctx)
+            want = fieldops._mont_pow_plain(x, e, ctx)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want)
+            check(err == 0, f'K6 (L = {ctx.L}, e of {e.bit_length()} bits) '
+                  'differs from its plain version')
+        r = res[f'mont_pow<L={ctx.L}, lazy>'] = pow_meas(
+            ctx, x[:LP_NO07_BITS].contiguous(), (p - 1) // 2, err)
+        r['inverse_ms'] = cuda_ms(lambda: fieldops.mont_pow(
+            x[:1].contiguous(), p - 2, ctx), 10)
+        say(f'  K6 mont_pow at L = {ctx.L}: 1,000 elements, e = p - 2 and '
+            f'(p - 1) / 2, equal to the ladder; {r["ms"]:.4f} ms at '
+            f'{LP_NO07_BITS} Legendre symbols, {r["inverse_ms"]:.4f} ms at '
+            'one inverse (launch-bound)')
+        # K7: a zero test's random bits
+        field = finfields.GF(p)
+        for n in (LP_NO07_BITS, 1000):
+            rr, zz = tail_shares(p, n, gen, every=7)
+            got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
+            want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0,
+                                                     T)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got[0], want[0]),
+                      int((got[1] != want[1]).sum()),
+                      abs(int(got[2].item()) - int(want[2].item())))
+            check(err == 0 and int(got[2].item()) == -(-n // 7),
+                  f'K7 (L = {ctx.L}, {n} elements) differs from its plain '
+                  'version')
+        res[f'random_bits_tail<L={ctx.L}, lazy>'] = tail_meas(
+            field, *tail_shares(p, LP_NO07_BITS, gen, every=7), err)
+        say(f'  K7 random_bits_tail at L = {ctx.L}: {LP_NO07_BITS} and '
+            '1,000 shares, one in 7 planted to 0, equal to plain')
+    return res
+
+
+def _build_lib():
+    from mpyc_tpu_torch import _build
+    return _build.library().lib
+
+
+def run_lp(device, datasets=LP_DATASETS, profile=None,
+           window=LP_WINDOW) -> dict:
+    """Phase "lp": the secure LP solver (``mpyc_tpu_torch.demos.
+    np_lpsolver``, SimRuntime(3)) on each dataset: the pivots must be the
+    demo's count (``DATASETS``), the opened max, common denominator and
+    solution those of the plain exact solver (``plain_solve``, Python
+    ints), and the certificate true. Per dataset: seconds a solve (host
+    clock, after a synchronize) and a pivot, launches by instantiation.
+    ``profile``: a dataset solved once more, under torch.profiler over
+    its pivots window[0] .. window[1] - 1 only (the solve stops there):
+    device busy ms and idle share. kb2 (19 limbs) must raise
+    NotImplementedError naming its limb count on the card."""
+    from mpyc_tpu_torch.demos import np_lpsolver as lp
+    res = {}
+    for i in datasets:
+        name, _, scale, n_iter = lp.DATASETS[i]
+        before = counts()
+        rt = SimRuntime(M, device=device)
+        sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
+            (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        got = lp.solve(rt, i, out=lambda s: None)
+        sync()
+        s = time.perf_counter() - t0
+        after = counts()
+        want = lp.plain_solve(lp.tableau_ints(name, scale))
+        check(got['iterations'] == n_iter, f'lp {name}: {got["iterations"]} '
+              f'pivots, not {n_iter}')
+        check((got['iterations'], got['mx'], got['cd'], got['x']) == want,
+              f'lp {name}: the opened results differ from the plain exact '
+              'solver\'s')
+        check(got['ok'], f'lp {name}: the certificate is false')
+        res[name] = dict(
+            s=s, pivots=n_iter, s_pivot=s / max(n_iter, 1),
+            mx=got['mx'], cd=got['cd'], value=got['mx'] / got['cd'] / scale,
+            launches={k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+    rt = SimRuntime(M, device=device)
+    if rt.device.type == 'cuda':       # the plain versions take any field
+        try:
+            lp.solve(rt, LP_KB2, out=lambda s: None)
+            raise AssertionError('lp kb2: no NotImplementedError on the '
+                                 'card')
+        except NotImplementedError as e:
+            check('L=19' in str(e), 'lp kb2: the error names no limb '
+                  f'count: {e}')
+            res['kb2'] = str(e)
+    if profile is not None:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+        prof = profiler(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+
+        class Window(Exception):
+            pass
+
+        def on_pivot(k):
+            if k in window:
+                torch.cuda.synchronize()
+            if k == window[0]:
+                prof.start()
+                res['window_t0'] = time.perf_counter()
+            elif k == window[1]:
+                res['window_s'] = time.perf_counter() - res['window_t0']
+                prof.stop()
+                raise Window
+        try:
+            lp.solve(SimRuntime(M, device=device), profile,
+                     out=lambda s: None, on_pivot=on_pivot)
+        except Window:
+            pass
+        res['trace'] = trace_lines(prof, top=12)
+    return res
+
+
 def warm_stats(pass_s: list) -> tuple:
     """(median, least, largest) of the warm passes (all but the first)."""
     warm = sorted(pass_s[1:])
@@ -1875,6 +2132,7 @@ def main() -> int:
             f'device {kind}, {torch.cuda.device_count()} visible')
         say(f'  nvidia-smi: {smi}')
 
+    p = sectypes.SecInt(32, 'cuda').field.modulus
     with Phase('build'):
         from mpyc_tpu_torch import _build
         lib = _build.library()
@@ -1885,8 +2143,13 @@ def main() -> int:
         for fn, r in ptxas_report(lib.log).items():
             say(f'  ptxas {fn}: ' + ', '.join(f'{k} {v}'
                                               for k, v in r.items()))
-        say(f'  K5 thread block: B = {lib.lib.mtt_sgn_threads()} elements')
-        model = {L: int(mont_sqr_lazy_ops(L).sum()) for L in (2, 3)}
+        for what, spec in (('SecInt(32), l = 32', pipelines.SgnSpec(
+                p, T, M, 32, LT=True)), ('SecInt(110), l = 110', pipelines.
+                SgnSpec(lp_field(110), T, M, 110, LT=True))):
+            say(f'  K5 thread block at {what}: B = '
+                f'{lib.lib.mtt_sgn_threads(ctypes.addressof(spec.params((0, 0))))}'
+                ' elements')
+        model = {L: int(mont_sqr_lazy_ops(L).sum()) for L in (2, 3, 4, 5)}
         for fn, r in sass_report(lib.path).items():
             say(f'  SASS {fn}: {r["total"]} instructions, ' + ', '.join(
                 f'{k} {v}' for k, v in r['classes'].items()))
@@ -1897,11 +2160,11 @@ def main() -> int:
         say(f'  library {lib.path.name}: '
             f'{"built" if lib.built else "found"} in {lib.seconds:.3f} s')
 
-    p = sectypes.SecInt(32, 'cuda').field.modulus
     with Phase('kernels'):
         meas = check_kernels(p)
         meas.update(check_slice_kernels(p))
         meas.update(check_three_limb_kernels())
+        meas.update(check_lp_kernels())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -2103,6 +2366,25 @@ def main() -> int:
             say(f'    {line}')
         torch.cuda.empty_cache()
 
+    with Phase('lp'):
+        res_lp = res = drive('lp', lambda: run_lp('cuda',
+                                                  profile=LP_PROFILE))
+        for name, r in res.items():
+            if not isinstance(r, dict):
+                continue
+            say(f'  {name}: {r["pivots"]} pivots, max = {r["mx"]} / '
+                f'{r["cd"]} / scale = {r["value"]!r}, equal to the plain '
+                f'exact solver, certificate true; {r["s"]:.4f} s a solve, '
+                f'{r["s_pivot"]:.4f} s a pivot on {smi}')
+            say(f'    launches a solve: {r["launches"]}')
+        say(f'  kb2 on the card: NotImplementedError: {res["kb2"]}')
+        say(f'  torch.profiler over pivots {LP_WINDOW[0]}-{LP_WINDOW[1] - 1} '
+            f'of dataset {LP_PROFILE} ({res["window_s"]:.4f} s on the host '
+            f'clock, traced) on {smi}:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
     say(f'  launches over the paths: {launches}')
     kernels = []
     for entry, (name, _) in ENTRIES.items():
@@ -2142,6 +2424,8 @@ def main() -> int:
                     'fxp_ranges': res_fxp['ranges'],
                     'fxp_marked_layers': res_fxp['layers'],
                     'fxp_rounds': res_fxp_rounds, 'random_bits_split': split,
+                    'lp': {k: v for k, v in res_lp.items()
+                           if isinstance(v, dict)},
                     'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)

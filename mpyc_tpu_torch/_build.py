@@ -1,12 +1,14 @@
 """Builds the CUDA kernels with nvcc and binds them with ctypes.
 
-All sources under ``csrc/`` compile, in one ``nvcc`` call for ``sm_90a``,
-into one shared library with a plain C interface. It goes to
-``build/mpyc_tpu_torch/<hash of sources, flags and nvcc version>/`` beside
-the package, is written under a temporary name and moved into place with
-``os.replace``: no lock file, nothing to wait on, and a directory left
-half built by an interrupted run is simply built again. Nothing here
-includes PyTorch's headers or needs ninja; the build takes seconds.
+The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
+with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
+and ``sgn.cu`` once for each limb count of K5) in an ``nvcc -c`` of its
+own, all started together, then one ``nvcc -shared`` links them. The
+library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
+version>/`` beside the package, is written under a temporary name and
+moved into place with ``os.replace``: no lock file, nothing to wait on,
+and a directory left half built by an interrupted run is simply built
+again. Nothing here includes PyTorch's headers or needs ninja.
 
 The library exports ``extern "C" int`` launchers that take device
 pointers, sizes, constants and a stream, and return ``cudaGetLastError()``
@@ -28,19 +30,22 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
-# SOURCES[0] is compiled and #includes the others; all are hashed
-SOURCES = ('kernels.cu', 'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh',
-           'pow.cuh')
+# every source file, all hashed into the build's directory
+SOURCES = ('kernels.cu', 'sgn.cu', 'common.cuh', 'keccak.cuh', 'limb.cuh',
+           'stage.cuh', 'sgn.cuh', 'pow.cuh')
+# the translation units: (object name, source, extra nvcc flags); K5's
+# launchers one limb count a unit (MTT_SGN_NL)
+UNITS = (('kernels', 'kernels.cu', ()),) + tuple(
+    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in (2, 3, 4, 5))
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-lineinfo', '-Xptxas', '-v', '-shared',
-              '-Xcompiler', '-fPIC']
+              '-O3', '-lineinfo', '-Xptxas', '-v', '-Xcompiler', '-fPIC']
 LIB_NAME = 'libmpyc_tpu_torch_kernels.so'
 BUILD_TIMEOUT_S = 600
 
 # limits of the kernels' parameter blocks (csrc/kernels.cu)
-MAX_NL = 3       # limbs of a field element (p < 2^96)
+MAX_NL = 5       # limbs of a field element (p < 2^160)
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_M = 16       # parties
@@ -97,20 +102,14 @@ class TailParams(ctypes.Structure):
                 ('t', ctypes.c_int32), ('m', ctypes.c_int32)]
 
 
-# limb counts of the fields K2, K3, K5, K6 and K7 are built for
-# (csrc/kernels.cu)
-BUILT_NL = (2, 3)
+# limb counts of the fields K3, K5, K6 and K7 are built for
+# (csrc/kernels.cu; K2 takes the draws of two- and three-limb fields that
+# a path takes, K4 two-limb fields). The comparison (K5) takes its bit
+# width l as a launch parameter: every l with l + k + 2 <= 32 limbs, in
+# every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max).
+BUILT_NL = (2, 3, 4, 5)
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
-# (mode, l, t, m, limbs) of the comparison kernel's instantiations
-# (csrc/sgn.cuh; mode 0 sgn, 1 LT, 2 EQ): on two-limb fields every mode at
-# l = 32 for SecInt(32) and l = 14 and 10 for the BNN (SecInt(14), whose
-# demo compares at 10 after its first layer); on three-limb fields LT at
-# l = 16, 23, 30 and 37 for the CNN (SecInt(37), whose demo compares at
-# those widths after its layers)
-SGN_BUILT = (tuple((mode, l, 1, 3, 2) for l in (32, 14, 10)
-                   for mode in range(3))
-             + tuple((1, l, 1, 3, 3) for l in (16, 23, 30, 37)))
 
 
 def set_limbs(dst, limbs) -> None:
@@ -168,7 +167,7 @@ _SIGNATURES = {
     'mtt_split_recombine': [_C, _C, _C, _C, ctypes.c_longlong, _C, _C],
     'mtt_sgn': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.c_longlong, _C, _C],
-    'mtt_sgn_threads': [],
+    'mtt_sgn_threads': [_C],
     'mtt_mont_pow': [_C, _C, ctypes.c_longlong, _C, _C],
     'mtt_random_bits_tail': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C, _C],
 }
@@ -200,7 +199,8 @@ def _key(nvcc: str) -> str:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update(name.encode() + b'\0' + (CSRC / name).read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode() + ver.encode())
+    h.update(repr(UNITS).encode() + ' '.join(NVCC_FLAGS).encode()
+             + ver.encode())
     return h.hexdigest()[:16]
 
 
@@ -217,13 +217,37 @@ def library() -> Library:
         for stale in out_dir.glob('*.tmp*'):
             stale.unlink(missing_ok=True)
         tmp = out_dir / f'{LIB_NAME}.tmp{os.getpid()}'
-        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / SOURCES[0])]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        objs = [out_dir / f'{name}.tmp{os.getpid()}.o' for name, _, _ in
+                UNITS]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, '-c', '-o', str(obj),
+             str(CSRC / source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for (_, source, extra), obj in zip(UNITS, objs)]
+        logs, failed = [], []
+        for (name, _, _), proc in zip(UNITS, procs):
+            try:
+                out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                out += '\n(timed out)'
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, '-shared', '-o', str(tmp), *map(str, objs)],
+                capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append('link')
+        log = ''.join(logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+            raise RuntimeError(f'nvcc failed ({", ".join(failed)}):\n{log}')
         os.replace(tmp, so)
         built = True
     lib = ctypes.CDLL(str(so))

@@ -17,7 +17,7 @@
 
 namespace mtt {
 
-__constant__ uint64_t kKeccakRC[24] = {
+static __constant__ uint64_t kKeccakRC[24] = {
     0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
     0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
     0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,

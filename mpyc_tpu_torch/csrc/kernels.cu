@@ -9,82 +9,16 @@
 // stream, launches, and returns cudaGetLastError().
 //
 // Field elements are little-endian 32-bit limbs in Montgomery form with
-// R = 2^(32 NL). K2, K3 and K5 are built for two-limb fields (p < 2^64:
-// SecInt(32)'s and SecInt(14)'s) and three-limb fields (p < 2^96:
-// SecInt(37)'s 69-bit field and SecInt(64)'s 96-bit one), K4 for two-limb
-// fields; each launcher picks the instantiation from the parameter
-// block's limb count. Every result is canonical, so each kernel equals
-// its plain PyTorch version (and the JAX package) bit for bit.
-#include <cuda_runtime.h>
-#include <cstdint>
+// R = 2^(32 NL). K3, K5, K6 and K7 are built for fields of two to five
+// limbs (p < 2^160: SecInt(32)'s and SecInt(14)'s two, SecInt(37)'s and
+// SecInt(64)'s three, the LP solver's SecInt(70) four and SecInt(104) and
+// SecInt(110) five), K2 for the draws of two- and three-limb fields that
+// a path takes and K4 for two-limb fields; each launcher picks the
+// instantiation from the parameter block's limb count. Every result is
+// canonical, so each kernel equals its plain PyTorch version (and the JAX
+// package) bit for bit.
+#include "common.cuh"
 
-#include "keccak.cuh"
-#include "limb.cuh"
-
-namespace mtt {
-
-constexpr int MAX_NL = 3;      // limbs per element
-constexpr int MAX_NC = 4;      // chunks per draw
-constexpr int MAX_SEND = 9;    // senders aggregated by a reshare (2t + 1)
-constexpr int MAX_M = 16;      // parties
-constexpr int RATE_WORDS = 42; // 32-bit words in a 168-byte block
-
-// Mirrored by ctypes structures in mpyc_tpu_torch/_build.py.
-// Field constants fill the first nl limbs of their MAX_NL.
-struct DrawParams {
-  uint32_t p[MAX_NL];
-  uint32_t n0inv;
-  uint32_t radix[MAX_NC][MAX_NL];  // 2^(32 nl c) R^2 mod p, chunk c
-  int32_t nl;                      // limbs of the field
-};
-
-struct ReshareParams {
-  DrawParams draw;
-  uint32_t lag[MAX_SEND][MAX_NL];  // Lagrange coefficients at 0, Montgomery
-  uint32_t xs[MAX_M][MAX_NL];      // evaluation points 1..m, Montgomery
-  uint32_t nonce_lo, nonce_hi; // per-call counter, XORed into lane 4
-  int32_t t, m, n_send;
-};
-
-// Words a draw of the fused streams (K3, K4, K5) takes: fused_draw_bytes(p)
-// / 4 = NL + 2 for 2 <= NL <= 3 (p's bytes and 8 of widening, in words).
-template <int NL>
-__host__ __device__ constexpr int fused_words() {
-  static_assert(NL == 2 || NL == 3, "fused draws of two or three limbs");
-  return NL + 2;
-}
-
-// Draw `slot` of a squeezed block (W words a draw) mapped into GF(p),
-// Montgomery form: sum over chunks c of chunk_c * 2^(32 NL c) mod p, one
-// Montgomery multiply by radix[c] per chunk (mpyc_tpu/ops/limb.py
-// reduce_wide). With `slot` a constant every word index is one too.
-template <int NL, int W>
-__device__ __forceinline__ void reduce_draw(const uint64_t* A, int slot,
-                                            const DrawParams& P,
-                                            uint32_t* out) {
-  constexpr int NC = (W + NL - 1) / NL;
-  static_assert(NC <= MAX_NC, "draw wider than the radix table");
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    uint32_t chunk[NL], term[NL];
-#pragma unroll
-    for (int q = 0; q < NL; ++q) {
-      const int w = c * NL + q;
-      chunk[q] = w < W ? rate_word(A, slot * W + w) : 0u;
-    }
-    mont_mul<NL>(chunk, P.radix[c], P.p, P.n0inv, term);
-    if (c == 0) {
-#pragma unroll
-      for (int q = 0; q < NL; ++q) out[q] = term[q];
-    } else {
-      add_mod<NL>(out, term, P.p, out);
-    }
-  }
-}
-
-}  // namespace mtt
-
-#include "stage.cuh"
 
 namespace mtt {
 
@@ -218,15 +152,23 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 // thread takes the elements e0 + r*320 + tid (r < 10): each share is one
 // 8-byte load and each output one 8-byte store at NL = 2, neighbouring
 // lanes on neighbouring elements, so a warp's access is 256 contiguous
-// bytes. At NL = 3 an element is 12 bytes, which no vector access loads:
-// a share is three 4-byte loads, each of a warp's 32 lanes 12 bytes apart,
-// so the three together read the warp's 384 contiguous bytes. (With one
-// element a thread, one warp in ten squeezed while the others waited at
-// the barrier, and K3 took twice as long: PERF.md.) Written for general
-// t; built for t = 1, m = 3 and NL = 2 and 3; draws of W = NL + 2 words.
+// bytes. At NL >= 3 an element is 4 NL bytes, which no vector access
+// loads: a share is NL 4-byte loads, each of a warp's 32 lanes 4 NL bytes
+// apart, so together they read the warp's 128 NL contiguous bytes. (With
+// one element a thread, one warp in ten squeezed while the others waited
+// at the barrier, and K3 took twice as long: PERF.md.) The staged
+// coefficients take 12,800 NL bytes, past the 48 KB of static shared
+// memory from NL = 4 on, so they are dynamic shared memory
+// (reshare_smem_bytes). Written for general t; built for t = 1, m = 3 and
+// NL = 2 to 5; draws of W = NL + 2 words.
 // ---------------------------------------------------------------------------
 constexpr int RESHARE_THREADS = 320;
 constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
+
+// The staged coefficients of a K3 CTA: t of each of its elements.
+constexpr int reshare_smem_bytes(int t, int nl) {
+  return t * RESHARE_ELEMS * nl * 4;
+}
 
 template <int NL, bool FUSE, int T, int M>
 __global__ void __launch_bounds__(RESHARE_THREADS)
@@ -237,8 +179,8 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
   // the staged coefficients, NL words an element (8-byte aligned: an
   // element is one 8-byte word at NL = 2)
-  __shared__ uint2 coef_words[(T * RESHARE_ELEMS * NL + 1) / 2];
-  uint32_t* coefs = reinterpret_cast<uint32_t*>(coef_words);
+  extern __shared__ uint2 reshare_smem[];
+  uint32_t* coefs = reinterpret_cast<uint32_t*>(reshare_smem);
   const long long e0 = (long long)blockIdx.x * RESHARE_ELEMS;
   const int cnt = (int)(n - e0 < RESHARE_ELEMS ? n - e0 : RESHARE_ELEMS);
   const uint32_t* p = P.draw.p;
@@ -385,13 +327,17 @@ struct PowKind {};
 
 template <class F>
 int pow_dispatch(const PowParams& P, F launch) {
-  if (P.nl != 2 && P.nl != 3) return -1;
+  if (P.nl < 2 || P.nl > MAX_NL) return -1;
   const bool lazy = P.p[P.nl - 1] < (1u << 30);
   switch (P.nl * 10 + lazy) {
     case 20: return launch(PowKind<2, false>());
     case 21: return launch(PowKind<2, true>());
     case 30: return launch(PowKind<3, false>());
-    default: return launch(PowKind<3, true>());
+    case 31: return launch(PowKind<3, true>());
+    case 40: return launch(PowKind<4, false>());
+    case 41: return launch(PowKind<4, true>());
+    case 50: return launch(PowKind<5, false>());
+    default: return launch(PowKind<5, true>());
   }
 }
 
@@ -400,7 +346,7 @@ int pow_dispatch(const PowParams& P, F launch) {
 inline bool plan_ok(const PowParams& P) {
   if (P.nbits < 0 || P.nbits > 32 * MAX_NL) return false;
   if (P.n_table < 1 || P.n_table > POW_TABLE) return false;
-  if (P.n_steps < 0 || P.n_steps > POW_MAX_STEPS || P.tail < 0) return false;
+  if (P.n_steps < 0 || P.n_steps > 32 * P.nl || P.tail < 0) return false;
   if (P.first < 0 || P.first >= P.n_table) return false;
   for (int k = 0; k < P.n_steps; ++k)
     if ((int)(P.step[k] >> 8) >= P.n_table) return false;
@@ -449,11 +395,31 @@ template <int NL, bool FUSE>
 int launch_reshare(const void* a, const void* b, void* out, const void* state,
                    long long n, const ReshareParams& P, cudaStream_t stream) {
   const long long grid = (n + RESHARE_ELEMS - 1) / RESHARE_ELEMS;
-  reshare_kernel<NL, FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, 0,
+  constexpr int smem = reshare_smem_bytes(1, NL);
+  if (smem > 48 * 1024) {   // past the default: allowed once
+    static const cudaError_t rc = cudaFuncSetAttribute(
+        reshare_kernel<NL, FUSE, 1, 3>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  reshare_kernel<NL, FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, smem,
                                    stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
       (const uint32_t*)state, n, P);
   return (int)cudaGetLastError();
+}
+
+template <bool FUSE>
+int launch_reshare_nl(const void* a, const void* b, void* out,
+                      const void* state, long long n,
+                      const ReshareParams& P, cudaStream_t s) {
+  switch (P.draw.nl) {
+    case 2: return launch_reshare<2, FUSE>(a, b, out, state, n, P, s);
+    case 3: return launch_reshare<3, FUSE>(a, b, out, state, n, P, s);
+    case 4: return launch_reshare<4, FUSE>(a, b, out, state, n, P, s);
+    case 5: return launch_reshare<5, FUSE>(a, b, out, state, n, P, s);
+    default: return -1;
+  }
 }
 
 int launch_split_recombine(const void* sec, void* out, void* shares,
@@ -469,46 +435,22 @@ int launch_split_recombine(const void* sec, void* out, void* shares,
   return (int)cudaGetLastError();
 }
 
-// One launch of every chunk: the CTAs of each full chunk, then those of the
-// last chunk's given elements.
-template <int MODE, int LBIT, int NL>
-int launch_sgn(const void* a, void* out, const void* state, long long n,
-               long long chunk, long long n_last, const SgnParams& P,
-               cudaStream_t stream) {
-  const long long per_chunk = (chunk + SGN_THREADS - 1) / SGN_THREADS;
-  const long long full = (n - 1) / chunk;
-  const long long grid =
-      full * per_chunk + (n - full * chunk + SGN_THREADS - 1) / SGN_THREADS;
-  constexpr int smem = sgn_smem_bytes<MODE, LBIT, 1, NL>();
-  const cudaError_t rc = cudaFuncSetAttribute(
-      sgn_kernel<MODE, LBIT, 1, 3, NL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  sgn_kernel<MODE, LBIT, 1, 3, NL><<<(unsigned)grid, SGN_THREADS, smem,
-                                     stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n, chunk,
-      n_last, P);
-  return (int)cudaGetLastError();
-}
-
-template <int LBIT>
-int launch_sgn_modes(const void* a, void* out, const void* state,
-                     long long n, long long chunk, long long n_last,
-                     const SgnParams& P, cudaStream_t s) {
-  switch (P.mode) {
-    case 0: return launch_sgn<0, LBIT, 2>(a, out, state, n, chunk, n_last,
-                                          P, s);
-    case 1: return launch_sgn<1, LBIT, 2>(a, out, state, n, chunk, n_last,
-                                          P, s);
-    case 2: return launch_sgn<2, LBIT, 2>(a, out, state, n, chunk, n_last,
-                                          P, s);
-    default: return -1;
-  }
-}
-
 }  // namespace mtt
 
 extern "C" {
+
+// K5's launchers, one a limb count, each compiled from sgn.cu in a
+// translation unit of its own (_build.py builds them in parallel).
+#define MTT_SGN_LAUNCHER(NL)                                               \
+  int mtt_sgn_launch_nl##NL(const void* a, void* out, const void* state,  \
+                            long long n, long long chunk, long long n_last,\
+                            const void* params, int lb, int B,             \
+                            void* stream);
+MTT_SGN_LAUNCHER(2)
+MTT_SGN_LAUNCHER(3)
+MTT_SGN_LAUNCHER(4)
+MTT_SGN_LAUNCHER(5)
+#undef MTT_SGN_LAUNCHER
 
 int mtt_keccak_ctr(const void* state, void* out, long long n, int ctr_lane,
                    unsigned long long base, void* stream) {
@@ -548,15 +490,11 @@ int mtt_reshare(const void* a, const void* b, void* out, const void* state,
                 long long n, int fuse, const void* params, void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
   if (P.t != 1 || P.m != 3 || P.n_send != 3) return -1;
-  if (P.draw.nl != 2 && P.draw.nl != 3) return -1;
+  if (P.draw.nl < 2 || P.draw.nl > mtt::MAX_NL) return -1;
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  using mtt::launch_reshare;
-  if (P.draw.nl == 2)
-    return fuse ? launch_reshare<2, true>(a, b, out, state, n, P, s)
-                : launch_reshare<2, false>(a, b, out, state, n, P, s);
-  return fuse ? launch_reshare<3, true>(a, b, out, state, n, P, s)
-              : launch_reshare<3, false>(a, b, out, state, n, P, s);
+  return fuse ? mtt::launch_reshare_nl<true>(a, b, out, state, n, P, s)
+              : mtt::launch_reshare_nl<false>(a, b, out, state, n, P, s);
 }
 
 // shares may be null. -1: a (t, m) or limb count the kernel was not built
@@ -574,42 +512,28 @@ int mtt_split_recombine(const void* sec, void* out, void* shares,
 // n elements in calls of `chunk` (counters P's, P's + 1, ...), the last on
 // n_last >= its given elements (mtt_sgn(a, out, state, n, n, n, ...) is
 // one call). -1: a (mode, l, limbs, t, m, k) the kernel was not built for
-// (two limbs: l = 32, 14 or 10 in every mode; three limbs: LT mode at l =
-// 16, 23, 30 or 37; t = 1, m = 3, 0 <= k <= 64; mpyc_tpu_torch/_build.py
-// SGN_BUILT), or a chunk geometry that does not hold.
+// (t = 1, m = 3, 0 <= k <= 64, two to five limbs, 1 <= l and the random
+// bits within sgn_lb_max(limbs): any l with l + k + 2 <= 32 limbs), or a
+// chunk geometry that does not hold.
 int mtt_sgn(const void* a, void* out, const void* state, long long n,
             long long chunk, long long n_last, const void* params,
             void* stream) {
   const mtt::SgnParams P = *(const mtt::SgnParams*)params;
-  if (P.t != 1 || P.m != 3 || P.k < 0 || P.k > 64) return -1;
+  int lb = 0;
+  const int B = mtt::sgn_geometry(P, &lb);
+  if (B == 0) return -1;
   if (n <= 0) return 0;
   if (chunk <= 0 || n_last > chunk || n_last < n - (n - 1) / chunk * chunk)
     return -1;
-  const cudaStream_t s = (cudaStream_t)stream;
-  using mtt::launch_sgn;
-  using mtt::launch_sgn_modes;
-  if (P.draw.nl == 2) {
-    switch (P.l) {
-      case 32: return launch_sgn_modes<32>(a, out, state, n, chunk, n_last,
-                                           P, s);
-      case 14: return launch_sgn_modes<14>(a, out, state, n, chunk, n_last,
-                                           P, s);
-      case 10: return launch_sgn_modes<10>(a, out, state, n, chunk, n_last,
-                                           P, s);
-      default: return -1;
-    }
-  }
-  if (P.draw.nl != 3 || P.mode != 1) return -1;
-  switch (P.l) {
-    case 16: return launch_sgn<1, 16, 3>(a, out, state, n, chunk, n_last, P,
-                                         s);
-    case 23: return launch_sgn<1, 23, 3>(a, out, state, n, chunk, n_last, P,
-                                         s);
-    case 30: return launch_sgn<1, 30, 3>(a, out, state, n, chunk, n_last, P,
-                                         s);
-    case 37: return launch_sgn<1, 37, 3>(a, out, state, n, chunk, n_last, P,
-                                         s);
-    default: return -1;
+  switch (P.draw.nl) {
+    case 2: return mtt_sgn_launch_nl2(a, out, state, n, chunk, n_last, &P,
+                                      lb, B, stream);
+    case 3: return mtt_sgn_launch_nl3(a, out, state, n, chunk, n_last, &P,
+                                      lb, B, stream);
+    case 4: return mtt_sgn_launch_nl4(a, out, state, n, chunk, n_last, &P,
+                                      lb, B, stream);
+    default: return mtt_sgn_launch_nl5(a, out, state, n, chunk, n_last, &P,
+                                       lb, B, stream);
   }
 }
 
@@ -641,8 +565,14 @@ int mtt_random_bits_tail(const void* r, const void* z, void* bits,
   });
 }
 
-// Elements of a K5 thread block (SGN_THREADS), for models of its stage.
-int mtt_sgn_threads() { return mtt::SGN_THREADS; }
+// Elements of a K5 thread block for a comparison's parameters (the
+// launch's sgn_threads), for models of its stage; -1 for a configuration
+// mtt_sgn refuses.
+int mtt_sgn_threads(const void* params) {
+  int lb = 0;
+  const int B = mtt::sgn_geometry(*(const mtt::SgnParams*)params, &lb);
+  return B == 0 ? -1 : B;
+}
 
 const char* mtt_error_string(int rc) {
   return cudaGetErrorString((cudaError_t)rc);

@@ -4,7 +4,7 @@
 //
 // No Pallas kernel of the JAX package computes either: XLA runs
 // mpyc_tpu/ops/limb.py:330 mont_pow_const (a lax.scan over e's bits, via
-// mpyc_tpu/ops/fieldops.py:549 pow_const) and the tail of
+// mpyc_tpu/ops/fieldops.py:550 pow_const) and the tail of
 // mpyc_tpu/parallel/simulator.py:732 np_random_bits (:759-785). The plain
 // versions are mpyc_tpu_torch/ops/limb.py mont_pow_const and
 // mpyc_tpu_torch/models/pipelines.py _random_bits_tail_plain.
@@ -29,10 +29,15 @@
 // - A squaring computes each cross product once and doubles it
 //   (mont_sqr: 3 wide products where a general one takes 4 at two limbs,
 //   6 where it takes 9 at three).
-// - Where 4p < R (the 52-bit and 69-bit fields), every product of the
-//   chain skips its final subtraction (values stay below 2p) and one
-//   canonical() ends it (LAZY). SecInt(32)'s 64-bit field takes the
-//   canonical products. At two limbs the lazy products are PTX (limb.cuh):
+// - Where 4p < R (the 52-bit and 69-bit fields, and the LP solver's
+//   102-, 136- and 142-bit ones), every product of the chain skips its
+//   final subtraction (values stay below 2p) and one canonical() ends it
+//   (LAZY). SecInt(32)'s 64-bit field takes the canonical products.
+//   Built for two to five limbs, lazy or not: sixteen kernels. At four
+//   and five limbs the products are the C++ form (the PTX carry chains
+//   are written for two limbs); the table of odd powers takes 40,960
+//   bytes of shared memory at five limbs, within the 48 KB of static
+//   shared memory. At two limbs the lazy products are PTX (limb.cuh):
 //   a wide multiply for each 32 x 32-bit product and every carry in an
 //   add.cc chain: 26 SASS instructions a squaring, where the C++ form
 //   took 36.5 and moved its carries into registers on the multiply pipe.
@@ -51,7 +56,6 @@ constexpr int POW_TABLE = 1 << (POW_WINDOW - 1);    // x^1, x^3, .., x^15
 constexpr int POW_MAX_STEPS = 32 * MAX_NL;           // a step a bit at most
 constexpr int POW_THREADS = 128;
 constexpr int POW_EPT = 2;                           // elements a thread
-static_assert(POW_THREADS >= POW_MAX_STEPS, "load_plan: a thread a step");
 
 // Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py. Field
 // constants fill the first nl limbs of their MAX_NL. The plan of e
@@ -72,12 +76,16 @@ struct PowParams {
 
 // Copy the plan's steps into shared memory, each word at a constant index
 // of the parameter block (a run-time index would put the block in local
-// memory), before any thread leaves.
+// memory), before any thread leaves: step k by thread k mod POW_THREADS.
+// An exponent below 2^(32 NL) has at most 32 NL steps (plan_ok), so an
+// instantiation copies no more: copying all POW_MAX_STEPS cost the
+// two-limb power 16 registers and a tenth of its time (PERF.md, PR 11).
+template <int NL>
 __device__ __forceinline__ void load_plan(const PowParams& P,
                                           uint32_t* steps) {
 #pragma unroll
-  for (int k = 0; k < POW_MAX_STEPS; ++k)
-    if ((int)threadIdx.x == k) steps[k] = P.step[k];
+  for (int k = 0; k < 32 * NL; ++k)
+    if ((int)threadIdx.x == k % POW_THREADS) steps[k] = P.step[k];
   __syncthreads();
 }
 
@@ -177,7 +185,7 @@ mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
                 long long n, PowParams P) {
   __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
   __shared__ uint32_t steps[POW_MAX_STEPS];
-  load_plan(P, steps);
+  load_plan<NL>(P, steps);
   const long long base =
       (long long)blockIdx.x * (POW_THREADS * POW_EPT) + threadIdx.x;
   uint32_t x[POW_EPT][NL];
@@ -225,7 +233,7 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
                         long long n, TailParams P) {
   __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
   __shared__ uint32_t steps[POW_MAX_STEPS];
-  load_plan(P.pow, steps);
+  load_plan<NL>(P.pow, steps);
   const uint32_t* p = P.pow.p;
   const uint32_t n0inv = P.pow.n0inv;
   const long long base =

@@ -1,0 +1,62 @@
+// K5's launchers for the fields of MTT_SGN_NL limbs (2 to 5): one
+// translation unit a limb count, so that _build.py compiles the four in
+// parallel (the comparison's twelve instantiations, three modes a limb
+// count, take most of the build). kernels.cu's mtt_sgn checks the
+// parameters and calls mtt_sgn_launch_nl<MTT_SGN_NL> (declared there).
+#include "common.cuh"
+#include "sgn.cuh"
+
+#ifndef MTT_SGN_NL
+#error "build with -DMTT_SGN_NL=<limbs>"
+#endif
+
+namespace mtt {
+
+// One launch of every chunk: the CTAs of each full chunk, then those of the
+// last chunk's given elements, B elements a CTA.
+template <int MODE, int NL>
+int launch_sgn(const void* a, void* out, const void* state, long long n,
+               long long chunk, long long n_last, const SgnParams& P, int lb,
+               int B, cudaStream_t stream) {
+  const long long per_chunk = (chunk + B - 1) / B;
+  const long long full = (n - 1) / chunk;
+  const long long grid = full * per_chunk + (n - full * chunk + B - 1) / B;
+  const int smem = (int)sgn_smem_bytes(1, lb, NL, B);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      sgn_kernel<MODE, 1, 3, NL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  sgn_kernel<MODE, 1, 3, NL><<<(unsigned)grid, B, smem, stream>>>(
+      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n, chunk,
+      n_last, P);
+  return (int)cudaGetLastError();
+}
+
+template <int NL>
+int launch_sgn_modes(const void* a, void* out, const void* state,
+                     long long n, long long chunk, long long n_last,
+                     const SgnParams& P, int lb, int B, cudaStream_t s) {
+  switch (P.mode) {
+    case 0: return launch_sgn<0, NL>(a, out, state, n, chunk, n_last, P, lb,
+                                     B, s);
+    case 1: return launch_sgn<1, NL>(a, out, state, n, chunk, n_last, P, lb,
+                                     B, s);
+    default: return launch_sgn<2, NL>(a, out, state, n, chunk, n_last, P,
+                                      lb, B, s);
+  }
+}
+
+}  // namespace mtt
+
+#define MTT_CAT2(a, b) a##b
+#define MTT_CAT(a, b) MTT_CAT2(a, b)
+
+// lb and B from sgn_geometry (checked by mtt_sgn).
+extern "C" int MTT_CAT(mtt_sgn_launch_nl, MTT_SGN_NL)(
+    const void* a, void* out, const void* state, long long n,
+    long long chunk, long long n_last, const void* params, int lb, int B,
+    void* stream) {
+  return mtt::launch_sgn_modes<MTT_SGN_NL>(
+      a, out, state, n, chunk, n_last, *(const mtt::SgnParams*)params, lb,
+      B, (cudaStream_t)stream);
+}

@@ -4,8 +4,9 @@
 // _build_pallas.kernel (:616, pallas_call :833), in the stream layout of
 // its XLA step (:847-1061), so that the kernel equals its plain version
 // (mpyc_tpu_torch/models/pipelines.py _sgn_step_plain) and the JAX package
-// bit for bit. Included by kernels.cu after DrawParams, reduce_draw and
-// the stage (stage.cuh).
+// bit for bit. Included after common.cuh (DrawParams, reduce_draw and the
+// stage); sgn.cu builds it, one limb count a translation unit, and
+// kernels.cu's mtt_sgn launches it.
 //
 // The stream of a call: the absorbed state with the call counter XORed
 // into lane 4, counter-mode blocks on lane 19.
@@ -29,10 +30,12 @@
 // counter ctr + c (chunk c), its own stream and its own n (the last
 // chunk's padded to its bucket). A CTA works in one chunk.
 //
-// Instantiated at t = 1, m = 3 (kernels.cu, mtt_sgn) for two-limb fields
-// at l = 32 (SecInt(32)) and l = 14 and 10 (the BNN's SecInt(14)) in all
-// three modes, and for three-limb fields in LT mode at l = 16, 23, 30 and
-// 37 (the CNN's SecInt(37), whose demo compares at those widths).
+// The bit width l is a launch parameter (SgnParams.l): an instantiation
+// takes every l whose random bits lb = l + 1 (l in EQ mode) fit its
+// arrays, lb <= sgn_lb_max(NL) = 32 NL - 1, so every l with l + k + 2 <=
+// bit length of p runs. Instantiated at t = 1, m = 3 (kernels.cu,
+// mtt_sgn) in all three modes for fields of two to five limbs: twelve
+// kernels.
 //
 // Bound: integer operations (sgn mode at l = 32, t = 1, m = 3: about 10
 // sponge blocks, 900 Montgomery products and 1,430 modular adds per
@@ -55,14 +58,19 @@
 // takes t x lb x 256 x 8 = 67,584 bytes at l = 32, so the draws and the
 // words of stream A are dynamic shared memory (sgn_smem_bytes); at about
 // 110 registers (ptxas) 2 CTAs, 16 warps, fit a SM by registers and by
-// shared memory. 256 ran faster than 128 on the card (PERF.md). The bit
-// shares (lb x m) and, in sgn and EQ mode, the xor vector (l x m) live in
-// thread-private arrays in local memory; in LT mode the suffix loop
-// recomputes each xor bit from rb_j and c_j and keeps no xor vector. The
-// bit and tree loops are not unrolled (build time). At NL = 3 a draw is 12
-// bytes of shared memory, so LT mode at l = 37 takes 120,832 bytes a CTA
-// and one CTA fits a SM; the stack grows with the E array (chip_smoke.py
-// prints ptxas's report).
+// shared memory. 256 ran faster than 128 on the card (PERF.md). The CTA
+// width B is the launch's: SGN_THREADS elements, halved (to a warp at
+// the least) while the call's dynamic shared memory would pass the
+// 227 KB a CTA may have (sgn_threads): at NL = 5 and l = 110, 2,244 bytes
+// an element, so 64 elements a CTA. The bit shares (lb x m) and, in sgn
+// and EQ mode, the xor vector (l x m) live in thread-private arrays in
+// local memory, sized for the widest l of the limb count (sgn_lb_max); in
+// LT mode the suffix loop recomputes each xor bit from rb_j and c_j and
+// keeps no xor vector. The bit and tree loops are not unrolled (build
+// time). The random bits stay in the CTA's shared stream-A words and the
+// opened c in registers, and bit j of either is read at run time
+// (bit_of). The stack grows with the arrays (chip_smoke.py prints
+// ptxas's report).
 #pragma once
 #include <cstdint>
 
@@ -125,15 +133,47 @@ __device__ __forceinline__ void sgn_reshare(const uint32_t (*x)[NL],
   dealer_split<NL, T, M>(S, C, P, out);
 }
 
-constexpr int SGN_THREADS = 256;  // elements (threads) of a K5 CTA
+constexpr int SGN_THREADS = 256;      // elements of a K5 CTA, at most
+constexpr int SGN_SMEM_MAX = 232448;  // dynamic shared memory a CTA may have
 
-// Dynamic shared memory of a K5 CTA: the draws of its largest call (the
-// bits: t x lb a thread, 4 NL bytes each) and its words of stream A (at
-// most lb / 32 + 2 a thread, k <= 64).
-template <int MODE, int LBIT, int T, int NL>
-constexpr int sgn_smem_bytes() {
-  constexpr int LB = LBIT + (MODE == 2 ? 0 : 1);
-  return (T * LB * NL * 4 + ((LB + 31) / 32 + 2) * 4) * SGN_THREADS;
+// The widest random bits (lb) an instantiation of NL limbs takes: l + k +
+// 2 <= 32 NL for any k >= 0.
+__host__ __device__ constexpr int sgn_lb_max(int NL) { return 32 * NL - 1; }
+
+// Dynamic shared memory of a K5 CTA of B elements: the draws of its
+// largest call (the bits: t x lb an element, 4 NL bytes each) and its
+// words of stream A (at most lb / 32 + 2 an element, k <= 64).
+inline long long sgn_smem_bytes(int t, int lb, int nl, int B) {
+  return ((long long)t * lb * nl * 4 + ((lb + 31) / 32 + 2) * 4) * B;
+}
+
+// The CTA width of a launch: SGN_THREADS, halved while its shared memory
+// would not fit (down to a warp; 0 if even that does not fit).
+inline int sgn_threads(int t, int lb, int nl) {
+  int B = SGN_THREADS;
+  while (B > 32 && sgn_smem_bytes(t, lb, nl, B) > SGN_SMEM_MAX) B >>= 1;
+  return sgn_smem_bytes(t, lb, nl, B) > SGN_SMEM_MAX ? 0 : B;
+}
+
+// The random bits of a comparison (l + 1, l in EQ mode) and its CTA
+// width (sgn_threads); 0 for a configuration no instantiation takes.
+inline int sgn_geometry(const SgnParams& P, int* lb) {
+  if (P.t != 1 || P.m != 3 || P.k < 0 || P.k > 64) return 0;
+  if (P.draw.nl < 2 || P.draw.nl > MAX_NL || P.mode < 0 || P.mode > 2)
+    return 0;
+  *lb = P.l + (P.mode == 2 ? 0 : 1);
+  if (P.l < 1 || *lb > sgn_lb_max(P.draw.nl)) return 0;
+  return sgn_threads(P.t, *lb, P.draw.nl);
+}
+
+// Bit j of an NL-limb value held in registers (j known at run time only:
+// an index into the array would move it to local memory).
+template <int NL>
+__device__ __forceinline__ bool bit_of(const uint32_t* v, int j) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int q = 0; q < NL; ++q) w = (j >> 5) == q ? v[q] : w;
+  return (w >> (j & 31)) & 1u;
 }
 
 // The CTA's view of stream B: the draws of one call at a time, staged in
@@ -146,6 +186,7 @@ struct SgnDraws {
   long long off;  // the first draw of the next call
   int cnt;        // live elements of the CTA
   int c;          // draws per element and set of the staged call
+  int B;          // elements of the CTA
   uint32_t* sm;
 
   // Stage the next call: c draws per element in `reps` sets (set kk of
@@ -159,13 +200,13 @@ struct SgnDraws {
     for (int kk = 0; kk < reps; ++kk)
       stage_draws<NL, fused_words<NL>()>(
           state, nonce, blocks_a, off + kk * n * c + e0 * c, cnt, c, D,
-          sm + (long long)kk * c * SGN_THREADS * NL, SGN_THREADS);
+          sm + (long long)kk * c * B * NL, B);
     __syncthreads();
     off += (long long)reps * n * c;
   }
   // draw i of set kk of this thread's element
   __device__ __forceinline__ void get(int kk, int i, uint32_t* v) const {
-    load_fe<NL>(sm, (long long)(kk * c + i) * SGN_THREADS + threadIdx.x, v);
+    load_fe<NL>(sm, (long long)(kk * c + i) * B + threadIdx.x, v);
   }
   // the t coefficients of draw i
   template <int T>
@@ -203,33 +244,37 @@ __device__ __forceinline__ void prod_tree(uint32_t (*x)[M][NL], int w,
   }
 }
 
-// MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f. a and out
-// are (m, n) elements of NL limbs. The n elements are cut into chunks of
-// `chunk`, each a call with counter P's + c; the last chunk's call is on
-// n_last elements (its bucket), of which the first n - c * chunk are
+// MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f; at
+// bit width P.l (lb = l + 1, l in EQ mode, at most sgn_lb_max(NL)). a and
+// out are (m, n) elements of NL limbs. The n elements are cut into chunks
+// of `chunk`, each a call with counter P's + c; the last chunk's call is
+// on n_last elements (its bucket), of which the first n - c * chunk are
 // given: the rest are the zero rows that pad it, and no thread takes them
-// (an element's draws depend on its index and the call's n only).
-template <int MODE, int LBIT, int T, int M, int NL>
+// (an element's draws depend on its index and the call's n only). A CTA
+// of blockDim.x elements (sgn_threads) works in one chunk.
+template <int MODE, int T, int M, int NL>
 __global__ void __launch_bounds__(SGN_THREADS)
 sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
            const uint32_t* __restrict__ state, long long n, long long chunk,
            long long n_last, SgnParams P) {
   constexpr bool LT = MODE == 1, EQ = MODE == 2;
-  constexpr int LB = LBIT + (EQ ? 0 : 1);  // random bits (+ sign bit)
-  constexpr int WB = (LB + 31) / 32;
-  static_assert(LB <= 64 && LBIT <= 32 * NL && 2 * T + 1 <= M && M <= MAX_M,
-                "K5 takes l < 64");
+  constexpr int LBMAX = sgn_lb_max(NL);
+  static_assert(2 * T + 1 <= M && M <= MAX_M, "shape");
+  const int l = P.l;
+  const int lb = l + (EQ ? 0 : 1);       // random bits (+ sign bit)
+  const int wb = (lb + 31) / 32;
+  const int B = blockDim.x;
   extern __shared__ uint2 sgn_smem[];
   uint32_t* draws = reinterpret_cast<uint32_t*>(sgn_smem);
-  uint32_t* words = draws + T * LB * NL * SGN_THREADS;
+  uint32_t* words = draws + (long long)T * lb * NL * B;
   const int tid = threadIdx.x;
   // the CTA's chunk c, its call (n_c elements, counter + c) and elements
-  const long long per_chunk = (chunk + SGN_THREADS - 1) / SGN_THREADS;
+  const long long per_chunk = (chunk + B - 1) / B;
   const long long ch = blockIdx.x / per_chunk;
   const long long first = ch * chunk;
   const long long given = n - first < chunk ? n - first : chunk;
   const long long n_c = first + chunk < n ? chunk : n_last;
-  const long long e0 = (blockIdx.x - ch * per_chunk) * SGN_THREADS;
+  const long long e0 = (blockIdx.x - ch * per_chunk) * B;
   const long long e = first + e0 + tid;       // index into a and out
   const bool live = e0 + tid < given;
   const uint32_t* p = P.draw.p;
@@ -241,27 +286,26 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   S.n = n_c;
   S.e0 = e0;
   S.off = 0;
-  S.cnt = (int)(given - e0 < SGN_THREADS ? given - e0 : SGN_THREADS);
+  S.cnt = (int)(given - e0 < B ? given - e0 : B);
   S.c = 0;
+  S.B = B;
   S.sm = draws;
 
-  // stream A: the random bits and r_divl < 2^k
+  // stream A: the random bits and r_divl < 2^k; this element's words
+  // stay in shared memory (bit j in word j / 32)
   const int wk = (P.k + 31) / 32;
-  const int wpe = WB + wk;
+  const int wpe = wb + wk;
   S.blocks_a = (n_c * wpe + RATE_WORDS - 1) / RATE_WORDS;
   if (S.blocks_a < 1) S.blocks_a = 1;
   stage_words(state, S.nonce, e0 * wpe, S.cnt * wpe, words);
   __syncthreads();
-  uint64_t bits = 0;
-#pragma unroll
-  for (int w = 0; w < WB; ++w)
-    bits |= (uint64_t)words[tid * wpe + w] << (32 * w);
+  const uint32_t* bits = words + tid * wpe;
   uint32_t kl[NL];
 #pragma unroll
   for (int q = 0; q < NL; ++q) {
     kl[q] = 0;
     if (q < wk) {
-      const uint32_t v = words[tid * wpe + WB + q];
+      const uint32_t v = bits[wb + q];
       const int rem = P.k - 32 * q;
       kl[q] = rem < 32 ? v & ((1u << rem) - 1u) : v;
     }
@@ -269,12 +313,12 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
   // dealer split of the bits: E holds their shares rb until the E vector
   // replaces them
-  uint32_t E[LB][M][NL];
-  S.stage(LB, T, P.draw);
+  uint32_t E[LBMAX][M][NL];
+  S.stage(lb, T, P.draw);
 #pragma unroll 1
-  for (int j = 0; j < LB; ++j) {
+  for (int j = 0; j < lb; ++j) {
     uint32_t bm[NL], C[T][NL];
-    const bool bit = (bits >> j) & 1;
+    const bool bit = (bits[j >> 5] >> (j & 31)) & 1u;
 #pragma unroll
     for (int q = 0; q < NL; ++q) bm[q] = bit ? P.one[q] : 0u;
     S.template coefs<T>(j, C);
@@ -294,9 +338,9 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     uint32_t acc[NL], ai[NL];
-    fe_copy<NL>(E[LBIT - 1][i], acc);
+    fe_copy<NL>(E[l - 1][i], acc);
 #pragma unroll 1
-    for (int j = LBIT - 2; j >= 0; --j) {
+    for (int j = l - 2; j >= 0; --j) {
       add_mod<NL>(acc, acc, p, acc);
       add_mod<NL>(acc, E[j][i], p, acc);
     }
@@ -325,12 +369,11 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
     uint32_t unit[NL] = {1u};
     mont_mul<NL>(c, unit, p, n0, c);
   }
-  const uint64_t cbits = (uint64_t)c[0] | ((uint64_t)c[1] << 32);
   {
     uint32_t cm[NL];  // c mod 2^l, then in Montgomery form
 #pragma unroll
     for (int q = 0; q < NL; ++q) {
-      const int rem = LBIT - 32 * q;
+      const int rem = l - 32 * q;
       cm[q] = rem <= 0 ? 0u : rem < 32 ? c[q] & ((1u << rem) - 1u) : c[q];
     }
     mont_mul<NL>(cm, P.r2, p, n0, cm);
@@ -340,11 +383,11 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
   // xor_j = c_j XOR r_j, as shares: c_j ? 1 - rb_j : rb_j (in LT mode
   // recomputed where the suffix loop needs it)
-  uint32_t X[LT ? 1 : LBIT][M][NL];
+  uint32_t X[LT ? 1 : LBMAX][M][NL];
   if constexpr (!LT) {
 #pragma unroll 1
-    for (int j = 0; j < LBIT; ++j) {
-      const bool cb = (cbits >> j) & 1;
+    for (int j = 0; j < l; ++j) {
+      const bool cb = bit_of<NL>(c, j);
 #pragma unroll
       for (int i = 0; i < M; ++i) {
         if (cb) sub_mod<NL>(P.one, E[j][i], p, X[j][i]);
@@ -359,14 +402,14 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
     uint32_t s[M][NL], suf[M][NL];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      add_mod<NL>(E[LBIT][i], E[LBIT][i], p, s[i]);
+      add_mod<NL>(E[l][i], E[l][i], p, s[i]);
       sub_mod<NL>(s[i], P.one, p, s[i]);
 #pragma unroll
       for (int q = 0; q < NL; ++q) suf[i][q] = 0u;
     }
 #pragma unroll 1
-    for (int j = LBIT - 1; j >= 0; --j) {
-      const bool cb = (cbits >> j) & 1;
+    for (int j = l - 1; j >= 0; --j) {
+      const bool cb = bit_of<NL>(c, j);
 #pragma unroll
       for (int i = 0; i < M; ++i) {
         uint32_t v[NL], s3[NL], x[NL];
@@ -390,10 +433,10 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
       uint32_t s3[NL];
       add_mod<NL>(suf[i], suf[i], p, s3);
       add_mod<NL>(s3, suf[i], p, s3);
-      sub_mod<NL>(s[i], P.one, p, E[LBIT][i]);
-      add_mod<NL>(E[LBIT][i], s3, p, E[LBIT][i]);
+      sub_mod<NL>(s[i], P.one, p, E[l][i]);
+      add_mod<NL>(E[l][i], s3, p, E[l][i]);
     }
-    prod_tree<NL, T, M>(E, LBIT + 1, S, P);
+    prod_tree<NL, T, M>(E, l + 1, S, P);
 
     // blinded public zero test of the product, one blinder per element
     uint32_t bl[NL], C[T][NL], bsh[M][NL];
@@ -427,11 +470,11 @@ sgn_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
   if constexpr (!LT) {
 #pragma unroll 1
-    for (int j = 0; j < LBIT; ++j) {
+    for (int j = 0; j < l; ++j) {
 #pragma unroll
       for (int i = 0; i < M; ++i) sub_mod<NL>(P.one, X[j][i], p, X[j][i]);
     }
-    prod_tree<NL, T, M>(X, LBIT, S, P);
+    prod_tree<NL, T, M>(X, l, S, P);
     if constexpr (EQ) {
 #pragma unroll
       for (int i = 0; i < M; ++i) fe_copy<NL>(X[0][i], z[i]);

@@ -12,7 +12,7 @@
 // Every draw keeps its index in the stream, so the layout is the JAX
 // package's XLA layout bit for bit (kernels.cu, sgn.cuh).
 //
-// Included by kernels.cu after DrawParams and reduce_draw. Each function
+// Included by common.cuh after DrawParams and reduce_draw. Each function
 // is called by every thread of the CTA; the caller synchronises before
 // the threads read what was staged, and before a stage overwrites what
 // they read.
@@ -37,11 +37,13 @@ __device__ __forceinline__ void squeeze_block(const uint32_t* __restrict__ state
 
 // Draws d0 + j*c + i (j < cnt, i < c) of the squeeze_mont stream of
 // W-word draws, EPB = 42 / W a block (ten of 16 bytes at NL = 2, eight of
-// 20 bytes at NL = 3), draw d in block blk0 + d / EPB, each reduced into
-// GF(p) in Montgomery form, to element i * stride + j of sm (NL words an
-// element): the threads of the CTA read draw i of their element j from
-// consecutive elements, with no bank conflict (8-byte words at NL = 2; at
-// NL = 3 a stride of three words, which is odd). Out of line, so the
+// 20 at NL = 3, seven of 24 at NL = 4, six of 28 at NL = 5), draw d in
+// block blk0 + d / EPB, each reduced into GF(p) in Montgomery form, to
+// element i * stride + j of sm (NL words an element): the threads of the
+// CTA read draw i of their element j from consecutive elements, with no
+// bank conflict at NL = 2 (8-byte words) and at NL = 3 and 5 (an odd
+// stride of words); at NL = 4 a warp's word q of its elements takes four
+// passes. Out of line, so the
 // permutation is compiled once per instantiation.
 template <int NL, int W>
 __device__ __noinline__ void stage_draws(const uint32_t* __restrict__ state,
@@ -74,9 +76,9 @@ __device__ __noinline__ void stage_draws(const uint32_t* __restrict__ state,
 
 // Raw words w0 .. w0 + cnt - 1 of the stream from block 0 (word w: rate
 // word w % 42 of block w / 42) to sm[w - w0].
-__device__ __noinline__ void stage_words(const uint32_t* __restrict__ state,
-                                         uint64_t nonce, long long w0,
-                                         int cnt, uint32_t* sm) {
+static __device__ __noinline__ void stage_words(
+    const uint32_t* __restrict__ state, uint64_t nonce, long long w0,
+    int cnt, uint32_t* sm) {
   if (cnt <= 0) return;
   const long long first = w0 / RATE_WORDS;
   const long long nb = (w0 + cnt - 1) / RATE_WORDS - first + 1;

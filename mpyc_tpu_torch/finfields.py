@@ -1,12 +1,17 @@
 """Prime fields GF(p) with arrays backed by torch tensors.
 
 Port of the part of ``mpyc_tpu/finfields.py`` that secure multiplication,
-comparison and truncation use: ``GF(p)``, ``find_prime_root`` (same
-construction, so the moduli agree with the JAX package's), and
-``PrimeFieldArray``, whose data is a ``(..., L)`` int32 tensor of
-Montgomery limbs on the CPU or the card, with elementwise +, -, * and
-negation (public int or integer-array operands included), (inverse)
-square roots, shifts by a public power of two and the values mod 2^f.
+comparison, truncation and the LP solver use: ``GF(p)`` (or of
+``find_prime_root``'s (p, n, w), kept as the field's ``nth`` and
+``root``), ``find_prime_root`` (same construction, so the moduli agree
+with the JAX package's), scalar elements ``GF(p)(x)`` on the host (``*``,
+``==``, ``int()``, ``reciprocal``), and ``PrimeFieldArray``, whose data is
+a ``(..., L)`` int32 tensor of Montgomery limbs on the CPU or the card,
+with elementwise +, -, * and negation (public int, element or
+integer-array operands included), ``==`` (a host bool array), fancy
+indexing, matrix products of field arrays, reciprocals (a power by p - 2,
+K6 on the card), (inverse) square roots, shifts by a public power of two
+and the values mod 2^f.
 """
 
 from __future__ import annotations
@@ -53,21 +58,80 @@ def find_prime_root(l, blum=True, n=1):
 
 
 class PrimeField:
-    """GF(p): class attributes only (the port has no scalar elements yet)."""
+    """GF(p) element on the host: ``value`` in [0, p) (``mpyc_tpu/
+    finfields.py:392 PrimeFieldElement``). The class carries the modulus,
+    the root of unity of ``find_prime_root`` (``nth``, ``root``) and the
+    field's array type."""
+
+    __slots__ = ('value',)
 
     modulus: int = None
+    nth: int = None
+    root: int = None
     array: type = None
+
+    def __init__(self, value):
+        if not isinstance(value, (int, np.integer)):
+            raise TypeError(f'int required, got {type(value).__name__}')
+        self.value = int(value) % self.modulus
+
+    def _v(self, other):
+        """The value of an element of this field or of an int; None for
+        anything else."""
+        if isinstance(other, PrimeField):
+            if other.modulus != self.modulus:
+                raise TypeError('elements of different fields')
+            return other.value
+        if isinstance(other, (int, np.integer)):
+            return int(other)
+        return None
+
+    def __mul__(self, other):
+        v = self._v(other)
+        if v is None:
+            return NotImplemented
+        return type(self)(self.value * v)
+
+    __rmul__ = __mul__
+
+    def __eq__(self, other):
+        v = self._v(other)
+        if v is None:
+            return NotImplemented
+        return self.value == v % self.modulus
+
+    def __hash__(self):
+        return hash((self.modulus, self.value))
+
+    def __int__(self):
+        """The signed value, in (-p/2, p/2) (``PrimeFieldElement.__int__``
+        of a signed field)."""
+        p = self.modulus
+        return self.value - p if self.value > p >> 1 else self.value
+
+    def reciprocal(self):
+        return type(self)(pow(self.value, -1, self.modulus))
+
+    def __repr__(self):
+        return f'{int(self)}'
 
 
 def GF(modulus) -> type:
-    """The field type GF(p) for an odd prime p, or find_prime_root's
-    (p, n, w) tuple."""
-    return _GF(int(modulus[0] if isinstance(modulus, tuple) else modulus))
+    """The field type GF(p) for an odd prime p (with the root of unity
+    w = p - 1 of order 2, as the JAX package's ``GF(p)``), or of
+    find_prime_root's (p, n, w) tuple."""
+    if isinstance(modulus, tuple):
+        p, n, w = (int(v) for v in modulus)
+    else:
+        p = int(modulus)
+        n, w = 2, p - 1
+    return _GF(p, n, w % p)
 
 
 @functools.cache
-def _GF(p: int) -> type:
-    field = type(f'GF({p})', (PrimeField,), {'modulus': p})
+def _GF(p: int, n: int, w: int) -> type:
+    field = type(f'GF({p})', (PrimeField,), {'__slots__': (), 'modulus': p,
+                                              'nth': n, 'root': w})
     field.array = type(f'ArrayGF({p})', (PrimeFieldArray,),
                        {'__slots__': (), 'field': field,
                         'ctx': prime_field_ctx(p)})
@@ -111,16 +175,25 @@ class PrimeFieldArray:
         return self.from_data(self.data.reshape(-1, self.ctx.L))
 
     def __getitem__(self, idx):
+        """Indexing along the logical axes; lists (nested ones too) index
+        as integer arrays, as numpy's fancy indexing."""
+        if isinstance(idx, list):
+            idx = torch.as_tensor(idx, dtype=torch.int64,
+                                  device=self.device)
         return self.from_data(self.data[idx])
 
     def _operand(self, other):
         """Data of a field array of this field, the Montgomery limbs of a
-        public int (a tuple), or the encoded data of a public integer
-        array on this array's device; None for anything else."""
+        public int or element (a tuple), or the encoded data of a public
+        integer array on this array's device; None for anything else."""
         if isinstance(other, PrimeFieldArray):
-            if other.field is not self.field:
+            if other.field.modulus != self.field.modulus:
                 raise TypeError('arrays of different fields')
             return other.data
+        if isinstance(other, PrimeField):
+            if other.modulus != self.field.modulus:
+                raise TypeError('an element of another field')
+            return self.ctx.encode_const(other.value)
         if isinstance(other, (int, np.integer)):
             return self.ctx.encode_const(int(other))
         if isinstance(other, (list, tuple, np.ndarray)):
@@ -153,12 +226,53 @@ class PrimeFieldArray:
     def __mul__(self, other):
         if isinstance(other, (int, np.integer)):
             return self.from_data(self.ctx.mul_int(self.data, int(other)))
+        if isinstance(other, PrimeField) and \
+                other.modulus == self.field.modulus:
+            return self.from_data(self.ctx.mul_limbs_const(
+                self.data, other.value * self.ctx.R))
         o = self._operand(other)
         if o is None:
             return NotImplemented
         return self.from_data(self.ctx.mul(self.data, o))
 
     __rmul__ = __mul__
+
+    def __matmul__(self, other):
+        """Matrix product of field arrays (numpy's matmul on the logical
+        shapes, vectors promoted); other operands (secure arrays) take
+        their reflected product."""
+        if not isinstance(other, PrimeFieldArray):
+            return NotImplemented
+        a, b = self.data, self._operand(other)
+        a_vec, b_vec = a.dim() == 2, b.dim() == 2
+        if a_vec:
+            a = a.unsqueeze(0)
+        if b_vec:
+            b = b.unsqueeze(1)
+        c = self.ctx.matmul(a, b)
+        if a_vec:
+            c = c[..., 0, :, :]
+        if b_vec:
+            c = c[..., 0, :]
+        return self.from_data(c)
+
+    def __eq__(self, other):
+        """Elementwise equality with a field array, element or int, as a
+        numpy bool array (read back to the host)."""
+        o = self._operand(other)
+        if o is None:
+            return NotImplemented
+        if isinstance(o, tuple):
+            o = torch.tensor(o, dtype=torch.int64).to(torch.int32).to(
+                self.device)
+        return (self.data == o).all(-1).cpu().numpy()
+
+    __hash__ = None
+
+    def reciprocal(self):
+        """Multiplicative inverses, a^(p - 2) (the inverse of 0 is 0;
+        ``mpyc_tpu/ops/limb.py:366 mont_inv``): K6 on the card."""
+        return self.from_data(self.ctx.inv(self.data))
 
     def __lshift__(self, n):
         """Times 2^n (``mpyc_tpu/finfields.py:1450``)."""

@@ -100,7 +100,7 @@ def _nonce_state(state: torch.Tensor, nonce) -> torch.Tensor:
 
 def _check_aligned(*tensors) -> None:
     """K3 and K5 load and store an element of a two-limb field as one
-    8-byte word (three limbs as three 4-byte words)."""
+    8-byte word (more limbs as 4-byte words)."""
     if any(t is not None and t.shape[-1] == 2 and t.data_ptr() % 8
            for t in tensors):
         raise ValueError('shares must start on an 8-byte boundary')
@@ -463,17 +463,18 @@ class SgnSpec:
     def params(self, nonce):
         """Kernel parameter block for a call with counter (lo, hi); raises
         NotImplementedError for a configuration the card has no
-        instantiation of."""
+        instantiation of: (t, m) other than (1, 3), k above 64, a field of
+        a limb count not built (``_build.BUILT_NL``). Any l the spec takes
+        (l + k + 2 <= bit length of p) is a launch parameter."""
         from mpyc_tpu_torch import _build
-        key = (SGN_MODES.index(self.mode), self.l, self.t, self.m,
-               self.ctx.L)
-        if key not in _build.SGN_BUILT:
-            built = ', '.join(f'{SGN_MODES[b[0]]} at l={b[1]}, t={b[2]}, '
-                              f'm={b[3]}, L={b[4]}' for b in _build.SGN_BUILT)
+        L = self.ctx.L
+        if (self.t, self.m) != (1, 3) or self.k > 64 or \
+                L not in _build.BUILT_NL or self.l_bytes != 4 * (L + 2):
             raise NotImplementedError(
-                f'the CUDA comparison is built for {built}; not '
-                f'{self.mode} at l={self.l}, t={self.t}, m={self.m}, '
-                f'L={self.ctx.L}')
+                f'the CUDA comparison is built for t=1, m=3, k <= 64 and '
+                f'fields of {_build.BUILT_NL} limbs with draws of 4 (L + 2) '
+                f'bytes; not t={self.t}, m={self.m}, k={self.k}, L={L} '
+                f'({self.l_bytes}-byte draws)')
         P = _build.SgnParams()
         P.draw = _build.draw_params(self.ctx, 2)
         for i, c in enumerate(self.lag_t):
@@ -489,7 +490,7 @@ class SgnSpec:
             _build.set_limbs(getattr(P, name), v)
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
         P.t, P.m, P.l, P.k = self.t, self.m, self.l, self.k
-        P.mode, P.has_f = key[0], int(bool(self.f))
+        P.mode, P.has_f = SGN_MODES.index(self.mode), int(bool(self.f))
         return P
 
 
@@ -885,7 +886,7 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     take the plain version; CUDA tensors launch the kernel
     (``csrc/pow.cuh random_bits_tail_kernel``), or raise
     NotImplementedError for a configuration it is not built for ((t, m) =
-    (1, 3), two or three limbs, p = 3 mod 4)."""
+    (1, 3), two to five limbs, p = 3 mod 4)."""
     m = r.shape[0]
     L = field.array.ctx.L
     if r.dim() != 3 or r.shape[2] != L or r.dtype != torch.int32 or \

@@ -143,7 +143,7 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     int32 limbs of ``ctx``'s field) and a public exponent 0 <= e < 2^(32 L).
 
     No Pallas kernel of the JAX package computes it: XLA runs its
-    ``mpyc_tpu/ops/limb.py:330 mont_pow_const`` (via ``fieldops.py:549
+    ``mpyc_tpu/ops/limb.py:330 mont_pow_const`` (via ``fieldops.py:550
     pow_const``). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (``csrc/pow.cuh``, ``mont_pow_kernel``, by e's
     plan), or raises NotImplementedError for a limb count it is not built
@@ -322,12 +322,35 @@ class PrimeFieldCtx:
 
     def pow_const(self, a, e: int):
         """a^e elementwise for a public integer e (K6 on the card). As in
-        ``mpyc_tpu/ops/fieldops.py:549``, e outside [0, p - 1) is reduced
+        ``mpyc_tpu/ops/fieldops.py:550``, e outside [0, p - 1) is reduced
         mod p - 1 to a positive exponent, so that 0^e stays 0."""
         e = int(e)
         if e < 0 or e >= self.p - 1:
             e = e % (self.p - 1) or self.p - 1
         return mont_pow(a, e, self)
+
+    def encode_bits(self, b: torch.Tensor) -> torch.Tensor:
+        """A 0/1 integer tensor -> Montgomery limbs of its values, on its
+        device (1 is R mod p)."""
+        one = torch.tensor(self.one_mont, dtype=torch.int64,
+                           device=b.device)
+        return (b.to(torch.int64)[..., None] * one).to(torch.int32)
+
+    def inv(self, a):
+        """Multiplicative inverses by Fermat, a^(p - 2); the inverse of 0
+        is 0 (``mpyc_tpu/ops/limb.py:366 mont_inv``). K6 on the card."""
+        return mont_pow(a, self.p - 2, self)
+
+    def legendre(self, a) -> torch.Tensor:
+        """Legendre symbols as an int32 tensor: 0 for 0, 1 for a quadratic
+        residue, -1 for a non-residue (``mpyc_tpu/ops/fieldops.py:591``):
+        a^((p - 1) / 2), K6 on the card, against R mod p."""
+        r = mont_pow(a, (self.p - 1) >> 1, self)
+        one = torch.tensor(self.one_mont, dtype=torch.int64).to(
+            torch.int32).to(a.device)
+        is_one = (r == one).all(-1)
+        return torch.where(self.is_zero(a), 0, torch.where(
+            is_one, 1, -1)).to(torch.int32)
 
     def sqrt(self, a, INV=False):
         """Square roots (or their inverses) of quadratic residues, by the

@@ -31,12 +31,14 @@ def ints_to_limbs(xs, L: int) -> np.ndarray:
     """Array of nonnegative ints (object ndarray or list) -> (..., L) uint32,
     in L vectorized passes (no per-element Python loop)."""
     cur = np.asarray(xs, dtype=object)
+    shape = cur.shape
+    cur = cur.reshape(-1)          # a 0-d object array's ops give ints
     limbs = []
     for i in range(L):
         limbs.append((cur & M32).astype(np.uint32))
         if i < L - 1:
             cur = cur >> 32
-    return np.stack(limbs, axis=-1)
+    return np.stack(limbs, axis=-1).reshape(shape + (L,))
 
 
 def limbs_to_ints(v) -> np.ndarray:

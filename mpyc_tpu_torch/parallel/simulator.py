@@ -85,29 +85,36 @@ class SimRuntime(Runtime):
         for _peer in senders:
             objs = []
             for xi in x:
-                stype = type(xi)
+                stype = self._sectype(xi)
                 field = stype.field
                 secret = xi.share
                 flat = secret.flatten() if secret.shape else secret.reshape(1)
                 sh = thresha.np_random_split(field, flat, t, m, self._rng)
                 objs.append(self._wrap(stype, sh.reshape((m,) + xi.shape),
-                                       self._integral(xi)))
+                                       self._integral(xi),
+                                       self._is_array_op(xi)))
             y.append(objs)
         return y
 
     @staticmethod
-    def _wrap(stype, share, integral=None):
-        """Secure array of type stype holding party-stacked shares; a
-        fixed-point array gets the flag ``integral`` (None: False)."""
-        res = stype(share)
-        res.shape = share.shape[1:]
+    def _wrap(stype, share, integral=None, array=True):
+        """Secure array of type stype holding party-stacked shares, or
+        with ``array`` False and no logical axes a secure number of its
+        type; a fixed-point one gets the flag ``integral`` (None:
+        False)."""
+        if array or share.shape[1:]:
+            res = stype(share)
+            res.shape = share.shape[1:]
+        else:
+            res = stype.sectype(share)
         if issubclass(stype, sectypes.SecureFixedPointArray):
             res.integral = bool(integral)
         return res
 
     @staticmethod
     def _is_public(x) -> bool:
-        """x is a secure array not yet input: its share has no party axis."""
+        """x is a secure object not yet input: its share has no party
+        axis."""
         return tuple(x.share.shape) == tuple(x.shape)
 
     def _share(self, x):
@@ -171,16 +178,20 @@ class SimRuntime(Runtime):
                                     self._fused_ctr)
         return out[:, :n].reshape(d0.shape)
 
-    def _local(self, a, fn):
+    def _local(self, a, fn, array=True):
         """Secure array of fn(party-stacked share data): a local shape
-        operation that keeps the party axis first and the limb axis last."""
+        operation that keeps the party axis first and the limb axis last
+        (with ``array`` False a secure number where no logical axis is
+        left: ``_wrap``)."""
         share = self._share(a)
-        return self._wrap(type(a), share.from_data(fn(share.data)),
-                          self._integral(a))
+        data = fn(share.data)
+        return self._wrap(self._sectype(a), share.from_data(data),
+                          self._integral(a), array)
 
     def np_getitem(self, a, idx):
         """a[idx] along the logical axes (local): integers, slices with a
-        positive step, None and one Ellipsis."""
+        positive step, None and one Ellipsis; a 0-d result is a secure
+        number."""
         if not isinstance(idx, tuple):
             idx = (idx,)
         if Ellipsis in idx:
@@ -188,7 +199,25 @@ class SimRuntime(Runtime):
             used = sum(i is not None for i in idx) - 1
             idx = idx[:k] + (slice(None),) * (len(a.shape) - used) + \
                 idx[k + 1:]
-        return self._local(a, lambda d: d[(slice(None),) + idx])
+        return self._local(a, lambda d: d[(slice(None),) + idx],
+                           array=False)
+
+    def np_fromlist(self, x):
+        """A list of secure numbers as a secure 1-D array
+        (``mpyc_tpu/parallel/simulator.py:968``)."""
+        stype = self._sectype(*x)
+        datas = [self._share(xi).data for xi in x]
+        share = self._share(x[0]).from_data(torch.stack(datas, dim=1))
+        return self._wrap(stype, share,
+                          all(self._integral(xi) for xi in x))
+
+    def np_tolist(self, a):
+        """A secure array as a (nested) list of secure numbers
+        (``mpyc_tpu/parallel/simulator.py:976``)."""
+        if len(a.shape) == 1:
+            return [self.np_getitem(a, i) for i in range(a.shape[0])]
+        return [self.np_tolist(self.np_getitem(a, i))
+                for i in range(a.shape[0])]
 
     def np_sum(self, a, axis=None, keepdims=False):
         """Secure sum over the logical axes ``axis`` (int, tuple or None:
@@ -296,17 +325,18 @@ class SimRuntime(Runtime):
         ``parallel/simulator.py:388-419``): by an integral operand the
         local product is divided by 2^f, exactly, and then reshared (K3
         without the product); any other product is truncated after it."""
-        if not isinstance(a, sectypes.SecureArray):
+        if not isinstance(a, sectypes.SecureObject):
             a, b = b, a
-        if not isinstance(a, (sectypes.SecureIntegerArray,
-                              sectypes.SecureFixedPointArray)):
-            raise NotImplementedError('the port multiplies secure integer '
-                                      'and fixed-point arrays')
-        stype = type(a)
+        stype = self._sectype(a, b)
+        if not issubclass(stype, (sectypes.SecureIntegerArray,
+                                  sectypes.SecureFixedPointArray)):
+            raise NotImplementedError('the port multiplies secure integers '
+                                      'and fixed-point numbers')
         f = stype.sectype.frac_length
+        array = self._is_array_op(a, b)
         if isinstance(b, (int, np.integer)):
             return self._wrap(stype, self._share(a) * int(b),
-                              self._integral(a))
+                              self._integral(a), array)
         a_int, b_int = self._integral(a), self._integral(b)
         l_f = stype.sectype.bit_length + f
         b = self._coerce_op(stype, b)
@@ -321,7 +351,7 @@ class SimRuntime(Runtime):
             if f:
                 c = c >> f if a_int or b_int else \
                     self._trunc_field(c, f, l_f)
-            return self._wrap(stype, c, a_int and b_int)
+            return self._wrap(stype, c, a_int and b_int, array)
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
@@ -332,7 +362,7 @@ class SimRuntime(Runtime):
             c = self._mul_reshare_fused(sa, sb)
             if f:
                 c = self._trunc_field(c, f, l_f)
-        return self._wrap(stype, c, a_int and b_int)
+        return self._wrap(stype, c, a_int and b_int, array)
 
     # Largest flat batch of one comparison step: inputs are cut into
     # chunks of 2^20 elements, each one step call that advances the
@@ -359,13 +389,13 @@ class SimRuntime(Runtime):
         version a chunk, on the card one launch of kernel K5 for all."""
         if LT and EQ:
             raise ValueError('LT and EQ exclude each other')
-        if not isinstance(a, (sectypes.SecureIntegerArray,
-                              sectypes.SecureFixedPointArray)):
-            raise NotImplementedError('the port compares secure integer '
-                                      'and fixed-point arrays')
+        stype = self._sectype(a)
+        if not issubclass(stype, (sectypes.SecureIntegerArray,
+                                  sectypes.SecureFixedPointArray)):
+            raise NotImplementedError('the port compares secure integers '
+                                      'and fixed-point numbers')
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
-        stype = type(a)
         p = stype.field.modulus
         l = l or stype.sectype.bit_length
         t, m, k = self.threshold, len(self.parties), self.sec_param
@@ -382,26 +412,52 @@ class SimRuntime(Runtime):
             sh.data.reshape(m, n, L), self._fused_state_tensor(),
             self._fused_ctr, spec, self._sgn_chunk(L))
         return self._wrap(stype, stype.field.array.from_data(
-            out.reshape((m,) + tuple(a.shape) + (L,))), True)
+            out.reshape((m,) + tuple(a.shape) + (L,))), True,
+            self._is_array_op(a))
 
     def output(self, x, threshold=None, raw=False):
-        """Open secure arrays, or party-stacked field arrays: recombine the
-        shares of parties 1..threshold+1 (default t + 1) at 0
+        """Open secure objects, or party-stacked field arrays: recombine
+        the shares of parties 1..threshold+1 (default t + 1) at 0
         (``mpyc_tpu/parallel/simulator.py:183``). Secure arrays open to
-        their values (SecInt: signed int64, SecFxp: float64), or with
+        their values (SecInt: signed int64 below 2^64, else Python ints;
+        SecFxp: float64), secure numbers to one int or float, or with
         ``raw`` to the field array; field arrays to field arrays."""
         x_is_list = isinstance(x, list)
         xl = list(x) if x_is_list else [x]
         t = self.threshold if threshold is None else threshold
         ys = []
         for xi in xl:
-            secure = isinstance(xi, sectypes.SecureArray)
+            secure = isinstance(xi, sectypes.SecureObject)
             s = self._share(xi) if secure else xi
             pts = [(i + 1, s[i].flatten()) for i in range(t + 1)]
             rec = thresha.np_recombine(s.field, pts).reshape(s.shape[1:])
             ys.append(type(xi)._output_conversion(rec)
                       if secure and not raw else rec)
         return ys if x_is_list else ys[0]
+
+    def reciprocal(self, a):
+        """Secure reciprocal of a nonzero secure integer, or of each value
+        of an array (``mpyc_tpu/parallel/simulator.py:947``): PRSS random
+        r, the product r a reshared (K3 without the product) and opened,
+        its public inverse (a power by p - 2, K6 on the card), and r / (r
+        a); again with new r while an opened product is 0. A fixed-point
+        value's is scaled by 2^(2 f)."""
+        stype = self._sectype(a)
+        field = stype.field
+        m = len(self.parties)
+        sa = self._share(a)
+        logical = tuple(sa.shape[1:])
+        n = max(math.prod(logical), 1)
+        while True:
+            r = self._np_randoms(field, n).reshape((m,) + logical)
+            c = self.output(self._reshare(r * sa))
+            if not c.ctx.any_zero(c.data):
+                break
+        res = r * c.reciprocal()
+        f = stype.sectype.frac_length
+        if f:
+            res = res * (1 << 2 * f)
+        return self._wrap(stype, res, False, self._is_array_op(a))
 
     # -- PRSS, random bits and truncation -------------------------------------
 

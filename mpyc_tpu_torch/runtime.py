@@ -1,23 +1,32 @@
 """The MPC runtime's user surface: secure multiplication and comparison.
 
 Port of the part of ``mpyc_tpu/runtime.py`` that the port's slices need:
-``input``, ``SecInt``, ``SecFxp``, ``start``, ``shutdown``, ``barrier``
-and ``gather``; the local share arithmetic ``add``, ``sub``, ``neg``
-(public operands broadcast as the constant polynomial); ``np_multiply``;
-the comparison surface ``np_less``, ``np_equal``, ``np_minimum``,
-``np_maximum``, ``np_absolute`` on top of ``np_sgn``; ``np_where``;
-``np_argmax`` and ``np_argmin``; the local shape operations
-(``np_reshape``, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
-``np_concatenate``, ``np_stack``; public numpy operands of the last two
-enter as constant sharings); the PRSS keys' PRFs (``prfs``) and program
-counter (``_prss_uci``); and secure truncation (``trunc``,
-``np_trunc``).
+``input``, ``SecInt``, ``SecFxp``, ``start``, ``shutdown``, ``run``,
+``barrier`` and ``gather``; the local share arithmetic ``add``, ``sub``,
+``neg`` (public operands broadcast as the constant polynomial);
+``np_multiply``; division (``div``: a secure divisor's reciprocal, a
+public divisor's inverse); the comparison surface ``np_less``,
+``np_equal``, ``is_zero``, ``np_minimum``, ``np_maximum``,
+``np_absolute`` on top of ``np_sgn``, and for wide integers [NO07]'s
+probabilistic zero test (``_np_is_zero``); ``np_all`` and ``all``;
+``np_where``; ``np_argmax`` and ``np_argmin``, with comparison keys of
+one or more components; the local shape operations (``np_reshape``, C
+or Fortran order, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
+``np_concatenate``, ``np_stack``, ``np_column_stack``, ``np_append``;
+public numpy and field-array operands enter as constant sharings);
+``np_outer``; the PRSS keys' PRFs (``prfs``) and program counter
+(``_prss_uci``); and secure truncation (``trunc``, ``np_trunc``).
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
-``output``, the PRSS draws ``_np_randoms`` and ``np_random_bits`` and
-the truncation round ``_trunc_field``, the local ``np_getitem`` and
-``np_sum``, and the share bookkeeping ``_share``, ``_share2``, ``_local``
-and ``_wrap``.
+``output``, ``reciprocal``, the PRSS draws ``_np_randoms`` and
+``np_random_bits`` and the truncation round ``_trunc_field``, the local
+``np_getitem``, ``np_sum``, ``np_fromlist`` and ``np_tolist``, and the
+share bookkeeping ``_share``, ``_share2``, ``_local`` and ``_wrap``.
+
+Secure scalars (``SecureNumber``) come out of whatever gives a 0-d
+result without an array operand, as in the JAX package: indexing down to
+one element, products and sums of scalars, ``np_all`` over everything;
+a matrix product always gives an array.
 
 Fixed-point arrays (``SecFxp``) keep an ``integral`` flag through every
 operation, as the JAX package does: a sum or a shape operation is
@@ -28,12 +37,13 @@ other product of fixed-point values is truncated.
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
 import torch
 
-from mpyc_tpu_torch import resolve_device, sectypes, thresha
+from mpyc_tpu_torch import finfields, resolve_device, sectypes, thresha
 
 
 class Party:
@@ -73,6 +83,13 @@ class Runtime:
     def shutdown(self):
         self.start_time = None
 
+    @staticmethod
+    def run(obj):
+        """The result of a computation: the port's runtime computes
+        eagerly, so it is obj itself (the JAX package's ``run`` awaits
+        it)."""
+        return obj
+
     def barrier(self, name=None):
         """Synchronisation point of the parties: nothing to wait for when
         one process plays them all."""
@@ -89,13 +106,16 @@ class Runtime:
             return g(obj[0])
         return tuple(map(g, obj))
 
-    def SecInt(self, l: int = 32) -> type:
-        """Secure l-bit integers on this runtime's device, whose arrays'
+    def SecInt(self, l: int = 32, p: int = None, n: int = 2) -> type:
+        """Secure l-bit integers on this runtime's device (over GF(p), by
+        default the JAX package's field for l with a root of unity of
+        order at least n: ``sectypes.SecInt``), whose numbers' and arrays'
         operators call this runtime."""
-        secint = self._secints.get(l)
+        key = (l, p, n)
+        secint = self._secints.get(key)
         if secint is None:
-            secint = self._secints[l] = sectypes.bind(
-                sectypes.SecInt(l, self.device), self)
+            secint = self._secints[key] = sectypes.bind(
+                sectypes.SecInt(l, self.device, p=p, n=n), self)
         return secint
 
     def SecFxp(self, l: int = 32, f: int = None) -> type:
@@ -147,11 +167,20 @@ class Runtime:
 
     @staticmethod
     def _sectype(*xs) -> type:
-        """The secure array type of the operands (the first one wins)."""
+        """The secure array type of the operands (the first secure one
+        wins; a secure number's is its type's array class)."""
         for x in xs:
             if isinstance(x, sectypes.SecureArray):
                 return type(x)
+            if isinstance(x, sectypes.SecureNumber):
+                return type(x).array
         raise TypeError('no secure operand')
+
+    @staticmethod
+    def _is_array_op(*xs) -> bool:
+        """Whether a secure array is among the operands: the result of an
+        operation of secure numbers and public values is a number."""
+        return any(isinstance(x, sectypes.SecureArray) for x in xs)
 
     @staticmethod
     def _integral(x) -> bool:
@@ -159,7 +188,8 @@ class Runtime:
         flag, any other secure array always, a public value by its values
         (a float array never, as in the JAX package: its products get a
         proper truncation)."""
-        if isinstance(x, sectypes.SecureFixedPointArray):
+        if isinstance(x, (sectypes.SecureFixedPointArray,
+                          sectypes.SecureFixedPoint)):
             return bool(x.integral)
         if isinstance(x, sectypes.SecureObject):
             return True
@@ -174,14 +204,17 @@ class Runtime:
             return all(Runtime._integral(v) for v in x)
         return True
 
-    @staticmethod
-    def _coerce_op(stype, x):
-        """A secure array of type stype as it is; a public int or integer
-        array as an un-input secure array of its values."""
-        if isinstance(x, sectypes.SecureArray):
-            if type(x) is not stype:
+    def _coerce_op(self, stype, x):
+        """A secure object of array type stype (an array or one of its
+        numbers) as it is; a public int or integer array as an un-input
+        secure array of its values, a field array of its field as an
+        un-input secure array holding it."""
+        if isinstance(x, sectypes.SecureObject):
+            if self._sectype(x) is not stype:
                 raise TypeError('secure operands of different types')
             return x
+        if isinstance(x, finfields.PrimeFieldArray):
+            return stype(x)
         return stype(np.asarray(x))
 
     def add(self, a, b):
@@ -190,7 +223,8 @@ class Runtime:
         a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
         sa, sb = self._share2(a, b)
         return self._wrap(stype, sa + sb,
-                          self._integral(a) and self._integral(b))
+                          self._integral(a) and self._integral(b),
+                          self._is_array_op(a, b))
 
     def sub(self, a, b):
         """Secure elementwise a - b (either may be public)."""
@@ -198,12 +232,13 @@ class Runtime:
         a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
         sa, sb = self._share2(a, b)
         return self._wrap(stype, sa - sb,
-                          self._integral(a) and self._integral(b))
+                          self._integral(a) and self._integral(b),
+                          self._is_array_op(a, b))
 
     def neg(self, a):
         """Secure elementwise -a."""
         return self._wrap(self._sectype(a), -self._share(a),
-                          self._integral(a))
+                          self._integral(a), self._is_array_op(a))
 
     def np_add(self, a, b):
         return self.add(a, b)
@@ -214,6 +249,36 @@ class Runtime:
     def np_multiply(self, a, b):
         """Elementwise secure product (b may be public: a local scale)."""
         return self.mul(a, b)
+
+    def div(self, a, b):
+        """Secure a / b (``mpyc_tpu/runtime.py:1597``). A secure divisor
+        of an integer type is a product by its secure reciprocal; a public
+        divisor (int or integer array) of an integer type a local product
+        by its inverse mod p; a public divisor of a fixed-point type a
+        product by 1 / b. Fixed-point secure divisors (the JAX package's
+        Newton iteration ``_rec``) are not ported."""
+        stype = self._sectype(a, b)
+        f = stype.sectype.frac_length
+        if isinstance(b, sectypes.SecureObject):
+            if f:
+                raise NotImplementedError('division by a secure '
+                                          'fixed-point value is not ported')
+            return self.mul(self.reciprocal(b), a)
+        if f:
+            if isinstance(b, (list, tuple, np.ndarray)):
+                c = np.vectorize(lambda v: 1 / v, otypes=[object])(
+                    np.asarray(b, dtype=object))
+            else:
+                c = 1 / b
+                if c.is_integer():
+                    c = round(c)
+            return self.mul(a, c)
+        field = stype.field
+        inv = np.vectorize(lambda v: pow(int(v), -1, field.modulus),
+                           otypes=[object])(np.asarray(b, dtype=object))
+        c = field.array(inv, stype.device)
+        return self._wrap(stype, self._share(a) * c, False,
+                          self._is_array_op(a))
 
     # -- truncation -----------------------------------------------------------
 
@@ -262,17 +327,108 @@ class Runtime:
         return self.np_less(a, b)
 
     def np_equal(self, a, b):
-        """Secure elementwise a == b, as 0/1."""
-        d = self.sub(a, b)
-        stype = self._sectype(d)
-        l = stype.sectype.bit_length
-        if l / 2 > self.sec_param >= 8 and stype.field.modulus % 4 == 3:
-            # the JAX package takes the [NO07] probabilistic zero test
-            # (_np_is_zero) here; the port has no counterpart yet
-            raise NotImplementedError(
-                f'np_equal for SecInt({l}): the [NO07] zero '
-                'test is not ported')
-        return self.np_sgn(d, EQ=True)
+        """Secure elementwise a == b, as 0/1 (``mpyc_tpu/runtime.py:2924``):
+        is_zero of a - b."""
+        return self.is_zero(self.sub(a, b))
+
+    def is_zero(self, a):
+        """Secure a == 0, as 0/1 (``mpyc_tpu/runtime.py:2934``): for bit
+        lengths above twice the security parameter k (and k >= 8) on a
+        Blum prime, [NO07]'s probabilistic test (``_np_is_zero``), else the
+        comparison in EQ mode."""
+        stype = self._sectype(a)
+        if stype.sectype.bit_length / 2 > self.sec_param >= 8 and \
+                stype.field.modulus % 4 == 3:
+            return self._np_is_zero(a)
+        return self.np_sgn(a, EQ=True)
+
+    def _np_is_zero(self, a):
+        """[NO07]'s zero test of every element of a (``mpyc_tpu/
+        runtime.py:2944``), with k = sec_param trials an element, each
+        with blinders of its own (no blinder is shared between elements):
+        k random bits z, random r and r', and u = r'^2 reshared; open
+        c = a r + (1 - 2 z) u at threshold 2t. For a = 0, c = +-u is a
+        square exactly when z = 0; for a != 0, c is uniform. A trial gives
+        1 - z where c is a square, z where it is not (Legendre symbols of
+        the opened values, K6 on the card), 1 where c = 0; the result is
+        the product of the k trials, in log depth. Wrong with probability
+        about 2^-k for a != 0."""
+        stype = self._sectype(a)
+        field = stype.field
+        shape = a.shape
+        n = max(math.prod(shape), 1)
+        k = self.sec_param
+        m = len(self.parties)
+        z = self.np_random_bits(field, k * n)
+        r = self._np_randoms(field, k * n)
+        u2 = self._reshare(r * r)
+        r = self._np_randoms(field, k * n)
+        a_sh = self._share(a).reshape(m, 1, n)
+        z, r, u2 = (x.reshape(m, k, n) for x in (z, r, u2))
+        c = a_sh * r + (1 - z * 2) * u2
+        c = self.output(c, threshold=2 * self.threshold)    # public (k, n)
+        ctx = field.array.ctx
+        sq_f = field.array.from_data(ctx.encode_bits(
+            ctx.legendre(c.data) >= 0))
+        isz_f = field.array.from_data(ctx.encode_bits(ctx.is_zero(c.data)))
+        cand = sq_f + z - (sq_f * z) * 2     # 1 - z where square, else z
+        cand = cand * (1 - isz_f) + isz_f    # 1 where c = 0
+        e = self._prod_last_axis(cand.from_data(cand.data.transpose(1, 2)))
+        f = stype.sectype.frac_length
+        if f:
+            e = e << f
+        e = e.reshape((m,) + tuple(shape))
+        return self._wrap(stype, e, True, bool(shape))
+
+    def _prod_last_axis(self, s):
+        """Product along the last logical axis of party-stacked field
+        shares, in log depth, each level a local product and one reshare
+        round (``mpyc_tpu/runtime.py:2847``)."""
+        while s.shape[-1] > 1:
+            w = s.shape[-1]
+            half = w // 2
+            x = self._reshare(s[..., :half, :] * s[..., half:2 * half, :])
+            if w % 2:
+                x = x.from_data(torch.cat([x.data, s.data[..., 2 * half:, :]],
+                                          dim=-2))
+            s = x
+        return s[..., 0, :]
+
+    def np_all(self, a, axis=None):
+        """Secure all() of 0/1 values over axes: their product, in log
+        depth (``mpyc_tpu/runtime.py:2988``); a fixed-point array's values
+        are brought to 0/1 (exactly: they are integral) and back."""
+        stype = self._sectype(a)
+        s = self._share(a)
+        m = len(self.parties)
+        f = stype.sectype.frac_length
+        if f:
+            s = s >> f
+        nd = len(a.shape)
+        if axis is None:
+            s = s.reshape(m, -1)
+        else:
+            axes = (axis % nd,) if isinstance(axis, int) else \
+                tuple(sorted(i % nd for i in axis))
+            rest = [i for i in range(nd) if i not in axes]
+            data = s.data.permute((0,) + tuple(i + 1 for i in rest + list(
+                axes)) + (nd + 1,))
+            s = s.from_data(data.reshape(
+                (m,) + tuple(a.shape[i] for i in rest) + (-1, s.ctx.L)))
+        out = self._prod_last_axis(s)
+        if f:
+            out = out << f
+        return self._wrap(stype, out, True, bool(out.shape[1:]))
+
+    def all(self, x):
+        """Secure all() of a secure array, or of a list of secure 0/1
+        numbers (``mpyc_tpu/runtime.py:3019``)."""
+        if isinstance(x, sectypes.SecureArray):
+            return self.np_all(x)
+        x = list(x)
+        if not x:
+            return 1
+        return self.np_all(self.np_fromlist(x))
 
     def np_minimum(self, a, b):
         """Secure elementwise minimum."""
@@ -296,9 +452,17 @@ class Runtime:
 
     # -- shape operations (local) --------------------------------------------
 
-    def np_reshape(self, a, shape):
-        """Secure array reshaped to ``shape`` (one -1 allowed)."""
+    def np_reshape(self, a, shape, order='C'):
+        """Secure array reshaped to ``shape`` (one -1 allowed), its values
+        read and written in C order, or in Fortran order with order='F'
+        (x.reshape(shape, 'F') is x.T.reshape(shape[::-1]).T)."""
         shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        if order == 'F':
+            a = self.np_transpose(self.np_reshape(self.np_transpose(a),
+                                                  shape[::-1]))
+            return a
+        if order != 'C':
+            raise ValueError(f'order {order!r}: C or F')
         return self._local(a, lambda d: d.reshape(
             d.shape[:1] + shape + d.shape[-1:]))
 
@@ -323,8 +487,8 @@ class Runtime:
                                         for i in range(out_nd)))
 
     def _shares_of(self, arrays):
-        """The type and party-stacked shares of secure arrays and public
-        integer arrays (constant sharings)."""
+        """The type and party-stacked shares of secure arrays, public
+        integer arrays and field arrays (constant sharings)."""
         stype = self._sectype(*arrays)
         return stype, [self._share(self._coerce_op(stype, x))
                        for x in arrays]
@@ -343,35 +507,86 @@ class Runtime:
         return self._wrap(stype, shares[0].from_data(data),
                           self._integral(list(arrays)))
 
+    def np_column_stack(self, tup):
+        """1-D arrays as columns, 2-D ones as they are, side by side
+        (``mpyc_tpu/runtime.py:2253``)."""
+        def col(x):
+            if not isinstance(x, sectypes.SecureArray):
+                x = np.asarray(x)
+                return x.reshape(-1, 1) if x.ndim == 1 else x
+            return self.np_reshape(x, (x.shape[0], 1)) if x.ndim == 1 else x
+        return self.np_concatenate([col(x) for x in tup], axis=1)
+
+    def np_append(self, a, b, axis=None):
+        """a with b appended along axis, both flattened first without one
+        (``mpyc_tpu/runtime.py:2212``)."""
+        if axis is None:
+            a, b = (self.np_reshape(x, (-1,))
+                    if isinstance(x, sectypes.SecureArray)
+                    else np.asarray(x).reshape(-1) for x in (a, b))
+            axis = 0
+        return self.np_concatenate([a, b], axis=axis)
+
+    def np_outer(self, a, b):
+        """Secure outer product of a and b, both flattened: one product
+        round of the broadcast column and row (``mpyc_tpu/runtime.py:
+        2453``); either may be public, or a secure number."""
+        def col(x, shape):
+            if isinstance(x, sectypes.SecureArray):
+                return self.np_reshape(x, shape)
+            if isinstance(x, sectypes.SecureNumber):
+                return self.np_reshape(self.np_fromlist([x]), shape)
+            return np.asarray(x).reshape(shape)
+        ar, br = col(a, (-1, 1)), col(b, (1, -1))
+        if isinstance(ar, sectypes.SecureArray):
+            return self.mul(ar, br)
+        return self.mul(br, ar)
+
     # -- arg extrema ---------------------------------------------------------
 
-    def np_argmax(self, a, axis=None, keepdims=False, arg_unary=False,
-                  arg_only=True):
+    def np_argmax(self, a, axis=None, keepdims=False, key=None,
+                  arg_unary=False, arg_only=True):
         """Secure indices of the maximum values along an axis, the first
         occurrence on ties; unit vectors when arg_unary; with the maxima
-        when not arg_only (``mpyc_tpu/runtime.py`` np_argmax)."""
-        return self._np_argminmax(a, axis, keepdims, arg_unary, arg_only,
-                                  is_min=False)
+        when not arg_only (``mpyc_tpu/runtime.py:3661``). ``key``: a class
+        whose instances wrap secure arrays and compare with ``<``; with
+        key.size = s > 1 the last axis of a holds the s components of each
+        key and is kept in the maxima."""
+        return self._np_argminmax(a, axis, keepdims, key, arg_unary,
+                                  arg_only, is_min=False)
 
-    def np_argmin(self, a, axis=None, keepdims=False, arg_unary=False,
-                  arg_only=True):
-        """Secure indices of the minimum values along an axis; see
-        np_argmax."""
-        return self._np_argminmax(a, axis, keepdims, arg_unary, arg_only,
-                                  is_min=True)
+    def np_argmin(self, a, axis=None, keepdims=False, key=None,
+                  arg_unary=False, arg_only=True):
+        """Secure indices of the minimum values along an axis
+        (``mpyc_tpu/runtime.py:3652``); see np_argmax."""
+        return self._np_argminmax(a, axis, keepdims, key, arg_unary,
+                                  arg_only, is_min=True)
 
-    def _np_argminmax(self, a, axis, keepdims, arg_unary, arg_only, is_min):
-        """The reference's shape semantics (``mpyc_tpu/runtime.py``
-        ``_np_argminmax``): the axis goes last, the rest flattens into
-        rows, and one odd-even tournament runs on every row at once."""
+    def _np_argminmax(self, a, axis, keepdims, key, arg_unary, arg_only,
+                      is_min):
+        """The reference's shape semantics (``mpyc_tpu/runtime.py:3668``
+        ``_np_argminmax``): the axis goes last (before a key's component
+        axis), the rest flattens into rows, and one odd-even tournament
+        runs on every row at once."""
+        ks = getattr(key, 'size', 1) if key is not None else 1
+        if ks != 1 and ks != a.shape[-1]:
+            raise ValueError(f'a key of {ks} components on an axis of '
+                             f'{a.shape[-1]}')
         shape = a.shape
-        ndim = len(shape)
+        ndim = len(shape) - (ks > 1)
         if axis is None:
-            a = self.np_reshape(a, (1, a.size))
-        else:
+            a = self.np_reshape(a, (1, a.size // ks) + ((ks,) if ks > 1
+                                                        else ()))
+        elif ks == 1:
             a = self.np_swapaxes(a, axis, -1)
             a = self.np_reshape(a, (-1, a.shape[-1]))
-        u, m = self._np_argext(a, is_min)
+        else:
+            if (axis + 1) % len(shape) == 0:
+                raise ValueError('the key\'s component axis is no axis to '
+                                 'reduce')
+            a = self.np_swapaxes(a, axis, -2)
+            a = self.np_reshape(a, (-1, a.shape[-2], ks))
+        u, m = self._np_argext(a, is_min, key, ks)
         if not arg_unary:
             u = self.np_sum(self.mul(u, np.arange(u.shape[1])), axis=-1)
         if axis is None:
@@ -381,6 +596,8 @@ class Runtime:
                 u = self.np_getitem(u, 0)
         else:
             shape = list(shape)
+            if ks > 1:
+                del shape[-1]
             if arg_unary:
                 shape[axis], shape[-1] = shape[-1], shape[axis]
             elif keepdims:
@@ -399,14 +616,18 @@ class Runtime:
             if arg_unary:
                 shape[axis], shape[-1] = shape[-1], shape[axis]
                 shape[axis] = 1
+            if ks > 1:
+                shape = shape + [ks]
             m = self.np_reshape(m, tuple(shape))
         return u, m
 
-    def _np_argext(self, a, is_min):
-        """(unit vectors u, extrema m) along axis 1 of a 2D secure array:
-        neighbours (odd, even) are compared, the winners recurse, and u is
-        unfolded level by level; pairing from the end makes the first
-        occurrence win a tie (``mpyc_tpu/runtime.py`` ``_np_argext``)."""
+    def _np_argext(self, a, is_min, key=None, ks=1):
+        """(unit vectors u, extrema m) along axis 1 of a 2D secure array
+        (3D with a key's component axis last when ks > 1): neighbours
+        (odd, even) are compared, by key(.) < key(.) when a key is given,
+        the winners recurse, and u is unfolded level by level; pairing
+        from the end makes the first occurrence win a tie
+        (``mpyc_tpu/runtime.py:3734`` ``_np_argext``)."""
         stype = type(a)
         n = a.shape[1]
         if n == 1:
@@ -416,12 +637,16 @@ class Runtime:
         n0 = n % 2
         a1 = self.np_getitem(a, (slice(None), slice(n0, None, 2)))
         a2 = self.np_getitem(a, (slice(None), slice(n0 + 1, None, 2)))
-        c = self.np_less(a2, a1) if is_min else self.np_less(a1, a2)
-        m = self.add(self.mul(c, self.sub(a2, a1)), a1)
+        if key is None:
+            c = self.np_less(a2, a1) if is_min else self.np_less(a1, a2)
+        else:
+            c = key(a2) < key(a1) if is_min else key(a1) < key(a2)
+        cc = c if ks == 1 else self.np_expand_dims(c, -1)
+        m = self.add(self.mul(cc, self.sub(a2, a1)), a1)
         if n0:
             m = self.np_concatenate(
                 [self.np_getitem(a, (slice(None), slice(0, 1))), m], axis=1)
-        u, m = self._np_argext(m, is_min)
+        u, m = self._np_argext(m, is_min, key, ks)
         if n0:
             u0 = self.np_getitem(u, (slice(None), slice(0, 1)))
             u = self.np_getitem(u, (slice(None), slice(1, None)))

@@ -1,19 +1,22 @@
-"""Secure types: SecInt(l), SecFxp(l, f) and their arrays.
+"""Secure types: SecInt(l), SecFxp(l, f), their numbers and their arrays.
 
 Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication,
-comparison, truncation and matrix products use: ``SecInt(l)`` and
-``SecFxp(l, f)`` with their ``.array`` classes, enough to input public
-values, compute and open the result. A secure array holds a
-``PrimeFieldArray`` share: logical shape before input
-(``secint.array(values)`` of public values, the constant sharing), (m, ...)
-party stacked after it. A fixed-point array holds its values times 2^f
-and an ``integral`` flag: whether every value is known to be an integer,
-so that a product by it is exact and needs no truncation. The operators
-of a secure array (-x, +, -, *, @, <, <=, >, >=, ==, !=, indexing; the
-comparisons give secure 0/1 arrays, times 2^f in a fixed-point type) call
-the runtime whose ``SecInt`` or ``SecFxp`` made its type (``bind``). A
-type's ``bit_length`` may be reassigned; comparisons read it at call
-time.
+comparison, truncation, matrix products and the LP solver use:
+``SecInt(l, p=None, n=2)`` and ``SecFxp(l, f)``, whose instances are
+secure scalars (``SecureNumber``) and whose ``.array`` classes are secure
+arrays. A secure object holds a ``PrimeFieldArray`` share: logical shape
+before input (``secint(5)``, ``secint.array(values)`` of public values,
+the constant sharing), (m, ...) party stacked after it; a scalar's
+logical shape is (). A fixed-point object holds its values times 2^f and
+an ``integral`` flag: whether every value is known to be an integer, so
+that a product by it is exact and needs no truncation. The operators of a
+secure object (-x, +, -, *, /, @, <, <=, >, >=, ==, !=, and an array's
+indexing, reshape, argmin and argmax; the comparisons give secure 0/1
+values, times 2^f in a fixed-point type) call the runtime whose
+``SecInt`` or ``SecFxp`` made its type (``bind``); np.stack,
+np.column_stack, np.concatenate, np.outer and np.append of secure arrays
+do too. A type's ``bit_length`` may be reassigned; comparisons read it at
+call time.
 """
 
 from __future__ import annotations
@@ -26,98 +29,31 @@ from mpyc_tpu_torch import finfields
 
 
 class SecureObject:
-    """Base of the secure types; ``share`` holds the field data."""
+    """Base of the secure types; ``share`` holds the field data. A secure
+    object's operators call the runtime whose ``SecInt`` or ``SecFxp``
+    made its type (``bind``); a type no runtime made has none."""
 
     __slots__ = ('share',)
 
     field: type = None
+    runtime = None    # the runtime the operators call (bind)
+    __array_ufunc__ = None   # numpy operands defer to the operators below
 
     def __init__(self, share=None):
         self.share = share
 
-
-class SecureInteger(SecureObject):
-    """Secret-shared integer (its class carries field and bit length)."""
-
-    __slots__ = ()
-
-    bit_length: int = None
-    frac_length = 0
-    array: type = None
-
-
-class SecureFixedPoint(SecureObject):
-    """Secret-shared fixed-point number: l bits in all, f of them after
-    the point (its class carries field, bit length and f)."""
-
-    __slots__ = ()
-
-    bit_length: int = None
-    frac_length: int = None
-    array: type = None
-
-
-class SecureArray(SecureObject):
-    """Secure array: ``shape`` is the logical shape (no party axis)."""
-
-    __slots__ = ('shape',)
-
-    sectype: type = None
-    device = None
-    runtime = None    # the runtime the operators call (bind)
-    __array_ufunc__ = None   # numpy operands defer to the operators below
-
-    def __init__(self, value=None, shape=None):
-        if value is not None and not isinstance(
-                value, finfields.PrimeFieldArray):
-            value = self._encode_public(value)
-        if value is not None:
-            shape = value.shape
-        self.shape = tuple(shape) if shape is not None else None
-        super().__init__(value)
-
-    @classmethod
-    def _encode_public(cls, value):
-        """Public values as a field array on the type's device
-        (``mpyc_tpu/sectypes.py:943``): integers as they are, and in a
-        fixed-point type times 2^f, floats as round(v 2^f) (half to even,
-        numpy's and Python's rounding)."""
-        f = cls.sectype.frac_length
-        arr = np.asarray(value)
-        if not f and arr.dtype.kind == 'f':
-            raise TypeError('float values need a fixed-point type')
-        if f:
-            if arr.dtype.kind in 'iub':
-                arr = arr.astype(np.int64) << f
-            elif arr.dtype.kind == 'f':
-                arr = np.round(arr * (1 << f)).astype(np.int64)
-            else:
-                arr = np.vectorize(
-                    lambda v: round(v * (1 << f)) if isinstance(v, float)
-                    else int(v) << f, otypes=[object])(arr)
-        return cls.sectype.field.array(arr, cls.device)
-
-    @property
-    def size(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64))
-
-    @property
-    def ndim(self) -> int:
-        return len(self.shape)
-
-    def __getitem__(self, idx):
-        return self.runtime.np_getitem(self, idx)
-
     # arithmetic and comparison, forwarded to the runtime; public operands
-    # (ints, floats, numpy arrays) pass as they are, and the runtime
-    # encodes them.
-    # Arrays of a type that no runtime made (SecInt(l, device)) have none.
+    # (ints, floats, numpy arrays, field arrays) pass as they are, and the
+    # runtime encodes them.
 
     def _coerce(self, other):
-        if isinstance(other, SecureArray):
-            return other if type(other) is type(self) else NotImplemented
+        """other if it may meet self in an operator: a secure object of
+        the same secure type (array or scalar), or a public value."""
+        if isinstance(other, SecureObject):
+            return other if _sectype_of(other) is _sectype_of(self) \
+                else NotImplemented
         if isinstance(other, (int, float, np.integer, np.floating, list,
-                              tuple, np.ndarray)):
+                              tuple, np.ndarray, finfields.PrimeFieldArray)):
             return other
         return NotImplemented
 
@@ -151,6 +87,21 @@ class SecureArray(SecureObject):
         return self.runtime.mul(self, other)
 
     __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        """Division (``mpyc_tpu/sectypes.py:202``, ``:1089``): by a secure
+        divisor its secure reciprocal, by a public one its public
+        reciprocal."""
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.div(self, other)
+
+    def __rtruediv__(self, other):
+        other = self._coerce(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.div(other, self)
 
     def __matmul__(self, other):
         other = self._coerce(other)
@@ -202,6 +153,159 @@ class SecureArray(SecureObject):
 
     __hash__ = None
 
+    def __bool__(self):
+        raise TypeError('cannot use secure type in Boolean expressions')
+
+
+def _sectype_of(x) -> type:
+    """The scalar secure type of a secure array or number."""
+    return x.sectype if isinstance(x, SecureArray) else type(x)
+
+
+class SecureNumber(SecureObject):
+    """Secure scalar (``mpyc_tpu/sectypes.py:135``): its share is a 0-d
+    field array (a public value's, before input) or the (m,) shares of the
+    parties. Its class carries field and bit length; ``array`` is the
+    class of its arrays."""
+
+    __slots__ = ()
+
+    shape = ()
+    bit_length: int = None
+    frac_length = 0
+    array: type = None
+
+    def __init__(self, value=None):
+        if value is not None and not isinstance(
+                value, finfields.PrimeFieldArray):
+            value = self.array._encode_public(value)
+        super().__init__(value)
+
+    @classmethod
+    def _output_conversion(cls, a):
+        """Opened 0-d field array -> the value (``_output_conversion`` of
+        the class's arrays, unboxed)."""
+        v = cls.array._output_conversion(a)[()]
+        return v.item() if isinstance(v, np.generic) else v
+
+
+class SecureInteger(SecureNumber):
+    """Secret-shared integer (its class carries field and bit length)."""
+
+    __slots__ = ()
+
+
+class SecureFixedPoint(SecureNumber):
+    """Secret-shared fixed-point number: l bits in all, f of them after
+    the point (its class carries field, bit length and f); ``integral``:
+    whether the value is an integer."""
+
+    __slots__ = ('integral',)
+
+    frac_length: int = None
+
+    def __init__(self, value=None, integral=None):
+        if integral is None and value is not None and not isinstance(
+                value, finfields.PrimeFieldArray):
+            integral = _all_integral(np.asarray(value))
+        self.integral = integral
+        super().__init__(value)
+
+
+# numpy functions on secure arrays (``mpyc_tpu/sectypes.py:1407
+# _secure_array_function``): the runtime method each calls
+_ARRAY_FUNCTIONS = {np.stack: 'np_stack', np.column_stack: 'np_column_stack',
+                    np.concatenate: 'np_concatenate', np.outer: 'np_outer',
+                    np.append: 'np_append'}
+
+
+class SecureArray(SecureObject):
+    """Secure array: ``shape`` is the logical shape (no party axis)."""
+
+    __slots__ = ('shape',)
+
+    sectype: type = None
+    device = None
+
+    def __init__(self, value=None, shape=None):
+        if value is not None and not isinstance(
+                value, finfields.PrimeFieldArray):
+            value = self._encode_public(value)
+        if value is not None:
+            shape = value.shape
+        self.shape = tuple(shape) if shape is not None else None
+        super().__init__(value)
+
+    @classmethod
+    def _encode_public(cls, value):
+        """Public values as a field array on the type's device
+        (``mpyc_tpu/sectypes.py:943``): integers as they are, and in a
+        fixed-point type times 2^f, floats as round(v 2^f) (half to even,
+        numpy's and Python's rounding)."""
+        f = cls.sectype.frac_length
+        arr = np.asarray(value)
+        if not f and arr.dtype.kind == 'f':
+            raise TypeError('float values need a fixed-point type')
+        if f:
+            if arr.dtype.kind in 'iub':
+                arr = arr.astype(np.int64) << f
+            elif arr.dtype.kind == 'f':
+                arr = np.round(arr * (1 << f)).astype(np.int64)
+            else:
+                arr = np.vectorize(
+                    lambda v: round(v * (1 << f)) if isinstance(v, float)
+                    else int(v) << f, otypes=[object])(arr)
+        return cls.sectype.field.array(arr, cls.device)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError('len() of unsized secure array')
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __getitem__(self, idx):
+        return self.runtime.np_getitem(self, idx)
+
+    def reshape(self, *shape, order='C'):
+        return self.runtime.np_reshape(
+            self, shape if len(shape) != 1 else shape[0], order=order)
+
+    def tolist(self):
+        return self.runtime.np_tolist(self)
+
+    def argmin(self, *args, **kwargs):
+        """Unit vectors of the minima and the minima: defaults arg_unary
+        and not arg_only, unlike np_argmin (``mpyc_tpu/sectypes.py:1235``)."""
+        kwargs.setdefault('arg_unary', True)
+        kwargs.setdefault('arg_only', False)
+        return self.runtime.np_argmin(self, *args, **kwargs)
+
+    def argmax(self, *args, **kwargs):
+        """As argmin, for the maxima."""
+        kwargs.setdefault('arg_unary', True)
+        kwargs.setdefault('arg_only', False)
+        return self.runtime.np_argmax(self, *args, **kwargs)
+
+    def __array_function__(self, func, types, args, kwargs):
+        """np.stack, np.column_stack, np.concatenate, np.outer and
+        np.append of secure arrays (public operands among them) run on the
+        runtime; any other numpy function is not supported."""
+        name = _ARRAY_FUNCTIONS.get(func)
+        if name is None:
+            return NotImplemented
+        return getattr(self.runtime, name)(*args, **kwargs)
+
 
 class SecureIntegerArray(SecureArray):
     __slots__ = ()
@@ -248,17 +352,24 @@ def _all_integral(arr: np.ndarray) -> bool:
 _SEC_PARAM = 30   # the JAX package's default security parameter
 
 
-def SecInt(l: int, device) -> type:
-    """Secure l-bit integers over GF(p), p the largest Blum prime below
-    2^(l + 32) (the JAX package's field for the same l at its default
-    security parameter), with arrays encoded on ``device``."""
-    return _SecInt(int(l), str(device))
+def SecInt(l: int, device, p: int = None, n: int = 2) -> type:
+    """Secure l-bit integers over GF(p), with arrays encoded on ``device``.
+    Without p the JAX package's field (``mpyc_tpu/sectypes.py:845
+    _pfield``, :857): find_prime_root(l + k + 2, n=n) at its default
+    security parameter k = 30, the largest Blum prime below 2^(l + 32)
+    for n <= 2, else a Blum prime of l + 32 bits with a root of unity of
+    prime order at least n. A given p needs more than l + k + 1 bits."""
+    if p is not None and int(p).bit_length() <= l + _SEC_PARAM + 1:
+        raise ValueError(f'prime {p} too small')
+    return _SecInt(int(l), str(device), None if p is None else int(p),
+                   int(n))
 
 
 @functools.cache
-def _SecInt(l, device):
-    field = finfields.GF(finfields.find_prime_root(l + _SEC_PARAM + 2, n=2))
-    name = f'SecInt{l}'
+def _SecInt(l, device, p, n):
+    field = finfields.GF(p if p is not None else
+                         finfields.find_prime_root(l + _SEC_PARAM + 2, n=n))
+    name = f'SecInt{l}' if p is None else f'SecInt{l}({p})'
     secint = type(name, (SecureInteger,), {'__slots__': (), 'field': field,
                                             'bit_length': l})
     secint.array = type(f'Array{name}', (SecureIntegerArray,), {
@@ -289,8 +400,10 @@ def _SecFxp(l, f, device):
 
 
 def bind(secint: type, runtime) -> type:
-    """A subtype of secint whose arrays' operators call ``runtime``."""
-    sub = type(secint.__name__, (secint,), {'__slots__': ()})
+    """A subtype of secint whose numbers' and arrays' operators call
+    ``runtime``."""
+    sub = type(secint.__name__, (secint,), {'__slots__': (),
+                                            'runtime': runtime})
     sub.array = type(secint.array.__name__, (secint.array,), {
         '__slots__': (), 'sectype': sub, 'runtime': runtime})
     return sub

@@ -129,12 +129,15 @@ def test_mul_by_public_operand_is_a_local_scale(rt, inputs):
 
 
 def test_equal_of_wide_integers_is_not_ported(rt):
-    """SecInt(l) with l / 2 > k takes the [NO07] zero test in the JAX
-    package; the port raises rather than taking another route."""
+    """SecInt(l) with l / 2 > k takes the [NO07] zero test, as in the JAX
+    package (the port refused it until it had one): equal and unequal
+    values, opened against the plaintext. A width past the field still
+    raises."""
     s64 = rt.SecInt(64)
     X = rt.input(s64.array(np.arange(4)))[0]
-    with pytest.raises(NotImplementedError, match='NO07'):
-        rt.np_equal(X, X)
+    Y = rt.input(s64.array(np.array([0, 5, 2, -3])))[0]
+    assert list(rt.output(rt.np_equal(X, X))) == [1, 1, 1, 1]
+    assert list(rt.output(rt.np_equal(X, Y))) == [1, 0, 1, 0]
     with pytest.raises(ValueError, match='l \\+ k \\+ 2'):
         rt.np_sgn(rt.input(rt.SecInt(32).array(np.arange(4)))[0], l=40)
 

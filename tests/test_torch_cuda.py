@@ -203,12 +203,18 @@ def test_sgn_kernel_takes_many_chunks_in_one_launch(cuda_device, p, l, n,
 
 
 def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
-    """The card's K5 is built for l = 32, 14 and 10, t = 1, m = 3: others
-    raise."""
+    """The card's K5 takes any width l as a launch parameter, at t = 1,
+    m = 3 and two to five limbs: other (t, m) raise, and so does a field
+    of 19 limbs (the LP solver's kb2, SecInt(560))."""
     st = _state(cuda_device)
     a = _shares(64, 8, cuda_device)
-    with pytest.raises(NotImplementedError, match='l=32'):
-        pipelines.sgn_step(a, st, (0, 0), pipelines.SgnSpec(P, 1, 3, 16))
+    a4 = torch.cat([a, a[:1]])
+    with pytest.raises(NotImplementedError, match='t=1, m=3'):
+        pipelines.sgn_step(a4, st, (0, 0), pipelines.SgnSpec(P, 1, 4, 16))
+    p = (1 << 607) - 1            # a Mersenne prime of 19 limbs
+    a19 = torch.zeros((3, 64, 19), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match='L=19'):
+        pipelines.sgn_step(a19, st, (0, 0), pipelines.SgnSpec(p, 1, 3, 560))
 
 
 def test_comparison_and_round_trip_on_the_card(cuda_device):
@@ -434,3 +440,84 @@ def test_cnn_fxp_on_the_card(cuda_device):
     assert pipelines.reshare_mul.by_key[(2, False)] == n3 + 2 * 19
     assert pipelines.reshare_mul.by_key[(2, True)] == n3f
     assert all(r['fits'] for r in res['ranges'].values())
+
+
+# -- the LP solver's fields: four and five limbs, K5's width a parameter -----
+
+P102 = 2535301200456458802993406413211    # SecInt(70), LPExample_R20's
+P142 = 2787593149816327892691964784081045188544327  # SecInt(110), LPExample's
+
+
+@pytest.mark.parametrize('p', [P102, P142])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_kernel_matches_plain_at_four_and_five_limbs(cuda_device, p,
+                                                             fuse):
+    """K3 at 58,667 elements (LPExample's rank-1 update, no multiple of
+    the block), its coefficients in dynamic shared memory."""
+    st = _state(cuda_device)
+    spec = pipelines.ReshareSpec(p, 1, 3)
+    a, b = _shares(58667, 51, cuda_device, p), _shares(58667, 52,
+                                                       cuda_device, p)
+    got = pipelines.reshare_mul(a, b if fuse else None, st, (2, 0), spec)
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, (2, 0),
+                                        spec)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('p,l', [(P102, 70), (P142, 104), (P142, 110),
+                                 (P, 6), (P, 20), (P96, 45)])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_kernel_matches_plain_at_any_width(cuda_device, mode, p, l):
+    """K5 with the width a launch parameter: the LP solver's on four and
+    five limbs, and widths no instantiation took before on two and three,
+    in one launch of three chunks of 1024 (two limbs: one call)."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    chunk = 1024 if spec.ctx.L > 2 else 1 << 20
+    a = _shares(2500, 53, cuda_device, p)
+    got, ctr = pipelines.sgn_chunks(a, st, (9, 0), spec, chunk)
+    want, want_ctr = pipelines._sgn_chunks_plain(a, st, (9, 0), spec, chunk)
+    assert torch.equal(got, want)
+    assert ctr.tolist() == want_ctr.tolist()
+
+
+@pytest.mark.parametrize('e', ['p-2', '(p-1)/2'])
+@pytest.mark.parametrize('p', [P102, P142])
+def test_mont_pow_kernel_matches_plain_at_four_and_five_limbs(cuda_device, p,
+                                                              e):
+    """K6 at the public inverse's and the Legendre symbol's exponents."""
+    ctx = prime_field_ctx(p)
+    x = _shares(1001, 54, cuda_device, p)[0].contiguous()
+    e = p - 2 if e == 'p-2' else (p - 1) // 2
+    assert torch.equal(fieldops.mont_pow(x, e, ctx),
+                       fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('p', [P102, P142])
+def test_random_bits_tail_kernel_matches_plain_at_four_and_five_limbs(
+        cuda_device, p):
+    import chip_smoke
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = chip_smoke.tail_shares(p, 1000, np.random.default_rng(55),
+                                  every=7)
+    got = pipelines.random_bits_tail(r, z, field, False, 0)
+    want = pipelines._random_bits_tail_plain(r, z, field, False, 0)
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+    assert int(got[2].item()) == -(-1000 // 7)
+
+
+@pytest.mark.parametrize('dataset', [0, 4])
+def test_lp_solver_on_the_card(cuda_device, dataset):
+    """The LP runner on the card equals the plain exact solver, with the
+    demo's pivot count and a true certificate; K5, K6 and K3 launched."""
+    import chip_smoke
+    n5, n6 = pipelines.sgn_step.launches, fieldops.mont_pow.launches
+    res = chip_smoke.run_lp(cuda_device, datasets=(dataset,))
+    (name, r), = [(k, v) for k, v in res.items() if k != 'kb2']
+    assert r['pivots'] > 0
+    assert pipelines.sgn_step.launches > n5
+    assert fieldops.mont_pow.launches > n6
+    assert 'L=19' in res['kb2']

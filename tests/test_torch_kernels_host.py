@@ -1,13 +1,16 @@
 """The CUDA kernels' source, built as host C++ and held against the plain
 PyTorch versions.
 
-There is no nvcc here, so ``mpyc_tpu_torch/csrc/kernels.cu`` is compiled
-with g++ (C++20) against a small header that defines CUDA's qualifiers
-away and runs every launch block by block, the threads of a block as
-``std::thread``s: ``__syncthreads()`` is a ``std::barrier`` of the block,
-``__shared__`` arrays are ``static`` (one block runs at a time), dynamic
-shared memory is a buffer of the launch's size, and ``blockIdx``/
-``threadIdx`` are ``thread_local``. That checks the kernels'
+There is no nvcc here, so the library's translation units
+(``mpyc_tpu_torch/csrc/kernels.cu`` and ``sgn.cu`` for each limb count,
+``_build.UNITS``) are compiled with g++ (C++20) against a small header
+that defines CUDA's qualifiers away and runs every launch block by block,
+the threads of a block as ``std::thread``s: ``__syncthreads()`` is a
+``std::barrier`` of the block, ``__shared__`` arrays are ``static`` (one
+block runs at a time), dynamic shared memory is a buffer of the launch's
+size, and ``blockIdx``/``threadIdx`` are ``thread_local`` (inline
+variables: one for all the units, whose template functions the linker
+merges). That checks the kernels'
 arithmetic, indexing, staging through shared memory and launch geometry
 (not their CUDA code generation, which only the card shows: chip_smoke.py
 and the ``cuda`` tests). Tolerance: exact equality.
@@ -31,6 +34,12 @@ P46 = 70368744177643         # SecInt(14)'s field (the BNN's)
 P69 = 590295810358705651619  # SecInt(37)'s field (the CNN's), three limbs
 P96 = 79228162514264337593543950319   # SecInt(64)'s field, three limbs
 P52 = 4503599627370323       # SecFxp(14, 6)'s field (the fixed-point CNN's)
+# the LP solver's fields (find_prime_root(l + 32, n = m + n)): SecInt(70)
+# on LPExample_R20, four limbs; SecInt(104) on sc50b and SecInt(110) on
+# LPExample, five limbs
+P102 = 2535301200456458802993406413211
+P136 = 43556142965880123323311949751266331071191
+P142 = 2787593149816327892691964784081045188544327
 
 _SHIM = '''
 #pragma once
@@ -48,7 +57,7 @@ _SHIM = '''
 #define __launch_bounds__(x)
 #define __restrict__
 struct HostDim3 { unsigned x, y, z; };
-static thread_local HostDim3 blockIdx, blockDim, threadIdx;
+inline thread_local HostDim3 blockIdx, blockDim, threadIdx;
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 typedef struct CUstream_st* cudaStream_t;
@@ -66,13 +75,13 @@ inline uint2 __ldg(const uint2* p) { return *p; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
-extern "C" { unsigned long long mtt_op_counts[2], mtt_perm_count; }
+extern "C" { extern unsigned long long mtt_op_counts[2], mtt_perm_count; }
 #define MTT_COUNT_OP(kind) \\
   __atomic_fetch_add(&mtt_op_counts[kind], 1ull, __ATOMIC_RELAXED)
 #define MTT_COUNT_PERM() \\
   __atomic_fetch_add(&mtt_perm_count, 1ull, __ATOMIC_RELAXED)
-static std::barrier<>* mtt_block_barrier;
-static std::vector<uint64_t> mtt_dynamic_smem;
+inline std::barrier<>* mtt_block_barrier;
+inline std::vector<uint64_t> mtt_dynamic_smem;
 inline void __syncthreads() { mtt_block_barrier->arrive_and_wait(); }
 // One launch: the blocks in turn, the threads of a block at once. A
 // thread that returns leaves the barrier, as on the card.
@@ -118,22 +127,33 @@ def _host_source(src: str) -> str:
 
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
+    """The library's translation units (``_build.UNITS``) compiled by one
+    g++ call and linked with the shim's counters."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++ to build the kernel source for the host')
     d = tmp_path_factory.mktemp('kernels_host')
-    for name in _build.SOURCES[1:]:
-        (d / name).write_text(_host_source((_build.CSRC / name).read_text()))
+    launches = 0
+    for name in _build.SOURCES:
+        src = (_build.CSRC / name).read_text()
+        launches += len(_LAUNCH.findall(src))
+        (d / name).write_text(_host_source(src))
+    assert launches == 7, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
-    src = (_build.CSRC / 'kernels.cu').read_text()
-    assert len(_LAUNCH.findall(src)) == 7, \
-        'every launch must become a host loop'
-    (d / 'kernels_host.cpp').write_text(_host_source(src))
+    (d / 'counters.cpp').write_text(
+        'extern "C" { unsigned long long mtt_op_counts[2], '
+        'mtt_perm_count; }\n')
+    units = []      # each unit as a source of its own (its -D in the text)
+    for name, source, extra in _build.UNITS:
+        defs = ''.join(f'#define {f[2:].replace("=", " ")}\n'
+                       for f in extra)
+        (d / f'{name}.cpp').write_text(f'{defs}#include "{source}"\n')
+        units.append(d / f'{name}.cpp')
     so = d / 'libkernels_host.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-w', '-shared', '-fPIC',
                     '-pthread', f'-I{d}', '-o', str(so),
-                    str(d / 'kernels_host.cpp')],
-                   check=True, timeout=300)
+                    *map(str, units), str(d / 'counters.cpp')],
+                   check=True, timeout=600)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build._SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
@@ -405,10 +425,10 @@ def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ', f=f)
     n = 1280
-    assert n % host_lib.mtt_sgn_threads() == 0
+    params = spec.params((3, 0))
+    assert n % host_lib.mtt_sgn_threads(ctypes.addressof(params)) == 0
     a = _shares(n, 8, p)
     out = torch.empty_like(a)
-    params = spec.params((3, 0))
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
@@ -454,17 +474,23 @@ def test_sgn_source_scales_by_2f(host_lib, state, n):
 
 def test_comparison_and_round_trip_refuse_what_was_not_built(host_lib,
                                                              state):
-    """The Python side names what is built; the launchers refuse the rest."""
+    """The Python side names what is built; the launchers refuse the rest:
+    K5 takes any width whose random bits fit its limb count (l + 1 <= 63
+    at two limbs), and (t, m) = (1, 3) only."""
     st, _ = state
-    with pytest.raises(NotImplementedError, match='l=32'):
-        pipelines.SgnSpec(P, 1, 3, 16).params((0, 0))
+    with pytest.raises(NotImplementedError, match='t=1, m=3'):
+        pipelines.SgnSpec(P, 1, 4, 16).params((0, 0))
     with pytest.raises(NotImplementedError, match='built for'):
         pipelines.SplitSpec(P, 1, 4).params()
     params = pipelines.SgnSpec(P, 1, 3, 32).params((0, 0))
-    params.l = 16
     a = _shares(10, 7)
-    assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(), 10,
-                            10, 10, ctypes.addressof(params), None) == -1
+    for field, value in (('l', 63), ('l', 0), ('k', 65), ('m', 4)):
+        params = pipelines.SgnSpec(P, 1, 3, 32).params((0, 0))
+        setattr(params, field, value)
+        assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(),
+                                10, 10, 10, ctypes.addressof(params),
+                                None) == -1, field
+        assert host_lib.mtt_sgn_threads(ctypes.addressof(params)) == -1
     params = pipelines.SplitSpec(P, 1, 3).params()
     params.m = 4
     assert host_lib.mtt_split_recombine(a.data_ptr(), a.data_ptr(), None,
@@ -492,7 +518,8 @@ def test_sgn_source_squeezes_each_block_once_per_thread_block(host_lib,
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
                             n, n, ctypes.addressof(spec.params((2, 0))),
                             None) == 0
-    threads = host_lib.mtt_sgn_threads()
+    threads = host_lib.mtt_sgn_threads(ctypes.addressof(spec.params((2, 0))))
+    assert threads == 256
     ctas = -(-n // threads)
     ranges = 1 + sum(sets for sets, _ in spec.draw_calls())
     assert perms.value == chip_smoke.sgn_squeezes(spec, n, threads)[0]
@@ -672,7 +699,7 @@ def test_random_bits_tail_refuses_what_was_not_built(host_lib):
         r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
         r.data_ptr(), 10, ctypes.addressof(params), None) == -1
     params = pipelines._tail_params(field, 1, 3, False, 0)
-    params.pow.nl = 4
+    params.pow.nl = 6
     assert host_lib.mtt_random_bits_tail(
         r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
         r.data_ptr(), 10, ctypes.addressof(params), None) == -1
@@ -681,12 +708,95 @@ def test_random_bits_tail_refuses_what_was_not_built(host_lib):
 def test_mont_pow_refuses_what_was_not_built(host_lib):
     ctx, x = _pow_inputs(P52, 10, 33)
     params = _build.pow_params(ctx, 5)
-    params.nl = 4
+    params.nl = 6
     assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
                                  ctypes.addressof(params), None) == -1
     params = _build.pow_params(ctx, 5)
-    params.nbits = 97
+    params.nbits = 161
     assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
                                  ctypes.addressof(params), None) == -1
     with pytest.raises(NotImplementedError, match='limbs'):
-        _build.pow_params(prime_field_ctx((1 << 127) - 1), 3)
+        _build.pow_params(prime_field_ctx((1 << 521) - 1), 3)
+
+
+# -- the LP solver's fields: four and five limbs ------------------------------
+
+@pytest.mark.parametrize('p', [P102, P136])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_source_matches_plain_at_four_and_five_limbs(host_lib, state,
+                                                             p, fuse):
+    """K3 on the LP solver's 102-bit (four limbs, 24-byte draws) and
+    136-bit (five limbs, 28-byte draws) fields, its staged coefficients in
+    dynamic shared memory, on two thread blocks, the last ragged."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(p, 1, 3)
+    assert spec.l_bytes == 4 * (spec.ctx.L + 2)
+    n = 3300
+    a, b = _shares(n, 41, p), _shares(n, 42, p)
+    nonce = (0xFFFFFFFF, 9)
+    params = spec.params(nonce)
+    out = torch.empty_like(a)
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr() if fuse else None,
+                                out.data_ptr(), st.data_ptr(), n, int(fuse),
+                                ctypes.addressof(params), None) == 0
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, nonce,
+                                        spec)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize('p,l', [(P102, 70), (P136, 104), (P142, 110),
+                                 (P46, 6), (P46, 8), (P, 20), (P96, 45)])
+@pytest.mark.parametrize('mode', ['LT', 'EQ'])
+def test_sgn_source_matches_plain_at_any_width(host_lib, state, mode, p, l):
+    """K5 with l a launch parameter: the LP solver's widths on its four-
+    and five-limb fields (l + 1 random bits in three and four words, 64
+    elements a CTA at five limbs), and widths that no instantiation took
+    before on two and three limbs; 130 elements, over more than one CTA
+    wherever the CTA is narrower than 256."""
+    st, _ = state
+    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    n = 130
+    a = _shares(n, 43, p)
+    nonce = (0xFFFFFFFF, 5)
+    out = torch.empty_like(a)
+    params = spec.params(nonce)
+    B = host_lib.mtt_sgn_threads(ctypes.addressof(params))
+    assert B == (64 if spec.ctx.L == 5 else 128 if spec.ctx.L == 4 else 256)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
+@pytest.mark.parametrize('e', ['p-2', '(p-1)/2', '(3p-5)/4'])
+@pytest.mark.parametrize('p', [P102, P142, (1 << 127) - 1])
+def test_mont_pow_source_matches_plain_at_four_and_five_limbs(host_lib, p,
+                                                              e):
+    """K6 at four and five limbs (lazy: the LP solver's fields) and at a
+    four-limb field with 4p > R (2^127 - 1: the canonical products), at
+    the public inverse's exponent, the Legendre symbol's and the inverse
+    square root's, on a ragged last block."""
+    ctx, x = _pow_inputs(p, 300, 44)
+    assert ctx.lazy == (p != (1 << 127) - 1)
+    e = {'p-2': p - 2, '(p-1)/2': (p - 1) // 2,
+         '(3p-5)/4': (3 * p - 5) // 4}[e]
+    out = torch.empty_like(x)
+    params = _build.pow_params(ctx, e)
+    assert host_lib.mtt_mont_pow(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                 ctypes.addressof(params), None) == 0
+    assert torch.equal(out, fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('p', [P102, P142])
+def test_random_bits_tail_source_matches_plain_at_four_and_five_limbs(
+        host_lib, p):
+    """K7 on the LP solver's fields (the random bits of its [NO07] zero
+    tests), one element in 7 planted to open to 0."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = _tail_shares(p, 129, 45)
+    bits, flags, count = _tail_launch(host_lib, r, z, field, False, 0)
+    want = pipelines._random_bits_tail_plain(r, z, field, False, 0)
+    assert torch.equal(flags, want[1])
+    assert count.item() == want[2].item() == -(-129 // 7)
+    assert torch.equal(bits, want[0])

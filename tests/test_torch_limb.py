@@ -16,8 +16,11 @@ from mpyc_tpu_torch.ops import limb as tlimb
 from mpyc_tpu_torch.ops.fieldops import (limbs_from_numpy, limbs_to_numpy,
                                          prime_field_ctx as tctx)
 
-# SecInt(32)'s 64-bit field, a one-limb and a three-limb prime
-PRIMES = [18446744073709551427, 4294967291, (1 << 89) - 1]
+# SecInt(32)'s 64-bit field, a one-limb and a three-limb prime, and the
+# LP solver's four- and five-limb fields (SecInt(70), SecInt(110))
+PRIMES = [18446744073709551427, 4294967291, (1 << 89) - 1,
+          2535301200456458802993406413211,
+          2787593149816327892691964784081045188544327]
 N = 512
 
 
