@@ -18,8 +18,11 @@ path at ``SecFxp(14, 6)`` (a 52-bit field of two limbs), through the same
 runner; and the secure LP solver (``demos/np_lpsolver.py``) through
 ``mpyc_tpu_torch/demos/np_lpsolver.py`` on its datasets, from SecInt(6)
 and SecInt(8) (two limbs) to SecInt(70) (four) and SecInt(104) and
-SecInt(110) (five). Phases, each printing one line with its elapsed
-seconds:
+SecInt(110) (five); and the binary-field demos, SHA3
+(``demos/np_sha3.py``: SecFld(2), its shares in GF(4)) and threshold AES
+(``demos/np_aes.py``: SecFld(2^8)), through
+``mpyc_tpu_torch/demos/np_sha3.py`` and ``np_aes.py``. Phases, each
+printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -140,13 +143,33 @@ seconds:
    instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
    naming its limb count; one try of torch.profiler over pivots 11 and 12
    of LPExample (device time by kernel, idle share, the host's operators);
-15. report: one JSON line of the kernels (every instantiation that a path
+15. gf2 kernels: K8 (reshare2, the GF(2^d) reshare on K1's stream) at
+   SHA3's chi, (3, 2^19) in GF(4) (b = 256: 409,600 elements on their
+   bucket), and at AES's S-box products, (3, 32,768) in GF(2^8) (b =
+   2,048), fused and not, and at the key schedule's bucket (3, 64), each
+   equal bit for bit to its plain version on the same K1 blocks, and K1
+   at the chi's 9,363 blocks equal to its plain version; each timed
+   (its device time, the launches replayed from a CUDA graph: they are
+   shorter than their host calls, which CUDA events would time; the
+   events' time of a call beside it) beside its plain version and its
+   bound (K1 at 9,363 blocks is the kernels line's K1);
+16. sha3: SHA3-256 of the demo's 256 messages (``np_sha3 -b 256``), cold
+   and 3 times warm, then SHAKE128 (256 bits): every digest equal to
+   hashlib's; seconds a batch and ms a digest (cold; warm median, least
+   and largest), K8's and K1's launches a batch; one try of
+   torch.profiler over a warm batch;
+17. aes: the AES demo's main on 2,048 blocks (``np_aes -b 2048``), cold
+   and warm: AES-128 and AES-256, FIPS-197 C.1 and C.3 on block 0 and
+   every block decrypted back; seconds and ms a block of each stage, K8's
+   and K1's launches a pass; one try of torch.profiler over an AES-128
+   encryption;
+18. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13 and 14 zeroes the launch counters just before it
-and reads them just after; each must show that the instantiations of its
-path ran (``PATH_ENTRIES``).
+Each of phases 4-11, 13, 14, 16 and 17 zeroes the launch counters just
+before it and reads them just after; each must show that the
+instantiations of its path ran (``PATH_ENTRIES``).
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -228,6 +251,18 @@ LP_FIELDS = {                  # l -> (m + n, the widest comparison)
     8: (5, 3), 6: (5, 3), 70: (40, 20), 104: (118, 70), 110: (490, 288)}
 LP_UPDATE = {70: 21 * 21, 104: 71 * 49, 110: 203 * 289}  # rank-1 update
 LP_NO07_BITS = 30
+# the binary-field paths (demos/np_sha3.py, demos/np_aes.py): SHA3-256 and
+# SHAKE128 of 256 messages (bench.py:354), AES-128 and AES-256 of 2,048
+# blocks (README.md's np_aes -b 2048); the fused products' shapes: SHA3's
+# chi state (3, 256, 5, 5, 64) on its bucket of 2^19 in GF(4), AES's
+# S-box powers (3, 2048, 4, 4) in GF(2^8), the key schedule's (3, 4) on a
+# bucket of 64
+N_SHA3 = 256
+N_AES = 2048
+SHA3_CHI = 1 << 19
+AES_SBOX = N_AES * 16
+AES_KEY = 64
+GF4, GF256 = 0b111, 0x11B      # the moduli: x^2 + x + 1, AES's
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -306,6 +341,10 @@ KERNELS = {
         replaces='mpyc_tpu/parallel/simulator.py:732',
         wrapper=pipelines.random_bits_tail,
         source='mpyc_tpu_torch/csrc/pow.cuh'),
+    # an XLA program around K1 (its stream)
+    'reshare2': dict(replaces='mpyc_tpu/models/pipelines.py:1065',
+                     wrapper=pipelines.reshare2,
+                     source='mpyc_tpu_torch/csrc/gf2.cu'),
 }
 # Every instantiation that a path launches, as the kernels line lists it:
 # entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
@@ -343,6 +382,9 @@ ENTRIES = {
     'random_bits_tail<L=2, lazy>': ('random_bits_tail', (2, True)),
     **{f'random_bits_tail<L={L}, lazy>': ('random_bits_tail', (L, True))
        for L in (4, 5)},
+    # K8 (d, fused): SHA3's chi in GF(4), AES's S-box powers in GF(2^8)
+    'reshare2<d=2, fused>': ('reshare2', (2, True)),
+    'reshare2<d=8, fused>': ('reshare2', (8, True)),
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -383,6 +425,12 @@ PATH_ENTRIES = {
            'sgn_step<LT, l=110, L=5>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
            *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5))),
+    # every chi round's product (K8 in GF(4)) on K1's stream of 9,363
+    # blocks
+    'sha3': ('keccak_ctr', 'reshare2<d=2, fused>'),
+    # the S-box powers' products (K8 in GF(2^8)) on K1's streams, and the
+    # bit decompositions' PRSS random bits (K1 above 256 blocks)
+    'aes': ('keccak_ctr', 'reshare2<d=8, fused>'),
 }
 
 
@@ -450,6 +498,28 @@ def cuda_ms(fn, iters: int) -> float:
     ev0.record()
     for _ in range(iters):
         fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn over iters calls captured in one CUDA graph
+    and replayed (after a warm-up call): the kernels' own time, where CUDA
+    events around launches shorter than their host calls would time the
+    host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    graph.replay()
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / iters
@@ -2109,6 +2179,195 @@ def run_lp(device, datasets=LP_DATASETS, profile=None,
     return res
 
 
+# -- binary fields: K8 and the SHA3 and AES paths ----------------------------
+
+# GF(2^d) work counted at its fewest, all of it logic (one op a shift, a
+# one-op mask of a bit, one LOP3 for each AND-XOR). A product of two
+# shares: step i of d XORs b << i under the mask of bit i of a (3 ops, 2
+# at i = 0); in 32-bit lanes while d + i <= 32 (all steps at d <= 16),
+# else on two words (5: two shifts, the mask, two LOP3s); then d - 1
+# reduction steps of a mask of bit d + j and a LOP3 with x^(d + j) mod f,
+# and one AND to d bits (none at d = 32).
+def gf2_mul_ops(d: int) -> int:
+    narrow = min(d, 33 - d)
+    return 3 * narrow - 1 + 5 * (d - narrow) + 2 * (d - 1) + (d < 32)
+
+
+# A product by a constant c known at launch: none for 0 and 1; else the
+# fewer of c's shift-and-add (a shift for each set bit above bit 0, a
+# LOP3 for each two XORs, deg(c) reduction steps, the AND; in 32-bit lanes
+# when d + deg(c) <= 32) and the linear map of d columns c x^i mod f (a
+# mask and a LOP3 each).
+def gf2_const_ops(c: int, d: int) -> int:
+    if c in (0, 1):
+        return 0
+    k, w = c.bit_length() - 1, bin(c).count('1')
+    cost = 2 * d
+    if d + k <= 32:
+        cost = min(cost, w - (c & 1) + w // 2 + 2 * k + (d < 32))
+    return cost
+
+
+def reshare2_ops(spec, fused: bool) -> np.ndarray:
+    """The (mul, add, logic) ops an element of K8's function needs at
+    their fewest, for this spec's constants (at the points 1, x, x + 1
+    every Lagrange coefficient is 1, so only the local product and the
+    Horner products by x and x + 1 cost anything): the products, the
+    three-input XORs of the 2t + 1 shares and of each coefficient's 2t + 1
+    draws, a draw's extra bytes merged (one op each), the mask of a
+    coefficient to d bits, and the m XORs of S into the rows."""
+    d, t, m, ns = spec.d, spec.t, spec.m, spec.n_send
+    lag = sum(gf2_const_ops(c, d) for c in spec.lag)
+    xors = ns // 2
+    ops = (ns * gf2_mul_ops(d) if fused else 0) + lag + xors
+    ops += t * (lag + xors + ns * (spec.l_bytes - 1) + (d % 8 != 0))
+    ops += sum(t * gf2_const_ops(x, d) + (t - 1) for x in spec.xs) + m
+    return np.array([0, 0, ops])
+
+
+def gf2_field(d: int, shape, gen: np.random.Generator) -> torch.Tensor:
+    """Random GF(2^d) elements as stored on the card: (..., 1) int32."""
+    v = gen.integers(0, 1 << d, tuple(shape) + (1,), dtype=np.uint64)
+    return torch.from_numpy(v.astype(np.uint32).view(np.int32)).cuda()
+
+
+def reshare2_meas(spec, a, b, blocks, err: int) -> dict:
+    """K8's time on (m, n, 1) GF(2^d) shares a (times b's when b is given)
+    and its stream, its plain version's and its bound: the function's
+    fewest ops an element (``reshare2_ops``) against the shares read and
+    written and the stream's blocks read once."""
+    n = a.shape[1]
+    fused = b is not None
+    ops = n * reshare2_ops(spec, fused)
+    reads = 2 if fused else 1
+    bd, o = bound(n * M * 4 * (reads + 1) + spec.n_blocks(n) * 168, ops)
+    what = 'fused product' if fused else 'no product'
+    run = lambda: pipelines.reshare2(a, b, blocks, spec)  # noqa: E731
+    return dict(
+        shape=f'({M}, {n}) GF(2^{spec.d}) shares, {what}, '
+              f'{spec.n_blocks(n)} blocks of stream',
+        max_abs_err=err, ms=graph_ms(run, 10),
+        call_ms=cuda_ms(run, 10),
+        plain_ms=cuda_ms(lambda: pipelines._reshare2_plain(
+            a, b, blocks, spec), 1),
+        bound_ms=bd, bound_by=o)
+
+
+def check_gf2_kernels() -> dict:
+    """Phase "gf2 kernels": K8 at SHA3's chi (3, 2^19) in GF(4) and at
+    AES's S-box products (3, 32,768) in GF(2^8), fused and not, and at the
+    key schedule's bucket (3, 64), each on K1's stream of the call, equal
+    bit for bit to its plain version (tolerance: exact); K1 at the chi's
+    9,363 blocks equal to its plain version; each timed beside its plain
+    version and its bound (K1 at 9,363 blocks is the kernels line's K1).
+    A launch here is shorter than its host call, so ``ms`` is the
+    kernel's device time (``graph_ms``: the launches replayed from a CUDA
+    graph), and ``call_ms`` the CUDA events' time of a call."""
+    gen = np.random.default_rng(12)
+    res = {}
+    key = bytes(gen.integers(0, 256, 32, dtype=np.uint8))
+    st = keccak.state_tensor(keccak._absorb_host(key + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFF, 2)
+    for name, md, ns in (('reshare2<d=2, fused>', GF4, (SHA3_CHI,)),
+                         ('reshare2<d=8, fused>', GF256,
+                          (AES_SBOX, AES_KEY))):
+        spec = pipelines.Reshare2Spec(md, T, M)
+        err = 0
+        for n in ns:
+            blocks = pipelines.reshare2_stream(st, nonce, n, spec)
+            plain = keccak._keccak_ctr_plain(pipelines._nonce_state(
+                st, nonce), spec.n_blocks(n), 19)
+            torch.cuda.synchronize()
+            err1 = max_abs_err(blocks, plain)
+            check(err1 == 0, f'K1 ({spec.n_blocks(n)} blocks) differs from '
+                  'its plain version')
+            a = gf2_field(spec.d, (M, n), gen)
+            b = gf2_field(spec.d, (M, n), gen)
+            for bb in (b, None):
+                out_k = pipelines.reshare2(a, bb, blocks, spec)
+                out_p = pipelines._reshare2_plain(a, bb, blocks, spec)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(out_k, out_p))
+                check(err == 0, f'K8 at ({M}, {n}) GF(2^{spec.d}) differs '
+                      'from its plain version')
+            say(f'  K8 reshare2: ({M}, {n}) GF(2^{spec.d}), fused and not, '
+                f'on K1\'s {spec.n_blocks(n)} blocks, equal to plain')
+            if n == ns[0]:
+                res[name] = reshare2_meas(spec, a, b, blocks, err)
+            if md == GF4:
+                st_n = pipelines._nonce_state(st, nonce)
+                nb = spec.n_blocks(n)
+                bk, o = bound(nb * 168 + 200, nb * KECCAK_F_OPS)
+                run = lambda: keccak.keccak_ctr(st_n, nb, 19)  # noqa: E731
+                res['keccak_ctr'] = dict(
+                    shape=f'{nb} blocks (a SHA3 chi round at b = {N_SHA3})',
+                    max_abs_err=err1,
+                    ms=graph_ms(run, 20),
+                    call_ms=cuda_ms(run, 20),
+                    plain_ms=cuda_ms(lambda: keccak._keccak_ctr_plain(
+                        st_n, nb, 19), 2),
+                    bound_ms=bk, bound_by=o)
+    return res
+
+
+def run_sha3(device, b=N_SHA3, passes=1 + WARM, profile=False) -> dict:
+    """SHA3-256 of the demo's b messages through the port's runner
+    (``np_sha3.run``), cold and warm, then SHAKE128 (256 bits): every
+    digest equal to hashlib's; K8's and K1's launches a batch; with
+    ``profile`` one try of torch.profiler over a warm SHA3-256 batch."""
+    from mpyc_tpu_torch.demos import np_sha3
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    res = dict(pass_s=[])
+    for i in range(passes + 1):
+        shake = i == passes
+        k8, k1 = pipelines.reshare2.launches, keccak.keccak_ctr.launches
+        r = np_sha3.run(rt, b, shake=shake)
+        bad = sum(g != e for g, e in zip(r['got'], r['expect']))
+        check(bad == 0, f'{r["name"]}: {bad} of {b} digests differ from '
+              'hashlib')
+        if shake:
+            res['shake_s'] = r['s']
+        else:
+            res['pass_s'].append(r['s'])
+        res['k8'] = pipelines.reshare2.launches - k8
+        res['k1'] = keccak.keccak_ctr.launches - k1
+        res['digest0'] = r['got'][0].hex()
+    if profile:
+        res['trace'] = profile_calls(lambda: np_sha3.run(rt, b), 1, top=8)
+    rt.shutdown()
+    return res
+
+
+def run_aes(device, nb=N_AES, passes=2, only128=False,
+            profile=False) -> dict:
+    """The AES demo's main through the port's runner (``np_aes.run``) on
+    nb blocks, ``passes`` times (cold, then warm): FIPS-197 C.1 and C.3 on
+    block 0 and every block decrypted back, for AES-128 and AES-256 (with
+    ``only128`` AES-128 encryption only); K8's and K1's launches a pass;
+    with ``profile`` one try of torch.profiler over one AES-128
+    encryption of the nb blocks."""
+    from mpyc_tpu_torch.demos import np_aes
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    runs = []
+    for _ in range(passes):
+        k8, k1 = pipelines.reshare2.launches, keccak.keccak_ctr.launches
+        r = np_aes.run(rt, nb, only128)
+        for what in ('aes128_ok', 'aes128_dec_ok', 'aes256_ok',
+                     'aes256_dec_ok'):
+            check(r.get(what, only128), f'aes: {what} is false')
+        r['k8'] = pipelines.reshare2.launches - k8
+        r['k1'] = keccak.keccak_ctr.launches - k1
+        runs.append(r)
+    res = dict(runs=runs)
+    if profile:
+        res['trace'] = profile_calls(lambda: np_aes.run(rt, nb, True), 1,
+                                     top=8)
+    rt.shutdown()
+    return res
+
+
 def warm_stats(pass_s: list) -> tuple:
     """(median, least, largest) of the warm passes (all but the first)."""
     warm = sorted(pass_s[1:])
@@ -2385,6 +2644,51 @@ def main() -> int:
             say(f'    {line}')
         torch.cuda.empty_cache()
 
+    with Phase('gf2 kernels'):
+        gf2_meas = check_gf2_kernels()
+        for name, r in gf2_meas.items():
+            say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms device time '
+                f'(a call {r["call_ms"]:.4f} ms by CUDA events), plain '
+                f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
+                f'({r["bound_by"]}) on {smi}')
+        meas.update(gf2_meas)
+        torch.cuda.empty_cache()
+
+    with Phase('sha3'):
+        res_sha3 = res = drive('sha3', lambda: run_sha3('cuda', profile=True))
+        cold_h = res['pass_s'][0]
+        warm_h, warm_h_lo, warm_h_hi = warm_stats(res['pass_s'])
+        say(f'  SHA3-256 of {N_SHA3} messages, SecFld(2) in GF(4), m = {M}: '
+            f'all {N_SHA3} digests equal hashlib\'s (digest[0] of SHAKE128 '
+            f'{res["digest0"]}); SHAKE128 (256 bits) too')
+        say(f'  SHA3-256 batch cold {cold_h:.4f} s ({1e3 * cold_h / N_SHA3:.4f}'
+            f' ms a digest), warm median {warm_h:.4f} s of {WARM} (least '
+            f'{warm_h_lo:.4f}, largest {warm_h_hi:.4f}): '
+            f'{1e3 * warm_h / N_SHA3:.4f} ms a digest; SHAKE128 '
+            f'{res["shake_s"]:.4f} s; K8 {res["k8"]} launches a batch, K1 '
+            f'{res["k1"]}, on {smi}')
+        say('  torch.profiler over one warm SHA3-256 batch:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('aes'):
+        res_aes = res = drive('aes', lambda: run_aes('cuda', profile=True))
+        for i, r in enumerate(res['runs']):
+            say(f'  pass {i} ({"cold" if i == 0 else "warm"}), {N_AES} blocks:'
+                f' AES-128 {r["aes128_s"]:.4f} s ({1e3 * r["aes128_s"] / N_AES:.4f}'
+                f' ms a block), decrypt {r["aes128_dec_s"]:.4f} s; AES-256 '
+                f'{r["aes256_s"]:.4f} s ({1e3 * r["aes256_s"] / N_AES:.4f} ms a '
+                f'block), decrypt {r["aes256_dec_s"]:.4f} s; K8 {r["k8"]} '
+                f'launches, K1 {r["k1"]}, on {smi}')
+        say(f'  FIPS-197 C.1 {res["runs"][0]["aes128_ct0"]} and C.3 '
+            f'{res["runs"][0]["aes256_ct0"]} on block 0, all {N_AES} blocks '
+            'decrypt back, AES-128 and AES-256, every pass')
+        say('  torch.profiler over one AES-128 encryption:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
     say(f'  launches over the paths: {launches}')
     kernels = []
     for entry, (name, _) in ENTRIES.items():
@@ -2426,6 +2730,14 @@ def main() -> int:
                     'fxp_rounds': res_fxp_rounds, 'random_bits_split': split,
                     'lp': {k: v for k, v in res_lp.items()
                            if isinstance(v, dict)},
+                    'sha3_batch': N_SHA3, 'sha3_pass_s': res_sha3['pass_s'],
+                    'sha3_ms_per_digest_warm': 1e3 * warm_h / N_SHA3,
+                    'sha3_ms_per_digest_cold': 1e3 * cold_h / N_SHA3,
+                    'shake128_s': res_sha3['shake_s'],
+                    'sha3_k8_per_batch': res_sha3['k8'],
+                    'aes_blocks': N_AES,
+                    'aes_runs': [{k: v for k, v in r.items()}
+                                 for r in res_aes['runs']],
                     'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)

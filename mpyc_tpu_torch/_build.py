@@ -2,8 +2,8 @@
 
 The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
 with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
-and ``sgn.cu`` once for each limb count of K5) in an ``nvcc -c`` of its
-own, all started together, then one ``nvcc -shared`` links them. The
+``sgn.cu`` once for each limb count of K5, and ``gf2.cu``, K8) in an
+``nvcc -c`` of its own, all started together, then one ``nvcc -shared`` links them. The
 library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
 version>/`` beside the package, is written under a temporary name and
 moved into place with ``os.replace``: no lock file, nothing to wait on,
@@ -31,12 +31,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # every source file, all hashed into the build's directory
-SOURCES = ('kernels.cu', 'sgn.cu', 'common.cuh', 'keccak.cuh', 'limb.cuh',
-           'stage.cuh', 'sgn.cuh', 'pow.cuh')
+SOURCES = ('kernels.cu', 'sgn.cu', 'gf2.cu', 'common.cuh', 'keccak.cuh',
+           'limb.cuh', 'stage.cuh', 'sgn.cuh', 'pow.cuh')
 # the translation units: (object name, source, extra nvcc flags); K5's
 # launchers one limb count a unit (MTT_SGN_NL)
 UNITS = (('kernels', 'kernels.cu', ()),) + tuple(
-    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in (2, 3, 4, 5))
+    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in (2, 3, 4, 5)) \
+    + (('gf2', 'gf2.cu', ()),)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -68,6 +69,14 @@ class ReshareParams(ctypes.Structure):
                 ('xs', _U32xNL * MAX_M), ('nonce_lo', ctypes.c_uint32),
                 ('nonce_hi', ctypes.c_uint32), ('t', ctypes.c_int32),
                 ('m', ctypes.c_int32), ('n_send', ctypes.c_int32)]
+
+
+class Reshare2Params(ctypes.Structure):
+    """Mirror of ``struct Reshare2Params`` in csrc/gf2.cu (K8): GF(2^d)
+    elements as their uint32 values."""
+    _fields_ = [('red', ctypes.c_uint32 * 32),
+                ('lag', ctypes.c_uint32 * MAX_SEND),
+                ('xs', ctypes.c_uint32 * MAX_M), ('d', ctypes.c_int32)]
 
 
 class SgnParams(ctypes.Structure):
@@ -170,6 +179,8 @@ _SIGNATURES = {
     'mtt_sgn_threads': [_C],
     'mtt_mont_pow': [_C, _C, ctypes.c_longlong, _C, _C],
     'mtt_random_bits_tail': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C, _C],
+    'mtt_reshare2': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
+                     _C],
 }
 
 

@@ -1,8 +1,9 @@
-"""Host number theory: the primality helpers that ``finfields`` uses.
+"""Host number theory: the helpers that ``finfields`` and ``gfpx`` use.
 
 A copy of the part of ``mpyc_tpu/gmpy.py`` (pure Python, no GMP) that
-``finfields.find_prime_root`` needs, so the port imports nothing of the
-JAX package.
+``finfields.find_prime_root``, ``gfpx`` (``is_prime``, ``invert``) and
+``sectypes.SecFld`` (``factor_prime_power``) need, so the port imports
+nothing of the JAX package.
 """
 
 import random
@@ -20,6 +21,14 @@ _rng = random.Random(0xF1E1D)
 def powmod(x, y, m):
     """x**y mod m (y may be negative if x invertible mod m)."""
     return pow(x, y, m)
+
+
+def invert(x, m):
+    """Multiplicative inverse of x modulo m; raises ZeroDivisionError if none."""
+    try:
+        return pow(x, -1, m)
+    except ValueError:
+        raise ZeroDivisionError('invert() no inverse exists') from None
 
 
 def _miller_rabin(n, a):
@@ -75,3 +84,31 @@ def prev_prime(n):
     while not is_prime(n):
         n -= 2
     return n
+
+
+def iroot(x, n):
+    """Integer n-th root of x: (root, exact?)."""
+    if x < 0:
+        raise ValueError('x must be >= 0')
+    if x == 0:
+        return 0, True
+    if n == 1:
+        return x, True
+    r = 1 << -(-x.bit_length() // n)     # Newton on integers, from above
+    while True:
+        t = ((n - 1) * r + x // r ** (n - 1)) // n
+        if t >= r:
+            break
+        r = t
+    return r, r ** n == x
+
+
+def factor_prime_power(x):
+    """Return (p, d) with x == p**d for prime p, else raise ValueError."""
+    if x <= 1:
+        raise ValueError('number not a prime power')
+    for d in range(x.bit_length(), 0, -1):
+        r, exact = iroot(x, d)
+        if exact and is_prime(r):
+            return int(r), d
+    raise ValueError('number not a prime power')

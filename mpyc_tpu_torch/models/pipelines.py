@@ -1,15 +1,16 @@
 """Fused protocol rounds, each one step: reshare, split/recombine, compare.
 
 Port of ``mpyc_tpu/models/pipelines.py``: ``make_reshare_step`` (the GRR98
-round with the local product, kernel K3), ``make_split_recombine`` (the
-Shamir round trip, kernel K4) and ``make_sgn_step`` (the whole secure
-comparison, kernel K5), and the tail of a round of random bits around its
-inverse square root (``random_bits_tail``, kernel K7, which the JAX
-package leaves to XLA). On the card each step is one launch of its kernel
-(``csrc/kernels.cu``, ``csrc/sgn.cuh``, ``csrc/pow.cuh``); on the CPU its
-plain version (``_reshare_mul_plain``, ``_split_recombine_plain``,
-``_sgn_step_plain``, ``_random_bits_tail_plain``) runs the same
-arithmetic in torch. The plain versions draw their
+round with the local product, kernel K3), ``make_reshare2_step`` (its
+twin over GF(2^d): K1's stream and kernel K8), ``make_split_recombine``
+(the Shamir round trip, kernel K4) and ``make_sgn_step`` (the whole
+secure comparison, kernel K5), and the tail of a round of random bits
+around its inverse square root (``random_bits_tail``, kernel K7, which the
+JAX package leaves to XLA). On the card each step is one launch of its kernel
+(``csrc/kernels.cu``, ``csrc/sgn.cuh``, ``csrc/pow.cuh``, ``csrc/gf2.cu``);
+on the CPU its plain version (``_reshare_mul_plain``,
+``_reshare2_plain``, ``_split_recombine_plain``, ``_sgn_step_plain``,
+``_random_bits_tail_plain``) runs the same arithmetic in torch. The plain versions draw their
 randomness through the plain versions of K1 and K2 on every device.
 
 Stream layout. The JAX package lays out the coefficient stream one way in
@@ -24,8 +25,8 @@ against XLA :859-892).
 
 Launch counts. Each wrapper of a kernel adds one to its ``launches`` where
 it launches the kernel, and to ``by_key[instantiation]`` beside it (K3:
-(L, fused); K5: (mode, l, L, f); K7: (L, lazy)), so a caller can tell which instantiations
-a path ran. K5 also adds the launch's comparison calls (chunks) to
+(L, fused); K5: (mode, l, L, f); K7: (L, lazy); K8: (d, fused)), so a
+caller can tell which instantiations a path ran. K5 also adds the launch's comparison calls (chunks) to
 ``sgn_step.chunks``.
 """
 
@@ -33,14 +34,16 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
-from mpyc_tpu_torch import finfields, thresha
+from mpyc_tpu_torch import finfields, gfpx, thresha
 from mpyc_tpu_torch.ops import keccak, limb
 from mpyc_tpu_torch.ops import rng as rng_mod
+from mpyc_tpu_torch.ops.binary import binary_field_ctx
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 
@@ -200,6 +203,195 @@ def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
         ctr = np.asarray(ctr, dtype=np.uint32)
         out = reshare_mul(flat, flat_b, state, (int(ctr[0]), int(ctr[1])),
                           spec)
+        return out.reshape(orig_shape), _add_ctr(ctr)
+
+    if fuse_mul:
+        def step(a, b, state, ctr):
+            return _step(a, state, ctr, shares_b=b)
+    else:
+        def step(shares, state, ctr):
+            return _step(shares, state, ctr)
+    return step
+
+
+# ---------------------------------------------------------------------------
+# K8: the GRR98 round over GF(2^d), on K1's stream
+# ---------------------------------------------------------------------------
+
+class Reshare2Spec:
+    """The constants of one (f, t, m) reshare round over GF(2^d), d <= 32
+    (``mpyc_tpu/models/pipelines.py:1065 make_reshare2_step``): the
+    Lagrange coefficients at 0 of the points 1..2t+1 and the party points
+    1..m, all read as polynomials (3 is x + 1), and the draws' width,
+    ceil(d / 8) bytes."""
+
+    def __init__(self, modulus: int, t: int, m: int):
+        if 2 * t + 1 > m:
+            raise ValueError('GRR98 needs 2t+1 <= m')
+        self.modulus, self.t, self.m = int(modulus), t, m
+        self.field = finfields.GF(gfpx.GFpX(2)(self.modulus))
+        self.ctx = binary_field_ctx(self.modulus)
+        self.d = self.ctx.d
+        self.n_send = 2 * t + 1
+        self.lag = thresha._recombination_vector(
+            self.field, tuple(range(1, self.n_send + 1)), 0)
+        self.xs = [self.field(j + 1).value for j in range(m)]
+        self.l_bytes = (self.d + 7) // 8
+
+    def n_draws(self, n: int) -> int:
+        """The coefficient draws of a call on n elements: t (2t + 1) n."""
+        return self.t * self.n_send * n
+
+    def n_blocks(self, n: int) -> int:
+        """The stream's blocks a call on n elements takes."""
+        return max(rng_mod.blocks_needed(self.n_draws(n), self.l_bytes), 1)
+
+    def field_ops(self, fused: bool) -> int:
+        """Carry-less products of an element as K8 computes them: the
+        local one (fused), the Lagrange sums of the shares and of the t
+        coefficients' 2t + 1 draws, and Horner at m points."""
+        t, ns, m = self.t, self.n_send, self.m
+        return (ns if fused else 0) + ns + t * ns + t * m
+
+    @functools.cached_property
+    def params(self):
+        """K8's parameter block (built once: it holds no per-call value)."""
+        from mpyc_tpu_torch import _build
+        if (self.t, self.m) != (1, 3):
+            raise NotImplementedError(
+                f'the CUDA GF(2^d) reshare is built for (t, m) = (1, 3), '
+                f'not ({self.t}, {self.m})')
+        P = _build.Reshare2Params()
+        for j, r in enumerate(self.ctx.red):
+            P.red[j] = r
+        for i, c in enumerate(self.lag):
+            P.lag[i] = c
+        for j, x in enumerate(self.xs):
+            P.xs[j] = x
+        P.d = self.d
+        return P
+
+
+def _reshare2_plain(a: torch.Tensor, b, blocks: torch.Tensor,
+                    spec: Reshare2Spec) -> torch.Tensor:
+    """Plain version of K8, the arithmetic of ``make_reshare2_step`` after
+    its squeeze: (m, n, 1) int32 GF(2^d) shares (times b's when b is
+    given) and the stream's (n_blocks, 42) words -> (m, n, 1) reshared
+    shares. Coefficient k, sender i of element e is draw (k (2t + 1) + i)
+    n + e: ceil(d / 8) little-endian bytes, masked to d bits."""
+    ctx, t, m, ns = spec.ctx, spec.t, spec.m, spec.n_send
+    n = a.shape[1]
+    flat = a.reshape(m, n)
+    if b is not None:
+        flat = ctx.clmul_reduce(flat, b.reshape(m, n))
+    coefs = rng_mod.words_to_elements(blocks, spec.n_draws(n),
+                                      spec.l_bytes, 1)[:, 0, 0]
+    if spec.d < 32:
+        coefs = coefs & ctx.mask
+    coefs = coefs.reshape(t, ns, n)
+
+    def cmul(c, x):     # c x; at the points 1..3 every lag is 1
+        if c == 1:
+            return x
+        return ctx.clmul_reduce(x, torch.full((), finfields._i32(c),
+                                              dtype=torch.int32,
+                                              device=x.device))
+    S = None
+    for i in range(ns):
+        term = cmul(spec.lag[i], flat[i])
+        S = term if S is None else S ^ term
+    C = []
+    for k in range(t):
+        acc = None
+        for i in range(ns):
+            term = cmul(spec.lag[i], coefs[k, i])
+            acc = term if acc is None else acc ^ term
+        C.append(acc)
+    rows = []
+    for j in range(m):
+        y = None
+        for k in range(t):
+            y = C[k] if y is None else y ^ C[k]
+            y = cmul(spec.xs[j], y)
+        rows.append(y ^ S)
+    return torch.stack(rows, dim=0).reshape(m, n, 1)
+
+
+def reshare2(a: torch.Tensor, b, blocks: torch.Tensor,
+             spec: Reshare2Spec) -> torch.Tensor:
+    """K8: one GRR98 round over GF(2^d) on (m, n, 1) int32 shares, with
+    the carry-less product a*b first when b is given, its coefficients
+    drawn from ``blocks``, the counter-mode stream of the call (K1's
+    output: (n_blocks, 42) int32 words).
+
+    Replaces ``mpyc_tpu/models/pipelines.py:1065 make_reshare2_step``
+    after its squeeze (an XLA program around K1). CPU tensors take the
+    plain version; CUDA tensors launch the kernel (``csrc/gf2.cu``)."""
+    m = spec.m
+    if a.dim() != 3 or a.shape[0] != m or a.shape[2] != 1 or \
+            a.dtype != torch.int32:
+        raise ValueError(f'shares must be ({m}, n, 1) int32')
+    if b is not None and (b.shape != a.shape or b.dtype != a.dtype
+                          or b.device != a.device):
+        raise ValueError('both operands must have the same shape and device')
+    n = a.shape[1]
+    if blocks.device != a.device or blocks.dtype != torch.int32 or \
+            blocks.dim() != 2 or blocks.shape[1] != keccak.RATE // 4 or \
+            blocks.shape[0] < spec.n_blocks(n):
+        raise ValueError(f'the stream must be ({spec.n_blocks(n)}, 42) '
+                         'int32 words on the shares\' device')
+    if a.device.type == 'cpu':
+        return _reshare2_plain(a, b, blocks, spec)
+    from mpyc_tpu_torch import _build
+    params = spec.params
+    a = a.contiguous()
+    b = b.contiguous() if b is not None else None
+    blocks = blocks.contiguous()
+    out = torch.empty_like(a)
+    _build.call('mtt_reshare2', a.data_ptr(),
+                b.data_ptr() if b is not None else None, out.data_ptr(),
+                blocks.data_ptr(), n, int(b is not None),
+                ctypes.addressof(params), _build.stream_of(a.device))
+    reshare2.launches += 1
+    reshare2.by_key[(spec.d, b is not None)] += 1
+    return out
+
+
+reshare2.launches = 0
+reshare2.by_key = collections.Counter()   # launches by (d, fused)
+
+
+def reshare2_stream(state: torch.Tensor, nonce, n: int,
+                    spec: Reshare2Spec) -> torch.Tensor:
+    """The stream of a call on n elements: blocks 0.. of the absorbed
+    state with the call's counter (lo, hi) XORed into lane 4, the block
+    counter in lane 19 (K1 on the card)."""
+    return keccak.keccak_ctr(_nonce_state(state, nonce), spec.n_blocks(n),
+                             19)
+
+
+def make_reshare2_step(modulus: int, t: int, m: int, fuse_mul: bool = False):
+    """Single-step GRR98 degree reduction over GF(2^d) on party-stacked
+    shares (``mpyc_tpu/models/pipelines.py:1065``).
+
+    step(shares, state, ctr) -> (out, ctr'), or with fuse_mul
+    step(a, b, state, ctr) -> (out, ctr'): shares, a, b (m, ..., 1) int32
+    elements; state (2, 25) int32 absorbed SHAKE128 prefix on their
+    device; ctr the (2,) uint32 host counter (lo, hi), advanced by one.
+    The round squeezes the call's stream (K1) and runs K8 on it:
+    out_j = Horner(C, x_j) + S, S = sum_{i <= 2t} lag_i s_i, C_k =
+    sum_i lag_i r_{k,i}, as the JAX package's XLA program computes it."""
+    spec = Reshare2Spec(modulus, t, m)
+
+    def _step(shares, state, ctr, shares_b=None):
+        orig_shape = shares.shape
+        n = math.prod(orig_shape[1:-1])
+        flat = shares.reshape(m, n, 1)
+        flat_b = shares_b.reshape(m, n, 1) if shares_b is not None else None
+        ctr = np.asarray(ctr, dtype=np.uint32)
+        nonce = (int(ctr[0]), int(ctr[1]))
+        blocks = reshare2_stream(state, nonce, n, spec)
+        out = reshare2(flat, flat_b, blocks, spec)
         return out.reshape(orig_shape), _add_ctr(ctr)
 
     if fuse_mul:

@@ -174,8 +174,46 @@ class KeccakRNG:
         self._pool_off = off + n_blocks
         return pool[off:off + n_blocks].clone()
 
+    def _draw_blocks(self, n_blocks: int) -> torch.Tensor:
+        """n_blocks fresh 168-byte blocks: from the pool up to
+        ``_POOL_MAX_DRAW``, else under a nonce of their own
+        (``mpyc_tpu/ops/rng.py`` ``KeccakRNG._draw_blocks``)."""
+        if n_blocks <= _POOL_MAX_DRAW:
+            return self._pool_blocks(n_blocks)
+        return keccak.shake128_ctr_blocks(self._next_prefix(), n_blocks,
+                                          self.device)
+
+    def randbits(self, shape, k: int) -> torch.Tensor:
+        """Uniform k-bit values (0 < k <= 32) in an int32 tensor of the
+        given shape (``mpyc_tpu/ops/rng.py`` ``randbits_uint32``):
+        ceil(k / 8) little-endian bytes a value, from the pooled host byte
+        stream up to a quarter of a pool's bytes, else from fresh blocks
+        (a value never straddling two)."""
+        if not 0 < k <= 32:
+            raise ValueError('randbits takes 1 to 32 bits')
+        n = math.prod(shape)
+        l = (k + 7) // 8
+        if 0 < n * l <= _POOL_BLOCKS * keccak.RATE // 4:
+            b = self._draw_host_bytes(n * l).reshape(n, l).astype(np.int64)
+            host = np.zeros(n, np.int64)
+            for j in range(l):
+                host |= b[:, j] << (8 * j)
+            host &= (1 << k) - 1
+            vals = torch.from_numpy(host.astype(np.uint32).view(np.int32)
+                                    .copy()).to(self.device)
+        else:
+            blocks = self._draw_blocks(max(blocks_needed(n, l), 1))
+            vals = words_to_elements(blocks, n, l, 1)[:, 0, 0]
+            if k < 32:
+                vals = vals & ((1 << k) - 1)
+        return vals.reshape(tuple(shape))
+
     def field_uniform(self, field, shape):
-        """Uniform random ``field.array`` of the given shape (GF(p))."""
+        """Uniform random ``field.array`` of the given shape: GF(p), or
+        GF(2^d) as d random bits an element."""
+        if field.characteristic == 2:
+            bits = self.randbits(shape, field.ext_deg)
+            return field.array.from_data(bits.unsqueeze(-1))
         p = field.modulus
         ctx = prime_field_ctx(p)
         n = math.prod(shape)

@@ -9,7 +9,11 @@ card), a product with a public operand a local scale, a matrix product of
 two secure operands a field matmul and one reshare round (K3 without the
 product), a comparison one fused step per chunk of up to 2^20 elements
 (kernel K5; on the card the chunks of one comparison are one launch), and
-output recombines the first t+1 shares at 0.
+output recombines the first t+1 shares at 0. Over a binary field GF(2^d)
+(``SecFld``) a secure product is one fused round too: K1 squeezes its
+stream and kernel K8 computes the carry-less product and the reshare
+(``_mul_reshare2_fused``), and random bits are single PRSS draws of one
+bit.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
@@ -35,7 +39,7 @@ import secrets as _secrets
 import numpy as np
 import torch
 
-from mpyc_tpu_torch import sectypes, thresha
+from mpyc_tpu_torch import finfields, sectypes, thresha
 from mpyc_tpu_torch.models import pipelines
 from mpyc_tpu_torch.ops import keccak
 from mpyc_tpu_torch.ops.rng import KeccakRNG
@@ -241,11 +245,18 @@ class SimRuntime(Runtime):
 
     def _reshare(self, x):
         """GRR98 degree reduction of party-stacked field-array shares, one
-        fused round (K3 without the local product) of any logical shape."""
+        fused round (K3 without the local product; over GF(2^d) K8 without
+        it) of any logical shape."""
         if self.threshold == 0:
             return x
         field = x.field
         t, m = self.threshold, len(self.parties)
+        if field.characteristic == 2:
+            md = int(field.modulus)
+            out = self._fused_flat(
+                (2, md, t, 'reshare'),
+                lambda: pipelines.make_reshare2_step(md, t, m), [x.data])
+            return field.array.from_data(out)
         out = self._fused_flat(
             (field.modulus, t, 'reshare'),
             lambda: pipelines.make_reshare_step(field.modulus, t, m),
@@ -317,6 +328,41 @@ class SimRuntime(Runtime):
             [sa.data, sb.data])
         return field.array.from_data(out)
 
+    def _mul_reshare2_fused(self, sa, sb):
+        """Whole GF(2^d) secure multiplication (carry-less product and
+        GRR98 reshare) as one fused step (``mpyc_tpu/parallel/simulator.py:
+        346``): K1's stream and one launch of K8 on the card."""
+        field = sa.field
+        t, m = self.threshold, len(self.parties)
+        md = int(field.modulus)
+        out = self._fused_flat(
+            (2, md, t, 'mul'),
+            lambda: pipelines.make_reshare2_step(md, t, m, fuse_mul=True),
+            [sa.data, sb.data])
+        return field.array.from_data(out)
+
+    def _mul_field(self, a, b, stype):
+        """Secure product over a binary field (``mpyc_tpu/parallel/
+        simulator.py:410-417``): by a public operand (an int or element,
+        a public array, or a secure array not yet input) a local product;
+        of two secure operands one fused round."""
+        array = self._is_array_op(a, b)
+        if not isinstance(b, sectypes.SecureObject) or self._is_public(b):
+            if isinstance(b, sectypes.SecureObject):
+                b = b.share
+            elif not isinstance(b, finfields.FieldArray):
+                b = self._coerce_op(stype, b).share
+            sa = self._share(a)
+            shape = torch.broadcast_shapes(sa.shape[1:], b.shape)
+            c = sa.from_data(sa.ctx.mul(self._broadcast(sa.data, 1, shape),
+                                        self._broadcast(b.data, 0, shape)))
+            return self._wrap(stype, c, True, array)
+        if self.threshold == 0:
+            raise NotImplementedError('the port needs t >= 1')
+        sa, sb = self._share2(a, b)
+        return self._wrap(stype, self._mul_reshare2_fused(sa, sb), True,
+                          array)
+
     def mul(self, a, b):
         """Secure elementwise product of secure arrays: one fused round
         (K3) for two secure operands; a local scale, with no reshare, when
@@ -328,6 +374,10 @@ class SimRuntime(Runtime):
         if not isinstance(a, sectypes.SecureObject):
             a, b = b, a
         stype = self._sectype(a, b)
+        if issubclass(stype, sectypes.SecureFiniteFieldArray):
+            if self._is_public(a):
+                a, b = b, a
+            return self._mul_field(a, b, stype)
         if not issubclass(stype, (sectypes.SecureIntegerArray,
                                   sectypes.SecureFixedPointArray)):
             raise NotImplementedError('the port multiplies secure integers '
@@ -519,6 +569,12 @@ class SimRuntime(Runtime):
         until n are kept."""
         secure = issubclass(sftype, sectypes.SecureObject)
         field = sftype.field if secure else sftype
+        if field.characteristic == 2:
+            # a PRSS value of one bit (``mpyc_tpu/parallel/simulator.py:
+            # 744-751``): K1's stream above 256 blocks
+            bits = self._stacked_prss(field, self.prfs(2), self._prss_uci(),
+                                      n)
+            return self._wrap(sftype.array, bits) if secure else bits
         f = sftype.frac_length if secure else 0
         prfs = self.prfs(field.modulus)
         parts = []

@@ -15,7 +15,10 @@ or Fortran order, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
 ``np_concatenate``, ``np_stack``, ``np_column_stack``, ``np_append``;
 public numpy and field-array operands enter as constant sharings);
 ``np_outer``; the PRSS keys' PRFs (``prfs``) and program counter
-(``_prss_uci``); and secure truncation (``trunc``, ``np_trunc``).
+(``_prss_uci``); secure truncation (``trunc``, ``np_trunc``); and for
+secure binary fields (``SecFld``) ``pow``/``np_pow`` (AES's addition
+chain for x^254), ``np_to_bits``, ``np_from_bits``, ``np_roll``,
+``np_split``/``np_hsplit`` and ``np_update``.
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
 ``output``, ``reciprocal``, the PRSS draws ``_np_randoms`` and
@@ -129,6 +132,18 @@ class Runtime:
                 sectypes.SecFxp(l, f, self.device), self)
         return secfxp
 
+    def SecFld(self, order=None, modulus=None) -> type:
+        """Secure elements of a binary field GF(2^d) on this runtime's
+        device, in the extension GF(4) for GF(2) at t > 0 and m = 3
+        (``sectypes.SecFld``), whose operators call this runtime."""
+        key = ('fld', order, str(modulus))
+        secfld = self._secints.get(key)
+        if secfld is None:
+            secfld = self._secints[key] = sectypes.bind(sectypes.SecFld(
+                order, modulus, len(self.parties), self.threshold,
+                self.device), self)
+        return secfld
+
     def prfs(self, bound: int) -> dict:
         """Map from party subsets to PRFs with codomain range(bound)
         (``mpyc_tpu/runtime.py:232``)."""
@@ -213,8 +228,10 @@ class Runtime:
             if self._sectype(x) is not stype:
                 raise TypeError('secure operands of different types')
             return x
-        if isinstance(x, finfields.PrimeFieldArray):
+        if isinstance(x, finfields.FieldArray):
             return stype(x)
+        if isinstance(x, finfields.FieldElement):
+            return stype(np.array(x.value, dtype=object))
         return stype(np.asarray(x))
 
     def add(self, a, b):
@@ -250,6 +267,43 @@ class Runtime:
         """Elementwise secure product (b may be public: a local scale)."""
         return self.mul(a, b)
 
+    def pow(self, a, b: int):
+        """Secure a ** b for a public int b >= 1 (``mpyc_tpu/runtime.py:
+        1540``): AES's addition chain for b = 254 (11 products in 9
+        rounds), else square and multiply, every product a secure one."""
+        if b == 254:
+            d = a
+            c = self.mul(d, d)
+            c = self.mul(c, c)
+            c = self.mul(c, c)
+            c = self.mul(c, d)
+            c = self.mul(c, c)
+            c, d = self.mul(c, c), self.mul(c, d)
+            c, d = self.mul(c, c), self.mul(c, d)
+            c = self.mul(c, d)
+            c = self.mul(c, c)
+            return c
+        if b < 1:
+            raise NotImplementedError('the port takes exponents of 1 or '
+                                      'more')
+        res = None
+        d = a
+        for i in range(b.bit_length()):
+            if (b >> i) & 1:
+                res = d if res is None else self.mul(res, d)
+            if i < b.bit_length() - 1:
+                d = self.mul(d, d)
+        return res
+
+    def np_pow(self, a, b):
+        """Elementwise a ** b for a secure a and a public int b
+        (``mpyc_tpu/runtime.py:2010``)."""
+        if not isinstance(b, (int, np.integer)):
+            raise NotImplementedError('the port takes public int exponents')
+        if b == 2:
+            return self.mul(a, a)
+        return self.pow(a, int(b))
+
     def div(self, a, b):
         """Secure a / b (``mpyc_tpu/runtime.py:1597``). A secure divisor
         of an integer type is a product by its secure reciprocal; a public
@@ -279,6 +333,53 @@ class Runtime:
         c = field.array(inv, stype.device)
         return self._wrap(stype, self._share(a) * c, False,
                           self._is_array_op(a))
+
+    # -- bits of binary field elements ----------------------------------------
+
+    def np_to_bits(self, a, l=None):
+        """Secure bits of the elements of a secure binary-field array:
+        shape a.shape + (l,), l the field's degree by default
+        (``mpyc_tpu/runtime.py:3299``, ``_np_to_bits_char2`` :3316). PRSS
+        random bits r_j (``np_random_bits``), r = sum_j r_j x^j, c = a + r
+        opened, and bit j of a is r_j + c_j, with c's public bits c_j
+        extracted on the device. Prime fields' bits are not ported."""
+        stype = self._sectype(a)
+        field = stype.field
+        if field.characteristic != 2:
+            raise NotImplementedError('the port takes the bits of binary '
+                                      'field elements only')
+        l = stype.sectype.bit_length if l is None else l
+        shape = tuple(a.shape)
+        n = math.prod(shape)
+        m = len(self.parties)
+        r_bits = self.np_random_bits(field, n * l).reshape(m, n, l)
+        r_modl = self._dot_pow2_last(r_bits)
+        c = self.output(self._share(a).reshape(m, n) + r_modl)
+        d = c.data.reshape(-1)
+        c_bits = torch.stack([(d >> i) & 1 for i in range(l)], dim=-1)
+        out = r_bits + field.array.from_data(c_bits.unsqueeze(-1))
+        return self._wrap(stype, out.reshape((m,) + shape + (l,)), True)
+
+    def np_from_bits(self, x):
+        """Secure numbers of secure bits along the last axis, bit j times
+        2^j (x^j in a binary field; ``mpyc_tpu/runtime.py:3425``)."""
+        stype = self._sectype(x)
+        acc = self._dot_pow2_last(self._share(x))
+        return self._wrap(stype, acc, True, bool(acc.shape[1:]))
+
+    @staticmethod
+    def _dot_pow2_last(u):
+        """sum_j u[..., j] 2^j over the last logical axis of party-stacked
+        field shares: one local product by the public weights and a sum
+        (``mpyc_tpu/runtime.py:4143``)."""
+        field = u.field
+        n = u.shape[-1]
+        w = [1 << j for j in range(n)]
+        if field.characteristic != 2:
+            w = [v % field.modulus for v in w]
+        w = field.array(np.array(w, dtype=object), u.device)
+        prod = u * w
+        return prod.from_data(prod.ctx.sum(prod.data, prod.data.dim() - 2))
 
     # -- truncation -----------------------------------------------------------
 
@@ -473,6 +574,49 @@ class Runtime:
             tuple(ax % nd for ax in axes)
         return self._local(a, lambda d: d.permute(
             (0,) + tuple(ax + 1 for ax in axes) + (nd + 1,)))
+
+    def np_roll(self, a, shift, axis=None):
+        """Secure circular shift along a logical axis, or of the flattened
+        array (``mpyc_tpu/runtime.py:1832``), local."""
+        if axis is None:
+            return self.np_reshape(self.np_roll(self.np_reshape(a, -1),
+                                                shift, 0), a.shape)
+        nd = len(a.shape)
+        return self._local(a, lambda d: torch.roll(d, shift, axis % nd + 1))
+
+    def np_split(self, a, parts, axis=0):
+        """The parts of a along an axis: ``parts`` equal ones, or cut at
+        the given indices (``mpyc_tpu/runtime.py:2258``)."""
+        n = a.shape[axis]
+        if isinstance(parts, (int, np.integer)):
+            if n % parts:
+                raise ValueError('array split does not result in equal '
+                                 'division')
+            bounds = [(i * n // parts, (i + 1) * n // parts)
+                      for i in range(parts)]
+        else:
+            edges = [0] + [int(i) for i in parts] + [n]
+            bounds = list(zip(edges[:-1], edges[1:]))
+        pre = (slice(None),) * (axis % len(a.shape))
+        return [self.np_getitem(a, pre + (slice(i, j),)) for i, j in bounds]
+
+    def np_hsplit(self, a, parts):
+        return self.np_split(a, parts, axis=0 if len(a.shape) == 1 else 1)
+
+    def np_update(self, a, idx, value):
+        """a with a[idx] = value, a new secure array
+        (``mpyc_tpu/runtime.py:3433``); value secure or public."""
+        stype = self._sectype(a)
+        share = self._share(a)
+        v = self._share(self._coerce_op(stype, value)).data
+        data = share.data.clone()
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        target = data[(slice(None),) + idx]
+        data[(slice(None),) + idx] = v.reshape(
+            v.shape[:1] + (1,) * (target.dim() - v.dim()) + v.shape[1:]) \
+            if v.dim() < target.dim() else v
+        return self._wrap(stype, share.from_data(data),
+                          self._integral(a) and self._integral(value))
 
     def np_swapaxes(self, a, i, j):
         nd = len(a.shape)

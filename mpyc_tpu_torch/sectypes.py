@@ -1,4 +1,5 @@
-"""Secure types: SecInt(l), SecFxp(l, f), their numbers and their arrays.
+"""Secure types: SecInt(l), SecFxp(l, f), SecFld(q), their numbers and
+their arrays.
 
 Port of the part of ``mpyc_tpu/sectypes.py`` that secure multiplication,
 comparison, truncation, matrix products and the LP solver use:
@@ -16,16 +17,23 @@ values, times 2^f in a fixed-point type) call the runtime whose
 ``SecInt`` or ``SecFxp`` made its type (``bind``); np.stack,
 np.column_stack, np.concatenate, np.outer and np.append of secure arrays
 do too. A type's ``bit_length`` may be reassigned; comparisons read it at
-call time.
+call time. ``SecFld(q)`` over a binary field (``mpyc_tpu/sectypes.py:749``,
+``:806``): secure elements of GF(2^d), whose arrays take +, -, * (XOR and
+carry-less products), ``**``, and ``@`` with public field matrices from
+either side; where the field has fewer than m + 1 elements (GF(2) at
+m = 3) the shares live in an extension (GF(4)), and opened values convert
+back to the subfield.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
-from mpyc_tpu_torch import finfields
+from mpyc_tpu_torch import finfields, gfpx
+from mpyc_tpu_torch import gmpy as gmpy2
 
 
 class SecureObject:
@@ -53,7 +61,8 @@ class SecureObject:
             return other if _sectype_of(other) is _sectype_of(self) \
                 else NotImplemented
         if isinstance(other, (int, float, np.integer, np.floating, list,
-                              tuple, np.ndarray, finfields.PrimeFieldArray)):
+                              tuple, np.ndarray, finfields.FieldArray,
+                              finfields.FieldElement)):
             return other
         return NotImplemented
 
@@ -102,6 +111,12 @@ class SecureObject:
         if other is NotImplemented:
             return NotImplemented
         return self.runtime.div(other, self)
+
+    def __pow__(self, other):
+        """a ** e for a public int e (``mpyc_tpu/runtime.py:1540``)."""
+        if not isinstance(other, (int, np.integer)):
+            return NotImplemented
+        return self.runtime.pow(self, int(other))
 
     def __matmul__(self, other):
         other = self._coerce(other)
@@ -177,7 +192,7 @@ class SecureNumber(SecureObject):
 
     def __init__(self, value=None):
         if value is not None and not isinstance(
-                value, finfields.PrimeFieldArray):
+                value, finfields.FieldArray):
             value = self.array._encode_public(value)
         super().__init__(value)
 
@@ -206,7 +221,7 @@ class SecureFixedPoint(SecureNumber):
 
     def __init__(self, value=None, integral=None):
         if integral is None and value is not None and not isinstance(
-                value, finfields.PrimeFieldArray):
+                value, finfields.FieldArray):
             integral = _all_integral(np.asarray(value))
         self.integral = integral
         super().__init__(value)
@@ -216,7 +231,8 @@ class SecureFixedPoint(SecureNumber):
 # _secure_array_function``): the runtime method each calls
 _ARRAY_FUNCTIONS = {np.stack: 'np_stack', np.column_stack: 'np_column_stack',
                     np.concatenate: 'np_concatenate', np.outer: 'np_outer',
-                    np.append: 'np_append'}
+                    np.append: 'np_append', np.roll: 'np_roll',
+                    np.hsplit: 'np_hsplit', np.split: 'np_split'}
 
 
 class SecureArray(SecureObject):
@@ -229,7 +245,7 @@ class SecureArray(SecureObject):
 
     def __init__(self, value=None, shape=None):
         if value is not None and not isinstance(
-                value, finfields.PrimeFieldArray):
+                value, finfields.FieldArray):
             value = self._encode_public(value)
         if value is not None:
             shape = value.shape
@@ -284,6 +300,9 @@ class SecureArray(SecureObject):
     def tolist(self):
         return self.runtime.np_tolist(self)
 
+    def sum(self, axis=None, keepdims=False):
+        return self.runtime.np_sum(self, axis=axis, keepdims=keepdims)
+
     def argmin(self, *args, **kwargs):
         """Unit vectors of the minima and the minima: defaults arg_unary
         and not arg_only, unlike np_argmin (``mpyc_tpu/sectypes.py:1235``)."""
@@ -298,9 +317,10 @@ class SecureArray(SecureObject):
         return self.runtime.np_argmax(self, *args, **kwargs)
 
     def __array_function__(self, func, types, args, kwargs):
-        """np.stack, np.column_stack, np.concatenate, np.outer and
-        np.append of secure arrays (public operands among them) run on the
-        runtime; any other numpy function is not supported."""
+        """np.stack, np.column_stack, np.concatenate, np.outer, np.append,
+        np.roll, np.split and np.hsplit of secure arrays (public operands
+        among them) run on the runtime; any other numpy function is not
+        supported."""
         name = _ARRAY_FUNCTIONS.get(func)
         if name is None:
             return NotImplemented
@@ -326,7 +346,7 @@ class SecureFixedPointArray(SecureArray):
 
     def __init__(self, value=None, shape=None, integral=None):
         if integral is None and value is not None and not isinstance(
-                value, finfields.PrimeFieldArray):
+                value, finfields.FieldArray):
             integral = _all_integral(np.asarray(value))
         self.integral = integral
         super().__init__(value, shape)
@@ -407,3 +427,87 @@ def bind(secint: type, runtime) -> type:
     sub.array = type(secint.array.__name__, (secint.array,), {
         '__slots__': (), 'sectype': sub, 'runtime': runtime})
     return sub
+
+
+# -- secure finite fields (binary) --------------------------------------------
+
+class SecureFiniteField(SecureNumber):
+    """Secure field element (``mpyc_tpu/sectypes.py:359``). Its class
+    carries ``field`` (where shares live) and ``subfield`` (where values
+    live, when the shares' field extends it)."""
+
+    __slots__ = ()
+
+    subfield = None
+
+    @classmethod
+    def _output_conversion(cls, a):
+        """Opened 0-d field array -> its element (of the subfield, if
+        any)."""
+        return (cls.subfield or cls.field)(int(a.value[()]))
+
+
+class SecureFiniteFieldArray(SecureArray):
+    """Secure array of field elements (``mpyc_tpu/sectypes.py:1252``)."""
+
+    __slots__ = ()
+
+    subfield = None
+
+    @classmethod
+    def _encode_public(cls, value):
+        """Public values as a field array on the type's device: ints as
+        polynomials (a subfield's values embed as they are), elements by
+        their values."""
+        return cls.sectype.field.array(np.asarray(value, dtype=object),
+                                       cls.device)
+
+    @classmethod
+    def _output_conversion(cls, a):
+        """Opened field array -> itself, or its values in the subfield."""
+        if cls.subfield is None:
+            return a
+        return cls.subfield.array(a.value, a.device)
+
+
+def SecFld(order=None, modulus=None, m: int = 1, t: int = 0,
+           device='cpu') -> type:
+    """Secure finite field of order q = 2^d (``mpyc_tpu/sectypes.py:749``)
+    for a runtime of m parties at threshold t, with arrays encoded on
+    ``device``: given by its order (then its modulus is
+    ``find_irreducible(2, d)``, as the JAX package picks it) or by its
+    modulus (a binary polynomial, its int or its string); without either,
+    GF(2). Where q <= m at t > 0, the shares live in the extension
+    GF(2^e), e = max(2, ceil(log_q(m + 1))), so that Shamir's points 1..m
+    exist (``:806-840``), and opened values convert back. Only
+    characteristic 2 is ported."""
+    if modulus is None:
+        p, d = gmpy2.factor_prime_power(order or 2)
+        if p != 2:
+            raise NotImplementedError('the port has secure fields of '
+                                      'characteristic 2 only')
+        modulus = 2 if d == 1 else finfields.find_irreducible(2, d)
+    elif isinstance(modulus, (str, int)) and modulus != 2:
+        modulus = gfpx.GFpX(2)(modulus)
+    field = finfields.GF(modulus)
+    if order is not None and field.order != order:
+        raise ValueError('order and modulus disagree')
+    return _SecFld(field, int(m), int(t), str(device))
+
+
+@functools.cache
+def _SecFld(field, m, t, device):
+    l = (field.order - 1).bit_length()
+    name = f'SecFld{l}({field.__name__})'
+    subfield = None
+    if t and m >= field.order:
+        subfield = field
+        e = max(2, math.ceil(math.log(m + 1, field.order)))
+        field = finfields.GF(finfields.find_irreducible(2, e))
+    secfld = type(name, (SecureFiniteField,), {
+        '__slots__': (), 'field': field, 'subfield': subfield,
+        'bit_length': l})
+    secfld.array = type(f'Array{name}', (SecureFiniteFieldArray,), {
+        '__slots__': (), 'sectype': secfld, 'field': field,
+        'subfield': subfield, 'device': device})
+    return secfld

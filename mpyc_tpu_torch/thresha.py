@@ -1,10 +1,12 @@
-"""Shamir secret sharing over GF(p) on field arrays.
+"""Shamir secret sharing over GF(p) and GF(2^d) on field arrays.
 
 Port of the part of ``mpyc_tpu/thresha.py`` that secure multiplication
 and pseudorandom secret sharing (PRSS) use: ``_recombination_vector``,
 ``np_random_split`` and ``np_recombine``, and for PRSS ``_f_S_i`` and
 ``DevicePRF``, with the JAX package's randomness conventions, so the same
-generator state and keys give the same shares.
+generator state and keys give the same shares. Over GF(2^d) the party
+points 1, 2, 3, ... are read as polynomials (3 is x + 1), as the JAX
+package reads them.
 """
 
 from __future__ import annotations
@@ -26,7 +28,20 @@ _HOST_PRF_N = 256
 
 
 def _recombination_vector(field, xs, x_r) -> list:
-    """Lagrange coefficients (ints mod p) for interpolation at x_r from xs."""
+    """Lagrange coefficients (ints mod p, or the ints of GF(2^d) elements)
+    for interpolation at x_r from xs."""
+    if field.characteristic == 2:
+        xs_v = [field(x) for x in xs]
+        x_rv = field(x_r)
+        vec = []
+        for i, x_i in enumerate(xs_v):
+            num = den = field(1)
+            for j, x_j in enumerate(xs_v):
+                if i != j:
+                    num = num * (x_rv - x_j)
+                    den = den * (x_i - x_j)
+            vec.append((num / den).value)
+        return vec
     p = field.modulus
     xs = [int(x) % p for x in xs]
     x_r = int(x_r) % p
@@ -56,7 +71,8 @@ def np_random_split(field, s, t, m, rng):
     shape = s.shape if s.shape else (1,)
     n = math.prod(shape)
     ctx = s.ctx
-    if (0 < n <= _HOST_PRF_N and n * ctx.L <= _HOST_LIMBS
+    if (field.characteristic != 2 and 0 < n <= _HOST_PRF_N
+            and n * ctx.L <= _HOST_LIMBS
             and n * t * ((field.modulus.bit_length() + 7 >> 3) + 16)
             <= 65536):
         p = ctx.p
@@ -137,7 +153,14 @@ class DevicePRF:
 
     def field_array(self, field, s: bytes, shape, device):
         """The values of input s as a ``field.array`` of the given shape on
-        ``device``."""
+        ``device``. Over GF(2^d) the bound is a power of two at most 2^d,
+        and the k-bit values are the elements (``bits_uint32``)."""
+        if field.characteristic == 2:
+            if not self.is_pow2 or self.max > field.order:
+                raise ValueError('a PRF over GF(2^d) needs a power-of-two '
+                                 'bound at most 2^d')
+            vals = self.bits_uint32(s, shape, device)
+            return field.array.from_data(vals.unsqueeze(-1))
         if not (self.max == field.modulus or self.is_pow2):
             raise ValueError('a PRF bound must be the modulus or a power '
                              'of two')
@@ -151,6 +174,21 @@ class DevicePRF:
             wide = _mask_bits(wide, (self.max - 1).bit_length())
         mont = ctx.reduce_chunks(wide)
         return field.array.from_data(mont.reshape(tuple(shape) + (ctx.L,)))
+
+    def bits_uint32(self, s: bytes, shape, device) -> torch.Tensor:
+        """The values of input s as raw k-bit values, k = log2(bound) <= 32,
+        in an int32 tensor of the given shape (``mpyc_tpu/thresha.py:408``):
+        ceil(k / 8) little-endian bytes a value, never straddling two
+        blocks, masked to k bits."""
+        k = (self.max - 1).bit_length()
+        n = math.prod(shape)
+        l = max(self.byte_length, 1)
+        blocks = keccak.shake128_ctr_blocks(
+            self.key + s, max(rng_mod.blocks_needed(n, l), 1), device)
+        vals = rng_mod.words_to_elements(blocks, n, l, 1)[:, 0, 0]
+        if k < 32:
+            vals = vals & ((1 << k) - 1)
+        return vals.reshape(tuple(shape))
 
 
 def _mask_bits(wide: torch.Tensor, k: int) -> torch.Tensor:

@@ -521,3 +521,50 @@ def test_lp_solver_on_the_card(cuda_device, dataset):
     assert pipelines.sgn_step.launches > n5
     assert fieldops.mont_pow.launches > n6
     assert 'L=19' in res['kb2']
+
+
+# K8: the GF(2^d) reshare on K1's stream (the moduli of GF(4), AES's
+# GF(2^8), GF(2^12) and GF(2^17) of two- and three-byte draws, GF(2^32))
+GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 17: 0x20009,
+              32: (1 << 32) | 0x8D}
+
+
+@pytest.mark.parametrize('d', sorted(GF2_MODULI))
+@pytest.mark.parametrize('fuse', [True, False])
+@pytest.mark.parametrize('n', [64, 100003])
+def test_reshare2_kernel_matches_plain(cuda_device, d, fuse, n):
+    """K8 on the stream K1 squeezes for the call, against its plain
+    version on the same blocks, at a bucket and at a size that is no
+    multiple of the thread block."""
+    spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
+    g = np.random.default_rng(d + n)
+    a, b = (torch.from_numpy(g.integers(0, 1 << d, (3, n, 1), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda_device)
+            for _ in range(2))
+    n1, n8 = keccak.keccak_ctr.launches, pipelines.reshare2.launches
+    blocks = pipelines.reshare2_stream(_state(cuda_device), (9, 1), n, spec)
+    got = pipelines.reshare2(a, b if fuse else None, blocks, spec)
+    assert keccak.keccak_ctr.launches == n1 + 1
+    assert pipelines.reshare2.launches == n8 + 1
+    assert pipelines.reshare2.by_key[(d, fuse)] > 0
+    assert torch.equal(got, pipelines._reshare2_plain(
+        a, b if fuse else None, blocks, spec))
+
+
+def test_sha3_on_the_card(cuda_device):
+    """SHA3-256 and SHAKE128 of 8 messages equal hashlib's (run_sha3
+    checks); each chi round one K1 and one K8 launch."""
+    import chip_smoke
+    res = chip_smoke.run_sha3(cuda_device, b=8, passes=1)
+    assert res['k8'] == res['k1'] == 24
+
+
+def test_aes_on_the_card(cuda_device):
+    """AES-128 and AES-256 of 5 blocks: FIPS-197 C.1 and C.3 and the round
+    trips (run_aes checks); one K8 launch a secure product."""
+    import chip_smoke
+    res = chip_smoke.run_aes(cuda_device, nb=5, passes=1)
+    r, = res['runs']
+    # S-boxes: AES-128 10 in the key schedule, 10 encrypting, 10
+    # decrypting; AES-256 13, 14 and 14: 71 powers x^254 of 11 products
+    assert r['k8'] == 71 * 11

@@ -8,8 +8,10 @@ split/recombine round at 4096, the BNN runner's selftest at a batch of
 4 (SecInt(14) input, matmul, sign, argmax), the SecInt(64) product at 500,
 the CNN runner's selftest at a batch of 2 (SecInt(37) input, im2col
 matmuls, maxpool, ReLU, argmax), random bits and a truncation at
-SecFxp(14, 6) on 500 values, and the CNN runner's fixed-point selftest at
-a batch of 2 (PRSS, truncated matmuls, comparisons at 2^6)."""
+SecFxp(14, 6) on 500 values, the CNN runner's fixed-point selftest at
+a batch of 2 (PRSS, truncated matmuls, comparisons at 2^6), SHA3-256 and
+SHAKE128 of 2 messages (GF(4) products) and AES-128 of 2 blocks (GF(2^8)
+powers, bits and public matrices)."""
 import os
 import subprocess
 import sys
@@ -47,6 +49,8 @@ _SCRIPT = textwrap.dedent('''
     rt = SimRuntime(3, device='cpu')
     _, checks = np_cnnmnist.selftest_fxp(rt, rt.SecFxp(14, 6), 2)
     assert all(c['bad'] == 0 for c in checks.values()), checks
+    chip_smoke.run_sha3('cpu', b=2, passes=1)
+    chip_smoke.run_aes('cpu', nb=2, passes=1, only128=True)
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded

@@ -2,8 +2,8 @@
 PyTorch versions.
 
 There is no nvcc here, so the library's translation units
-(``mpyc_tpu_torch/csrc/kernels.cu`` and ``sgn.cu`` for each limb count,
-``_build.UNITS``) are compiled with g++ (C++20) against a small header
+(``mpyc_tpu_torch/csrc/kernels.cu``, ``sgn.cu`` for each limb count and
+``gf2.cu``, ``_build.UNITS``) are compiled with g++ (C++20) against a small header
 that defines CUDA's qualifiers away and runs every launch block by block,
 the threads of a block as ``std::thread``s: ``__syncthreads()`` is a
 ``std::barrier`` of the block, ``__shared__`` arrays are ``static`` (one
@@ -138,7 +138,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 7, 'every launch must become a host loop'
+    assert launches == 8, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -800,3 +800,43 @@ def test_random_bits_tail_source_matches_plain_at_four_and_five_limbs(
     assert torch.equal(flags, want[1])
     assert count.item() == want[2].item() == -(-129 // 7)
     assert torch.equal(bits, want[0])
+
+
+# K8: the GF(2^d) reshare, on K1's stream. The moduli: GF(4) (SecFld(2)'s
+# extension at m = 3), GF(2^8) (AES's), GF(2^32) (the widest the kernel
+# takes), GF(2^12) (two-byte draws, 84 a block) and GF(2^17) (three-byte
+# draws, 56 a block).
+GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 17: 0x20009,
+              32: (1 << 32) | 0x8D}
+
+
+def _gf2_shares(n, d, seed):
+    g = np.random.default_rng(seed)
+    v = g.integers(0, 1 << d, (3, n, 1), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(v.view(np.int32))
+
+
+@pytest.mark.parametrize('d', sorted(GF2_MODULI))
+@pytest.mark.parametrize('fused', [True, False])
+@pytest.mark.parametrize('n', [64, 1000])
+def test_reshare2_source_matches_plain(host_lib, state, d, fused, n):
+    """K8 on K1's stream equals its plain version at a bucket of 64 and
+    at 1,000 elements, whose 3,000 draws straddle 168-byte blocks (the
+    second sender's first draw is byte 1000 % 168 = 160 of its block at
+    one byte a draw); its products are ``Reshare2Spec.field_ops`` an
+    element."""
+    st, _ = state
+    spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
+    assert spec.d == d
+    a, b = _gf2_shares(n, d, d), _gf2_shares(n, d, d + 1)
+    blocks = pipelines.reshare2_stream(st, (7, 1), n, spec)
+    out = torch.empty_like(a)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    assert host_lib.mtt_reshare2(
+        a.data_ptr(), b.data_ptr() if fused else None, out.data_ptr(),
+        blocks.data_ptr(), n, int(fused), ctypes.addressof(spec.params),
+        None) == 0
+    want = pipelines._reshare2_plain(a, b if fused else None, blocks, spec)
+    assert torch.equal(out, want)
+    assert tuple(counts) == (n * spec.field_ops(fused), 0)
