@@ -34,7 +34,8 @@ printing one line with its elapsed seconds:
    instantiation's SASS instructions by class (``cuobjdump -sass``: the
    whole kernel, and its squaring loop per product beside the bound
    model's lazy square), and the build time;
-3. kernels: K1 (keccak_ctr), K2 (squeeze_mont) and K3 (reshare_mul, also at
+3. kernels: K1 (keccak_ctr, replayed from a CUDA graph beside the
+   events' time of a call), K2 (squeeze_mont) and K3 (reshare_mul, also at
    a size that is no multiple of its thread block) at the main path's sizes,
    K4 (split_recombine) with its shares at 2^16 and at
    the round's 3,010,560 elements, K5 (sgn_step) in its three modes at
@@ -143,16 +144,19 @@ printing one line with its elapsed seconds:
    instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
    naming its limb count; one try of torch.profiler over pivots 11 and 12
    of LPExample (device time by kernel, idle share, the host's operators);
-15. gf2 kernels: K8 (reshare2, the GF(2^d) reshare on K1's stream) at
-   SHA3's chi, (3, 2^19) in GF(4) (b = 256: 409,600 elements on their
-   bucket), and at AES's S-box products, (3, 32,768) in GF(2^8) (b =
-   2,048), fused and not, and at the key schedule's bucket (3, 64), each
-   equal bit for bit to its plain version on the same K1 blocks, and K1
-   at the chi's 9,363 blocks equal to its plain version; each timed
-   (its device time, the launches replayed from a CUDA graph: they are
-   shorter than their host calls, which CUDA events would time; the
-   events' time of a call beside it) beside its plain version and its
-   bound (K1 at 9,363 blocks is the kernels line's K1);
+15. gf2 kernels: K8 (reshare2, the GF(2^d) reshare squeezing its own
+   stream) at SHA3's chi, (3, 2^19) in GF(4) (b = 256: 409,600 elements
+   on their bucket), and at AES's S-box products, (3, 32,768) in GF(2^8)
+   (b = 2,048), fused and not, and at the key schedule's bucket (3, 64),
+   each one launch with no K1 launch and equal bit for bit to its plain
+   version from the same state and counter, and K1 at 9,363 blocks (the
+   chi's stream while K8 read K1's blocks) equal to its plain version
+   and every instance to hashlib's; each timed (its device time, the launches
+   replayed from a CUDA graph: they are shorter than their host calls,
+   which CUDA events would time; the events' time of a call beside it)
+   beside its plain version, its bound and their ratio (K1 at 9,363
+   blocks is the kernels line's K1), and an empty kernel's replayed
+   launch, the floor under every launch;
 16. sha3: SHA3-256 of the demo's 256 messages (``np_sha3 -b 256``), cold
    and 3 times warm, then SHAKE128 (256 bits): every digest equal to
    hashlib's; seconds a batch and ms a digest (cold; warm median, least
@@ -162,13 +166,21 @@ printing one line with its elapsed seconds:
    and warm: AES-128 and AES-256, FIPS-197 C.1 and C.3 on block 0 and
    every block decrypted back; seconds and ms a block of each stage, K8's
    and K1's launches a pass; one try of torch.profiler over an AES-128
-   encryption;
-18. report: one JSON line of the kernels (every instantiation that a path
+   encryption; the plain carry-less products of an AES-128 encryption
+   (``clmul_meas``): calls, products, their bound at their fewest
+   operations and their device time replayed;
+18. k1 shapes: K1's launches on each path by block count (each driven
+   path prints its own; a record of the launcher's calls, no counter of
+   the wrapper's), and K1 timed at each block count the paths launched
+   (CTAs, device time replayed from a CUDA graph, bound, the launch
+   floor);
+19. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Each of phases 4-11, 13, 14, 16 and 17 zeroes the launch counters just
-before it and reads them just after; each must show that the
+before it and reads them just after, and records K1's launches by block
+count; each must show that the
 instantiations of its path ran (``PATH_ENTRIES``).
 
 Any failed check raises, and the script exits non-zero without the last
@@ -177,6 +189,7 @@ line. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import faulthandler
 import json
@@ -341,7 +354,7 @@ KERNELS = {
         replaces='mpyc_tpu/parallel/simulator.py:732',
         wrapper=pipelines.random_bits_tail,
         source='mpyc_tpu_torch/csrc/pow.cuh'),
-    # an XLA program around K1 (its stream)
+    # an XLA program around K1 (its stream), which K8 squeezes itself
     'reshare2': dict(replaces='mpyc_tpu/models/pipelines.py:1065',
                      wrapper=pipelines.reshare2,
                      source='mpyc_tpu_torch/csrc/gf2.cu'),
@@ -425,11 +438,12 @@ PATH_ENTRIES = {
            'sgn_step<LT, l=110, L=5>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
            *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5))),
-    # every chi round's product (K8 in GF(4)) on K1's stream of 9,363
-    # blocks
-    'sha3': ('keccak_ctr', 'reshare2<d=2, fused>'),
-    # the S-box powers' products (K8 in GF(2^8)) on K1's streams, and the
-    # bit decompositions' PRSS random bits (K1 above 256 blocks)
+    # every chi round's product (K8 in GF(4), squeezing its own stream;
+    # the messages' input draws come from the pool that earlier phases
+    # filled, so SHA3 launches no K1 here)
+    'sha3': ('reshare2<d=2, fused>',),
+    # the S-box powers' products (K8 in GF(2^8)), and the bit
+    # decompositions' PRSS random bits (K1 above 256 blocks)
     'aes': ('keccak_ctr', 'reshare2<d=8, fused>'),
 }
 
@@ -712,6 +726,9 @@ def trace_lines(prof, top: int | None = None) -> list:
         rest = sum(us for _, us in ranked[top:])
         lines.append(f'{len(ranked) - top} other kernels: {rest / 1e3:.4f} '
                      'ms device time')
+        lines += [f'{name}: {us / 1e3:.4f} ms device time (a kernel of the '
+                  'port outside the top)' for name, us in ranked[top:]
+                  if name.startswith('mtt::')]
     lines.append(f'device busy {busy / 1e3:.4f} ms of a {window / 1e3:.4f} '
                  f'ms window: idle share {1 - busy / window:.4f}')
     if top is not None:    # where the host's time went
@@ -736,6 +753,29 @@ def random_field(p: int, shape, gen: np.random.Generator) -> torch.Tensor:
     words = gen.integers(0, 1 << 32, tuple(shape) + (L,), dtype=np.uint64)
     words[..., -1] = gen.integers(0, p >> 32 * (L - 1), tuple(shape))
     return torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
+
+
+def k1_bound(n: int) -> dict:
+    """K1's bound on n blocks: 168 bytes written a block (the state read
+    once), a permutation's logic ops a block."""
+    b, o = bound(n * 168 + 200, n * KECCAK_F_OPS)
+    return dict(bound_ms=b, bound_by=o)
+
+
+def k1_shape(n: int) -> str:
+    """n blocks and the CTAs K1's launcher picks for them."""
+    from mpyc_tpu_torch import _build
+    per = _build.library().lib.mtt_keccak_ctr_cta(n)
+    how = 'five threads a sponge' if per == 24 else 'a thread a sponge'
+    return f'{n} blocks, {-(-n // per)} CTAs of {per} sponges ({how})'
+
+
+def empty_ms() -> float:
+    """The launch floor: an empty kernel's replayed launch (graph_ms)."""
+    from mpyc_tpu_torch import _build
+    dev = torch.device('cuda')   # the stream at call time: a capture's
+    return graph_ms(lambda: _build.call('mtt_empty', _build.stream_of(dev)),
+                    20)
 
 
 def check_kernels(p: int) -> dict:
@@ -770,13 +810,12 @@ def check_kernels(p: int) -> dict:
         'hashlib')
 
     def k1_meas(n):
-        b, o = bound(n * 168 + 200, n * KECCAK_F_OPS)
+        run = lambda: keccak.keccak_ctr(st, n, lane)  # noqa: E731
         return dict(
-            shape=f'{n} blocks', max_abs_err=err1,
-            ms=cuda_ms(lambda: keccak.keccak_ctr(st, n, lane), 20),
+            shape=k1_shape(n), max_abs_err=err1, ms=graph_ms(run, 20),
+            call_ms=cuda_ms(run, 20),
             plain_ms=cuda_ms(lambda: keccak._keccak_ctr_plain(st, n, lane),
-                             2),
-            bound_ms=b, bound_by=o)
+                             2), **k1_bound(n))
     res['keccak_ctr'] = k1_meas(n_pool)
     res['keccak_ctr (one 2^22-element draw)'] = k1_meas(n1)
 
@@ -2231,36 +2270,44 @@ def gf2_field(d: int, shape, gen: np.random.Generator) -> torch.Tensor:
     return torch.from_numpy(v.astype(np.uint32).view(np.int32)).cuda()
 
 
-def reshare2_meas(spec, a, b, blocks, err: int) -> dict:
+def reshare2_meas(spec, a, b, st, nonce, err: int) -> dict:
     """K8's time on (m, n, 1) GF(2^d) shares a (times b's when b is given)
-    and its stream, its plain version's and its bound: the function's
-    fewest ops an element (``reshare2_ops``) against the shares read and
-    written and the stream's blocks read once."""
+    from the state st and the call counter nonce, its plain version's and
+    its bound: the shares read and written against the function's fewest
+    ops an element (``reshare2_ops``) and the stream's permutations, each
+    block once (the stream never leaves the chip: no bytes)."""
+    from mpyc_tpu_torch import _build
     n = a.shape[1]
     fused = b is not None
-    ops = n * reshare2_ops(spec, fused)
+    ops = n * reshare2_ops(spec, fused) + spec.n_blocks(n) * KECCAK_F_OPS
     reads = 2 if fused else 1
-    bd, o = bound(n * M * 4 * (reads + 1) + spec.n_blocks(n) * 168, ops)
+    bd, o = bound(n * M * 4 * (reads + 1), ops)
     what = 'fused product' if fused else 'no product'
-    run = lambda: pipelines.reshare2(a, b, blocks, spec)  # noqa: E731
+    elems = _build.library().lib.mtt_reshare2_elems(n)
+    run = lambda: pipelines.reshare2(a, b, st, nonce, spec)  # noqa: E731
     return dict(
         shape=f'({M}, {n}) GF(2^{spec.d}) shares, {what}, '
-              f'{spec.n_blocks(n)} blocks of stream',
+              f'{spec.n_blocks(n)} blocks of stream, {-(-n // elems)} CTAs '
+              f'of {elems} elements',
         max_abs_err=err, ms=graph_ms(run, 10),
         call_ms=cuda_ms(run, 10),
         plain_ms=cuda_ms(lambda: pipelines._reshare2_plain(
-            a, b, blocks, spec), 1),
+            a, b, st, nonce, spec), 1),
         bound_ms=bd, bound_by=o)
 
 
 def check_gf2_kernels() -> dict:
     """Phase "gf2 kernels": K8 at SHA3's chi (3, 2^19) in GF(4) and at
     AES's S-box products (3, 32,768) in GF(2^8), fused and not, and at the
-    key schedule's bucket (3, 64), each on K1's stream of the call, equal
-    bit for bit to its plain version (tolerance: exact); K1 at the chi's
-    9,363 blocks equal to its plain version; each timed beside its plain
-    version and its bound (K1 at 9,363 blocks is the kernels line's K1).
-    A launch here is shorter than its host call, so ``ms`` is the
+    key schedule's bucket (3, 64), each squeezing the call's stream
+    itself, equal bit for bit to its plain version from the same state and
+    counter (tolerance: exact) and one launch with no K1 launch; K1 at the
+    9,363 blocks a chi round took while K8 read K1's blocks, equal to its
+    plain version and, from a hashlib-shaped state, every instance to
+    hashlib's;
+    each timed beside its plain version and its bound (K1 at 9,363
+    blocks is the kernels line's K1), and an empty kernel (the launch
+    floor). A launch here is shorter than its host call, so ``ms`` is the
     kernel's device time (``graph_ms``: the launches replayed from a CUDA
     graph), and ``call_ms`` the CUDA events' time of a call."""
     gen = np.random.default_rng(12)
@@ -2274,39 +2321,47 @@ def check_gf2_kernels() -> dict:
         spec = pipelines.Reshare2Spec(md, T, M)
         err = 0
         for n in ns:
-            blocks = pipelines.reshare2_stream(st, nonce, n, spec)
-            plain = keccak._keccak_ctr_plain(pipelines._nonce_state(
-                st, nonce), spec.n_blocks(n), 19)
-            torch.cuda.synchronize()
-            err1 = max_abs_err(blocks, plain)
-            check(err1 == 0, f'K1 ({spec.n_blocks(n)} blocks) differs from '
-                  'its plain version')
             a = gf2_field(spec.d, (M, n), gen)
             b = gf2_field(spec.d, (M, n), gen)
             for bb in (b, None):
-                out_k = pipelines.reshare2(a, bb, blocks, spec)
-                out_p = pipelines._reshare2_plain(a, bb, blocks, spec)
+                n1 = keccak.keccak_ctr.launches
+                n8 = pipelines.reshare2.launches
+                out_k = pipelines.reshare2(a, bb, st, nonce, spec)
+                check(keccak.keccak_ctr.launches == n1 and
+                      pipelines.reshare2.launches == n8 + 1,
+                      'K8 is not one launch without K1')
+                out_p = pipelines._reshare2_plain(a, bb, st, nonce, spec)
                 torch.cuda.synchronize()
                 err = max(err, max_abs_err(out_k, out_p))
                 check(err == 0, f'K8 at ({M}, {n}) GF(2^{spec.d}) differs '
                       'from its plain version')
             say(f'  K8 reshare2: ({M}, {n}) GF(2^{spec.d}), fused and not, '
-                f'on K1\'s {spec.n_blocks(n)} blocks, equal to plain')
+                'one launch, no K1, equal to plain')
             if n == ns[0]:
-                res[name] = reshare2_meas(spec, a, b, blocks, err)
-            if md == GF4:
-                st_n = pipelines._nonce_state(st, nonce)
-                nb = spec.n_blocks(n)
-                bk, o = bound(nb * 168 + 200, nb * KECCAK_F_OPS)
-                run = lambda: keccak.keccak_ctr(st_n, nb, 19)  # noqa: E731
-                res['keccak_ctr'] = dict(
-                    shape=f'{nb} blocks (a SHA3 chi round at b = {N_SHA3})',
-                    max_abs_err=err1,
-                    ms=graph_ms(run, 20),
-                    call_ms=cuda_ms(run, 20),
-                    plain_ms=cuda_ms(lambda: keccak._keccak_ctr_plain(
-                        st_n, nb, 19), 2),
-                    bound_ms=bk, bound_by=o)
+                res[name] = reshare2_meas(spec, a, b, st, nonce, err)
+    # K1 at 9,363 blocks (3 x 2^19 one-byte draws), the chi round's stream
+    # while K8 read K1's blocks: against the plain version and hashlib
+    nb = pipelines.Reshare2Spec(GF4, T, M).n_blocks(SHA3_CHI)
+    prefix = key + (7).to_bytes(8, 'little')
+    st_np, lane = keccak.ctr_state(prefix)
+    st1 = keccak.state_tensor(st_np, 'cuda')
+    out_k = keccak.keccak_ctr(st1, nb, lane)
+    err1 = max_abs_err(out_k, keccak._keccak_ctr_plain(st1, nb, lane))
+    check(err1 == 0, f'K1 ({nb} blocks) differs from its plain version')
+    words = out_k.cpu().numpy().view(np.uint32)
+    for j in range(nb):
+        msg = prefix + j.to_bytes(8, 'little')
+        check(words[j].astype('<u4').tobytes() == shake_128(msg).digest(168),
+              f'K1 instance {j} of {nb} differs from hashlib')
+    say(f'  K1 keccak_ctr: {nb} blocks, equal to plain and, all {nb}, to '
+        'hashlib')
+    run = lambda: keccak.keccak_ctr(st1, nb, lane)  # noqa: E731
+    res['keccak_ctr'] = dict(
+        shape=f'{k1_shape(nb)} (a SHA3 chi round\'s stream at b = '
+              f'{N_SHA3} while K8 read K1\'s blocks)', max_abs_err=err1,
+        ms=graph_ms(run, 20), call_ms=cuda_ms(run, 20),
+        plain_ms=cuda_ms(lambda: keccak._keccak_ctr_plain(st1, nb, lane), 2),
+        **k1_bound(nb))
     return res
 
 
@@ -2365,6 +2420,57 @@ def run_aes(device, nb=N_AES, passes=2, only128=False,
         res['trace'] = profile_calls(lambda: np_aes.run(rt, nb, True), 1,
                                      top=8)
     rt.shutdown()
+    return res
+
+
+def clmul_meas(device, nb=N_AES) -> dict:
+    """The plain carry-less products (``ops/binary.py``
+    ``BinaryFieldCtx.clmul_reduce``, the port of ``mpyc_tpu/ops/binary.py:
+    256 _clmul_reduce``) of one AES-128 encryption of nb blocks
+    (``np_aes.run`` with ``only128``: the key schedule, the encryption and
+    its opening), after a warm one: their calls and elementwise products,
+    and their bound. At their fewest, a product whose operand is broadcast
+    (a public matrix, weight or coefficient: a constant c at each place)
+    costs ``gf2_const_ops(c, d)``, a product of two full operands
+    ``gf2_mul_ops(d)``; the bytes are each operand read once and the
+    product written once. On the card also their device time, the
+    recorded calls replayed from a CUDA graph."""
+    from mpyc_tpu_torch.demos import np_aes
+    from mpyc_tpu_torch.ops import binary
+    rt = SimRuntime(M, device=device)
+    rt.start()
+    np_aes.run(rt, nb, True)
+    calls = []
+    cls = binary.BinaryFieldCtx
+    orig = cls.clmul_reduce
+
+    def recording(self, a, b):
+        calls.append((self, a, b))
+        return orig(self, a, b)
+    cls.clmul_reduce = cls.mul = recording
+    try:
+        np_aes.run(rt, nb, True)
+    finally:
+        cls.clmul_reduce = cls.mul = orig
+    rt.shutdown()
+    products = ops = nbytes = 0
+    for ctx, a, b in calls:
+        n = math.prod(torch.broadcast_shapes(a.shape, b.shape))
+        products += n
+        nbytes += 4 * (a.numel() + b.numel() + n)
+        small = a if a.numel() <= b.numel() else b
+        if small.numel() < n:       # a broadcast constant at each place
+            vals, reps = torch.unique(small.cpu(), return_counts=True)
+            ops += sum(int(r) * n // small.numel() * gf2_const_ops(
+                int(v) & ctx.mask, ctx.d) for v, r in zip(vals, reps))
+        else:
+            ops += n * gf2_mul_ops(ctx.d)
+    bd, by = bound(nbytes, np.array([0, 0, ops]))
+    res = dict(calls=len(calls), products=products, ops=ops, bytes=nbytes,
+               bound_ms=bd, bound_by=by)
+    if torch.device(device).type == 'cuda':
+        res['ms'] = graph_ms(lambda: [orig(ctx, a, b)
+                                      for ctx, a, b in calls], 1)
     return res
 
 
@@ -2431,13 +2537,26 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     launches = dict.fromkeys(ENTRIES, 0)
+    k1_blocks = {}      # path -> Counter of K1's launches by block count
 
     def drive(path, fn):
         reset_counts()
-        res = fn()
+        hist = k1_blocks[path] = collections.Counter()
+        call = _build.call
+
+        def recording(name, *args):   # K1's blocks: its third argument
+            if name == 'mtt_keccak_ctr':
+                hist[args[2]] += 1
+            return call(name, *args)
+        _build.call = recording
+        try:
+            res = fn()
+        finally:
+            _build.call = call
         torch.cuda.synchronize()
         got = counts()
         say(f'  launches: {({k: v for k, v in got.items() if v})}')
+        say(f'  K1 launches by blocks: {dict(sorted(hist.items()))}')
         for name in PATH_ENTRIES[path]:
             check(got[name] > 0, f'kernel {name} was not launched on the '
                   f'{path}')
@@ -2646,11 +2765,15 @@ def main() -> int:
 
     with Phase('gf2 kernels'):
         gf2_meas = check_gf2_kernels()
+        floor_ms = empty_ms()
         for name, r in gf2_meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms device time '
                 f'(a call {r["call_ms"]:.4f} ms by CUDA events), plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
-                f'({r["bound_by"]}) on {smi}')
+                f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x the bound '
+                f'on {smi}')
+        say(f'  launch floor (an empty kernel, replayed): {floor_ms:.4f} ms '
+            f'on {smi}')
         meas.update(gf2_meas)
         torch.cuda.empty_cache()
 
@@ -2687,7 +2810,31 @@ def main() -> int:
         say('  torch.profiler over one AES-128 encryption:')
         for line in res['trace']:
             say(f'    {line}')
+        cm = clmul_meas('cuda')
+        say(f'  the plain carry-less products of one AES-128 encryption of '
+            f'{N_AES} blocks: {cm["calls"]} calls, {cm["products"]} '
+            f'products, {cm["ops"]} logic ops and {cm["bytes"]} bytes at '
+            f'their fewest: bound {cm["bound_ms"]:.4f} ms ({cm["bound_by"]}); '
+            f'{cm["ms"]:.4f} ms device time, the calls replayed from a CUDA '
+            f'graph, on {smi}')
         torch.cuda.empty_cache()
+
+    with Phase('k1 shapes'):
+        shapes = collections.Counter()
+        for path, hist in k1_blocks.items():
+            if hist:
+                say(f'  K1 on the {path}: {sum(hist.values())} launches, by '
+                    f'blocks {dict(sorted(hist.items()))}')
+            shapes.update(hist)
+        st, lane = keccak.ctr_state(bytes(range(40)))
+        st = keccak.state_tensor(st, 'cuda')
+        for nb, c in sorted(shapes.items()):
+            r = k1_bound(nb)
+            ms_nb = graph_ms(lambda: keccak.keccak_ctr(st, nb, lane), 20)
+            say(f'  K1 at {k1_shape(nb)} ({c} launches over the paths): '
+                f'{ms_nb:.4f} ms device time, bound {r["bound_ms"]:.4f} ms '
+                f'({r["bound_by"]}), {ms_nb / r["bound_ms"]:.2f}x; launch '
+                f'floor {floor_ms:.4f} ms, on {smi}')
 
     say(f'  launches over the paths: {launches}')
     kernels = []

@@ -72,11 +72,11 @@ class ReshareParams(ctypes.Structure):
 
 
 class Reshare2Params(ctypes.Structure):
-    """Mirror of ``struct Reshare2Params`` in csrc/gf2.cu (K8): GF(2^d)
-    elements as their uint32 values."""
+    """Mirror of ``struct Reshare2Params`` in csrc/gf2.cu (K8): the
+    residues x^(d + j) mod f as uint32 values, the call's counter."""
     _fields_ = [('red', ctypes.c_uint32 * 32),
-                ('lag', ctypes.c_uint32 * MAX_SEND),
-                ('xs', ctypes.c_uint32 * MAX_M), ('d', ctypes.c_int32)]
+                ('nonce_lo', ctypes.c_uint32), ('nonce_hi', ctypes.c_uint32),
+                ('d', ctypes.c_int32)]
 
 
 class SgnParams(ctypes.Structure):
@@ -181,6 +181,9 @@ _SIGNATURES = {
     'mtt_random_bits_tail': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C, _C],
     'mtt_reshare2': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
                      _C],
+    'mtt_reshare2_elems': [ctypes.c_longlong],
+    'mtt_keccak_ctr_cta': [ctypes.c_longlong],
+    'mtt_empty': [_C],
 }
 
 

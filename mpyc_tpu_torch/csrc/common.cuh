@@ -1,6 +1,7 @@
 // Shared by the translation units of the port's kernels (kernels.cu,
-// sgn.cu): the limits and parameter blocks of the fused streams, the map
-// of a squeezed draw into GF(p), and the shared squeeze stage.
+// sgn.cu, gf2.cu): the limits and parameter blocks of the fused streams,
+// the map of a squeezed draw into GF(p), the card's SM count for the
+// launchers that size their grid from n, and the shared squeeze stage.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -15,6 +16,19 @@ constexpr int MAX_NC = 4;      // chunks per draw
 constexpr int MAX_SEND = 9;    // senders aggregated by a reshare (2t + 1)
 constexpr int MAX_M = 16;      // parties
 constexpr int RATE_WORDS = 42; // 32-bit words in a 168-byte block
+
+// The current device's streaming multiprocessors (132 on an H100 SXM),
+// read once: K1's and K8's launchers derive their CTA shape from n so that
+// the grid reaches every SM where n allows.
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return sms;
+}
 
 // Mirrored by ctypes structures in mpyc_tpu_torch/_build.py.
 // Field constants fill the first nl limbs of their MAX_NL.

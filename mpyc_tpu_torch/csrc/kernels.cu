@@ -29,25 +29,176 @@ namespace mtt {
 // Keccak-f[1600] and writes its 21 rate lanes: (n, 42) uint32 words
 // [lo0, hi0, ...], which as little-endian 64-bit lanes is a plain store.
 // Bound: integer operations (about 4,300 32-bit logic and shift
-// instructions per permutation against 168 bytes written). Design: one
+// instructions per permutation against 168 bytes written). At the paths'
+// small shapes (293 and 512 blocks for input draws and the pool, 1,561
+// for AES's random bits, 9,363 for a SHA3 round while K8 read K1's
+// blocks) the time is one warp's stream of those instructions: a
+// scheduler gives a warp's logic instructions 16 lanes a clock, so a warp
+// of sponges takes about 8,600 clocks whatever its count. Design: one
 // sponge per thread, the 25 lanes as uint64_t in registers for all 24
-// rounds (no stack frame: see xor_lane), so device memory sees only the
-// output rows.
+// rounds (no stack frame: see xor_lane). The CTA's
+// width comes from n (keccak_ctr_cta: 32 to 256 threads, the widest at
+// which the grid still has two CTAs an SM), so that the grid reaches
+// every SM whenever n allows and each scheduler holds as few warps as n
+// permits. Each thread stages its 168 bytes in dynamic shared memory (168
+// x width bytes, conflict-free: rows 42 words apart), and the CTA then
+// writes its contiguous rows as 16-byte stores, consecutive threads on
+// consecutive addresses, instead of 21 8-byte stores a thread 168 bytes
+// apart. Up to one CTA an SM of 24 sponges, K1 spreads each permutation
+// over five threads instead (keccak_ctr5_kernel), which shortens a warp's
+// stream.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
+constexpr int KECCAK_CTR_MAX_THREADS = 256;
+
+__global__ void __launch_bounds__(KECCAK_CTR_MAX_THREADS)
 keccak_ctr_kernel(const uint32_t* __restrict__ state,
                   uint64_t* __restrict__ out, long long n, int ctr_lane,
                   unsigned long long base) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint64_t A[25];
-  load_state(state, A);
-  xor_lane(A, ctr_lane, base + (unsigned long long)i);
-  keccak_f1600(A);
-  uint64_t* row = out + i * 21;
+  constexpr int LANES = RATE_WORDS / 2;
+  extern __shared__ uint4 keccak_rows[];   // blockDim.x rows of 21 lanes
+  uint64_t* rows = reinterpret_cast<uint64_t*>(keccak_rows);
+  const int tid = threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * blockDim.x;
+  const int cnt = (int)(n - r0 < blockDim.x ? n - r0 : blockDim.x);
+  if (tid < cnt) {
+    uint64_t A[25];
+    load_state(state, A);
+    xor_lane(A, ctr_lane, base + (unsigned long long)(r0 + tid));
+    keccak_f1600(A);
 #pragma unroll
-  for (int k = 0; k < 21; ++k) row[k] = A[k];
+    for (int k = 0; k < LANES; ++k) rows[tid * LANES + k] = A[k];
+  }
+  __syncthreads();
+  // the CTA's rows are cnt x 168 contiguous bytes at out + 21 r0, 16-byte
+  // aligned (blockDim.x is even and the launcher checks out); an odd cnt
+  // leaves one 8-byte lane
+  uint4* dst = reinterpret_cast<uint4*>(out + r0 * LANES);
+  const int n16 = cnt * LANES / 2;
+  for (int i = tid; i < n16; i += blockDim.x) dst[i] = keccak_rows[i];
+  if ((cnt & 1) && tid == 0)
+    out[(r0 + cnt) * LANES - 1] = rows[cnt * LANES - 1];
 }
+
+// K1 on few blocks: one permutation over five threads. With few sponges
+// K1 runs one warp a scheduler, and a warp's stream of about 4,300 logic
+// instructions (16 lanes a clock for a warp) is the time; spread over five
+// threads, a permutation's stream is shorter. Thread x (0..4) of a sponge
+// holds column x, the lanes x + 5y. Per round: theta's column parity is
+// local and its two neighbours' come by __shfl_sync; rho rotates each
+// lane by its own offset (read once from a table); pi moves lane (x, y) to
+// (y, 2x + 3y): in step k every thread sends its lane (x + 2k) mod 5 and
+// receives row k of its new column from thread (3k + x) mod 5; chi takes
+// the new columns x + 1 and x + 2 by __shfl_sync. Six sponges a warp
+// (lanes 0..29; lanes 30 and 31 shuffle with themselves and store
+// nothing), 24 a CTA of 128 threads. The output is small here, so each
+// thread stores its rate lanes itself. (Exchanging the lanes through
+// shared memory instead, between __syncwarp()s, was slower at every block
+// count: PERF.md section 6.)
+constexpr int KECCAK5_THREADS = 128;
+constexpr int KECCAK5_PER_WARP = 6;
+constexpr int KECCAK5_PER_CTA = KECCAK5_PER_WARP * KECCAK5_THREADS / 32;
+
+// rho offsets of lane x + 5y: a thread reads its column's five once (a
+// table: keccak_rot at a run-time lane is a chain of 24 selects, which
+// cost the five-thread kernel its lead)
+static __constant__ uint8_t kKeccakRot[25] = {
+    0, 1, 62, 28, 27, 36, 44, 6, 55, 20, 3, 10, 43,
+    25, 39, 41, 45, 15, 21, 8, 18, 2, 61, 56, 14};
+
+__device__ __forceinline__ uint64_t shfl64(uint64_t v, int src) {
+  const uint32_t lo = __shfl_sync(0xFFFFFFFFu, (uint32_t)v, src);
+  const uint32_t hi = __shfl_sync(0xFFFFFFFFu, (uint32_t)(v >> 32), src);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// v rotated left by 32 swap + r (r < 32): the halves swapped, then two
+// funnel shifts
+__device__ __forceinline__ uint64_t rotl_var(uint64_t v, bool swap, int r) {
+  uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
+  if (swap) {
+    const uint32_t t = lo;
+    lo = hi;
+    hi = t;
+  }
+  const uint32_t nh = __funnelshift_l(lo, hi, r);
+  const uint32_t nl = __funnelshift_l(hi, lo, r);
+  return ((uint64_t)nh << 32) | nl;
+}
+
+// A[i] for an index known only at run time, as selects
+__device__ __forceinline__ uint64_t pick5(const uint64_t* A, int i) {
+  uint64_t v = A[0];
+#pragma unroll
+  for (int k = 1; k < 5; ++k) v = i == k ? A[k] : v;
+  return v;
+}
+
+__global__ void __launch_bounds__(KECCAK5_THREADS)
+keccak_ctr5_kernel(const uint32_t* __restrict__ state,
+                   uint64_t* __restrict__ out, long long n, int ctr_lane,
+                   unsigned long long base) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool live = lane < 5 * KECCAK5_PER_WARP;
+  const int x = live ? lane % 5 : 0;
+  const int b0 = live ? lane - x : lane;   // lane of the sponge's thread 0
+  const auto at = [&](int k) { return live ? b0 + k % 5 : lane; };
+  const long long s = ((long long)blockIdx.x * (KECCAK5_THREADS / 32) +
+                       warp) * KECCAK5_PER_WARP + lane / 5;
+  uint64_t A[5];
+  bool swap[5];
+  int rot[5];
+#pragma unroll
+  for (int y = 0; y < 5; ++y) {
+    const int k = x + 5 * y;
+    A[y] = ((uint64_t)__ldg(state + k) << 32) | __ldg(state + 25 + k);
+    if (k == ctr_lane) A[y] ^= base + (unsigned long long)s;
+    swap[y] = kKeccakRot[k] >= 32;
+    rot[y] = kKeccakRot[k] & 31;
+  }
+#pragma unroll 1
+  for (int round = 0; round < 24; ++round) {
+    const uint64_t C = A[0] ^ A[1] ^ A[2] ^ A[3] ^ A[4];
+    const uint64_t D =
+        shfl64(C, at(x + 4)) ^ rotl64(shfl64(C, at(x + 1)), 1);
+#pragma unroll
+    for (int y = 0; y < 5; ++y) A[y] = rotl_var(A[y] ^ D, swap[y], rot[y]);
+    uint64_t B[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      B[k] = shfl64(pick5(A, (x + 2 * k) % 5), at(3 * k + x));
+#pragma unroll
+    for (int y = 0; y < 5; ++y) {
+      const uint64_t b1 = shfl64(B[y], at(x + 1));
+      const uint64_t b2 = shfl64(B[y], at(x + 2));
+      A[y] = B[y] ^ (~b1 & b2);
+    }
+    if (x == 0) A[0] ^= kKeccakRC[round];
+  }
+  if (live && s < n) {
+#pragma unroll
+    for (int y = 0; y < 5; ++y)
+      if (x + 5 * y < RATE_WORDS / 2)
+        out[s * (RATE_WORDS / 2) + x + 5 * y] = A[y];
+  }
+}
+
+// Sponges a K1 CTA takes on n blocks: KECCAK5_PER_CTA (five threads a
+// sponge) while the grid has at most one CTA an SM, where that design is
+// the faster (tools/kernel_ab.py, PERF.md section 6); beyond, one thread a
+// sponge, 32 threads doubled up to 256 while the grid keeps at least two
+// CTAs an SM.
+inline int keccak_ctr_cta(long long n) {
+  if (n <= (long long)KECCAK5_PER_CTA * sm_count()) return KECCAK5_PER_CTA;
+  const long long warps = (n + 31) / 32;
+  int w = 1;
+  while (32 * w < KECCAK_CTR_MAX_THREADS && warps >= 4LL * w * sm_count())
+    w *= 2;
+  return 32 * w;
+}
+
+// An empty kernel: its replayed launch is the floor under every time of a
+// launch on the card (chip_smoke.py prints it beside K1's and K8's).
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
 // K2: squeeze fused with the map into GF(p).
@@ -452,14 +603,32 @@ MTT_SGN_LAUNCHER(4)
 MTT_SGN_LAUNCHER(5)
 #undef MTT_SGN_LAUNCHER
 
+// -1: an output that is not 16-byte aligned.
 int mtt_keccak_ctr(const void* state, void* out, long long n, int ctr_lane,
                    unsigned long long base, void* stream) {
+  if ((uintptr_t)out % 16) return -1;
   if (n <= 0) return 0;
-  const int threads = 256;
-  const long long grid = (n + threads - 1) / threads;
-  mtt::keccak_ctr_kernel<<<(unsigned)grid, threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)state, (uint64_t*)out, n, ctr_lane, base);
+  const int per = mtt::keccak_ctr_cta(n);
+  const long long grid = (n + per - 1) / per;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (per == mtt::KECCAK5_PER_CTA) {
+    mtt::keccak_ctr5_kernel<<<(unsigned)grid, mtt::KECCAK5_THREADS, 0, s>>>(
+        (const uint32_t*)state, (uint64_t*)out, n, ctr_lane, base);
+  } else {
+    mtt::keccak_ctr_kernel<<<(unsigned)grid, per, per * 4 * mtt::RATE_WORDS,
+                             s>>>((const uint32_t*)state, (uint64_t*)out, n,
+                                  ctr_lane, base);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Sponges (blocks) a K1 CTA takes on n blocks, for the tests and
+// chip_smoke.py's reports: 24 for five threads a sponge, else the CTA's
+// threads.
+int mtt_keccak_ctr_cta(long long n) { return mtt::keccak_ctr_cta(n); }
+
+int mtt_empty(void* stream) {
+  mtt::empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

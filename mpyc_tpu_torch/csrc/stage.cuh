@@ -1,4 +1,4 @@
-// The shared squeeze stage of K3 and K5.
+// The shared squeeze stage of K3, K5 and K8.
 //
 // A thread block (CTA) that needs a range of a stream squeezes each sponge
 // block that the range touches exactly once, one block a thread (so a
@@ -10,7 +10,7 @@
 // one block per range per CTA.
 //
 // Every draw keeps its index in the stream, so the layout is the JAX
-// package's XLA layout bit for bit (kernels.cu, sgn.cuh).
+// package's XLA layout bit for bit (kernels.cu, sgn.cuh, gf2.cu).
 //
 // Included by common.cuh after DrawParams and reduce_draw. Each function
 // is called by every thread of the CTA; the caller synchronises before
@@ -91,6 +91,41 @@ static __device__ __noinline__ void stage_words(
       const long long r = blk * RATE_WORDS + s - w0;
       if (r >= 0 && r < cnt) sm[r] = rate_word(A, s);
     }
+  }
+}
+
+// Blocks of the stream for byte-granular draws (K8, whose draws need no
+// reduction): R disjoint runs of blocks, run r the blocks start[r] ..
+// start[r] + cnt[r] - 1, numbered j = 0, 1, ... in order over the runs.
+// Thread j % blockDim.x squeezes block j once and stores its 21 rate lanes
+// to sm[21 j ..] (little-endian: byte q of the block is byte q of that
+// run). A caller whose draw runs share blocks merges them first, so that
+// no block is squeezed twice in a CTA.
+template <int R>
+__device__ __forceinline__ void stage_blocks(
+    const uint32_t* __restrict__ state, uint64_t nonce,
+    const long long (&start)[R], const int (&cnt)[R], uint64_t* sm) {
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) total += cnt[r];
+  for (int j = threadIdx.x; j < total; j += blockDim.x) {
+    long long blk = 0;
+    int rem = j;
+    bool found = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!found && rem < cnt[r]) {
+        blk = start[r] + rem;
+        found = true;
+      } else if (!found) {
+        rem -= cnt[r];
+      }
+    }
+    uint64_t A[25];
+    squeeze_block(state, nonce, (unsigned long long)blk, A);
+#pragma unroll
+    for (int k = 0; k < RATE_WORDS / 2; ++k)
+      sm[(RATE_WORDS / 2) * j + k] = A[k];
   }
 }
 

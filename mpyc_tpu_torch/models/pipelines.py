@@ -2,7 +2,7 @@
 
 Port of ``mpyc_tpu/models/pipelines.py``: ``make_reshare_step`` (the GRR98
 round with the local product, kernel K3), ``make_reshare2_step`` (its
-twin over GF(2^d): K1's stream and kernel K8), ``make_split_recombine``
+twin over GF(2^d), kernel K8), ``make_split_recombine``
 (the Shamir round trip, kernel K4) and ``make_sgn_step`` (the whole
 secure comparison, kernel K5), and the tail of a round of random bits
 around its inverse square root (``random_bits_tail``, kernel K7, which the
@@ -215,7 +215,7 @@ def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# K8: the GRR98 round over GF(2^d), on K1's stream
+# K8: the GRR98 round over GF(2^d), squeezing its own stream
 # ---------------------------------------------------------------------------
 
 class Reshare2Spec:
@@ -247,43 +247,62 @@ class Reshare2Spec:
         return max(rng_mod.blocks_needed(self.n_draws(n), self.l_bytes), 1)
 
     def field_ops(self, fused: bool) -> int:
-        """Carry-less products of an element as K8 computes them: the
-        local one (fused), the Lagrange sums of the shares and of the t
-        coefficients' 2t + 1 draws, and Horner at m points."""
-        t, ns, m = self.t, self.n_send, self.m
-        return (ns if fused else 0) + ns + t * ns + t * m
+        """General carry-less products of an element as K8 computes them:
+        the 2t + 1 local ones (fused). At the points 1, x, x + 1 every
+        Lagrange coefficient is 1 and Horner's products by x and x + 1
+        are a shift and XORs, none of them a general product."""
+        return self.n_send if fused else 0
 
     @functools.cached_property
-    def params(self):
-        """K8's parameter block (built once: it holds no per-call value)."""
+    def _params(self):
         from mpyc_tpu_torch import _build
         if (self.t, self.m) != (1, 3):
             raise NotImplementedError(
                 f'the CUDA GF(2^d) reshare is built for (t, m) = (1, 3), '
                 f'not ({self.t}, {self.m})')
+        if any(int(c) != 1 for c in self.lag) or \
+                [int(x) for x in self.xs] != [1, 2, 3]:
+            raise NotImplementedError(
+                'the CUDA GF(2^d) reshare is built for the points 1, x, '
+                'x + 1 with Lagrange coefficients 1')
         P = _build.Reshare2Params()
         for j, r in enumerate(self.ctx.red):
             P.red[j] = r
-        for i, c in enumerate(self.lag):
-            P.lag[i] = c
-        for j, x in enumerate(self.xs):
-            P.xs[j] = x
         P.d = self.d
         return P
 
+    def params(self, nonce):
+        """K8's parameter block for a call with counter (lo, hi)."""
+        from mpyc_tpu_torch import _build
+        P = _build.Reshare2Params.from_buffer_copy(self._params)
+        P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
+        return P
 
-def _reshare2_plain(a: torch.Tensor, b, blocks: torch.Tensor,
+
+def _reshare2_stream_plain(state: torch.Tensor, nonce, n: int,
+                           spec: Reshare2Spec) -> torch.Tensor:
+    """The stream of a call on n elements as K1's plain version squeezes
+    it: blocks 0.. of the absorbed state with the call's counter (lo, hi)
+    XORed into lane 4, the block counter in lane 19 ((n_blocks, 42) int32
+    words)."""
+    return keccak._keccak_ctr_plain(_nonce_state(state, nonce),
+                                    spec.n_blocks(n), 19)
+
+
+def _reshare2_plain(a: torch.Tensor, b, state: torch.Tensor, nonce,
                     spec: Reshare2Spec) -> torch.Tensor:
-    """Plain version of K8, the arithmetic of ``make_reshare2_step`` after
-    its squeeze: (m, n, 1) int32 GF(2^d) shares (times b's when b is
-    given) and the stream's (n_blocks, 42) words -> (m, n, 1) reshared
-    shares. Coefficient k, sender i of element e is draw (k (2t + 1) + i)
-    n + e: ceil(d / 8) little-endian bytes, masked to d bits."""
+    """Plain version of K8, ``make_reshare2_step``'s arithmetic: (m, n, 1)
+    int32 GF(2^d) shares (times b's when b is given) -> (m, n, 1) reshared
+    shares, the coefficients drawn from the call's stream
+    (``_reshare2_stream_plain``). Coefficient k, sender i of element e is
+    draw (k (2t + 1) + i) n + e: ceil(d / 8) little-endian bytes, masked
+    to d bits."""
     ctx, t, m, ns = spec.ctx, spec.t, spec.m, spec.n_send
     n = a.shape[1]
     flat = a.reshape(m, n)
     if b is not None:
         flat = ctx.clmul_reduce(flat, b.reshape(m, n))
+    blocks = _reshare2_stream_plain(state, nonce, n, spec)
     coefs = rng_mod.words_to_elements(blocks, spec.n_draws(n),
                                       spec.l_bytes, 1)[:, 0, 0]
     if spec.d < 32:
@@ -317,16 +336,17 @@ def _reshare2_plain(a: torch.Tensor, b, blocks: torch.Tensor,
     return torch.stack(rows, dim=0).reshape(m, n, 1)
 
 
-def reshare2(a: torch.Tensor, b, blocks: torch.Tensor,
+def reshare2(a: torch.Tensor, b, state: torch.Tensor, nonce,
              spec: Reshare2Spec) -> torch.Tensor:
     """K8: one GRR98 round over GF(2^d) on (m, n, 1) int32 shares, with
     the carry-less product a*b first when b is given, its coefficients
-    drawn from ``blocks``, the counter-mode stream of the call (K1's
-    output: (n_blocks, 42) int32 words).
+    drawn from the call's stream of the absorbed state ((2, 25) int32)
+    and the call counter nonce (lo, hi), which the kernel squeezes
+    itself.
 
-    Replaces ``mpyc_tpu/models/pipelines.py:1065 make_reshare2_step``
-    after its squeeze (an XLA program around K1). CPU tensors take the
-    plain version; CUDA tensors launch the kernel (``csrc/gf2.cu``)."""
+    Replaces ``mpyc_tpu/models/pipelines.py:1065 make_reshare2_step`` (an
+    XLA program around K1). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (``csrc/gf2.cu``)."""
     m = spec.m
     if a.dim() != 3 or a.shape[0] != m or a.shape[2] != 1 or \
             a.dtype != torch.int32:
@@ -334,23 +354,19 @@ def reshare2(a: torch.Tensor, b, blocks: torch.Tensor,
     if b is not None and (b.shape != a.shape or b.dtype != a.dtype
                           or b.device != a.device):
         raise ValueError('both operands must have the same shape and device')
-    n = a.shape[1]
-    if blocks.device != a.device or blocks.dtype != torch.int32 or \
-            blocks.dim() != 2 or blocks.shape[1] != keccak.RATE // 4 or \
-            blocks.shape[0] < spec.n_blocks(n):
-        raise ValueError(f'the stream must be ({spec.n_blocks(n)}, 42) '
-                         'int32 words on the shares\' device')
+    if state.device != a.device:
+        raise ValueError('state and shares must be on one device')
     if a.device.type == 'cpu':
-        return _reshare2_plain(a, b, blocks, spec)
+        return _reshare2_plain(a, b, state, nonce, spec)
     from mpyc_tpu_torch import _build
-    params = spec.params
+    params = spec.params(nonce)
     a = a.contiguous()
     b = b.contiguous() if b is not None else None
-    blocks = blocks.contiguous()
+    state = state.contiguous()
     out = torch.empty_like(a)
     _build.call('mtt_reshare2', a.data_ptr(),
                 b.data_ptr() if b is not None else None, out.data_ptr(),
-                blocks.data_ptr(), n, int(b is not None),
+                state.data_ptr(), a.shape[1], int(b is not None),
                 ctypes.addressof(params), _build.stream_of(a.device))
     reshare2.launches += 1
     reshare2.by_key[(spec.d, b is not None)] += 1
@@ -361,15 +377,6 @@ reshare2.launches = 0
 reshare2.by_key = collections.Counter()   # launches by (d, fused)
 
 
-def reshare2_stream(state: torch.Tensor, nonce, n: int,
-                    spec: Reshare2Spec) -> torch.Tensor:
-    """The stream of a call on n elements: blocks 0.. of the absorbed
-    state with the call's counter (lo, hi) XORed into lane 4, the block
-    counter in lane 19 (K1 on the card)."""
-    return keccak.keccak_ctr(_nonce_state(state, nonce), spec.n_blocks(n),
-                             19)
-
-
 def make_reshare2_step(modulus: int, t: int, m: int, fuse_mul: bool = False):
     """Single-step GRR98 degree reduction over GF(2^d) on party-stacked
     shares (``mpyc_tpu/models/pipelines.py:1065``).
@@ -378,7 +385,7 @@ def make_reshare2_step(modulus: int, t: int, m: int, fuse_mul: bool = False):
     step(a, b, state, ctr) -> (out, ctr'): shares, a, b (m, ..., 1) int32
     elements; state (2, 25) int32 absorbed SHAKE128 prefix on their
     device; ctr the (2,) uint32 host counter (lo, hi), advanced by one.
-    The round squeezes the call's stream (K1) and runs K8 on it:
+    The round is one K8 launch, which squeezes the call's stream itself:
     out_j = Horner(C, x_j) + S, S = sum_{i <= 2t} lag_i s_i, C_k =
     sum_i lag_i r_{k,i}, as the JAX package's XLA program computes it."""
     spec = Reshare2Spec(modulus, t, m)
@@ -389,9 +396,8 @@ def make_reshare2_step(modulus: int, t: int, m: int, fuse_mul: bool = False):
         flat = shares.reshape(m, n, 1)
         flat_b = shares_b.reshape(m, n, 1) if shares_b is not None else None
         ctr = np.asarray(ctr, dtype=np.uint32)
-        nonce = (int(ctr[0]), int(ctr[1]))
-        blocks = reshare2_stream(state, nonce, n, spec)
-        out = reshare2(flat, flat_b, blocks, spec)
+        out = reshare2(flat, flat_b, state, (int(ctr[0]), int(ctr[1])),
+                       spec)
         return out.reshape(orig_shape), _add_ctr(ctr)
 
     if fuse_mul:

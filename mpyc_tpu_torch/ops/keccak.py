@@ -165,7 +165,9 @@ def keccak_ctr(state: torch.Tensor, n: int, ctr_lane: int,
     Replaces ``mpyc_tpu/ops/keccak.py:_squeeze_ctr_pallas``. state: (2, 25)
     int32 absorbed state; returns (n, 42) int32 rate words on the state's
     device. A CPU state takes the plain version; a CUDA state launches the
-    kernel (``csrc/kernels.cu``, ``keccak_ctr_kernel``)."""
+    kernel (``csrc/kernels.cu``, ``keccak_ctr_kernel``: its CTA width
+    follows n, and it writes the output, which torch allocates on a
+    16-byte boundary, 16 bytes at a time)."""
     if state.shape != (2, 25) or state.dtype != torch.int32:
         raise ValueError('state must be a (2, 25) int32 tensor')
     if not 0 <= ctr_lane < RATE // 8:

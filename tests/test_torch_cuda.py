@@ -58,6 +58,25 @@ def test_keccak_ctr_kernel_matches_plain(cuda_device):
     assert torch.equal(got, keccak._keccak_ctr_plain(st, 4099, 5, 11))
 
 
+# K1's CTA comes from n: 24 sponges of five threads each up to one CTA an
+# SM (1, 33, the pool refill's 512, 3,168 on 132 SMs), then one thread a
+# sponge: 32 threads (4,224, a SHA3 round's 9,363 in the last design), 64
+# from 16,896 blocks, 128 from 33,792, 256 from 67,584 on (a 2^22-element
+# draw's 599,187)
+@pytest.mark.parametrize('n', [1, 33, 512, 3168, 4224, 9363, 16901, 33797,
+                               67589, 599187])
+def test_keccak_ctr_kernel_matches_plain_at_every_width(cuda_device, n):
+    from mpyc_tpu_torch import _build
+    st = _state(cuda_device)
+    per = _build.library().lib.mtt_keccak_ctr_cta(n)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert per in (24, 32, 64, 128, 256)
+    assert (per == 24) == (n <= 24 * sms)
+    assert -(-n // per) >= min(sms, -(-n // 24))
+    got = keccak.keccak_ctr(st, n, 19, 3)
+    assert torch.equal(got, keccak._keccak_ctr_plain(st, n, 19, 3))
+
+
 @pytest.mark.parametrize('l_bytes', [16, 24])
 def test_squeeze_mont_kernel_matches_plain(cuda_device, l_bytes):
     st = _state(cuda_device)
@@ -523,9 +542,10 @@ def test_lp_solver_on_the_card(cuda_device, dataset):
     assert 'L=19' in res['kb2']
 
 
-# K8: the GF(2^d) reshare on K1's stream (the moduli of GF(4), AES's
-# GF(2^8), GF(2^12) and GF(2^17) of two- and three-byte draws, GF(2^32))
-GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 17: 0x20009,
+# K8: the GF(2^d) reshare, squeezing its own stream (the moduli of GF(4),
+# AES's GF(2^8), GF(2^12), GF(2^16) and GF(2^17) of two- and three-byte
+# draws, GF(2^32))
+GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 16: 0x1002B, 17: 0x20009,
               32: (1 << 32) | 0x8D}
 
 
@@ -533,30 +553,54 @@ GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 17: 0x20009,
 @pytest.mark.parametrize('fuse', [True, False])
 @pytest.mark.parametrize('n', [64, 100003])
 def test_reshare2_kernel_matches_plain(cuda_device, d, fuse, n):
-    """K8 on the stream K1 squeezes for the call, against its plain
-    version on the same blocks, at a bucket and at a size that is no
-    multiple of the thread block."""
+    """K8 against its plain version from the same state and counter, at a
+    bucket and at a size that is no multiple of a CTA's elements: one K8
+    launch and no K1 launch."""
     spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
     g = np.random.default_rng(d + n)
     a, b = (torch.from_numpy(g.integers(0, 1 << d, (3, n, 1), dtype=np.uint64)
                              .astype(np.uint32).view(np.int32)).to(cuda_device)
             for _ in range(2))
+    st = _state(cuda_device)
     n1, n8 = keccak.keccak_ctr.launches, pipelines.reshare2.launches
-    blocks = pipelines.reshare2_stream(_state(cuda_device), (9, 1), n, spec)
-    got = pipelines.reshare2(a, b if fuse else None, blocks, spec)
-    assert keccak.keccak_ctr.launches == n1 + 1
+    got = pipelines.reshare2(a, b if fuse else None, st, (9, 1), spec)
+    assert keccak.keccak_ctr.launches == n1
     assert pipelines.reshare2.launches == n8 + 1
     assert pipelines.reshare2.by_key[(d, fuse)] > 0
     assert torch.equal(got, pipelines._reshare2_plain(
-        a, b if fuse else None, blocks, spec))
+        a, b if fuse else None, st, (9, 1), spec))
+
+
+@pytest.mark.parametrize('d,n', [(2, 1 << 19), (8, 32768), (8, 64)])
+def test_reshare2_step_is_one_launch(cuda_device, d, n):
+    """make_reshare2_step at SHA3's chi, AES's S-box and the key
+    schedule's bucket, fused: one K8 launch a reshare, no K1 launch, the
+    plain version's bits."""
+    md = GF2_MODULI[d]
+    step = pipelines.make_reshare2_step(md, 1, 3, fuse_mul=True)
+    spec = pipelines.Reshare2Spec(md, 1, 3)
+    g = np.random.default_rng(n)
+    a, b = (torch.from_numpy(g.integers(0, 1 << d, (3, n, 1), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(cuda_device)
+            for _ in range(2))
+    st = _state(cuda_device)
+    ctr = np.array([0xFFFFFFFF, 2], np.uint32)
+    n1, n8 = keccak.keccak_ctr.launches, pipelines.reshare2.launches
+    got, ctr2 = step(a, b, st, ctr)
+    assert keccak.keccak_ctr.launches == n1
+    assert pipelines.reshare2.launches == n8 + 1
+    assert ctr2.tolist() == [0, 3]
+    assert torch.equal(got, pipelines._reshare2_plain(
+        a, b, st, (0xFFFFFFFF, 2), spec))
 
 
 def test_sha3_on_the_card(cuda_device):
     """SHA3-256 and SHAKE128 of 8 messages equal hashlib's (run_sha3
-    checks); each chi round one K1 and one K8 launch."""
+    checks); each chi round one K8 launch and no K1 launch (a batch's K1
+    launch, if any, refills the input draws' pool)."""
     import chip_smoke
     res = chip_smoke.run_sha3(cuda_device, b=8, passes=1)
-    assert res['k8'] == res['k1'] == 24
+    assert res['k8'] == 24 and res['k1'] <= 1
 
 
 def test_aes_on_the_card(cuda_device):

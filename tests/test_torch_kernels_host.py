@@ -59,6 +59,7 @@ _SHIM = '''
 struct HostDim3 { unsigned x, y, z; };
 inline thread_local HostDim3 blockIdx, blockDim, threadIdx;
 struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 typedef struct CUstream_st* cudaStream_t;
 typedef int cudaError_t;
@@ -69,9 +70,19 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline int cudaGetLastError() { return 0; }
+// the launchers that size their grid from n read an H100's SM count
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host"; }
 inline unsigned __ldg(const unsigned* p) { return *p; }
 inline uint2 __ldg(const uint2* p) { return *p; }
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) << (s & 31) >> 32);
+}
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
@@ -82,7 +93,19 @@ extern "C" { extern unsigned long long mtt_op_counts[2], mtt_perm_count; }
   __atomic_fetch_add(&mtt_perm_count, 1ull, __ATOMIC_RELAXED)
 inline std::barrier<>* mtt_block_barrier;
 inline std::vector<uint64_t> mtt_dynamic_smem;
+inline std::vector<unsigned> mtt_shfl_slots[2];
+inline thread_local unsigned mtt_shfl_parity;
 inline void __syncthreads() { mtt_block_barrier->arrive_and_wait(); }
+// A warp shuffle through a slot a thread and a barrier of the block: every
+// thread of the block must take part, as every thread of a warp must on
+// the card. Shuffles alternate between two sets of slots, so a thread
+// writes a set again only after every thread has read it.
+inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
+  std::vector<unsigned>& slots = mtt_shfl_slots[mtt_shfl_parity ^= 1];
+  slots[threadIdx.x] = v;
+  __syncthreads();
+  return slots[(threadIdx.x & ~31u) + (src & 31)];
+}
 // One launch: the blocks in turn, the threads of a block at once. A
 // thread that returns leaves the barrier, as on the card.
 template <class F>
@@ -92,6 +115,8 @@ void mtt_host_launch(unsigned grid, unsigned threads, unsigned smem,
     std::barrier<> bar(threads);
     mtt_block_barrier = &bar;
     mtt_dynamic_smem.assign((smem + 7) / 8, 0);
+    mtt_shfl_slots[0].assign(threads, 0);
+    mtt_shfl_slots[1].assign(threads, 0);
     std::vector<std::thread> pool;
     for (unsigned t = 0; t < threads; ++t)
       pool.emplace_back([&, b, t] {
@@ -138,7 +163,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 8, 'every launch must become a host loop'
+    assert launches == 10, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -181,13 +206,46 @@ def _shares(n, seed, p=P):
     return torch.from_numpy(words.astype(np.uint32).view(np.int32))
 
 
-def test_keccak_ctr_source_matches_plain(host_lib, state):
+# K1's CTA comes from n: up to one CTA for each of the H100's 132 SMs
+# (3,168 blocks) 24 sponges of five threads each, beyond that one thread a
+# sponge, 32 threads doubled up to 256 while the grid keeps two CTAs an
+# SM: 1, 31, 33, 512 (the pool refill) and 3,168 blocks take five threads
+# a sponge, 3,169 and 9,363 (a SHA3 round in the last design) CTAs of 32,
+# 16,901 64, 33,797 128 and 67,589 256; the last CTA ragged, of an odd
+# count where one thread a sponge (its last 8-byte lane stored alone)
+K1_CTA = {1: 24, 31: 24, 33: 24, 512: 24, 3168: 24, 3169: 32, 9363: 32,
+          16901: 64, 33797: 128, 67589: 256}
+
+
+# every size but 3,168, the most five threads a sponge take: the host runs
+# a CTA's shuffles through barriers, 132 CTAs in about half a minute (the
+# card's tests take it)
+@pytest.mark.parametrize('n', sorted(set(K1_CTA) - {3168}))
+def test_keccak_ctr_source_matches_plain_at_every_width(host_lib, state, n):
     st, lane = state
-    n = 1001
-    out = torch.empty((n, 42), dtype=torch.int32)
+    assert host_lib.mtt_keccak_ctr_cta(n) == K1_CTA[n]
+    out = torch.full((n, 42), -1, dtype=torch.int32)
     assert host_lib.mtt_keccak_ctr(st.data_ptr(), out.data_ptr(), n, lane,
                                    17, None) == 0
     assert torch.equal(out, keccak._keccak_ctr_plain(st, n, lane, 17))
+
+
+def test_keccak_ctr_widths_cover_the_rule(host_lib):
+    """The sizes above take every CTA the rule picks, and the grid reaches
+    all 132 SMs from 132 x 24 blocks on."""
+    assert set(K1_CTA.values()) == {24, 32, 64, 128, 256}
+    for n in (132 * 24, 4224, 9363, 599187):
+        assert -(-n // host_lib.mtt_keccak_ctr_cta(n)) >= 132
+
+
+def test_keccak_ctr_refuses_an_unaligned_output(host_lib, state):
+    """K1 stores 16 bytes at a time: an output off a 16-byte boundary is
+    refused."""
+    st, lane = state
+    buf = torch.empty((3, 42), dtype=torch.int32)
+    base = buf.data_ptr() + (8 if buf.data_ptr() % 16 == 0 else 0)
+    assert host_lib.mtt_keccak_ctr(st.data_ptr(), base, 2, lane, 0,
+                                   None) == -1
 
 
 @pytest.mark.parametrize('l_bytes', [16, 24])
@@ -802,12 +860,18 @@ def test_random_bits_tail_source_matches_plain_at_four_and_five_limbs(
     assert torch.equal(bits, want[0])
 
 
-# K8: the GF(2^d) reshare, on K1's stream. The moduli: GF(4) (SecFld(2)'s
-# extension at m = 3), GF(2^8) (AES's), GF(2^32) (the widest the kernel
-# takes), GF(2^12) (two-byte draws, 84 a block) and GF(2^17) (three-byte
-# draws, 56 a block).
-GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 17: 0x20009,
+# K8: the GF(2^d) reshare, squeezing its own stream. The moduli: GF(4)
+# (SecFld(2)'s extension at m = 3), GF(2^8) (AES's), GF(2^12) (two-byte
+# draws, 84 a block), GF(2^16) (two-byte draws of whole words), GF(2^17)
+# (three-byte draws, 56 a block) and GF(2^32) (the widest the kernel
+# takes). GF(2) has no three points: its spec refuses (d = 1).
+GF2_MODULI = {2: 0b111, 8: 0x11B, 12: 0x1009, 16: 0x1002B, 17: 0x20009,
               32: (1 << 32) | 0x8D}
+# A K8 CTA takes 128 x ept elements, ept from n (the largest power of two
+# up to 8 that keeps a CTA for each of 132 SMs): 128 up to 33,791
+# elements, 256 up to 67,583, 512 up to 135,167, then 1,024
+K8_ELEMS = {1: 128, 64: 128, 127: 128, 128: 128, 129: 128, 1000: 128,
+            4099: 128, 33797: 256, 67589: 512, 135173: 1024}
 
 
 def _gf2_shares(n, d, seed):
@@ -816,27 +880,92 @@ def _gf2_shares(n, d, seed):
     return torch.from_numpy(v.view(np.int32))
 
 
-@pytest.mark.parametrize('d', sorted(GF2_MODULI))
-@pytest.mark.parametrize('fused', [True, False])
-@pytest.mark.parametrize('n', [64, 1000])
-def test_reshare2_source_matches_plain(host_lib, state, d, fused, n):
-    """K8 on K1's stream equals its plain version at a bucket of 64 and
-    at 1,000 elements, whose 3,000 draws straddle 168-byte blocks (the
-    second sender's first draw is byte 1000 % 168 = 160 of its block at
-    one byte a draw); its products are ``Reshare2Spec.field_ops`` an
-    element."""
-    st, _ = state
-    spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
-    assert spec.d == d
-    a, b = _gf2_shares(n, d, d), _gf2_shares(n, d, d + 1)
-    blocks = pipelines.reshare2_stream(st, (7, 1), n, spec)
+def _reshare2_source(host_lib, st, spec, a, b, nonce):
+    """One host launch of K8; (out, general products, permutations)."""
     out = torch.empty_like(a)
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
+    perms = ctypes.c_ulonglong.in_dll(host_lib, 'mtt_perm_count')
+    perms.value = 0
     assert host_lib.mtt_reshare2(
-        a.data_ptr(), b.data_ptr() if fused else None, out.data_ptr(),
-        blocks.data_ptr(), n, int(fused), ctypes.addressof(spec.params),
-        None) == 0
-    want = pipelines._reshare2_plain(a, b if fused else None, blocks, spec)
-    assert torch.equal(out, want)
-    assert tuple(counts) == (n * spec.field_ops(fused), 0)
+        a.data_ptr(), b.data_ptr() if b is not None else None,
+        out.data_ptr(), st.data_ptr(), a.shape[1], int(b is not None),
+        ctypes.addressof(spec.params(nonce)), None) == 0
+    return out, tuple(counts), perms.value
+
+
+def _reshare2_blocks(spec, n, elems):
+    """The blocks a launch on n elements squeezes: for each CTA the union
+    of its three draw runs' blocks, each once."""
+    epb = 168 // spec.l_bytes
+    total = 0
+    for e0 in range(0, n, elems):
+        cnt = min(elems, n - e0)
+        touched = set()
+        for i in range(3):
+            d0 = i * n + e0
+            touched.update(range(d0 // epb, (d0 + cnt - 1) // epb + 1))
+        total += len(touched)
+    return total
+
+
+@pytest.mark.parametrize('d', sorted(GF2_MODULI))
+@pytest.mark.parametrize('fused', [True, False])
+@pytest.mark.parametrize('n', [64, 1000, 1, 127, 128, 129, 4099])
+def test_reshare2_source_matches_plain(host_lib, state, d, fused, n):
+    """K8 equals its plain version from the same state and counter: at one
+    element, at a bucket of 64, on both sides of a CTA's edge (128
+    elements at these n), and at 1,000 and 4,099 elements, whose draws
+    straddle 168-byte blocks (the second sender's first draw is byte
+    1000 % 168 = 160 of its block at one byte a draw); its general
+    products are ``Reshare2Spec.field_ops`` an element (3 fused, none
+    without), and it squeezes each block its CTAs touch once a CTA."""
+    st, _ = state
+    spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
+    assert spec.d == d
+    assert host_lib.mtt_reshare2_elems(n) == K8_ELEMS[n]
+    a, b = _gf2_shares(n, d, d), _gf2_shares(n, d, d + 1)
+    b = b if fused else None
+    nonce = (0xFFFFFFFF, 7)
+    out, counts, perms = _reshare2_source(host_lib, st, spec, a, b, nonce)
+    assert torch.equal(out, pipelines._reshare2_plain(a, b, st, nonce,
+                                                      spec))
+    assert counts == (n * spec.field_ops(fused), 0)
+    assert perms == _reshare2_blocks(spec, n, K8_ELEMS[n])
+
+
+@pytest.mark.parametrize('n', [33797, 67589, 135173])
+@pytest.mark.parametrize('d', [2, 8])
+def test_reshare2_source_matches_plain_at_every_cta_size(host_lib, state, n,
+                                                         d):
+    """K8 at the sizes where a CTA takes 256, 512 and 1,024 elements (2, 4
+    and 8 a thread), fused, at SHA3's and AES's d: bit-equal to its plain
+    version, each block squeezed once a CTA, and the squeezes at most 1.3
+    times the stream's blocks from 1,024 elements a CTA on (n = 2^19 at
+    SHA3's chi: 1.16)."""
+    st, _ = state
+    spec = pipelines.Reshare2Spec(GF2_MODULI[d], 1, 3)
+    elems = host_lib.mtt_reshare2_elems(n)
+    assert elems == K8_ELEMS[n]
+    a, b = _gf2_shares(n, d, n), _gf2_shares(n, d, n + 1)
+    nonce = (3, 0)
+    out, counts, perms = _reshare2_source(host_lib, st, spec, a, b, nonce)
+    assert torch.equal(out, pipelines._reshare2_plain(a, b, st, nonce,
+                                                      spec))
+    assert counts == (3 * n, 0)
+    assert perms == _reshare2_blocks(spec, n, elems)
+    if elems == 1024:
+        assert perms <= 1.3 * spec.n_blocks(n)
+    big = 1 << 19
+    assert host_lib.mtt_reshare2_elems(big) == 1024
+    assert _reshare2_blocks(spec, big, 1024) <= 1.2 * spec.n_blocks(big)
+    assert -(-32768 // host_lib.mtt_reshare2_elems(32768)) >= 132
+
+
+def test_reshare2_refuses_what_was_not_built():
+    """GF(2) has no three points (its spec cannot be made), and the
+    kernel's parameters exist only at (t, m) = (1, 3)."""
+    with pytest.raises(ZeroDivisionError):
+        pipelines.Reshare2Spec(0b11, 1, 3)
+    with pytest.raises(NotImplementedError):
+        pipelines.Reshare2Spec(0b111, 1, 4).params((0, 0))

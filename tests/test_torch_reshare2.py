@@ -9,7 +9,7 @@ straddle 168-byte blocks (the second sender's first draw is byte 16 of
 block 6), and with the counter's low word about to carry. Outputs and
 the advanced counter agree bit for bit. Also the co-located plane's
 product (``SimRuntime._mul_reshare2_fused``) against the JAX runtime's,
-after ``load_state``, and the step's stream against K1's plain version.
+after ``load_state``, and the round's stream against K1's plain version.
 
 Tolerance: exact equality (field elements' bit patterns)."""
 import jax.numpy as jnp
@@ -67,18 +67,25 @@ def test_step_matches_jax(d, fused, n):
 
 @pytest.mark.parametrize('d', sorted(MODULI))
 def test_stream_is_k1s(d):
-    """The step's stream: the blocks of the state with the counter in lane
-    4, as K1's plain version squeezes them, and as many as the draws
-    need (168 one-byte draws a block)."""
+    """The round's stream: the blocks of the state with the counter in
+    lane 4, as K1's plain version squeezes them, and as many as the draws
+    need (168 one-byte draws a block). On zero shares row 0 of the round
+    is C, the XOR of an element's three draws from that stream; a general
+    product is spent only on the fused local products."""
     spec = pipelines.Reshare2Spec(MODULI[d], 1, 3)
     st = keccak.state_tensor(keccak._absorb_host(bytes(40)), 'cpu')
     n = 1024
-    blocks = pipelines.reshare2_stream(st, (3, 4), n, spec)
+    blocks = pipelines._reshare2_stream_plain(st, (3, 4), n, spec)
     assert blocks.shape == (-(-3 * n // 168), 42) == (spec.n_blocks(n), 42)
     want = keccak._keccak_ctr_plain(pipelines._nonce_state(st, (3, 4)),
                                     spec.n_blocks(n), 19)
     assert torch.equal(blocks, want)
-    assert spec.field_ops(True) == 12 and spec.field_ops(False) == 9
+    draws = want.contiguous().view(torch.uint8)[:, :168].reshape(-1)
+    draws = draws[:3 * n].to(torch.int32).reshape(3, n) & ((1 << d) - 1)
+    zero = torch.zeros((3, n, 1), dtype=torch.int32)
+    out = pipelines.reshare2(zero, None, st, (3, 4), spec)
+    assert torch.equal(out[0, :, 0], draws[0] ^ draws[1] ^ draws[2])
+    assert spec.field_ops(True) == 3 and spec.field_ops(False) == 0
 
 
 @pytest.mark.parametrize('modulus', [0b111, 0x11B, (1 << 32) | 0x8D])
