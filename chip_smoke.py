@@ -18,7 +18,11 @@ path at ``SecFxp(14, 6)`` (a 52-bit field of two limbs), through the same
 runner; and the secure LP solver (``demos/np_lpsolver.py``) through
 ``mpyc_tpu_torch/demos/np_lpsolver.py`` on its datasets, from SecInt(6)
 and SecInt(8) (two limbs) to SecInt(70) (four) and SecInt(104) and
-SecInt(110) (five); and the binary-field demos, SHA3
+SecInt(110) (five); the fixed-point LP solver (``demos/np_lpsolverfxp.py``)
+through ``mpyc_tpu_torch/demos/np_lpsolverfxp.py`` at SecFxp(18) to
+SecFxp(96) (two to six limbs) and the survival test
+(``demos/kmsurvival.py``) through ``mpyc_tpu_torch/demos/np_kmsurvival.py``;
+and the binary-field demos, SHA3
 (``demos/np_sha3.py``: SecFld(2), its shares in GF(4)) and threshold AES
 (``demos/np_aes.py``: SecFld(2^8)), through
 ``mpyc_tpu_torch/demos/np_sha3.py`` and ``np_aes.py``. Phases, each
@@ -62,7 +66,14 @@ printing one line with its elapsed seconds:
    l = 20 and 45 (two and three limbs, checked only), K6 at four and five
    limbs at e = p - 2 and (p - 1) / 2, K7 at four and five limbs with
    planted zero openings, each bit for bit against its plain version and
-   timed beside it and its bound;
+   timed beside it and its bound; then the fixed-point paths'
+   (``check_fxp_lp_kernels``): K3 at six limbs at kb2's rank-1 update, K5
+   at each SecFxp(l, f)'s width and scale (LT; EQ at btrial's zero test),
+   K6 at six limbs and on SecFxp(64, 32)'s canonical four-limb field, K7
+   at three and six limbs and canonical four; and K9 (``check_field_ops``:
+   elementwise products, adds and subtractions at two to six limbs,
+   constants on either side, a draw's chunks below R), each against its
+   plain version;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -144,7 +155,17 @@ printing one line with its elapsed seconds:
    instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
    naming its limb count; one try of torch.profiler over pivots 11 and 12
    of LPExample (device time by kernel, idle share, the host's operators);
-15. gf2 kernels: K8 (reshare2, the GF(2^d) reshare squeezing its own
+15. lp fxp: the fixed-point LP solver on datasets 0-6 (uvlp, wiki,
+   tb2x2, woody, LPExample_R20, sc50b, kb2; each at its own SecFxp(l)):
+   each certificate true, the opened max within 1% of the optimum, the
+   opened solution within ``solution_tol`` of the plain float simplex's
+   (``check_solution``); seconds a solve and a pivot, launches a pivot;
+   one try of torch.profiler over pivot 11 of kb2;
+16. km: the survival test with --agg on btrial (SecFxp(56, 28)), aml
+   (SecFxp(64, 32): 4p >= R) and aml at SecFxp(96, 48): each statistic,
+   and the aggregated one, within 1e-3 of the plain logrank test;
+   seconds a run, launches;
+17. gf2 kernels: K8 (reshare2, the GF(2^d) reshare squeezing its own
    stream) at SHA3's chi, (3, 2^19) in GF(4) (b = 256: 409,600 elements
    on their bucket), and at AES's S-box products, (3, 32,768) in GF(2^8)
    (b = 2,048), fused and not, and at the key schedule's bucket (3, 64),
@@ -157,31 +178,32 @@ printing one line with its elapsed seconds:
    beside its plain version, its bound and their ratio (K1 at 9,363
    blocks is the kernels line's K1), and an empty kernel's replayed
    launch, the floor under every launch;
-16. sha3: SHA3-256 of the demo's 256 messages (``np_sha3 -b 256``), cold
+18. sha3: SHA3-256 of the demo's 256 messages (``np_sha3 -b 256``), cold
    and 3 times warm, then SHAKE128 (256 bits): every digest equal to
    hashlib's; seconds a batch and ms a digest (cold; warm median, least
    and largest), K8's and K1's launches a batch; one try of
    torch.profiler over a warm batch;
-17. aes: the AES demo's main on 2,048 blocks (``np_aes -b 2048``), cold
+19. aes: the AES demo's main on 2,048 blocks (``np_aes -b 2048``), cold
    and warm: AES-128 and AES-256, FIPS-197 C.1 and C.3 on block 0 and
    every block decrypted back; seconds and ms a block of each stage, K8's
    and K1's launches a pass; one try of torch.profiler over an AES-128
    encryption; the plain carry-less products of an AES-128 encryption
    (``clmul_meas``): calls, products, their bound at their fewest
    operations and their device time replayed;
-18. k1 shapes: K1's launches on each path by block count (each driven
+20. k1 shapes: K1's launches on each path by block count (each driven
    path prints its own; a record of the launcher's calls, no counter of
    the wrapper's), and K1 timed at each block count the paths launched
    (CTAs, device time replayed from a CUDA graph, bound, the launch
    floor);
-19. report: one JSON line of the kernels (every instantiation that a path
+21. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13, 14, 16 and 17 zeroes the launch counters just
+Each of phases 4-11, 13-16, 18 and 19 zeroes the launch counters just
 before it and reads them just after, and records K1's launches by block
 count; each must show that the
-instantiations of its path ran (``PATH_ENTRIES``).
+instantiations of its path ran (``PATH_ENTRIES``), and that it launched
+no instantiation the kernels line does not list.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Imports nothing of JAX or of the JAX package.
@@ -264,6 +286,35 @@ LP_FIELDS = {                  # l -> (m + n, the widest comparison)
     8: (5, 3), 6: (5, 3), 70: (40, 20), 104: (118, 70), 110: (490, 288)}
 LP_UPDATE = {70: 21 * 21, 104: 71 * 49, 110: 203 * 289}  # rank-1 update
 LP_NO07_BITS = 30
+# the fixed-point LP solver (demos/np_lpsolverfxp.py): the datasets the
+# "lp fxp" phase solves, each at its own SecFxp(l) (f = l / 2: fields of
+# two limbs at l = 18, three at 24 and 36, four at 52, six at 96), the
+# dataset traced by torch.profiler and its window of pivots; per (l, f)
+# the widest comparison of its path (max(m, n): the ratios' guard, the
+# certificate's rows), and the rank-1 update's elements of uvlp (three
+# limbs) and kb2 (six), truncated after each product
+LPFXP_DATASETS = (0, 1, 2, 3, 4, 5, 6)
+LPFXP_PROFILE = 6
+LPFXP_WINDOW = (11, 12)
+LPFXP_CMP = {(18, 9): 2, (24, 12): 3, (36, 18): 3, (52, 26): 70,
+             (96, 48): 68}
+LPFXP_UPDATE = {(24, 12): 3 * 4, (96, 48): 69 * 42}
+# the survival test (demos/kmsurvival.py), each run with --agg (whose
+# compaction tests every time step for events: a zero test): (dataset,
+# accuracy A for SecFxp(2A, A), 0 the demo's): btrial (SecFxp(56, 28),
+# four limbs: zero tests by K5 in EQ mode), aml (SecFxp(64, 32), four
+# limbs with 4p >= R: [NO07]'s zero tests, the canonical K6 and K7) and
+# aml at A = 48 (SecFxp(96, 48), six limbs: K6 in its [NO07] zero tests'
+# Legendre symbols); aml's 161 weeks a division, 32 bits each
+KM_RUNS = ((0, 0, True), (2, 0, True), (2, 48, True))
+ROOT = Path(__file__).resolve().parent
+# datasets of "lp fxp" solved from a recorded state (file, line) in place
+# of fixed_keys: sc50b from the first of 24 solves on fresh keys on the
+# card (certificate true); line 1 of the file is the second (false), and
+# the first fixed keys tried, fixed_keys('lp fxp sc50b'), were false too,
+# in this port and in the JAX demo (PERF.md section 7)
+LPFXP_RECORDED = {'sc50b': ('tools/data/lpfxp_sc50b.jsonl', 0)}
+KM_AML_BITS = 161 * 32
 # the binary-field paths (demos/np_sha3.py, demos/np_aes.py): SHA3-256 and
 # SHAKE128 of 256 messages (bench.py:354), AES-128 and AES-256 of 2,048
 # blocks (README.md's np_aes -b 2048); the fused products' shapes: SHA3's
@@ -358,6 +409,9 @@ KERNELS = {
     'reshare2': dict(replaces='mpyc_tpu/models/pipelines.py:1065',
                      wrapper=pipelines.reshare2,
                      source='mpyc_tpu_torch/csrc/gf2.cu'),
+    # no Pallas kernel: XLA fuses the JAX package's limb arithmetic
+    'field_op': dict(replaces='mpyc_tpu/ops/limb.py:247',
+                     wrapper=fieldops.field_op, source=SOURCE),
 }
 # Every instantiation that a path launches, as the kernels line lists it:
 # entry name -> (kernel, key of its wrapper's ``by_key`` count, or None for
@@ -395,14 +449,32 @@ ENTRIES = {
     'random_bits_tail<L=2, lazy>': ('random_bits_tail', (2, True)),
     **{f'random_bits_tail<L={L}, lazy>': ('random_bits_tail', (L, True))
        for L in (4, 5)},
+    # the fixed-point LP solver and the survival test: K5 at each
+    # SecFxp(l, f)'s width and scale (LT; EQ at btrial's zero tests), K3
+    # at six limbs, K6 and K7 at six limbs and on SecFxp(64, 32)'s field,
+    # four limbs with 4p >= R (canonical), K7 at three limbs
+    **{f'sgn_step<LT, l={l}, L={L}, f={f}>': ('sgn_step', ('LT', l, L, f))
+       for l, L, f in ((18, 2, 9), (24, 3, 12), (36, 3, 18), (52, 4, 26),
+                       (96, 6, 48))},
+    'sgn_step<EQ, l=56, L=4, f=28>': ('sgn_step', ('EQ', 56, 4, 28)),
+    'reshare_mul<L=6, fused>': ('reshare_mul', (6, True)),
+    'reshare_mul<L=6>': ('reshare_mul', (6, False)),
+    'mont_pow<L=4>': ('mont_pow', (4, False)),
+    'mont_pow<L=6, lazy>': ('mont_pow', (6, True)),
+    'random_bits_tail<L=3, lazy>': ('random_bits_tail', (3, True)),
+    'random_bits_tail<L=4>': ('random_bits_tail', (4, False)),
+    'random_bits_tail<L=6, lazy>': ('random_bits_tail', (6, True)),
     # K8 (d, fused): SHA3's chi in GF(4), AES's S-box powers in GF(2^8)
     'reshare2<d=2, fused>': ('reshare2', (2, True)),
     'reshare2<d=8, fused>': ('reshare2', (8, True)),
+    # K9 (limbs): every product, add and subtraction of field arrays
+    # between the kernels above, on every prime-field path
+    **{f'field_op<L={L}>': ('field_op', L) for L in (2, 3, 4, 5, 6)},
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
     'main path': ('keccak_ctr', 'squeeze_mont<L=2, W=6>',
-                  'reshare_mul<L=2, fused>'),
+                  'reshare_mul<L=2, fused>', 'field_op<L=2>'),
     'comparison': ('squeeze_mont<L=2, W=6>', 'reshare_mul<L=2, fused>',
                    'sgn_step<sgn, l=32, L=2>', 'sgn_step<LT, l=32, L=2>',
                    'sgn_step<EQ, l=32, L=2>'),
@@ -438,6 +510,27 @@ PATH_ENTRIES = {
            'sgn_step<LT, l=110, L=5>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
            *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5))),
+    # every truncated product (K3 fused) and every product by an integral
+    # operand (K3 without the product), the comparisons at each type's
+    # width and scale 2^f (K5), the truncations' random bits (K7)
+    'lp fxp': (*(f'reshare_mul<L={L}{s}>' for L in (2, 3, 4, 6)
+                 for s in (', fused', '')),
+               *(f'sgn_step<LT, l={l}, L={L}, f={f}>' for l, L, f in
+                 ((18, 2, 9), (24, 3, 12), (36, 3, 18), (52, 4, 26),
+                  (96, 6, 48))),
+               *(f'random_bits_tail<L={L}, lazy>' for L in (2, 3, 4, 6)),
+           *(f'field_op<L={L}>' for L in (2, 3, 4, 6))),
+    # the maximum time (SecInt(32) comparisons), btrial's zero tests (K5
+    # in EQ mode), aml's [NO07] zero tests (their random bits, K7, and
+    # Legendre symbols, K6) on the canonical four-limb field and at six
+    # limbs, the divisions' truncations (K7), every product (K3)
+    'km': ('reshare_mul<L=4, fused>', 'reshare_mul<L=4>',
+           'reshare_mul<L=6, fused>', 'reshare_mul<L=6>',
+           'sgn_step<LT, l=32, L=2>', 'sgn_step<EQ, l=56, L=4, f=28>',
+           'mont_pow<L=4>', 'mont_pow<L=6, lazy>',
+           'random_bits_tail<L=4, lazy>', 'random_bits_tail<L=4>',
+           'random_bits_tail<L=6, lazy>', 'field_op<L=4>',
+           'field_op<L=6>'),
     # every chi round's product (K8 in GF(4), squeezing its own stream;
     # the messages' input draws come from the pool that earlier phases
     # filled, so SHA3 launches no K1 here)
@@ -583,10 +676,15 @@ def ptxas_report(log: str) -> dict:
     return res
 
 
-# elements a thread of K6 and K7 (csrc/pow.cuh), read from the source
-POW_EPT = int(re.search(r'constexpr int POW_EPT = (\d+);', (
+# elements a thread of K6 and K7 (csrc/pow.cuh pow_ept): two, and at six
+# limbs MTT_POW_EPT6, read from the source
+POW_EPT6 = int(re.search(r'#define MTT_POW_EPT6 (\d+)', (
     Path(__file__).resolve().parent / 'mpyc_tpu_torch' / 'csrc' /
     'pow.cuh').read_text()).group(1))
+
+
+def pow_ept(L: int) -> int:
+    return 2 if L <= 5 else POW_EPT6
 
 # SASS opcodes by class: the wide and plain multiplies (the FMA pipe), the
 # moves and adds the compiler puts on the FMA pipe, three-input adds with
@@ -614,8 +712,8 @@ def sass_report(so, prefixes=('mont_pow_kernel', 'random_bits_tail_kernel')
     """Per instantiation of the kernels named by ``prefixes`` in the built
     library, from ``cuobjdump -sass``: its SASS instructions by class, and
     those of its innermost loop that multiplies (the squaring loop of a
-    power's step: a squaring for each of a thread's POW_EPT elements and
-    the loop's count), by class and per product."""
+    power's step: a squaring for each of a thread's ``pow_ept`` elements
+    and the loop's count), by class and per product."""
     from mpyc_tpu_torch import _build
     exe = shutil.which('cuobjdump') or str(
         Path(_build._nvcc()).with_name('cuobjdump'))
@@ -648,7 +746,7 @@ def sass_report(so, prefixes=('mont_pow_kernel', 'random_bits_tail_kernel')
         res[fn] = dict(total=len(ins), classes=sass_classes(
             o for _, o, _ in ins), loop=len(inner),
             loop_classes=sass_classes(inner),
-            per_product=len(inner) / POW_EPT)
+            per_product=len(inner) / pow_ept(int(fn.split('<')[1][0])))
     return res
 
 
@@ -939,8 +1037,8 @@ def check_slice_kernels(p: int) -> dict:
         b, o = bound(N_CMP * M * 2 * 4 * 2, ops5)
         iters = 10 if mode == 'LT' else 5
         ms = cuda_ms(lambda: pipelines.sgn_step(a, st, nonce, spec5), iters)
-        sgn_threads = _build_lib().mtt_sgn_threads(ctypes.addressof(
-            spec5.params(nonce)))
+        params = spec5.params(nonce)   # alive across the call
+        sgn_threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         squeezed, per_warp = sgn_squeezes(spec5, N_CMP, sgn_threads)
         say(f'  K5 sgn_step {mode} stage model at {N_CMP} elements, B = '
             f'{sgn_threads}: {squeezed} blocks squeezed against '
@@ -2087,8 +2185,8 @@ def check_lp_kernels() -> dict:
         ch = SimRuntime._SGN_CHUNK if L <= 2 else chunk
         a = random_field(p, (M, n), gen)
         err = sgn_chunks_check(spec, a, st, nonce, ch)
-        threads = _build_lib().mtt_sgn_threads(ctypes.addressof(
-            spec.params(nonce)))
+        params = spec.params(nonce)
+        threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, {n}, {L}) on '
             f'a bucket of {pipelines.bucket(n, ch)}, equal to plain; CTAs '
             f'of {threads} elements')
@@ -2134,6 +2232,165 @@ def check_lp_kernels() -> dict:
             field, *tail_shares(p, LP_NO07_BITS, gen, every=7), err)
         say(f'  K7 random_bits_tail at L = {ctx.L}: {LP_NO07_BITS} and '
             '1,000 shares, one in 7 planted to 0, equal to plain')
+    return res
+
+
+def fxp_field(l: int, f: int) -> int:
+    """The prime of SecFxp(l, f) (the JAX package's field: l + f + 32
+    bits)."""
+    return sectypes.SecFxp(l, f, 'cuda').field.modulus
+
+
+def _entry(kernel: str, L: int, lazy: bool) -> str:
+    return f'{kernel}<L={L}{", lazy" if lazy else ""}>'
+
+
+def check_fxp_lp_kernels() -> dict:
+    """Phase "kernels", the part of the fixed-point LP solver and the
+    survival test: each instantiation their paths launch that no earlier
+    path did, bit for bit against its plain version (tolerance: exact)
+    and timed at the path's shapes beside its plain version and bound. K3
+    (fused and not) at six limbs at kb2's rank-1 update (69 x 42
+    elements); K5 in LT mode at each SecFxp(l, f)'s width and scale at the
+    widest comparison of its path (``LPFXP_CMP``), and in EQ mode at
+    btrial's zero test (SecFxp(56, 28), one element); K6 at six limbs and
+    on SecFxp(64, 32)'s canonical four-limb field at e = p - 2, (p - 1) /
+    2 and (3p - 5) / 4 on 1,000 elements, timed at a [NO07] test's 30
+    Legendre symbols; K7 at uvlp's (three limbs), kb2's (six) and aml's
+    (canonical four) truncations, one element in 7 planted to open to 0
+    (bits, flags and count). Returns per-instantiation measurements."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(15)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFE, 4)
+    p = fxp_field(96, 48)
+    spec = pipelines.ReshareSpec(p, T, M)
+    L, n = spec.ctx.L, LPFXP_UPDATE[96, 48]
+    a, b = random_field(p, (M, n), gen), random_field(p, (M, n), gen)
+    for bb, sfx in ((b, ', fused'), (None, '')):
+        out = pipelines.reshare_mul(a, bb, st, nonce, spec)
+        want = pipelines._reshare_mul_plain(a, bb, st, nonce, spec)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f'K3 (L = {L}, {n} elements{sfx}) differs from its '
+              'plain version')
+        res[f'reshare_mul<L={L}{sfx}>'] = reshare_meas(spec, a, bb, st,
+                                                       nonce, err)
+    say(f'  K3 reshare_mul at L = {L}: ({M}, {n}, {L}), fused and unfused, '
+        'equal to plain')
+    cases = [(l, f, n, 'LT') for (l, f), n in LPFXP_CMP.items()]
+    cases.append((56, 28, 1, 'EQ'))
+    for l, f, n, mode in cases:
+        p = fxp_field(l, f)
+        spec = pipelines.SgnSpec(p, T, M, l, 30, LT=mode == 'LT',
+                                 EQ=mode == 'EQ', f=f)
+        L = spec.ctx.L
+        ch = SimRuntime._SGN_CHUNK if L <= 2 else SimRuntime._SGN_CHUNK_WIDE
+        a = random_field(p, (M, n), gen)
+        err = sgn_chunks_check(spec, a, st, nonce, ch)
+        params = spec.params(nonce)
+        threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
+        say(f'  K5 sgn_step {mode} at l = {l}, f = {f}, L = {L}: ({M}, {n}, '
+            f'{L}), equal to plain; CTAs of {threads} elements')
+        res[f'sgn_step<{mode}, l={l}, L={L}, f={f}>'] = sgn_meas(
+            spec, a, st, nonce, ch, err)
+    for l, f in ((96, 48), (64, 32)):
+        p = fxp_field(l, f)
+        ctx = prime_field_ctx(p)
+        x = random_field(p, (1000,), gen)
+        x[0] = 0
+        for e in (p - 2, (p - 1) // 2, (3 * p - 5) // 4):
+            out = fieldops.mont_pow(x, e, ctx)
+            want = fieldops._mont_pow_plain(x, e, ctx)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want)
+            check(err == 0, f'K6 (L = {ctx.L}, e of {e.bit_length()} bits) '
+                  'differs from its plain version')
+        r = res[_entry('mont_pow', ctx.L, ctx.lazy)] = pow_meas(
+            ctx, x[:LP_NO07_BITS].contiguous(), (p - 1) // 2, err)
+        say(f'  K6 mont_pow at L = {ctx.L} ({"lazy" if ctx.lazy else "4p >= R"}'
+            f'): 1,000 elements, e = p - 2, (p - 1) / 2 and (3p - 5) / 4, '
+            f'equal to plain; {r["ms"]:.4f} ms at {LP_NO07_BITS} Legendre '
+            'symbols')
+    for (l, f), n in ((24, 12), LPFXP_UPDATE[24, 12] * 12), \
+            ((96, 48), LPFXP_UPDATE[96, 48] * 48), ((64, 32), KM_AML_BITS):
+        p = fxp_field(l, f)
+        field = finfields.GF(p)
+        ctx = field.array.ctx
+        rr, zz = tail_shares(p, n, gen, every=7)
+        got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
+        want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0, T)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got[0], want[0]),
+                  int((got[1] != want[1]).sum()),
+                  abs(int(got[2].item()) - int(want[2].item())))
+        check(err == 0 and int(got[2].item()) == -(-n // 7),
+              f'K7 (L = {ctx.L}, {n} elements) differs from its plain '
+              'version')
+        res[_entry('random_bits_tail', ctx.L, ctx.lazy)] = tail_meas(
+            field, rr, zz, err)
+        say(f'  K7 random_bits_tail at L = {ctx.L} ('
+            f'{"lazy" if ctx.lazy else "4p >= R"}): {n} shares, one in 7 '
+            'planted to 0, equal to plain')
+    return res
+
+
+# K9's fields: SecInt(32)'s two limbs, SecInt(37)'s three, SecFxp(52)'s
+# four, SecInt(110)'s five, SecFxp(96)'s six
+def field_op_fields() -> dict:
+    return {2: sectypes.SecInt(32, 'cuda').field.modulus,
+            3: sectypes.SecInt(37, 'cuda').field.modulus,
+            4: fxp_field(52, 26), 5: lp_field(110), 6: fxp_field(96, 48)}
+
+
+def check_field_ops() -> dict:
+    """Phase "kernels", K9: at each limb count, each op (product, add,
+    subtraction) on kb2's rank-1 update's shares ((3, 69 x 42)) with both
+    operands arrays and with either one a constant, and the product of a
+    draw's chunks (below R) by a constant, bit for bit against its plain
+    version (tolerance: exact); the product timed (device time, replayed
+    from a CUDA graph: a launch is shorter than its host call) beside its
+    plain version and its bound (two shares read, one written; a CIOS
+    product an element)."""
+    gen = np.random.default_rng(16)
+    res = {}
+    n = M * LPFXP_UPDATE[96, 48]
+    for L, p in field_op_fields().items():
+        ctx = prime_field_ctx(p)
+        a, b = random_field(p, (M, n // M), gen), random_field(
+            p, (M, n // M), gen)
+        c = random_field(p, (1,), gen)
+        wide = torch.randint(-2**31, 2**31, (M, n // M, L), dtype=torch.int32,
+                             device='cuda')
+        err = 0
+        for op in fieldops._FIELD_OPS:
+            cases = [(a, b), (a, c), (c, a)] + [(wide, c)] * (op == 'mul')
+            for x, y in cases:
+                got = fieldops.field_op(x, y, op, ctx)
+                want = fieldops._field_op_plain(x, y, op, ctx)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, want))
+        check(err == 0, f'K9 (L = {L}) differs from its plain version')
+        bd, o = bound(n * L * 4 * 3, n * mont_mul_ops(L))
+        big_a, big_b = (random_field(p, (M, 1 << 20), gen) for _ in 'ab')
+        big_bd, big_o = bound(M * (1 << 20) * L * 4 * 3,
+                              M * (1 << 20) * mont_mul_ops(L))
+        big_ms = graph_ms(lambda: fieldops.field_op(big_a, big_b, 'mul',
+                                                    ctx), 10)
+        res[f'field_op<L={L}>'] = dict(
+            shape=f'({M}, {n // M}, {L}) shares, a Montgomery product',
+            max_abs_err=err,
+            ms=graph_ms(lambda: fieldops.field_op(a, b, 'mul', ctx), 20),
+            plain_ms=cuda_ms(lambda: fieldops._field_op_plain(
+                a, b, 'mul', ctx), 3),
+            bound_ms=bd, bound_by=o)
+        say(f'  K9 field_op at L = {L}: products, adds and subtractions of '
+            f'({M}, {n // M}, {L}) shares, constants either side, chunks '
+            f'below R, equal to plain; a product of ({M}, 2^20, {L}) shares '
+            f'{big_ms:.4f} ms, bound {big_bd:.4f} ms ({big_o}), '
+            f'{big_ms / big_bd:.2f}x')
     return res
 
 
@@ -2215,6 +2472,153 @@ def run_lp(device, datasets=LP_DATASETS, profile=None,
         except Window:
             pass
         res['trace'] = trace_lines(prof, top=12)
+    return res
+
+
+def fixed_keys(rt, label: str):
+    """Start rt from keys derived from ``label`` (SHAKE128 of the label
+    and the key's name): its PRSS keys, reshare key and input generator,
+    counters and program counter at 0. The values a run opens depend on
+    its PRSS keys and program counter only, so a phase on fixed keys opens
+    the same values in every run, on the card and on the CPU
+    (``tools/lpfxp_certificates.py --label``)."""
+    def key(name, n):
+        return shake_128(f'{label}/{name}'.encode()).digest(n)
+    rt.load_state(key('reshare', 32), (0, 0), key('input', 32), 0,
+                  prss_keys={S: key(','.join(map(str, S)), 16)
+                             for S in rt._prss_keys}, pc=0)
+    return rt
+
+
+def recorded_keys(rt, path, line: int):
+    """Start rt from the state on line ``line`` of a JSON-lines record of
+    ``tools/lpfxp_certificates.py --keys-out`` (its ``state``: PRSS keys,
+    reshare key and counter, input generator and nonce, program counter,
+    in hex)."""
+    st = json.loads(Path(path).read_text().splitlines()[line])['state']
+    rt.load_state(bytes.fromhex(st['fused_key']), st['ctr'],
+                  bytes.fromhex(st['rng_key']), st['rng_nonce'],
+                  prss_keys={tuple(map(int, S.split(','))): bytes.fromhex(k)
+                             for S, k in st['prss_keys'].items()},
+                  pc=st['pc'])
+    return rt
+
+
+def lpfxp_runtime(device, name: str):
+    """The runtime phase "lp fxp" solves dataset ``name`` on: from the
+    recorded state ``LPFXP_RECORDED`` names for it, else from
+    ``fixed_keys`` with the label 'lp fxp <name>'."""
+    rt = SimRuntime(M, device=device)
+    if name in LPFXP_RECORDED:
+        return recorded_keys(rt, ROOT / LPFXP_RECORDED[name][0],
+                             LPFXP_RECORDED[name][1])
+    return fixed_keys(rt, f'lp fxp {name}')
+
+
+def run_lp_fxp(device, datasets=LPFXP_DATASETS, profile=None,
+               window=LPFXP_WINDOW) -> dict:
+    """Phase "lp fxp": the fixed-point LP solver (``mpyc_tpu_torch.demos.
+    np_lpsolverfxp``, SimRuntime(3)) on each dataset at its SecFxp(l):
+    the certificate must be true, the opened max within ``REL_ERROR`` of
+    the exact optimum and the opened solution within ``solution_tol`` of
+    the plain float solver's (``check_solution``). Each solve starts from
+    fixed keys (``lpfxp_runtime``): on fresh keys sc50b's certificate is
+    false in about one solve in six, in this port and in the JAX demo
+    alike (PERF.md section 7). Per dataset: seconds a
+    solve (host clock, after a synchronize) and a pivot, launches by
+    instantiation. ``profile``: a dataset solved
+    once more, under torch.profiler over its pivots window[0] ..
+    window[1] - 1 only (the solve stops there)."""
+    from mpyc_tpu_torch.demos import np_lpsolverfxp as lpf
+    res = {}
+    for i in datasets:
+        name, l, _ = lpf.DATASETS[i]
+        before = counts()
+        rt = lpfxp_runtime(device, name)
+        sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
+            (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        got = lpf.solve(rt, i, out=lambda s: None)
+        sync()
+        s = time.perf_counter() - t0
+        after = counts()
+        iters, err, tol = lpf.check_solution(name, l, got['iterations'],
+                                             got['x'])
+        check(got['ok'], f'lp fxp {name}: the certificate is false: '
+              f'{", ".join(got["failed"])} fail')
+        check(abs(got['rel_error']) <= lpf.REL_ERROR, f'lp fxp {name}: max '
+              f'{got["mx"]} off the optimum by {got["rel_error"]:.3%}')
+        check(err <= tol, f'lp fxp {name}: the solution is {err} off the '
+              'float solver\'s')
+        n_iter = got['iterations']
+        res[name] = dict(
+            s=s, l=l, pivots=n_iter, plain_pivots=iters,
+            s_pivot=s / max(n_iter, 1), mx=got['mx'],
+            rel_error=got['rel_error'], solution_err=err, tol=tol,
+            launches={k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+    if profile is not None:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+        prof = profiler(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+
+        class Window(Exception):
+            pass
+
+        def on_pivot(k):
+            if k in window:
+                torch.cuda.synchronize()
+            if k == window[0]:
+                prof.start()
+                res['window_t0'] = time.perf_counter()
+            elif k == window[1]:
+                res['window_s'] = time.perf_counter() - res['window_t0']
+                prof.stop()
+                raise Window
+        try:
+            lpf.solve(lpfxp_runtime(device, lpf.DATASETS[profile][0]),
+                      profile,
+                      out=lambda s: None, on_pivot=on_pivot)
+        except Window:
+            pass
+        res['trace'] = trace_lines(prof, top=12)
+    return res
+
+
+def run_km(device, runs=KM_RUNS) -> dict:
+    """Phase "km": the survival test (``mpyc_tpu_torch.demos.
+    np_kmsurvival``, SimRuntime(3)) for each (dataset, accuracy, --agg) of
+    ``runs``: the secure statistic, and the aggregated one, within 1e-3
+    (relative) of the plain one, as the demo asserts. Seconds a run (host
+    clock), the statistics, launches by instantiation."""
+    from mpyc_tpu_torch.demos import np_kmsurvival as km
+    res = {}
+    for ds, acc, agg in runs:
+        name = km.SETTINGS[ds][0].removesuffix('.csv')
+        acc = acc or km.SETTINGS[ds][2]
+        label = f'{name} SecFxp({2 * acc}, {acc}){" --agg" if agg else ""}'
+        before = counts()
+        rt = fixed_keys(SimRuntime(M, device=device), f'km {label}')
+        sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
+            (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        got = km.run(rt, ds, accuracy=acc, agg=agg, out=lambda s: None)
+        sync()
+        s = time.perf_counter() - t0
+        after = counts()
+        check(km.close(got['chi'], got['chi_ref']), f'km {label}: chi2 '
+              f'{got["chi"]} against the plain {got["chi_ref"]}')
+        if agg:
+            check(km.close(got['chi_agg'], got['chi_ref']), f'km {label}: '
+                  f'aggregated chi2 {got["chi_agg"]} against the plain '
+                  f'{got["chi_ref"]}')
+        res[label] = dict(s=s, chi=got['chi'], chi_ref=got['chi_ref'],
+                          chi_agg=got['chi_agg'], maxT=got['maxT'],
+                          launches={k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]})
     return res
 
 
@@ -2510,11 +2914,15 @@ def main() -> int:
                                               for k, v in r.items()))
         for what, spec in (('SecInt(32), l = 32', pipelines.SgnSpec(
                 p, T, M, 32, LT=True)), ('SecInt(110), l = 110', pipelines.
-                SgnSpec(lp_field(110), T, M, 110, LT=True))):
+                SgnSpec(lp_field(110), T, M, 110, LT=True)),
+                ('SecFxp(96), l = 96', pipelines.SgnSpec(
+                    fxp_field(96, 48), T, M, 96, LT=True, f=48))):
+            params = spec.params((0, 0))   # alive across the call
             say(f'  K5 thread block at {what}: B = '
-                f'{lib.lib.mtt_sgn_threads(ctypes.addressof(spec.params((0, 0))))}'
+                f'{lib.lib.mtt_sgn_threads(ctypes.addressof(params))}'
                 ' elements')
-        model = {L: int(mont_sqr_lazy_ops(L).sum()) for L in (2, 3, 4, 5)}
+        model = {L: int(mont_sqr_lazy_ops(L).sum())
+                 for L in (2, 3, 4, 5, 6)}
         for fn, r in sass_report(lib.path).items():
             say(f'  SASS {fn}: {r["total"]} instructions, ' + ', '.join(
                 f'{k} {v}' for k, v in r['classes'].items()))
@@ -2530,6 +2938,8 @@ def main() -> int:
         meas.update(check_slice_kernels(p))
         meas.update(check_three_limb_kernels())
         meas.update(check_lp_kernels())
+        meas.update(check_fxp_lp_kernels())
+        meas.update(check_field_ops())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -2560,6 +2970,12 @@ def main() -> int:
         for name in PATH_ENTRIES[path]:
             check(got[name] > 0, f'kernel {name} was not launched on the '
                   f'{path}')
+        listed = {(n, k) for n, k in ENTRIES.values()}
+        for kname, k in KERNELS.items():
+            for key, c in getattr(k['wrapper'], 'by_key', {}).items():
+                check(c == 0 or (kname, key) in listed, f'the {path} '
+                      f'launched {kname} {key}, which the kernels line does '
+                      'not list')
         for name, c in got.items():
             launches[name] += c
         return res
@@ -2763,6 +3179,40 @@ def main() -> int:
             say(f'    {line}')
         torch.cuda.empty_cache()
 
+    with Phase('lp fxp'):
+        res_lpf = res = drive('lp fxp', lambda: run_lp_fxp(
+            'cuda', profile=LPFXP_PROFILE))
+        for name, r in res.items():
+            if not isinstance(r, dict):
+                continue
+            pivot_launches = {k: round(v / max(r['pivots'], 1), 1)
+                              for k, v in r['launches'].items()}
+            say(f'  {name} at SecFxp({r["l"]}): {r["pivots"]} pivots (the '
+                f'float solver {r["plain_pivots"]}), max = {r["mx"]!r} '
+                '(relative error '
+                f'{r["rel_error"]:.3e}), certificate true, solution within '
+                f'{r["solution_err"]:.3g} of the float solver\'s (tolerance '
+                f'{r["tol"]:.3g}); {r["s"]:.4f} s a solve, '
+                f'{r["s_pivot"]:.4f} s a pivot on {smi}')
+            say(f'    launches a pivot: {pivot_launches}')
+        say(f'  torch.profiler over pivot {LPFXP_WINDOW[0]} of dataset '
+            f'{LPFXP_PROFILE} ({res["window_s"]:.4f} s on the host clock, '
+            f'traced) on {smi}:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('km'):
+        res_km = res = drive('km', lambda: run_km('cuda'))
+        for label, r in res.items():
+            agg = '' if r['chi_agg'] is None else \
+                f', aggregated {r["chi_agg"]:.6f}'
+            say(f'  {label}: chi2 = {r["chi"]:.6f}{agg}, plain '
+                f'{r["chi_ref"]:.6f}, within 1e-3; {r["maxT"]} time steps; '
+                f'{r["s"]:.4f} s on {smi}')
+            say(f'    launches: {r["launches"]}')
+        torch.cuda.empty_cache()
+
     with Phase('gf2 kernels'):
         gf2_meas = check_gf2_kernels()
         floor_ms = empty_ms()
@@ -2877,6 +3327,9 @@ def main() -> int:
                     'fxp_rounds': res_fxp_rounds, 'random_bits_split': split,
                     'lp': {k: v for k, v in res_lp.items()
                            if isinstance(v, dict)},
+                    'lp_fxp': {k: v for k, v in res_lpf.items()
+                               if isinstance(v, dict)},
+                    'km': res_km,
                     'sha3_batch': N_SHA3, 'sha3_pass_s': res_sha3['pass_s'],
                     'sha3_ms_per_digest_warm': 1e3 * warm_h / N_SHA3,
                     'sha3_ms_per_digest_cold': 1e3 * cold_h / N_SHA3,

@@ -36,7 +36,8 @@ SOURCES = ('kernels.cu', 'sgn.cu', 'gf2.cu', 'common.cuh', 'keccak.cuh',
 # the translation units: (object name, source, extra nvcc flags); K5's
 # launchers one limb count a unit (MTT_SGN_NL)
 UNITS = (('kernels', 'kernels.cu', ()),) + tuple(
-    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in (2, 3, 4, 5)) \
+    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in
+    (2, 3, 4, 5, 6)) \
     + (('gf2', 'gf2.cu', ()),)
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
@@ -46,7 +47,7 @@ LIB_NAME = 'libmpyc_tpu_torch_kernels.so'
 BUILD_TIMEOUT_S = 600
 
 # limits of the kernels' parameter blocks (csrc/kernels.cu)
-MAX_NL = 5       # limbs of a field element (p < 2^160)
+MAX_NL = 6       # limbs of a field element (p < 2^192; csrc/common.cuh)
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_M = 16       # parties
@@ -115,8 +116,9 @@ class TailParams(ctypes.Structure):
 # (csrc/kernels.cu; K2 takes the draws of two- and three-limb fields that
 # a path takes, K4 two-limb fields). The comparison (K5) takes its bit
 # width l as a launch parameter: every l with l + k + 2 <= 32 limbs, in
-# every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max).
-BUILT_NL = (2, 3, 4, 5)
+# every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max). Fields of one
+# limb, or of more than MAX_NL, raise NotImplementedError on the card.
+BUILT_NL = (2, 3, 4, 5, 6)
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
 
@@ -132,7 +134,7 @@ def draw_params(ctx, n_chunks: int) -> DrawParams:
     if ctx.L not in BUILT_NL:
         raise NotImplementedError(
             f'the CUDA kernels take fields of {BUILT_NL} limbs, not '
-            f'{ctx.L}')
+            f'L={ctx.L}')
     if n_chunks > MAX_NC:
         raise NotImplementedError(f'{n_chunks} chunks per draw')
     P = DrawParams()
@@ -151,7 +153,7 @@ def pow_params(ctx, e: int) -> PowParams:
     if ctx.L not in BUILT_NL:
         raise NotImplementedError(
             f'the CUDA kernels take fields of {BUILT_NL} limbs, not '
-            f'{ctx.L}')
+            f'L={ctx.L}')
     plan = pow_plan(e)
     P = PowParams()
     set_limbs(P.p, ctx.p_limbs)
@@ -184,6 +186,8 @@ _SIGNATURES = {
     'mtt_reshare2_elems': [ctypes.c_longlong],
     'mtt_keccak_ctr_cta': [ctypes.c_longlong],
     'mtt_empty': [_C],
+    'mtt_field_op': [_C, _C, _C, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, _C, _C],
 }
 
 

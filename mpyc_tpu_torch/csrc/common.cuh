@@ -11,7 +11,7 @@
 
 namespace mtt {
 
-constexpr int MAX_NL = 5;      // limbs per element
+constexpr int MAX_NL = 6;      // limbs per element (_build.py MAX_NL)
 constexpr int MAX_NC = 4;      // chunks per draw
 constexpr int MAX_SEND = 9;    // senders aggregated by a reshare (2t + 1)
 constexpr int MAX_M = 16;      // parties
@@ -52,7 +52,8 @@ struct ReshareParams {
 // checks it for each field it launches on: ReshareSpec, SgnSpec).
 template <int NL>
 __host__ __device__ constexpr int fused_words() {
-  static_assert(NL >= 2 && NL <= MAX_NL, "fused draws of 2 to 5 limbs");
+  static_assert(NL >= 2 && NL <= MAX_NL,
+                "fused draws of 2 to MAX_NL limbs (_build.py BUILT_NL)");
   return NL + 2;
 }
 

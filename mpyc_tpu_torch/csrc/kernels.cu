@@ -1,7 +1,8 @@
 // CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication, K4
 // the split/recombine round, K5 the secure comparison (sgn.cuh), K6 a
 // power with a public exponent and K7 the tail of a round of random bits
-// around it (pow.cuh).
+// around it (pow.cuh), K9 elementwise field arithmetic (K8, the GF(2^d)
+// reshare, is gf2.cu).
 //
 // Built by mpyc_tpu_torch/_build.py with plain nvcc into one shared library
 // whose extern "C" launchers are called through ctypes. Each launcher takes
@@ -9,10 +10,10 @@
 // stream, launches, and returns cudaGetLastError().
 //
 // Field elements are little-endian 32-bit limbs in Montgomery form with
-// R = 2^(32 NL). K3, K5, K6 and K7 are built for fields of two to five
-// limbs (p < 2^160: SecInt(32)'s and SecInt(14)'s two, SecInt(37)'s and
-// SecInt(64)'s three, the LP solver's SecInt(70) four and SecInt(104) and
-// SecInt(110) five), K2 for the draws of two- and three-limb fields that
+// R = 2^(32 NL). K3, K5, K6 and K7 are built for fields of two to six
+// limbs (p < 2^192: SecInt(32)'s and SecInt(14)'s two, SecInt(37)'s and
+// SecInt(64)'s three, the LP solver's SecInt(70) and SecFxp(52) four,
+// SecInt(104) and SecInt(110) five, SecFxp(96) six), K2 for the draws of two- and three-limb fields that
 // a path takes and K4 for two-limb fields; each launcher picks the
 // instantiation from the parameter block's limb count. Every result is
 // canonical, so each kernel equals its plain PyTorch version (and the JAX
@@ -201,6 +202,38 @@ inline int keccak_ctr_cta(long long n) {
 __global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
+// K9: elementwise arithmetic in GF(p) on Montgomery limbs: out_e = a_e op
+// b_e for n elements, op a Montgomery product (0), a modular add (1) or
+// a modular subtraction (2), an operand of step 0 one element for all
+// (a public constant). No Pallas kernel of the JAX package computes it:
+// XLA runs its limb arithmetic (mpyc_tpu/ops/limb.py mont_mul :247,
+// add_mod :217, sub_mod :227) as fused elementwise programs; the plain
+// versions are mpyc_tpu_torch/ops/limb.py's. On the card every secure
+// protocol step between the kernels above (PRSS draws' reduction and
+// products, truncations, openings, local products, public encodings)
+// is such an operation, and the plain torch form takes about 150
+// launches a six-limb product: one thread an element here. Results are
+// canonical (mont_mul's a may be below R, b below p: a draw's chunk).
+// ---------------------------------------------------------------------------
+constexpr int FIELD_OP_THREADS = 256;
+
+template <int NL>
+__global__ void __launch_bounds__(FIELD_OP_THREADS)
+field_op_kernel(const uint32_t* __restrict__ a,
+                const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                long long n, int a_step, int b_step, int op, DrawParams P) {
+  const long long e = (long long)blockIdx.x * FIELD_OP_THREADS + threadIdx.x;
+  if (e >= n) return;
+  uint32_t x[NL], y[NL], r[NL];
+  ldg_fe<NL>(a, e * a_step, x);
+  ldg_fe<NL>(b, e * b_step, y);
+  if (op == 0) mont_mul<NL>(x, y, P.p, P.n0inv, r);
+  else if (op == 1) add_mod<NL>(x, y, P.p, r);
+  else sub_mod<NL>(x, y, P.p, r);
+  store_fe<NL>(out, e, r);
+}
+
+// ---------------------------------------------------------------------------
 // K2: squeeze fused with the map into GF(p).
 // Replaces mpyc_tpu/ops/rng.py:99 _squeeze_mont_kernel (kernel :130).
 // Block b holds EPB = 42 / W draws; draw d = b * EPB + j takes words
@@ -311,7 +344,7 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 // coefficients take 12,800 NL bytes, past the 48 KB of static shared
 // memory from NL = 4 on, so they are dynamic shared memory
 // (reshare_smem_bytes). Written for general t; built for t = 1, m = 3 and
-// NL = 2 to 5; draws of W = NL + 2 words.
+// NL = 2 to 6; draws of W = NL + 2 words.
 // ---------------------------------------------------------------------------
 constexpr int RESHARE_THREADS = 320;
 constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
@@ -488,9 +521,12 @@ int pow_dispatch(const PowParams& P, F launch) {
     case 40: return launch(PowKind<4, false>());
     case 41: return launch(PowKind<4, true>());
     case 50: return launch(PowKind<5, false>());
-    default: return launch(PowKind<5, true>());
+    case 51: return launch(PowKind<5, true>());
+    case 60: return launch(PowKind<6, false>());
+    default: return launch(PowKind<6, true>());
   }
 }
+
 
 // Whether a plan fits the kernels: its exponent's width, its table and
 // steps within their arrays, every table index within the table.
@@ -507,9 +543,18 @@ inline bool plan_ok(const PowParams& P) {
 template <int NL, bool LAZY>
 int launch_mont_pow(PowKind<NL, LAZY>, const void* a, void* out,
                     long long n, const PowParams& P, cudaStream_t stream) {
-  constexpr int EPB = POW_THREADS * POW_EPT;
+  constexpr int EPB = POW_THREADS * pow_ept<NL>();
+  constexpr int smem = pow_smem_bytes<NL>();
   const long long grid = (n + EPB - 1) / EPB;
-  mont_pow_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, 0, stream>>>(
+  // past the 48 KB a CTA gets by default (the plan's steps included):
+  // allowed once
+  if constexpr (smem + 4 * POW_MAX_STEPS > 48 * 1024) {
+    static const cudaError_t rc = cudaFuncSetAttribute(
+        mont_pow_kernel<NL, LAZY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  mont_pow_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, smem, stream>>>(
       (const uint32_t*)a, (uint32_t*)out, n, P);
   return (int)cudaGetLastError();
 }
@@ -519,9 +564,16 @@ int launch_random_bits_tail(PowKind<NL, LAZY>, const void* r,
                             const void* z, void* bits, void* flags,
                             void* count, long long n, const TailParams& P,
                             cudaStream_t stream) {
-  constexpr int EPB = POW_THREADS * POW_EPT;
+  constexpr int EPB = POW_THREADS * pow_ept<NL>();
+  constexpr int smem = pow_smem_bytes<NL>();
   const long long grid = (n + EPB - 1) / EPB;
-  random_bits_tail_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, 0,
+  if constexpr (smem + 4 * POW_MAX_STEPS > 48 * 1024) {   // as K6's
+    static const cudaError_t rc = cudaFuncSetAttribute(
+        random_bits_tail_kernel<NL, LAZY>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  random_bits_tail_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, smem,
                                      stream>>>(
       (const uint32_t*)r, (const uint32_t*)z, (uint32_t*)bits,
       (uint8_t*)flags, (int*)count, n, P);
@@ -560,6 +612,17 @@ int launch_reshare(const void* a, const void* b, void* out, const void* state,
   return (int)cudaGetLastError();
 }
 
+template <int NL>
+int launch_field_op(const void* a, const void* b, void* out, long long n,
+                    int a_step, int b_step, int op, const DrawParams& P,
+                    cudaStream_t stream) {
+  const long long grid = (n + FIELD_OP_THREADS - 1) / FIELD_OP_THREADS;
+  field_op_kernel<NL><<<(unsigned)grid, FIELD_OP_THREADS, 0, stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, a_step,
+      b_step, op, P);
+  return (int)cudaGetLastError();
+}
+
 template <bool FUSE>
 int launch_reshare_nl(const void* a, const void* b, void* out,
                       const void* state, long long n,
@@ -569,6 +632,7 @@ int launch_reshare_nl(const void* a, const void* b, void* out,
     case 3: return launch_reshare<3, FUSE>(a, b, out, state, n, P, s);
     case 4: return launch_reshare<4, FUSE>(a, b, out, state, n, P, s);
     case 5: return launch_reshare<5, FUSE>(a, b, out, state, n, P, s);
+    case 6: return launch_reshare<6, FUSE>(a, b, out, state, n, P, s);
     default: return -1;
   }
 }
@@ -601,6 +665,7 @@ MTT_SGN_LAUNCHER(2)
 MTT_SGN_LAUNCHER(3)
 MTT_SGN_LAUNCHER(4)
 MTT_SGN_LAUNCHER(5)
+MTT_SGN_LAUNCHER(6)
 #undef MTT_SGN_LAUNCHER
 
 // -1: an output that is not 16-byte aligned.
@@ -626,6 +691,33 @@ int mtt_keccak_ctr(const void* state, void* out, long long n, int ctr_lane,
 // chip_smoke.py's reports: 24 for five threads a sponge, else the CTA's
 // threads.
 int mtt_keccak_ctr_cta(long long n) { return mtt::keccak_ctr_cta(n); }
+
+// out = a op b elementwise for n elements (K9): op 0 a Montgomery
+// product, 1 an add, 2 a subtraction mod p; a_step and b_step 1, or 0
+// for one element taken by all. -1: a limb count, op or step not built.
+int mtt_field_op(const void* a, const void* b, void* out, long long n,
+                 int a_step, int b_step, int op, const void* params,
+                 void* stream) {
+  const mtt::DrawParams P = *(const mtt::DrawParams*)params;
+  if (op < 0 || op > 2 || a_step < 0 || a_step > 1 || b_step < 0 ||
+      b_step > 1)
+    return -1;
+  if (n <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (P.nl) {
+    case 2: return mtt::launch_field_op<2>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
+    case 3: return mtt::launch_field_op<3>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
+    case 4: return mtt::launch_field_op<4>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
+    case 5: return mtt::launch_field_op<5>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
+    case 6: return mtt::launch_field_op<6>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
+    default: return -1;
+  }
+}
 
 int mtt_empty(void* stream) {
   mtt::empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
@@ -681,7 +773,7 @@ int mtt_split_recombine(const void* sec, void* out, void* shares,
 // n elements in calls of `chunk` (counters P's, P's + 1, ...), the last on
 // n_last >= its given elements (mtt_sgn(a, out, state, n, n, n, ...) is
 // one call). -1: a (mode, l, limbs, t, m, k) the kernel was not built for
-// (t = 1, m = 3, 0 <= k <= 64, two to five limbs, 1 <= l and the random
+// (t = 1, m = 3, 0 <= k <= 64, two to six limbs, 1 <= l and the random
 // bits within sgn_lb_max(limbs): any l with l + k + 2 <= 32 limbs), or a
 // chunk geometry that does not hold.
 int mtt_sgn(const void* a, void* out, const void* state, long long n,
@@ -701,7 +793,9 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
                                       lb, B, stream);
     case 4: return mtt_sgn_launch_nl4(a, out, state, n, chunk, n_last, &P,
                                       lb, B, stream);
-    default: return mtt_sgn_launch_nl5(a, out, state, n, chunk, n_last, &P,
+    case 5: return mtt_sgn_launch_nl5(a, out, state, n, chunk, n_last, &P,
+                                      lb, B, stream);
+    default: return mtt_sgn_launch_nl6(a, out, state, n, chunk, n_last, &P,
                                        lb, B, stream);
   }
 }

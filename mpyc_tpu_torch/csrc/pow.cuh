@@ -23,7 +23,7 @@
 //   loop of squarings a step.
 // - The steps come in the parameter block and are copied once into
 //   shared memory; the table lives in shared memory too, word (entry,
-//   limb, slot) of a thread at [((entry NL + limb) POW_EPT + slot)
+//   limb, slot) of a thread at [((entry NL + limb) EPT + slot)
 //   threads + thread], so a warp reads 32 consecutive words. The entry is known
 //   only at run time: in registers the table would go to local memory.
 // - A squaring computes each cross product once and doubles it
@@ -33,17 +33,22 @@
 //   102-, 136- and 142-bit ones), every product of the chain skips its
 //   final subtraction (values stay below 2p) and one canonical() ends it
 //   (LAZY). SecInt(32)'s 64-bit field takes the canonical products.
-//   Built for two to five limbs, lazy or not: sixteen kernels. At four
-//   and five limbs the products are the C++ form (the PTX carry chains
-//   are written for two limbs); the table of odd powers takes 40,960
-//   bytes of shared memory at five limbs, within the 48 KB of static
-//   shared memory. At two limbs the lazy products are PTX (limb.cuh):
+//   Built for two to six limbs, lazy or not: twenty kernels. From three
+//   limbs on the products are the C++ form (the PTX carry chains are
+//   written for two limbs). The table of odd powers is dynamic shared
+//   memory (pow_smem_bytes): 40,960 bytes at five limbs, 24,576 at six
+//   (one element a thread); with two a thread at six limbs it would take
+//   49,152, past the 48 KB a CTA gets without opting in with the plan's
+//   768 bytes of steps, and the launchers opt in where a table needs it. At two limbs the lazy products are PTX (limb.cuh):
 //   a wide multiply for each 32 x 32-bit product and every carry in an
 //   add.cc chain: 26 SASS instructions a squaring, where the C++ form
 //   took 36.5 and moved its carries into registers on the multiply pipe.
-// - Two elements a thread (POW_EPT): two independent chains let the
+// - Two elements a thread (pow_ept): two independent chains let the
 //   scheduler fill one's multiply latency with the other's. One element
-//   a thread was 15-18% slower on the card (PERF.md, PR 10).
+//   a thread was 15-18% slower on the card at two limbs (PERF.md).
+//   At six limbs one (MTT_POW_EPT6), which halves the table to 24,576
+//   bytes: 4-9% faster than two at the fixed-point LP's 139,104 random
+//   bits, 3-6% slower at 2^20 (tools/pow_ab.py --six; PERF.md).
 #pragma once
 #include <cstdint>
 
@@ -55,7 +60,23 @@ constexpr int POW_WINDOW = 4;                       // the widest window
 constexpr int POW_TABLE = 1 << (POW_WINDOW - 1);    // x^1, x^3, .., x^15
 constexpr int POW_MAX_STEPS = 32 * MAX_NL;           // a step a bit at most
 constexpr int POW_THREADS = 128;
-constexpr int POW_EPT = 2;                           // elements a thread
+
+#ifndef MTT_POW_EPT6
+#define MTT_POW_EPT6 1
+#endif
+
+// Elements a thread of the NL-limb instantiations.
+template <int NL>
+__host__ __device__ constexpr int pow_ept() {
+  return NL <= 5 ? 2 : MTT_POW_EPT6;
+}
+
+// Dynamic shared memory of a K6 or K7 CTA: the table of odd powers,
+// POW_TABLE entries of NL words for each element of the CTA.
+template <int NL>
+constexpr int pow_smem_bytes() {
+  return POW_TABLE * NL * pow_ept<NL>() * POW_THREADS * 4;
+}
 
 // Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py. Field
 // constants fill the first nl limbs of their MAX_NL. The plan of e
@@ -89,24 +110,24 @@ __device__ __forceinline__ void load_plan(const PowParams& P,
   __syncthreads();
 }
 
-template <int NL>
+template <int NL, int EPT>
 __device__ __forceinline__ void table_put(uint32_t* col, int k,
-                                          const uint32_t (&x)[POW_EPT][NL]) {
+                                          const uint32_t (&x)[EPT][NL]) {
 #pragma unroll
   for (int q = 0; q < NL; ++q)
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s)
-      col[((k * NL + q) * POW_EPT + s) * POW_THREADS] = x[s][q];
+    for (int s = 0; s < EPT; ++s)
+      col[((k * NL + q) * EPT + s) * POW_THREADS] = x[s][q];
 }
 
-template <int NL>
+template <int NL, int EPT>
 __device__ __forceinline__ void table_get(const uint32_t* col, int k,
-                                          uint32_t (&x)[POW_EPT][NL]) {
+                                          uint32_t (&x)[EPT][NL]) {
 #pragma unroll
   for (int q = 0; q < NL; ++q)
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s)
-      x[s][q] = col[((k * NL + q) * POW_EPT + s) * POW_THREADS];
+    for (int s = 0; s < EPT; ++s)
+      x[s][q] = col[((k * NL + q) * EPT + s) * POW_THREADS];
 }
 
 template <int NL, bool LAZY>
@@ -123,74 +144,76 @@ __device__ __forceinline__ void pow_mul(const uint32_t* a, const uint32_t* b,
   else mont_mul<NL>(a, b, P.p, P.n0inv, out);
 }
 
-// x[s] <- x[s]^e R mod p for the POW_EPT elements of this thread (each
+// x[s] <- x[s]^e R mod p for the EPT elements of this thread (each
 // < p), by the plan in P and `steps` (load_plan). tab: the block's
-// table, POW_TABLE * NL * POW_EPT * POW_THREADS words of shared memory.
+// table, POW_TABLE * NL * EPT * POW_THREADS words of shared memory.
 // Canonical results.
-template <int NL, bool LAZY>
-__device__ __forceinline__ void pow_by_plan(uint32_t (&x)[POW_EPT][NL],
+template <int NL, bool LAZY, int EPT>
+__device__ __forceinline__ void pow_by_plan(uint32_t (&x)[EPT][NL],
                                             const PowParams& P,
                                             const uint32_t* steps,
                                             uint32_t* tab) {
   if (P.nbits == 0) {
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s) fe_copy<NL>(P.one, x[s]);
+    for (int s = 0; s < EPT; ++s) fe_copy<NL>(P.one, x[s]);
     return;
   }
   uint32_t* col = tab + threadIdx.x;
-  table_put<NL>(col, 0, x);
+  table_put<NL, EPT>(col, 0, x);
   if (P.n_table > 1) {
-    uint32_t x2[POW_EPT][NL];
+    uint32_t x2[EPT][NL];
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x2[s]);
+    for (int s = 0; s < EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x2[s]);
 #pragma unroll 1
     for (int k = 1; k < P.n_table; ++k) {
 #pragma unroll
-      for (int s = 0; s < POW_EPT; ++s)
+      for (int s = 0; s < EPT; ++s)
         pow_mul<NL, LAZY>(x[s], x2[s], P, x[s]);
-      table_put<NL>(col, k, x);
+      table_put<NL, EPT>(col, k, x);
     }
   }
-  table_get<NL>(col, P.first, x);
+  table_get<NL, EPT>(col, P.first, x);
 #pragma unroll 1
   for (int k = 0; k < P.n_steps; ++k) {
     const uint32_t st = steps[k];
 #pragma unroll 1
     for (int q = st & 0xFF; q > 0; --q) {
 #pragma unroll
-      for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
+      for (int s = 0; s < EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
     }
-    uint32_t y[POW_EPT][NL];
-    table_get<NL>(col, st >> 8, y);
+    uint32_t y[EPT][NL];
+    table_get<NL, EPT>(col, st >> 8, y);
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s) pow_mul<NL, LAZY>(x[s], y[s], P, x[s]);
+    for (int s = 0; s < EPT; ++s) pow_mul<NL, LAZY>(x[s], y[s], P, x[s]);
   }
 #pragma unroll 1
   for (int q = P.tail; q > 0; --q) {
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
+    for (int s = 0; s < EPT; ++s) pow_sqr<NL, LAZY>(x[s], P, x[s]);
   }
   if constexpr (LAZY) {
 #pragma unroll
-    for (int s = 0; s < POW_EPT; ++s) canonical<NL>(x[s], P.p, x[s]);
+    for (int s = 0; s < EPT; ++s) canonical<NL>(x[s], P.p, x[s]);
   }
 }
 
-// K6: POW_EPT elements a thread, POW_THREADS threads a block; slot s of
-// a thread takes element blockIdx.x * POW_THREADS * POW_EPT + s *
+// K6: EPT elements a thread, POW_THREADS threads a block; slot s of
+// a thread takes element blockIdx.x * POW_THREADS * EPT + s *
 // POW_THREADS + threadIdx.x. A slot past n computes on 0 and stores nothing.
 template <int NL, bool LAZY>
 __global__ void __launch_bounds__(POW_THREADS)
 mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
                 long long n, PowParams P) {
-  __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
+  constexpr int EPT = pow_ept<NL>();
+  extern __shared__ uint32_t pow_tab[];   // pow_smem_bytes<NL>()
   __shared__ uint32_t steps[POW_MAX_STEPS];
+  uint32_t* tab = pow_tab;
   load_plan<NL>(P, steps);
   const long long base =
-      (long long)blockIdx.x * (POW_THREADS * POW_EPT) + threadIdx.x;
-  uint32_t x[POW_EPT][NL];
+      (long long)blockIdx.x * (POW_THREADS * EPT) + threadIdx.x;
+  uint32_t x[EPT][NL];
 #pragma unroll
-  for (int s = 0; s < POW_EPT; ++s) {
+  for (int s = 0; s < EPT; ++s) {
     const long long e = base + s * POW_THREADS;
     if (e < n) {
       ldg_fe<NL>(a, e, x[s]);
@@ -199,9 +222,9 @@ mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
       for (int q = 0; q < NL; ++q) x[s][q] = 0;
     }
   }
-  pow_by_plan<NL, LAZY>(x, P, steps, tab);
+  pow_by_plan<NL, LAZY, EPT>(x, P, steps, tab);
 #pragma unroll
-  for (int s = 0; s < POW_EPT; ++s) {
+  for (int s = 0; s < EPT; ++s) {
     const long long e = base + s * POW_THREADS;
     if (e < n) store_fe<NL>(out, e, x[s]);
   }
@@ -231,16 +254,18 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
                         uint32_t* __restrict__ bits,
                         uint8_t* __restrict__ flags, int* __restrict__ count,
                         long long n, TailParams P) {
-  __shared__ uint32_t tab[POW_TABLE * NL * POW_EPT * POW_THREADS];
+  constexpr int EPT = pow_ept<NL>();
+  extern __shared__ uint32_t pow_tab[];   // pow_smem_bytes<NL>()
   __shared__ uint32_t steps[POW_MAX_STEPS];
+  uint32_t* tab = pow_tab;
   load_plan<NL>(P.pow, steps);
   const uint32_t* p = P.pow.p;
   const uint32_t n0inv = P.pow.n0inv;
   const long long base =
-      (long long)blockIdx.x * (POW_THREADS * POW_EPT) + threadIdx.x;
-  uint32_t rs[POW_EPT][3][NL], u[POW_EPT][NL];
+      (long long)blockIdx.x * (POW_THREADS * EPT) + threadIdx.x;
+  uint32_t rs[EPT][3][NL], u[EPT][NL];
 #pragma unroll
-  for (int s = 0; s < POW_EPT; ++s) {
+  for (int s = 0; s < EPT; ++s) {
     const long long e = base + s * POW_THREADS;
     const long long ee = e < n ? e : n - 1;   // a slot past n: a copy
 #pragma unroll
@@ -260,9 +285,9 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
       if (zero) atomicAdd(count, 1);
     }
   }
-  pow_by_plan<NL, LAZY>(u, P.pow, steps, tab);
+  pow_by_plan<NL, LAZY, EPT>(u, P.pow, steps, tab);
 #pragma unroll
-  for (int s = 0; s < POW_EPT; ++s) {
+  for (int s = 0; s < EPT; ++s) {
     const long long e = base + s * POW_THREADS;
     if (P.has_scale) mont_mul<NL>(u[s], P.scale, p, n0inv, u[s]);
 #pragma unroll

@@ -1,7 +1,7 @@
-// K5's launchers for the fields of MTT_SGN_NL limbs (2 to 5): one
-// translation unit a limb count, so that _build.py compiles the four in
-// parallel (the comparison's twelve instantiations, three modes a limb
-// count, take most of the build). kernels.cu's mtt_sgn checks the
+// K5's launchers for the fields of MTT_SGN_NL limbs (_build.py BUILT_NL):
+// one translation unit a limb count, so that _build.py compiles them in
+// parallel (the comparison's instantiations, three modes a limb count,
+// take most of the build). kernels.cu's mtt_sgn checks the
 // parameters and calls mtt_sgn_launch_nl<MTT_SGN_NL> (declared there).
 #include "common.cuh"
 #include "sgn.cuh"

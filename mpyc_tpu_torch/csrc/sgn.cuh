@@ -34,7 +34,7 @@
 // takes every l whose random bits lb = l + 1 (l in EQ mode) fit its
 // arrays, lb <= sgn_lb_max(NL) = 32 NL - 1, so every l with l + k + 2 <=
 // bit length of p runs. Instantiated at t = 1, m = 3 (kernels.cu,
-// mtt_sgn) in all three modes for fields of two to five limbs: twelve
+// mtt_sgn) in all three modes for fields of two to six limbs: fifteen
 // kernels.
 //
 // Bound: integer operations (sgn mode at l = 32, t = 1, m = 3: about 10

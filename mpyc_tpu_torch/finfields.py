@@ -350,6 +350,28 @@ class PrimeFieldArray(FieldArray):
         """Each value mod 2^f (``mpyc_tpu/finfields.py:1511``)."""
         return self.from_data(self.ctx.mod_pow2(self.data, f))
 
+    def to_bits_public(self, l: int) -> torch.Tensor:
+        """The low l bits of each value, least significant first: an
+        int64 0/1 tensor of shape self.shape + (l,) on the array's device
+        (``mpyc_tpu/finfields.py:1497``)."""
+        std = self.ctx.to_standard(self.data).to(torch.int64) & 0xFFFFFFFF
+        j = torch.arange(l, device=std.device)
+        return (std[..., j // 32] >> (j % 32)) & 1
+
+    @classmethod
+    def from_uint32(cls, v: torch.Tensor) -> 'PrimeFieldArray':
+        """Small nonnegative integers (below 2^31, any integer dtype) as a
+        field array of their values (``mpyc_tpu/finfields.py:1507``)."""
+        one = torch.tensor(cls.ctx.one_mont, dtype=torch.int64,
+                           device=v.device)
+        std = torch.zeros(v.shape + (cls.ctx.L,), dtype=torch.int64,
+                          device=v.device)
+        std[..., 0] = v.to(torch.int64)
+        if not std.numel():
+            return cls.from_data(std.to(torch.int32))
+        return cls.from_data(cls.ctx.mul_limbs_const(std.to(torch.int32),
+                                                     cls.ctx.R2))
+
     @property
     def value(self) -> np.ndarray:
         """Values in [0, p) on the host (uint64 for fields below 2^64)."""

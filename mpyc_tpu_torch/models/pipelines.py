@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from mpyc_tpu_torch import finfields, gfpx, thresha
-from mpyc_tpu_torch.ops import keccak, limb
+from mpyc_tpu_torch.ops import fieldops, keccak, limb
 from mpyc_tpu_torch.ops import rng as rng_mod
 from mpyc_tpu_torch.ops.binary import binary_field_ctx
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
@@ -73,7 +73,9 @@ class ReshareSpec:
         W, L = self.l_bytes // 4, self.ctx.L
         if L not in _build.BUILT_NL or W != L + 2:
             raise NotImplementedError(
-                f'{self.l_bytes}-byte reshare draws of a {L}-limb field')
+                f'the CUDA reshare is built for fields of {_build.BUILT_NL} '
+                f'limbs with draws of 4 (L + 2) bytes; not L={L} '
+                f'({self.l_bytes}-byte draws)')
         if self.m > _build.MAX_M:
             raise NotImplementedError(f'{self.m} parties')
         P = _build.ReshareParams()
@@ -117,7 +119,8 @@ def _reshare_mul_plain(a: torch.Tensor, b, state: torch.Tensor, nonce,
     n = a.shape[1]
     p_l, n0 = ctx.p_limbs, ctx.n0inv
     if b is not None:
-        a = ctx.mul(a, b)
+        a = limb.stack(limb.mont_mul(limb.unstack(a), limb.unstack(b), p_l,
+                                     n0))
     coefs = rng_mod._squeeze_mont_plain(_nonce_state(state, nonce), t * n,
                                         spec.l_bytes, spec.p)
     coefs = coefs.reshape(t, n, ctx.L)
@@ -1021,17 +1024,29 @@ def _random_bits_tail_plain(r: torch.Tensor, z: torch.Tensor, field,
     threshold 2t equal to 0 (uint8) and their count ((1,) int32). The bit
     of r is (r / sqrt(u) + 1) / 2 (with ``signed`` r / sqrt(u)), times
     2^f; where u is 0 it is not a bit, and the caller drops it."""
-    ra, za = field.array.from_data(r), field.array.from_data(z)
-    s = ra * ra + za
-    u = thresha.np_recombine(field, [(i + 1, s[i].flatten())
-                                     for i in range(2 * t + 1)])
-    flags = u.ctx.is_zero(u.data).to(torch.uint8)
-    bits = ra * u._sqrt_unchecked(INV=True)
-    if not signed:
-        bits = (bits + 1) >> 1
-    if f:
-        bits = bits << f
-    return bits.data, flags, flags.sum(dtype=torch.int32).reshape(1)
+    ctx, p = field.array.ctx, field.modulus
+    P, N0 = ctx.p_limbs, ctx.n0inv
+    ra = [limb.unstack(r[i]) for i in range(2 * t + 1)]
+    u = None    # u = r^2 + z recombined at 0 from the points 1..2t+1
+    for i, lag in enumerate(_lagrange_consts_mont(p, range(1, 2 * t + 2))):
+        s = limb.add_mod(limb.mont_mul(ra[i], ra[i], P, N0),
+                         limb.unstack(z[i]), P)
+        term = limb.mont_mul(s, lag, P, N0)
+        u = term if u is None else limb.add_mod(u, term, P)
+    flags = limb.iszero_ll(u).to(torch.uint8)
+    inv = fieldops._mont_pow_plain(limb.stack(u), (3 * p - 5) // 4, ctx)
+    # bits in {0, 1}: (r s + 1) / 2 * 2^f = r s c + c with c = 2^f / 2
+    c = pow(2, f, p) * (1 if signed else pow(2, -1, p)) % p
+    c_mont = list(ctx.encode_const(c))
+    bits = []
+    for i in range(r.shape[0]):
+        b = limb.mont_mul(limb.unstack(r[i]), limb.unstack(inv), P, N0)
+        if c != 1:
+            b = limb.mont_mul(b, c_mont, P, N0)
+        if not signed:
+            b = limb.add_mod(b, c_mont, P)
+        bits.append(limb.stack(b))
+    return torch.stack(bits), flags, flags.sum(dtype=torch.int32).reshape(1)
 
 
 def _tail_params(field, t: int, m: int, signed: bool, f: int):
@@ -1084,7 +1099,7 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     take the plain version; CUDA tensors launch the kernel
     (``csrc/pow.cuh random_bits_tail_kernel``), or raise
     NotImplementedError for a configuration it is not built for ((t, m) =
-    (1, 3), two to five limbs, p = 3 mod 4)."""
+    (1, 3), fields of ``_build.BUILT_NL`` limbs, p = 3 mod 4)."""
     m = r.shape[0]
     L = field.array.ctx.L
     if r.dim() != 3 or r.shape[2] != L or r.dtype != torch.int32 or \

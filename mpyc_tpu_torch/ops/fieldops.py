@@ -22,6 +22,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 import typing
 
 import numpy as np
@@ -131,6 +132,9 @@ def plan_products(e: int) -> int:
     return _products(pow_plan(e))
 
 
+_FIELD_OPS = ('mul', 'add', 'sub')
+
+
 def _mont_pow_plain(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     """Plain version of K6: a^e R mod p elementwise
     (``limb.mont_pow_const``)."""
@@ -169,6 +173,67 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
 
 mont_pow.launches = 0
 mont_pow.by_key = collections.Counter()   # launches by (limbs, lazy)
+
+
+def _field_op_plain(a, b, op: str, ctx) -> torch.Tensor:
+    """Plain version of K9: a op b elementwise (shapes broadcast; either
+    operand may be a tuple of limbs, a constant) in ``limb``'s arithmetic:
+    a Montgomery product, or an add or subtraction mod p."""
+    a, b = ctx._limbs(a), ctx._limbs(b)
+    if op == 'mul':
+        return limb.stack(limb.mont_mul(a, b, ctx.p_limbs, ctx.n0inv))
+    fn = limb.add_mod if op == 'add' else limb.sub_mod
+    return limb.stack(fn(a, b, ctx.p_limbs))
+
+
+def field_op(a, b, op: str, ctx) -> torch.Tensor:
+    """K9: a op b elementwise in GF(p) on Montgomery limbs ((..., L) int32
+    tensors of ``ctx``'s field, or tuples of limbs for a constant; shapes
+    broadcast as numpy's): op 'mul' a Montgomery product (a may be below
+    R, b below p), 'add' or 'sub' mod p, each result canonical.
+
+    No Pallas kernel of the JAX package computes it: XLA fuses its limb
+    arithmetic (``mpyc_tpu/ops/limb.py:247 mont_mul``, ``:217 add_mod``,
+    ``:227 sub_mod``). CPU tensors take the plain version
+    (``_field_op_plain``); CUDA tensors launch the kernel
+    (``csrc/kernels.cu field_op_kernel``), an operand of one element (a
+    constant) read by every thread, or raise NotImplementedError for a
+    limb count it is not built for."""
+    like = a if isinstance(a, torch.Tensor) else b
+    if like.device.type == 'cpu':
+        return _field_op_plain(a, b, op, ctx)
+    from mpyc_tpu_torch import _build
+    L = ctx.L
+    params = ctx.__dict__.get('_field_op_params')
+    if params is None:
+        params = ctx._field_op_params = _build.draw_params(ctx, 1)
+
+    def operand(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(x, dtype=torch.int64,
+                             device=like.device).to(torch.int32)
+        return x
+    A, B = operand(a), operand(b)
+    shape = torch.broadcast_shapes(A.shape[:-1], B.shape[:-1])
+    n = math.prod(shape)
+
+    def flat(x):
+        if math.prod(x.shape[:-1]) == 1:
+            return x.reshape(1, L).contiguous(), 0
+        return x.expand(shape + (L,)).contiguous(), 1
+    (A, a_step), (B, b_step) = flat(A), flat(B)
+    out = torch.empty(shape + (L,), dtype=torch.int32, device=like.device)
+    if n:
+        _build.call('mtt_field_op', A.data_ptr(), B.data_ptr(),
+                    out.data_ptr(), n, a_step, b_step, _FIELD_OPS.index(op),
+                    ctypes.addressof(params), _build.stream_of(like.device))
+        field_op.launches += 1
+        field_op.by_key[L] += 1
+    return out
+
+
+field_op.launches = 0
+field_op.by_key = collections.Counter()   # launches by limbs
 
 
 def pow_products(e: int) -> int:
@@ -274,8 +339,7 @@ class PrimeFieldCtx:
 
     def to_standard(self, data: torch.Tensor) -> torch.Tensor:
         """Montgomery limbs -> standard-form limbs (x R^-1), same device."""
-        return limb.stack(limb.mont_mul(limb.unstack(data), self.one_limbs,
-                                        self.p_limbs, self.n0inv))
+        return field_op(data, tuple(self.one_limbs), 'mul', self)
 
     def decode(self, data: torch.Tensor) -> np.ndarray:
         """Montgomery limb tensor -> values in [0, p): uint64 for L <= 2,
@@ -295,22 +359,22 @@ class PrimeFieldCtx:
 
     # -- elementwise ops on stored limb tensors ------------------------------
     # add and sub also take a public constant for either operand, as the
-    # tuple of its Montgomery limbs (encode_const); shapes broadcast.
+    # tuple of its Montgomery limbs (encode_const); shapes broadcast. On the
+    # card each is one launch of K9 (field_op), on the CPU its plain
+    # version.
 
     @staticmethod
     def _limbs(x) -> list:
         return list(x) if isinstance(x, tuple) else limb.unstack(x)
 
     def add(self, a, b):
-        return limb.stack(limb.add_mod(self._limbs(a), self._limbs(b),
-                                       self.p_limbs))
+        return field_op(a, b, 'add', self)
 
     def sub(self, a, b):
-        return limb.stack(limb.sub_mod(self._limbs(a), self._limbs(b),
-                                       self.p_limbs))
+        return field_op(a, b, 'sub', self)
 
     def neg(self, a):
-        return limb.stack(limb.neg_mod(limb.unstack(a), self.p_limbs))
+        return field_op((0,) * self.L, a, 'sub', self)
 
     def is_zero(self, a) -> torch.Tensor:
         """Boolean tensor of the elements equal to 0."""
@@ -369,23 +433,19 @@ class PrimeFieldCtx:
         back into Montgomery form."""
         if not 0 <= f < 32 * self.L:
             raise ValueError('f outside [0, 32 L)')
-        std = limb.mont_mul(limb.unstack(a), self.one_limbs, self.p_limbs,
-                            self.n0inv)
         w, rem = divmod(f, 32)
-        masked = [x if i < w else x & ((1 << rem) - 1) if i == w
-                  else torch.zeros_like(x) for i, x in enumerate(std)]
-        return limb.stack(limb.mont_mul(masked, list(self.r2_limbs),
-                                        self.p_limbs, self.n0inv))
+        mask = torch.tensor([-1] * w + [(1 << rem) - 1] + [0] * (
+            self.L - w - 1), dtype=torch.int32, device=a.device)
+        return field_op(self.to_standard(a) & mask, tuple(self.r2_limbs),
+                        'mul', self)
 
     def mul(self, a, b):
-        return limb.stack(limb.mont_mul(limb.unstack(a), limb.unstack(b),
-                                        self.p_limbs, self.n0inv))
+        return field_op(a, b, 'mul', self)
 
     def mul_limbs_const(self, a, c: int):
         """Montgomery product of a with the constant whose limbs are c."""
-        return limb.stack(limb.mont_mul(
-            limb.unstack(a), limb.const_limbs(c % self.p, self.L),
-            self.p_limbs, self.n0inv))
+        return field_op(a, tuple(limb.const_limbs(c % self.p, self.L)),
+                        'mul', self)
 
     def mul_int(self, a, x: int):
         """a * x for a public integer x (a in Montgomery form)."""
@@ -400,10 +460,11 @@ class PrimeFieldCtx:
     def reduce_chunks(self, wide: torch.Tensor) -> torch.Tensor:
         """(..., n_chunks, L) wide little-endian values -> Montgomery form of
         (value mod p), value = sum_c chunk_c 2^(32 L c)."""
-        n_chunks = wide.shape[-2]
-        chunks = [limb.unstack(wide[..., c, :]) for c in range(n_chunks)]
-        return limb.stack(limb.reduce_wide(
-            chunks, self.radix_limbs(n_chunks), self.p_limbs, self.n0inv))
+        acc = None
+        for c, rad in enumerate(self.radix_limbs(wide.shape[-2])):
+            term = field_op(wide[..., c, :], tuple(rad), 'mul', self)
+            acc = term if acc is None else field_op(acc, term, 'add', self)
+        return acc
 
     def sum(self, a: torch.Tensor, dim: int) -> torch.Tensor:
         """Sum of stored limb data along logical axis ``dim`` (modular adds
@@ -504,8 +565,10 @@ class PrimeFieldCtx:
             W[:, j] &= limb.M32
         n_c = -(-(nj + 1) // L)
         W = torch.nn.functional.pad(W, (0, 0, 0, n_c * L - nj - 1))
-        chunks = [[W[:, c * L + q] for q in range(L)] for c in range(n_c)]
-        fold = [limb.const_limbs(pow(2, 32 * L * c, self.p), L)
-                for c in range(n_c)]
-        return limb.stack(limb.reduce_wide(chunks, fold, self.p_limbs,
-                                           self.n0inv))
+        acc = None
+        for c in range(n_c):
+            term = self.mul_limbs_const(
+                W[:, c * L:(c + 1) * L].transpose(1, 2).to(torch.int32),
+                pow(2, 32 * L * c, self.p))
+            acc = term if acc is None else self.add(acc, term)
+        return acc

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from mpyc_tpu_torch import resolve_device
-from mpyc_tpu_torch.ops import keccak
+from mpyc_tpu_torch.ops import keccak, limb
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 _WIDEN_BYTES = 16        # statistical widening of field_uniform draws
@@ -81,8 +81,10 @@ def _squeeze_mont_plain(state: torch.Tensor, n_draws: int, l_bytes: int,
     ctx = prime_field_ctx(p)
     n_blocks = max(blocks_needed(n_draws, l_bytes), 1)
     blocks = keccak._keccak_ctr_plain(state, n_blocks, ctr_lane, base)
-    return ctx.reduce_chunks(words_to_elements(blocks, n_draws, l_bytes,
-                                               ctx.L))
+    wide = words_to_elements(blocks, n_draws, l_bytes, ctx.L)
+    chunks = [limb.unstack(wide[..., c, :]) for c in range(wide.shape[-2])]
+    return limb.stack(limb.reduce_wide(chunks, ctx.radix_limbs(len(chunks)),
+                                       ctx.p_limbs, ctx.n0inv))
 
 
 def squeeze_mont(state: torch.Tensor, n_draws: int, l_bytes: int, p: int,

@@ -328,6 +328,19 @@ class SimRuntime(Runtime):
             [sa.data, sb.data])
         return field.array.from_data(out)
 
+    def _mul_reshared(self, u, v):
+        """The product of field shares u (party-stacked) and v (party-
+        stacked, or public without the party axis), shapes broadcast,
+        reshared in one fused round (K3 on the card): the same shares as
+        the local product reshared (``_reshare(u * v)``, as the JAX package
+        computes it), since the round's stream does not depend on its
+        input."""
+        shape = torch.broadcast_shapes(u.data.shape[:-1], v.data.shape[:-1])
+        L = u.data.shape[-1]
+        return self._mul_reshare_fused(
+            u.from_data(u.data.expand(shape + (L,))),
+            v.from_data(v.data.expand(shape + (L,))))
+
     def _mul_reshare2_fused(self, sa, sb):
         """Whole GF(2^d) secure multiplication (carry-less product and
         GRR98 reshare) as one fused step (``mpyc_tpu/parallel/simulator.py:
@@ -557,6 +570,34 @@ class SimRuntime(Runtime):
         x = self._stacked_prss(field, self.prfs(bound), self._prss_uci(), n)
         return self._wrap(sftype.array, x) if secure else x
 
+    def _randoms(self, sftype, n: int, bound=None):
+        """n PRSS random values as a list of secure numbers of sftype (a
+        field type: the party-stacked field array), one PRSS draw
+        (``mpyc_tpu/parallel/simulator.py:678``); see _np_randoms."""
+        secure = issubclass(sftype, sectypes.SecureObject)
+        x = self._np_randoms(sftype.field if secure else sftype, n, bound)
+        if not secure:
+            return x
+        return [self._wrap(sftype.array, x.from_data(x.data[:, i]), False,
+                           False) for i in range(n)]
+
+    def _random(self, sftype, bound=None):
+        """One PRSS random value (``mpyc_tpu/runtime.py:1235``)."""
+        x = self._randoms(sftype, 1, bound)
+        return x[0] if isinstance(x, list) else x.reshape(())
+
+    def random_bits(self, sftype, n: int, signed=False):
+        """n secret random bits as a list of secure numbers of sftype
+        (fixed point: integral, times 2^f) or of 0-d field arrays
+        (``mpyc_tpu/parallel/simulator.py:716``); see np_random_bits."""
+        secure = issubclass(sftype, sectypes.SecureObject)
+        arr = self.np_random_bits(sftype, n, signed)
+        share = self._share(arr) if secure else arr
+        pieces = [share.from_data(share.data[:, i]) for i in range(n)]
+        if not secure:
+            return pieces
+        return [self._wrap(sftype.array, x, True, False) for x in pieces]
+
     def np_random_bits(self, sftype, n: int, signed=False):
         """n secret random bits (-1/1 with ``signed``), in a fixed-point
         type times 2^f (``mpyc_tpu/parallel/simulator.py:732``). A round
@@ -608,9 +649,7 @@ class SimRuntime(Runtime):
         n = math.prod(logical)
         flat = arr.reshape(m, n)
         bits = self.np_random_bits(field, f * n).reshape(m, n, f)
-        r_modf = bits[:, :, f - 1]
-        for j in range(f - 2, -1, -1):       # sum of bit j times 2^j
-            r_modf = r_modf + r_modf + bits[:, :, j]
+        r_modf = self._dot_pow2_last(bits)   # sum of bit j times 2^j
         r_divf = self._np_randoms(field, n, 1 << (self.sec_param + l - f))
         ar = flat + r_modf
         c = self.output(ar + ((1 << (l - 1)) + (r_divf << f)))

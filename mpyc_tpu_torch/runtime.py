@@ -15,14 +15,21 @@ or Fortran order, ``np_transpose``, ``np_swapaxes``, ``np_expand_dims``,
 ``np_concatenate``, ``np_stack``, ``np_column_stack``, ``np_append``;
 public numpy and field-array operands enter as constant sharings);
 ``np_outer``; the PRSS keys' PRFs (``prfs``) and program counter
-(``_prss_uci``); secure truncation (``trunc``, ``np_trunc``); and for
-secure binary fields (``SecFld``) ``pow``/``np_pow`` (AES's addition
-chain for x^254), ``np_to_bits``, ``np_from_bits``, ``np_roll``,
-``np_split``/``np_hsplit`` and ``np_update``.
+(``_prss_uci``); secure truncation (``trunc``, ``np_trunc``); the bits
+of secure numbers over prime and binary fields (``np_to_bits``,
+``to_bits``: random bits, one opening, a carry-prefix adder over prime
+fields), ``np_from_bits``; fixed-point division by a secure value
+(Newton's reciprocal: ``_norm``, ``_rec``); secure unit vectors
+(``np_unit_vector``); operations on lists of secure numbers
+(``input_each``, ``sum``, ``prod``, ``scalar_mul``, ``vector_add``,
+``vector_sub``, ``if_else``, ``min``, ``max``, ``abs``); and for secure
+binary fields (``SecFld``) ``pow``/``np_pow`` (AES's addition chain for
+x^254), ``np_roll``, ``np_split``/``np_hsplit`` and ``np_update``.
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
 ``output``, ``reciprocal``, the PRSS draws ``_np_randoms`` and
-``np_random_bits`` and the truncation round ``_trunc_field``, the local
+``np_random_bits`` (and their list forms ``_randoms``, ``_random``,
+``random_bits``) and the truncation round ``_trunc_field``, the local
 ``np_getitem``, ``np_sum``, ``np_fromlist`` and ``np_tolist``, and the
 share bookkeeping ``_share``, ``_share2``, ``_local`` and ``_wrap``.
 
@@ -306,18 +313,16 @@ class Runtime:
 
     def div(self, a, b):
         """Secure a / b (``mpyc_tpu/runtime.py:1597``). A secure divisor
-        of an integer type is a product by its secure reciprocal; a public
-        divisor (int or integer array) of an integer type a local product
-        by its inverse mod p; a public divisor of a fixed-point type a
-        product by 1 / b. Fixed-point secure divisors (the JAX package's
-        Newton iteration ``_rec``) are not ported."""
+        is a product by its secure reciprocal: for an integer type
+        ``reciprocal``, for a fixed-point type Newton's iteration
+        (``_rec``); a public divisor (int or integer array) of an integer
+        type a local product by its inverse mod p; a public divisor of a
+        fixed-point type a product by 1 / b."""
         stype = self._sectype(a, b)
         f = stype.sectype.frac_length
         if isinstance(b, sectypes.SecureObject):
-            if f:
-                raise NotImplementedError('division by a secure '
-                                          'fixed-point value is not ported')
-            return self.mul(self.reciprocal(b), a)
+            c = self._rec(b) if f else self.reciprocal(b)
+            return self.mul(c, a)
         if f:
             if isinstance(b, (list, tuple, np.ndarray)):
                 c = np.vectorize(lambda v: 1 / v, otypes=[object])(
@@ -334,20 +339,39 @@ class Runtime:
         return self._wrap(stype, self._share(a) * c, False,
                           self._is_array_op(a))
 
-    # -- bits of binary field elements ----------------------------------------
+    # -- bits --------------------------------------------------------------
+
+    def to_bits(self, a, l=None):
+        """Secure bits of a, least significant first, as a list of l
+        secure numbers (of arrays, for an array a; ``mpyc_tpu/runtime.py:
+        3260``)."""
+        stype = self._sectype(a)
+        if (stype.sectype.bit_length if l is None else l) == 0:
+            return []
+        arr = self.np_to_bits(a, l)
+        return [self.np_getitem(arr, (Ellipsis, i))
+                for i in range(arr.shape[-1])]
 
     def np_to_bits(self, a, l=None):
-        """Secure bits of the elements of a secure binary-field array:
-        shape a.shape + (l,), l the field's degree by default
-        (``mpyc_tpu/runtime.py:3299``, ``_np_to_bits_char2`` :3316). PRSS
-        random bits r_j (``np_random_bits``), r = sum_j r_j x^j, c = a + r
-        opened, and bit j of a is r_j + c_j, with c's public bits c_j
-        extracted on the device. Prime fields' bits are not ported."""
+        """Secure bits of the elements of a secure array (or number),
+        least significant first: shape a.shape + (l,), l the type's bit
+        length by default (``mpyc_tpu/runtime.py:3279``).
+
+        Prime fields (:3279-3338): l random bits r_j (``np_random_bits``)
+        and a PRSS value r' below 2^(bit_length + k - l), c = a + 2^bit_length
+        + 2^l r' - sum_j r_j 2^j opened, and the bits of a are those of
+        c mod 2^l added to the r_j by a carry-prefix adder
+        (``_np_add_bits_shares``). A fixed-point type's bits are fixed-point
+        0/1 values (times 2^f); an integral fixed-point a is shifted down by
+        f first, its f low bits 0.
+
+        Binary fields (``_np_to_bits_char2`` :3316): bit j of a is r_j +
+        c_j, c = a + sum_j r_j x^j opened, with c's public bits c_j
+        extracted on the device."""
         stype = self._sectype(a)
         field = stype.field
         if field.characteristic != 2:
-            raise NotImplementedError('the port takes the bits of binary '
-                                      'field elements only')
+            return self._np_to_bits_prime(a, l)
         l = stype.sectype.bit_length if l is None else l
         shape = tuple(a.shape)
         n = math.prod(shape)
@@ -368,18 +392,312 @@ class Runtime:
         return self._wrap(stype, acc, True, bool(acc.shape[1:]))
 
     @staticmethod
-    def _dot_pow2_last(u):
-        """sum_j u[..., j] 2^j over the last logical axis of party-stacked
-        field shares: one local product by the public weights and a sum
-        (``mpyc_tpu/runtime.py:4143``)."""
+    def _dot_public_last(u, weights):
+        """sum_j u[..., j] w_j over the last logical axis of party-stacked
+        field shares, for public weights w: one local product and a sum
+        (``mpyc_tpu/runtime.py:4134``)."""
         field = u.field
-        n = u.shape[-1]
-        w = [1 << j for j in range(n)]
         if field.characteristic != 2:
-            w = [v % field.modulus for v in w]
-        w = field.array(np.array(w, dtype=object), u.device)
+            weights = [v % field.modulus for v in weights]
+        w = field.array(np.array(weights, dtype=object), u.device)
         prod = u * w
         return prod.from_data(prod.ctx.sum(prod.data, prod.data.dim() - 2))
+
+    @staticmethod
+    def _dot_pow2_last(u):
+        """sum_j u[..., j] 2^j over the last logical axis (x^j in a binary
+        field; ``mpyc_tpu/runtime.py:4143``)."""
+        return Runtime._dot_public_last(u, [1 << j for j in
+                                            range(u.shape[-1])])
+
+    @staticmethod
+    def _last(u, idx):
+        """u[..., idx] along the last logical axis of field data (an int
+        drops the axis, a slice keeps it)."""
+        return u.from_data(u.data[..., idx, :])
+
+    @staticmethod
+    def _cat_last(parts):
+        """Field arrays joined along their last logical axis."""
+        return parts[0].from_data(torch.cat([x.data for x in parts], dim=-2))
+
+    @staticmethod
+    def _set_first(u, d: int, value: int):
+        """u with its first d entries along the last logical axis set to
+        the public value (a new array)."""
+        data = u.data.clone()
+        data[..., :d, :] = torch.tensor(u.ctx.encode_const(value),
+                                        dtype=torch.int64).to(torch.int32)
+        return u.from_data(data)
+
+    def _np_to_bits_prime(self, a, l=None):
+        """np_to_bits over a prime field (``mpyc_tpu/runtime.py:
+        3279-3338``); see np_to_bits."""
+        stype = self._sectype(a)
+        sec = stype.sectype
+        field = stype.field
+        f = sec.frac_length
+        l = sec.bit_length if l is None else l
+        if l > sec.bit_length + f:
+            raise ValueError(f'{l} bits of a {sec.bit_length + f}-bit type')
+        shape = tuple(a.shape)
+        m = len(self.parties)
+        rshift_f = bool(f) and self._integral(a)
+        l_eff = l
+        if rshift_f:
+            if f >= l:
+                zero = stype(np.zeros(shape + (l,), np.int64))
+                return self._wrap(stype, self._share(zero), True)
+            l_eff = l - f
+        n = max(math.prod(shape), 1)
+        r_bits = self.np_random_bits(field, n * l_eff).reshape(m, n, l_eff)
+        r_modl = self._dot_pow2_last(r_bits)
+        r_divl = self._np_randoms(
+            field, n, 1 << (sec.bit_length + self.sec_param - l_eff))
+        a_sh = self._share(a).reshape(m, n)
+        if rshift_f:
+            a_sh = a_sh >> f
+        c = self.output(a_sh + ((1 << sec.bit_length) + (r_divl << l_eff)
+                                - r_modl))
+        c_bits = c.mod_pow2(l_eff).to_bits_public(l_eff)
+        a_bits = self._np_add_bits_shares(r_bits, c_bits)
+        if f:
+            a_bits = a_bits << f
+        if rshift_f:
+            a_bits = a_bits.from_data(torch.cat(
+                [a_bits.data.new_zeros((m, n, f, a_bits.data.shape[-1])),
+                 a_bits.data], dim=-2))
+        return self._wrap(stype, a_bits.reshape((m,) + shape + (l,)), True)
+
+    def _np_add_bits_shares(self, a_bits, c_bits):
+        """Secure bits a (party-stacked (m, n, l)) plus the public bits c
+        ((n, l) 0/1 integers), bit by bit with carries
+        (``mpyc_tpu/runtime.py:3361``)."""
+        c_f = a_bits.field.array.from_uint32(c_bits)
+        return self._add_bits_prefix(a_bits, c_f)
+
+    def _add_bits_prefix(self, x, y):
+        """The bits of x + y (the carry out dropped) for bit arrays along
+        the last logical axis, y possibly public: a carry-prefix network of
+        log depth, each product of bits a reshare round (``_mul_bits``) in
+        the JAX package's order (``mpyc_tpu/runtime.py:3371``)."""
+        last, cat, mul_bits = self._last, self._cat_last, self._mul_bits
+
+        def f(i, j, high=False):
+            nn = j - i
+            if nn == 1:
+                x_i, y_i = last(x, slice(i, i + 1)), last(y, slice(i, i + 1))
+                c = mul_bits(x_i, y_i)
+                if high:
+                    return c, x_i + y_i - c * 2
+                return c
+            h = i + nn // 2
+            e1 = f(i, h, high=high)
+            c2, d2 = f(h, j, high=True)
+            c1 = e1[0] if high else e1
+            c2 = c2 + mul_bits(last(c1, slice(-1, None)), d2)
+            c = cat([c1, c2])
+            if high:
+                d1 = e1[1]
+                return c, cat([d1, mul_bits(last(d1, slice(-1, None)), d2)])
+            return c
+
+        c = f(0, x.shape[-1])
+        c_1 = self._set_first(c.from_data(torch.roll(c.data, 1, dims=-2)),
+                              1, 0)
+        return x + y - c * 2 + c_1
+
+    def _mul_bits(self, u, v):
+        """Product of bit arrays, reshared (``mpyc_tpu/runtime.py:3406``):
+        one fused round (``_mul_reshared``)."""
+        return self._mul_reshared(u, v)
+
+    # -- normalisation and the reciprocal (fixed point) ----------------------
+
+    def _prefix_mul_raw(self, s):
+        """Inclusive prefix products along the last logical axis of
+        party-stacked field shares of 0/1 values: ceil(log2 n) reshare
+        rounds, Hillis-Steele (``mpyc_tpu/runtime.py:4148``)."""
+        n = s.shape[-1]
+        d = 1
+        while d < n:
+            shifted = self._set_first(
+                s.from_data(torch.roll(s.data, d, dims=-2)), d, 1)
+            s = self._mul_reshared(s, shifted)
+            d *= 2
+        return s
+
+    def _norm(self, a):
+        """Secure signed normalisation factor v of a fixed-point a, with
+        a v in [1/2, 1) (``mpyc_tpu/runtime.py:4161``): a's bits
+        (``np_to_bits``), the first bit from the top (below the sign) that
+        differs from the sign's complement by a prefix product, its
+        one-hot position u, v = (2 s - 1) sum_i u_i 2^i scaled to the
+        type's 2^f."""
+        stype = self._sectype(a)
+        sec = stype.sectype
+        f, l = sec.frac_length, sec.bit_length
+        rb = self._share(self.np_to_bits(a, l))
+        if f:
+            rb = rb >> f                                 # 0/1 field bits
+        s_raw = 1 - self._last(rb, l - 1)                # 1 iff a >= 0
+        x = self._last(rb, slice(None, l - 1))
+        x = x.from_data(torch.flip(x.data, dims=(-2,)))  # MSB first
+        s_col = s_raw.from_data(s_raw.data.unsqueeze(-2))
+        q = x + s_col - self._mul_reshared(x, s_col) * 2  # x_i XOR s
+        P = self._prefix_mul_raw(q)                      # 1 until a match
+        prev = self._set_first(P.from_data(torch.roll(P.data, 1, dims=-2)),
+                               1, 1)
+        nf = self._dot_pow2_last(prev - P)               # the first match
+        v_raw = self._mul_reshared(s_raw * 2 - 1, nf)
+        shift = 2 * f - l + 1
+        sv = v_raw << shift if shift >= 0 else v_raw >> -shift
+        return self._wrap(stype, sv, False,
+                          isinstance(a, sectypes.SecureArray))
+
+    def _rec(self, a):
+        """Secure reciprocal of a fixed-point a (every value of an array)
+        by Newton's iteration (``mpyc_tpu/runtime.py:4199``): b = a v in
+        [1/2, 1) (``_norm``), c = 2.914... - 2 b, then theta = ceil(log2((f
+        + 1) / 3.54)) steps c = c (2 - c b), and 1 / a = c v."""
+        f = self._sectype(a).sectype.frac_length
+        v = self._norm(a)
+        b = self.mul(a, v)
+        theta = int(math.ceil(math.log2((f + 1) / 3.54)))
+        c = self.sub(self._public_fxp(a, 2.9142135623731), self.mul(b, 2))
+        for _ in range(theta):
+            c = self.mul(c, self.sub(self._public_fxp(a, 2),
+                                     self.mul(c, b)))
+        return self.mul(c, v)
+
+    def _public_fxp(self, like, value):
+        """A public constant as a secure number of like's type
+        (``mpyc_tpu/runtime.py:4472``)."""
+        return self._sectype(like).sectype(value)
+
+    # -- operations on lists of secure numbers -------------------------------
+
+    def input_each(self, f):
+        """One secret of each party: party i inputs f(i); the list of the
+        m secure objects (``mpyc_tpu/runtime.py:529``, the co-located
+        plane's branch)."""
+        return [self.input(f(i), senders=i) for i in range(len(self.parties))]
+
+    def scalar_mul(self, a, x):
+        """Secure a times each element of the list x
+        (``mpyc_tpu/runtime.py:1484``)."""
+        return [self.mul(xi, a) for xi in x]
+
+    def sum(self, x, start=0):
+        """Secure sum of a list of secure numbers (local), or of a secure
+        array's values (``mpyc_tpu/runtime.py:1488``)."""
+        if isinstance(x, sectypes.SecureArray):
+            return self.np_sum(x)
+        x = list(x)
+        if not x:
+            return start
+        if isinstance(start, sectypes.SecureObject) or start != 0:
+            x[0] = self.add(x[0], start)
+        stype = self._sectype(*x)
+        acc = self._share(x[0])
+        for xi in x[1:]:
+            acc = acc + self._share(xi)
+        return self._wrap(stype, acc, all(self._integral(xi) for xi in x),
+                          False)
+
+    def prod(self, x, start=1):
+        """Secure product of a list of secure numbers, in log depth
+        (``mpyc_tpu/runtime.py:1523``)."""
+        if not x:
+            return start
+        x = list(x)
+        if start != 1:
+            x.append(start if isinstance(start, sectypes.SecureObject)
+                     else type(x[0])(start))
+        while len(x) > 1:
+            nxt = [self.mul(x[i], x[i + 1]) for i in range(0, len(x) - 1, 2)]
+            if len(x) % 2:
+                nxt.append(x[-1])
+            x = nxt
+        return x[0]
+
+    def vector_add(self, x, y):
+        return [self.add(a, b) for a, b in zip(x, y)]
+
+    def vector_sub(self, x, y):
+        return [self.sub(a, b) for a, b in zip(x, y)]
+
+    def if_else(self, c, x, y):
+        """Secure selection c x + (1 - c) y for a secure 0/1 c, of numbers
+        or elementwise of lists (``mpyc_tpu/runtime.py:2682``): one
+        product, c (x - y) + y."""
+        if isinstance(c, sectypes.SecureFixedPoint) and not c.integral:
+            raise ValueError('condition must be integral')
+        if x is y:
+            return x
+        if isinstance(x, list):
+            return [self.if_else(c, xi, yi) for xi, yi in zip(x, y)]
+        secure = isinstance(y, sectypes.SecureObject)
+        d = self.sub(x, y) if secure or \
+            isinstance(x, sectypes.SecureObject) else x - y
+        return self.add(self.mul(c, d), y if secure else
+                        self._sectype(c).sectype(y))
+
+    def min(self, *x, key=None):
+        """Secure minimum of numbers, a tournament of comparisons
+        (``mpyc_tpu/runtime.py:3456``)."""
+        if len(x) == 1:
+            x = x[0]
+        x = list(x)
+        if not x:
+            raise ValueError('min() arg is an empty sequence')
+        if len(x) == 1:
+            return x[0]
+        key = key or (lambda a: a)
+        min0 = self.min(x[:len(x) // 2], key=key)
+        min1 = self.min(x[len(x) // 2:], key=key)
+        return self.if_else(key(min0) < key(min1), min0, min1)
+
+    def max(self, *x, key=None):
+        """Secure maximum (``mpyc_tpu/runtime.py:3473``); see min."""
+        if len(x) == 1:
+            x = x[0]
+        x = list(x)
+        if not x:
+            raise ValueError('max() arg is an empty sequence')
+        if len(x) == 1:
+            return x[0]
+        key = key or (lambda a: a)
+        max0 = self.max(x[:len(x) // 2], key=key)
+        max1 = self.max(x[len(x) // 2:], key=key)
+        return self.if_else(key(max0) < key(max1), max1, max0)
+
+    def abs(self, a, l=None):
+        """Secure |a| (``mpyc_tpu/runtime.py:3061``)."""
+        return self.np_absolute(a, l)
+
+    # -- secure unit vectors -------------------------------------------------
+
+    def np_unit_vector(self, a, n: int):
+        """Secure length-n unit vector with its 1 at the secret position a
+        mod n (``mpyc_tpu/runtime.py:2541``): a random unit vector u
+        (``random.np_random_unit_vector``) rotated by c = a - r + (R + 1) n
+        opened, r the position of u's 1 and R a PRSS value below 2^k; a
+        fixed-point a and r have their scale 2^f divided out first."""
+        from mpyc_tpu_torch import random
+        sec = self._sectype(a).sectype
+        field = sec.field
+        f = sec.frac_length
+        u = random.np_random_unit_vector(sec, n)
+        r = self._dot_public_last(self._share(u), list(range(n)))
+        sa = self._share(a)
+        if f:
+            r = r >> f
+            sa = sa >> f
+        R = self._random(sec, 1 << self.sec_param)
+        c = self.output(sa - r + (self._share(R) + 1) * n)
+        c = int(np.asarray(c.value).reshape(-1)[0]) % n
+        return self.np_roll(u, c)
 
     # -- truncation -----------------------------------------------------------
 
@@ -546,10 +864,17 @@ class Runtime:
         return self.mul(self.np_sgn(a, l=l, LT=True) * -2 + 1, a)
 
     def np_where(self, c, a, b):
-        """Secure selection c * a + (1 - c) * b for a secure 0/1 array c
-        (numpy broadcasting): one secure product, c * (a - b) + b, as the
-        JAX package computes it (``mpyc_tpu/runtime.py`` np_where)."""
-        return self.add(self.mul(c, self.sub(a, b)), b)
+        """Secure selection c * a + (1 - c) * b (numpy broadcasting): one
+        product, c * (a - b) + b, as the JAX package computes it
+        (``mpyc_tpu/runtime.py:1963``). a and b may both be public; a
+        public condition selects from the secure difference."""
+        try:
+            d = self.sub(a, b)
+        except TypeError:
+            d = np.asarray(a) - np.asarray(b)        # both public
+        if not isinstance(c, sectypes.SecureObject):
+            return self.add(self.mul(d, np.asarray(c, dtype=object) * 1), b)
+        return self.add(self.mul(c, d), b)
 
     # -- shape operations (local) --------------------------------------------
 

@@ -69,6 +69,9 @@ class SecureObject:
     def __neg__(self):
         return self.runtime.neg(self)
 
+    def __abs__(self):
+        return self.runtime.abs(self)
+
     def __add__(self, other):
         other = self._coerce(other)
         if other is NotImplemented:
@@ -232,7 +235,8 @@ class SecureFixedPoint(SecureNumber):
 _ARRAY_FUNCTIONS = {np.stack: 'np_stack', np.column_stack: 'np_column_stack',
                     np.concatenate: 'np_concatenate', np.outer: 'np_outer',
                     np.append: 'np_append', np.roll: 'np_roll',
-                    np.hsplit: 'np_hsplit', np.split: 'np_split'}
+                    np.hsplit: 'np_hsplit', np.split: 'np_split',
+                    np.where: 'np_where'}
 
 
 class SecureArray(SecureObject):

@@ -542,6 +542,103 @@ def test_lp_solver_on_the_card(cuda_device, dataset):
     assert 'L=19' in res['kb2']
 
 
+# -- the fixed-point fields: six limbs, and four with 4p >= R -----------------
+
+P176 = 95780971304118053647396689196894323976171195136474903  # SecFxp(96)
+P128 = 340282366920938463463374607431768211283   # SecFxp(64, 32), 4p >= R
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_kernel_matches_plain_at_six_limbs(cuda_device, fuse):
+    """K3 on SecFxp(96)'s field at 58,667 elements, its coefficients in
+    76,800 bytes of dynamic shared memory a CTA."""
+    st = _state(cuda_device)
+    spec = pipelines.ReshareSpec(P176, 1, 3)
+    a, b = _shares(58667, 61, cuda_device, P176), \
+        _shares(58667, 62, cuda_device, P176)
+    got = pipelines.reshare_mul(a, b if fuse else None, st, (3, 0), spec)
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, (3, 0),
+                                        spec)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('l,f', [(96, 0), (96, 48), (160, 0)])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_kernel_matches_plain_at_six_limbs(cuda_device, mode, l, f):
+    """K5 on SecFxp(96)'s field, at its width with and without the scale
+    2^48 and at l = 160, in one launch of three chunks of 1024."""
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P176, 1, 3, l, 14 if l == 160 else 30,
+                             LT=mode == 'LT', EQ=mode == 'EQ', f=f)
+    a = _shares(2500, 63, cuda_device, P176)
+    got, ctr = pipelines.sgn_chunks(a, st, (9, 0), spec, 1024)
+    want, want_ctr = pipelines._sgn_chunks_plain(a, st, (9, 0), spec, 1024)
+    assert torch.equal(got, want)
+    assert ctr.tolist() == want_ctr.tolist()
+
+
+@pytest.mark.parametrize('e', ['p-2', '(p-1)/2', '(3p-5)/4'])
+@pytest.mark.parametrize('n', [1001, 100003])
+@pytest.mark.parametrize('p', [P176, P128])
+def test_mont_pow_kernel_matches_plain_at_six_limbs_and_canonical_four(
+        cuda_device, p, n, e):
+    """K6 on SecFxp(96)'s six-limb field (its table past 48 KB of shared
+    memory) and on SecFxp(64, 32)'s canonical four-limb one, against the
+    plain version (the limb ladder), on one ragged thread block and on
+    many."""
+    ctx = prime_field_ctx(p)
+    x = _shares(n, 64, cuda_device, p)[0].contiguous()
+    e = {'p-2': p - 2, '(p-1)/2': (p - 1) // 2,
+         '(3p-5)/4': (3 * p - 5) // 4}[e]
+    assert torch.equal(fieldops.mont_pow(x, e, ctx),
+                       fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('p', [P176, P128])
+def test_random_bits_tail_kernel_matches_plain_at_six_limbs_and_canonical_four(
+        cuda_device, p):
+    import chip_smoke
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = chip_smoke.tail_shares(p, 139104, np.random.default_rng(65),
+                                  every=7)
+    got = pipelines.random_bits_tail(r, z, field, False, 0)
+    want = pipelines._random_bits_tail_plain(r, z, field, False, 0)
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+    assert int(got[2].item()) == -(-139104 // 7)
+
+
+@pytest.mark.parametrize('dataset', [0, 2])
+def test_lp_fxp_solver_on_the_card(cuda_device, dataset):
+    """The fixed-point LP runner on the card (uvlp at SecFxp(24), three
+    limbs; tb2x2 at SecFxp(18), two): the certificate true, the max within
+    1% and the solution within the runner's tolerance; K3, K5 and K7
+    launched."""
+    import chip_smoke
+    n5 = pipelines.sgn_step.launches
+    n7 = pipelines.random_bits_tail.launches
+    res = chip_smoke.run_lp_fxp(cuda_device, datasets=(dataset,))
+    (name, r), = res.items()
+    assert r['pivots'] > 0
+    assert pipelines.sgn_step.launches > n5
+    assert pipelines.random_bits_tail.launches > n7
+
+
+def test_kmsurvival_on_the_card(cuda_device):
+    """The survival test on btrial (SecFxp(56, 28)) with --agg on the card:
+    chi2 within 1e-3 of the plain statistic; K5 in EQ mode (the
+    compaction's zero tests) and K7 launched."""
+    import chip_smoke
+    n5 = pipelines.sgn_step.by_key[('EQ', 56, 4, 28)]
+    n7 = pipelines.random_bits_tail.launches
+    res = chip_smoke.run_km(cuda_device, runs=((0, 0, True),))
+    (r,) = res.values()
+    assert abs(r['chi'] - r['chi_ref']) < 1e-3 * max(1, r['chi_ref'])
+    assert pipelines.sgn_step.by_key[('EQ', 56, 4, 28)] > n5
+    assert pipelines.random_bits_tail.launches > n7
+
+
 # K8: the GF(2^d) reshare, squeezing its own stream (the moduli of GF(4),
 # AES's GF(2^8), GF(2^12), GF(2^16) and GF(2^17) of two- and three-byte
 # draws, GF(2^32))

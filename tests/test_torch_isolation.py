@@ -11,7 +11,10 @@ matmuls, maxpool, ReLU, argmax), random bits and a truncation at
 SecFxp(14, 6) on 500 values, the CNN runner's fixed-point selftest at
 a batch of 2 (PRSS, truncated matmuls, comparisons at 2^6), SHA3-256 and
 SHAKE128 of 2 messages (GF(4) products) and AES-128 of 2 blocks (GF(2^8)
-powers, bits and public matrices)."""
+powers, bits and public matrices), the fixed-point LP solver on tb2x2
+(SecFxp(18): prime-field bits, the Newton reciprocal, unit vectors), and
+the survival test's logrank statistic on three time steps at SecFxp(40,
+20) (one batched division) and a random unit vector."""
 import os
 import subprocess
 import sys
@@ -51,6 +54,16 @@ _SCRIPT = textwrap.dedent('''
     assert all(c['bad'] == 0 for c in checks.values()), checks
     chip_smoke.run_sha3('cpu', b=2, passes=1)
     chip_smoke.run_aes('cpu', nb=2, passes=1, only128=True)
+    chip_smoke.run_lp_fxp('cpu', datasets=(2,))
+    from mpyc_tpu_torch import random
+    from mpyc_tpu_torch.demos import np_kmsurvival as km
+    rt = SimRuntime(3, device='cpu')
+    secfxp = rt.SecFxp(40, 20)
+    table = ([1, 0, 2], [0, 1, 1], [5, 4, 4], [6, 6, 5])
+    chi = km.logrank_test(rt, secfxp, *([secfxp(v) for v in col]
+                                        for col in table))
+    assert abs(chi - km.plain_logrank(*table)) < 1e-2, chi
+    assert len(random.random_unit_vector(secfxp, 3)) == 3
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded

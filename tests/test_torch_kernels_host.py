@@ -153,7 +153,7 @@ def _host_source(src: str) -> str:
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
     """The library's translation units (``_build.UNITS``) compiled by one
-    g++ call and linked with the shim's counters."""
+    g++ call each, all at once, and linked with the shim's counters."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++ to build the kernel source for the host')
@@ -163,7 +163,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 10, 'every launch must become a host loop'
+    assert launches == 11, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -174,11 +174,15 @@ def host_lib(tmp_path_factory):
                        for f in extra)
         (d / f'{name}.cpp').write_text(f'{defs}#include "{source}"\n')
         units.append(d / f'{name}.cpp')
+    units.append(d / 'counters.cpp')
     so = d / 'libkernels_host.so'
-    subprocess.run([gxx, '-std=c++20', '-O1', '-w', '-shared', '-fPIC',
-                    '-pthread', f'-I{d}', '-o', str(so),
-                    *map(str, units), str(d / 'counters.cpp')],
-                   check=True, timeout=600)
+    procs = [subprocess.Popen([gxx, '-std=c++20', '-O1', '-w', '-fPIC',
+                               '-pthread', f'-I{d}', '-c', '-o',
+                               f'{u}.o', str(u)]) for u in units]
+    for proc in procs:      # one g++ a unit, all at once
+        assert proc.wait(timeout=600) == 0, 'g++ failed on a unit'
+    subprocess.run([gxx, '-shared', '-pthread', '-o', str(so),
+                    *(f'{u}.o' for u in units)], check=True, timeout=600)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build._SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
@@ -421,8 +425,9 @@ def test_sgn_source_takes_many_chunks_in_one_launch(host_lib, state, p, l,
     starts = list(range(0, n, chunk))
     n_last = pipelines.bucket(n - starts[-1], chunk)
     out = torch.empty_like(a)
+    params = spec.params(ctr)      # alive across the call
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            chunk, n_last, ctypes.addressof(spec.params(ctr)),
+                            chunk, n_last, ctypes.addressof(params),
                             None) == 0
     for c, j0 in enumerate(starts):
         part = a[:, j0:j0 + chunk]
@@ -510,9 +515,10 @@ def test_split_field_ops_match_the_source(host_lib, state):
     out = torch.empty_like(sec)
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
+    params = spec.params()         # alive across the call
     assert host_lib.mtt_split_recombine(
         sec.data_ptr(), out.data_ptr(), None, st.data_ptr(), n,
-        ctypes.addressof(spec.params()), None) == 0
+        ctypes.addressof(params), None) == 0
     mont, adds = spec.field_ops()
     assert tuple(counts) == (n * (mont + spec.t * DRAW_OPS[0]),
                              n * (adds + spec.t * DRAW_OPS[1]))
@@ -573,10 +579,10 @@ def test_sgn_source_squeezes_each_block_once_per_thread_block(host_lib,
     out = torch.empty_like(a)
     perms = ctypes.c_ulonglong.in_dll(host_lib, 'mtt_perm_count')
     perms.value = 0
+    params = spec.params((2, 0))   # alive across the calls
     assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
-                            n, n, ctypes.addressof(spec.params((2, 0))),
-                            None) == 0
-    threads = host_lib.mtt_sgn_threads(ctypes.addressof(spec.params((2, 0))))
+                            n, n, ctypes.addressof(params), None) == 0
+    threads = host_lib.mtt_sgn_threads(ctypes.addressof(params))
     assert threads == 256
     ctas = -(-n // threads)
     ranges = 1 + sum(sets for sets, _ in spec.draw_calls())
@@ -619,9 +625,10 @@ def test_mont_pow_products_match_the_source(host_lib, p):
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
     out = torch.empty_like(x)
+    params = _build.pow_params(ctx, e)   # alive across the call
     assert host_lib.mtt_mont_pow(
         x.data_ptr(), out.data_ptr(), x.shape[0],
-        ctypes.addressof(_build.pow_params(ctx, e)), None) == 0
+        ctypes.addressof(params), None) == 0
     assert tuple(counts) == (x.shape[0] * fieldops.plan_products(e), 0)
     assert fieldops.plan_products(e) == {P52: 68, P69: 90}[p]
     assert fieldops.pow_products(e) == {P52: 99, P69: 132}[p]
@@ -669,9 +676,10 @@ def test_mont_pow_products_match_the_plan(host_lib, p, e):
     counts = _op_counts(host_lib)
     out = torch.empty_like(x)
     counts[0] = counts[1] = 0
+    params = _build.pow_params(ctx, e)   # alive across the call
     assert host_lib.mtt_mont_pow(
         x.data_ptr(), out.data_ptr(), x.shape[0],
-        ctypes.addressof(_build.pow_params(ctx, e)), None) == 0
+        ctypes.addressof(params), None) == 0
     assert tuple(counts) == (x.shape[0] * fieldops.plan_products(e), 0)
     assert fieldops.plan_products(e) < fieldops.pow_products(e)
 
@@ -757,7 +765,7 @@ def test_random_bits_tail_refuses_what_was_not_built(host_lib):
         r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
         r.data_ptr(), 10, ctypes.addressof(params), None) == -1
     params = pipelines._tail_params(field, 1, 3, False, 0)
-    params.pow.nl = 6
+    params.pow.nl = 7
     assert host_lib.mtt_random_bits_tail(
         r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
         r.data_ptr(), 10, ctypes.addressof(params), None) == -1
@@ -766,11 +774,11 @@ def test_random_bits_tail_refuses_what_was_not_built(host_lib):
 def test_mont_pow_refuses_what_was_not_built(host_lib):
     ctx, x = _pow_inputs(P52, 10, 33)
     params = _build.pow_params(ctx, 5)
-    params.nl = 6
+    params.nl = 7
     assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
                                  ctypes.addressof(params), None) == -1
     params = _build.pow_params(ctx, 5)
-    params.nbits = 161
+    params.nbits = 32 * _build.MAX_NL + 1
     assert host_lib.mtt_mont_pow(x.data_ptr(), x.data_ptr(), 10,
                                  ctypes.addressof(params), None) == -1
     with pytest.raises(NotImplementedError, match='limbs'):
@@ -887,10 +895,11 @@ def _reshare2_source(host_lib, st, spec, a, b, nonce):
     counts[0] = counts[1] = 0
     perms = ctypes.c_ulonglong.in_dll(host_lib, 'mtt_perm_count')
     perms.value = 0
+    params = spec.params(nonce)    # alive across the call
     assert host_lib.mtt_reshare2(
         a.data_ptr(), b.data_ptr() if b is not None else None,
         out.data_ptr(), st.data_ptr(), a.shape[1], int(b is not None),
-        ctypes.addressof(spec.params(nonce)), None) == 0
+        ctypes.addressof(params), None) == 0
     return out, tuple(counts), perms.value
 
 
@@ -969,3 +978,175 @@ def test_reshare2_refuses_what_was_not_built():
         pipelines.Reshare2Spec(0b11, 1, 3)
     with pytest.raises(NotImplementedError):
         pipelines.Reshare2Spec(0b111, 1, 4).params((0, 0))
+
+
+# -- the fixed-point fields: six limbs, and four with 4p >= R -----------------
+
+# SecFxp(96)'s 176-bit field (the fixed-point LP solver's kb2 and
+# LPExample), six limbs, lazy; SecFxp(64, 32)'s 128-bit field (the survival
+# test on aml), four limbs with 4p >= R: the canonical products
+P176 = 95780971304118053647396689196894323976171195136474903
+P128 = 340282366920938463463374607431768211283
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_source_matches_plain_at_six_limbs(host_lib, state, fuse):
+    """K3 on SecFxp(96)'s field (32-byte draws), its staged coefficients in
+    76,800 bytes of dynamic shared memory, on two thread blocks, the last
+    ragged."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P176, 1, 3)
+    assert (spec.ctx.L, spec.l_bytes) == (6, 32)
+    n = 3300
+    a, b = _shares(n, 51, P176), _shares(n, 52, P176)
+    nonce = (0xFFFFFFFF, 11)
+    params = spec.params(nonce)
+    out = torch.empty_like(a)
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr() if fuse else None,
+                                out.data_ptr(), st.data_ptr(), n, int(fuse),
+                                ctypes.addressof(params), None) == 0
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, nonce,
+                                        spec)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize('l,f', [(96, 0), (96, 48), (160, 0)])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_sgn_source_matches_plain_at_six_limbs(host_lib, state, mode, l, f):
+    """K5 on SecFxp(96)'s field at its comparisons' width (l = 96, with
+    and without the fixed-point scale 2^48) and at l = 160 (the widest
+    with l + k + 2 bits of p = 176), 70 elements over more than one CTA."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P176, 1, 3, l, 14 if l == 160 else 30,
+                             LT=mode == 'LT', EQ=mode == 'EQ', f=f)
+    n = 70
+    a = _shares(n, 53, P176)
+    nonce = (0xFFFFFFFF, 6)
+    out = torch.empty_like(a)
+    params = spec.params(nonce)
+    B = host_lib.mtt_sgn_threads(ctypes.addressof(params))
+    assert B in (32, 64)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
+@pytest.mark.parametrize('e', ['p-2', '(p-1)/2', '(3p-5)/4'])
+@pytest.mark.parametrize('p', [P176, P128])
+def test_mont_pow_source_matches_plain_at_six_limbs_and_canonical_four(
+        host_lib, p, e):
+    """K6 on SecFxp(96)'s six-limb field (its table of odd powers in
+    dynamic shared memory past 48 KB) and on SecFxp(64, 32)'s canonical
+    four-limb one, at the public inverse's, the Legendre symbol's and the
+    inverse square root's exponents, on a ragged last block."""
+    ctx, x = _pow_inputs(p, 300, 54)
+    assert (ctx.L, ctx.lazy) == ((6, True) if p == P176 else (4, False))
+    e = {'p-2': p - 2, '(p-1)/2': (p - 1) // 2,
+         '(3p-5)/4': (3 * p - 5) // 4}[e]
+    out = torch.empty_like(x)
+    params = _build.pow_params(ctx, e)
+    assert host_lib.mtt_mont_pow(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                 ctypes.addressof(params), None) == 0
+    assert torch.equal(out, fieldops._mont_pow_plain(x, e, ctx))
+
+
+@pytest.mark.parametrize('signed,f', [(False, 0), (False, 48), (True, 0)])
+@pytest.mark.parametrize('p', [P176, P128])
+def test_random_bits_tail_source_matches_plain_at_six_limbs_and_canonical_four(
+        host_lib, p, signed, f):
+    """K7 on SecFxp(96)'s and SecFxp(64, 32)'s fields (the truncations' and
+    zero tests' random bits of the fixed-point LP solver and the survival
+    test), one element in 7 planted to open to 0."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(p)
+    r, z = _tail_shares(p, 129, 55)
+    bits, flags, count = _tail_launch(host_lib, r, z, field, signed, f)
+    want = pipelines._random_bits_tail_plain(r, z, field, signed, f)
+    assert torch.equal(flags, want[1])
+    assert count.item() == want[2].item() == -(-129 // 7)
+    assert torch.equal(bits, want[0])
+
+
+# a one-limb field (2^31 - 1) and a seven-limb one (a 200-bit prime,
+# 3 mod 4)
+P31 = (1 << 31) - 1
+P200 = 1606938044258990275541962092341162602522202993782792835301259
+
+
+def test_one_and_seven_limb_fields_raise(host_lib, state):
+    """Fields of one limb or of more than six (``_build.BUILT_NL``) raise
+    NotImplementedError for K3, K5, K6 and K7 on the Python side, and the
+    launchers refuse a parameter block of one or seven limbs."""
+    from mpyc_tpu_torch import finfields
+    assert _build.BUILT_NL == (2, 3, 4, 5, 6) and _build.MAX_NL == 6
+    for p in (P31, P200):
+        ctx = prime_field_ctx(p)
+        assert ctx.L in (1, 7) and p % 4 == 3
+        with pytest.raises(NotImplementedError, match='limbs'):
+            pipelines.ReshareSpec(p, 1, 3).params((0, 0))
+        with pytest.raises(NotImplementedError, match='limbs'):
+            pipelines.SgnSpec(p, 1, 3, 8, 8, LT=True).params((0, 0))
+        with pytest.raises(NotImplementedError, match='limbs'):
+            _build.pow_params(ctx, 5)
+        with pytest.raises(NotImplementedError, match='limbs'):
+            pipelines._tail_params(finfields.GF(p), 1, 3, False, 0)
+    st, _ = state
+    a = _shares(10, 56, P176)
+    for nl in (1, 7):
+        params = pipelines.ReshareSpec(P176, 1, 3).params((0, 0))
+        params.draw.nl = nl
+        assert host_lib.mtt_reshare(a.data_ptr(), None, a.data_ptr(),
+                                    st.data_ptr(), 10, 0,
+                                    ctypes.addressof(params), None) == -1
+        params = pipelines.SgnSpec(P176, 1, 3, 96, LT=True).params((0, 0))
+        params.draw.nl = nl
+        assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(),
+                                10, 10, 10, ctypes.addressof(params),
+                                None) == -1
+        params = _build.pow_params(prime_field_ctx(P176), 5)
+        params.nl = nl
+        assert host_lib.mtt_mont_pow(a.data_ptr(), a.data_ptr(), 10,
+                                     ctypes.addressof(params), None) == -1
+
+
+# -- K9: elementwise field arithmetic -------------------------------------------
+
+@pytest.mark.parametrize('op', ['mul', 'add', 'sub'])
+@pytest.mark.parametrize('p', [P, P69, P102, P142, P176])
+def test_field_op_source_matches_plain(host_lib, p, op):
+    """K9 at two to six limbs, each op on 300 elements (two thread blocks,
+    the last ragged), with both operands arrays and with either one a
+    constant (step 0); the product also with a below R (a draw's chunk, as
+    reduce_chunks passes it)."""
+    ctx = prime_field_ctx(p)
+    params = _build.draw_params(ctx, 1)
+    a, b = _shares(300, 57, p)[0].contiguous(), _shares(300, 58, p)[0]
+    c = _shares(1, 59, p)[0].contiguous()
+    cases = [(a, b.contiguous(), 1, 1), (a, c, 1, 0), (c, a, 0, 1)]
+    if op == 'mul':
+        wide = torch.from_numpy(np.random.default_rng(60).integers(
+            0, 1 << 32, (300, ctx.L), dtype=np.uint64).astype(
+            np.uint32).view(np.int32))
+        cases.append((wide, c, 1, 0))
+    for x, y, sx, sy in cases:
+        out = torch.empty((300, ctx.L), dtype=torch.int32)
+        assert host_lib.mtt_field_op(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), 300, sx, sy,
+            fieldops._FIELD_OPS.index(op), ctypes.addressof(params),
+            None) == 0
+        assert torch.equal(out, fieldops._field_op_plain(x, y, op, ctx))
+
+
+def test_field_op_refuses_what_was_not_built(host_lib):
+    """K9 takes two to six limbs, ops 0-2 and steps 0 and 1; and on the
+    card (not here: a CPU tensor takes the plain version) a one-limb field
+    raises."""
+    a = _shares(10, 61, P176)[0].contiguous()
+    for nl, op, sa in ((1, 0, 1), (7, 0, 1), (6, 3, 1), (6, 0, 2)):
+        params = _build.draw_params(prime_field_ctx(P176), 1)
+        params.nl = nl
+        assert host_lib.mtt_field_op(a.data_ptr(), a.data_ptr(),
+                                     a.data_ptr(), 10, sa, 1, op,
+                                     ctypes.addressof(params), None) == -1
+    with pytest.raises(NotImplementedError, match='limbs'):
+        _build.draw_params(prime_field_ctx(P31), 1)

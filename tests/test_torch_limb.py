@@ -16,11 +16,13 @@ from mpyc_tpu_torch.ops import limb as tlimb
 from mpyc_tpu_torch.ops.fieldops import (limbs_from_numpy, limbs_to_numpy,
                                          prime_field_ctx as tctx)
 
-# SecInt(32)'s 64-bit field, a one-limb and a three-limb prime, and the
-# LP solver's four- and five-limb fields (SecInt(70), SecInt(110))
+# SecInt(32)'s 64-bit field, a one-limb and a three-limb prime, the LP
+# solver's four- and five-limb fields (SecInt(70), SecInt(110)) and
+# SecFxp(96)'s six-limb one
 PRIMES = [18446744073709551427, 4294967291, (1 << 89) - 1,
           2535301200456458802993406413211,
-          2787593149816327892691964784081045188544327]
+          2787593149816327892691964784081045188544327,
+          95780971304118053647396689196894323976171195136474903]
 N = 512
 
 
@@ -165,3 +167,4 @@ def test_public_constant_operands(p):
     assert ints(c.sub(kc, data)) == [(k - v) % p for v in vals]
     assert ints(c.neg(data)) == [(-v) % p for v in vals]
     assert ints(c.add(kc, data)) == ints(c.add(data, kc))
+

@@ -11,7 +11,11 @@ once, the order reversed every other round (a, b, b, a, a, b for two).
 Each run prints the device ms (CUDA events, the mean of 20 launches after
 a warm-up) of K6 at the inverse square root's exponent (3p - 5) / 4 and
 of K7, both on conv1's 15,052,800 random bits at SecFxp(14, 6)'s field
-(``chip_smoke.FXP_BITS``), on random inputs from a fixed seed.
+(``chip_smoke.FXP_BITS``), on random inputs from a fixed seed. With
+``--six`` instead at SecFxp(96)'s six-limb field, on the random bits of
+kb2's rank-1 update (69 x 42 products, 48 bits each: 139,104) and on
+2^20 elements: the A/B of K6's and K7's elements a thread at six limbs
+(``MTT_POW_EPT6`` in one checkout's csrc/pow.cuh against another's).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import subprocess
 import sys
 
 
-def one(root: str, label: str) -> None:
+def one(root: str, label: str, six: bool = False) -> None:
     """Time K6 and K7 with the checkout at root."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -33,28 +37,34 @@ def one(root: str, label: str) -> None:
     from mpyc_tpu_torch.models import pipelines
     from mpyc_tpu_torch.ops import fieldops
     from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
-    p = sectypes.SecFxp(c.FXP_L, c.FXP_F, 'cuda').field.modulus
+    l, f, sizes = (96, 48, (69 * 42 * 48, 1 << 20)) if six else \
+        (c.FXP_L, c.FXP_F, (c.FXP_BITS,))
+    p = sectypes.SecFxp(l, f, 'cuda').field.modulus
     ctx = prime_field_ctx(p)
     gen = np.random.default_rng(5)
-    x = c.random_field(p, (c.FXP_BITS,), gen)
     e = (3 * p - 5) // 4
-    k6 = c.cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 20)
-    r, z = c.tail_shares(p, c.FXP_BITS, gen)
     field = finfields.GF(p)
-    k7 = c.cuda_ms(lambda: pipelines.random_bits_tail(r, z, field, False,
-                                                      0), 20)
-    print(f'{label}: K6 {k6:.4f} ms, K7 {k7:.4f} ms', flush=True)
+    for n in sizes:
+        x = c.random_field(p, (n,), gen)
+        k6 = c.cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 20)
+        r, z = c.tail_shares(p, n, gen)
+        k7 = c.cuda_ms(lambda: pipelines.random_bits_tail(r, z, field, False,
+                                                          0), 20)
+        print(f'{label}: L = {ctx.L}, {n} elements: K6 {k6:.4f} ms, K7 '
+              f'{k7:.4f} ms', flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('trees', nargs='*', metavar='LABEL=DIR')
     parser.add_argument('--rounds', type=int, default=3)
+    parser.add_argument('--six', action='store_true',
+                        help='SecFxp(96)\'s six-limb field, kb2\'s sizes')
     parser.add_argument('--one', nargs=2, metavar=('DIR', 'LABEL'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
-        one(*args.one)
+        one(*args.one, six=args.six)
         return 0
     if not args.trees:
         parser.error('name at least one LABEL=DIR')
@@ -67,7 +77,8 @@ def main() -> int:
     for k in range(args.rounds):
         for label, root in (trees if k % 2 == 0 else trees[::-1]):
             rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  '--one', root, label]).returncode
+                                  '--one', root, label]
+                                 + ['--six'] * args.six).returncode
     return rc
 
 
