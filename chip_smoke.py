@@ -25,7 +25,11 @@ SecFxp(96) (two to six limbs) and the survival test
 and the binary-field demos, SHA3
 (``demos/np_sha3.py``: SecFld(2), its shares in GF(4)) and threshold AES
 (``demos/np_aes.py``: SecFld(2^8)), through
-``mpyc_tpu_torch/demos/np_sha3.py`` and ``np_aes.py``. Phases, each
+``mpyc_tpu_torch/demos/np_sha3.py`` and ``np_aes.py``; the secure ID3
+trees (``demos/id3gini.py``: SecInt(32)-(95)), secure sorting
+(``demos/sort.py``) and the one-way hash chains
+(``demos/np_onewayhashchains.py``) through ``mpyc_tpu_torch/demos/
+np_id3gini.py``, ``sort.py`` and ``np_onewayhashchains.py``. Phases, each
 printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
@@ -73,7 +77,11 @@ printing one line with its elapsed seconds:
    at three and six limbs and canonical four; and K9 (``check_field_ops``:
    elementwise products, adds and subtractions at two to six limbs,
    constants on either side, a draw's chunks below R), each against its
-   plain version;
+   plain version; and the ID3 trees' (``check_id3_kernels``): K5 in LT
+   mode at l = 42, 62 (three limbs), 69, 75, 77, 95 (four) and in EQ mode
+   at l = 42 on one element (and 300, checked), K6 at three limbs and K6
+   and K7 canonical at two (SecInt(32)'s field), each against its plain
+   version;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -190,16 +198,33 @@ printing one line with its elapsed seconds:
    encryption; the plain carry-less products of an AES-128 encryption
    (``clmul_meas``): calls, products, their bound at their fewest
    operations and their device time replayed;
-20. k1 shapes: K1's launches on each path by block count (each driven
+20. id3: the secure ID3 trees (``mpyc_tpu_torch/demos/np_id3gini.py``)
+   of the seven datasets of ``demos/data/id3`` at the demo's bit lengths
+   (SecInt(32) to SecInt(95), two to four limbs; KRKPA7 at SecInt(69),
+   3,196 samples x 36 attributes), each equal to ``plain_id3``'s tree
+   (Python ints); seconds a tree and a node, nodes, launches a node; one
+   try of torch.profiler over KRKPA7's root node;
+21. sort: 2^20 SecInt(32) values input, ``np_sort`` (210 Batcher
+   stages), ``np_amax`` and ``np_amin``, each equal to numpy's; the
+   sorting demo's 64 values shuffled by ``random.shuffle`` and
+   ``sorted`` by a**2, equal to Python's sorted; seconds a sort and ms a
+   stage; one try of torch.profiler over one np_sort;
+22. hash chains: the one-way hash chains
+   (``mpyc_tpu_torch/demos/np_onewayhashchains.py``) from a random seed:
+   AES and SHAKE128 at k = 5 (optimal pebbling), AES at k = 3 (eager);
+   every revealed value equal to the plain chain's (a plain AES-128,
+   hashlib's SHAKE128) from the opened seed, k 2^(k-1) hashes; seconds a
+   hash;
+23. k1 shapes: K1's launches on each path by block count (each driven
    path prints its own; a record of the launcher's calls, no counter of
    the wrapper's), and K1 timed at each block count the paths launched
    (CTAs, device time replayed from a CUDA graph, bound, the launch
    floor);
-21. report: one JSON line of the kernels (every instantiation that a path
+24. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13-16, 18 and 19 zeroes the launch counters just
+Each of phases 4-11, 13-16, 18-22 zeroes the launch counters just
 before it and reads them just after, and records K1's launches by block
 count; each must show that the
 instantiations of its path ran (``PATH_ENTRIES``), and that it launched
@@ -327,6 +352,22 @@ SHA3_CHI = 1 << 19
 AES_SBOX = N_AES * 16
 AES_KEY = 64
 GF4, GF256 = 0b111, 0x11B      # the moduli: x^2 + x + 1, AES's
+# the secure aggregates and sorting (demos/id3gini.py, demos/sort.py) and
+# the one-way hash chains (demos/np_onewayhashchains.py): the ID3 trees of
+# the seven datasets of demos/data/id3 at the demo's bit lengths (KRKPA7,
+# 3,196 samples x 36 attributes at SecInt(69), the widest; its root node
+# traced); np_sort, np_amax and np_amin of 2^20 SecInt(32) values (210
+# Batcher stages); sorted with key a**2 of the demo's 64 values shuffled
+# by random.shuffle; hash chains of length 2^5 by AES and by SHAKE128
+# (optimal pebbling, a random seed) and 2^3 by AES (eager pebbling)
+ID3_DATASETS = (0, 1, 2, 3, 4, 5, 6)
+ID3_PROFILE = 4
+ID3_WIDTHS = ((42, 3), (62, 3), (69, 4), (75, 4), (77, 4), (95, 4))
+N_SORT = 1 << 20
+N_SORTED = 64
+HC_RUNS = (('AES, k = 5', 5, False, False),
+           ('SHAKE128, k = 5', 5, False, True),
+           ('AES, k = 3, eager', 3, True, False))
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -470,6 +511,19 @@ ENTRIES = {
     # K9 (limbs): every product, add and subtraction of field arrays
     # between the kernels above, on every prime-field path
     **{f'field_op<L={L}>': ('field_op', L) for L in (2, 3, 4, 5, 6)},
+    # the ID3 trees: K5 in LT mode at each dataset's width (the argmax of
+    # the class sizes, the stop test, the Gini fractions' comparisons), in
+    # EQ mode at SecInt(42)'s (mx == sizeT; from SecInt(62) on [NO07]); K6
+    # at three limbs (the reciprocals' inverses, SecInt(62)'s Legendre
+    # symbols)
+    **{f'sgn_step<LT, l={l}, L={L}>': ('sgn_step', ('LT', l, L, 0))
+       for l, L in ID3_WIDTHS},
+    'sgn_step<EQ, l=42, L=3>': ('sgn_step', ('EQ', 42, 3, 0)),
+    'mont_pow<L=3, lazy>': ('mont_pow', (3, True)),
+    # SecInt(32)'s 64-bit field has 4p >= R: K6 canonical at two limbs
+    # (tennis's reciprocals), K7 too (the shuffle's random bits)
+    'mont_pow<L=2>': ('mont_pow', (2, False)),
+    'random_bits_tail<L=2>': ('random_bits_tail', (2, False)),
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -538,6 +592,30 @@ PATH_ENTRIES = {
     # the S-box powers' products (K8 in GF(2^8)), and the bit
     # decompositions' PRSS random bits (K1 above 256 blocks)
     'aes': ('keccak_ctr', 'reshare2<d=8, fused>'),
+    # every product and matrix product's reshare (K3 at two to four
+    # limbs), the comparisons at each width (K5), the equality at
+    # SecInt(32) and (42) (K5 EQ), SecInt(62)-(95)'s [NO07] zero tests
+    # (K7, K6's Legendre symbols), the reciprocals' inverses (K6), the
+    # field arithmetic between them (K9)
+    'id3': (*(f'reshare_mul<L={L}{s}>' for L in (2, 3, 4)
+              for s in (', fused', '')),
+            'sgn_step<LT, l=32, L=2>', 'sgn_step<EQ, l=32, L=2>',
+            *(f'sgn_step<LT, l={l}, L={L}>' for l, L in ID3_WIDTHS),
+            'sgn_step<EQ, l=42, L=3>',
+            'mont_pow<L=2>', 'mont_pow<L=3, lazy>',
+            'mont_pow<L=4, lazy>', 'mont_pow<L=4>',
+            'random_bits_tail<L=3, lazy>', 'random_bits_tail<L=4, lazy>',
+            'random_bits_tail<L=4>',
+            *(f'field_op<L={L}>' for L in (2, 3, 4))),
+    # the input's draws (K2), each Batcher stage's and tournament level's
+    # comparison (K5) and product (K3), the shuffle's random bits (K7)
+    # and its dot products' reshares (K3 without the product)
+    'sort': ('squeeze_mont<L=2, W=6>', 'reshare_mul<L=2, fused>',
+             'reshare_mul<L=2>', 'sgn_step<LT, l=32, L=2>',
+             'random_bits_tail<L=2>', 'field_op<L=2>'),
+    # AES's S-box products (K8 in GF(2^8)) and SHAKE128's chi (K8 in
+    # GF(4))
+    'hash chains': ('reshare2<d=8, fused>', 'reshare2<d=2, fused>'),
 }
 
 
@@ -2878,6 +2956,207 @@ def clmul_meas(device, nb=N_AES) -> dict:
     return res
 
 
+def check_id3_kernels() -> dict:
+    """Phase "kernels", the ID3 trees' part: each instantiation their path
+    launches that no earlier path did, bit for bit against its plain
+    version (tolerance: exact) and timed at the path's shape beside its
+    plain version and bound: K5 in LT mode at each dataset's width and in
+    EQ mode at SecInt(42)'s, on one element (a Gini fraction comparison,
+    the stop test: a bucket of 64), checked at 300 too; K6 at three limbs
+    (SecInt(62)'s field) at e = p - 2 and (p - 1) / 2 on 1,000 elements,
+    timed at a [NO07] test's 30 Legendre symbols; K6 and K7 canonical at
+    two limbs (SecInt(32)'s field, 4p >= R): K6 at e = p - 2 on 1,000
+    elements, timed at a Gini fraction's three reciprocals, K7 on 1,000
+    shares, one element in 7 planted to open to 0 (bits, flags and
+    count), timed at a shuffle's six random bits. Returns
+    per-instantiation measurements."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(17)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFE, 5)
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    cases = [(l, 'LT') for l, _ in ID3_WIDTHS] + [(42, 'EQ')]
+    for l, mode in cases:
+        p = sectypes.SecInt(l, 'cuda').field.modulus
+        spec = pipelines.SgnSpec(p, T, M, l, 30, LT=mode == 'LT',
+                                 EQ=mode == 'EQ')
+        L = spec.ctx.L
+        for n in (300, 1):
+            a = random_field(p, (M, n), gen)
+            err = sgn_chunks_check(spec, a, st, nonce, chunk)
+        res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
+            spec, a, st, nonce, chunk, err)
+        say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, 300, {L}) and '
+            f'({M}, 1, {L}), equal to plain')
+    p = sectypes.SecInt(62, 'cuda').field.modulus
+    ctx = prime_field_ctx(p)
+    x = random_field(p, (1000,), gen)
+    x[0] = 0
+    for e in (p - 2, (p - 1) // 2):
+        out = fieldops.mont_pow(x, e, ctx)
+        want = fieldops._mont_pow_plain(x, e, ctx)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+        check(err == 0, f'K6 (L = {ctx.L}, e of {e.bit_length()} bits) '
+              'differs from its plain version')
+    r = res[_entry('mont_pow', ctx.L, ctx.lazy)] = pow_meas(
+        ctx, x[:LP_NO07_BITS].contiguous(), (p - 1) // 2, err)
+    say(f'  K6 mont_pow at L = {ctx.L}: 1,000 elements, e = p - 2 and '
+        f'(p - 1) / 2, equal to plain; {r["ms"]:.4f} ms at {LP_NO07_BITS} '
+        'Legendre symbols')
+    p = sectypes.SecInt(32, 'cuda').field.modulus
+    field = finfields.GF(p)
+    ctx = field.array.ctx
+    check(not ctx.lazy, 'SecInt(32)\'s field takes the lazy kernels')
+    x = random_field(p, (1000,), gen)
+    x[0] = 0
+    out = fieldops.mont_pow(x, p - 2, ctx)
+    want = fieldops._mont_pow_plain(x, p - 2, ctx)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, want)
+    check(err == 0, 'K6 (L = 2, canonical) differs from its plain version')
+    res['mont_pow<L=2>'] = pow_meas(ctx, x[1:4].contiguous(), p - 2, err)
+    for n in (1000, 6):
+        rr, zz = tail_shares(p, n, gen, every=7)
+        got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
+        want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0, T)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(got[0], want[0]),
+                  int((got[1] != want[1]).sum()),
+                  abs(int(got[2].item()) - int(want[2].item())))
+        check(err == 0 and int(got[2].item()) == -(-n // 7),
+              f'K7 (L = 2, canonical, {n} elements) differs from its plain '
+              'version')
+    res['random_bits_tail<L=2>'] = tail_meas(field, rr, zz, err)
+    say('  K6 mont_pow and K7 random_bits_tail at L = 2 (4p >= R): 1,000 '
+        'elements, equal to plain')
+    return res
+
+
+def run_id3(device, datasets=ID3_DATASETS, profile=None) -> dict:
+    """Phase "id3": the secure ID3 trees (``mpyc_tpu_torch.demos.
+    np_id3gini``, SimRuntime(3)) of each dataset at the demo's bit length;
+    each tree must equal ``plain_id3``'s (Python ints). Per dataset:
+    seconds a tree (host clock, after a synchronize), nodes, seconds and
+    launches a node. ``profile``: a dataset learnt once more under
+    torch.profiler over its root node only (the learning stops at node
+    1): device busy ms and idle share."""
+    from mpyc_tpu_torch.demos import np_id3gini as id3
+    res = {}
+    for i in datasets:
+        name, l = id3.SETTINGS[i]
+        before = counts()
+        rt = SimRuntime(M, device=device)
+        tree, nodes, s = id3.build(rt, i, out=lambda s: None)
+        after = counts()
+        check(tree == id3.plain_id3(i), f'id3 {name}: the secure tree '
+              'differs from the plain one')
+        res[name] = dict(
+            l=l, L=rt.SecInt(l).field.array.ctx.L, nodes=nodes,
+            depth=id3.depth(tree), size=id3.size(tree), s=s,
+            s_node=s / nodes,
+            launches={k: round((after[k] - before[k]) / nodes, 1)
+                      for k in after if after[k] != before[k]})
+    if profile is not None:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiler
+        prof = profiler(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+
+        class Window(Exception):
+            pass
+
+        def on_node(k):
+            torch.cuda.synchronize()
+            if k == 0:
+                prof.start()
+                res['window_t0'] = time.perf_counter()
+            else:
+                res['window_s'] = time.perf_counter() - res['window_t0']
+                prof.stop()
+                raise Window
+        try:
+            id3.build(SimRuntime(M, device=device), profile,
+                      out=lambda s: None, on_node=on_node)
+        except Window:
+            pass
+        res['trace'] = trace_lines(prof, top=12)
+    return res
+
+
+def run_sort(device, n=N_SORT, n_sorted=N_SORTED, seed=21,
+             profile=False) -> dict:
+    """Phase "sort": n SecInt(32) values in [-2^30, 2^30) from a seed,
+    input, sorted by ``np_sort`` (Batcher's merge-exchange, every stage
+    one batched comparison and one product), their maximum and minimum
+    (``np_amax``, ``np_amin``), each opened and held to numpy's; then the
+    sorting demo's ``demo_sorted_with_key`` on its n_sorted values
+    (``random.shuffle``, ``sorted`` by a**2), held to Python's sorted.
+    Seconds on the host clock after a synchronize; with ``profile`` the
+    np_sort once more under torch.profiler (device time by kernel, idle
+    share)."""
+    from mpyc_tpu_torch.demos import sort as demo
+    rt = SimRuntime(M, device=device)
+    sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
+        (lambda: None)
+    secint = rt.SecInt(32)
+    vals = np.random.default_rng(seed).integers(-2**30, 2**30, n)
+    a = rt.input(secint.array(vals), senders=0)
+    t = (n - 1).bit_length()
+    res = dict(n=n, stages=t * (t + 1) // 2)
+    sync()
+    t0 = time.perf_counter()
+    b = rt.np_sort(a)
+    sync()
+    res['sort_s'] = time.perf_counter() - t0
+    res['ms_stage'] = 1e3 * res['sort_s'] / res['stages']
+    check(np.array_equal(np.asarray(rt.output(b)), np.sort(vals)),
+          f'sort: np_sort of {n} values differs from numpy\'s sort')
+    if profile:
+        res['trace'] = profile_calls(lambda: rt.np_sort(a), 1, top=8)
+    t0 = time.perf_counter()
+    hi, lo = rt.np_amax(a), rt.np_amin(a)
+    sync()
+    res['amax_amin_s'] = time.perf_counter() - t0
+    check((rt.output(hi), rt.output(lo)) == (vals.max(), vals.min()),
+          f'sort: np_amax/np_amin of {n} values differ from numpy\'s')
+    t0 = time.perf_counter()
+    ok = demo.demo_sorted_with_key(rt, demo.ramp(n_sorted),
+                                   out=lambda s: None)
+    sync()
+    res['sorted_s'] = time.perf_counter() - t0
+    check(ok, f'sort: sorted by a**2 of {n_sorted} shuffled values differs '
+          'from Python\'s sorted')
+    return res
+
+
+def run_hash_chains(device, runs=HC_RUNS) -> dict:
+    """Phase "hash chains": the one-way hash chains of
+    ``mpyc_tpu_torch.demos.np_onewayhashchains`` (SimRuntime(3), a random
+    seed), each of its ``runs`` (label, k, eager, SHAKE128): every
+    revealed value must equal the plain chain's from the opened seed, and
+    the hashes k 2^(k-1). Seconds a hash (host clock)."""
+    from mpyc_tpu_torch.demos import np_onewayhashchains as hc
+    res = {}
+    for label, k, eager, sha3 in runs:
+        before = counts()
+        rt = SimRuntime(M, device=device)
+        r = hc.run(rt, k, eager, sha3, out=lambda s: None)
+        after = counts()
+        check(r['ok'], f'hash chains {label}: a revealed value differs from '
+              'the plain chain')
+        check(r['hashes'] == k << (k - 1), f'hash chains {label}: '
+              f'{r["hashes"]} hashes, not {k << (k - 1)}')
+        res[label] = dict(
+            k=k, hashes=r['hashes'], peak=r['peak'], s=r['s'],
+            s_hash=r['s'] / r['hashes'],
+            launches={key: after[key] - before[key] for key in after
+                      if after[key] != before[key]})
+    return res
+
+
 def warm_stats(pass_s: list) -> tuple:
     """(median, least, largest) of the warm passes (all but the first)."""
     warm = sorted(pass_s[1:])
@@ -2940,6 +3219,7 @@ def main() -> int:
         meas.update(check_lp_kernels())
         meas.update(check_fxp_lp_kernels())
         meas.update(check_field_ops())
+        meas.update(check_id3_kernels())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -3102,7 +3382,10 @@ def main() -> int:
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
                 f'({r["bound_by"]}) on {smi}')
-        meas.update(fxp_meas)
+        # an instantiation a path of phase 3 measured keeps that path's
+        # shape (K6 at three limbs: the ID3 trees' 30 Legendre symbols,
+        # not the 2^22 elements here)
+        meas.update({k: v for k, v in fxp_meas.items() if k not in meas})
         split = random_bits_split()
         say(f'  one round of np_random_bits\' {FXP_BITS} bits, device ms '
             f'(least of 3): PRSS draw of r {split["r"]:.4f}, zero-sharing z '
@@ -3269,6 +3552,49 @@ def main() -> int:
             f'graph, on {smi}')
         torch.cuda.empty_cache()
 
+    with Phase('id3'):
+        res_id3 = res = drive('id3', lambda: run_id3('cuda',
+                                                     profile=ID3_PROFILE))
+        for name, r in res.items():
+            if not isinstance(r, dict):
+                continue
+            say(f'  {name} at SecInt({r["l"]}) ({r["L"]} limbs): a tree of '
+                f'depth {r["depth"]} and size {r["size"]}, equal to the plain '
+                f'tree; {r["s"]:.4f} s a tree, {r["nodes"]} nodes, '
+                f'{r["s_node"]:.4f} s a node on {smi}')
+            say(f'    launches a node: {r["launches"]}')
+        say(f'  torch.profiler over the root node of dataset {ID3_PROFILE} '
+            f'({res["window_s"]:.4f} s on the host clock, traced) on {smi}:')
+        for line in res['trace']:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('sort'):
+        res_sort = res = drive('sort', lambda: run_sort('cuda',
+                                                        profile=True))
+        say(f'  np_sort of {N_SORT} SecInt(32) values, equal to numpy\'s: '
+            f'{res["sort_s"]:.4f} s a sort, {res["stages"]} Batcher stages, '
+            f'{res["ms_stage"]:.4f} ms a stage on {smi}')
+        say(f'  np_amax and np_amin of {N_SORT}, equal to numpy\'s: '
+            f'{res["amax_amin_s"]:.4f} s on {smi}')
+        say(f'  sorted by a**2 of {N_SORTED} values shuffled by '
+            f'random.shuffle, equal to Python\'s sorted: '
+            f'{res["sorted_s"]:.4f} s on {smi}')
+        say(f'  torch.profiler over one np_sort of {N_SORT} on {smi}:')
+        for line in res.pop('trace'):
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('hash chains'):
+        res_hc = res = drive('hash chains', lambda: run_hash_chains('cuda'))
+        for label, r in res.items():
+            say(f'  {label}: {r["hashes"]} hashes (k 2^(k-1)), peak '
+                f'{r["peak"]} in a round, every value equal to the plain '
+                f'chain\'s; {r["s"]:.4f} s, {r["s_hash"]:.4f} s a hash on '
+                f'{smi}')
+            say(f'    launches: {r["launches"]}')
+        torch.cuda.empty_cache()
+
     with Phase('k1 shapes'):
         shapes = collections.Counter()
         for path, hist in k1_blocks.items():
@@ -3338,6 +3664,9 @@ def main() -> int:
                     'aes_blocks': N_AES,
                     'aes_runs': [{k: v for k, v in r.items()}
                                  for r in res_aes['runs']],
+                    'id3': {k: v for k, v in res_id3.items()
+                            if isinstance(v, dict)},
+                    'sort': res_sort, 'hash_chains': res_hc,
                     'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)

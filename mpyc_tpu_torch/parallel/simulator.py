@@ -194,15 +194,9 @@ class SimRuntime(Runtime):
 
     def np_getitem(self, a, idx):
         """a[idx] along the logical axes (local): integers, slices with a
-        positive step, None and one Ellipsis; a 0-d result is a secure
-        number."""
-        if not isinstance(idx, tuple):
-            idx = (idx,)
-        if Ellipsis in idx:
-            k = idx.index(Ellipsis)
-            used = sum(i is not None for i in idx) - 1
-            idx = idx[:k] + (slice(None),) * (len(a.shape) - used) + \
-                idx[k + 1:]
+        positive step, None, one Ellipsis and integer index arrays (numpy
+        or torch); a 0-d result is a secure number."""
+        idx = self._logical_index(idx, len(a.shape))
         return self._local(a, lambda d: d[(slice(None),) + idx],
                            array=False)
 
@@ -521,6 +515,59 @@ class SimRuntime(Runtime):
         if f:
             res = res * (1 << 2 * f)
         return self._wrap(stype, res, False, self._is_array_op(a))
+
+    def is_zero_public(self, a):
+        """Whether a secure number is 0, or which values of a secure array
+        are, made public and nothing more (``mpyc_tpu/runtime.py:1737``,
+        ``parallel/simulator.py:792``): a times a random nonzero r,
+        opened at threshold 2t. A number follows the JAX package's draws:
+        in a field of at least 2k bits one PRSS value r (nonzero but with
+        probability 1/p); in a smaller one PRSS values r and s until the
+        opened r s is nonzero (with a PRSS zero-sharing added below k
+        bits, and added to a r too). An array takes a blinder of its own
+        for every value, drawn the same way (the smaller fields' pairs
+        redrawn where their product opened to 0), so that the opened
+        values do not reveal the ratios of a's values, as one r for all
+        of them would. A bool, or a numpy bool array of a's shape."""
+        field = a.field if isinstance(a, finfields.FieldArray) else \
+            self._sectype(a).field
+        share = a if isinstance(a, finfields.FieldArray) else self._share(a)
+        m = len(self.parties)
+        logical = tuple(share.shape[1:])
+        n = math.prod(logical)
+        rel_size = field.order.bit_length() // self.sec_param
+        threshold = 2 * self.threshold
+        prfs = self.prfs(field.order) if rel_size < 2 else None
+        if rel_size >= 2:
+            r = self._np_randoms(field, n)
+        else:
+            r = None
+            todo = torch.arange(n, device=self.device)
+            while todo.numel():
+                rs = self._np_randoms(field, 2 * todo.numel())
+                k = todo.numel()
+                ri = rs.from_data(rs.data[:, :k])
+                rs_prod = ri * rs.from_data(rs.data[:, k:])
+                if rel_size == 0:
+                    rs_prod = rs_prod + self._stacked_prss(
+                        field, prfs, self._prss_uci(), k, zero=True)
+                zero = rs_prod.ctx.is_zero(
+                    self.output(rs_prod, threshold=threshold).data)
+                if r is None:
+                    r = ri
+                else:
+                    data = r.data.clone()
+                    data[:, todo] = ri.data
+                    r = r.from_data(data)
+                todo = todo[zero]
+        b = share * r.reshape((m,) + logical)
+        if rel_size == 0:
+            b = b + self._stacked_prss(field, prfs, self._prss_uci(),
+                                       max(n, 1), zero=True).reshape(
+                                           (m,) + logical)
+        c = self.output(b, threshold=threshold)
+        zero = c.ctx.is_zero(c.data).cpu().numpy()
+        return bool(zero) if not logical else zero
 
     # -- PRSS, random bits and truncation -------------------------------------
 

@@ -22,13 +22,19 @@ fields), ``np_from_bits``; fixed-point division by a secure value
 (Newton's reciprocal: ``_norm``, ``_rec``); secure unit vectors
 (``np_unit_vector``); operations on lists of secure numbers
 (``input_each``, ``sum``, ``prod``, ``scalar_mul``, ``vector_add``,
-``vector_sub``, ``if_else``, ``min``, ``max``, ``abs``); and for secure
+``vector_sub``, ``if_else``, ``min``, ``max``, ``abs``, ``in_prod``,
+``matrix_prod``, ``matrix_add``); the aggregates
+(``min_max``, ``argmin``/``argmax`` of lists with keys, ``if_swap``,
+``sorted`` by Batcher's merge-exchange; over arrays ``np_prod``,
+``np_amin``/``np_amax``, ``np_if_swap``, ``np_sort`` with every stage
+one batched comparison, ``np_copy``, ``np_flatten``); and for secure
 binary fields (``SecFld``) ``pow``/``np_pow`` (AES's addition chain for
 x^254), ``np_roll``, ``np_split``/``np_hsplit`` and ``np_update``.
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
-``output``, ``reciprocal``, the PRSS draws ``_np_randoms`` and
-``np_random_bits`` (and their list forms ``_randoms``, ``_random``,
+``output``, ``reciprocal``, ``is_zero_public``, the PRSS draws
+``_np_randoms`` and ``np_random_bits`` (and their list forms
+``_randoms``, ``_random``,
 ``random_bits``) and the truncation round ``_trunc_field``, the local
 ``np_getitem``, ``np_sum``, ``np_fromlist`` and ``np_tolist``, and the
 share bookkeeping ``_share``, ``_share2``, ``_local`` and ``_wrap``.
@@ -244,20 +250,20 @@ class Runtime:
     def add(self, a, b):
         """Secure elementwise a + b (either may be public)."""
         stype = self._sectype(a, b)
+        array = self._is_array_op(a, b)
         a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
         sa, sb = self._share2(a, b)
         return self._wrap(stype, sa + sb,
-                          self._integral(a) and self._integral(b),
-                          self._is_array_op(a, b))
+                          self._integral(a) and self._integral(b), array)
 
     def sub(self, a, b):
         """Secure elementwise a - b (either may be public)."""
         stype = self._sectype(a, b)
+        array = self._is_array_op(a, b)
         a, b = self._coerce_op(stype, a), self._coerce_op(stype, b)
         sa, sb = self._share2(a, b)
         return self._wrap(stype, sa - sb,
-                          self._integral(a) and self._integral(b),
-                          self._is_array_op(a, b))
+                          self._integral(a) and self._integral(b), array)
 
     def neg(self, a):
         """Secure elementwise -a."""
@@ -676,6 +682,153 @@ class Runtime:
         """Secure |a| (``mpyc_tpu/runtime.py:3061``)."""
         return self.np_absolute(a, l)
 
+    def min_max(self, *x, key=None):
+        """Secure (min, max) of numbers in (3n - 3) // 2 comparisons
+        (``mpyc_tpu/runtime.py:3490``): the pairs (x[i], x[n - 1 - i])
+        are ordered first, then min of the first half and max of the
+        second."""
+        if len(x) == 1:
+            x = x[0]
+        x = list(x)
+        n = len(x)
+        if not n:
+            raise ValueError('min_max() arg is an empty sequence')
+        key = key or (lambda a: a)
+        for i in range(n // 2):
+            a, b = x[i], x[-1 - i]
+            x[i], x[-1 - i] = self.if_swap(key(a) >= key(b), a, b)
+        return (self.min(x[:(n + 1) // 2], key=key),
+                self.max(x[n // 2:], key=key))
+
+    def argmin(self, *x, key=None):
+        """Secure (index, minimum) of numbers or of lists of numbers (a
+        key then orders them), the first occurrence on ties
+        (``mpyc_tpu/runtime.py:3506``)."""
+        if len(x) == 1:
+            x = x[0]
+        x = list(x)
+        if not x:
+            raise ValueError('argmin() arg is an empty sequence')
+        key = key or (lambda a: a)
+        return self._argminmax(x, lambda c0, c1: key(c1) < key(c0))
+
+    def argmax(self, *x, key=None):
+        """Secure (index, maximum); see argmin
+        (``mpyc_tpu/runtime.py:3518``)."""
+        if len(x) == 1:
+            x = x[0]
+        x = list(x)
+        if not x:
+            raise ValueError('argmax() arg is an empty sequence')
+        key = key or (lambda a: a)
+        return self._argminmax(x, lambda c0, c1: key(c0) < key(c1))
+
+    def _argminmax(self, x, better1):
+        """The halves' winners, the second taken where ``better1`` holds
+        of the pair: a tournament of len(x) - 1 comparisons
+        (``mpyc_tpu/runtime.py:3530``)."""
+        n = len(x)
+        if n == 1:
+            m = x[0]
+            return type(m[0] if isinstance(m, list) else m)(0), m
+        i0, m0 = self._argminmax(x[:n // 2], better1)
+        i1, m1 = self._argminmax(x[n // 2:], better1)
+        c = better1(m0, m1)
+        return (self.if_else(c, self.add(i1, n // 2), i0),
+                self.if_else(c, m1, m0))
+
+    def if_swap(self, c, x, y):
+        """Secure swap: [x, y] where c is 0, [y, x] where it is 1, of
+        numbers or elementwise of lists (``mpyc_tpu/runtime.py:2697``):
+        one product, d = c (y - x), then [x + d, y - d]."""
+        if isinstance(c, sectypes.SecureFixedPoint) and not c.integral:
+            raise ValueError('condition must be integral')
+        if isinstance(x, list):
+            d = [c * (yi - xi) for xi, yi in zip(x, y)]
+            return [[xi + di for xi, di in zip(x, d)],
+                    [yi - di for yi, di in zip(y, d)]]
+        d = c * (y - x)
+        return [x + d, y - d]
+
+    def sorted(self, x, key=None, reverse=False):
+        """A securely sorted copy of a list of numbers (or of lists, by
+        key): Batcher's merge-exchange network, not stable
+        (``mpyc_tpu/runtime.py:3544``)."""
+        x = list(x)
+        if len(x) < 2:
+            return x
+        self._sort(x, key or (lambda a: a))
+        if reverse:
+            x.reverse()
+        return x
+
+    def _sort(self, x, key):
+        """Batcher's merge-exchange (Knuth, TAOCP 5.2.2 M) in place, one
+        if_swap a comparator (``mpyc_tpu/runtime.py:3556``)."""
+        n = len(x)
+        t = (n - 1).bit_length()
+        p = 1 << (t - 1)
+        while p:
+            d, q, r = p, 1 << (t - 1), 0
+            while d:
+                for i in range(n - d):
+                    if i & p == r:
+                        a, b = x[i], x[i + d]
+                        x[i], x[i + d] = self.if_swap(key(a) < key(b), b, a)
+                d, q, r = q - p, q >> 1, p
+            p >>= 1
+        return x
+
+    def in_prod(self, x, y):
+        """Secure dot product of two lists of numbers: the local products
+        summed and one reshare round (``mpyc_tpu/runtime.py:1504``)."""
+        if not x:
+            return 0
+        stype = self._sectype(*x, *y)
+        f = stype.sectype.frac_length
+        a_int = all(self._integral(xi) for xi in x)
+        b_int = all(self._integral(yi) for yi in y)
+        acc = None
+        for xi, yi in zip(x, y):
+            t = self._share(self._coerce_op(stype, xi)) * \
+                self._share(self._coerce_op(stype, yi))
+            acc = t if acc is None else acc + t
+        if f and (a_int or b_int):
+            acc = acc >> f
+        acc = self._reshare(acc)
+        if f and not (a_int or b_int):
+            acc = self._trunc_field(acc, f, stype.sectype.bit_length + f)
+        return self._wrap(stype, acc, a_int and b_int, False)
+
+    def matrix_prod(self, A, B, tr=False):
+        """Secure product of matrices given as lists of lists, one of
+        them may be public (``mpyc_tpu/runtime.py:2585``): one matrix
+        product of the arrays (``np_matmul``), B transposed with tr."""
+        stype = self._sectype(*(A[0] + B[0]))
+
+        def lift(M):
+            flat = [v for row in M for v in row]
+            if any(isinstance(v, sectypes.SecureObject) for v in flat):
+                return self.np_reshape(self.np_fromlist(
+                    [v if isinstance(v, sectypes.SecureObject)
+                     else stype.sectype(v) for v in flat]),
+                    (len(M), len(M[0])))
+            return np.array([list(row) for row in M], dtype=object)
+
+        An, Bn = lift(A), lift(B)
+        if tr:
+            Bn = self.np_transpose(Bn) if isinstance(
+                Bn, sectypes.SecureArray) else Bn.T
+        C = self.np_matmul(An, Bn)
+        return [[self.np_getitem(C, (i, j)) for j in range(C.shape[1])]
+                for i in range(C.shape[0])]
+
+    def matrix_add(self, A, B, tr=False):
+        """Secure A + B (B transposed with tr) of lists of lists
+        (``mpyc_tpu/runtime.py:2638``)."""
+        return [[self.add(A[i][j], B[j][i] if tr else B[i][j])
+                 for j in range(len(A[0]))] for i in range(len(A))]
+
     # -- secure unit vectors -------------------------------------------------
 
     def np_unit_vector(self, a, n: int):
@@ -863,6 +1016,119 @@ class Runtime:
         """Secure elementwise |a|."""
         return self.mul(self.np_sgn(a, l=l, LT=True) * -2 + 1, a)
 
+    def np_if_swap(self, c, a, b):
+        """Secure swap of arrays a and b where c holds (c secure or
+        public; ``mpyc_tpu/runtime.py:1980``): d = c (b - a), then
+        [a + d, b - d]."""
+        d = self.sub(b, a)
+        if isinstance(c, sectypes.SecureObject):
+            d = self.mul(c, d)
+        else:
+            d = self.mul(d, np.asarray(c, dtype=object) * 1)
+        return [self.add(a, d), self.sub(b, d)]
+
+    def _reduce_prep(self, a, axis):
+        """a with the axes ``axis`` (default: all) moved last and merged
+        into one, and those axes (``mpyc_tpu/runtime.py:3609``)."""
+        nd = len(a.shape)
+        if axis is None:
+            axes = tuple(range(nd))
+        elif isinstance(axis, int):
+            axes = (axis % nd,)
+        else:
+            axes = tuple(sorted(i % nd for i in axis))
+        order = [i for i in range(nd) if i not in axes] + list(axes)
+        if order != list(range(nd)):
+            a = self.np_transpose(a, axes=order)
+        return self.np_reshape(a, tuple(a.shape[:nd - len(axes)]) + (-1,)), \
+            axes
+
+    def np_prod(self, a, axis=None):
+        """Secure product of the values of a over axes (default: all) in
+        log depth (``mpyc_tpu/runtime.py:3040``, ``_np_prod`` ``:3044``):
+        the two halves of the last axis multiplied, one product round a
+        level, an odd one out kept first."""
+        a, _ = self._reduce_prep(a, axis)
+        while (n := a.shape[-1]) > 1:
+            n0 = n % 2
+            h = (n + 1) // 2
+            w = self.mul(self.np_getitem(a, (..., slice(n0, h))),
+                         self.np_getitem(a, (..., slice(h, n))))
+            if n0:
+                w = self.np_concatenate(
+                    [self.np_getitem(a, (..., slice(0, 1))), w], axis=-1)
+            a = w
+        return self.np_getitem(a, (..., 0))
+
+    def np_amin(self, a, axis=None, keepdims=False):
+        """Secure minimum over axes (default: all), a tournament of
+        batched comparisons (``mpyc_tpu/runtime.py:3602``)."""
+        return self._np_extremum(a, axis, True, keepdims)
+
+    def np_amax(self, a, axis=None, keepdims=False):
+        """Secure maximum over axes (``mpyc_tpu/runtime.py:3606``)."""
+        return self._np_extremum(a, axis, False, keepdims)
+
+    def _np_extremum(self, a, axis, is_min, keepdims=False):
+        """The halves of the last axis compared at once and the winners
+        kept, an odd one out last, until one is left
+        (``mpyc_tpu/runtime.py:3626``)."""
+        shape = a.shape
+        a, axes = self._reduce_prep(a, axis)
+        while (n := a.shape[-1]) > 1:
+            half = n // 2
+            b0 = self.np_getitem(a, (..., slice(0, half)))
+            b1 = self.np_getitem(a, (..., slice(half, 2 * half)))
+            c = self.np_less(b1, b0) if is_min else self.np_less(b0, b1)
+            w = self.add(self.mul(c, self.sub(b1, b0)), b0)
+            if n % 2:
+                w = self.np_concatenate(
+                    [w, self.np_getitem(a, (..., slice(2 * half, n)))],
+                    axis=-1)
+            a = w
+        if keepdims:
+            return self.np_reshape(a, tuple(1 if i in axes else s
+                                            for i, s in enumerate(shape)))
+        return self.np_getitem(a, (..., 0))
+
+    def np_sort(self, a, axis=-1, key=None):
+        """A securely sorted copy of a along an axis (None: flattened),
+        by key (``mpyc_tpu/runtime.py:3572``): Batcher's merge-exchange
+        network with every stage's comparators at once, one batched
+        comparison and one product a stage over the pairs (I, I + d)
+        gathered by index arrays and written back. I = {i < n - d: i & p
+        == r} is made on the shares' device from its closed form (runs of
+        p from r, every 2p), so that no stage waits for the host."""
+        if axis is None:
+            a, axis = self.np_flatten(a), 0
+        else:
+            a = self.np_copy(a)
+        key = key or (lambda v: v)
+        n = a.shape[axis]
+        if a.size == 0 or n <= 1:
+            return a
+        a = self.np_swapaxes(a, axis, -1)
+        dev = self._share(a).data.device
+        t = (n - 1).bit_length()
+        p = 1 << (t - 1)
+        while p:
+            d, q, r = p, 1 << (t - 1), 0
+            while d:
+                full, rem = divmod(n - d, 2 * p)
+                j = torch.arange(full * p + max(0, min(p, rem - r)),
+                                 device=dev)
+                i0 = j // p * (2 * p) + r + j % p
+                i1 = i0 + d
+                b0 = self.np_getitem(a, (..., i0))
+                b1 = self.np_getitem(a, (..., i1))
+                h = self.mul(self.np_less(key(b1), key(b0)),
+                             self.sub(b1, b0))
+                a = self.np_update(a, (..., i0), self.add(b0, h))
+                a = self.np_update(a, (..., i1), self.sub(b1, h))
+                d, q, r = q - p, q >> 1, p
+            p >>= 1
+        return self.np_swapaxes(a, axis, -1)
+
     def np_where(self, c, a, b):
         """Secure selection c * a + (1 - c) * b (numpy broadcasting): one
         product, c * (a - b) + b, as the JAX package computes it
@@ -935,13 +1201,32 @@ class Runtime:
         share = self._share(a)
         v = self._share(self._coerce_op(stype, value)).data
         data = share.data.clone()
-        idx = idx if isinstance(idx, tuple) else (idx,)
+        idx = self._logical_index(idx, len(a.shape))
         target = data[(slice(None),) + idx]
         data[(slice(None),) + idx] = v.reshape(
             v.shape[:1] + (1,) * (target.dim() - v.dim()) + v.shape[1:]) \
             if v.dim() < target.dim() else v
         return self._wrap(stype, share.from_data(data),
                           self._integral(a) and self._integral(value))
+
+    def np_copy(self, a):
+        """A copy of a secure array (``mpyc_tpu/runtime.py:1829``)."""
+        return self._local(a, torch.clone)
+
+    def np_flatten(self, a):
+        """a as a 1-D secure array (``mpyc_tpu/runtime.py:1819``)."""
+        return self.np_reshape(a, -1)
+
+    @staticmethod
+    def _logical_index(idx, nd: int) -> tuple:
+        """An index of the logical axes as a tuple, its Ellipsis (if any)
+        spelled out as slices, so that it never reaches the limb axis."""
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        k = next((j for j, i in enumerate(idx) if i is Ellipsis), None)
+        if k is None:
+            return idx
+        used = sum(i is not None for i in idx) - 1
+        return idx[:k] + (slice(None),) * (nd - used) + idx[k + 1:]
 
     def np_swapaxes(self, a, i, j):
         nd = len(a.shape)

@@ -11,9 +11,20 @@ the CPU the comparisons run K5's plain version and the products K3's.
 Tolerance: exact equality (integers)."""
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu_torch.demos import np_bnnmnist as bnn
 from mpyc_tpu_torch.parallel.simulator import SimRuntime
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

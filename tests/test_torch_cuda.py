@@ -709,3 +709,50 @@ def test_aes_on_the_card(cuda_device):
     # S-boxes: AES-128 10 in the key schedule, 10 encrypting, 10
     # decrypting; AES-256 13, 14 and 14: 71 powers x^254 of 11 products
     assert r['k8'] == 71 * 11
+
+
+def test_id3_kernels_match_plain(cuda_device):
+    """The ID3 trees' instantiations (K5 LT at l = 42-95 on three and four
+    limbs and EQ at l = 42, K6 at three limbs, K6 and K7 canonical at
+    two) against their plain versions: chip_smoke.check_id3_kernels
+    raises on any difference."""
+    import chip_smoke
+    meas = chip_smoke.check_id3_kernels()
+    assert set(meas) == {'sgn_step<EQ, l=42, L=3>', 'mont_pow<L=3, lazy>',
+                         'mont_pow<L=2>', 'random_bits_tail<L=2>'} | {
+        f'sgn_step<LT, l={l}, L={L}>' for l, L in chip_smoke.ID3_WIDTHS}
+    assert all(r['max_abs_err'] == 0 for r in meas.values())
+
+
+@pytest.mark.parametrize('dataset', [0, 6])
+def test_id3_tree_on_the_card(cuda_device, dataset):
+    """Tennis (SecInt(32)) and house-votes-84 (SecInt(62), three limbs,
+    [NO07]) learn plain_id3's tree; K5 compares on the card."""
+    from mpyc_tpu_torch.demos import np_id3gini as id3
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    n5 = pipelines.sgn_step.launches
+    tree, nodes, _ = id3.build(SimRuntime(3, device=cuda_device), dataset,
+                               out=lambda s: None)
+    assert tree == id3.plain_id3(dataset)
+    assert pipelines.sgn_step.launches > n5 + nodes
+
+
+def test_np_sort_on_the_card(cuda_device):
+    """np_sort, np_amax and np_amin of 4,097 values (a ragged network of
+    91 stages: one K5 launch each) and sorted by a**2 of 16 shuffled
+    values, each held to numpy's or Python's (run_sort checks)."""
+    import chip_smoke
+    n5 = pipelines.sgn_step.by_key[('LT', 32, 2, 0)]
+    res = chip_smoke.run_sort(cuda_device, n=4097, n_sorted=16)
+    assert res['stages'] == 91
+    assert pipelines.sgn_step.by_key[('LT', 32, 2, 0)] >= n5 + 91
+
+
+def test_hash_chains_on_the_card(cuda_device):
+    """AES at k = 2 and SHAKE128 at k = 3 (eager) from random seeds: every
+    revealed value equals the plain chain's (run_hash_chains checks)."""
+    import chip_smoke
+    res = chip_smoke.run_hash_chains(cuda_device, runs=(
+        ('AES, k = 2', 2, False, False), ('SHAKE128, k = 3', 3, True, True)))
+    assert [r['hashes'] for r in res.values()] == [4, 12]
+    assert res['AES, k = 2']['launches']['reshare2<d=8, fused>'] > 0

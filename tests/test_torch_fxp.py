@@ -46,6 +46,17 @@ from mpyc_tpu_torch.ops import fieldops, limb
 from mpyc_tpu_torch.ops.fieldops import limbs_to_numpy, prime_field_ctx
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P52 = 4503599627370323        # SecFxp(14, 6)'s field: two limbs, 3 mod 4
 P69 = 590295810358705651619   # SecInt(37)'s field: three limbs, 3 mod 4
 P64 = 18446744073709551427    # SecInt(32)'s field: two limbs, 4p > R

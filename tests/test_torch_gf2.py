@@ -23,6 +23,17 @@ from mpyc_tpu_torch import finfields, gfpx
 from mpyc_tpu_torch.ops.binary import binary_field_ctx
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DEGREES = (1, 2, 8, 32)
 
 

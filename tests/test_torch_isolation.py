@@ -14,7 +14,9 @@ SHAKE128 of 2 messages (GF(4) products) and AES-128 of 2 blocks (GF(2^8)
 powers, bits and public matrices), the fixed-point LP solver on tb2x2
 (SecFxp(18): prime-field bits, the Newton reciprocal, unit vectors), and
 the survival test's logrank statistic on three time steps at SecFxp(40,
-20) (one batched division) and a random unit vector."""
+20) (one batched division) and a random unit vector, the ID3 tree of
+tennis (np_prod, reciprocals, argmax with a key, is_zero_public) and
+np_sort, np_amax, np_amin of 19 values with sorted of 5 shuffled ones."""
 import os
 import subprocess
 import sys
@@ -64,6 +66,11 @@ _SCRIPT = textwrap.dedent('''
                                         for col in table))
     assert abs(chi - km.plain_logrank(*table)) < 1e-2, chi
     assert len(random.random_unit_vector(secfxp, 3)) == 3
+    from mpyc_tpu_torch.demos import np_id3gini as id3
+    tree, _, _ = id3.build(SimRuntime(3, device='cpu'), 0,
+                           out=lambda s: None)
+    assert tree == id3.plain_id3(0), tree
+    chip_smoke.run_sort('cpu', n=19, n_sorted=5)
     loaded = [m for m in sys.modules
               if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
     assert not loaded, loaded
@@ -72,7 +79,7 @@ _SCRIPT = textwrap.dedent('''
 
 
 def test_main_path_runs_without_jax_or_mpyc_tpu():
-    env = dict(os.environ, OMP_NUM_THREADS='2')
+    env = dict(os.environ, OMP_NUM_THREADS='1')
     env.pop('PYTHONPATH', None)
     proc = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

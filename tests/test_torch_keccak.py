@@ -14,6 +14,16 @@ from mpyc_tpu_torch.ops import keccak as tkeccak
 from mpyc_tpu_torch.ops.fieldops import limbs_to_numpy
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_state(data: bytes) -> np.ndarray:
     hi, lo = jkeccak._absorb_host(data)
     return np.stack([np.array(hi, np.uint32), np.array(lo, np.uint32)])

@@ -5,10 +5,12 @@ There is no nvcc here, so the library's translation units
 (``mpyc_tpu_torch/csrc/kernels.cu``, ``sgn.cu`` for each limb count and
 ``gf2.cu``, ``_build.UNITS``) are compiled with g++ (C++20) against a small header
 that defines CUDA's qualifiers away and runs every launch block by block,
-the threads of a block as ``std::thread``s: ``__syncthreads()`` is a
-``std::barrier`` of the block, ``__shared__`` arrays are ``static`` (one
-block runs at a time), dynamic shared memory is a buffer of the launch's
-size, and ``blockIdx``/``threadIdx`` are ``thread_local`` (inline
+the threads of a block as fibers of one OS thread (``ucontext``): each
+runs until it reaches ``__syncthreads()`` or returns, and the block's
+next phase starts when every thread still running has reached the
+barrier. ``__shared__`` arrays are ``static`` (one block runs at a
+time), dynamic shared memory is a buffer of the launch's size, and
+``blockIdx``/``threadIdx`` are set before each fiber runs (inline
 variables: one for all the units, whose template functions the linker
 merges). That checks the kernels'
 arithmetic, indexing, staging through shared memory and launch geometry
@@ -29,6 +31,17 @@ from mpyc_tpu_torch.models import pipelines
 from mpyc_tpu_torch.ops import fieldops, keccak, rng
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P = 18446744073709551427
 P46 = 70368744177643         # SecInt(14)'s field (the BNN's)
 P69 = 590295810358705651619  # SecInt(37)'s field (the CNN's), three limbs
@@ -43,9 +56,10 @@ P142 = 2787593149816327892691964784081045188544327
 
 _SHIM = '''
 #pragma once
-#include <barrier>
+#include <cstddef>
 #include <cstdint>
-#include <thread>
+#include <sys/mman.h>
+#include <ucontext.h>
 #include <vector>
 #define __global__
 #define __device__
@@ -57,7 +71,7 @@ _SHIM = '''
 #define __launch_bounds__(x)
 #define __restrict__
 struct HostDim3 { unsigned x, y, z; };
-inline thread_local HostDim3 blockIdx, blockDim, threadIdx;
+inline HostDim3 blockIdx, blockDim, threadIdx;
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
@@ -91,42 +105,75 @@ extern "C" { extern unsigned long long mtt_op_counts[2], mtt_perm_count; }
   __atomic_fetch_add(&mtt_op_counts[kind], 1ull, __ATOMIC_RELAXED)
 #define MTT_COUNT_PERM() \\
   __atomic_fetch_add(&mtt_perm_count, 1ull, __ATOMIC_RELAXED)
-inline std::barrier<>* mtt_block_barrier;
+// A block's threads are fibers: one stack each (reserved once, touched
+// only as deep as a thread goes), switched by the launch's scheduler.
+struct MttFiber { ucontext_t ctx; void* stack; bool done; unsigned parity; };
+constexpr size_t MTT_STACK = size_t(1) << 20;
+inline std::vector<MttFiber> mtt_fibers;
+inline ucontext_t mtt_scheduler;
+inline unsigned mtt_current;
+inline void (*mtt_body)(void*);
+inline void* mtt_body_arg;
 inline std::vector<uint64_t> mtt_dynamic_smem;
 inline std::vector<unsigned> mtt_shfl_slots[2];
-inline thread_local unsigned mtt_shfl_parity;
-inline void __syncthreads() { mtt_block_barrier->arrive_and_wait(); }
+inline void mtt_fiber_main() {
+  mtt_body(mtt_body_arg);
+  mtt_fibers[mtt_current].done = true;    // back to uc_link: the scheduler
+}
+inline void __syncthreads() {
+  swapcontext(&mtt_fibers[mtt_current].ctx, &mtt_scheduler);
+}
 // A warp shuffle through a slot a thread and a barrier of the block: every
 // thread of the block must take part, as every thread of a warp must on
 // the card. Shuffles alternate between two sets of slots, so a thread
 // writes a set again only after every thread has read it.
 inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
-  std::vector<unsigned>& slots = mtt_shfl_slots[mtt_shfl_parity ^= 1];
+  std::vector<unsigned>& slots =
+      mtt_shfl_slots[mtt_fibers[mtt_current].parity ^= 1];
   slots[threadIdx.x] = v;
   __syncthreads();
   return slots[(threadIdx.x & ~31u) + (src & 31)];
 }
-// One launch: the blocks in turn, the threads of a block at once. A
+// One launch: the blocks in turn. A block runs in phases: each thread
+// still running runs up to its next __syncthreads() or its return, so a
+// barrier is passed once every thread still running has reached it; a
 // thread that returns leaves the barrier, as on the card.
 template <class F>
 void mtt_host_launch(unsigned grid, unsigned threads, unsigned smem,
                      F body) {
+  while (mtt_fibers.size() < threads) {
+    void* stack = mmap(nullptr, MTT_STACK, PROT_READ | PROT_WRITE,
+                       MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    mtt_fibers.push_back({{}, stack, true, 0});
+  }
+  mtt_body = [](void* f) { (*static_cast<F*>(f))(); };
+  mtt_body_arg = &body;
+  blockDim = {threads, 1, 1};
   for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(threads);
-    mtt_block_barrier = &bar;
     mtt_dynamic_smem.assign((smem + 7) / 8, 0);
     mtt_shfl_slots[0].assign(threads, 0);
     mtt_shfl_slots[1].assign(threads, 0);
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([&, b, t] {
+    for (unsigned t = 0; t < threads; ++t) {
+      MttFiber& f = mtt_fibers[t];
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack;
+      f.ctx.uc_stack.ss_size = MTT_STACK;
+      f.ctx.uc_link = &mtt_scheduler;
+      makecontext(&f.ctx, mtt_fiber_main, 0);
+      f.done = false;
+      f.parity = 0;
+    }
+    for (bool running = true; running;) {
+      running = false;
+      for (unsigned t = 0; t < threads; ++t) {
+        if (mtt_fibers[t].done) continue;
+        mtt_current = t;
         blockIdx = {b, 0, 0};
         threadIdx = {t, 0, 0};
-        blockDim = {threads, 1, 1};
-        body();
-        bar.arrive_and_drop();
-      });
-    for (auto& th : pool) th.join();
+        swapcontext(&mtt_scheduler, &mtt_fibers[t].ctx);
+        running |= !mtt_fibers[t].done;
+      }
+    }
   }
 }
 '''

@@ -16,6 +16,17 @@ from mpyc_tpu_torch.ops import limb as tlimb
 from mpyc_tpu_torch.ops.fieldops import (limbs_from_numpy, limbs_to_numpy,
                                          prime_field_ctx as tctx)
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # SecInt(32)'s 64-bit field, a one-limb and a three-limb prime, the LP
 # solver's four- and five-limb fields (SecInt(70), SecInt(110)) and
 # SecFxp(96)'s six-limb one

@@ -19,6 +19,7 @@ Tolerance: exact equality (integers; bit patterns of Montgomery limbs).
 """
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu import finfields as jfinfields
 from mpyc_tpu import sectypes as jsectypes
@@ -29,6 +30,17 @@ from mpyc_tpu_torch.demos import np_lpsolver as lp
 from mpyc_tpu_torch.ops.fieldops import (limbs_from_numpy, limbs_to_numpy,
                                          prime_field_ctx)
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # (l, m + n) of the LP's datasets 0-5 and 7
 LP_FIELDS = ((8, 5), (6, 5), (70, 40), (104, 118), (110, 490))

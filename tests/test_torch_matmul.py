@@ -20,6 +20,7 @@ Tolerance: exact equality (bit patterns of Montgomery limbs, integers)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu import sectypes as jsectypes
 from mpyc_tpu.ops import fieldops as jfieldops
@@ -28,6 +29,17 @@ from mpyc_tpu.runtime import _Options
 from mpyc_tpu_torch.ops import fieldops as tfieldops
 from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, limbs_to_numpy
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 P46 = 70368744177643            # SecInt(14)'s field, two limbs
 P69 = 590295810358705651619     # SecInt(37)'s field (the CNN's), three limbs

@@ -8,12 +8,24 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu.models import pipelines as jpipe
 from mpyc_tpu.ops import keccak as jkeccak
 from mpyc_tpu_torch.models import pipelines as tpipe
 from mpyc_tpu_torch.ops import keccak as tkeccak
 from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, limbs_to_numpy
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 P = 18446744073709551427   # SecInt(32)'s field
 M, T = 3, 1

@@ -18,6 +18,17 @@ from mpyc_tpu_torch.models import pipelines
 from mpyc_tpu_torch.ops import fieldops, keccak, rng
 from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, prime_field_ctx
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P = 18446744073709551427   # SecInt(32)'s field, two limbs
 P110 = 1298074214633706907132624082305003   # SecFxp(52)'s field, four limbs
 

@@ -8,6 +8,18 @@ ladders at named and seeded exponents in tests/test_torch_fxp.py.
 Tolerance: exact equality (integers).
 """
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 pytest.importorskip('hypothesis')
 from hypothesis import given, settings  # noqa: E402

@@ -27,6 +27,17 @@ from mpyc_tpu_torch.models import pipelines
 from mpyc_tpu_torch.ops import keccak
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODULI = {2: 0b111, 8: 0x11B}
 
 

@@ -15,6 +15,17 @@ from mpyc_tpu_torch.ops import keccak as tkeccak
 from mpyc_tpu_torch.ops import rng as trng
 from mpyc_tpu_torch.ops.fieldops import limbs_to_numpy, prime_field_ctx
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P64 = 18446744073709551427   # SecInt(32)'s field
 P89 = (1 << 89) - 1
 KEY = bytes(range(32))

@@ -15,6 +15,7 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from mpyc_tpu.models import pipelines as jpipe
 from mpyc_tpu.ops import keccak as jkeccak
@@ -23,6 +24,17 @@ from mpyc_tpu_torch.ops import keccak as tkeccak
 from mpyc_tpu_torch.ops import limb as tlimb
 from mpyc_tpu_torch.ops.fieldops import (limbs_from_numpy, limbs_to_numpy,
                                          prime_field_ctx)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 P17 = 131101          # next_prime(2^17): a one-limb field
 L_BITS, K = 6, 8

@@ -27,6 +27,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import mpyc_tpu.runtime as jruntime
 from mpyc_tpu import sectypes as jsectypes
@@ -34,6 +35,17 @@ from mpyc_tpu.parallel.simulator import SimRuntime as JaxSim
 from mpyc_tpu.runtime import _Options
 from mpyc_tpu_torch.demos import np_aes, np_sha3
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 DEMOS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'demos')

@@ -23,6 +23,16 @@ from mpyc_tpu_torch.ops.fieldops import limbs_to_numpy
 from mpyc_tpu_torch.parallel.simulator import SimRuntime as TorchSim
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def runtimes():
     # the JAX plane would export its traced steps into the repo's cache

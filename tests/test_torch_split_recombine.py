@@ -19,6 +19,17 @@ from mpyc_tpu_torch.ops import keccak as tkeccak
 from mpyc_tpu_torch.ops import limb as tlimb
 from mpyc_tpu_torch.ops.fieldops import limbs_from_numpy, limbs_to_numpy
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The plain versions on small tensors gain nothing from torch's
+    threads, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P = 18446744073709551427   # SecInt(32)'s field
 
 
