@@ -29,7 +29,11 @@ and the binary-field demos, SHA3
 trees (``demos/id3gini.py``: SecInt(32)-(95)), secure sorting
 (``demos/sort.py``) and the one-way hash chains
 (``demos/np_onewayhashchains.py``) through ``mpyc_tpu_torch/demos/
-np_id3gini.py``, ``sort.py`` and ``np_onewayhashchains.py``. Phases, each
+np_id3gini.py``, ``sort.py`` and ``np_onewayhashchains.py``; and the
+co-located demos of ``demos/run-all.sh`` (secretsanta,
+SecretSantaExplained, indextounitvector, unanimous, PrefixOrExplained, and
+sort's secure list) through their runners in ``mpyc_tpu_torch/demos/``,
+with the secure prime fields SecFld(p) on one-limb fields. Phases, each
 printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
@@ -81,7 +85,11 @@ printing one line with its elapsed seconds:
    mode at l = 42, 62 (three limbs), 69, 75, 77, 95 (four) and in EQ mode
    at l = 42 on one element (and 300, checked), K6 at three limbs and K6
    and K7 canonical at two (SecInt(32)'s field), each against its plain
-   version;
+   version; and the co-located demos' (``check_one_limb_kernels``): the
+   one-limb K3 (fused and not), K6 and K7 (lazy on GF(1031), canonical
+   on GF(2^31 - 1)) and K9, K5 at SecFxp(32, 16)'s
+   l = 32, f = 16 (EQ and LT), K8 in GF(4) without its product, each
+   against its plain version;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -215,16 +223,26 @@ printing one line with its elapsed seconds:
    every revealed value equal to the plain chain's (a plain AES-128,
    hashlib's SHAKE128) from the opened seed, k 2^(k-1) hashes; seconds a
    hash;
-23. k1 shapes: K1's launches on each path by block count (each driven
+23. co-located demos: the runners of ``demos/run-all.sh``'s co-located
+   demos at their defaults, each checking itself (secretsanta n = 5,
+   three draws; SecretSantaExplained n = 5; indextounitvector n = 10 over
+   GF(11), SecInt(32) and SecFxp(32, 16); unanimous, two voters, yes-yes
+   and yes-no; PrefixOrExplained, five circuits on all 256 vectors of 8
+   bits; sort n = 5 with its secure list), then a Secret Santa of 64, unit
+   vectors of 1,024 over GF(1031) and SecInt(32), a secure list of 1,024
+   SecInt(32) values read, written and inserted at secret indices, and
+   GF(1031) and GF(2^31 - 1) at 1,024 elements (product, ==, /,
+   randrange): every result checked against Python; seconds a call;
+24. k1 shapes: K1's launches on each path by block count (each driven
    path prints its own; a record of the launcher's calls, no counter of
    the wrapper's), and K1 timed at each block count the paths launched
    (CTAs, device time replayed from a CUDA graph, bound, the launch
    floor);
-24. report: one JSON line of the kernels (every instantiation that a path
+25. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13-16, 18-22 zeroes the launch counters just
+Each of phases 4-11, 13-16, 18-23 zeroes the launch counters just
 before it and reads them just after, and records K1's launches by block
 count; each must show that the
 instantiations of its path ran (``PATH_ENTRIES``), and that it launched
@@ -368,6 +386,18 @@ N_SORTED = 64
 HC_RUNS = (('AES, k = 5', 5, False, False),
            ('SHAKE128, k = 5', 5, False, True),
            ('AES, k = 3, eager', 3, True, False))
+# the co-located demos of demos/run-all.sh (secretsanta,
+# SecretSantaExplained, indextounitvector, unanimous, PrefixOrExplained and
+# sort's secure list) at their defaults, then at sizes users run: a Secret
+# Santa of 64 (an office's draw), unit vectors of 1,024 over GF(1031) =
+# SecFld(min_order=1024) and SecInt(32), a secure list of 1,024 SecInt(32)
+# values, and the secure prime fields GF(1031) (4p < 2^32: the lazy
+# one-limb K6 and K7) and GF(2^31 - 1) (canonical) at 1,024 elements
+N_SANTA = 64
+N_UNIT = 1024
+N_SECLIST = 1024
+N_FLD = 1024
+FLD_PRIMES = (1031, (1 << 31) - 1)
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -524,6 +554,21 @@ ENTRIES = {
     # (tennis's reciprocals), K7 too (the shuffle's random bits)
     'mont_pow<L=2>': ('mont_pow', (2, False)),
     'random_bits_tail<L=2>': ('random_bits_tail', (2, False)),
+    # the co-located demos: the secure prime fields' one-limb K3, K6 and
+    # K7 (lazy for GF(1031), canonical for GF(2^31 - 1)) and K9; K5 at
+    # SecFxp(32, 16)'s width and scale (unit_vector's zero tests,
+    # seclist.sort's comparisons); K8 without its product (all() of
+    # SecFld(2) votes: a product and a reshare)
+    'reshare_mul<L=1, fused>': ('reshare_mul', (1, True)),
+    'reshare_mul<L=1>': ('reshare_mul', (1, False)),
+    'mont_pow<L=1, lazy>': ('mont_pow', (1, True)),
+    'mont_pow<L=1>': ('mont_pow', (1, False)),
+    'random_bits_tail<L=1, lazy>': ('random_bits_tail', (1, True)),
+    'random_bits_tail<L=1>': ('random_bits_tail', (1, False)),
+    'field_op<L=1>': ('field_op', 1),
+    'sgn_step<EQ, l=32, L=3, f=16>': ('sgn_step', ('EQ', 32, 3, 16)),
+    'sgn_step<LT, l=32, L=3, f=16>': ('sgn_step', ('LT', 32, 3, 16)),
+    'reshare2<d=2>': ('reshare2', (2, False)),
 }
 # the instantiations each path must launch
 PATH_ENTRIES = {
@@ -616,6 +661,18 @@ PATH_ENTRIES = {
     # AES's S-box products (K8 in GF(2^8)) and SHAKE128's chi (K8 in
     # GF(4))
     'hash chains': ('reshare2<d=8, fused>', 'reshare2<d=2, fused>'),
+    # the secure prime fields' products and Fermat tests (K3 fused at one
+    # limb), the reciprocals' reshares (K3) and public inverses (K6, lazy
+    # and canonical), randrange's random bits (K7, lazy and canonical),
+    # their arithmetic between (K9); the zero tests and comparisons at
+    # SecFxp(32, 16) (K5) and the AND of SecFld(2) votes (K8 without the
+    # product)
+    'co-located demos': ('reshare_mul<L=1, fused>', 'reshare_mul<L=1>',
+                         'mont_pow<L=1, lazy>', 'mont_pow<L=1>',
+                         'random_bits_tail<L=1, lazy>',
+                         'random_bits_tail<L=1>', 'field_op<L=1>',
+                         'sgn_step<EQ, l=32, L=3, f=16>',
+                         'sgn_step<LT, l=32, L=3, f=16>', 'reshare2<d=2>'),
 }
 
 
@@ -3157,6 +3214,242 @@ def run_hash_chains(device, runs=HC_RUNS) -> dict:
     return res
 
 
+def check_one_limb_kernels() -> dict:
+    """Phase "kernels", the co-located demos' part: each instantiation
+    their path launches that no earlier path did, bit for bit against its
+    plain version (tolerance: exact) and timed at the path's shape beside
+    its plain version and bound. The one-limb fields of the secure prime
+    fields: K3 fused and not at (3, 1,024, 1) (a product of 1,024
+    GF(1031) values; a reciprocal's reshare), checked at a ragged 6,407
+    too; K6 lazy on GF(1031) and canonical on GF(2^31 - 1) at e = p - 2
+    (the reciprocals of 1,024 opened values) and (p - 1) / 2; K7 lazy and
+    canonical on 1,000 shares with one element in 7 planted to open to 0
+    (bits, flags, count), timed at ``randrange(1000)``'s ten random bits;
+    K9 at (3, 1,024, 1), products, adds and subtractions, constants
+    either side. And on
+    SecFxp(32, 16)'s three-limb field, K5 at l = 32, f = 16: EQ mode on
+    ten elements (unit_vector, n = 10), LT on one (seclist.sort); K8
+    without its product in GF(4) (``all`` of SecFld(2) votes), at the
+    bucket of 64."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(23)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFD, 6)
+    for p in FLD_PRIMES:
+        ctx = prime_field_ctx(p)
+        field = finfields.GF(p)
+        lazy = ', lazy' if ctx.lazy else ''
+        if p == FLD_PRIMES[0]:
+            spec = pipelines.ReshareSpec(p, T, M)
+            for fused in (True, False):
+                err = 0
+                for n in (6407, N_FLD):
+                    a = random_field(p, (M, n), gen)
+                    b = random_field(p, (M, n), gen) if fused else None
+                    out = pipelines.reshare_mul(a, b, st, nonce, spec)
+                    want = pipelines._reshare_mul_plain(a, b, st, nonce,
+                                                        spec)
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs_err(out, want))
+                check(err == 0, f'K3 (L = 1, fused {fused}) differs from '
+                      'its plain version')
+                res[f'reshare_mul<L=1{", fused" if fused else ""}>'] = \
+                    reshare_meas(spec, a, b, st, nonce, err)
+            a, b = random_field(p, (M, N_FLD), gen), random_field(
+                p, (M, N_FLD), gen)
+            c = random_field(p, (1,), gen)
+            err = 0
+            for op in fieldops._FIELD_OPS:
+                for x, y in ((a, b), (a, c), (c, a)):
+                    got = fieldops.field_op(x, y, op, ctx)
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs_err(
+                        got, fieldops._field_op_plain(x, y, op, ctx)))
+            check(err == 0, 'K9 (L = 1) differs from its plain version')
+            bd, o = bound(M * N_FLD * 4 * 3, M * N_FLD * mont_mul_ops(1))
+            res['field_op<L=1>'] = dict(
+                shape=f'({M}, {N_FLD}, 1) shares, a Montgomery product',
+                max_abs_err=err,
+                ms=graph_ms(lambda: fieldops.field_op(a, b, 'mul', ctx), 20),
+                plain_ms=cuda_ms(lambda: fieldops._field_op_plain(
+                    a, b, 'mul', ctx), 3),
+                bound_ms=bd, bound_by=o)
+            say(f'  K3 reshare_mul and K9 field_op at L = 1 (GF({p})): '
+                f'({M}, 6407) and ({M}, {N_FLD}), equal to plain')
+        x = random_field(p, (N_FLD,), gen)
+        x[0] = 0
+        err = 0
+        for e in (p - 2, (p - 1) // 2):
+            out = fieldops.mont_pow(x, e, ctx)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(out, fieldops._mont_pow_plain(
+                x, e, ctx)))
+        check(err == 0, f'K6 (L = 1{lazy}) differs from its plain version')
+        res[f'mont_pow<L=1{lazy}>'] = pow_meas(ctx, x, p - 2, err)
+        for n in (1000, 10):
+            rr, zz = tail_shares(p, n, gen, every=7)
+            got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
+            want = pipelines._random_bits_tail_plain(rr, zz, field, False,
+                                                     0, T)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got[0], want[0]),
+                      int((got[1] != want[1]).sum()),
+                      abs(int(got[2].item()) - int(want[2].item())))
+            check(err == 0 and int(got[2].item()) >= n // 7,
+                  f'K7 (L = 1{lazy}, {n} elements) differs from its plain '
+                  'version')
+        res[f'random_bits_tail<L=1{lazy}>'] = tail_meas(field, rr, zz, err)
+        say(f'  K6 mont_pow and K7 random_bits_tail at L = 1{lazy} '
+            f'(GF({p})): {N_FLD} and 1,000 elements, equal to plain')
+    p = sectypes.SecFxp(32, 16, 'cuda').field.modulus
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    for mode, n in (('EQ', 10), ('LT', 1)):
+        spec = pipelines.SgnSpec(p, T, M, 32, 30, LT=mode == 'LT',
+                                 EQ=mode == 'EQ', f=16)
+        L = spec.ctx.L
+        for nn in (300, n):
+            a = random_field(p, (M, nn), gen)
+            err = sgn_chunks_check(spec, a, st, nonce, chunk)
+        res[f'sgn_step<{mode}, l=32, L={L}, f=16>'] = sgn_meas(
+            spec, a, st, nonce, chunk, err)
+        say(f'  K5 sgn_step {mode} at l = 32, L = {L}, f = 16: ({M}, 300) '
+            f'and ({M}, {n}), equal to plain')
+    spec = pipelines.Reshare2Spec(GF4, T, M)
+    a = gf2_field(spec.d, (M, 64), gen)
+    out = pipelines.reshare2(a, None, st, nonce, spec)
+    want = pipelines._reshare2_plain(a, None, st, nonce, spec)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, want)
+    check(err == 0, 'K8 (d = 2, no product) differs from its plain version')
+    res['reshare2<d=2>'] = reshare2_meas(spec, a, None, st, nonce, err)
+    say(f'  K8 reshare2 in GF(4) without the product: ({M}, 64), equal to '
+        'plain')
+    return res
+
+
+def run_colocated(device, n_santa=N_SANTA, n_unit=N_UNIT, n_list=N_SECLIST,
+                  n_fld=N_FLD, defaults=True, seed=29, profile=False) -> dict:
+    """Phase "co-located demos": the runners of ``demos/run-all.sh``'s
+    co-located demos on SimRuntime(3), each checking itself, at their JAX
+    demos' defaults (``defaults``): secretsanta (n = 5, three
+    derangements), SecretSantaExplained (n = 5), indextounitvector (n =
+    10: GF(11), SecInt(32), SecFxp(32, 16), unit_vector and bit_kron),
+    unanimous (two voters, yes-yes and yes-no: SecFld(2)),
+    PrefixOrExplained (the five circuits on all 256 vectors of 8 bits,
+    their depth and work), sort (n = 5, with its secure list); then at
+    sizes users run: a Secret Santa of n_santa at SecInt(32),
+    ``unit_vector`` of n_unit over SecFld(min_order=n_unit) and
+    SecInt(32) at three indices, a ``seclist`` of n_list SecInt(32)
+    values read, written and inserted into at a secret index, and the
+    secure prime fields GF(1031) and GF(2^31 - 1) at n_fld elements
+    (input, product, ``==`` by Fermat's test, division by a secure
+    value, ``randrange(1000)``), every result opened and checked against
+    Python. Seconds a call on the host clock, after a synchronize; with
+    ``profile`` one more write into the secure list under torch.profiler
+    (device time by kernel, idle share, the host's operators)."""
+    from mpyc_tpu_torch import random as srandom
+    from mpyc_tpu_torch import seclists
+    from mpyc_tpu_torch.demos import (PrefixOrExplained, SecretSantaExplained,
+                                      indextounitvector, secretsanta, sort,
+                                      unanimous)
+    rt = SimRuntime(M, device=device)
+    on_card = rt.device.type == 'cuda'
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    quiet = lambda s: None   # noqa: E731
+    gen = np.random.default_rng(seed)
+    res = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        res[name] = time.perf_counter() - t0
+        return out
+
+    if defaults:
+        r = timed('secretsanta n=5 (3 draws)',
+                  lambda: secretsanta.run(rt, 5, 3, out=quiet))
+        check(r['ok'], 'secretsanta: a draw is no derangement')
+        r = timed('SecretSantaExplained n=5',
+                  lambda: SecretSantaExplained.run(rt, 5, out=quiet))
+        check(r['ok'], 'SecretSantaExplained: a stage failed its check')
+        check(timed('indextounitvector n=10', lambda: indextounitvector.run(
+            rt, 10, out=quiet)), 'indextounitvector: a vector is not the '
+            'unit vector of its index')
+        for votes in ([1, 1], [1, 0]):
+            check(timed(f'unanimous {votes}', lambda: unanimous.run(
+                rt, votes, out=quiet)), f'unanimous {votes}: the verdict '
+                'differs from the plain AND')
+        r = timed('PrefixOrExplained n=8',
+                  lambda: PrefixOrExplained.run(rt, 8, out=quiet))
+        check(r['ok'], 'PrefixOrExplained: a circuit differs from '
+              'itertools.accumulate')
+        res['prefix_or'] = [row[:3] for row in r['rows']]
+        vals = sort.ramp(5)
+        check(timed('sort n=5', lambda: all((
+            sort.demo_sorted_with_key(rt, vals, out=quiet),
+            sort.demo_seclist_descending(rt, vals, out=quiet),
+            sort.demo_np_sort(rt, vals, out=quiet)))),
+            'sort: a result differs from Python\'s sorted')
+    r = timed(f'secretsanta n={n_santa}',
+              lambda: secretsanta.run(rt, n_santa, 1, out=quiet))
+    check(r['ok'], f'secretsanta n = {n_santa}: no derangement')
+    secint = rt.SecInt(32)
+    for sectype in (rt.SecFld(min_order=n_unit), secint):
+        idx = sorted({0, n_unit // 2 + 5 if n_unit > 10 else 1, n_unit - 1})
+        name = f'unit_vector n={n_unit} {sectype.__name__}'
+        vecs = timed(name, lambda: [[int(v) for v in rt.output(
+            rt.unit_vector(sectype(i), n_unit))] for i in idx])
+        res[name] /= len(idx)
+        check(all(v == [int(j == i) for j in range(n_unit)]
+                  for i, v in zip(idx, vecs)),
+              f'{name}: a vector is not the unit vector of its index')
+    vals = [int(v) for v in gen.integers(-2**30, 2**30, n_list)]
+    lst = seclists.seclist(vals, secint)
+    i, j = int(gen.integers(n_list)), int(gen.integers(n_list))
+    got = timed(f'seclist n={n_list} read', lambda: rt.output(
+        lst[secint(i)]))
+    check(got == vals[i], 'seclist: a read at a secret index')
+    timed(f'seclist n={n_list} write', lambda: lst.__setitem__(
+        secint(j), 12345))
+    vals[j] = 12345
+    timed(f'seclist n={n_list} insert', lambda: lst.insert(secint(i), -7))
+    vals.insert(i, -7)
+    if profile:
+        res['trace'] = profile_calls(lambda: lst.__setitem__(secint(i), 777),
+                                     1, top=8)
+        vals[i] = 777
+    check([int(v) for v in rt.output(list(lst))] == vals,
+          'seclist: the list after a write and an insertion at secret '
+          'indices')
+    for p in FLD_PRIMES:
+        secfld = rt.SecFld(p)
+        x = [int(v) for v in gen.integers(0, p, n_fld)]
+        y = [int(v) for v in gen.integers(1, p, n_fld)]
+        y[:n_fld // 8] = x[:n_fld // 8]
+        y = [v or 1 for v in y]
+        a = rt.input(secfld.array(np.array(x, dtype=object)), senders=0)
+        b = rt.input(secfld.array(np.array(y, dtype=object)), senders=1)
+        name = f'GF({p}) n={n_fld}'
+        prod = timed(f'{name} product', lambda: rt.output(a * b))
+        eq = timed(f'{name} ==', lambda: rt.output(a == b))
+        quo = timed(f'{name} /', lambda: rt.output(a / b))
+        r = timed(f'{name} randrange(1000)', lambda: rt.output(
+            srandom.randrange(secfld, 1000)))
+        check([int(v) for v in prod.value] ==
+              [u * v % p for u, v in zip(x, y)], f'{name}: a product')
+        check([int(v) for v in eq.value] == [int(u == v) for u, v in
+                                               zip(x, y)], f'{name}: ==')
+        check([int(v) for v in quo.value] ==
+              [u * pow(v, -1, p) % p for u, v in zip(x, y)],
+              f'{name}: a quotient')
+        check(0 <= int(r) < 1000, f'{name}: randrange(1000) gave {r}')
+    return res
+
+
 def warm_stats(pass_s: list) -> tuple:
     """(median, least, largest) of the warm passes (all but the first)."""
     warm = sorted(pass_s[1:])
@@ -3201,7 +3494,7 @@ def main() -> int:
                 f'{lib.lib.mtt_sgn_threads(ctypes.addressof(params))}'
                 ' elements')
         model = {L: int(mont_sqr_lazy_ops(L).sum())
-                 for L in (2, 3, 4, 5, 6)}
+                 for L in (1, 2, 3, 4, 5, 6)}
         for fn, r in sass_report(lib.path).items():
             say(f'  SASS {fn}: {r["total"]} instructions, ' + ', '.join(
                 f'{k} {v}' for k, v in r['classes'].items()))
@@ -3220,6 +3513,7 @@ def main() -> int:
         meas.update(check_fxp_lp_kernels())
         meas.update(check_field_ops())
         meas.update(check_id3_kernels())
+        meas.update(check_one_limb_kernels())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -3595,6 +3889,23 @@ def main() -> int:
             say(f'    launches: {r["launches"]}')
         torch.cuda.empty_cache()
 
+    with Phase('co-located demos'):
+        res_co = res = drive('co-located demos',
+                             lambda: run_colocated('cuda', profile=True))
+        say(f'  every runner and size checked against Python; seconds a '
+            f'call on {smi}:')
+        trace = res.pop('trace')
+        for name, v in res.items():
+            if name == 'prefix_or':
+                say(f'    PrefixOrExplained (name, depth, work): {v}')
+            else:
+                say(f'    {name}: {v:.4f} s')
+        say(f'  torch.profiler over one write into the secure list of '
+            f'{N_SECLIST} at a secret index on {smi}:')
+        for line in trace:
+            say(f'    {line}')
+        torch.cuda.empty_cache()
+
     with Phase('k1 shapes'):
         shapes = collections.Counter()
         for path, hist in k1_blocks.items():
@@ -3667,7 +3978,7 @@ def main() -> int:
                     'id3': {k: v for k, v in res_id3.items()
                             if isinstance(v, dict)},
                     'sort': res_sort, 'hash_chains': res_hc,
-                    'card': smi}))
+                    'colocated': res_co, 'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

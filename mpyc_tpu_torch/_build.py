@@ -112,13 +112,16 @@ class TailParams(ctypes.Structure):
                 ('t', ctypes.c_int32), ('m', ctypes.c_int32)]
 
 
-# limb counts of the fields K3, K5, K6 and K7 are built for
+# limb counts of the fields K3, K6, K7 and K9 are built for
 # (csrc/kernels.cu; K2 takes the draws of two- and three-limb fields that
-# a path takes, K4 two-limb fields). The comparison (K5) takes its bit
-# width l as a launch parameter: every l with l + k + 2 <= 32 limbs, in
-# every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max). Fields of one
-# limb, or of more than MAX_NL, raise NotImplementedError on the card.
-BUILT_NL = (2, 3, 4, 5, 6)
+# a path takes, K4 two-limb fields): one limb for the secure prime
+# fields SecFld(p) of p < 2^32. The comparison (K5) is built for two to six
+# (SGN_BUILT_NL: a secure integer's field has l + k + 2 > 32 bits) and
+# takes its bit width l as a launch parameter: every l with l + k + 2 <= 32
+# limbs, in every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max).
+# Fields of more than MAX_NL limbs raise NotImplementedError on the card.
+BUILT_NL = (1, 2, 3, 4, 5, 6)
+SGN_BUILT_NL = (2, 3, 4, 5, 6)
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
 

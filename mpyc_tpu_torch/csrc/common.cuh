@@ -48,12 +48,13 @@ struct ReshareParams {
 };
 
 // Words a draw of the fused streams (K3, K4, K5) takes: fused_draw_bytes(p)
-// / 4 = NL + 2 (p's bytes and 8 of widening, in words; the Python side
-// checks it for each field it launches on: ReshareSpec, SgnSpec).
+// / 4 = NL + 2 (p's bytes and 8 of widening, in words: 12 bytes for every
+// one-limb field, whose p has 1 to 4 bytes; the Python side checks it for
+// each field it launches on: ReshareSpec, SgnSpec).
 template <int NL>
 __host__ __device__ constexpr int fused_words() {
-  static_assert(NL >= 2 && NL <= MAX_NL,
-                "fused draws of 2 to MAX_NL limbs (_build.py BUILT_NL)");
+  static_assert(NL >= 1 && NL <= MAX_NL,
+                "fused draws of 1 to MAX_NL limbs (_build.py BUILT_NL)");
   return NL + 2;
 }
 

@@ -10,12 +10,15 @@
 // stream, launches, and returns cudaGetLastError().
 //
 // Field elements are little-endian 32-bit limbs in Montgomery form with
-// R = 2^(32 NL). K3, K5, K6 and K7 are built for fields of two to six
-// limbs (p < 2^192: SecInt(32)'s and SecInt(14)'s two, SecInt(37)'s and
-// SecInt(64)'s three, the LP solver's SecInt(70) and SecFxp(52) four,
-// SecInt(104) and SecInt(110) five, SecFxp(96) six), K2 for the draws of two- and three-limb fields that
-// a path takes and K4 for two-limb fields; each launcher picks the
-// instantiation from the parameter block's limb count. Every result is
+// R = 2^(32 NL). K3, K6, K7 and K9 are built for fields of one to six
+// limbs (p < 2^192: the secure prime fields SecFld(p) of p < 2^32 one,
+// e.g. GF(11), GF(1031), GF(2^31 - 1); SecInt(32)'s and SecInt(14)'s two,
+// SecInt(37)'s and SecInt(64)'s three, the LP solver's SecInt(70) and
+// SecFxp(52) four, SecInt(104) and SecInt(110) five, SecFxp(96) six), K5
+// for two to six (a secure integer's field has l + k + 2 > 32 bits), K2
+// for the draws of two- and three-limb fields that a path takes and K4
+// for two-limb fields; each launcher picks the instantiation from
+// the parameter block's limb count. Every result is
 // canonical, so each kernel equals its plain PyTorch version (and the JAX
 // package) bit for bit.
 #include "common.cuh"
@@ -244,6 +247,8 @@ field_op_kernel(const uint32_t* __restrict__ a,
 // reduced draws are written, instead of the 168-byte blocks. Built for
 // (NL, W) = (2, 4), (2, 6), (3, 7): the fused streams' draws of two-limb
 // fields and the word-aligned input draws of SecInt(32) and SecInt(64).
+// (A one-limb field's 20-byte input draws are five chunks, more than the
+// radix table's MAX_NC: K1 squeezes them and K9 reduces the chunks.)
 // ---------------------------------------------------------------------------
 template <int NL, int W>
 __global__ void __launch_bounds__(256)
@@ -344,7 +349,9 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 // coefficients take 12,800 NL bytes, past the 48 KB of static shared
 // memory from NL = 4 on, so they are dynamic shared memory
 // (reshare_smem_bytes). Written for general t; built for t = 1, m = 3 and
-// NL = 2 to 6; draws of W = NL + 2 words.
+// NL = 1 to 6; draws of W = NL + 2 words (at NL = 1 three words, 14 a
+// block, so a CTA's 3,200 draws touch 229 blocks: fewer than its
+// threads, each squeezed once).
 // ---------------------------------------------------------------------------
 constexpr int RESHARE_THREADS = 320;
 constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
@@ -505,15 +512,18 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 namespace mtt {
 
 // The instantiation of K6 and K7 for a plan's field: LAZY where 4p < R
-// (p's top limb below 2^30).
+// (p's top limb below 2^30; at one limb p itself: GF(1031) lazy, GF(2^31 -
+// 1) canonical).
 template <int NL, bool LAZY>
 struct PowKind {};
 
 template <class F>
 int pow_dispatch(const PowParams& P, F launch) {
-  if (P.nl < 2 || P.nl > MAX_NL) return -1;
+  if (P.nl < 1 || P.nl > MAX_NL) return -1;
   const bool lazy = P.p[P.nl - 1] < (1u << 30);
   switch (P.nl * 10 + lazy) {
+    case 10: return launch(PowKind<1, false>());
+    case 11: return launch(PowKind<1, true>());
     case 20: return launch(PowKind<2, false>());
     case 21: return launch(PowKind<2, true>());
     case 30: return launch(PowKind<3, false>());
@@ -628,6 +638,7 @@ int launch_reshare_nl(const void* a, const void* b, void* out,
                       const void* state, long long n,
                       const ReshareParams& P, cudaStream_t s) {
   switch (P.draw.nl) {
+    case 1: return launch_reshare<1, FUSE>(a, b, out, state, n, P, s);
     case 2: return launch_reshare<2, FUSE>(a, b, out, state, n, P, s);
     case 3: return launch_reshare<3, FUSE>(a, b, out, state, n, P, s);
     case 4: return launch_reshare<4, FUSE>(a, b, out, state, n, P, s);
@@ -694,7 +705,8 @@ int mtt_keccak_ctr_cta(long long n) { return mtt::keccak_ctr_cta(n); }
 
 // out = a op b elementwise for n elements (K9): op 0 a Montgomery
 // product, 1 an add, 2 a subtraction mod p; a_step and b_step 1, or 0
-// for one element taken by all. -1: a limb count, op or step not built.
+// for one element taken by all; one to six limbs. -1: a limb count, op or
+// step not built.
 int mtt_field_op(const void* a, const void* b, void* out, long long n,
                  int a_step, int b_step, int op, const void* params,
                  void* stream) {
@@ -705,6 +717,8 @@ int mtt_field_op(const void* a, const void* b, void* out, long long n,
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (P.nl) {
+    case 1: return mtt::launch_field_op<1>(a, b, out, n, a_step, b_step, op,
+                                           P, s);
     case 2: return mtt::launch_field_op<2>(a, b, out, n, a_step, b_step, op,
                                            P, s);
     case 3: return mtt::launch_field_op<3>(a, b, out, n, a_step, b_step, op,
@@ -751,7 +765,7 @@ int mtt_reshare(const void* a, const void* b, void* out, const void* state,
                 long long n, int fuse, const void* params, void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
   if (P.t != 1 || P.m != 3 || P.n_send != 3) return -1;
-  if (P.draw.nl < 2 || P.draw.nl > mtt::MAX_NL) return -1;
+  if (P.draw.nl < 1 || P.draw.nl > mtt::MAX_NL) return -1;
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   return fuse ? mtt::launch_reshare_nl<true>(a, b, out, state, n, P, s)

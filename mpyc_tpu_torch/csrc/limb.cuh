@@ -1,6 +1,8 @@
 // Montgomery arithmetic on little-endian 32-bit limbs, R = 2^(32 L).
 // Every function is a template on the limb count; the kernels are built
-// for fields of two to six limbs (p < 2^192; _build.py BUILT_NL).
+// for fields of one to six limbs (p < 2^192; _build.py BUILT_NL). At one
+// limb every loop over limbs above the first is empty: a product is one
+// wide multiply and one row of reduction.
 //
 // Device counterpart of mpyc_tpu/ops/limb.py (mont_mul :247, add_mod :217,
 // sub_mod :227, iszero_ll :195) and of its plain PyTorch version

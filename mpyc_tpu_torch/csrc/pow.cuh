@@ -33,7 +33,8 @@
 //   102-, 136- and 142-bit ones), every product of the chain skips its
 //   final subtraction (values stay below 2p) and one canonical() ends it
 //   (LAZY). SecInt(32)'s 64-bit field takes the canonical products.
-//   Built for two to six limbs, lazy or not: twenty kernels. From three
+//   Built for one to six limbs, lazy or not: twenty-four kernels (a
+//   one-limb field of p < 2^30 lazy, GF(2^31 - 1) canonical). From three
 //   limbs on the products are the C++ form (the PTX carry chains are
 //   written for two limbs). The table of odd powers is dynamic shared
 //   memory (pow_smem_bytes): 40,960 bytes at five limbs, 24,576 at six

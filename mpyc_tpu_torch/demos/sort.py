@@ -11,8 +11,9 @@ a secure array with ``Runtime.np_sort``, every stage of the network one
 batched comparison and one batched product. The input is the demo's
 alternating-sign ramp of N values (default 5). Each result is checked
 with Python's ``sorted``; the runner exits 1 otherwise.
-``demo_seclist_descending`` of the JAX demo needs secure lists
-(``seclist``), which the port does not have yet.
+``demo_seclist_descending`` shuffles secure fixed-point numbers
+(SecFxp(32, 16), the ramp plus 0.5) and sorts them in place, descending,
+as a secure list (``seclists.seclist.sort``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import sys
 
 import numpy as np
 
-from mpyc_tpu_torch import random
+from mpyc_tpu_torch import random, seclists
 from mpyc_tpu_torch.parallel.simulator import SimRuntime
 
 
@@ -44,6 +45,22 @@ def demo_sorted_with_key(mpc, values, out=print) -> bool:
     opened = [int(v) for v in mpc.output(by_abs)]
     out(f'Sorted by absolute value: {opened}')
     return opened == sorted(values, key=abs)
+
+
+def demo_seclist_descending(mpc, values, out=print) -> bool:
+    """Shuffle secure fixed-point numbers v + 0.5 obliviously and sort
+    them descending in a secure list; whether the opened result is
+    sorted((v + 0.5 for v in values), reverse=True)."""
+    secfxp = mpc.SecFxp()
+    out(f'Using secure fixed-point numbers: {secfxp.__name__}')
+    xs = [secfxp(v + 0.5) for v in values]
+    random.shuffle(secfxp, xs)
+    out(f'Randomly shuffled input: {mpc.output(xs)}')
+    lst = seclists.seclist(xs)
+    lst.sort(reverse=True)
+    opened = [float(v) for v in mpc.output(list(lst))]
+    out(f'Sorted by descending value: {opened}')
+    return opened == sorted((v + 0.5 for v in values), reverse=True)
 
 
 def demo_np_sort(mpc, values, out=print) -> bool:
@@ -73,8 +90,7 @@ def main(argv=None) -> int:
     mpc = SimRuntime(3, device=args.device)
     mpc.run(mpc.start())
     ok = demo_sorted_with_key(mpc, values)
-    print('demo_seclist_descending: not run (secure lists, seclist, are '
-          'not ported yet)')
+    ok = demo_seclist_descending(mpc, values) and ok
     ok = demo_np_sort(mpc, values) and ok
     mpc.run(mpc.shutdown())
     print(f'all results equal Python\'s sorted: {ok}')

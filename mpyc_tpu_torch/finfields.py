@@ -92,6 +92,7 @@ class PrimeField(FieldElement):
     characteristic: int = None
     ext_deg = 1
     order: int = None
+    is_signed = True    # int() in (-p/2, p/2); else in [0, p)
 
     def __init__(self, value):
         if not isinstance(value, (int, np.integer)):
@@ -127,9 +128,12 @@ class PrimeField(FieldElement):
         return hash((self.modulus, self.value))
 
     def __int__(self):
-        """The signed value, in (-p/2, p/2) (``PrimeFieldElement.__int__``
-        of a signed field)."""
+        """The signed value, in (-p/2, p/2), or in an unsigned field (a
+        secure prime field's, ``SecFld(p)``) the value in [0, p)
+        (``mpyc_tpu/finfields.py:406 PrimeFieldElement.__int__``)."""
         p = self.modulus
+        if not self.is_signed:
+            return self.value
         return self.value - p if self.value > p >> 1 else self.value
 
     def reciprocal(self):
@@ -145,12 +149,14 @@ def find_irreducible(p: int, d: int):
     return gfpx.GFpX(p).next_irreducible(p ** d - 1)
 
 
-def GF(modulus) -> type:
+def GF(modulus, signed: bool = True) -> type:
     """The field type GF(p) for an odd prime p (with the root of unity
     w = p - 1 of order 2, as the JAX package's ``GF(p)``), or of
     find_prime_root's (p, n, w) tuple; GF(2^d) for an irreducible binary
-    polynomial (``gfpx``), and GF(2) as GF(2^1). Extension fields of odd
-    characteristic are not ported."""
+    polynomial (``gfpx``), and GF(2) as GF(2^1). A prime field's elements
+    convert to signed ints unless ``signed`` is False (a type of its own:
+    the JAX package sets ``is_signed`` on its one type). Extension fields
+    of odd characteristic are not ported."""
     if isinstance(modulus, gfpx.Polynomial):
         if type(modulus).p != 2:
             raise NotImplementedError('extension fields of odd '
@@ -163,15 +169,16 @@ def GF(modulus) -> type:
     else:
         p = int(modulus)
         n, w = 2, p - 1
-    return _GF(p, n, w % p)
+    return _GF(p, n, w % p, bool(signed))
 
 
 @functools.cache
-def _GF(p: int, n: int, w: int) -> type:
+def _GF(p: int, n: int, w: int, signed: bool = True) -> type:
     field = type(f'GF({p})', (PrimeField,), {'__slots__': (), 'modulus': p,
                                               'nth': n, 'root': w,
                                               'characteristic': p,
-                                              'order': p})
+                                              'order': p,
+                                              'is_signed': signed})
     field.array = type(f'ArrayGF({p})', (PrimeFieldArray,),
                        {'__slots__': (), 'field': field,
                         'ctx': prime_field_ctx(p)})

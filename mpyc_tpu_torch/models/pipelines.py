@@ -665,16 +665,17 @@ class SgnSpec:
         """Kernel parameter block for a call with counter (lo, hi); raises
         NotImplementedError for a configuration the card has no
         instantiation of: (t, m) other than (1, 3), k above 64, a field of
-        a limb count not built (``_build.BUILT_NL``). Any l the spec takes
-        (l + k + 2 <= bit length of p) is a launch parameter."""
+        a limb count not built (``_build.SGN_BUILT_NL``). Any l the spec
+        takes (l + k + 2 <= bit length of p) is a launch parameter."""
         from mpyc_tpu_torch import _build
         L = self.ctx.L
         if (self.t, self.m) != (1, 3) or self.k > 64 or \
-                L not in _build.BUILT_NL or self.l_bytes != 4 * (L + 2):
+                L not in _build.SGN_BUILT_NL or self.l_bytes != 4 * (L + 2):
             raise NotImplementedError(
                 f'the CUDA comparison is built for t=1, m=3, k <= 64 and '
-                f'fields of {_build.BUILT_NL} limbs with draws of 4 (L + 2) '
-                f'bytes; not t={self.t}, m={self.m}, k={self.k}, L={L} '
+                f'fields of {_build.SGN_BUILT_NL} limbs with draws of 4 '
+                f'(L + 2) bytes; not t={self.t}, m={self.m}, k={self.k}, '
+                f'L={L} '
                 f'({self.l_bytes}-byte draws)')
         P = _build.SgnParams()
         P.draw = _build.draw_params(self.ctx, 2)

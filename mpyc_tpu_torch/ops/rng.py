@@ -133,7 +133,8 @@ class KeccakRNG:
     sponge instances. Draws of up to ``_POOL_MAX_DRAW`` blocks come from a
     pooled refill of ``_POOL_BLOCKS`` blocks per nonce (K1 on the card), as
     in the JAX package. Larger draws take a nonce of their own; word-aligned
-    ones squeeze straight into the field (K2 on the card), the same
+    ones of up to four chunks squeeze straight into the field (K2 on the
+    card), the same
     elements as the JAX package's squeeze of the blocks followed by their
     reduction, and the others squeeze the blocks (K1) and split them. Not
     thread-safe: the pool offsets and nonce are updated without a lock.
@@ -223,14 +224,19 @@ class KeccakRNG:
         if p & (p - 1):
             l += _WIDEN_BYTES
         n_blocks = max(blocks_needed(n, l), 1)
-        if n_blocks > _POOL_MAX_DRAW and l % 4 == 0 and l <= keccak.RATE:
+        from mpyc_tpu_torch._build import MAX_NC
+        # K2 reduces draws of up to MAX_NC chunks (its radix table): a
+        # one-limb field's 20-byte draws, five chunks, are split instead
+        if n_blocks > _POOL_MAX_DRAW and l % 4 == 0 and \
+                l <= keccak.RATE and -(-l // 4 // ctx.L) <= MAX_NC:
             state, lane = keccak.ctr_state(self._next_prefix())
             mont = squeeze_mont(keccak.state_tensor(state, self.device), n,
                                 l, p, ctr_lane=lane)
         else:
             if n_blocks <= _POOL_MAX_DRAW:
                 blocks = self._pool_blocks(n_blocks)
-            else:   # K2 takes word-aligned draws only: squeeze, then split
+            else:   # K2 takes word-aligned draws of up to 4 chunks only:
+                    # squeeze, then split
                 blocks = keccak.shake128_ctr_blocks(self._next_prefix(),
                                                     n_blocks, self.device)
             mont = ctx.reduce_chunks(words_to_elements(blocks, n, l, ctx.L))

@@ -13,7 +13,8 @@ output recombines the first t+1 shares at 0. Over a binary field GF(2^d)
 (``SecFld``) a secure product is one fused round too: K1 squeezes its
 stream and kernel K8 computes the carry-less product and the reshare
 (``_mul_reshare2_fused``), and random bits are single PRSS draws of one
-bit.
+bit. A secure prime field's product (``SecFld(p)``) is K3's fused round,
+on one limb for p < 2^32.
 
 The fused rounds draw their coefficients from an independent SHAKE key
 (``_fused_key``) with a call counter (``_fused_ctr``), as in the JAX
@@ -349,10 +350,12 @@ class SimRuntime(Runtime):
         return field.array.from_data(out)
 
     def _mul_field(self, a, b, stype):
-        """Secure product over a binary field (``mpyc_tpu/parallel/
-        simulator.py:410-417``): by a public operand (an int or element,
+        """Secure product over a finite field (``mpyc_tpu/parallel/
+        simulator.py:396-417``): by a public operand (an int or element,
         a public array, or a secure array not yet input) a local product;
-        of two secure operands one fused round."""
+        of two secure operands one fused round, over GF(2^d) K8's
+        (``_mul_reshare2_fused``), over GF(p) K3's (``_mul_reshare_fused``,
+        one limb for p < 2^32)."""
         array = self._is_array_op(a, b)
         if not isinstance(b, sectypes.SecureObject) or self._is_public(b):
             if isinstance(b, sectypes.SecureObject):
@@ -367,8 +370,9 @@ class SimRuntime(Runtime):
         if self.threshold == 0:
             raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
-        return self._wrap(stype, self._mul_reshare2_fused(sa, sb), True,
-                          array)
+        fused = self._mul_reshare2_fused if stype.field.characteristic == 2 \
+            else self._mul_reshare_fused
+        return self._wrap(stype, fused(sa, sb), True, array)
 
     def mul(self, a, b):
         """Secure elementwise product of secure arrays: one fused round

@@ -27,9 +27,16 @@ fields), ``np_from_bits``; fixed-point division by a secure value
 (``min_max``, ``argmin``/``argmax`` of lists with keys, ``if_swap``,
 ``sorted`` by Batcher's merge-exchange; over arrays ``np_prod``,
 ``np_amin``/``np_amax``, ``np_if_swap``, ``np_sort`` with every stage
-one batched comparison, ``np_copy``, ``np_flatten``); and for secure
+one batched comparison, ``np_copy``, ``np_flatten``); for secure
 binary fields (``SecFld``) ``pow``/``np_pow`` (AES's addition chain for
-x^254), ``np_roll``, ``np_split``/``np_hsplit`` and ``np_update``.
+x^254), ``np_roll``, ``np_split``/``np_hsplit`` and ``np_update``; for
+secure prime fields ``SecFld(p)`` (``min_order`` too) products, powers
+(by 0 and negative exponents too) and the zero test by Fermat's little
+theorem; and for secure lists and integer division the list
+``unit_vector``, ``find``, ``indexOf``, ``eq``, ``eq_public``,
+``from_bits``, ``random_bit``, ``lsb``/``np_lsb`` and ``mod`` (``%``,
+``//`` and ``divmod`` by a public value: ``_mod``, ``_randbelow_bits``,
+``_bits_lt_public``).
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
 ``output``, ``reciprocal``, ``is_zero_public``, the PRSS draws
@@ -145,16 +152,21 @@ class Runtime:
                 sectypes.SecFxp(l, f, self.device), self)
         return secfxp
 
-    def SecFld(self, order=None, modulus=None) -> type:
-        """Secure elements of a binary field GF(2^d) on this runtime's
-        device, in the extension GF(4) for GF(2) at t > 0 and m = 3
-        (``sectypes.SecFld``), whose operators call this runtime."""
-        key = ('fld', order, str(modulus))
+    def SecFld(self, order=None, modulus=None, char=None, ext_deg=None,
+               min_order=None, signed=False) -> type:
+        """Secure elements of a finite field on this runtime's device: a
+        prime field GF(p), or a binary field GF(2^d), in the extension
+        GF(4) for GF(2) at t > 0 and m = 3 (``sectypes.SecFld``, the JAX
+        package's keywords: ``SecFld(min_order=10)`` is GF(11)), whose
+        operators call this runtime."""
+        key = ('fld', order, str(modulus), char, ext_deg, min_order,
+               bool(signed))
         secfld = self._secints.get(key)
         if secfld is None:
             secfld = self._secints[key] = sectypes.bind(sectypes.SecFld(
-                order, modulus, len(self.parties), self.threshold,
-                self.device), self)
+                order, modulus, char, ext_deg, min_order, signed,
+                m=len(self.parties), t=self.threshold, device=self.device),
+                self)
         return secfld
 
     def prfs(self, bound: int) -> dict:
@@ -281,9 +293,11 @@ class Runtime:
         return self.mul(a, b)
 
     def pow(self, a, b: int):
-        """Secure a ** b for a public int b >= 1 (``mpyc_tpu/runtime.py:
-        1540``): AES's addition chain for b = 254 (11 products in 9
-        rounds), else square and multiply, every product a secure one."""
+        """Secure a ** b for a public int b (``mpyc_tpu/runtime.py:1540``):
+        AES's addition chain for b = 254 (11 products in 9 rounds); b = 0
+        the public 1; b < 0 the power -b of a's reciprocal (``_rec`` for
+        fixed point, else ``reciprocal``); else square and multiply, every
+        product a secure one."""
         if b == 254:
             d = a
             c = self.mul(d, d)
@@ -296,9 +310,14 @@ class Runtime:
             c = self.mul(c, d)
             c = self.mul(c, c)
             return c
-        if b < 1:
-            raise NotImplementedError('the port takes exponents of 1 or '
-                                      'more')
+        if b == 0:
+            stype = self._sectype(a)
+            return stype(np.ones(a.shape, np.int64)) \
+                if self._is_array_op(a) else stype.sectype(1)
+        if b < 0:
+            a = self._rec(a) if self._sectype(a).sectype.frac_length else \
+                self.reciprocal(a)
+            b = -b
         res = None
         d = a
         for i in range(b.bit_length()):
@@ -852,6 +871,272 @@ class Runtime:
         c = int(np.asarray(c.value).reshape(-1)[0]) % n
         return self.np_roll(u, c)
 
+    def unit_vector(self, a, n: int) -> list:
+        """Secure length-n unit vector, as a list of n secure numbers, with
+        its 1 at the secret index a, 0 <= a < n (``mpyc_tpu/runtime.py:
+        3771``): a broadcast over n slots minus the public 0..n-1, and one
+        batched zero test (``np_equal``: Fermat's in a secure field, the
+        comparison or [NO07] in an integer or fixed-point type)."""
+        stype = self._sectype(a)
+        if stype.sectype.frac_length and not a.integral:
+            raise ValueError('nonintegral fixed-point number')
+        sa = self._share(a)
+        arr = self._wrap(stype, sa.from_data(sa.data.unsqueeze(1).expand(
+            (sa.data.shape[0], n) + tuple(sa.data.shape[1:]))), True)
+        diff = self.sub(arr, np.arange(n))
+        return self.np_tolist(self.np_equal(diff, np.zeros(n, np.int64)))
+
+    def random_bit(self, stype, signed=False):
+        """One secret random bit (-1/1 with ``signed``) of a secure type
+        (``mpyc_tpu/runtime.py:1252``)."""
+        return self.random_bits(stype, 1, signed)[0]
+
+    def eq_public(self, a, b) -> bool:
+        """Whether a == b, made public and nothing more
+        (``mpyc_tpu/runtime.py:1730``): ``is_zero_public`` of a - b."""
+        return self.is_zero_public(self.sub(a, b))
+
+    def find(self, x, a, bits=True, e='len(x)', f=None, cs_f=None):
+        """Secure index of the first occurrence of a in the list x
+        (``mpyc_tpu/runtime.py:3801``). With ``bits`` x and a hold 0/1
+        values; otherwise any values, compared by ``!=``. Where a does not
+        occur the result is e (an int, or an expression over len(x)); with
+        e None the pair (nf, f(ix)), nf = 1 where a was not found. f maps
+        the index to the value(s) returned; cs_f(b, i) = f(i + b) for b in
+        {0, 1} may be given instead. A log-depth cascade of if_else
+        merges, each level's halves at once."""
+        if bits:
+            if isinstance(a, int):
+                if a == 1:
+                    x = [1 - b for b in x]
+            else:
+                x = [a + (1 - 2 * a) * b for b in x]
+        else:
+            x = [b != a for b in x]
+        # locate the first 0 in x
+        type_f = None
+        if cs_f is None:
+            if f is None:
+                type_f = int
+                f = lambda i: [i]                       # noqa: E731
+                cs_f = lambda b, i: [i + b]             # noqa: E731
+            else:
+                type_f = type(f(0))
+                if issubclass(type_f, int):
+                    f_int = f
+                    f = lambda i: [f_int(i)]            # noqa: E731
+                cs_f = lambda b, i: [b * (y1 - y0) + y0  # noqa: E731
+                                     for y0, y1 in zip(f(i), f(i + 1))]
+        elif f is None:
+            type_f = type(cs_f(0, 0))
+            if issubclass(type_f, int):
+                cs_int = cs_f
+                cs_f = lambda b, i: [cs_int(b, i)]      # noqa: E731
+            elif issubclass(type_f, tuple):
+                cs_tup = cs_f
+                cs_f = lambda b, i: list(cs_tup(b, i))  # noqa: E731
+            f = lambda i: cs_f(0, i)                    # noqa: E731
+        else:
+            type_f = type(f(0))
+            if issubclass(type_f, int):
+                f_int = f
+                f = lambda i: [f_int(i)]                # noqa: E731
+        if isinstance(e, str):
+            e = eval(e)  # an expression over len(x)  # noqa: S307
+        if not x:
+            nf = 1
+            y = f(0) if e is None else f(e)
+        else:
+            def scan(i, j):
+                # [nf, *value]: nf = 1 where x[i:j] holds no 0
+                if j - i == 1:
+                    b = x[i]
+                    return [b] + cs_f(b, i)
+                h = i + (j - i) // 2
+                left = scan(i, h)
+                return self.if_else(left[0], scan(h, j), left)
+            nf, *f_ix = scan(0, len(x))
+            if e is None:
+                y = f_ix
+            else:
+                y = self.if_else(nf, [v if isinstance(v, sectypes.SecureObject)
+                                      else type(nf)(v) for v in f(e)], f_ix)
+        if issubclass(type_f, int):
+            y = y[0]
+        elif issubclass(type_f, tuple):
+            y = tuple(y)
+        return (nf, y) if e is None else y
+
+    def indexOf(self, x, a, bits=False):
+        """Secure index of the first occurrence of a in the list x; raises
+        ValueError where a does not occur, which is made public
+        (``mpyc_tpu/runtime.py:3982``)."""
+        if not x:
+            raise ValueError('value is not in list')
+        ix = self.find(x, a, e=-1, bits=bits)
+        if self.eq_public(ix, -1):
+            raise ValueError('value is not in list')
+        return ix
+
+    def from_bits(self, x):
+        """The secure number of a list of secure bits, least significant
+        first (``mpyc_tpu/runtime.py:3412``): ``np_from_bits`` of their
+        array."""
+        if not x:
+            return 0
+        return self.np_from_bits(self.np_fromlist(list(x)))
+
+    # -- least significant bit and reduction mod a public value ---------------
+
+    def lsb(self, a):
+        """Secure least significant bit of a (``mpyc_tpu/runtime.py:3067``,
+        a la [ST06]); see np_lsb."""
+        return self.np_lsb(a)
+
+    def np_lsb(self, a):
+        """Secure least significant bits of a number or array
+        (``mpyc_tpu/runtime.py:3071``): a random bit b and a PRSS value r
+        below 2^(l + k - 1), c = a + 2^l + 2 r + b opened, and the bit is
+        c's lowest XOR b. A fixed-point value's bit is that of its raw
+        value (times 2^f f bits above it, as the JAX package computes
+        it), scaled by 2^f."""
+        stype = self._sectype(a)
+        sec = stype.sectype
+        field = stype.field
+        l, f = sec.bit_length, sec.frac_length
+        shape = tuple(a.shape)
+        m = len(self.parties)
+        n = max(math.prod(shape), 1)
+        b = self.np_random_bits(field, n)
+        r = self._np_randoms(field, n, 1 << (l + self.sec_param - 1))
+        a_sh = self._share(a).reshape(m, n)
+        c = self.output(a_sh + ((1 << l) + (r << 1) + b))
+        c_lsb = field.array.from_uint32(c.to_bits_public(1)[..., 0])
+        x = c_lsb + b - (c_lsb * b) * 2
+        if f:
+            x = x << f
+        return self._wrap(stype, x.reshape((m,) + shape), True, bool(shape))
+
+    def mod(self, a, b):
+        """Secure a mod b for a public b (``mpyc_tpu/runtime.py:3096``), in
+        the raw domain: a fixed-point a and b are both times 2^f, so the
+        residue keeps a's fraction. A raw b of 2 is the least significant
+        bit; any other b takes ``_mod``."""
+        sec = self._sectype(a).sectype
+        f = sec.frac_length
+        if isinstance(b, sectypes.SecureObject):
+            b_raw = int(self.output(b, raw=True).signed()[()])
+        elif isinstance(b, float):
+            b_raw = round(b * (1 << f))
+        else:
+            b_raw = int(b) << f
+        if b_raw == 2:
+            r = self.lsb(a)
+            return self.mul(r, 2 ** -f) if f else r
+        return self._mod(a, b_raw)
+
+    def _mod(self, a, b: int):
+        """Secure a mod b for a public raw b a la [GMS10]
+        (``mpyc_tpu/runtime.py:3124``): r < b by its bits
+        (``_randbelow_bits``), c = a + 2^l - (2^l mod b) + b r' - r opened
+        (r' a PRSS value below 2^k), and a mod b = (c mod b) + r - z b,
+        with z = [r >= b - (c mod b)] from one product of lb + 1 terms
+        (a signed random bit s masks which term is 0) and one public zero
+        test of it, a blinder of its own a value (``is_zero_public``)."""
+        stype = self._sectype(a)
+        sec = stype.sectype
+        field = stype.field
+        l, k = sec.bit_length, self.sec_param
+        shape = tuple(a.shape)
+        m = len(self.parties)
+        n = max(math.prod(shape), 1)
+        r_bits = self._randbelow_bits(field, b, n)          # (m, n, lb)
+        lb = r_bits.shape[-1]
+        r_modb = self._dot_pow2_last(r_bits)
+        r_divb = self._np_randoms(field, n, 1 << k)
+        a_sh = self._share(a).reshape(m, n)
+        c = self.output(a_sh + ((1 << l) - ((1 << l) % b) + r_divb * b
+                                - r_modb))
+        c_vals = np.array([int(v) % b for v in c.value.reshape(-1)],
+                          dtype=object)
+        c_vals[c_vals == 0] = b
+        s_sign = self.np_random_bits(field, n, signed=True)  # (m, n)
+        bc = b - c_vals
+        bc_bits = torch.tensor(np.array([[(int(v) >> i) & 1 for i in
+                                          range(lb)] for v in bc],
+                                        dtype=np.int64).reshape(n, lb),
+                               device=self.device)
+        bc_f = field.array.from_uint32(bc_bits)              # (n, lb)
+        xor = bc_f + r_bits - (bc_f * r_bits) * 2
+        last = self._last
+        sums = [None] * lb
+        acc = None
+        for i in range(lb - 1, -1, -1):
+            sums[i] = acc
+            x_i = last(xor, i)
+            acc = x_i if acc is None else acc + x_i
+        terms = []
+        for i in range(lb):
+            e_i = s_sign + (last(r_bits, i) - last(bc_f, i))
+            if sums[i] is not None:
+                e_i = e_i + sums[i] * 3
+            terms.append(e_i)
+        terms.append(s_sign + 1 + (acc * 3 if acc is not None else 0))
+        E = terms[0].from_data(torch.stack([t.data for t in terms], dim=-2))
+        g = self.is_zero_public(self._prod_last_axis(E))
+        g_f = field.array.from_uint32(torch.as_tensor(
+            np.asarray(g, dtype=np.int64).reshape(n), device=self.device))
+        z = (s_sign - (s_sign * g_f) * 2 + 1) >> 1
+        c_f = field.array(c_vals, self.device)
+        res = c_f + r_modb - z * b
+        return self._wrap(stype, res.reshape((m,) + shape), self._integral(a),
+                          bool(shape))
+
+    def _randbelow_bits(self, field, b: int, n: int):
+        """The bits of n secure values uniform below a public b, least
+        significant first, party-stacked (m, n, lb), lb = bit length of
+        b - 1 (``mpyc_tpu/runtime.py:3183``): random bits for a power of
+        two; otherwise lb random bits a value, tested [bits < b] by a
+        public opening (``_bits_lt_public``), and the values rejected
+        drawn again until all n are kept, in order."""
+        lb = (b - 1).bit_length()
+        m = len(self.parties)
+        if b & (b - 1) == 0:
+            return self.np_random_bits(field, n * lb).reshape(m, n, lb)
+        out = None
+        remaining = torch.arange(n, device=self.device)
+        while remaining.numel():
+            h = remaining.numel()
+            bits = self.np_random_bits(field, h * lb).reshape(m, h, lb)
+            ok = torch.as_tensor(self.output(self._bits_lt_public(bits, b))
+                                 .value.astype(np.int64) != 0,
+                                 device=self.device)
+            if out is None:
+                out = bits.data.new_zeros((m, n, lb, bits.data.shape[-1]))
+            out[:, remaining[ok]] = bits.data[:, ok]
+            remaining = remaining[~ok]
+        return field.array.from_data(out)
+
+    def _bits_lt_public(self, bits, b: int):
+        """Secure [x < b] for the secure bits of x (least significant
+        first, party-stacked (m, h, lb)) and a public b
+        (``mpyc_tpu/runtime.py:3236``): a scan from the top bit, lt the
+        sum over b's set bits i of [x's bits above i equal b's] (1 -
+        x_i), each product of two secure bits one reshare round."""
+        lb = bits.shape[-1]
+        lt = eq = None
+        for i in range(lb - 1, -1, -1):
+            x_i = self._last(bits, i)
+            if (b >> i) & 1:
+                term = 1 - x_i if eq is None else \
+                    self._mul_reshared(eq, 1 - x_i)
+                lt = term if lt is None else lt + term
+                eq = x_i if eq is None else self._mul_reshared(eq, x_i)
+            else:
+                eq = 1 - x_i if eq is None else \
+                    self._mul_reshared(eq, 1 - x_i)
+        return lt if lt is not None else self._last(bits, 0) * 0
+
     # -- truncation -----------------------------------------------------------
 
     def trunc(self, x, f=None, l=None):
@@ -903,12 +1188,20 @@ class Runtime:
         is_zero of a - b."""
         return self.is_zero(self.sub(a, b))
 
+    def eq(self, a, b):
+        """Secure a == b (``mpyc_tpu/runtime.py:2920``)."""
+        return self.is_zero(self.sub(a, b))
+
     def is_zero(self, a):
-        """Secure a == 0, as 0/1 (``mpyc_tpu/runtime.py:2934``): for bit
-        lengths above twice the security parameter k (and k >= 8) on a
+        """Secure a == 0, as 0/1 (``mpyc_tpu/runtime.py:2934``): in a
+        secure finite field by Fermat's little theorem, 1 - a^(q - 1)
+        (``pow``: square and multiply, each product a reshare round); for
+        bit lengths above twice the security parameter k (and k >= 8) on a
         Blum prime, [NO07]'s probabilistic test (``_np_is_zero``), else the
         comparison in EQ mode."""
         stype = self._sectype(a)
+        if issubclass(stype, sectypes.SecureFiniteFieldArray):
+            return self.sub(1, self.pow(a, stype.field.order - 1))
         if stype.sectype.bit_length / 2 > self.sec_param >= 8 and \
                 stype.field.modulus % 4 == 3:
             return self._np_is_zero(a)

@@ -22,7 +22,9 @@ call time. ``SecFld(q)`` over a binary field (``mpyc_tpu/sectypes.py:749``,
 carry-less products), ``**``, and ``@`` with public field matrices from
 either side; where the field has fewer than m + 1 elements (GF(2) at
 m = 3) the shares live in an extension (GF(4)), and opened values convert
-back to the subfield.
+back to the subfield. ``SecFld(p)`` over a prime field (by order,
+modulus or ``min_order``): +, -, * (a product of two secure elements one
+reshare round), ``**`` and ==, the zero test by Fermat's little theorem.
 """
 
 from __future__ import annotations
@@ -205,6 +207,57 @@ class SecureNumber(SecureObject):
         the class's arrays, unboxed)."""
         v = cls.array._output_conversion(a)[()]
         return v.item() if isinstance(v, np.generic) else v
+
+    # integer division by a public value (``mpyc_tpu/sectypes.py:214-252``):
+    # a public int or float operand becomes a number of this type first
+
+    def _coerce_number(self, other):
+        if isinstance(other, SecureObject):
+            return other if type(other) is type(self) else NotImplemented
+        if isinstance(other, (int, float, np.integer, np.floating)):
+            return type(self)(other)
+        return NotImplemented
+
+    def __mod__(self, other):
+        """a mod b for a public b (``runtime.mod``), in the raw domain:
+        a fixed-point residue keeps a's fraction."""
+        other = self._coerce_number(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.mod(self, other)
+
+    def __rmod__(self, other):
+        other = self._coerce_number(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return self.runtime.mod(other, self)
+
+    def __floordiv__(self, other):
+        q, _ = self.__divmod__(other)
+        return q
+
+    def __rfloordiv__(self, other):
+        other = self._coerce_number(other)
+        if other is NotImplemented:
+            return NotImplemented
+        q, _ = other.__divmod__(self)
+        return q
+
+    def __divmod__(self, other):
+        """(q, r) with r = a mod b and q = (a - r) times b's secure
+        reciprocal, an exact multiple (``mpyc_tpu/sectypes.py:233``)."""
+        other = self._coerce_number(other)
+        if other is NotImplemented:
+            return NotImplemented
+        r = self.runtime.mod(self, other)
+        q = self.runtime.mul(self - r, self.runtime.reciprocal(other))
+        return q, r
+
+    def __rdivmod__(self, other):
+        other = self._coerce_number(other)
+        if other is NotImplemented:
+            return NotImplemented
+        return other.__divmod__(self)
 
 
 class SecureInteger(SecureNumber):
@@ -433,7 +486,7 @@ def bind(secint: type, runtime) -> type:
     return sub
 
 
-# -- secure finite fields (binary) --------------------------------------------
+# -- secure finite fields --------------------------------------------------
 
 class SecureFiniteField(SecureNumber):
     """Secure field element (``mpyc_tpu/sectypes.py:359``). Its class
@@ -474,29 +527,68 @@ class SecureFiniteFieldArray(SecureArray):
         return cls.subfield.array(a.value, a.device)
 
 
-def SecFld(order=None, modulus=None, m: int = 1, t: int = 0,
-           device='cpu') -> type:
-    """Secure finite field of order q = 2^d (``mpyc_tpu/sectypes.py:749``)
+def SecFld(order=None, modulus=None, char=None, ext_deg=None,
+           min_order=None, signed=False, m: int = 1, t: int = 0,
+           device=None) -> type:
+    """Secure finite field of order q = p^d (``mpyc_tpu/sectypes.py:749``)
     for a runtime of m parties at threshold t, with arrays encoded on
-    ``device``: given by its order (then its modulus is
-    ``find_irreducible(2, d)``, as the JAX package picks it) or by its
-    modulus (a binary polynomial, its int or its string); without either,
-    GF(2). Where q <= m at t > 0, the shares live in the extension
-    GF(2^e), e = max(2, ceil(log_q(m + 1))), so that Shamir's points 1..m
-    exist (``:806-840``), and opened values convert back. Only
-    characteristic 2 is ported."""
-    if modulus is None:
-        p, d = gmpy2.factor_prime_power(order or 2)
-        if p != 2:
-            raise NotImplementedError('the port has secure fields of '
-                                      'characteristic 2 only')
-        modulus = 2 if d == 1 else finfields.find_irreducible(2, d)
-    elif isinstance(modulus, (str, int)) and modulus != 2:
-        modulus = gfpx.GFpX(2)(modulus)
-    field = finfields.GF(modulus)
-    if order is not None and field.order != order:
-        raise ValueError('order and modulus disagree')
-    return _SecFld(field, int(m), int(t), str(device))
+    ``device`` (default: the card, ``resolve_device``). The field is
+    resolved as the JAX package resolves it: by its order, by its modulus
+    (an int: a prime, or with a smaller ``char`` a polynomial's int; a
+    binary polynomial's string; a ``gfpx`` polynomial), or by ``min_order``
+    (with no ``char``, the least prime p >= min_order^(1 / ext_deg)), by
+    default GF(2); a binary field's modulus is ``find_irreducible(2, d)``.
+    A prime field's values open unsigned, in [0, p), unless ``signed``.
+    Where q <= m at t > 0, the shares live in an extension GF(p^e), e =
+    max(2, ceil(log_q(m + 1))), so that Shamir's points 1..m exist
+    (``:806-840``), and opened values convert back: ported for p = 2 (GF(2)
+    in GF(4)); for an odd p that extension, and every extension field of
+    odd characteristic (ext_deg > 1), raise NotImplementedError."""
+    if order is not None:
+        p, d = gmpy2.factor_prime_power(order)
+        char = char or p
+        ext_deg = ext_deg or d
+        if (char, ext_deg) != (p, d):
+            raise ValueError('order, char and ext_deg disagree')
+    if isinstance(modulus, str):
+        char = char or 2
+        modulus = gfpx.GFpX(char)(modulus)
+    if isinstance(modulus, int) and char and modulus > char:
+        modulus = gfpx.GFpX(char)(modulus)
+    if isinstance(modulus, gfpx.Polynomial):
+        char = char or modulus.p
+        ext_deg = ext_deg or modulus.degree()
+        if (char, ext_deg) != (modulus.p, modulus.degree()):
+            raise ValueError('modulus, char and ext_deg disagree')
+    elif isinstance(modulus, int):
+        char = char or modulus
+        ext_deg = ext_deg or 1
+        if (char, ext_deg) != (modulus, 1):
+            raise ValueError('modulus, char and ext_deg disagree')
+    else:
+        if modulus is not None:
+            raise TypeError('modulus: an int, a string or a polynomial')
+        if min_order is None:
+            char = char or 2
+            ext_deg = ext_deg or 1
+        elif char is None:
+            ext_deg = ext_deg or 1
+            root, exact = gmpy2.iroot(min_order, ext_deg)
+            char = int(gmpy2.next_prime(root + (not exact) - 1))
+        elif ext_deg is None:
+            ext_deg = math.ceil(math.log(min_order, char))
+        modulus = char if ext_deg == 1 else \
+            finfields.find_irreducible(char, ext_deg)
+    if char != 2 and ext_deg != 1:
+        raise NotImplementedError('extension fields of odd characteristic '
+                                  'are not ported')
+    if char == 2:
+        field = finfields.GF(modulus if isinstance(modulus, gfpx.Polynomial)
+                             or modulus == 2 else gfpx.GFpX(2)(modulus))
+    else:
+        field = finfields.GF(int(modulus), signed=signed)
+    from mpyc_tpu_torch import resolve_device
+    return _SecFld(field, int(m), int(t), str(resolve_device(device)))
 
 
 @functools.cache
@@ -505,6 +597,10 @@ def _SecFld(field, m, t, device):
     name = f'SecFld{l}({field.__name__})'
     subfield = None
     if t and m >= field.order:
+        if field.characteristic != 2:
+            raise NotImplementedError(
+                f'{field.__name__} has too few points for {m} parties: its '
+                'shares would live in GF(p^e), which is not ported')
         subfield = field
         e = max(2, math.ceil(math.log(m + 1, field.order)))
         field = finfields.GF(finfields.find_irreducible(2, e))

@@ -756,3 +756,77 @@ def test_hash_chains_on_the_card(cuda_device):
         ('AES, k = 2', 2, False, False), ('SHAKE128, k = 3', 3, True, True)))
     assert [r['hashes'] for r in res.values()] == [4, 12]
     assert res['AES, k = 2']['launches']['reshare2<d=8, fused>'] > 0
+
+
+# -- one-limb fields: the secure prime fields SecFld(p) ------------------------
+
+P1031, P31 = 1031, (1 << 31) - 1
+
+
+@pytest.mark.parametrize('p', [11, P1031, P31])
+def test_one_limb_kernels_match_plain(cuda_device, p):
+    """K3 (fused and not) at 6,407 elements, K9's three ops, K6 at e =
+    p - 2 and (3p - 5) / 4 (lazy below 2^30, canonical at 2^31 - 1) and
+    K7 on 300 elements, bit for bit against their plain versions."""
+    from mpyc_tpu_torch import finfields
+    st = _state(cuda_device)
+    ctx = prime_field_ctx(p)
+    assert ctx.L == 1
+    spec = pipelines.ReshareSpec(p, 1, 3)
+    a, b = _shares(6407, 40, cuda_device, p), _shares(6407, 41, cuda_device,
+                                                      p)
+    for bb in (b, None):
+        got = pipelines.reshare_mul(a, bb, st, (3, 1), spec)
+        want = pipelines._reshare_mul_plain(a, bb, st, (3, 1), spec)
+        assert torch.equal(got, want)
+    x = a[0, :300].contiguous()
+    for op in fieldops._FIELD_OPS:
+        assert torch.equal(fieldops.field_op(x, b[1, :300], op, ctx),
+                           fieldops._field_op_plain(x, b[1, :300], op, ctx))
+    for e in (p - 2, (3 * p - 5) // 4):
+        assert torch.equal(fieldops.mont_pow(x, e, ctx),
+                           fieldops._mont_pow_plain(x, e, ctx))
+    field = finfields.GF(p)
+    r, z = a[:, :300].contiguous(), b[:, :300].contiguous()
+    got = pipelines.random_bits_tail(r, z, field, False, 0)
+    want = pipelines._random_bits_tail_plain(r, z, field, False, 0)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_one_limb_wide_draws_on_the_card(cuda_device):
+    """GF(2^31 - 1)'s 20-byte input draws of 1,200 values (past the pool)
+    take K1 and the split, not K2, and equal the plain draws."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P31)
+    key = bytes(range(32))
+    n2 = rng.squeeze_mont.launches
+    got = rng.KeccakRNG(key, device=cuda_device).field_uniform(field, (1200,))
+    want = rng.KeccakRNG(key, device='cpu').field_uniform(field, (1200,))
+    assert rng.squeeze_mont.launches == n2
+    assert torch.equal(got.data.cpu(), want.data)
+
+
+def test_colocated_demos_on_the_card(cuda_device):
+    """chip_smoke's phase "co-located demos" at small sizes: every runner
+    at its defaults and the sizes' checks (run_colocated raises on a
+    wrong result); the one-limb K3, K6 and K9 are launched."""
+    import chip_smoke
+    n3 = pipelines.reshare_mul.by_key[(1, True)]
+    n6 = fieldops.mont_pow.by_key[(1, True)]
+    chip_smoke.run_colocated(cuda_device, n_santa=8, n_unit=64, n_list=32,
+                             n_fld=64)
+    assert pipelines.reshare_mul.by_key[(1, True)] > n3
+    assert fieldops.mont_pow.by_key[(1, True)] > n6
+
+
+def test_seven_limb_secure_field_raises_on_the_card(cuda_device):
+    """A secure prime field of seven limbs (a 200-bit prime) raises
+    NotImplementedError on the card: no kernel is built for it, and
+    nothing falls back to a plain version."""
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    rt = SimRuntime(3, device=cuda_device)
+    secfld = rt.SecFld(
+        1606938044258990275541962092341162602522202993782792835301259)
+    with pytest.raises(NotImplementedError, match='limbs'):
+        a = rt.input(secfld.array(np.arange(5, dtype=object)), senders=0)
+        rt.output(a * a)

@@ -16,7 +16,13 @@ powers, bits and public matrices), the fixed-point LP solver on tb2x2
 the survival test's logrank statistic on three time steps at SecFxp(40,
 20) (one batched division) and a random unit vector, the ID3 tree of
 tennis (np_prod, reciprocals, argmax with a key, is_zero_public) and
-np_sort, np_amax, np_amin of 19 values with sorted of 5 shuffled ones."""
+np_sort, np_amax, np_amin of 19 values with sorted of 5 shuffled ones.
+In a second such interpreter the co-located demos' modules and runners
+run: chip_smoke's phase "co-located demos" at small sizes (a Secret
+Santa of 5, unit vectors of 12 over GF(13) and SecInt(32), a secure list
+of 9, GF(1031) and GF(2^31 - 1) at 40 elements), mpctools, secure random,
+the runners of secretsanta, unanimous, PrefixOrExplained,
+indextounitvector and sort."""
 import os
 import subprocess
 import sys
@@ -86,6 +92,42 @@ def test_main_path_runs_without_jax_or_mpyc_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == \
         'OK 18446744073709551427'
+
+
+_COLOCATED = _SCRIPT.split('import chip_smoke')[0] + textwrap.dedent('''
+    import chip_smoke
+    res = chip_smoke.run_colocated('cpu', n_santa=5, n_unit=12, n_list=9,
+                                   n_fld=40, defaults=False)
+    from mpyc_tpu_torch import mpctools, random, seclists
+    from mpyc_tpu_torch.demos import (PrefixOrExplained, indextounitvector,
+                                      secretsanta, sort, unanimous)
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    rt = SimRuntime(3, device='cpu')
+    assert secretsanta.run(rt, 3, 1, out=lambda s: None)['ok']
+    assert unanimous.run(rt, [1, 0], out=lambda s: None)
+    assert PrefixOrExplained.run(rt, 3, out=lambda s: None)['ok']
+    assert indextounitvector.check_all(
+        rt, 3, 'unit_vector', rt.unit_vector, rt.SecFld(min_order=4),
+        out=lambda s: None)
+    assert sort.demo_seclist_descending(rt, sort.ramp(3), out=lambda s: None)
+    x = seclists.seclist([4, 5], rt.SecInt(32))
+    assert [int(rt.output(v)) for v in mpctools.accumulate(x)] == [4, 9]
+    assert 0 <= int(rt.output(random.randint(rt.SecInt(32), 0, 5))) <= 5
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+    assert not loaded, loaded
+    print('OK', sorted(res)[0])
+''')
+
+
+def test_colocated_demos_run_without_jax_or_mpyc_tpu():
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    env.pop('PYTHONPATH', None)
+    proc = subprocess.run([sys.executable, '-c', _COLOCATED], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith('OK GF(1031)')
 
 
 def test_port_sources_never_name_jax_or_mpyc_tpu():

@@ -1121,39 +1121,127 @@ P200 = 1606938044258990275541962092341162602522202993782792835301259
 
 
 def test_one_and_seven_limb_fields_raise(host_lib, state):
-    """Fields of one limb or of more than six (``_build.BUILT_NL``) raise
+    """Fields of more than six limbs (``_build.BUILT_NL``) raise
     NotImplementedError for K3, K5, K6 and K7 on the Python side, and the
-    launchers refuse a parameter block of one or seven limbs."""
+    launchers refuse a parameter block of seven limbs; a one-limb field
+    (the secure prime fields SecFld(p)) has no comparison, so K5 alone
+    refuses it, on both sides."""
     from mpyc_tpu_torch import finfields
-    assert _build.BUILT_NL == (2, 3, 4, 5, 6) and _build.MAX_NL == 6
+    assert _build.BUILT_NL == (1, 2, 3, 4, 5, 6) and _build.MAX_NL == 6
+    assert _build.SGN_BUILT_NL == (2, 3, 4, 5, 6)
     for p in (P31, P200):
         ctx = prime_field_ctx(p)
         assert ctx.L in (1, 7) and p % 4 == 3
         with pytest.raises(NotImplementedError, match='limbs'):
-            pipelines.ReshareSpec(p, 1, 3).params((0, 0))
-        with pytest.raises(NotImplementedError, match='limbs'):
             pipelines.SgnSpec(p, 1, 3, 8, 8, LT=True).params((0, 0))
-        with pytest.raises(NotImplementedError, match='limbs'):
-            _build.pow_params(ctx, 5)
-        with pytest.raises(NotImplementedError, match='limbs'):
-            pipelines._tail_params(finfields.GF(p), 1, 3, False, 0)
+    ctx = prime_field_ctx(P200)
+    with pytest.raises(NotImplementedError, match='limbs'):
+        pipelines.ReshareSpec(P200, 1, 3).params((0, 0))
+    with pytest.raises(NotImplementedError, match='limbs'):
+        _build.pow_params(ctx, 5)
+    with pytest.raises(NotImplementedError, match='limbs'):
+        pipelines._tail_params(finfields.GF(P200), 1, 3, False, 0)
+    pipelines.ReshareSpec(P31, 1, 3).params((0, 0))
+    _build.pow_params(prime_field_ctx(P31), 5)
+    pipelines._tail_params(finfields.GF(P31), 1, 3, False, 0)
     st, _ = state
     a = _shares(10, 56, P176)
     for nl in (1, 7):
-        params = pipelines.ReshareSpec(P176, 1, 3).params((0, 0))
-        params.draw.nl = nl
-        assert host_lib.mtt_reshare(a.data_ptr(), None, a.data_ptr(),
-                                    st.data_ptr(), 10, 0,
-                                    ctypes.addressof(params), None) == -1
         params = pipelines.SgnSpec(P176, 1, 3, 96, LT=True).params((0, 0))
         params.draw.nl = nl
         assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(),
                                 10, 10, 10, ctypes.addressof(params),
                                 None) == -1
-        params = _build.pow_params(prime_field_ctx(P176), 5)
-        params.nl = nl
-        assert host_lib.mtt_mont_pow(a.data_ptr(), a.data_ptr(), 10,
-                                     ctypes.addressof(params), None) == -1
+    params = pipelines.ReshareSpec(P176, 1, 3).params((0, 0))
+    params.draw.nl = 7
+    assert host_lib.mtt_reshare(a.data_ptr(), None, a.data_ptr(),
+                                st.data_ptr(), 10, 0,
+                                ctypes.addressof(params), None) == -1
+    params = _build.pow_params(prime_field_ctx(P176), 5)
+    params.nl = 7
+    assert host_lib.mtt_mont_pow(a.data_ptr(), a.data_ptr(), 10,
+                                 ctypes.addressof(params), None) == -1
+
+
+# one-limb fields: GF(11) and GF(1031) (indextounitvector's fields at n =
+# 10 and 1,024; 4p < 2^32, lazy) and GF(2^31 - 1) (canonical)
+ONE_LIMB = [11, 1031, P31]
+
+
+@pytest.mark.parametrize('p', ONE_LIMB)
+@pytest.mark.parametrize('kernel', ['K3 fused', 'K3', 'K6', 'K7', 'K9'])
+def test_one_limb_sources_match_plain(host_lib, state, kernel, p):
+    """The one-limb instantiations equal their plain versions bit for bit:
+    K3 (fused and not) on 6,407 elements (three thread blocks, the last
+    ragged; 14 draws of 12 bytes a sponge block), K6 at e = p - 2, (3p -
+    5) / 4 and 2^32 - 1 on 300 elements (two blocks, the last ragged), K7
+    on 300 elements with one in 7 planted to open to 0 (bits, flags,
+    count), K9's three ops with arrays and a constant."""
+    from mpyc_tpu_torch import finfields
+    st, _ = state
+    ctx = prime_field_ctx(p)
+    assert ctx.L == 1 and ctx.lazy == (p < 1 << 30)
+    if kernel.startswith('K3'):
+        fuse = kernel == 'K3 fused'
+        spec = pipelines.ReshareSpec(p, 1, 3)
+        assert spec.l_bytes == 12
+        n = 6407
+        a, b = _shares(n, 70, p), _shares(n, 71, p)
+        nonce = (0xFFFFFFFF, 9)
+        params = spec.params(nonce)
+        out = torch.empty_like(a)
+        assert host_lib.mtt_reshare(
+            a.data_ptr(), b.data_ptr() if fuse else None, out.data_ptr(),
+            st.data_ptr(), n, int(fuse), ctypes.addressof(params),
+            None) == 0
+        assert torch.equal(out, pipelines._reshare_mul_plain(
+            a, b if fuse else None, st, nonce, spec))
+    elif kernel == 'K6':
+        _, x = _pow_inputs(p, 300, 72)
+        for e in (p - 2, (3 * p - 5) // 4, (1 << 32) - 1):
+            out = torch.empty_like(x)
+            params = _build.pow_params(ctx, e)
+            assert host_lib.mtt_mont_pow(x.data_ptr(), out.data_ptr(), 300,
+                                         ctypes.addressof(params),
+                                         None) == 0
+            assert torch.equal(out, fieldops._mont_pow_plain(x, e, ctx))
+    elif kernel == 'K7':
+        field = finfields.GF(p)
+        r, z = _tail_shares(p, 300, 73)
+        for signed, f in ((False, 0), (True, 0)):
+            bits, flags, count = _tail_launch(host_lib, r, z, field, signed,
+                                              f)
+            want = pipelines._random_bits_tail_plain(r, z, field, signed, f)
+            assert torch.equal(flags, want[1]) and torch.equal(bits, want[0])
+            assert count.item() == want[2].item() >= 300 // 7
+    else:
+        params = _build.draw_params(ctx, 1)
+        a, b = _shares(300, 74, p)[0].contiguous(), _shares(300, 75, p)[0]
+        c = _shares(1, 76, p)[0].contiguous()
+        for op in ('mul', 'add', 'sub'):
+            for x, y, sx, sy in ((a, b.contiguous(), 1, 1), (a, c, 1, 0),
+                                 (c, a, 0, 1)):
+                out = torch.empty((300, 1), dtype=torch.int32)
+                assert host_lib.mtt_field_op(
+                    x.data_ptr(), y.data_ptr(), out.data_ptr(), 300, sx, sy,
+                    fieldops._FIELD_OPS.index(op), ctypes.addressof(params),
+                    None) == 0
+                assert torch.equal(out,
+                                   fieldops._field_op_plain(x, y, op, ctx))
+
+
+def test_one_limb_squeeze_is_not_built(host_lib, state):
+    """K2 takes draws of up to MAX_NC = 4 chunks: a one-limb field's
+    20-byte input draws (GF(2^31 - 1)) are five, so K2 refuses them and
+    the generator squeezes them with K1 and splits them
+    (``rng.KeccakRNG.field_uniform``)."""
+    st, lane = state
+    assert _build.MAX_NC == 4
+    params = _build.draw_params(prime_field_ctx(P31), 4)
+    out = torch.empty((10, 1), dtype=torch.int32)
+    assert host_lib.mtt_squeeze_mont(st.data_ptr(), out.data_ptr(), 10, 5,
+                                     lane, 0, ctypes.addressof(params),
+                                     None) == -1
 
 
 # -- K9: elementwise field arithmetic -------------------------------------------
@@ -1185,15 +1273,16 @@ def test_field_op_source_matches_plain(host_lib, p, op):
 
 
 def test_field_op_refuses_what_was_not_built(host_lib):
-    """K9 takes two to six limbs, ops 0-2 and steps 0 and 1; and on the
-    card (not here: a CPU tensor takes the plain version) a one-limb field
-    raises."""
+    """K9 takes one to six limbs, ops 0-2 and steps 0 and 1; and on the
+    card (not here: a CPU tensor takes the plain version) a seven-limb
+    field raises."""
     a = _shares(10, 61, P176)[0].contiguous()
-    for nl, op, sa in ((1, 0, 1), (7, 0, 1), (6, 3, 1), (6, 0, 2)):
+    for nl, op, sa in ((0, 0, 1), (7, 0, 1), (6, 3, 1), (6, 0, 2)):
         params = _build.draw_params(prime_field_ctx(P176), 1)
         params.nl = nl
         assert host_lib.mtt_field_op(a.data_ptr(), a.data_ptr(),
                                      a.data_ptr(), 10, sa, 1, op,
                                      ctypes.addressof(params), None) == -1
     with pytest.raises(NotImplementedError, match='limbs'):
-        _build.draw_params(prime_field_ctx(P31), 1)
+        _build.draw_params(prime_field_ctx(P200), 1)
+    _build.draw_params(prime_field_ctx(P31), 1)
