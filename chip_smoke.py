@@ -33,8 +33,13 @@ np_id3gini.py``, ``sort.py`` and ``np_onewayhashchains.py``; and the
 co-located demos of ``demos/run-all.sh`` (secretsanta,
 SecretSantaExplained, indextounitvector, unanimous, PrefixOrExplained, and
 sort's secure list) through their runners in ``mpyc_tpu_torch/demos/``,
-with the secure prime fields SecFld(p) on one-limb fields. Phases, each
-printing one line with its elapsed seconds:
+with the secure prime fields SecFld(p) on one-limb fields; and the
+secure linear algebra over wide prime fields (7 to 42 limbs: the wide
+kernels of ``csrc/wide.cu``): ridge regression (``demos/
+ridgeregression.py``), the pseudoinverse (``demos/pseudoinverse.py``) and
+multilateration (``demos/multilateration.py``), with the small runners of
+``demos/run-all.sh`` (helloworld, oneliners, parallelsort, ot). Phases,
+each printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -89,7 +94,10 @@ printing one line with its elapsed seconds:
    one-limb K3 (fused and not), K6 and K7 (lazy on GF(1031), canonical
    on GF(2^31 - 1)) and K9, K5 at SecFxp(32, 16)'s
    l = 32, f = 16 (EQ and LT), K8 in GF(4) without its product, each
-   against its plain version;
+   against its plain version; and the linear algebra's
+   (``check_wide_kernels``): the wide K3 (fused and not), K9 and K6 at
+   each of its fields' limb counts (7, 8, 9, 10, 12, 42), K7 at seven,
+   K5 EQ at l = 31, each against its plain version at the paths' shapes;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -169,14 +177,18 @@ printing one line with its elapsed seconds:
    the plain exact solver's (``plain_solve``, Python ints), and its
    certificate true; seconds a solve and a pivot, launches a solve by
    instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
-   naming its limb count; one try of torch.profiler over pivots 11 and 12
+   naming its limb count at its first comparison (K5), its tableau's
+   encoding done by the wide K9; one try of torch.profiler over pivots 11 and 12
    of LPExample (device time by kernel, idle share, the host's operators);
 15. lp fxp: the fixed-point LP solver on datasets 0-6 (uvlp, wiki,
    tb2x2, woody, LPExample_R20, sc50b, kb2; each at its own SecFxp(l)):
    each certificate true, the opened max within 1% of the optimum, the
    opened solution within ``solution_tol`` of the plain float simplex's
-   (``check_solution``); seconds a solve and a pivot, launches a pivot;
-   one try of torch.profiler over pivot 11 of kb2;
+   (``check_solution``); kb2 stopped after 40 of its 173 pivots (a cut
+   for time), its opened tableau within ``solution_tol`` of its opened
+   basis's tableau in float64 (``plain_tableau``); seconds a solve and a
+   pivot, launches a pivot; one try of torch.profiler over pivot 11 of
+   kb2;
 16. km: the survival test with --agg on btrial (SecFxp(56, 28)), aml
    (SecFxp(64, 32): 4p >= R) and aml at SecFxp(96, 48): each statistic,
    and the aggregated one, within 1e-3 of the plain logrank test;
@@ -233,16 +245,27 @@ printing one line with its elapsed seconds:
    SecInt(32) values read, written and inserted at secret indices, and
    GF(1031) and GF(2^31 - 1) at 1,024 elements (product, ==, /,
    randrange): every result checked against Python; seconds a call;
-24. k1 shapes: K1's launches on each path by block count (each driven
+24. linear algebra: the runners of helloworld, oneliners, parallelsort
+   and ot at m = 3; ridge regression on the synthetic set (n = 1,000, d =
+   10) at accuracies 4-7 (7-9 limbs), winequality-red (10), -white (12)
+   and student-mat (42 limbs), each solve's (adj A) B and det A equal to
+   a plain integer Bareiss's and its train error within 0.2 of a plain
+   ridge solve's; the pseudoinverse of the demo's 5 x 5 and of a 20 x 20
+   of rank 16 (SecInt(163), seven limbs), the Penrose equations mod p
+   and numpy's pinv; multilateration at SecInt(335) (12 limbs) on the
+   first 40 measurements of sets 1 and 3, each solve equal to the plain
+   integer solve and the median error under 2,000 m; seconds a call, a
+   solve and a measurement;
+25. k1 shapes: K1's launches on each path by block count (each driven
    path prints its own; a record of the launcher's calls, no counter of
    the wrapper's), and K1 timed at each block count the paths launched
    (CTAs, device time replayed from a CUDA graph, bound, the launch
    floor);
-25. report: one JSON line of the kernels (every instantiation that a path
+26. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13-16, 18-23 zeroes the launch counters just
+Each of phases 4-11, 13-16, 18-24 zeroes the launch counters just
 before it and reads them just after, and records K1's launches by block
 count; each must show that the
 instantiations of its path ran (``PATH_ENTRIES``), and that it launched
@@ -338,6 +361,11 @@ LP_NO07_BITS = 30
 # limbs) and kb2 (six), truncated after each product
 LPFXP_DATASETS = (0, 1, 2, 3, 4, 5, 6)
 LPFXP_PROFILE = 6
+# kb2's 173 pivots took about 170 s of the script's 1,100 (0.97 s a
+# pivot, host-bound): its solve stops after 40, every instantiation it
+# launches launched by then (its certificate's comparisons are the
+# pivots' K5 at l = 96)
+LPFXP_PIVOTS = {'kb2': 40}
 LPFXP_WINDOW = (11, 12)
 LPFXP_CMP = {(18, 9): 2, (24, 12): 3, (36, 18): 3, (52, 26): 70,
              (96, 48): 68}
@@ -398,6 +426,24 @@ N_UNIT = 1024
 N_SECLIST = 1024
 N_FLD = 1024
 FLD_PRIMES = (1031, (1 << 31) - 1)
+# the linear-algebra phase (ridge regression, the pseudoinverse,
+# multilateration): the limbs of the wide fields its paths take, each with
+# the d of its d x d system (ridge regression's synthetic set at
+# accuracies 4-7: 7, 8, 9, 9 limbs, d = 11; the wine data 10 and 12, d =
+# 12; student-mat 42, d = 57; multilateration 12, d = 3; the 20 x 20
+# pseudoinverse 7), the shapes of the kernels' calls there: K3 fused on
+# the bucket of 64 (det R's diagonal products, (adj A) B = (A^-1 B) det
+# A), K3 without the product on the bucket of d^2 (R A's reshare), K9 on
+# the conversion's d (d + 1) values, K6 on det R's reciprocal
+LINALG_WIDE = {7: 11, 8: 11, 9: 11, 10: 12, 12: 12, 42: 57}
+LINALG_ALPHAS = (4, 5, 6, 7)   # the synthetic set's accuracies
+LINALG_DATASETS = (2, 3, 1)    # winequality-red, -white, student-mat
+# the pseudoinverses: (m, n, rank, bits of the entries, seed): the demo's
+# 5 x 5 (SecInt(31), two limbs) and a 20 x 20 of rank 16 (SecInt(163),
+# seven limbs: its zero tests [NO07]'s, K7 and K6 at seven limbs)
+PINV_RUNS = ((5, 5, 5, 4, 1), (20, 20, 16, 6, 1))
+N_MLAT = 20                    # multilateration's measurements (of 615)
+LINALG_SEED = 31
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -569,7 +615,32 @@ ENTRIES = {
     'sgn_step<EQ, l=32, L=3, f=16>': ('sgn_step', ('EQ', 32, 3, 16)),
     'sgn_step<LT, l=32, L=3, f=16>': ('sgn_step', ('LT', 32, 3, 16)),
     'reshare2<d=2>': ('reshare2', (2, False)),
+    # the linear algebra: the wide kernels (csrc/wide.cu, one compiled
+    # kernel each, L a launch parameter; no lazy form) at each field's
+    # limbs; K7 at the 20 x 20 pseudoinverse's seven ([NO07]'s bits); K5
+    # in EQ mode at the 5 x 5's SecInt(31) (its leaves' d == 0)
+    **{f'reshare_mul<L={L}{s}>': ('reshare_mul', (L, fused))
+       for L in LINALG_WIDE for fused, s in ((True, ', fused'), (False, ''))},
+    **{f'field_op<L={L}>': ('field_op', L) for L in LINALG_WIDE},
+    **{f'mont_pow<L={L}>': ('mont_pow', (L, False)) for L in LINALG_WIDE},
+    'random_bits_tail<L=7>': ('random_bits_tail', (7, False)),
+    'sgn_step<EQ, l=31, L=2>': ('sgn_step', ('EQ', 31, 2, 0)),
+    # the integer LP's kb2 (SecInt(560), 19 limbs): its tableau's encoding
+    # before its first comparison raises (K5 refuses 19 limbs)
+    'field_op<L=19>': ('field_op', 19),
 }
+WIDE_SOURCE = 'mpyc_tpu_torch/csrc/wide.cu'
+
+
+def entry_source(name: str, key) -> str:
+    """The source of an instantiation of the kernels line: the wide
+    kernels' for a field of 7 to 48 limbs."""
+    from mpyc_tpu_torch import _build
+    L = key if isinstance(key, int) else None
+    if name in ('reshare_mul', 'mont_pow', 'random_bits_tail'):
+        L = key[0]
+    return WIDE_SOURCE if L is not None and _build.wide(L) else \
+        KERNELS[name]['source']
 # the instantiations each path must launch
 PATH_ENTRIES = {
     'main path': ('keccak_ctr', 'squeeze_mont<L=2, W=6>',
@@ -608,7 +679,8 @@ PATH_ENTRIES = {
            'sgn_step<LT, l=70, L=4>', 'sgn_step<LT, l=104, L=5>',
            'sgn_step<LT, l=110, L=5>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
-           *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5))),
+           *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5)),
+           'field_op<L=19>'),
     # every truncated product (K3 fused) and every product by an integral
     # operand (K3 without the product), the comparisons at each type's
     # width and scale 2^f (K5), the truncations' random bits (K7)
@@ -673,6 +745,14 @@ PATH_ENTRIES = {
                          'random_bits_tail<L=1>', 'field_op<L=1>',
                          'sgn_step<EQ, l=32, L=3, f=16>',
                          'sgn_step<LT, l=32, L=3, f=16>', 'reshare2<d=2>'),
+    # every wide field's products and reshares (K3), its arithmetic and
+    # its draws' reduction (K9), det R's public inverse (K6); the 20 x 20
+    # pseudoinverse's zero tests (K7 at seven limbs); the 5 x 5's (K5 EQ)
+    'linear algebra': (*(f'reshare_mul<L={L}{s}>' for L in LINALG_WIDE
+                         for s in (', fused', '')),
+                       *(f'field_op<L={L}>' for L in LINALG_WIDE),
+                       *(f'mont_pow<L={L}>' for L in LINALG_WIDE),
+                       'random_bits_tail<L=7>', 'sgn_step<EQ, l=31, L=2>'),
 }
 
 
@@ -2656,7 +2736,10 @@ def run_lp_fxp(device, datasets=LPFXP_DATASETS, profile=None,
     np_lpsolverfxp``, SimRuntime(3)) on each dataset at its SecFxp(l):
     the certificate must be true, the opened max within ``REL_ERROR`` of
     the exact optimum and the opened solution within ``solution_tol`` of
-    the plain float solver's (``check_solution``). Each solve starts from
+    the plain float solver's (``check_solution``); a dataset of
+    ``LPFXP_PIVOTS`` (kb2) stops after its number of pivots, its opened
+    tableau held against its opened basis's (``plain_tableau``). Each
+    solve starts from
     fixed keys (``lpfxp_runtime``): on fresh keys sc50b's certificate is
     false in about one solve in six, in this port and in the JAX demo
     alike (PERF.md section 7). Per dataset: seconds a
@@ -2672,12 +2755,33 @@ def run_lp_fxp(device, datasets=LPFXP_DATASETS, profile=None,
         rt = lpfxp_runtime(device, name)
         sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
             (lambda: None)
+        cap = LPFXP_PIVOTS.get(name, 0)
         sync()
         t0 = time.perf_counter()
-        got = lpf.solve(rt, i, out=lambda s: None)
+        got = lpf.solve(rt, i, out=lambda s: None, max_pivots=cap)
         sync()
         s = time.perf_counter() - t0
         after = counts()
+        if cap:
+            # stopped after cap pivots: the opened tableau against the
+            # tableau of its opened basis in float64 (``plain_tableau``,
+            # whatever pivots reached it: fixed point may break a tie of
+            # ratios another way), entry by entry within solution_tol of
+            # its largest entry
+            T = lpf.plain_tableau(lpf.read_csv(name), got['basis'],
+                                  got['cobasis'])
+            err = float(np.max(np.abs(got['T'] - T)))
+            tol = lpf.solution_tol(l, T.reshape(-1))
+            check(got['iterations'] == cap and err <= tol,
+                  f'lp fxp {name}: the tableau after {cap} pivots is {err} '
+                  'off its basis\'s')
+            res[name] = dict(
+                s=s, l=l, pivots=cap, plain_pivots=None, s_pivot=s / cap,
+                mx=float(got['T'][0, -1]), rel_error=None,
+                solution_err=err, tol=tol, stopped=True,
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]})
+            continue
         iters, err, tol = lpf.check_solution(name, l, got['iterations'],
                                              got['x'])
         check(got['ok'], f'lp fxp {name}: the certificate is false: '
@@ -3450,6 +3554,219 @@ def run_colocated(device, n_santa=N_SANTA, n_unit=N_UNIT, n_list=N_SECLIST,
     return res
 
 
+def linalg_fields() -> dict:
+    """The wide fields of the linear-algebra phase by limb count, each
+    one of its paths' (``LINALG_WIDE``): the 20 x 20 pseudoinverse's
+    SecInt(163) (Springer's bound of its matrix; seven limbs, where its
+    zero tests launch K7: a Blum prime), multilateration's SecInt(335),
+    ridge regression's SecFld at each accuracy and dataset
+    (``ridgeregression.field_sizes``) at the other limb counts."""
+    from mpyc_tpu_torch.demos import pseudoinverse, ridgeregression
+    fields = {}
+    m, n, r, b, seed = PINV_RUNS[1]
+    A = pseudoinverse.random_matrix(m, n, r, b, np.random.default_rng(seed))
+    for l in (pseudoinverse.secint_bits(A, r), 335):
+        p = sectypes.SecInt(l, 'cpu').field.modulus
+        fields.setdefault(prime_field_ctx(p).L, p)
+    runs = [(0, a) for a in LINALG_ALPHAS] + [
+        (ds, ridgeregression.DATASETS[ds][1]) for ds in LINALG_DATASETS]
+    for ds, alpha in runs:
+        n1, d = ridgeregression.training_sizes(ds, seed=LINALG_SEED)
+        _, order = ridgeregression.field_sizes(n1, d, alpha, 1.0)
+        p = sectypes.SecFld(min_order=order, signed=True,
+                            device='cpu').field.modulus
+        fields.setdefault(prime_field_ctx(p).L, p)
+    check(sorted(fields) == sorted(LINALG_WIDE), f'the linear algebra\'s '
+          f'fields have {sorted(fields)} limbs, not {sorted(LINALG_WIDE)}')
+    return fields
+
+
+def timed_once(fn) -> tuple:
+    """(fn's result, its ms on the host clock between synchronizes): a
+    plain version too slow to call twice."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_wide_kernels() -> dict:
+    """Phase "kernels", the linear algebra's part: each wide instantiation
+    (csrc/wide.cu) at each field the phase's paths take (``linalg_fields``:
+    7, 8, 9, 10, 12 and 42 limbs), at the path's shapes (``LINALG_WIDE``),
+    bit for bit against its plain version (tolerance: exact) and timed
+    beside it and its bound: K3 fused on (3, 64, L), without the product
+    on (3, bucket of d^2, L), both also on 7 and 300 elements (checked
+    only); K9's product on d (d + 1) elements; K6 at e = p - 2 on one
+    element (det R's reciprocal; its plain version timed once, on the
+    host clock: a 1,314-bit ladder of whole-vector products); K7 at seven
+    limbs on (3, 30, 7) with one element in 7 planted to open to 0 (the
+    20 x 20 pseudoinverse's [NO07] bits); K9 at kb2's 19 limbs (its
+    tableau's encoding, before its first comparison refuses 19 limbs). And
+    K5 in EQ mode at l = 31 (the 5 x 5 pseudoinverse's zero tests) on one
+    element."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(37)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFF0, 3)
+    for L, p in sorted(linalg_fields().items()):
+        d = LINALG_WIDE[L]
+        ctx = prime_field_ctx(p)
+        spec = pipelines.ReshareSpec(p, T, M)
+        for fused in (True, False):
+            err = 0
+            n = 64 if fused else pipelines.bucket(d * d)
+            for nn in (7, 300, n):
+                a = random_field(p, (M, nn), gen)
+                b = random_field(p, (M, nn), gen) if fused else None
+                out = pipelines.reshare_mul(a, b, st, nonce, spec)
+                want = pipelines._reshare_mul_plain(a, b, st, nonce, spec)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(out, want))
+            check(err == 0, f'wide K3 (L = {L}, fused {fused}) differs '
+                  'from its plain version')
+            res[f'reshare_mul<L={L}{", fused" if fused else ""}>'] = \
+                reshare_meas(spec, a, b, st, nonce, err)
+        n = d * (d + 1)
+        x, y = random_field(p, (n,), gen), random_field(p, (n,), gen)
+        err = max_abs_err(fieldops.field_op(x, y, 'mul', ctx),
+                          fieldops._field_op_plain(x, y, 'mul', ctx))
+        for op in ('add', 'sub'):
+            err = max(err, max_abs_err(fieldops.field_op(x, y, op, ctx),
+                                       fieldops._field_op_plain(x, y, op,
+                                                                ctx)))
+        check(err == 0, f'wide K9 (L = {L}) differs from its plain version')
+        bd, o = bound(n * 3 * L * 4, n * mont_mul_ops(L))
+        res[f'field_op<L={L}>'] = dict(
+            shape=f'({n}, {L}), a Montgomery product', max_abs_err=err,
+            ms=graph_ms(lambda: fieldops.field_op(x, y, 'mul', ctx), 20),
+            plain_ms=cuda_ms(lambda: fieldops._field_op_plain(
+                x, y, 'mul', ctx), 1), bound_ms=bd, bound_by=o)
+        z = random_field(p, (1,), gen)
+        e = p - 2
+        want, plain_ms = timed_once(lambda: fieldops._mont_pow_plain(
+            z, e, ctx))
+        err = max_abs_err(fieldops.mont_pow(z, e, ctx), want)
+        check(err == 0, f'wide K6 (L = {L}) differs from its plain version')
+        k, least = fieldops.plan_products(e), chain_products(e)
+        bd, o = bound(L * 4 * 2, least * least_product_ops(ctx))
+        res[f'mont_pow<L={L}>'] = dict(
+            shape=f'1 element, L = {L}, a {e.bit_length()}-bit exponent: '
+            f'the plan\'s {k} products (any chain {least} at the least)',
+            max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(z, e, ctx),
+                                        3),
+            plain_ms=plain_ms, bound_ms=bd, bound_by=o)
+        if L == 7:
+            field = finfields.GF(p)
+            rr, zz = tail_shares(p, 30, gen, every=7)
+            got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
+            want = pipelines._random_bits_tail_plain(rr, zz, field, False,
+                                                     0, T)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got[0], want[0]),
+                      int((got[1] != want[1]).sum()),
+                      abs(int(got[2].item()) - int(want[2].item())))
+            check(err == 0 and int(got[2].item()) >= 30 // 7,
+                  'wide K7 (L = 7) differs from its plain version')
+            res['random_bits_tail<L=7>'] = tail_meas(field, rr, zz, err)
+        say(f'  wide K3, K9, K6{", K7" if L == 7 else ""} at L = {L} '
+            f'({p.bit_length()}-bit field): equal to plain')
+    from mpyc_tpu_torch.demos import np_lpsolver as lp
+    probe = lp.read_csv(lp.DATASETS[LP_KB2][0])   # m + 1 rows, n + 1 cols
+    p = sectypes.SecInt(560, 'cuda', n=sum(probe.shape) - 2).field.modulus
+    ctx = prime_field_ctx(p)
+    x, y = random_field(p, (69 * 42,), gen), random_field(p, (1,), gen)
+    err = max_abs_err(fieldops.field_op(x, y, 'mul', ctx),
+                      fieldops._field_op_plain(x, y, 'mul', ctx))
+    check(ctx.L == 19 and err == 0, 'wide K9 (L = 19) differs from its '
+          'plain version')
+    bd, o = bound((2 * x.shape[0] + 1) * ctx.L * 4,
+                  x.shape[0] * mont_mul_ops(ctx.L))
+    res['field_op<L=19>'] = dict(
+        shape=f'({x.shape[0]}, 19) by a constant, a Montgomery product',
+        max_abs_err=err,
+        ms=graph_ms(lambda: fieldops.field_op(x, y, 'mul', ctx), 20),
+        plain_ms=cuda_ms(lambda: fieldops._field_op_plain(x, y, 'mul', ctx),
+                         1), bound_ms=bd, bound_by=o)
+    say('  wide K9 at L = 19 (kb2\'s SecInt(560)): (2898, 19) by a constant, '
+        'equal to plain')
+    p = sectypes.SecInt(31, 'cuda').field.modulus
+    spec = pipelines.SgnSpec(p, T, M, 31, 30, EQ=True)
+    for nn in (300, 1):
+        a = random_field(p, (M, nn), gen)
+        err = sgn_chunks_check(spec, a, st, nonce, SimRuntime._SGN_CHUNK)
+    res['sgn_step<EQ, l=31, L=2>'] = sgn_meas(spec, a, st, nonce,
+                                              SimRuntime._SGN_CHUNK, err)
+    say(f'  K5 sgn_step EQ at l = 31, L = 2: ({M}, 300) and ({M}, 1), '
+        'equal to plain')
+    return res
+
+
+def run_linalg(device, alphas=LINALG_ALPHAS, datasets=LINALG_DATASETS,
+               pinv=PINV_RUNS, k_mlat=N_MLAT, n=1000, d=10,
+               seed=LINALG_SEED) -> dict:
+    """Phase "linear algebra": the runners of ``demos/run-all.sh``'s
+    helloworld, oneliners, parallelsort and ot at m = 3; ridge regression
+    (``mpyc_tpu_torch/demos/ridgeregression.py``) on the synthetic set (n
+    samples, d features, one target) at each accuracy of ``alphas`` and on
+    ``datasets`` (winequality-red, -white, student-mat); the pseudoinverse
+    of each of ``pinv`` ((m, n, rank, bits, seed)); multilateration at
+    SecInt(335) on the first ``k_mlat`` measurements of sets 1 and 3.
+    Every runner checks its results itself (ridge: (adj A) B and det A
+    exactly against a plain integer Bareiss, the train error within 0.2
+    of a plain ridge solve; the pseudoinverse: the Penrose equations mod
+    p, the denominators, numpy's pinv; multilateration: each solve
+    exactly, the median error under 2,000 m) and fails the phase
+    otherwise. Seconds a call, a solve or a measurement, on the host clock
+    after a synchronize."""
+    from mpyc_tpu_torch.demos import (helloworld, multilateration,
+                                      oneliners, ot, parallelsort,
+                                      pseudoinverse, ridgeregression)
+    rt = SimRuntime(M, device=device)
+    on_card = rt.device.type == 'cuda'
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    quiet = lambda s: None   # noqa: E731
+    res = {}
+    for name, fn in (('helloworld', lambda: helloworld.run(rt, out=quiet)),
+                     ('oneliners', lambda: oneliners.run(rt, out=quiet)),
+                     ('parallelsort', lambda: parallelsort.run(
+                         rt, out=quiet)),
+                     ('ot', lambda: ot.run(rt, seed=seed, out=quiet))):
+        sync()
+        t0 = time.perf_counter()
+        ok = fn()
+        sync()
+        res[name] = time.perf_counter() - t0
+        check(ok, f'{name}: a result differs from Python\'s')
+    for ds in (0,) + tuple(datasets):
+        r = ridgeregression.run(rt, ds, alphas if ds == 0 else None, n=n,
+                                d=d, seed=seed, out=quiet)
+        name = 'synthetic' if ds == 0 else ridgeregression.DATASETS[ds][0]
+        for alpha, sol in r['solves'].items():
+            check(sol['ok'], f'ridge regression, {name} at alpha {alpha}: '
+                  f'exact {sol["exact"]}, relative train error '
+                  f'{sol["rel"]}')
+            res[f'ridge {name} ({r["n"]} samples, d = {sol["d"]}), alpha '
+                f'{alpha}, {sol["bits"]}-bit field (L = {sol["L"]}): s a '
+                f'solve; relative train error {sol["rel"][0]:.6f}'] = \
+                sol['s']
+    for m, n_, r_, b, sd in pinv:
+        r = pseudoinverse.run(rt, m, n_, r_, b, sd, out=quiet)
+        check(r['ok'], f'pseudoinverse {m} x {n_}: a check failed')
+        res[f'pseudoinverse {m} x {n_} of rank {r_}, SecInt({r["l"]}) '
+            f'(L = {r["L"]}): s'] = r['s']
+    r = multilateration.run(rt, k=k_mlat, out=quiet)
+    check(r['ok'], f'multilateration: exact solves and median error '
+          f'{r["median"]:.3f} m')
+    res[f'multilateration of {r["n"]} measurements, SecInt({r["bits"]}) '
+        f'(L = {r["L"]}): s a measurement (median); median error '
+        f'{r["median"]:.3f} m'] = float(np.median(r['s_each']))
+    return res
+
+
 def warm_stats(pass_s: list) -> tuple:
     """(median, least, largest) of the warm passes (all but the first)."""
     warm = sorted(pass_s[1:])
@@ -3514,6 +3831,7 @@ def main() -> int:
         meas.update(check_field_ops())
         meas.update(check_id3_kernels())
         meas.update(check_one_limb_kernels())
+        meas.update(check_wide_kernels())
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -3764,6 +4082,15 @@ def main() -> int:
                 continue
             pivot_launches = {k: round(v / max(r['pivots'], 1), 1)
                               for k, v in r['launches'].items()}
+            if r.get('stopped'):
+                say(f'  {name} at SecFxp({r["l"]}): stopped after '
+                    f'{r["pivots"]} pivots (a cut for time), its tableau '
+                    f'within {r["solution_err"]:.3g} of its basis\'s in '
+                    f'float64 (tolerance {r["tol"]:.3g}; objective '
+                    f'{r["mx"]!r}); {r["s"]:.4f} s, {r["s_pivot"]:.4f} s '
+                    f'a pivot on {smi}')
+                say(f'    launches a pivot: {pivot_launches}')
+                continue
             say(f'  {name} at SecFxp({r["l"]}): {r["pivots"]} pivots (the '
                 f'float solver {r["plain_pivots"]}), max = {r["mx"]!r} '
                 '(relative error '
@@ -3906,6 +4233,13 @@ def main() -> int:
             say(f'    {line}')
         torch.cuda.empty_cache()
 
+    with Phase('linear algebra'):
+        res_la = drive('linear algebra', lambda: run_linalg('cuda'))
+        say(f'  every runner and solve checked; seconds on {smi}:')
+        for name, v in res_la.items():
+            say(f'    {name}: {v:.4f}')
+        torch.cuda.empty_cache()
+
     with Phase('k1 shapes'):
         shapes = collections.Counter()
         for path, hist in k1_blocks.items():
@@ -3925,10 +4259,10 @@ def main() -> int:
 
     say(f'  launches over the paths: {launches}')
     kernels = []
-    for entry, (name, _) in ENTRIES.items():
+    for entry, (name, key) in ENTRIES.items():
         k, r = KERNELS[name], meas[entry]
         kernels.append(dict(
-            name=entry, route='cuda', source=k['source'],
+            name=entry, route='cuda', source=entry_source(name, key),
             replaces=k['replaces'], launches=launches[entry],
             max_abs_err=r['max_abs_err'], ms=r['ms'],
             plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
@@ -3978,7 +4312,8 @@ def main() -> int:
                     'id3': {k: v for k, v in res_id3.items()
                             if isinstance(v, dict)},
                     'sort': res_sort, 'hash_chains': res_hc,
-                    'colocated': res_co, 'card': smi}))
+                    'colocated': res_co, 'linear_algebra': res_la,
+                    'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)
     say(json.dumps({'ok': True, 'device': {

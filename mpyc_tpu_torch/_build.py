@@ -2,7 +2,8 @@
 
 The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
 with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
-``sgn.cu`` once for each limb count of K5, and ``gf2.cu``, K8) in an
+``sgn.cu`` once for each limb count of K5, ``gf2.cu``, K8, and ``wide.cu``,
+K3, K6, K7 and K9 on fields of 7 to 48 limbs) in an
 ``nvcc -c`` of its own, all started together, then one ``nvcc -shared`` links them. The
 library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
 version>/`` beside the package, is written under a temporary name and
@@ -27,18 +28,19 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # every source file, all hashed into the build's directory
-SOURCES = ('kernels.cu', 'sgn.cu', 'gf2.cu', 'common.cuh', 'keccak.cuh',
-           'limb.cuh', 'stage.cuh', 'sgn.cuh', 'pow.cuh')
+SOURCES = ('kernels.cu', 'sgn.cu', 'gf2.cu', 'wide.cu', 'common.cuh',
+           'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh', 'pow.cuh')
 # the translation units: (object name, source, extra nvcc flags); K5's
 # launchers one limb count a unit (MTT_SGN_NL)
 UNITS = (('kernels', 'kernels.cu', ()),) + tuple(
     (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in
     (2, 3, 4, 5, 6)) \
-    + (('gf2', 'gf2.cu', ()),)
+    + (('gf2', 'gf2.cu', ()), ('wide', 'wide.cu', ()))
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -48,6 +50,10 @@ BUILD_TIMEOUT_S = 600
 
 # limits of the kernels' parameter blocks (csrc/kernels.cu)
 MAX_NL = 6       # limbs of a field element (p < 2^192; csrc/common.cuh)
+# the wide kernels' limb counts (csrc/wide.cu: L a launch parameter, the
+# field's constants in a device buffer, not in a parameter block)
+WIDE_MIN_NL = 7
+WIDE_MAX_NL = 48  # p < 2^1536
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_M = 16       # parties
@@ -104,6 +110,23 @@ class PowParams(ctypes.Structure):
                 ('step', ctypes.c_uint32 * POW_MAX_STEPS)]
 
 
+class WidePow(ctypes.Structure):
+    """Mirror of ``struct WidePow`` in csrc/wide.cu: the limb count and
+    the plan of the exponent (``fieldops.pow_plan``), whose steps follow
+    the field's constants in the kernel's device buffer."""
+    _fields_ = [('nl', ctypes.c_int32), ('nbits', ctypes.c_int32),
+                ('n_table', ctypes.c_int32), ('first', ctypes.c_int32),
+                ('n_steps', ctypes.c_int32), ('tail', ctypes.c_int32),
+                ('n0inv', ctypes.c_uint32)]
+
+
+class WideTail(ctypes.Structure):
+    """Mirror of ``struct WideTail`` in csrc/wide.cu (K7 at 7 to 48
+    limbs)."""
+    _fields_ = [('pow', WidePow), ('has_scale', ctypes.c_int32),
+                ('has_offset', ctypes.c_int32)]
+
+
 class TailParams(ctypes.Structure):
     """Mirror of ``struct TailParams`` in csrc/pow.cuh (K7)."""
     _fields_ = [('pow', PowParams), ('lag', _U32xNL * 3),
@@ -119,9 +142,15 @@ class TailParams(ctypes.Structure):
 # (SGN_BUILT_NL: a secure integer's field has l + k + 2 > 32 bits) and
 # takes its bit width l as a launch parameter: every l with l + k + 2 <= 32
 # limbs, in every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max).
-# Fields of more than MAX_NL limbs raise NotImplementedError on the card.
+# Fields of 7 to 48 limbs take the wide kernels instead (csrc/wide.cu: K3,
+# K6, K7 and K9 with L a launch parameter; ``wide(L)``); K5 refuses them,
+# and fields of more than 48 limbs raise NotImplementedError on the card.
 BUILT_NL = (1, 2, 3, 4, 5, 6)
 SGN_BUILT_NL = (2, 3, 4, 5, 6)
+# (limbs, words a draw) of K2's instantiations (csrc/kernels.cu
+# mtt_squeeze_mont): the fused streams' draws of two-limb fields, the input
+# draws of SecInt(32) and SecInt(64)
+SQUEEZE_BUILT = ((2, 4), (2, 6), (3, 7))
 # (t, m) of the split/recombine kernel's instantiations (two-limb fields)
 SPLIT_BUILT = ((1, 3),)
 
@@ -130,6 +159,37 @@ def set_limbs(dst, limbs) -> None:
     """Fill the first len(limbs) words of a ctypes limb array."""
     for q, v in enumerate(limbs):
         dst[q] = v
+
+
+def wide(L: int) -> bool:
+    """Whether the wide kernels (csrc/wide.cu) take a field of L limbs."""
+    return WIDE_MIN_NL <= L <= WIDE_MAX_NL
+
+
+def wide_words(device, *consts) -> torch.Tensor:
+    """A wide kernel's device buffer: the words of each constant (a
+    sequence of uint32 limbs or words) in order, as int32."""
+    words = np.concatenate([np.asarray(c, dtype=np.uint64).reshape(-1)
+                            for c in consts]).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32).copy()).to(device)
+
+
+def wide_pow(ctx, e: int) -> tuple:
+    """(WidePow, its steps as words: squarings, table entry) for a^e in
+    ctx's wide field."""
+    from mpyc_tpu_torch.ops.fieldops import pow_plan
+    if not wide(ctx.L):
+        raise NotImplementedError(
+            f'the wide CUDA kernels take fields of {WIDE_MIN_NL} to '
+            f'{WIDE_MAX_NL} limbs, not L={ctx.L}')
+    if not 0 <= e < 1 << 32 * ctx.L:
+        raise ValueError('exponent outside [0, 2^(32 L))')
+    plan = pow_plan(e)
+    P = WidePow()
+    P.nl, P.nbits, P.n0inv = ctx.L, e.bit_length(), ctx.n0inv
+    P.n_table, P.first, P.tail = plan.n_table, plan.first, plan.tail
+    P.n_steps = len(plan.steps)
+    return P, [w for step in plan.steps for w in step]
 
 
 def draw_params(ctx, n_chunks: int) -> DrawParams:
@@ -191,6 +251,15 @@ _SIGNATURES = {
     'mtt_empty': [_C],
     'mtt_field_op': [_C, _C, _C, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, _C, _C],
+    'mtt_field_op_wide': [_C, _C, _C, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _C, ctypes.c_uint,
+                          ctypes.c_int, _C],
+    'mtt_reshare_wide': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
+                         ctypes.c_uint, ctypes.c_int, ctypes.c_uint,
+                         ctypes.c_uint, _C],
+    'mtt_mont_pow_wide': [_C, _C, ctypes.c_longlong, _C, _C, _C],
+    'mtt_random_bits_tail_wide': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C,
+                                  _C, _C],
 }
 
 

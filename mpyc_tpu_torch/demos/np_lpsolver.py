@@ -20,7 +20,8 @@ Datasets (``demos/data/lp``): 0 = uvlp (default), 1 = wiki, 2 = tb2x2,
 fields have l + 32 bits (SecInt(l) with a root of unity of order at
 least m + n): two limbs at l = 6-8, four at l = 70 (LPExample_R20), five
 at l = 104 and 110 (sc50b, LPExample); kb2's SecInt(560) takes 19 limbs,
-which the card's kernels do not take (NotImplementedError there).
+whose comparisons the card's K5 does not take (NotImplementedError
+there, at the first comparison: the wide kernels take its products).
 
 ``plain_solve`` runs the same integer-pivoting simplex on the host in
 Python ints (the same pivot rules: the first least cost, the first least

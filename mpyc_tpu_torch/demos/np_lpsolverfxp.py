@@ -100,13 +100,17 @@ def unit_vector_sum(mpc, scaled, registers, total, lo, hi):
     return acc
 
 
-def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None):
+def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None,
+          max_pivots=0):
     """Solve dataset I on runtime mpc as ``demos/np_lpsolverfxp.py``'s main
     does, printing its lines through ``out`` (and calling ``on_pivot``
     with the pivot's number before each pivot's work, if given). Returns
     the opened results: iterations, max (mx), its relative error, the
     solution x (floats), the certificate (ok) and, where it is false, the
-    names of its conditions that fail (each opened on its own)."""
+    names of its conditions that fail (each opened on its own). With
+    ``max_pivots`` the solve stops after that many pivots and returns its
+    opened tableau and registers then (T, basis, cobasis; ``stopped``
+    True), no solution or certificate."""
     name, bit_length_, exact_max = DATASETS[dataset]
     if bit_length:
         bit_length_ = bit_length
@@ -153,6 +157,13 @@ def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None):
         drop = (col - row_ext) / pivot
         mix = row_ext @ T + col_ext
         T = T - np.outer(drop, mix)
+        if iteration == max_pivots:
+            T, basis, cobasis = (np.asarray(mpc.run(mpc.output(v)))
+                                 for v in (T, basis, cobasis))
+            out(f'objective {T[0, -1]} after {iteration} pivots (stopped)')
+            return dict(iterations=iteration, T=T, stopped=True,
+                        basis=np.rint(basis).astype(int),
+                        cobasis=np.rint(cobasis).astype(int))
 
     mx = mpc.run(mpc.output(T[0, -1]))
     rel_error = (mx - exact_max) / exact_max
@@ -194,6 +205,23 @@ def _plain_argmin(keys, less):
                for i, j in zip(idx[n0::2], idx[n0 + 1::2])]
         idx = idx[:n0] + won
     return idx[0]
+
+
+def plain_tableau(T, basis, cobasis):
+    """The tableau ``solve`` holds at a basis, in float64, whatever the
+    pivots that reached it: of the LP max c.x, A.x <= b, x >= 0 in ``T``
+    (the cost row -c, then [A | b]) with slack variables n.., the basis
+    matrix B of [A | I]'s columns ``basis`` (the variable of each row) and
+    the columns N of ``cobasis``: rows B^-1 [N | b] under the costs c_B
+    B^-1 [N | b] - [c_N | 0]."""
+    T = np.array(T, dtype=np.float64)
+    m = T.shape[0] - 1
+    full = np.hstack([T[1:, :-1], np.eye(m)])
+    cost = np.concatenate([-T[0, :-1], np.zeros(m)])
+    rows = np.linalg.solve(full[:, basis], np.hstack([full[:, cobasis],
+                                                      T[1:, -1:]]))
+    top = cost[basis] @ rows - np.concatenate([cost[cobasis], [0.0]])
+    return np.vstack([top, rows])
 
 
 def plain_solve(T):

@@ -67,6 +67,25 @@ class ReshareSpec:
         self.xs_mont = [ctx.encode_const(i) for i in range(1, m + 1)]
         self.l_bytes = rng_mod.fused_draw_bytes(p)
 
+    def wide_consts(self, device) -> torch.Tensor:
+        """The wide K3's device buffer (csrc/wide.cu reshare_wide_kernel):
+        p, the radix table of its two-chunk draws, the Lagrange coefficients
+        and the points, L words each; made once for each device."""
+        from mpyc_tpu_torch import _build
+        W, L = self.l_bytes // 4, self.ctx.L
+        if not _build.wide(L) or W != L + 2 or (self.t, self.m) != (1, 3):
+            raise NotImplementedError(
+                f'the wide CUDA reshare is built for (t, m) = (1, 3) and '
+                f'{_build.WIDE_MIN_NL} to {_build.WIDE_MAX_NL} limbs with '
+                f'draws of 4 (L + 2) bytes; not L={L} ({self.l_bytes}-byte '
+                f'draws) at ({self.t}, {self.m})')
+        cache = self.__dict__.setdefault('_wide', {})
+        if str(device) not in cache:
+            cache[str(device)] = _build.wide_words(
+                device, self.ctx.p_limbs, *self.ctx.radix_limbs(2),
+                *self.lag, *self.xs_mont)
+        return cache[str(device)]
+
     def params(self, nonce):
         """Kernel parameter block for a call with counter (lo, hi)."""
         from mpyc_tpu_torch import _build
@@ -146,7 +165,9 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
 
     Replaces ``mpyc_tpu/models/pipelines.py:make_reshare_step`` ->
     ``make_pallas.kernel``. nonce: the call counter (lo, hi). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel
+    (``csrc/kernels.cu reshare_kernel``; from 7 to 48 limbs ``csrc/
+    wide.cu reshare_wide_kernel``)."""
     m, L = spec.m, spec.ctx.L
     if a.dim() != 3 or a.shape[0] != m or a.shape[2] != L or \
             a.dtype != torch.int32:
@@ -159,16 +180,27 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
     if a.device.type == 'cpu':
         return _reshare_mul_plain(a, b, state, nonce, spec)
     from mpyc_tpu_torch import _build
-    params = spec.params(nonce)
+    wide = _build.wide(L)
+    if wide:
+        consts = spec.wide_consts(a.device)
+    else:
+        params = spec.params(nonce)
     a = a.contiguous()
     b = b.contiguous() if b is not None else None
     _check_aligned(a, b)
     state = state.contiguous()
     out = torch.empty_like(a)
-    _build.call('mtt_reshare', a.data_ptr(),
-                b.data_ptr() if b is not None else None, out.data_ptr(),
-                state.data_ptr(), a.shape[1], int(b is not None),
-                ctypes.addressof(params), _build.stream_of(a.device))
+    if wide:
+        _build.call('mtt_reshare_wide', a.data_ptr(),
+                    b.data_ptr() if b is not None else None, out.data_ptr(),
+                    state.data_ptr(), a.shape[1], int(b is not None),
+                    consts.data_ptr(), spec.ctx.n0inv, L, int(nonce[0]),
+                    int(nonce[1]), _build.stream_of(a.device))
+    else:
+        _build.call('mtt_reshare', a.data_ptr(),
+                    b.data_ptr() if b is not None else None, out.data_ptr(),
+                    state.data_ptr(), a.shape[1], int(b is not None),
+                    ctypes.addressof(params), _build.stream_of(a.device))
     reshare_mul.launches += 1
     reshare_mul.by_key[(L, b is not None)] += 1
     return out
@@ -1075,6 +1107,34 @@ def _tail_params(field, t: int, m: int, signed: bool, f: int):
     return P
 
 
+def _wide_tail_params(field, t: int, m: int, signed: bool, f: int,
+                      device) -> tuple:
+    """The wide K7's WideTail and device buffer (csrc/wide.cu: p, R mod
+    p, the recombination vector at 0 of points 1..3, a bit's scale and
+    offset, then the plan's steps of (3p - 5) / 4), made once for each
+    field, kind of bit and device."""
+    from mpyc_tpu_torch import _build
+    p, ctx = field.modulus, field.array.ctx
+    if (t, m) != (1, 3):
+        raise NotImplementedError(f'K7 is built for (t, m) = (1, 3), not '
+                                  f'({t}, {m})')
+    if p % 4 != 3:
+        raise NotImplementedError('the random bits\' inverse square root '
+                                  'needs p = 3 mod 4')
+    cache = ctx.__dict__.setdefault('_wide_tail', {})
+    key = (signed, f, str(device))
+    if key not in cache:
+        P = _build.WideTail()
+        P.pow, steps = _build.wide_pow(ctx, (3 * p - 5) // 4)
+        c = pow(2, f, p) * (1 if signed else pow(2, -1, p)) % p
+        P.has_scale, P.has_offset = int(c != 1), int(not signed)
+        cache[key] = P, _build.wide_words(
+            device, ctx.p_limbs, ctx.one_mont,
+            *_lagrange_consts_mont(p, range(1, 2 * t + 2)),
+            ctx.encode_const(c), ctx.encode_const(c), steps)
+    return cache[key]
+
+
 def random_bits_tail_ops(p: int, signed: bool, f: int) -> tuple:
     """(Montgomery products, modular adds) of K7 an element, as its source
     computes them (held against it by tests/test_torch_kernels_host.py):
@@ -1098,9 +1158,11 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     Replaces the XLA tail of ``mpyc_tpu/parallel/simulator.py:732
     np_random_bits`` (:759-785): no Pallas kernel computes it. CPU tensors
     take the plain version; CUDA tensors launch the kernel
-    (``csrc/pow.cuh random_bits_tail_kernel``), or raise
+    (``csrc/pow.cuh random_bits_tail_kernel``; from 7 to 48 limbs
+    ``csrc/wide.cu random_bits_tail_wide_kernel``), or raise
     NotImplementedError for a configuration it is not built for ((t, m) =
-    (1, 3), fields of ``_build.BUILT_NL`` limbs, p = 3 mod 4)."""
+    (1, 3), fields of ``_build.BUILT_NL`` or 7 to 48 limbs, p = 3 mod
+    4)."""
     m = r.shape[0]
     L = field.array.ctx.L
     if r.dim() != 3 or r.shape[2] != L or r.dtype != torch.int32 or \
@@ -1112,7 +1174,11 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     if r.device.type == 'cpu':
         return _random_bits_tail_plain(r, z, field, signed, f, t)
     from mpyc_tpu_torch import _build
-    params = _tail_params(field, t, m, signed, f)
+    wide = _build.wide(L)
+    if wide:
+        params, consts = _wide_tail_params(field, t, m, signed, f, r.device)
+    else:
+        params = _tail_params(field, t, m, signed, f)
     r, z = r.contiguous(), z.contiguous()
     _check_aligned(r, z)
     n = r.shape[1]
@@ -1120,11 +1186,18 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     flags = torch.empty(n, dtype=torch.uint8, device=r.device)
     count = torch.zeros(1, dtype=torch.int32, device=r.device)
     if n:
-        _build.call('mtt_random_bits_tail', r.data_ptr(), z.data_ptr(),
-                    bits.data_ptr(), flags.data_ptr(), count.data_ptr(), n,
-                    ctypes.addressof(params), _build.stream_of(r.device))
+        if wide:
+            _build.call('mtt_random_bits_tail_wide', r.data_ptr(),
+                        z.data_ptr(), bits.data_ptr(), flags.data_ptr(),
+                        count.data_ptr(), n, consts.data_ptr(),
+                        ctypes.addressof(params), _build.stream_of(r.device))
+        else:
+            _build.call('mtt_random_bits_tail', r.data_ptr(), z.data_ptr(),
+                        bits.data_ptr(), flags.data_ptr(), count.data_ptr(),
+                        n, ctypes.addressof(params),
+                        _build.stream_of(r.device))
         random_bits_tail.launches += 1
-        random_bits_tail.by_key[(L, field.array.ctx.lazy)] += 1
+        random_bits_tail.by_key[(L, field.array.ctx.lazy and not wide)] += 1
     return bits, flags, count
 
 

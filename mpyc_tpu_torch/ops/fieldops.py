@@ -150,8 +150,8 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     ``mpyc_tpu/ops/limb.py:330 mont_pow_const`` (via ``fieldops.py:550
     pow_const``). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (``csrc/pow.cuh``, ``mont_pow_kernel``, by e's
-    plan), or raises NotImplementedError for a limb count it is not built
-    for."""
+    plan; from 7 to 48 limbs ``csrc/wide.cu mont_pow_wide_kernel``), or
+    raises NotImplementedError for a limb count it is not built for."""
     if data.dtype != torch.int32 or data.shape[-1:] != (ctx.L,):
         raise ValueError(f'data must be (..., {ctx.L}) int32 limbs')
     if not 0 <= e < 1 << 32 * ctx.L:
@@ -159,16 +159,50 @@ def mont_pow(data: torch.Tensor, e: int, ctx) -> torch.Tensor:
     if data.device.type == 'cpu':
         return _mont_pow_plain(data, e, ctx)
     from mpyc_tpu_torch import _build
-    params = _build.pow_params(ctx, e)
+    wide = _build.wide(ctx.L)
+    if wide:
+        params, consts = _wide_pow_consts(ctx, e, data.device)
+    else:
+        params = _build.pow_params(ctx, e)
     data = data.contiguous()
     out = torch.empty_like(data)
     n = data.numel() // ctx.L
     if n:
-        _build.call('mtt_mont_pow', data.data_ptr(), out.data_ptr(), n,
-                    ctypes.addressof(params), _build.stream_of(data.device))
+        if wide:
+            _build.call('mtt_mont_pow_wide', data.data_ptr(), out.data_ptr(),
+                        n, consts.data_ptr(), ctypes.addressof(params),
+                        _build.stream_of(data.device))
+        else:
+            _build.call('mtt_mont_pow', data.data_ptr(), out.data_ptr(), n,
+                        ctypes.addressof(params),
+                        _build.stream_of(data.device))
         mont_pow.launches += 1
-        mont_pow.by_key[(ctx.L, ctx.lazy)] += 1
+        # the wide kernel has no lazy form: its products are canonical
+        mont_pow.by_key[(ctx.L, ctx.lazy and not wide)] += 1
     return out
+
+
+def _wide_pow_consts(ctx, e: int, device) -> tuple:
+    """K6's plan and device buffer (p, R mod p, the plan's steps) for a^e
+    in a wide field, made once for each exponent and device."""
+    from mpyc_tpu_torch import _build
+    cache = ctx.__dict__.setdefault('_wide_pow', {})
+    key = (e, str(device))
+    if key not in cache:
+        params, steps = _build.wide_pow(ctx, e)
+        cache[key] = params, _build.wide_words(device, ctx.p_limbs,
+                                               ctx.one_mont, steps)
+    return cache[key]
+
+
+def wide_field_consts(ctx, device) -> torch.Tensor:
+    """K9's device buffer for a wide field: p's limbs."""
+    from mpyc_tpu_torch import _build
+    cache = ctx.__dict__.setdefault('_wide_p', {})
+    key = str(device)
+    if key not in cache:
+        cache[key] = _build.wide_words(device, ctx.p_limbs)
+    return cache[key]
 
 
 mont_pow.launches = 0
@@ -196,7 +230,8 @@ def field_op(a, b, op: str, ctx) -> torch.Tensor:
     arithmetic (``mpyc_tpu/ops/limb.py:247 mont_mul``, ``:217 add_mod``,
     ``:227 sub_mod``). CPU tensors take the plain version
     (``_field_op_plain``); CUDA tensors launch the kernel
-    (``csrc/kernels.cu field_op_kernel``), an operand of one element (a
+    (``csrc/kernels.cu field_op_kernel``; from 7 to 48 limbs ``csrc/
+    wide.cu field_op_wide_kernel``), an operand of one element (a
     constant) read by every thread, or raise NotImplementedError for a
     limb count it is not built for."""
     like = a if isinstance(a, torch.Tensor) else b
@@ -204,9 +239,13 @@ def field_op(a, b, op: str, ctx) -> torch.Tensor:
         return _field_op_plain(a, b, op, ctx)
     from mpyc_tpu_torch import _build
     L = ctx.L
-    params = ctx.__dict__.get('_field_op_params')
-    if params is None:
-        params = ctx._field_op_params = _build.draw_params(ctx, 1)
+    wide = _build.wide(L)
+    if wide:
+        consts = wide_field_consts(ctx, like.device)
+    else:
+        params = ctx.__dict__.get('_field_op_params')
+        if params is None:
+            params = ctx._field_op_params = _build.draw_params(ctx, 1)
 
     def operand(x):
         if not isinstance(x, torch.Tensor):
@@ -224,9 +263,16 @@ def field_op(a, b, op: str, ctx) -> torch.Tensor:
     (A, a_step), (B, b_step) = flat(A), flat(B)
     out = torch.empty(shape + (L,), dtype=torch.int32, device=like.device)
     if n:
-        _build.call('mtt_field_op', A.data_ptr(), B.data_ptr(),
-                    out.data_ptr(), n, a_step, b_step, _FIELD_OPS.index(op),
-                    ctypes.addressof(params), _build.stream_of(like.device))
+        if wide:
+            _build.call('mtt_field_op_wide', A.data_ptr(), B.data_ptr(),
+                        out.data_ptr(), n, a_step, b_step,
+                        _FIELD_OPS.index(op), consts.data_ptr(), ctx.n0inv,
+                        L, _build.stream_of(like.device))
+        else:
+            _build.call('mtt_field_op', A.data_ptr(), B.data_ptr(),
+                        out.data_ptr(), n, a_step, b_step,
+                        _FIELD_OPS.index(op), ctypes.addressof(params),
+                        _build.stream_of(like.device))
         field_op.launches += 1
         field_op.by_key[L] += 1
     return out

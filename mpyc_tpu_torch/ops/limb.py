@@ -13,9 +13,19 @@ kernels use the card's 32x32->64-bit multiply (``csrc/limb.cuh``).
 Constants (p's limbs, n0inv, Montgomery constants) are Python ints and
 broadcast against the tensors. All results are canonical (< p), so they
 equal the JAX package's limb for limb.
+
+From seven limbs on (the wide fields, ``_VEC_MIN_L``) the limb-by-limb
+product would take thousands of small tensor operations (about 22,000 at
+33 limbs), so ``mont_mul`` computes the same canonical value there as
+whole-vector operations on 16-bit digits (``_mont_mul_vec``): each
+product of multi-digit numbers one outer product and one ``index_add_``,
+the Montgomery reduction by the full constant -p^-1 mod R, carries
+propagated in parallel passes.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -153,12 +163,15 @@ def neg_mod(a, p_limbs):
 # ---------------------------------------------------------------------------
 
 def mont_mul(a, b, p_limbs, n0inv):
-    """Montgomery product a*b*R^-1 mod p; CIOS as ``mpyc_tpu/ops/limb.py``.
+    """Montgomery product a*b*R^-1 mod p; CIOS as ``mpyc_tpu/ops/limb.py``
+    (from ``_VEC_MIN_L`` limbs on the same value by ``_mont_mul_vec``).
 
     a: L limb tensors (< R); b: L limb tensors or Python ints (< p when a
     may exceed p, as in reduce_wide). p_limbs: L Python ints; n0inv:
     -p^-1 mod 2^32. Result < p."""
     L = len(a)
+    if L >= _VEC_MIN_L:
+        return _mont_mul_vec(a, b, p_limbs)
     zero = torch.zeros_like(a[0])
     t = [zero] * (L + 2)
     for i in range(L):
@@ -179,6 +192,85 @@ def mont_mul(a, b, p_limbs, n0inv):
     res = t[:L]
     d, brw = _sub_ll(res, p_limbs)
     return _select((t[L] == 1) | (brw == 0), d, res)
+
+
+_VEC_MIN_L = 7          # limbs from which mont_mul takes _mont_mul_vec
+_DIGIT = 0xFFFF
+
+
+def _digits(x: torch.Tensor) -> torch.Tensor:
+    """(..., L) int64 limbs in [0, 2^32) -> (..., 2 L) 16-bit digits."""
+    return torch.stack((x & _DIGIT, x >> 16), -1).flatten(-2)
+
+
+def _carry(c: torch.Tensor):
+    """(..., K) int64 digit sums of any sign -> (digits in [0, 2^16), the
+    carry out of digit K - 1), value(c) = value(digits) + carry 2^(16 K):
+    passes that keep each digit's low 16 bits and move the rest one digit
+    up, until nothing moves."""
+    out = torch.zeros(c.shape[:-1], dtype=torch.int64, device=c.device)
+    while True:
+        hi = c >> 16
+        if not bool(hi.any()):
+            return c, out
+        out = out + hi[..., -1]
+        c = (c & _DIGIT) + torch.cat(
+            (torch.zeros_like(hi[..., :1]), hi[..., :-1]), -1)
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_index(k1: int, k2: int, keep: int, device) -> torch.Tensor:
+    """Digit position i + j of each pair (i < k1, j < k2), those at or
+    past ``keep`` sent to the spare slot ``keep``."""
+    i = torch.arange(k1)[:, None] + torch.arange(k2)[None, :]
+    return i.clamp(max=keep).flatten().to(device)
+
+
+def _conv(x: torch.Tensor, y: torch.Tensor, keep: int) -> torch.Tensor:
+    """Digit products of x (..., k1) and y (..., k2) summed by position,
+    positions below ``keep`` (each sum below 2^39 for k1, k2 <= 72)."""
+    prod = (x[..., :, None] * y[..., None, :]).flatten(-2)
+    idx = _conv_index(x.shape[-1], y.shape[-1], keep, prod.device)
+    out = torch.zeros(prod.shape[:-1] + (keep + 1,), dtype=torch.int64,
+                      device=prod.device)
+    return out.index_add_(out.dim() - 1, idx, prod)[..., :keep]
+
+
+@functools.lru_cache(maxsize=64)
+def _vec_consts(p_limbs: tuple) -> tuple:
+    """The 16-bit digits of p and of n' = -p^-1 mod R (Python ints)."""
+    L = len(p_limbs)
+    p = sum(v << 32 * i for i, v in enumerate(p_limbs))
+    R = 1 << 32 * L
+    n_full = -pow(p, -1, R) % R
+    return ([p >> 16 * k & _DIGIT for k in range(2 * L)],
+            [n_full >> 16 * k & _DIGIT for k in range(2 * L)])
+
+
+def _mont_mul_vec(a, b, p_limbs):
+    """mont_mul's value by whole-vector operations (a < R, b < p or both
+    < p): T = a b, m = (T mod R) n' mod R, t = (T + m p) / R < 2p, then t
+    - p where that is not negative."""
+    L = len(a)
+    K = 2 * L
+    A = _digits(torch.stack(torch.broadcast_tensors(*a), -1))
+    dev = A.device
+    if isinstance(b[0], torch.Tensor):
+        B = _digits(torch.stack(torch.broadcast_tensors(*b), -1))
+    else:
+        B = _digits(torch.tensor([int(v) for v in b], dtype=torch.int64,
+                                 device=dev))
+    pd, nd = _vec_consts(tuple(int(v) for v in p_limbs))
+    P = torch.tensor(pd, dtype=torch.int64, device=dev)
+    N = torch.tensor(nd, dtype=torch.int64, device=dev)
+    T, _ = _carry(_conv(A, B, 2 * K))
+    M, _ = _carry(_conv(T[..., :K], N, K))
+    U, top = _carry(T + _conv(M, P, 2 * K))
+    t = U[..., K:]                     # (T + m p) / R = t + top R
+    D, borrow = _carry(t - P)          # t - p = D + borrow R
+    res = torch.where(((top + borrow) >= 0)[..., None], D, t)
+    res = res.unflatten(-1, (L, 2))
+    return list((res[..., 0] | res[..., 1] << 16).unbind(-1))
 
 
 def mont_pow_const(a, e: int, p_limbs, n0inv, one_mont):

@@ -224,11 +224,13 @@ class KeccakRNG:
         if p & (p - 1):
             l += _WIDEN_BYTES
         n_blocks = max(blocks_needed(n, l), 1)
-        from mpyc_tpu_torch._build import MAX_NC
-        # K2 reduces draws of up to MAX_NC chunks (its radix table): a
-        # one-limb field's 20-byte draws, five chunks, are split instead
+        from mpyc_tpu_torch._build import SQUEEZE_BUILT
+        # K2 is built for the (limbs, words) of the draws a path takes (a
+        # one-limb field's 20-byte draws are five chunks, past its radix
+        # table; a wide field's, e.g. 62 bytes at SecInt(335), are no
+        # whole words): the others are squeezed by K1 and split
         if n_blocks > _POOL_MAX_DRAW and l % 4 == 0 and \
-                l <= keccak.RATE and -(-l // 4 // ctx.L) <= MAX_NC:
+                l <= keccak.RATE and (ctx.L, l // 4) in SQUEEZE_BUILT:
             state, lane = keccak.ctr_state(self._next_prefix())
             mont = squeeze_mont(keccak.state_tensor(state, self.device), n,
                                 l, p, ctr_lane=lane)

@@ -25,7 +25,11 @@ and zero-sharing z, r^2 + z opened at threshold 2t and r / sqrt(r^2 +
 z), the round's tail one launch of kernel K7 on the card) and the
 truncation of fixed-point products (``_trunc_field``). ``load_state`` takes the JAX runtime's key, counter
 and input generator, and its PRSS keys and program counter, after which
-both runtimes give the same shares bit for bit.
+both runtimes give the same shares bit for bit. ``transfer`` and
+``output(..., receivers=)`` give the one process every party's view;
+``_convert`` masks a conversion with PRSS values of one draw in both
+fields (``_stacked_prss``, or from a secure field ``_stacked_prss_host``
+over the PRFs' host integers).
 
 Trust model: one process holds all shares, so this plane is for
 benchmarks, tests and co-located deployments only.
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import pickle
 import secrets as _secrets
 
 import numpy as np
@@ -82,6 +87,46 @@ class SimRuntime(Runtime):
             self._prfs = {}
         if pc is not None:
             self._program_counter[0] = int(pc)
+
+    def transfer(self, obj, senders=None, receivers=None,
+                 sender_receivers=None):
+        """Exchange of plain Python objects (``mpyc_tpu/parallel/
+        simulator.py:94``): the one process plays every party, so each
+        sender's object is obj itself, a copy by a pickle round trip. One
+        object for an int ``senders``, a list of one a sender otherwise;
+        with ``sender_receivers`` (pairs (s, r), or a dict s -> receivers)
+        a dict sender -> object of the pairs whose receiver is party 0, the
+        party whose view the co-located plane returns, as the JAX package
+        does."""
+        dup = lambda: pickle.loads(pickle.dumps(obj))  # noqa: E731
+        if sender_receivers is not None:
+            pairs = [(s, r) for s, rs in sender_receivers.items()
+                     for r in rs] if isinstance(sender_receivers, dict) \
+                else sender_receivers
+            return {s: dup() for s, r in pairs if r == self.pid}
+        if isinstance(senders, int):
+            return dup()
+        snd = list(range(len(self.parties)) if senders is None else senders)
+        return [dup() for _ in snd]
+
+    # the leading party axis of every share (``mpyc_tpu/parallel/
+    # simulator.py:61``): the demos' plane-agnostic helpers read it
+    _pax = 1
+
+    def _logical_reshape(self, share, shape):
+        """Reshape the logical axes of party-stacked shares, the party
+        axis kept (``mpyc_tpu/runtime.py:2717``)."""
+        if isinstance(shape, int):
+            shape = (shape,)
+        return share.reshape(tuple(share.shape[:self._pax]) + tuple(shape))
+
+    def _share_like(self, field_arr):
+        """A public field array broadcast over the party axis: the
+        constant polynomial's shares (``mpyc_tpu/parallel/simulator.py:
+        160``)."""
+        m = len(self.parties)
+        return field_arr.from_data(field_arr.data.unsqueeze(0).expand(
+            (m,) + tuple(field_arr.data.shape)))
 
     def _distribute(self, x, senders):
         m = len(self.parties)
@@ -476,13 +521,22 @@ class SimRuntime(Runtime):
             out.reshape((m,) + tuple(a.shape) + (L,))), True,
             self._is_array_op(a))
 
-    def output(self, x, threshold=None, raw=False):
+    def output(self, x, receivers=None, threshold=None, raw=False):
         """Open secure objects, or party-stacked field arrays: recombine
         the shares of parties 1..threshold+1 (default t + 1) at 0
         (``mpyc_tpu/parallel/simulator.py:183``). Secure arrays open to
         their values (SecInt: signed int64 below 2^64, else Python ints;
         SecFxp: float64), secure numbers to one int or float, or with
-        ``raw`` to the field array; field arrays to field arrays."""
+        ``raw`` to the field array; field arrays to field arrays. The one
+        process plays every receiver, so ``receivers`` (an int or a list
+        of parties) opens the values to it as to all, as in the JAX
+        package's co-located plane."""
+        if receivers is not None and not all(
+                0 <= r < len(self.parties) for r in (
+                    [receivers] if isinstance(receivers, int)
+                    else receivers)):
+            raise ValueError(f'receivers outside the {len(self.parties)} '
+                             'parties')
         x_is_list = isinstance(x, list)
         xl = list(x) if x_is_list else [x]
         t = self.threshold if threshold is None else threshold
@@ -604,6 +658,97 @@ class SimRuntime(Runtime):
                 [zeros if r is None else r for r in rows]))
             acc = stacked if acc is None else acc + stacked
         return acc
+
+    def _stacked_prss_host(self, field, prfs, uci: bytes, n: int):
+        """Party-stacked PRSS shares (m, n) of n pseudorandom values from
+        the PRFs' host integer stream (``DevicePRF.host_integers``), for
+        any bound, so that the same integers embed into every field
+        (``mpyc_tpu/parallel/simulator.py:631``; ``thresha.py:515
+        np_pseudorandom_share_host``)."""
+        m = len(self.parties)
+        acc = None
+        for S, prf in prfs.items():
+            vals = field.array(prf.host_integers(uci, (n,)), self.device)
+            zeros = torch.zeros_like(vals.data)
+            stacked = field.array.from_data(torch.stack(
+                [(vals * thresha._f_S_i(field, m, i, S)).data if i in S
+                 else zeros for i in range(m)]))
+            acc = stacked if acc is None else acc + stacked
+        return acc
+
+    def _convert(self, x, t_type):
+        """Conversion of the secure numbers or arrays x to t_type by one
+        masked opening (``mpyc_tpu/parallel/simulator.py:536``), all items
+        flattened into one batch: PRSS masks r drawn with one input in
+        both fields, so that they hold the same integers (from an integer
+        or fixed-point type values below a power of two, each field's
+        device stream; from a secure field values below its order, the
+        host stream), x + offset + r opened in the source field and
+        embedded into the target (``_embed_field_values``), r and the
+        offset subtracted there. From a secure field the opened value is
+        reduced mod the source's order in the target, a secure integer
+        type (``_mod``). A fixed-point source with more fractional bits
+        than the target is truncated first; fewer, scaled after."""
+        s_type = type(x[0])
+        is_arr = issubclass(s_type, sectypes.SecureArray)
+        s_ctype = s_type.sectype if is_arr else s_type
+        t_ctype = getattr(t_type, 'sectype', t_type)
+        s_field, t_field = s_ctype.field, t_ctype.field
+        s_is_ff = issubclass(s_ctype, sectypes.SecureFiniteField)
+        sizes = [math.prod(xi.shape) if is_arr else 1 for xi in x]
+        shapes = [tuple(xi.shape) if is_arr else None for xi in x]
+        n = sum(sizes)
+        m, t = len(self.parties), self.threshold
+        if s_is_ff:
+            bound, l = s_field.order, None
+        else:
+            l = min(s_ctype.bit_length, t_ctype.bit_length)
+            bound = 1 << max(0, (self.sec_param + l)
+                             - math.comb(m, t).bit_length() + 1)
+        prfs = self.prfs(bound)
+        uci = self._prss_uci()
+        if s_is_ff:
+            s_r = self._stacked_prss_host(s_field, prfs, uci, n)
+            t_r = self._stacked_prss_host(t_field, prfs, uci, n)
+        else:
+            s_r = self._stacked_prss(s_field, prfs, uci, n)
+            t_r = self._stacked_prss(t_field, prfs, uci, n)
+        d = t_ctype.frac_length - s_ctype.frac_length
+        datas = [self._share(xi).data for xi in x]
+        stacked = s_field.array.from_data(torch.cat(
+            [dt.reshape(m, sz, dt.shape[-1]) for dt, sz in zip(datas, sizes)],
+            dim=1))
+        if d < 0:
+            stacked = self._trunc_field(stacked, -d, s_ctype.bit_length)
+        if s_field.is_signed:
+            offset = s_field.order // 2 if s_is_ff else 1 << (l - 1)
+        else:
+            offset = 0
+        c = self.output(stacked + offset + s_r)     # public, (n,)
+        if s_is_ff:
+            c_ints = np.array([int(v) for v in np.asarray(
+                c.value, dtype=object).reshape(-1)], dtype=object)
+            v = self._share_like(t_field.array(c_ints, self.device)) - t_r
+            sec = self._mod(self._wrap(t_ctype.array, v, True),
+                            int(s_field.modulus))
+            v = self._share(sec) - offset
+        else:
+            v = self._share_like(self._embed_field_values(c, t_field)) \
+                - t_r - offset
+        if d > 0:
+            v = v * (1 << d)
+        integral = not s_ctype.frac_length
+        out, off = [], 0
+        for size, shape in zip(sizes, shapes):
+            piece = v.from_data(v.data[:, off:off + size])
+            off += size
+            if shape is not None:
+                out.append(self._wrap(t_ctype.array, piece.reshape(
+                    (m,) + shape), integral))
+            else:
+                out.append(self._wrap(t_ctype.array, piece.reshape((m,)),
+                                      integral, array=False))
+        return out
 
     def _np_randoms(self, sftype, n: int, bound=None):
         """n PRSS random values of a field type (party-stacked field

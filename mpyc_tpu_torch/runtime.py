@@ -36,7 +36,9 @@ theorem; and for secure lists and integer division the list
 ``unit_vector``, ``find``, ``indexOf``, ``eq``, ``eq_public``,
 ``from_bits``, ``random_bit``, ``lsb``/``np_lsb`` and ``mod`` (``%``,
 ``//`` and ``divmod`` by a public value: ``_mod``, ``_randbelow_bits``,
-``_bits_lt_public``).
+``_bits_lt_public``); and for linear algebra ``convert`` (secure
+integers, fixed-point numbers and prime fields, ``_embed_field_values``)
+and ``np_det`` (``_field_det_public``).
 The co-located plane (``parallel/simulator.py``) adds the protocol steps
 ``_distribute``, ``mul``, ``np_matmul``, ``np_sgn``, ``_reshare``,
 ``output``, ``reciprocal``, ``is_zero_public``, the PRSS draws
@@ -87,6 +89,9 @@ class Runtime:
 
     def __init__(self, m: int, device=None):
         self.parties = [Party(i) for i in range(m)]
+        # the party whose view a call returns: one process plays them all,
+        # and the JAX package's co-located plane is party 0
+        self.pid = 0
         self.threshold = (m - 1) // 2
         self.sec_param = sectypes._SEC_PARAM
         self.device = resolve_device(device)
@@ -184,6 +189,83 @@ class Runtime:
         incremented (``mpyc_tpu/runtime.py:237``)."""
         self._program_counter[0] += 1
         return self._program_counter[0].to_bytes(8, 'little', signed=True)
+
+    def convert(self, x, t_type):
+        """Secure conversion of a secure number or array, or of a list of
+        them, to the secure type t_type (``mpyc_tpu/runtime.py:1011``):
+        between secure integers, fixed-point numbers and prime fields, one
+        masked opening (``_convert``); from one secure field to another
+        through a secure integer type wide enough for both. An array of
+        one value converts as a secure number."""
+        x_is_list = isinstance(x, list)
+        xl = list(x) if x_is_list else [x]
+        if not xl:
+            return []
+        xl = [self._wrap(type(xi), self._logical_reshape(self._share(xi),
+                                                         ()),
+                         self._integral(xi), array=False)
+              if isinstance(xi, sectypes.SecureArray) and
+              math.prod(xi.shape) == 1 else xi for xi in xl]
+        s_ctype = getattr(type(xl[0]), 'sectype', type(xl[0]))
+        t_ctype = getattr(t_type, 'sectype', t_type)
+        if issubclass(s_ctype, sectypes.SecureFiniteField) and \
+                issubclass(t_ctype, sectypes.SecureFiniteField):
+            size = max(s_ctype.field.order, t_ctype.field.order)
+            secint = self.SecInt(l=max(32, size.bit_length()))
+            y = self._convert(self._convert(xl, secint), t_type)
+        else:
+            y = self._convert(xl, t_type)
+        return y if x_is_list else y[0]
+
+    @staticmethod
+    def _embed_field_values(c, t_field):
+        """A public array of a prime field -> the array of t_field with
+        the same integer values (mod t_field's p), on its device
+        (``mpyc_tpu/runtime.py:1033``): the source's standard-form limbs
+        cut into chunks of the target's limb count and reduced there
+        (``reduce_chunks``: K9's products and adds on the card)."""
+        if c.field.characteristic == 2 or t_field.characteristic == 2:
+            raise NotImplementedError('conversions of binary fields are '
+                                      'not ported')
+        s_ctx, t_ctx = c.ctx, t_field.array.ctx
+        std = s_ctx.to_standard(c.data)
+        nc = -(-s_ctx.L // t_ctx.L)
+        pad = nc * t_ctx.L - s_ctx.L
+        if pad:
+            std = torch.cat([std, std.new_zeros(std.shape[:-1] + (pad,))],
+                            dim=-1)
+        wide = std.reshape(std.shape[:-1] + (nc, t_ctx.L))
+        return t_field.array.from_data(t_ctx.reduce_chunks(wide))
+
+    def np_det(self, A):
+        """Secure determinant of a nonsingular secure square matrix
+        (``mpyc_tpu/runtime.py:2501``): PRSS-random triangular L (unit
+        diagonal) and U, redrawn until det U (the product of its diagonal)
+        opens as nonzero in a zero test; L U A opened, its determinant
+        computed in public (``_field_det_public``) and divided by the
+        secure det U."""
+        stype = self._sectype(A)
+        field = stype.sectype.field
+        n = A.shape[-1]
+        while True:
+            U = self._logical_reshape(self._np_randoms(field, n * n), (n, n))
+            diag = U.from_data(torch.diagonal(U.data, dim1=1, dim2=2)
+                               .movedim(-1, 1))            # (m, n, L)
+            detU = self.prod([self._wrap(stype, diag.from_data(
+                diag.data[:, i]), True, array=False) for i in range(n)])
+            if not self.is_zero_public(detU):
+                break
+        low = torch.ones((n, n), dtype=torch.bool,
+                         device=U.data.device).tril(-1)[..., None]
+        eye = field.array(np.eye(n, dtype=object), self.device)
+        zero = torch.zeros_like(U.data)
+        L_ = self._wrap(stype, U.from_data(torch.where(low, U.data, zero))
+                        + eye, True)
+        U_ = self._wrap(stype, U.from_data(torch.where(low, zero, U.data)),
+                        True)
+        LUA = self.output(self.np_matmul(L_, self.np_matmul(U_, A)),
+                          raw=True)
+        return self.div(_field_det_public(field, LUA), detU)
 
     def input(self, x, senders=None):
         """Input x; every sender Shamir-splits it. Returns one secure object
@@ -1703,3 +1785,29 @@ class Runtime:
         if n0:
             u = self.np_concatenate([u0, u], axis=1)
         return u, m
+
+
+def _field_det_public(field, arr):
+    """The determinant mod p of an opened square field array, as a field
+    element, by Gaussian elimination over Python ints
+    (``mpyc_tpu/runtime.py:4480``)."""
+    p = field.modulus
+    a = [[int(v) % p for v in row] for row in
+         np.asarray(arr.value, dtype=object).tolist()]
+    n = len(a)
+    det = 1
+    for i in range(n):
+        piv = next((r for r in range(i, n) if a[r][i] % p), None)
+        if piv is None:
+            return field(0)
+        if piv != i:
+            a[i], a[piv] = a[piv], a[i]
+            det = -det
+        det = det * a[i][i] % p
+        inv = pow(a[i][i], -1, p)
+        for r in range(i + 1, n):
+            f = a[r][i] * inv % p
+            if f:
+                for c in range(i, n):
+                    a[r][c] = (a[r][c] - f * a[i][c]) % p
+    return field(det % p)

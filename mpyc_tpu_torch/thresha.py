@@ -3,7 +3,7 @@
 Port of the part of ``mpyc_tpu/thresha.py`` that secure multiplication
 and pseudorandom secret sharing (PRSS) use: ``_recombination_vector``,
 ``np_random_split`` and ``np_recombine``, and for PRSS ``_f_S_i`` and
-``DevicePRF``, with the JAX package's randomness conventions, so the same
+``DevicePRF`` (with its host integer stream ``host_integers``), with the JAX package's randomness conventions, so the same
 generator state and keys give the same shares. Over GF(2^d) the party
 points 1, 2, 3, ... are read as polynomials (3 is x + 1), as the JAX
 package reads them.
@@ -12,6 +12,7 @@ package reads them.
 from __future__ import annotations
 
 import functools
+import hashlib
 import math
 
 import numpy as np
@@ -174,6 +175,23 @@ class DevicePRF:
             wide = _mask_bits(wide, (self.max - 1).bit_length())
         mont = ctx.reduce_chunks(wide)
         return field.array.from_data(mont.reshape(tuple(shape) + (ctx.L,)))
+
+    def host_integers(self, s: bytes, shape) -> np.ndarray:
+        """The values of input s as plain integers below the bound, an
+        object array of the given shape (``mpyc_tpu/thresha.py:315``):
+        byte_length little-endian bytes a value from the sequential
+        SHAKE128 stream of ``key || s`` (hashlib), each reduced mod the
+        bound. No field enters, so the same integers embed into any field:
+        the masks of a conversion from a secure field (``convert``)."""
+        n = math.prod(shape) if shape else 1
+        l = self.byte_length
+        if n == 0 or l == 0:
+            vals = [0] * n
+        else:
+            stream = hashlib.shake_128(self.key + s).digest(n * l)
+            vals = [int.from_bytes(stream[i:i + l], 'little') % self.max
+                    for i in range(0, n * l, l)]
+        return np.array(vals, dtype=object).reshape(shape)
 
     def bits_uint32(self, s: bytes, shape, device) -> torch.Tensor:
         """The values of input s as raw k-bit values, k = log2(bound) <= 32,

@@ -820,13 +820,53 @@ def test_colocated_demos_on_the_card(cuda_device):
 
 
 def test_seven_limb_secure_field_raises_on_the_card(cuda_device):
-    """A secure prime field of seven limbs (a 200-bit prime) raises
-    NotImplementedError on the card: no kernel is built for it, and
-    nothing falls back to a plain version."""
+    """A secure field of seven limbs (a 200-bit prime) runs its products
+    on the card through the wide kernels (csrc/wide.cu); what still raises
+    NotImplementedError there, with nothing falling back to a plain
+    version, is the comparison (K5) of a seven-limb secure integer
+    (SecInt(170)), and any field past 48 limbs."""
+    from mpyc_tpu_torch import gmpy
     from mpyc_tpu_torch.parallel.simulator import SimRuntime
     rt = SimRuntime(3, device=cuda_device)
     secfld = rt.SecFld(
         1606938044258990275541962092341162602522202993782792835301259)
+    a = rt.input(secfld.array(np.arange(5, dtype=object)), senders=0)
+    assert [int(v) for v in rt.output(a * a).value] == [0, 1, 4, 9, 16]
+    secint = rt.SecInt(170)
+    assert secint.field.array.ctx.L == 7
+    x = rt.input(secint.array(np.arange(5, dtype=object)), senders=0)
     with pytest.raises(NotImplementedError, match='limbs'):
-        a = rt.input(secfld.array(np.arange(5, dtype=object)), senders=0)
-        rt.output(a * a)
+        rt.output(rt.np_less(x, 2))
+    big = rt.SecFld(gmpy.next_prime(1 << 32 * 48))
+    with pytest.raises(NotImplementedError, match='limbs'):
+        b = rt.input(big.array(np.arange(3, dtype=object)), senders=0)
+        rt.output(b * b)
+
+
+def test_wide_kernels_on_the_card(cuda_device):
+    """chip_smoke's check of the wide instantiations (csrc/wide.cu): K3,
+    K9, K6 at 7, 8, 9, 10, 12 and 42 limbs at the linear algebra's
+    shapes, K7 at seven, each bit for bit against its plain version, and
+    K5 EQ at l = 31 (check_wide_kernels raises on a difference)."""
+    import chip_smoke
+    meas = chip_smoke.check_wide_kernels()
+    assert all(r['max_abs_err'] == 0 for r in meas.values())
+    assert {f'reshare_mul<L={L}, fused>' for L in chip_smoke.LINALG_WIDE} \
+        <= set(meas)
+
+
+def test_linear_algebra_on_the_card(cuda_device):
+    """chip_smoke's phase "linear algebra" at small sizes: the small
+    runners, ridge regression in a nine-limb field, the 5 x 5
+    pseudoinverse and one measurement of multilateration at 12 limbs
+    (run_linalg raises on a wrong result); the wide K3, K6 and K9 are
+    launched."""
+    import chip_smoke
+    n3 = pipelines.reshare_mul.by_key[(12, True)]
+    n6 = fieldops.mont_pow.by_key[(12, False)]
+    n9 = fieldops.field_op.by_key[12]
+    chip_smoke.run_linalg(cuda_device, alphas=(6,), datasets=(),
+                          pinv=((5, 5, 5, 4, 1),), k_mlat=1)
+    assert pipelines.reshare_mul.by_key[(12, True)] > n3
+    assert fieldops.mont_pow.by_key[(12, False)] > n6
+    assert fieldops.field_op.by_key[12] > n9

@@ -22,7 +22,11 @@ run: chip_smoke's phase "co-located demos" at small sizes (a Secret
 Santa of 5, unit vectors of 12 over GF(13) and SecInt(32), a secure list
 of 9, GF(1031) and GF(2^31 - 1) at 40 elements), mpctools, secure random,
 the runners of secretsanta, unanimous, PrefixOrExplained,
-indextounitvector and sort."""
+indextounitvector and sort. In a third, with pandas and scikit-learn
+blocked too, the linear algebra's: chip_smoke's phase "linear algebra"
+at small sizes (the small runners, ridge regression, the 5 x 5
+pseudoinverse, one measurement of multilateration), a dataset read and a
+conversion into a wide field."""
 import os
 import subprocess
 import sys
@@ -130,11 +134,54 @@ def test_colocated_demos_run_without_jax_or_mpyc_tpu():
     assert proc.stdout.strip().splitlines()[-1].startswith('OK GF(1031)')
 
 
+_LINALG = _SCRIPT.split('import chip_smoke')[0].replace(
+    "BLOCKED = ('jax', 'jaxlib', 'mpyc_tpu')",
+    "BLOCKED = ('jax', 'jaxlib', 'mpyc_tpu', 'pandas', 'sklearn')") + \
+    textwrap.dedent('''
+    import chip_smoke
+    res = chip_smoke.run_linalg('cpu', alphas=(4,), datasets=(),
+                                pinv=((5, 5, 5, 4, 1),), k_mlat=1, n=60,
+                                d=3)
+    from mpyc_tpu_torch.demos import ridgeregression
+    X, d, e, _ = ridgeregression.load_dataset(
+        ridgeregression.DATA + '/info-student-mat.csv')
+    assert (len(X), d, e) == (395, 56, 1)
+    from mpyc_tpu_torch.parallel.simulator import SimRuntime
+    rt = SimRuntime(3, device='cpu')
+    secint = rt.SecInt(32)
+    x = rt.input(secint.array(__import__('numpy').arange(4)), senders=0)
+    y = rt.convert(x, rt.SecFld(min_order=1 << 220, signed=True))
+    assert [int(v) for v in rt.output(y).value] == [0, 1, 2, 3]
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+    assert not loaded, loaded
+    print('OK', sorted(res)[0])
+''')
+
+
+def test_linear_algebra_runs_without_jax_pandas_or_sklearn():
+    """The linear algebra's modules and runners (transfer, output to
+    receivers, convert, np_det; helloworld, oneliners, parallelsort, ot,
+    ridgeregression, pseudoinverse, multilateration) run with jax,
+    mpyc_tpu, pandas and scikit-learn blocked (the card's machine has
+    none of them): chip_smoke's phase "linear algebra" at small sizes,
+    student-mat's files read with csv and zipfile, a conversion into a
+    seven-limb field."""
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    env.pop('PYTHONPATH', None)
+    proc = subprocess.run([sys.executable, '-c', _LINALG], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == 'OK helloworld'
+
+
 def test_port_sources_never_name_jax_or_mpyc_tpu():
-    """No module of the port, nor chip_smoke.py, imports jax or mpyc_tpu."""
+    """No module of the port, nor chip_smoke.py, imports jax, mpyc_tpu,
+    pandas or scikit-learn."""
     import re
-    pat = re.compile(r'^\s*(from|import)\s+(jax|jaxlib|mpyc_tpu)(\.|\s|$)',
-                     re.M)
+    pat = re.compile(r'^\s*(from|import)\s+(jax|jaxlib|mpyc_tpu|pandas|'
+                     r'sklearn)(\.|\s|$)', re.M)
     files = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'mpyc_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]

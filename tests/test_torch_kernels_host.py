@@ -210,7 +210,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 11, 'every launch must become a host loop'
+    assert launches == 15, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -1121,11 +1121,13 @@ P200 = 1606938044258990275541962092341162602522202993782792835301259
 
 
 def test_one_and_seven_limb_fields_raise(host_lib, state):
-    """Fields of more than six limbs (``_build.BUILT_NL``) raise
-    NotImplementedError for K3, K5, K6 and K7 on the Python side, and the
-    launchers refuse a parameter block of seven limbs; a one-limb field
-    (the secure prime fields SecFld(p)) has no comparison, so K5 alone
-    refuses it, on both sides."""
+    """The narrow kernels' parameter blocks (``_build.BUILT_NL``, one to
+    six limbs) refuse more: K3's, K5's, K6's and K7's raise
+    NotImplementedError on the Python side, and their launchers refuse a
+    block of seven limbs (fields of 7 to 48 limbs take the wide kernels,
+    ``test_wide_sources_match_plain``; K5 has none); a one-limb field (the
+    secure prime fields SecFld(p)) has no comparison, so K5 alone refuses
+    it, on both sides."""
     from mpyc_tpu_torch import finfields
     assert _build.BUILT_NL == (1, 2, 3, 4, 5, 6) and _build.MAX_NL == 6
     assert _build.SGN_BUILT_NL == (2, 3, 4, 5, 6)
@@ -1273,9 +1275,9 @@ def test_field_op_source_matches_plain(host_lib, p, op):
 
 
 def test_field_op_refuses_what_was_not_built(host_lib):
-    """K9 takes one to six limbs, ops 0-2 and steps 0 and 1; and on the
-    card (not here: a CPU tensor takes the plain version) a seven-limb
-    field raises."""
+    """K9 takes one to six limbs, ops 0-2 and steps 0 and 1; its parameter
+    block refuses a seven-limb field, which the wide K9 takes
+    (``test_wide_sources_match_plain``)."""
     a = _shares(10, 61, P176)[0].contiguous()
     for nl, op, sa in ((0, 0, 1), (7, 0, 1), (6, 3, 1), (6, 0, 2)):
         params = _build.draw_params(prime_field_ctx(P176), 1)
@@ -1286,3 +1288,225 @@ def test_field_op_refuses_what_was_not_built(host_lib):
     with pytest.raises(NotImplementedError, match='limbs'):
         _build.draw_params(prime_field_ctx(P200), 1)
     _build.draw_params(prime_field_ctx(P31), 1)
+
+
+# -- wide fields: K3, K6, K7 and K9 at 7 to 48 limbs (csrc/wide.cu) ------------
+
+# SecInt(335)'s field (multilateration, 12 limbs) and a 1,030-bit Blum
+# prime (33 limbs; ridge regression's student-mat field has 42)
+P367 = int('30061345059505065316985351638903513950408736626026494345053324'
+           '4356122755214669880763353471793250393988087676127')
+P1030 = (1 << 1029) + 639
+WIDE = [P200, P367, P1030]
+WIDE_IDS = ['L7', 'L12', 'L33']
+# a 1,314-bit Blum prime, 42 limbs (student-mat's field is as wide): its
+# fused draws of 176 bytes are wider than a sponge block
+P1314 = (1 << 1313) + 359
+
+
+def test_wide_fields_are_what_the_paths_take():
+    """The constants above are the fields the tests name: 7, 12, 33 and
+    42 limbs, each p = 3 mod 4 (K7's inverse square root)."""
+    from mpyc_tpu_torch import gmpy, sectypes
+    assert P367 == sectypes.SecInt(335, 'cpu').field.modulus
+    assert gmpy.is_prime(P1030) and gmpy.is_prime(P200)
+    assert [prime_field_ctx(p).L for p in WIDE] == [7, 12, 33]
+    assert all(p % 4 == 3 for p in WIDE)
+    assert all(_build.wide(prime_field_ctx(p).L) for p in WIDE)
+    assert gmpy.is_prime(P1314) and prime_field_ctx(P1314).L == 42
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+def test_wide_reshare_source_matches_plain_at_two_blocks_a_draw(
+        host_lib, state, fuse):
+    """The wide K3 at 42 limbs: each 176-byte draw owns two whole sponge
+    blocks (``rng.words_to_elements``), so a thread squeezes both; 7 and
+    300 elements (three thread blocks, the last ragged)."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P1314, 1, 3)
+    assert spec.l_bytes == 176 > keccak.RATE
+    for n in (7, 300):
+        a = _shares(n, 93, P1314)
+        b = _shares(n, 94, P1314) if fuse else None
+        assert torch.equal(
+            _wide_reshare(host_lib, st, spec, a, b, (1, 0)),
+            pipelines._reshare_mul_plain(a, b, st, (1, 0), spec))
+
+
+def _wide_reshare(host_lib, st, spec, a, b, nonce):
+    out = torch.empty_like(a)
+    consts = spec.wide_consts('cpu')
+    assert host_lib.mtt_reshare_wide(
+        a.data_ptr(), b.data_ptr() if b is not None else None,
+        out.data_ptr(), st.data_ptr(), a.shape[1], int(b is not None),
+        consts.data_ptr(), spec.ctx.n0inv, spec.ctx.L, nonce[0], nonce[1],
+        None) == 0
+    return out
+
+
+def _wide_pow(host_lib, x, e, ctx):
+    out = torch.empty_like(x)
+    params, steps = _build.wide_pow(ctx, e)
+    consts = _build.wide_words('cpu', ctx.p_limbs, ctx.one_mont, steps)
+    assert host_lib.mtt_mont_pow_wide(x.data_ptr(), out.data_ptr(),
+                                      x.shape[0], consts.data_ptr(),
+                                      ctypes.addressof(params), None) == 0
+    return out
+
+
+def _wide_tail(host_lib, r, z, field, signed, f):
+    n = r.shape[1]
+    bits = torch.empty_like(r)
+    flags = torch.empty(n, dtype=torch.uint8)
+    count = torch.zeros(1, dtype=torch.int32)
+    params, consts = pipelines._wide_tail_params(field, 1, 3, signed, f,
+                                                 'cpu')
+    assert host_lib.mtt_random_bits_tail_wide(
+        r.data_ptr(), z.data_ptr(), bits.data_ptr(), flags.data_ptr(),
+        count.data_ptr(), n, consts.data_ptr(), ctypes.addressof(params),
+        None) == 0
+    return bits, flags, count
+
+
+@pytest.mark.parametrize('p', WIDE, ids=WIDE_IDS)
+@pytest.mark.parametrize('kernel', ['K3 fused', 'K3', 'K6', 'K7', 'K9'])
+def test_wide_sources_match_plain(host_lib, state, kernel, p):
+    """The wide kernels equal their plain versions bit for bit at 7, 12
+    and 33 limbs: K3 (fused and not) on 7 elements and on 300 (three
+    thread blocks of 128, the last ragged; 4, 3 and 1 draws a sponge
+    block, so blocks straddle the CTAs' edges), K6 at e = p - 2, (p - 1) /
+    2 and 0 on 130 elements (two blocks, 0 and 1 among them; 20 at 33
+    limbs, where each plain power takes seconds), K7 on as many with one
+    in 7 planted to open to 0 (bits, flags, count; bits in {0, 1} and
+    signed at 2^6), K9's three ops with arrays and a constant (the
+    product also with a below R, a draw's chunk)."""
+    from mpyc_tpu_torch import finfields
+    st, _ = state
+    ctx = prime_field_ctx(p)
+    n_pow = 130 if ctx.L < 33 else 20   # the plain powers of 1,030 bits
+    if kernel.startswith('K3'):
+        fuse = kernel == 'K3 fused'
+        spec = pipelines.ReshareSpec(p, 1, 3)
+        assert spec.l_bytes == 4 * (ctx.L + 2)
+        for n in (7, 300):
+            a, b = _shares(n, 80, p), _shares(n, 81, p) if fuse else None
+            nonce = (0xFFFFFFFF, 9)
+            assert torch.equal(
+                _wide_reshare(host_lib, st, spec, a, b, nonce),
+                pipelines._reshare_mul_plain(a, b, st, nonce, spec))
+    elif kernel == 'K6':
+        _, x = _pow_inputs(p, n_pow, 82)
+        for e in (p - 2, (p - 1) // 2, 0):
+            assert torch.equal(_wide_pow(host_lib, x, e, ctx),
+                               fieldops._mont_pow_plain(x, e, ctx))
+    elif kernel == 'K7':
+        field = finfields.GF(p)
+        r, z = _tail_shares(p, n_pow, 83)
+        for signed, f in ((False, 0), (True, 6)):
+            bits, flags, count = _wide_tail(host_lib, r, z, field, signed, f)
+            want = pipelines._random_bits_tail_plain(r, z, field, signed, f)
+            assert torch.equal(flags, want[1]) and torch.equal(bits, want[0])
+            assert count.item() == want[2].item() == -(-n_pow // 7)
+    else:
+        consts = fieldops.wide_field_consts(ctx, 'cpu')
+        a, b = _shares(300, 84, p)[0].contiguous(), _shares(300, 85, p)[0]
+        c = _shares(1, 86, p)[0].contiguous()
+        wide = torch.from_numpy(np.random.default_rng(87).integers(
+            0, 1 << 32, (300, ctx.L), dtype=np.uint64).astype(
+            np.uint32).view(np.int32))
+        for op in fieldops._FIELD_OPS:
+            cases = [(a, b.contiguous(), 1, 1), (a, c, 1, 0), (c, a, 0, 1)]
+            if op == 'mul':
+                cases.append((wide, c, 1, 0))
+            for x, y, sx, sy in cases:
+                out = torch.empty((300, ctx.L), dtype=torch.int32)
+                assert host_lib.mtt_field_op_wide(
+                    x.data_ptr(), y.data_ptr(), out.data_ptr(), 300, sx, sy,
+                    fieldops._FIELD_OPS.index(op), consts.data_ptr(),
+                    ctx.n0inv, ctx.L, None) == 0
+                assert torch.equal(out,
+                                   fieldops._field_op_plain(x, y, op, ctx))
+
+
+def test_wide_plain_product_matches_python_ints():
+    """From seven limbs on the plain Montgomery product takes whole-vector
+    operations on 16-bit digits (``limb._mont_mul_vec``): its values are
+    a b R^-1 mod p exactly, on random operands, on a below R, and on a
+    Mersenne prime, whose digits are all ones."""
+    from mpyc_tpu_torch.ops import limb
+    g = np.random.default_rng(88)
+    for p in WIDE + [(1 << 521) - 1]:
+        ctx = prime_field_ctx(p)
+        L, R = ctx.L, 1 << 32 * ctx.L
+        xs = [int.from_bytes(g.bytes(4 * L), 'little') % p for _ in range(40)]
+        ys = [int.from_bytes(g.bytes(4 * L), 'little') % p for _ in range(40)]
+        xs += [0, p - 1, R - 1, p - 1]
+        ys += [p - 1, p - 1, p - 1, 1]
+        a = [torch.tensor([x >> 32 * i & limb.M32 for x in xs])
+             for i in range(L)]
+        b = [torch.tensor([y >> 32 * i & limb.M32 for y in ys])
+             for i in range(L)]
+        got = limb.limbs_to_ints(limb.stack(limb.mont_mul(
+            a, b, ctx.p_limbs, ctx.n0inv)).numpy().view(np.uint32))
+        r_inv = pow(R, -1, p)
+        assert list(got) == [x * y * r_inv % p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize('p', [P200, P1030], ids=['L7', 'L33'])
+def test_wide_pow_products_match_the_plan(host_lib, p):
+    """The wide K6 runs its exponent's plan (fieldops.plan_products
+    products an element, the bound's count) at e = p - 2."""
+    ctx, x = _pow_inputs(p, 128, 89)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    _wide_pow(host_lib, x, p - 2, ctx)
+    assert tuple(counts) == (128 * fieldops.plan_products(p - 2), 0)
+
+
+def test_wide_reshare_field_ops_match_the_source(host_lib, state):
+    """The wide K3's products and modular adds an element, as
+    chip_smoke.py's ``reshare_meas`` prices them: its draw's two chunks
+    reduced (two products, one add), the three local products when fused,
+    three by the Lagrange coefficients and their two adds, and each of
+    the three parties' product by its point and add."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P367, 1, 3)
+    counts = _op_counts(host_lib)
+    for fuse in (True, False):
+        a = _shares(128, 90, P367)
+        b = _shares(128, 91, P367) if fuse else None
+        counts[0] = counts[1] = 0
+        _wide_reshare(host_lib, st, spec, a, b, (3, 0))
+        n_prod = 2 + spec.n_send * (2 if fuse else 1) + 3
+        assert tuple(counts) == (128 * n_prod, 128 * (1 + spec.n_send - 1
+                                                      + 3))
+
+
+def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
+    """The wide launchers take 7 to 48 limbs; fewer take the narrow
+    kernels, more raise NotImplementedError on the Python side, and K5
+    refuses every wide field."""
+    st, _ = state
+    ctx = prime_field_ctx(P200)
+    a = _shares(10, 92, P200)
+    consts = fieldops.wide_field_consts(ctx, 'cpu')
+    for L in (6, 49):
+        assert host_lib.mtt_field_op_wide(
+            a.data_ptr(), a.data_ptr(), a.data_ptr(), 10, 1, 1, 0,
+            consts.data_ptr(), ctx.n0inv, L, None) == -1
+        assert host_lib.mtt_reshare_wide(
+            a.data_ptr(), None, a.data_ptr(), st.data_ptr(), 10, 0,
+            consts.data_ptr(), ctx.n0inv, L, 0, 0, None) == -1
+    params, _ = _build.wide_pow(ctx, 5)
+    params.nl = 49
+    assert host_lib.mtt_mont_pow_wide(a.data_ptr(), a.data_ptr(), 10,
+                                      consts.data_ptr(),
+                                      ctypes.addressof(params), None) == -1
+    from mpyc_tpu_torch import gmpy
+    big = gmpy.next_prime(1 << 32 * 48)
+    with pytest.raises(NotImplementedError, match='limbs'):
+        _build.wide_pow(prime_field_ctx(big), 5)
+    with pytest.raises(NotImplementedError, match='limbs'):
+        pipelines.ReshareSpec(big, 1, 3).wide_consts('cpu')
+    with pytest.raises(NotImplementedError, match='limbs'):
+        pipelines.SgnSpec(P367, 1, 3, 335, LT=True).params((0, 0))
