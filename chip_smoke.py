@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Paths on the co-located plane, all at ``SimRuntime(3)`` (t = 1): three as
+Paths on the co-located plane, at ``SimRuntime(3)`` (t = 1) but for the
+phase "parties" (m = 5, 7 and 9 at t = 2, 3 and 4): three as
 ``bench.py`` drives the JAX package, at ``SecInt(32)`` (the 64-bit field):
 secure multiplication (input, ``np_multiply``, output), secure comparison
 (``np_less``, ``np_equal``, ``np_sgn``, ``np_maximum`` and the BNN sign at
@@ -98,6 +99,16 @@ each printing one line with its elapsed seconds:
    (``check_wide_kernels``): the wide K3 (fused and not), K9 and K6 at
    each of its fields' limb counts (7, 8, 9, 10, 12, 42), K7 at seven,
    K5 EQ at l = 31, each against its plain version at the paths' shapes;
+   and the parties' (``check_parties_kernels``): K3 (fused and not), K4
+   with its shares, K5 in its three modes at l = 32 and K7 (with planted
+   zero openings) at (t, m) = (1, 4), (2, 5), (3, 7) and (4, 9) on 2^16
+   elements, then each at the shapes phase "parties" launches it
+   (``check_parties_paths``: K3 on (m, 2^22, 2) at (2, 5), (3, 7), (4,
+   9); K5 at 2^20 at (2, 5), (3, 7); at (2, 5) K4 at 3,010,560 secrets,
+   K5 (LT) at the BNN's l = 14 and 10 on 409,600 and the fixed-point
+   CNN's l = 14, f = 6 in two chunks of 2^20, K7 at 15,052,800), each
+   against its plain version, with its time (at the path's shape where
+   it has one), plain time, bound and ptxas report;
 4. main path: 256 and 4096 values in, product out and checked against
    a*b; then 2^22 values from int64 arrays, 10 chained
    ``X = np_multiply(X, B)``, and 4096 sampled outputs checked against the
@@ -171,6 +182,15 @@ each printing one line with its elapsed seconds:
    largest) and images/s, K5's, K6's and K7's launches a pass; a marked
    pass: each layer's device ms and peak memory; one try of
    torch.profiler over a warm pass;
+   parties: the paths at other party counts, each through its entry
+   points at ``SimRuntime(m, threshold=t)`` and checked as above: the
+   main path at (t, m) = (2, 5), (3, 7) and (4, 9), the comparison at
+   (2, 5) and (3, 7), the split/recombine round, the BNN (the runner's
+   ``-M 5``) and the fixed-point CNN (``--fxp -M 5``) at (2, 5), the
+   networks cold and once warm; ms a call, s a pass and images/s
+   beside the (1, 3) numbers of the phases above, the launches by kernel
+   of each, and this tree's (1, 3) times of K3, K4, K5 and K7 beside
+   PERF.md's;
 14. lp: the LP solver on datasets 0-5 and 7 (uvlp, wiki, tb2x2, woody,
    LPExample_R20, sc50b, LPExample; SimRuntime(3)): each with the demo's
    pivot count, its opened max, common denominator and solution equal to
@@ -184,10 +204,11 @@ each printing one line with its elapsed seconds:
    tb2x2, woody, LPExample_R20, sc50b, kb2; each at its own SecFxp(l)):
    each certificate true, the opened max within 1% of the optimum, the
    opened solution within ``solution_tol`` of the plain float simplex's
-   (``check_solution``); kb2 stopped after 40 of its 173 pivots (a cut
-   for time), its opened tableau within ``solution_tol`` of its opened
-   basis's tableau in float64 (``plain_tableau``); seconds a solve and a
-   pivot, launches a pivot; one try of torch.profiler over pivot 11 of
+   (``check_solution``); sc50b and kb2 stopped after 20 of 52 and 16 of
+   173 pivots (cuts for time), each opened tableau within
+   ``solution_tol`` of its opened basis's tableau in float64
+   (``plain_tableau``); seconds a solve and a
+   pivot, launches a pivot; one try of torch.profiler over pivot 2 of
    kb2;
 16. km: the survival test with --agg on btrial (SecFxp(56, 28)), aml
    (SecFxp(64, 32): 4p >= R) and aml at SecFxp(96, 48): each statistic,
@@ -231,7 +252,7 @@ each printing one line with its elapsed seconds:
    stage; one try of torch.profiler over one np_sort;
 22. hash chains: the one-way hash chains
    (``mpyc_tpu_torch/demos/np_onewayhashchains.py``) from a random seed:
-   AES and SHAKE128 at k = 5 (optimal pebbling), AES at k = 3 (eager);
+   AES and SHAKE128 at k = 4 (optimal pebbling), AES at k = 3 (eager);
    every revealed value equal to the plain chain's (a plain AES-128,
    hashlib's SHAKE128) from the opened seed, k 2^(k-1) hashes; seconds a
    hash;
@@ -253,7 +274,7 @@ each printing one line with its elapsed seconds:
    ridge solve's; the pseudoinverse of the demo's 5 x 5 and of a 20 x 20
    of rank 16 (SecInt(163), seven limbs), the Penrose equations mod p
    and numpy's pinv; multilateration at SecInt(335) (12 limbs) on the
-   first 40 measurements of sets 1 and 3, each solve equal to the plain
+   first 8 measurements of sets 1 and 3, each solve equal to the plain
    integer solve and the median error under 2,000 m; seconds a call, a
    solve and a measurement;
 25. k1 shapes: K1's launches on each path by block count (each driven
@@ -277,6 +298,7 @@ line. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import faulthandler
@@ -339,6 +361,23 @@ FXP_BITS = FXP_F * FXP_CONV1   # their random bits (K6's elements)
 FXP_POOL1 = N_FXP * 32 * 14 * 28   # maxpool1's first comparison
 N_POW_WIDE = 1 << 22           # K6 at three limbs
 M, T = 3, 1
+# parties other than three (phase "parties"): K3, K4, K5 and K7 held
+# against their plain versions at (t, m) = (1, 4), (2, 5), (3, 7) and
+# (4, 9) at 2^16 elements, and at the paths' shapes; the main
+# path at (2, 5), (3, 7) and (4, 9), the comparisons at (2, 5) and (3, 7),
+# the split/recombine round, the BNN and the fixed-point CNN at (2, 5)
+PARTIES_CHECK = ((1, 4), (2, 5), (3, 7), (4, 9))
+PARTIES_MAIN = ((2, 5), (3, 7), (4, 9))
+PARTIES_CMP = ((2, 5), (3, 7))
+PARTIES_NET = (2, 5)
+PARTIES_WARM = 1               # warm passes of the networks at (2, 5)
+TAIL_SLICE = 1 << 22           # K7's plain version at conv1's bits, a slice
+# the (1, 3) rows of PERF.md section 6 that K3, K4, K5 and K7 own, ms on
+# NVIDIA H100 80GB HBM3, 700 W, each its PR's final tree: phase "parties"
+# prints this tree's beside them
+PR_MS = {'reshare_mul<L=2, fused>': 0.2463, 'reshare_mul<L=2>': 0.2164,
+         'split_recombine': 0.1474, 'sgn_step<LT, l=32, L=2>': 5.4808,
+         'random_bits_tail<L=2, lazy>': 1.9924}
 # the LP solver (demos/np_lpsolver.py): the datasets the lp phase solves
 # (kb2, dataset 6, needs 19 limbs and raises on the card), and each
 # field's widest comparison on its path (the elements of the widest
@@ -362,11 +401,12 @@ LP_NO07_BITS = 30
 LPFXP_DATASETS = (0, 1, 2, 3, 4, 5, 6)
 LPFXP_PROFILE = 6
 # kb2's 173 pivots took about 170 s of the script's 1,100 (0.97 s a
-# pivot, host-bound): its solve stops after 40, every instantiation it
-# launches launched by then (its certificate's comparisons are the
-# pivots' K5 at l = 96)
-LPFXP_PIVOTS = {'kb2': 40}
-LPFXP_WINDOW = (11, 12)
+# pivot, host-bound) and sc50b's 52 about 40: their solves stop after 16
+# and 20, every instantiation they launch launched by then (kb2's
+# certificate's comparisons are the pivots' K5 at l = 96, sc50b's
+# LPExample_R20's at l = 52)
+LPFXP_PIVOTS = {'sc50b': 20, 'kb2': 16}
+LPFXP_WINDOW = (2, 3)          # early: the traced solve stops there
 LPFXP_CMP = {(18, 9): 2, (24, 12): 3, (36, 18): 3, (52, 26): 70,
              (96, 48): 68}
 LPFXP_UPDATE = {(24, 12): 3 * 4, (96, 48): 69 * 42}
@@ -404,15 +444,16 @@ GF4, GF256 = 0b111, 0x11B      # the moduli: x^2 + x + 1, AES's
 # 3,196 samples x 36 attributes at SecInt(69), the widest; its root node
 # traced); np_sort, np_amax and np_amin of 2^20 SecInt(32) values (210
 # Batcher stages); sorted with key a**2 of the demo's 64 values shuffled
-# by random.shuffle; hash chains of length 2^5 by AES and by SHAKE128
-# (optimal pebbling, a random seed) and 2^3 by AES (eager pebbling)
+# by random.shuffle; hash chains of length 2^4 by AES and by SHAKE128
+# (optimal pebbling, a random seed; 2^4, not 2^5, for the run's time) and
+# 2^3 by AES (eager pebbling)
 ID3_DATASETS = (0, 1, 2, 3, 4, 5, 6)
 ID3_PROFILE = 4
 ID3_WIDTHS = ((42, 3), (62, 3), (69, 4), (75, 4), (77, 4), (95, 4))
 N_SORT = 1 << 20
 N_SORTED = 64
-HC_RUNS = (('AES, k = 5', 5, False, False),
-           ('SHAKE128, k = 5', 5, False, True),
+HC_RUNS = (('AES, k = 4', 4, False, False),
+           ('SHAKE128, k = 4', 4, False, True),
            ('AES, k = 3, eager', 3, True, False))
 # the co-located demos of demos/run-all.sh (secretsanta,
 # SecretSantaExplained, indextounitvector, unanimous, PrefixOrExplained and
@@ -442,7 +483,8 @@ LINALG_DATASETS = (2, 3, 1)    # winequality-red, -white, student-mat
 # 5 x 5 (SecInt(31), two limbs) and a 20 x 20 of rank 16 (SecInt(163),
 # seven limbs: its zero tests [NO07]'s, K7 and K6 at seven limbs)
 PINV_RUNS = ((5, 5, 5, 4, 1), (20, 20, 16, 6, 1))
-N_MLAT = 20                    # multilateration's measurements (of 615)
+N_MLAT = 8                     # multilateration's measurements (of 615;
+#                                a cut for the run's time)
 LINALG_SEED = 31
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
@@ -545,7 +587,7 @@ ENTRIES = {
     'reshare_mul<L=2>': ('reshare_mul', (2, False)),
     'reshare_mul<L=3, fused>': ('reshare_mul', (3, True)),
     'reshare_mul<L=3>': ('reshare_mul', (3, False)),
-    'split_recombine': ('split_recombine', None),
+    'split_recombine': ('split_recombine', (T, M)),
     **{f'sgn_step<{mode}, l=32, L=2>': ('sgn_step', (mode, 32, 2, 0))
        for mode in pipelines.SGN_MODES},
     **{f'sgn_step<LT, l={l}, L=2>': ('sgn_step', ('LT', l, 2, 0))
@@ -629,6 +671,36 @@ ENTRIES = {
     # before its first comparison raises (K5 refuses 19 limbs)
     'field_op<L=19>': ('field_op', 19),
 }
+
+
+def parties_entries() -> dict:
+    """The instantiations of K3 (fused and not), K4, K5 (three modes, l =
+    32) and K7 (SecFxp(14, 6)'s lazy field) at each (t, m) of
+    PARTIES_CHECK, and K5 at the networks' widths at PARTIES_NET, as the
+    kernels line lists them: t and m launch parameters (t a template
+    parameter only at t = 1), each (t, m) an entry."""
+    res = {}
+    for t, m in PARTIES_CHECK:
+        at = f't={t}, m={m}'
+        res[f'reshare_mul<L=2, fused, {at}>'] = ('reshare_mul',
+                                                 (2, True, t, m))
+        res[f'reshare_mul<L=2, {at}>'] = ('reshare_mul', (2, False, t, m))
+        res[f'split_recombine<{at}>'] = ('split_recombine', (t, m))
+        for mode in pipelines.SGN_MODES:
+            res[f'sgn_step<{mode}, l=32, L=2, {at}>'] = (
+                'sgn_step', (mode, 32, 2, 0, t, m))
+        res[f'random_bits_tail<L=2, lazy, {at}>'] = ('random_bits_tail',
+                                                     (2, True, t, m))
+    t, m = PARTIES_NET
+    for l in (14, 10):
+        res[f'sgn_step<LT, l={l}, L=2, t={t}, m={m}>'] = (
+            'sgn_step', ('LT', l, 2, 0, t, m))
+    res[f'sgn_step<LT, l={FXP_L}, L=2, f={FXP_F}, t={t}, m={m}>'] = (
+        'sgn_step', ('LT', FXP_L, 2, FXP_F, t, m))
+    return res
+
+
+ENTRIES.update(parties_entries())
 WIDE_SOURCE = 'mpyc_tpu_torch/csrc/wide.cu'
 
 
@@ -756,6 +828,36 @@ PATH_ENTRIES = {
 }
 
 
+
+def parties_path_entries() -> dict:
+    """The instantiations each path of phase "parties" must launch."""
+    res = {}
+    for t, m in PARTIES_MAIN:
+        res[f'main path ({t}, {m})'] = (
+            'squeeze_mont<L=2, W=6>',
+            f'reshare_mul<L=2, fused, t={t}, m={m}>', 'field_op<L=2>')
+    for t, m in PARTIES_CMP:
+        res[f'comparison ({t}, {m})'] = (
+            f'reshare_mul<L=2, fused, t={t}, m={m}>',
+            *(f'sgn_step<{mode}, l=32, L=2, t={t}, m={m}>'
+              for mode in pipelines.SGN_MODES))
+    t, m = PARTIES_NET
+    at = f't={t}, m={m}'
+    res[f'split/recombine ({t}, {m})'] = (f'split_recombine<{at}>',)
+    res[f'bnn ({t}, {m})'] = (f'reshare_mul<L=2, {at}>',
+                              f'reshare_mul<L=2, fused, {at}>',
+                              f'sgn_step<LT, l=14, L=2, {at}>',
+                              f'sgn_step<LT, l=10, L=2, {at}>')
+    res[f'cnn fxp ({t}, {m})'] = (
+        'keccak_ctr', f'reshare_mul<L=2, {at}>',
+        f'sgn_step<LT, l={FXP_L}, L=2, f={FXP_F}, {at}>',
+        f'random_bits_tail<L=2, lazy, {at}>')
+    return res
+
+
+PATH_ENTRIES.update(parties_path_entries())
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
 
@@ -823,6 +925,21 @@ def cuda_ms(fn, iters: int) -> float:
     ev1.record()
     torch.cuda.synchronize()
     return ev0.elapsed_time(ev1) / iters
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of fn (CUDA events, no warm-up call): a
+    plain version, timed once after the check that called it on the same
+    inputs; a second warm-up call of a plain version taking seconds would
+    double its cost and tell nothing more."""
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1)
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -922,29 +1039,34 @@ def sass_classes(ops) -> dict:
     return res
 
 
-def sass_report(so, prefixes=('mont_pow_kernel', 'random_bits_tail_kernel')
+def sass_report(*paths,
+                prefixes=('mont_pow_kernel', 'random_bits_tail_kernel')
                 ) -> dict:
-    """Per instantiation of the kernels named by ``prefixes`` in the built
-    library, from ``cuobjdump -sass``: its SASS instructions by class, and
-    those of its innermost loop that multiplies (the squaring loop of a
-    power's step: a squaring for each of a thread's ``pow_ept`` elements
-    and the loop's count), by class and per product."""
+    """Per instantiation of the kernels named by ``prefixes`` in the
+    objects or libraries ``paths``, from ``cuobjdump -sass``: its SASS
+    instructions by class, and those of its innermost loop that multiplies
+    (the squaring loop of a power's step: a squaring for each of a
+    thread's ``pow_ept`` elements and the loop's count), by class and per
+    product."""
     from mpyc_tpu_torch import _build
     exe = shutil.which('cuobjdump') or str(
         Path(_build._nvcc()).with_name('cuobjdump'))
-    out = subprocess.run([exe, '-sass', str(so)], capture_output=True,
-                         text=True, timeout=300, check=True).stdout
+    out = '\n'.join(subprocess.run(
+        [exe, '-sass', str(path)], capture_output=True, text=True,
+        timeout=300, check=True).stdout for path in paths)
     funcs, name = {}, None
     for line in out.splitlines():
-        m = re.search(r'Function : (\S+)', line)
+        m = 'Function : ' in line and re.search(r'Function : (\S+)', line)
         if m:
             name = short_name(m.group(1))
             if name.startswith(prefixes):
                 funcs[name] = []
             continue
+        if name not in funcs:
+            continue
         m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?'
                      r'([A-Z][A-Z0-9_.]*)([^;]*);', line)
-        if m and name in funcs:
+        if m:
             funcs[name].append((int(m.group(1), 16), m.group(2),
                                 m.group(3)))
     res = {}
@@ -1242,8 +1364,8 @@ def check_slice_kernels(p: int) -> dict:
         for n in (N_KCHECK, N_CMP):
             a = random_field(p, (M, n), gen)
             out = pipelines.sgn_step(a, st, nonce, spec5)
-            want = pipelines._sgn_step_plain(a, st, nonce, spec5)
-            torch.cuda.synchronize()
+            want, plain = timed_once(
+                lambda: pipelines._sgn_step_plain(a, st, nonce, spec5))
             err5 = max(err5, max_abs_err(out, want))
             check(err5 == 0, f'K5 ({mode}, {n} elements) differs from its '
                   'plain version')
@@ -1268,8 +1390,7 @@ def check_slice_kernels(p: int) -> dict:
             f'at {N_CMP} elements, bound {b:.4f} ms ({o}), {ms / b:.2f}x')
         res[f'sgn_step<{mode}, l=32, L=2>'] = dict(
             shape=f'({M}, {N_CMP}, 2) shares, {mode}', ms=ms,
-            plain_ms=cuda_ms(lambda: pipelines._sgn_step_plain(
-                a, st, nonce, spec5), 1),
+            plain_ms=plain,
             bound_ms=b, bound_by=o)
         del a
     for mode in pipelines.SGN_MODES:
@@ -1292,10 +1413,11 @@ def check_slice_kernels(p: int) -> dict:
               'from its plain version')
         del out, want
         a = random_field(p14, (M, N_BNN_CMP), gen)
-        err = max(err, sgn_chunks_check(spec5, a, st, nonce,
-                                        SimRuntime._SGN_CHUNK))
+        err_c, plain = sgn_chunks_check(spec5, a, st, nonce,
+                                        SimRuntime._SGN_CHUNK)
         r = res[f'sgn_step<LT, l={l}, L=2>'] = sgn_meas(
-            spec5, a, st, nonce, SimRuntime._SGN_CHUNK, err)
+            spec5, a, st, nonce, SimRuntime._SGN_CHUNK, max(err, err_c),
+            plain)
         say(f'  K5 sgn_step LT at l = {l}: {N_KCHECK} elements and a '
             f'layer\'s call ({r["shape"]}) equal to plain; per element '
             f'{r["mont"]} Montgomery products, {r["adds"]:.0f} modular '
@@ -1324,16 +1446,17 @@ def sgn_ops(spec, n: int, chunk: int | None = None) -> tuple:
     return mont, adds, ops
 
 
-def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> int:
+def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> tuple:
     """K5's launch of a's chunks ((m, n, L) shares cut into chunks of
     ``chunk`` as np_sgn cuts them: ``pipelines.sgn_chunks``) against its
     plain version chunk by chunk (``pipelines._sgn_chunks_plain``): raises
     unless the outputs are equal bit for bit and both counters are ctr
-    advanced by the number of chunks. Returns the error (0)."""
+    advanced by the number of chunks. Returns the error (0) and the plain
+    version's ms (host clock, between synchronizes) in that check."""
     n = a.shape[1]
     out, ctr_k = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
-    want, ctr_p = pipelines._sgn_chunks_plain(a, st, ctr, spec, chunk)
-    torch.cuda.synchronize()
+    (want, ctr_p), ms = timed_once(
+        lambda: pipelines._sgn_chunks_plain(a, st, ctr, spec, chunk))
     err = max_abs_err(out, want)
     chunks = -(-n // chunk)
     v = (ctr[0] | ctr[1] << 32) + chunks
@@ -1342,48 +1465,55 @@ def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> int:
           f'K5 ({spec.mode}, l = {spec.l}, L = {spec.ctx.L}) in one launch '
           f'of {chunks} chunks of {chunk} ({n} elements) differs from its '
           'plain version chunk by chunk')
-    return err
+    return err, ms
 
 
-def sgn_meas(spec, a, st, nonce, chunk: int, err: int) -> dict:
+def sgn_meas(spec, a, st, nonce, chunk: int, err: int,
+             plain_ms: float | None = None) -> dict:
     """K5's time on a's chunks ((m, n, L) shares in chunks of ``chunk``:
     one launch), its plain version's on the same chunks
     (``pipelines._sgn_chunks_plain``) and its bound."""
     L, n = spec.ctx.L, a.shape[1]
     mont, adds, ops = sgn_ops(spec, n, chunk)
-    b, o = bound(n * M * L * 4 * 2, ops)
+    b, o = bound(n * spec.m * L * 4 * 2, ops)
     chunks = -(-n // chunk)
     where = f' in {chunks} chunks of {chunk}' if chunks > 1 else \
         f' on a bucket of {pipelines.bucket(n, chunk)}'
+    if (spec.t, spec.m) != (T, M):
+        where += f' at (t, m) = ({spec.t}, {spec.m})'
     return dict(
-        shape=f'({M}, {n}, {L}) shares, {spec.mode}, l = {spec.l}{where}',
+        shape=f'({spec.m}, {n}, {L}) shares, {spec.mode}, l = {spec.l}'
+        f'{where}',
         max_abs_err=err, mont=mont, adds=adds,
         ms=cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec, chunk),
                    10),
-        plain_ms=cuda_ms(lambda: pipelines._sgn_chunks_plain(
-            a, st, nonce, spec, chunk), 1),
+        plain_ms=plain_ms if plain_ms is not None else once_ms(
+            lambda: pipelines._sgn_chunks_plain(a, st, nonce, spec, chunk)),
         bound_ms=b, bound_by=o)
 
 
-def reshare_meas(spec, a, b, st, nonce, err: int) -> dict:
+def reshare_meas(spec, a, b, st, nonce, err: int,
+                 plain_ms: float | None = None) -> dict:
     """K3's time on (m, n, L) shares a (times b's when b is given), its
-    plain version's and its bound: the stream's blocks and the reduction
-    of its draws, the products (the local one when fused, the Lagrange
-    sum, Horner at m points), against the shares read and written."""
-    L, n = spec.ctx.L, a.shape[1]
+    plain version's (``plain_ms`` if given) and its bound: the stream's
+    blocks and the reduction of its draws, the products (the local one
+    when fused, the Lagrange sum, Horner at m points), against the shares
+    read and written."""
+    L, n, m, t = spec.ctx.L, a.shape[1], spec.m, spec.t
     W = spec.l_bytes // 4
-    n_prod = spec.n_send * (2 if b is not None else 1) + M
-    ops = (rng.blocks_needed(n, spec.l_bytes) * KECCAK_F_OPS
-           + draw_ops(n, W, L) + n * n_prod * mont_mul_ops(L)
-           + n * (spec.n_send - 1 + M) * add_mod_ops(L))
+    mont, adds = spec.field_ops(b is not None)
+    ops = (rng.blocks_needed(t * n, spec.l_bytes) * KECCAK_F_OPS
+           + draw_ops(t * n, W, L) + n * mont * mont_mul_ops(L)
+           + n * adds * add_mod_ops(L))
     reads = 2 if b is not None else 1
-    bd, o = bound(n * M * L * 4 * (reads + 1), ops)
+    bd, o = bound(n * m * L * 4 * (reads + 1), ops)
     what = 'fused product' if b is not None else 'no product'
+    at = '' if (t, m) == (T, M) else f' at (t, m) = ({t}, {m})'
     return dict(
-        shape=f'({M}, {n}, {L}) shares, {what}', max_abs_err=err,
+        shape=f'({m}, {n}, {L}) shares, {what}{at}', max_abs_err=err,
         ms=cuda_ms(lambda: pipelines.reshare_mul(a, b, st, nonce, spec), 10),
-        plain_ms=cuda_ms(lambda: pipelines._reshare_mul_plain(
-            a, b, st, nonce, spec), 1),
+        plain_ms=plain_ms if plain_ms is not None else once_ms(
+            lambda: pipelines._reshare_mul_plain(a, b, st, nonce, spec)),
         bound_ms=bd, bound_by=o)
 
 
@@ -1482,13 +1612,14 @@ def check_three_limb_kernels() -> dict:
             del out, want
         a = random_field(p69, (M, N_CHUNKED), gen)
         err5 = max(err5, sgn_chunks_check(spec5, a, st, (0xFFFFFFFD, 4),
-                                          chunk))
+                                          chunk)[0])
         n = CNN_CMP[l]
         a = random_field(p69, (M, n), gen)
-        err5 = max(err5, sgn_chunks_check(spec5, a, st, (0xFFFFFFF8, 4),
-                                          chunk))
+        err_c, plain = sgn_chunks_check(spec5, a, st, (0xFFFFFFF8, 4),
+                                        chunk)
+        err5 = max(err5, err_c)
         r = res[f'sgn_step<LT, l={l}, L=3>'] = sgn_meas(
-            spec5, a, st, nonce, chunk, err5)
+            spec5, a, st, nonce, chunk, err5, plain)
         say(f'  K5 sgn_step LT at l = {l}, L = 3: '
             + (f'{N_K5_WIDE} elements, ' if l in (16, 37) else '')
             + f'one launch of {-(-N_CHUNKED // chunk)} chunks of {chunk} '
@@ -1504,12 +1635,243 @@ def check_three_limb_kernels() -> dict:
     return res
 
 
+def parties_kernel(entry: str) -> str:
+    """The compiled kernel (ptxas's short name) of an entry of
+    parties_entries: K3 and K4 at a run-time (t, m), K5 at its t, K7 at
+    every (t, m)."""
+    name, key = ENTRIES[entry]
+    if name == 'reshare_mul':
+        return f'reshare_kernel<2,{int(key[1])},0,0>'
+    if name == 'split_recombine':
+        return 'split_recombine_kernel<0,0>'
+    if name == 'sgn_step':
+        mode = pipelines.SGN_MODES.index(key[0])
+        return f'sgn_kernel<{mode},{key[4]},2>'
+    return 'random_bits_tail_kernel<2,1>'
+
+
+def split_meas(spec4, sec, st, err: int, plain_ms: float) -> dict:
+    """K4's time on the n secrets sec at spec4's (t, m), beside its plain
+    version's ``plain_ms`` and its bound: t draws, the split at m points
+    and the recombination from t + 1, against the secrets read and the
+    output written."""
+    n, t, m = sec.shape[0], spec4.t, spec4.m
+    mont, adds = spec4.field_ops()
+    ops = (rng.blocks_needed(t * n, spec4.l_bytes) * KECCAK_F_OPS
+           + draw_ops(t * n, spec4.l_bytes // 4)
+           + n * (mont * mont_mul_ops(2) + adds * add_mod_ops(2)))
+    bd, o = bound(n * 2 * 8, ops)
+    return dict(
+        shape=f'{n} secrets at (t, m) = ({t}, {m})', max_abs_err=err,
+        ms=cuda_ms(lambda: pipelines.split_recombine(sec, st, spec4), 20),
+        plain_ms=plain_ms, bound_ms=bd, bound_by=o)
+
+
+def check_parties_kernels(p: int, ptx: dict) -> dict:
+    """Phase 3, the parties' part, each kernel bit for bit against its
+    plain version on the same inputs (tolerance: exact), with its kernel's
+    ptxas report (``ptx``). At each (t, m) of PARTIES_CHECK on 2^16
+    elements (N_KCHECK: fewer CTAs than the card has SMs for K3, K4 and K7,
+    so their times there are bound by occupancy): K3 (fused and not), K4
+    with its shares, K5 in its three modes (l = 32, SecInt(32)'s field)
+    and K7 (SecFxp(14, 6)'s field, one r in 1,000 planted to 0: bits,
+    flags and count). Then at the shapes phase "parties" launches them
+    (``check_parties_paths``), where each on a path is timed. Returns
+    per-instantiation measurements: on a path at its shape there, else
+    at 2^16."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(18)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFF, 7)
+    n = N_KCHECK
+    p52 = fxp_field(FXP_L, FXP_F)
+    field52 = finfields.GF(p52)
+    for t, m in PARTIES_CHECK:
+        at = f't={t}, m={m}'
+        spec = pipelines.ReshareSpec(p, t, m)
+        a = random_field(p, (m, n), gen)
+        b = random_field(p, (m, n), gen)
+        for bb, s in ((b, ', fused'), (None, '')):
+            got = pipelines.reshare_mul(a, bb, st, nonce, spec)
+            want, plain = timed_once(
+                lambda: pipelines._reshare_mul_plain(a, bb, st, nonce, spec))
+            err = max_abs_err(got, want)
+            check(err == 0, f'K3{s} at ({t}, {m}) differs from its plain '
+                  'version')
+            res[f'reshare_mul<L=2{s}, {at}>'] = reshare_meas(
+                spec, a, bb, st, nonce, err, plain)
+        spec4 = pipelines.SplitSpec(p, t, m)
+        sec = random_field(p, (n,), gen)
+        sh = torch.empty((m, n, 2), dtype=torch.int32, device='cuda')
+        out = pipelines.split_recombine(sec, st, spec4, shares=sh)
+        (want, want_sh), plain = timed_once(
+            lambda: pipelines._split_recombine_plain(sec, st, spec4))
+        err = max(max_abs_err(out, want), max_abs_err(sh, want_sh),
+                  max_abs_err(out, sec))
+        check(err == 0, f'K4 at ({t}, {m}) differs from its plain version')
+        res[f'split_recombine<{at}>'] = split_meas(spec4, sec, st, err,
+                                                   plain)
+        for mode in pipelines.SGN_MODES:
+            spec5 = pipelines.SgnSpec(p, t, m, 32, 30, LT=mode == 'LT',
+                                      EQ=mode == 'EQ')
+            a5 = random_field(p, (m, n), gen)
+            got = pipelines.sgn_step(a5, st, nonce, spec5)
+            want, plain = timed_once(
+                lambda: pipelines._sgn_step_plain(a5, st, nonce, spec5))
+            err = max_abs_err(got, want)
+            check(err == 0, f'K5 ({mode}) at ({t}, {m}) differs from its '
+                  'plain version')
+            res[f'sgn_step<{mode}, l=32, L=2, {at}>'] = sgn_meas(
+                spec5, a5, st, nonce, n, err, plain)
+        r, z = tail_shares(p52, n, gen, 1000, m)
+        got = pipelines.random_bits_tail(r, z, field52, False, 0, t)
+        want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+            r, z, field52, False, 0, t))
+        err = max_abs_err(got[0], want[0])
+        check(err == 0 and torch.equal(got[1], want[1])
+              and got[2].item() == want[2].item() == -(-n // 1000),
+              f'K7 at ({t}, {m}) differs from its plain version')
+        res[f'random_bits_tail<L=2, lazy, {at}>'] = tail_meas(
+            field52, r, z, err, t, plain)
+        say(f'  ({t}, {m}): K3 fused and not, K4 with its shares, K5 in '
+            f'three modes at l = 32, K7 with its flags and count at {n} '
+            'elements, equal to plain')
+        del a, b, sec, sh, a5, r, z, got, want
+        torch.cuda.empty_cache()
+    res.update(check_parties_paths(p, st, gen))
+    for entry, r in res.items():
+        fn = parties_kernel(entry)
+        rep_ = ', '.join(f'{k} {v}' for k, v in ptx.get(fn, {}).items())
+        say(f'  {entry} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
+            f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x; ptxas {fn}: '
+            f'{rep_ or "not in the report"}')
+    return res
+
+
+def check_parties_paths(p: int, st, gen) -> dict:
+    """The run-time (t, m) kernels at the shapes phase "parties" launches
+    them, each bit for bit against its plain version on the same inputs
+    and timed there beside the plain call that checked it: K3 (fused and
+    not) on the main path's (m, 2^22, 2) at each (t, m) of PARTIES_MAIN;
+    K5 in its three modes at the comparison's 2^20 (one chunk) at each of
+    PARTIES_CMP; and at PARTIES_NET K4 at the round's 3,010,560 secrets
+    with its shares, K5 (LT) at a BNN layer's comparison (409,600
+    elements, one chunk on its bucket of 2^19) at l = 14 and 10, and at
+    the fixed-point CNN's maxpool1 (l = 14, f = 6: two chunks of 2^20 in
+    one launch, chunk by chunk, counters too), and K7 at conv1's
+    15,052,800 random bits with one r in 1,000 planted to 0 (bits, flags
+    and count; the plain version in slices of TAIL_SLICE elements)."""
+    from mpyc_tpu_torch import finfields
+    res = {}
+    nonce = (0xFFFFFFFF, 9)
+    for t, m in PARTIES_MAIN:
+        at = f't={t}, m={m}'
+        spec = pipelines.ReshareSpec(p, t, m)
+        a = random_field(p, (m, N_BIG), gen)
+        b = random_field(p, (m, N_BIG), gen)
+        for bb, s in ((b, ', fused'), (None, '')):
+            got = pipelines.reshare_mul(a, bb, st, nonce, spec)
+            want, plain = timed_once(
+                lambda: pipelines._reshare_mul_plain(a, bb, st, nonce, spec))
+            err = max_abs_err(got, want)
+            check(err == 0, f'K3{s} at ({t}, {m}) on {N_BIG} elements '
+                  'differs from its plain version')
+            del got, want
+            res[f'reshare_mul<L=2{s}, {at}>'] = reshare_meas(
+                spec, a, bb, st, nonce, err, plain)
+        del a, b
+        torch.cuda.empty_cache()
+        say(f'  ({t}, {m}): K3 fused and not on ({m}, {N_BIG}, 2) shares, '
+            'equal to plain')
+    for t, m in PARTIES_CMP:
+        for mode in pipelines.SGN_MODES:
+            spec5 = pipelines.SgnSpec(p, t, m, 32, 30, LT=mode == 'LT',
+                                      EQ=mode == 'EQ')
+            a = random_field(p, (m, N_CMP), gen)
+            got = pipelines.sgn_step(a, st, nonce, spec5)
+            want, plain = timed_once(
+                lambda: pipelines._sgn_step_plain(a, st, nonce, spec5))
+            err = max_abs_err(got, want)
+            check(err == 0, f'K5 ({mode}) at ({t}, {m}) on {N_CMP} '
+                  'elements differs from its plain version')
+            del got, want
+            res[f'sgn_step<{mode}, l=32, L=2, t={t}, m={m}>'] = sgn_meas(
+                spec5, a, st, nonce, N_CMP, err, plain)
+            del a
+            torch.cuda.empty_cache()
+        say(f'  ({t}, {m}): K5 in three modes at l = 32 on ({m}, {N_CMP}, '
+            '2) shares, equal to plain')
+    t, m = PARTIES_NET
+    at = f't={t}, m={m}'
+    spec4 = pipelines.SplitSpec(p, t, m)
+    sec = random_field(p, (N_SPLIT,), gen)
+    sh = torch.empty((m, N_SPLIT, 2), dtype=torch.int32, device='cuda')
+    out = pipelines.split_recombine(sec, st, spec4, shares=sh)
+    (want, want_sh), plain = timed_once(
+        lambda: pipelines._split_recombine_plain(sec, st, spec4))
+    err = max(max_abs_err(out, want), max_abs_err(sh, want_sh),
+              max_abs_err(out, sec))
+    check(err == 0, f'K4 at ({t}, {m}) on {N_SPLIT} secrets differs from '
+          'its plain version')
+    del out, want, sh, want_sh
+    res[f'split_recombine<{at}>'] = split_meas(spec4, sec, st, err, plain)
+    del sec
+    p14 = sectypes.SecInt(14, 'cuda').field.modulus
+    p52 = fxp_field(FXP_L, FXP_F)
+    chunk = SimRuntime._SGN_CHUNK
+    for q, l, f, n in ((p14, 14, 0, N_BNN_CMP), (p14, 10, 0, N_BNN_CMP),
+                       (p52, FXP_L, FXP_F, FXP_POOL1)):
+        spec5 = pipelines.SgnSpec(q, t, m, l, 30, LT=True, f=f)
+        a = random_field(q, (m, n), gen)
+        err, plain = sgn_chunks_check(spec5, a, st, nonce, chunk)
+        fs = f', f={f}' if f else ''
+        res[f'sgn_step<LT, l={l}, L=2{fs}, {at}>'] = sgn_meas(
+            spec5, a, st, nonce, chunk, err, plain)
+        del a
+        torch.cuda.empty_cache()
+    say(f'  ({t}, {m}): K4 with its shares on {N_SPLIT} secrets; K5 (LT) '
+        f'at l = 14 and 10 (SecInt(14)) on {N_BNN_CMP} elements and at l '
+        f'= 14, f = 6 (SecFxp(14, 6)) on {FXP_POOL1} in chunks of {chunk}, '
+        'equal to plain')
+    field = finfields.GF(p52)
+    r, z = tail_shares(p52, FXP_BITS, gen, 1000, m)
+    got = pipelines.random_bits_tail(r, z, field, False, 0, t)
+    torch.cuda.synchronize()
+    err, zeros, plain = 0, 0, 0.0
+    for j0 in range(0, FXP_BITS, TAIL_SLICE):
+        rj = r[:, j0:j0 + TAIL_SLICE].contiguous()
+        zj = z[:, j0:j0 + TAIL_SLICE].contiguous()
+        want, ms = timed_once(lambda: pipelines._random_bits_tail_plain(
+            rj, zj, field, False, 0, t))
+        plain += ms
+        err = max(err, max_abs_err(got[0][:, j0:j0 + TAIL_SLICE], want[0]))
+        check(err == 0 and torch.equal(got[1][j0:j0 + TAIL_SLICE], want[1]),
+              f'K7 at ({t}, {m}) on {FXP_BITS} elements differs from its '
+              f'plain version from element {j0}')
+        zeros += want[2].item()
+        del rj, zj, want
+    check(got[2].item() == zeros == -(-FXP_BITS // 1000),
+          f'K7 at ({t}, {m}): {got[2].item()} zero openings, plain {zeros}')
+    del got
+    res[f'random_bits_tail<L=2, lazy, {at}>'] = tail_meas(
+        field, r, z, err, t, plain)
+    say(f'  ({t}, {m}): K7 on {FXP_BITS} elements, one r in 1000 planted to '
+        f'0: bits, flags and count ({zeros} zeros) equal to plain')
+    del r, z
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
-                  sample=SAMPLE, seed=0) -> dict:
-    """The port's main path through the user's entry points; raises on a
-    wrong result. Returns the field modulus and, on the card, the device
-    time of each chained np_multiply (ms, CUDA events)."""
-    rt = SimRuntime(M, device=device)
+                  sample=SAMPLE, seed=0, m=M, t=T) -> dict:
+    """The port's main path through the user's entry points at m parties
+    and threshold t; raises on a wrong result. Returns the field modulus
+    and, on the card, the device time of each chained np_multiply (ms,
+    CUDA events)."""
+    rt = SimRuntime(m, device=device, threshold=t)
     rt.start()
     secint = rt.SecInt(32)
     p = secint.field.modulus
@@ -1558,12 +1920,13 @@ def run_main_path(device, n_small=N_SMALL, n_big=N_BIG, rounds=ROUNDS,
 
 
 def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1,
-                profile=False) -> dict:
-    """Secure comparison through the user's entry points at n elements;
-    raises on a wrong result. Returns, on the card, the device time of each
-    timed np_less call (ms, CUDA events) and, with ``profile``, the lines
-    of ``profile_calls`` over PROFILE_CALLS more."""
-    rt = SimRuntime(M, device=device)
+                profile=False, m=M, t=T) -> dict:
+    """Secure comparison through the user's entry points at n elements, m
+    parties and threshold t; raises on a wrong result. Returns, on the
+    card, the device time of each timed np_less call (ms, CUDA events) and,
+    with ``profile``, the lines of ``profile_calls`` over PROFILE_CALLS
+    more."""
+    rt = SimRuntime(m, device=device, threshold=t)
     rt.start()
     secint = rt.SecInt(32)
     gen = np.random.default_rng(seed)
@@ -1614,12 +1977,13 @@ def run_compare(device, n=N_CMP, calls=CMP_CALLS, seed=1,
 
 
 def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
-                        seed=2) -> dict:
-    """bench.py:88's round trip on n secrets, chained rounds; raises unless
-    the output equals the input. Returns, on the card, ms per round."""
+                        seed=2, m=M, t=T) -> dict:
+    """bench.py:88's round trip on n secrets at m parties and threshold t,
+    chained rounds; raises unless the output equals the input. Returns, on
+    the card, ms per round."""
     p = sectypes.SecInt(32, device).field.modulus
     ctx = prime_field_ctx(p)
-    step = pipelines.make_split_recombine(p, T, M)
+    step = pipelines.make_split_recombine(p, t, m)
     state = keccak.state_tensor(
         keccak._absorb_host(b'\x42' * 32 + b'bench-coef-stream'), device)
     gen = np.random.default_rng(seed)
@@ -1642,15 +2006,27 @@ def run_split_recombine(device, n=N_SPLIT, rounds=SPLIT_ROUNDS,
     return dict(ms_per_round=ms)
 
 
-def run_bnn(device, batch=N_BNN, passes=1 + WARM, profile=False) -> dict:
+def runner_runtime(device, m: int, t: int) -> SimRuntime:
+    """The runtime a runner makes of ``-M m -T t`` (``demos/parties.py``)
+    on device."""
+    from mpyc_tpu_torch.demos import parties
+    args = parties.parse_args(argparse.ArgumentParser(),
+                              ['-M', str(m), '-T', str(t)])
+    args.device = device
+    return parties.runtime(args)
+
+
+def run_bnn(device, batch=N_BNN, passes=1 + WARM, profile=False,
+            m=M, t=T) -> dict:
     """The runner's MNIST flow on test images 0..batch-1 through the user's
-    entry points, ``passes`` times (the first cold); raises unless every
+    entry points at m parties and threshold t (the runner's ``-M``,
+    ``-T``), ``passes`` times (the first cold); raises unless every
     pass's predictions equal the plaintext model of the protocol. Returns
     the count correct against the labels, the set-up seconds (weights
     loaded and encoded on the device), the seconds of each pass and, with
     ``profile``, the lines of ``profile_calls`` over one more pass."""
     from mpyc_tpu_torch.demos import np_bnnmnist as bnn
-    rt = SimRuntime(M, device=device)
+    rt = runner_runtime(device, m, t)
     rt.start()
     secint = rt.SecInt(bnn.L_IN)
     labels, images = bnn.load_mnist(0, batch)
@@ -2006,9 +2382,10 @@ def least_product_ops(ctx) -> np.ndarray:
     return ops if ctx.lazy else ops + np.array([0, 2 * ctx.L, 0])
 
 
-def pow_meas(ctx, x, e: int, err: int) -> dict:
+def pow_meas(ctx, x, e: int, err: int,
+             plain_ms: float | None = None) -> dict:
     """K6's time on the elements x ((n, L) Montgomery limbs) at exponent e,
-    its plain version's and its bound: the
+    its plain version's (``plain_ms`` if given) and its bound: the
     fewest products any addition chain for e takes (``chain_products``),
     each at the cost of the cheapest product the kernel uses
     (``least_product_ops``), against the elements read and written. The
@@ -2023,24 +2400,26 @@ def pow_meas(ctx, x, e: int, err: int) -> dict:
         f'the plan\'s {k} products (the ladder\'s '
         f'{fieldops.pow_products(e)}; any chain {least} at the least)',
         max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(x, e, ctx), 10),
-        plain_ms=cuda_ms(lambda: fieldops._mont_pow_plain(x, e, ctx), 1),
+        plain_ms=plain_ms if plain_ms is not None else once_ms(
+            lambda: fieldops._mont_pow_plain(x, e, ctx)),
         bound_ms=b, bound_by=o, products=k, least=least)
 
 
-def tail_shares(p: int, n: int, gen, every: int = 0) -> tuple:
-    """(3, n, L) random shares r and z on the card; with ``every``, each
+def tail_shares(p: int, n: int, gen, every: int = 0, m: int = M) -> tuple:
+    """(m, n, L) random shares r and z on the card; with ``every``, each
     every-th element's r set to 0 and z to a sharing of 0 of degree 2 (x +
-    x^2 at 1, 2, 3), so that r^2 + z opens to 0 there."""
-    r = random_field(p, (M, n), gen)
-    z = random_field(p, (M, n), gen)
+    x^2 at 1..m), so that r^2 + z opens to 0 there."""
+    r = random_field(p, (m, n), gen)
+    z = random_field(p, (m, n), gen)
     if every:
         r[:, ::every] = 0
         z[:, ::every] = prime_field_ctx(p).encode(
-            np.array([[2], [6], [12]]), 'cuda')
+            np.array([[x + x * x] for x in range(1, m + 1)]), 'cuda')
     return r, z
 
 
-def tail_meas(field, r, z, err: int) -> dict:
+def tail_meas(field, r, z, err: int, t: int = T,
+              plain_ms: float | None = None) -> dict:
     """K7's time on shares r and z (bits in {0, 1}, f = 0: the runtime's
     call), its plain version's and its bound: r and z read, the bits and
     flags written; every product
@@ -2048,19 +2427,23 @@ def tail_meas(field, r, z, err: int) -> dict:
     chain takes) at the cost of the cheapest product the kernel uses, and
     its modular adds."""
     p, ctx = field.modulus, field.array.ctx
-    n, L = r.shape[1], ctx.L
+    m, n, L = r.shape[0], r.shape[1], ctx.L
     e = (3 * p - 5) // 4
-    mont, adds = pipelines.random_bits_tail_ops(p, False, 0)
+    mont, adds = pipelines.random_bits_tail_ops(p, False, 0, t, m)
     least = mont - fieldops.plan_products(e) + chain_products(e)
-    b, o = bound(n * (3 * M * L * 4 + 1),
+    # r and z of the 2t + 1 senders read, r of the other parties, the
+    # bits and flags written
+    b, o = bound(n * ((2 * (2 * t + 1) + (m - 2 * t - 1) + m) * L * 4 + 1),
                  n * (least * least_product_ops(ctx) + adds * add_mod_ops(L)))
+    at = '' if (t, m) == (T, M) else f' at (t, m) = ({t}, {m})'
     return dict(
-        shape=f'(3, {n}, {L}) shares: {mont} products an element ('
+        shape=f'({m}, {n}, {L}) shares{at}: {mont} products an element ('
         f'{least} at the least), {adds} modular adds', max_abs_err=err,
         ms=cuda_ms(lambda: pipelines.random_bits_tail(r, z, field, False, 0,
-                                                      T), 10),
-        plain_ms=cuda_ms(lambda: pipelines._random_bits_tail_plain(
-            r, z, field, False, 0, T), 1),
+                                                      t), 10),
+        plain_ms=plain_ms if plain_ms is not None else once_ms(
+            lambda: pipelines._random_bits_tail_plain(r, z, field, False, 0,
+                                                      t)),
         bound_ms=b, bound_by=o)
 
 
@@ -2088,14 +2471,15 @@ def check_fxp_kernels() -> dict:
         x[0] = 0
         x[1] = torch.tensor(ctx.one_mont, dtype=torch.int64).to(torch.int32)
         e = (3 * p - 5) // 4
-        want = fieldops._mont_pow_plain(x, e, ctx)
+        want, plain = timed_once(lambda: fieldops._mont_pow_plain(x, e, ctx))
         got = fieldops.mont_pow(x, e, ctx)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         check(err == 0, f'K6 ({n} elements, L = {ctx.L}) differs from the '
               'ladder')
         del got, want
-        r = res[f'mont_pow<L={ctx.L}, lazy>'] = pow_meas(ctx, x, e, err)
+        r = res[f'mont_pow<L={ctx.L}, lazy>'] = pow_meas(ctx, x, e, err,
+                                                         plain)
         say(f'  K6 mont_pow: {r["shape"]} equal to the ladder; '
             f'{r["ms"]:.4f} ms (ladder kernel before: '
             f'{K6_LADDER_MS[ctx.L]:.4f} ms), plain {r["plain_ms"]:.4f} ms, '
@@ -2107,7 +2491,8 @@ def check_fxp_kernels() -> dict:
     field = finfields.GF(p52)
     for every in (0, 1000):
         r, z = tail_shares(p52, FXP_BITS, gen, every)
-        want = pipelines._random_bits_tail_plain(r, z, field, False, 0, T)
+        want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+            r, z, field, False, 0, T))
         got = pipelines.random_bits_tail(r, z, field, False, 0, T)
         torch.cuda.synchronize()
         err = max_abs_err(got[0], want[0])
@@ -2121,7 +2506,8 @@ def check_fxp_kernels() -> dict:
               f'K7: {zeros} zero openings')
         del want
         if not every:
-            res['random_bits_tail<L=2, lazy>'] = tail_meas(field, r, z, err)
+            res['random_bits_tail<L=2, lazy>'] = tail_meas(field, r, z, err,
+                                                           T, plain)
         say(f'  K7 random_bits_tail at {FXP_BITS} elements, '
             + ('random shares' if not every
                else f'one r in {every} planted to 0')
@@ -2137,9 +2523,9 @@ def check_fxp_kernels() -> dict:
     spec5 = pipelines.SgnSpec(p52, T, M, FXP_L, 30, LT=True, f=FXP_F)
     chunk = SimRuntime._SGN_CHUNK
     a = random_field(p52, (M, FXP_POOL1), gen)
-    err5 = sgn_chunks_check(spec5, a, st, (0xFFFFFFFF, 6), chunk)
+    err5, plain = sgn_chunks_check(spec5, a, st, (0xFFFFFFFF, 6), chunk)
     r = res['sgn_step<LT, l=14, L=2, f=6>'] = sgn_meas(
-        spec5, a, st, (3, 0), chunk, err5)
+        spec5, a, st, (3, 0), chunk, err5, plain)
     say(f'  K5 sgn_step LT at l = {FXP_L}, f = {FXP_F} (SecFxp({FXP_L}, '
         f'{FXP_F})\'s field): one launch of {r["shape"]} equal to plain '
         f'chunk by chunk, counters too; per element {r["mont"]} Montgomery '
@@ -2248,7 +2634,7 @@ def run_fxp_rounds(device, n=FXP_CONV1, seed=13) -> dict:
 
 
 def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
-                profile=False) -> dict:
+                profile=False, m=M, t=T) -> dict:
     """The CNN runner's fixed-point flow (``--fxp``: SecFxp(14, 6)) on
     MNIST test images 0..batch-1 through the user's entry points,
     ``passes`` times (the first cold; a pass is the float pixels in as
@@ -2260,9 +2646,10 @@ def run_cnn_fxp(device, batch=N_FXP, passes=1 + WARM,
     ``profile_calls`` over one more pass. Returns per pass the seconds and
     the counts against the labels and the float model, the images where
     the predictions and the float model differ, the layers' ranges, and
-    K5's, K6's and K7's launches a pass."""
+    K5's, K6's and K7's launches a pass. At m parties and threshold t
+    (the runner's ``-M``, ``-T``)."""
     from mpyc_tpu_torch.demos import np_cnnmnist as cnn
-    rt = SimRuntime(M, device=device)
+    rt = runner_runtime(device, m, t)
     rt.start()
     sfx = rt.SecFxp(cnn.L_FXP, cnn.F)
     labels, images = cnn.load_mnist(0, batch)
@@ -2399,7 +2786,7 @@ def check_lp_kernels() -> dict:
         L = spec.ctx.L
         ch = SimRuntime._SGN_CHUNK if L <= 2 else chunk
         a = random_field(p, (M, n), gen)
-        err = sgn_chunks_check(spec, a, st, nonce, ch)
+        err, plain = sgn_chunks_check(spec, a, st, nonce, ch)
         params = spec.params(nonce)
         threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, {n}, {L}) on '
@@ -2407,7 +2794,7 @@ def check_lp_kernels() -> dict:
             f'of {threads} elements')
         if entry:
             res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
-                spec, a, st, nonce, ch, err)
+                spec, a, st, nonce, ch, err, plain)
     # K6: the reciprocal's inverse and the Legendre symbols
     for l in (70, 110):
         p = lp_field(l)
@@ -2431,12 +2818,11 @@ def check_lp_kernels() -> dict:
             'one inverse (launch-bound)')
         # K7: a zero test's random bits
         field = finfields.GF(p)
-        for n in (LP_NO07_BITS, 1000):
+        for n in (1000, LP_NO07_BITS):   # timed at the last
             rr, zz = tail_shares(p, n, gen, every=7)
             got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
-            want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0,
-                                                     T)
-            torch.cuda.synchronize()
+            want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+                rr, zz, field, False, 0, T))
             err = max(max_abs_err(got[0], want[0]),
                       int((got[1] != want[1]).sum()),
                       abs(int(got[2].item()) - int(want[2].item())))
@@ -2444,7 +2830,7 @@ def check_lp_kernels() -> dict:
                   f'K7 (L = {ctx.L}, {n} elements) differs from its plain '
                   'version')
         res[f'random_bits_tail<L={ctx.L}, lazy>'] = tail_meas(
-            field, *tail_shares(p, LP_NO07_BITS, gen, every=7), err)
+            field, rr, zz, err, T, plain)
         say(f'  K7 random_bits_tail at L = {ctx.L}: {LP_NO07_BITS} and '
             '1,000 shares, one in 7 planted to 0, equal to plain')
     return res
@@ -2504,13 +2890,13 @@ def check_fxp_lp_kernels() -> dict:
         L = spec.ctx.L
         ch = SimRuntime._SGN_CHUNK if L <= 2 else SimRuntime._SGN_CHUNK_WIDE
         a = random_field(p, (M, n), gen)
-        err = sgn_chunks_check(spec, a, st, nonce, ch)
+        err, plain = sgn_chunks_check(spec, a, st, nonce, ch)
         params = spec.params(nonce)
         threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         say(f'  K5 sgn_step {mode} at l = {l}, f = {f}, L = {L}: ({M}, {n}, '
             f'{L}), equal to plain; CTAs of {threads} elements')
         res[f'sgn_step<{mode}, l={l}, L={L}, f={f}>'] = sgn_meas(
-            spec, a, st, nonce, ch, err)
+            spec, a, st, nonce, ch, err, plain)
     for l, f in ((96, 48), (64, 32)):
         p = fxp_field(l, f)
         ctx = prime_field_ctx(p)
@@ -2536,8 +2922,8 @@ def check_fxp_lp_kernels() -> dict:
         ctx = field.array.ctx
         rr, zz = tail_shares(p, n, gen, every=7)
         got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
-        want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0, T)
-        torch.cuda.synchronize()
+        want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+            rr, zz, field, False, 0, T))
         err = max(max_abs_err(got[0], want[0]),
                   int((got[1] != want[1]).sum()),
                   abs(int(got[2].item()) - int(want[2].item())))
@@ -2545,7 +2931,7 @@ def check_fxp_lp_kernels() -> dict:
               f'K7 (L = {ctx.L}, {n} elements) differs from its plain '
               'version')
         res[_entry('random_bits_tail', ctx.L, ctx.lazy)] = tail_meas(
-            field, rr, zz, err)
+            field, rr, zz, err, T, plain)
         say(f'  K7 random_bits_tail at L = {ctx.L} ('
             f'{"lazy" if ctx.lazy else "4p >= R"}): {n} shares, one in 7 '
             'planted to 0, equal to plain')
@@ -2737,12 +3123,12 @@ def run_lp_fxp(device, datasets=LPFXP_DATASETS, profile=None,
     the certificate must be true, the opened max within ``REL_ERROR`` of
     the exact optimum and the opened solution within ``solution_tol`` of
     the plain float solver's (``check_solution``); a dataset of
-    ``LPFXP_PIVOTS`` (kb2) stops after its number of pivots, its opened
-    tableau held against its opened basis's (``plain_tableau``). Each
-    solve starts from
-    fixed keys (``lpfxp_runtime``): on fresh keys sc50b's certificate is
-    false in about one solve in six, in this port and in the JAX demo
-    alike (PERF.md section 7). Per dataset: seconds a
+    ``LPFXP_PIVOTS`` (sc50b, kb2) stops after its number of pivots, its
+    opened tableau held against its opened basis's (``plain_tableau``).
+    Each solve starts from fixed keys (``lpfxp_runtime``): on fresh keys
+    sc50b's certificate, when its solve runs whole, is false in about one
+    solve in six, in this port and in the JAX demo alike (PERF.md section
+    7). Per dataset: seconds a
     solve (host clock, after a synchronize) and a pivot, launches by
     instantiation. ``profile``: a dataset solved
     once more, under torch.profiler over its pivots window[0] ..
@@ -3146,9 +3532,9 @@ def check_id3_kernels() -> dict:
         L = spec.ctx.L
         for n in (300, 1):
             a = random_field(p, (M, n), gen)
-            err = sgn_chunks_check(spec, a, st, nonce, chunk)
+            err, plain = sgn_chunks_check(spec, a, st, nonce, chunk)
         res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
-            spec, a, st, nonce, chunk, err)
+            spec, a, st, nonce, chunk, err, plain)
         say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, 300, {L}) and '
             f'({M}, 1, {L}), equal to plain')
     p = sectypes.SecInt(62, 'cuda').field.modulus
@@ -3182,15 +3568,15 @@ def check_id3_kernels() -> dict:
     for n in (1000, 6):
         rr, zz = tail_shares(p, n, gen, every=7)
         got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
-        want = pipelines._random_bits_tail_plain(rr, zz, field, False, 0, T)
-        torch.cuda.synchronize()
+        want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+            rr, zz, field, False, 0, T))
         err = max(max_abs_err(got[0], want[0]),
                   int((got[1] != want[1]).sum()),
                   abs(int(got[2].item()) - int(want[2].item())))
         check(err == 0 and int(got[2].item()) == -(-n // 7),
               f'K7 (L = 2, canonical, {n} elements) differs from its plain '
               'version')
-    res['random_bits_tail<L=2>'] = tail_meas(field, rr, zz, err)
+    res['random_bits_tail<L=2>'] = tail_meas(field, rr, zz, err, T, plain)
     say('  K6 mont_pow and K7 random_bits_tail at L = 2 (4p >= R): 1,000 '
         'elements, equal to plain')
     return res
@@ -3415,9 +3801,9 @@ def check_one_limb_kernels() -> dict:
         L = spec.ctx.L
         for nn in (300, n):
             a = random_field(p, (M, nn), gen)
-            err = sgn_chunks_check(spec, a, st, nonce, chunk)
+            err, plain = sgn_chunks_check(spec, a, st, nonce, chunk)
         res[f'sgn_step<{mode}, l=32, L={L}, f=16>'] = sgn_meas(
-            spec, a, st, nonce, chunk, err)
+            spec, a, st, nonce, chunk, err, plain)
         say(f'  K5 sgn_step {mode} at l = 32, L = {L}, f = 16: ({M}, 300) '
             f'and ({M}, {n}), equal to plain')
     spec = pipelines.Reshare2Spec(GF4, T, M)
@@ -3663,15 +4049,15 @@ def check_wide_kernels() -> dict:
             field = finfields.GF(p)
             rr, zz = tail_shares(p, 30, gen, every=7)
             got = pipelines.random_bits_tail(rr, zz, field, False, 0, T)
-            want = pipelines._random_bits_tail_plain(rr, zz, field, False,
-                                                     0, T)
-            torch.cuda.synchronize()
+            want, plain = timed_once(lambda: pipelines._random_bits_tail_plain(
+                rr, zz, field, False, 0, T))
             err = max(max_abs_err(got[0], want[0]),
                       int((got[1] != want[1]).sum()),
                       abs(int(got[2].item()) - int(want[2].item())))
             check(err == 0 and int(got[2].item()) >= 30 // 7,
                   'wide K7 (L = 7) differs from its plain version')
-            res['random_bits_tail<L=7>'] = tail_meas(field, rr, zz, err)
+            res['random_bits_tail<L=7>'] = tail_meas(field, rr, zz, err, T,
+                                                     plain)
         say(f'  wide K3, K9, K6{", K7" if L == 7 else ""} at L = {L} '
             f'({p.bit_length()}-bit field): equal to plain')
     from mpyc_tpu_torch.demos import np_lpsolver as lp
@@ -3697,9 +4083,11 @@ def check_wide_kernels() -> dict:
     spec = pipelines.SgnSpec(p, T, M, 31, 30, EQ=True)
     for nn in (300, 1):
         a = random_field(p, (M, nn), gen)
-        err = sgn_chunks_check(spec, a, st, nonce, SimRuntime._SGN_CHUNK)
+        err, plain = sgn_chunks_check(spec, a, st, nonce,
+                                      SimRuntime._SGN_CHUNK)
     res['sgn_step<EQ, l=31, L=2>'] = sgn_meas(spec, a, st, nonce,
-                                              SimRuntime._SGN_CHUNK, err)
+                                              SimRuntime._SGN_CHUNK, err,
+                                              plain)
     say(f'  K5 sgn_step EQ at l = 31, L = 2: ({M}, 300) and ({M}, 1), '
         'equal to plain')
     return res
@@ -3798,7 +4186,8 @@ def main() -> int:
             if line.strip() and not line.startswith('ptxas info') and \
                     'bytes stack frame' not in line:
                 say(f'  nvcc: {line.strip()}')
-        for fn, r in ptxas_report(lib.log).items():
+        ptx = ptxas_report(lib.log)
+        for fn, r in ptx.items():
             say(f'  ptxas {fn}: ' + ', '.join(f'{k} {v}'
                                               for k, v in r.items()))
         for what, spec in (('SecInt(32), l = 32', pipelines.SgnSpec(
@@ -3812,26 +4201,41 @@ def main() -> int:
                 ' elements')
         model = {L: int(mont_sqr_lazy_ops(L).sum())
                  for L in (1, 2, 3, 4, 5, 6)}
-        for fn, r in sass_report(lib.path).items():
+        t_sass = time.perf_counter()
+        kept = [lib.path.with_name(f'{u}.o') for u in _build.KEPT_UNITS]
+        if not all(k.exists() for k in kept):   # built by an older tree
+            kept = [lib.path]
+        sass = sass_report(*kept)
+        for fn, r in sass.items():
             say(f'  SASS {fn}: {r["total"]} instructions, ' + ', '.join(
                 f'{k} {v}' for k, v in r['classes'].items()))
             say(f'    its squaring loop: {r["loop"]} instructions ('
                 + ', '.join(f'{k} {v}' for k, v in r['loop_classes'].items())
                 + f'), {r["per_product"]:.1f} a product (the bound model\'s '
                 f'lazy square: {model[int(fn.split("<")[1][0])]})')
+        say(f'  SASS of {", ".join(k.name for k in kept)} read in '
+            f'{time.perf_counter() - t_sass:.3f} s')
         say(f'  library {lib.path.name}: '
             f'{"built" if lib.built else "found"} in {lib.seconds:.3f} s')
+        if lib.unit_s:
+            say('  nvcc -c seconds to each unit\'s exit, all started '
+                'together: ' + ', '.join(
+                    f'{k} {v:.1f}' for k, v in lib.unit_s.items()))
 
     with Phase('kernels'):
-        meas = check_kernels(p)
-        meas.update(check_slice_kernels(p))
-        meas.update(check_three_limb_kernels())
-        meas.update(check_lp_kernels())
-        meas.update(check_fxp_lp_kernels())
-        meas.update(check_field_ops())
-        meas.update(check_id3_kernels())
-        meas.update(check_one_limb_kernels())
-        meas.update(check_wide_kernels())
+        meas, part_s = {}, {}
+        for part, args in ((check_kernels, (p,)), (check_slice_kernels, (p,)),
+                           (check_three_limb_kernels, ()),
+                           (check_lp_kernels, ()), (check_fxp_lp_kernels, ()),
+                           (check_field_ops, ()), (check_id3_kernels, ()),
+                           (check_one_limb_kernels, ()),
+                           (check_wide_kernels, ()),
+                           (check_parties_kernels, (p, ptx))):
+            t_part = time.perf_counter()
+            meas.update(part(*args))
+            part_s[part.__name__] = time.perf_counter() - t_part
+        say('  seconds to check and time each part: ' + ', '.join(
+            f'{k} {v:.1f}' for k, v in part_s.items()))
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -4053,6 +4457,79 @@ def main() -> int:
         say(f'  torch.profiler over one warm pass on {smi}:')
         for line in res['trace']:
             say(f'    {line}')
+        torch.cuda.empty_cache()
+
+    with Phase('parties'):
+        res_parties = {}
+        for t_, m_ in PARTIES_MAIN:
+            res = drive(f'main path ({t_}, {m_})',
+                        lambda: run_main_path('cuda', m=m_, t=t_))
+            ms = sorted(res['per_call_ms'])
+            med_p = ms[len(ms) // 2]
+            res_parties[f'np_multiply ({t_}, {m_})'] = med_p
+            say(f'  ({t_}, {m_}): np_multiply of {N_BIG} elements, every '
+                f'sampled output correct: median {med_p:.4f} ms (calls: '
+                f'{", ".join(f"{x:.4f}" for x in res["per_call_ms"])}), '
+                f'{N_BIG / (med_p / 1e3):.6g} multiplications/s on {smi}; '
+                f'(1, 3): {med:.4f} ms')
+            torch.cuda.empty_cache()
+        for t_, m_ in PARTIES_CMP:
+            res = drive(f'comparison ({t_}, {m_})',
+                        lambda: run_compare('cuda', m=m_, t=t_))
+            ms = sorted(res['per_call_ms'])
+            med_p = ms[len(ms) // 2]
+            res_parties[f'np_less ({t_}, {m_})'] = med_p
+            say(f'  ({t_}, {m_}): all {N_CMP} outputs correct: '
+                f'{", ".join(res["checked"])}; np_less median {med_p:.4f} ms'
+                f' (calls: {", ".join(f"{x:.4f}" for x in res["per_call_ms"])}'
+                f'), {N_CMP / (med_p / 1e3):.6g} comparisons/s on {smi}; '
+                f'(1, 3): {med_cmp:.4f} ms')
+            torch.cuda.empty_cache()
+        t_, m_ = PARTIES_NET
+        res = drive(f'split/recombine ({t_}, {m_})',
+                    lambda: run_split_recombine('cuda', m=m_, t=t_))
+        res_parties[f'split/recombine ({t_}, {m_})'] = res['ms_per_round']
+        say(f'  ({t_}, {m_}): {SPLIT_ROUNDS} chained rounds of {N_SPLIT} '
+            f'secrets, output equal to input: {res["ms_per_round"]:.4f} ms a '
+            f'round on {smi}; (1, 3): {ms_round:.4f} ms')
+        res = drive(f'bnn ({t_}, {m_})', lambda: run_bnn(
+            'cuda', passes=1 + PARTIES_WARM, m=m_, t=t_))
+        warm_p, lo_p, hi_p = warm_stats(res['pass_s'])
+        res_parties[f'bnn ({t_}, {m_})'] = dict(
+            cold_s=res['pass_s'][0], warm_s=warm_p, warm_range_s=[lo_p, hi_p],
+            correct=res['correct'])
+        say(f'  ({t_}, {m_}): BNN (np_bnnmnist -M {m_}) on MNIST images '
+            f'0-{N_BNN - 1}: all {N_BNN} predictions equal the plaintext '
+            f'model, {res["correct"]}/{N_BNN} correct; pass cold '
+            f'{res["pass_s"][0]:.4f} s, warm median {warm_p:.4f} s of '
+            f'{PARTIES_WARM} (least {lo_p:.4f}, largest {hi_p:.4f}): '
+            f'{N_BNN / warm_p:.6g} images/s on {smi}; (1, 3): {warm:.4f} s, '
+            f'{N_BNN / warm:.6g} images/s')
+        torch.cuda.empty_cache()
+        res = drive(f'cnn fxp ({t_}, {m_})', lambda: run_cnn_fxp(
+            'cuda', passes=1 + PARTIES_WARM, m=m_, t=t_))
+        runs = res['runs']
+        warm_p, lo_p, hi_p = warm_stats([r['s'] for r in runs])
+        res_parties[f'cnn fxp ({t_}, {m_})'] = dict(
+            cold_s=runs[0]['s'], warm_s=warm_p, warm_range_s=[lo_p, hi_p],
+            passes=runs)
+        say(f'  ({t_}, {m_}): fixed-point CNN (np_cnnmnist --fxp -M {m_}) '
+            f'on MNIST images 0-{N_FXP - 1}: every layer of all '
+            f'{len(runs) + 1} passes passes the stage-local check; pass cold '
+            f'{runs[0]["s"]:.4f} s, warm median {warm_p:.4f} s of '
+            f'{PARTIES_WARM} (least {lo_p:.4f}, largest {hi_p:.4f}): '
+            f'{N_FXP / warm_p:.6g} images/s, K5 {runs[-1]["k5"]}, K7 '
+            f'{runs[-1]["k7"]} launches a pass, {runs[-1]["correct"]}/'
+            f'{N_FXP} correct, on {smi}; (1, 3): {warm_f:.4f} s, '
+            f'{N_FXP / warm_f:.6g} images/s')
+        for name, r in res['layers'].items():
+            say(f'  ({t_}, {m_}): {name} in a marked pass: {r["ms"]:.4f} ms '
+                'device time between the barriers')
+        for name, pr in PR_MS.items():
+            r = meas[name]
+            say(f'  (1, 3) {name} [{r["shape"]}]: {r["ms"]:.4f} ms on this '
+                f'tree, {pr:.4f} ms in PERF.md ({r["ms"] / pr:.3f}x) on '
+                f'{smi}')
         torch.cuda.empty_cache()
 
     with Phase('lp'):
@@ -4313,6 +4790,7 @@ def main() -> int:
                             if isinstance(v, dict)},
                     'sort': res_sort, 'hash_chains': res_hc,
                     'colocated': res_co, 'linear_algebra': res_la,
+                    'parties': res_parties,
                     'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')
     say(smi)

@@ -2,7 +2,8 @@
 
 The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
 with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
-``sgn.cu`` once for each limb count of K5, ``gf2.cu``, K8, and ``wide.cu``,
+``sgn.cu`` once for each limb count and threshold of K5 (at three to
+six limbs t = 1 and a run-time t), ``gf2.cu``, K8, and ``wide.cu``,
 K3, K6, K7 and K9 on fields of 7 to 48 limbs) in an
 ``nvcc -c`` of its own, all started together, then one ``nvcc -shared`` links them. The
 library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
@@ -33,14 +34,24 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # every source file, all hashed into the build's directory
-SOURCES = ('kernels.cu', 'sgn.cu', 'gf2.cu', 'wide.cu', 'common.cuh',
-           'keccak.cuh', 'limb.cuh', 'stage.cuh', 'sgn.cuh', 'pow.cuh')
-# the translation units: (object name, source, extra nvcc flags); K5's
-# launchers one limb count a unit (MTT_SGN_NL)
-UNITS = (('kernels', 'kernels.cu', ()),) + tuple(
-    (f'sgn{nl}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}',)) for nl in
-    (2, 3, 4, 5, 6)) \
+SOURCES = ('kernels.cu', 'reshare.cu', 'pow.cu', 'sgn.cu', 'gf2.cu',
+           'wide.cu', 'common.cuh', 'keccak.cuh', 'limb.cuh', 'stage.cuh',
+           'reshare.cuh', 'sgn.cuh', 'pow.cuh')
+# the translation units: (object name, source, extra nvcc flags); K3 at a
+# run-time (t, m), K6 and K7 a unit each (MTT_POW_KERNEL); K5's
+# launchers one limb count (MTT_SGN_NL) and threshold (MTT_SGN_T) a unit,
+# sgn<nl>t<t>: at two limbs t = 1 to MAX_T, at three to six t = 1 and a
+# run-time t (t0)
+UNITS = (('kernels', 'kernels.cu', ()), ('reshare', 'reshare.cu', ()),
+         ('pow6', 'pow.cu', ('-DMTT_POW_KERNEL=6',)),
+         ('pow7', 'pow.cu', ('-DMTT_POW_KERNEL=7',))) + tuple(
+    (f'sgn{nl}t{T}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}', f'-DMTT_SGN_T={T}'))
+    for nl, ts in ((2, (4, 3, 2, 1)), (3, (1, 0)), (4, (1, 0)),
+                   (5, (1, 0)), (6, (1, 0))) for T in ts) \
     + (('gf2', 'gf2.cu', ()), ('wide', 'wide.cu', ()))
+# units whose objects stay beside the library: the powers' kernels, whose
+# SASS chip_smoke.py reads from them rather than from the whole library
+KEPT_UNITS = ('pow6', 'pow7')
 BUILD_ROOT = Path(__file__).resolve().parent.parent / 'build' / \
     'mpyc_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -56,6 +67,7 @@ WIDE_MIN_NL = 7
 WIDE_MAX_NL = 48  # p < 2^1536
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
+MAX_T = (MAX_SEND - 1) // 2   # threshold t: 1 to 4
 MAX_M = 16       # parties
 POW_MAX_STEPS = 32 * MAX_NL   # a step of a power's plan a bit at most
 
@@ -129,7 +141,7 @@ class WideTail(ctypes.Structure):
 
 class TailParams(ctypes.Structure):
     """Mirror of ``struct TailParams`` in csrc/pow.cuh (K7)."""
-    _fields_ = [('pow', PowParams), ('lag', _U32xNL * 3),
+    _fields_ = [('pow', PowParams), ('lag', _U32xNL * MAX_SEND),
                 ('scale', _U32xNL), ('offset', _U32xNL),
                 ('has_scale', ctypes.c_int32), ('has_offset', ctypes.c_int32),
                 ('t', ctypes.c_int32), ('m', ctypes.c_int32)]
@@ -141,18 +153,44 @@ class TailParams(ctypes.Structure):
 # fields SecFld(p) of p < 2^32. The comparison (K5) is built for two to six
 # (SGN_BUILT_NL: a secure integer's field has l + k + 2 > 32 bits) and
 # takes its bit width l as a launch parameter: every l with l + k + 2 <= 32
-# limbs, in every mode, at (t, m) = (1, 3) (csrc/sgn.cuh sgn_lb_max).
+# limbs, in every mode (csrc/sgn.cuh sgn_lb_max), at t = 1; at t > 1 the
+# bit call's draws bound it (``sgn_lb_fit``). K3, K4, K5 and K7 take every
+# threshold t and party count m with 1 <= t <= MAX_T and 2t + 1 <= m <=
+# MAX_M (``check_parties``).
 # Fields of 7 to 48 limbs take the wide kernels instead (csrc/wide.cu: K3,
-# K6, K7 and K9 with L a launch parameter; ``wide(L)``); K5 refuses them,
-# and fields of more than 48 limbs raise NotImplementedError on the card.
+# K6, K7 and K9 with L a launch parameter; ``wide(L)``, at (t, m) = (1, 3)
+# only); K5 refuses them, and fields of more than 48 limbs raise
+# NotImplementedError on the card.
 BUILT_NL = (1, 2, 3, 4, 5, 6)
 SGN_BUILT_NL = (2, 3, 4, 5, 6)
 # (limbs, words a draw) of K2's instantiations (csrc/kernels.cu
 # mtt_squeeze_mont): the fused streams' draws of two-limb fields, the input
 # draws of SecInt(32) and SecInt(64)
 SQUEEZE_BUILT = ((2, 4), (2, 6), (3, 7))
-# (t, m) of the split/recombine kernel's instantiations (two-limb fields)
-SPLIT_BUILT = ((1, 3),)
+# K5's dynamic shared memory a CTA (csrc/sgn.cuh SGN_SMEM_MAX: 227 KB less
+# the constants of t and m)
+SGN_SMEM_MAX = 232448 - (MAX_M + 2 * MAX_SEND) * MAX_NL * 4
+
+
+def check_parties(what: str, t: int, m: int) -> None:
+    """Raise NotImplementedError unless the kernels take threshold t with
+    m parties (csrc/common.cuh parties_ok)."""
+    if not (1 <= t <= MAX_T and 2 * t + 1 <= m <= MAX_M):
+        raise NotImplementedError(
+            f'the CUDA {what} is built for thresholds 1 <= t <= {MAX_T} and '
+            f'2t + 1 <= m <= {MAX_M} parties, not (t, m) = ({t}, {m})')
+
+
+def sgn_lb_fit(t: int, L: int) -> int:
+    """The widest random bits lb (l + 1, l in EQ mode) of a comparison
+    K5 takes at threshold t on L limbs (csrc/sgn.cuh sgn_lb_fit): at most
+    32 L - 1, and the bit call's draws, t lb of 4 L bytes an element, with
+    the stream's words in a CTA of one warp."""
+    lb = 32 * L - 1
+    while lb > 0 and (t * lb * L * 4 + (-(-lb // 32) + 2) * 4) * 32 \
+            > SGN_SMEM_MAX:
+        lb -= 1
+    return lb
 
 
 def set_limbs(dst, limbs) -> None:
@@ -270,6 +308,7 @@ class Library:
     built: bool          # compiled by this process (else found on disk)
     seconds: float       # time to build (or to find) and load
     log: str             # nvcc's output (-Xptxas -v: registers, spills)
+    unit_s: dict         # seconds to each unit's nvcc -c exit (if built)
 
 
 def _nvcc() -> str:
@@ -301,7 +340,7 @@ def library() -> Library:
     nvcc = _nvcc()
     out_dir = BUILD_ROOT / _key(nvcc)
     so = out_dir / LIB_NAME
-    built, log = False, ''
+    built, log, unit_s = False, '', {}
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         for stale in out_dir.glob('*.tmp*'):
@@ -309,20 +348,31 @@ def library() -> Library:
         tmp = out_dir / f'{LIB_NAME}.tmp{os.getpid()}'
         objs = [out_dir / f'{name}.tmp{os.getpid()}.o' for name, _, _ in
                 UNITS]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, '-c', '-o', str(obj),
-             str(CSRC / source)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for (_, source, extra), obj in zip(UNITS, objs)]
+        outs = [obj.with_suffix('.log') for obj in objs]
+        t_start = time.perf_counter()
+        procs = []
+        for (_, source, extra), obj, out in zip(UNITS, objs, outs):
+            with open(out, 'w') as fh:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *extra, '-c', '-o', str(obj),
+                     str(CSRC / source)], stdout=fh,
+                    stderr=subprocess.STDOUT))
+        # each unit's seconds from the common start to its exit
+        while any(name not in unit_s for name, _, _ in UNITS):
+            for (name, _, _), proc in zip(UNITS, procs):
+                if name not in unit_s and proc.poll() is not None:
+                    unit_s[name] = time.perf_counter() - t_start
+                elif name not in unit_s and \
+                        time.perf_counter() - t_start > BUILD_TIMEOUT_S:
+                    proc.kill()
+                    proc.wait()
+                    unit_s[name] = None
+            time.sleep(0.05)
         logs, failed = [], []
-        for (name, _, _), proc in zip(UNITS, procs):
-            try:
-                out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                out, _ = proc.communicate()
-                out += '\n(timed out)'
-            logs.append(out)
+        for (name, _, _), proc, out in zip(UNITS, procs, outs):
+            logs.append(out.read_text()
+                        + ('\n(timed out)' if unit_s[name] is None else ''))
+            out.unlink(missing_ok=True)
             if proc.returncode != 0:
                 failed.append(name)
         if not failed:
@@ -333,7 +383,9 @@ def library() -> Library:
             if link.returncode != 0:
                 failed.append('link')
         log = ''.join(logs)
-        for obj in objs:
+        for (name, _, _), obj in zip(UNITS, objs):
+            if name in KEPT_UNITS and not failed:
+                os.replace(obj, out_dir / f'{name}.o')
             obj.unlink(missing_ok=True)
         if failed:
             tmp.unlink(missing_ok=True)
@@ -347,7 +399,7 @@ def library() -> Library:
         fn.restype = ctypes.c_int
     lib.mtt_error_string.argtypes = [ctypes.c_int]
     lib.mtt_error_string.restype = ctypes.c_char_p
-    return Library(lib, so, built, time.perf_counter() - t0, log)
+    return Library(lib, so, built, time.perf_counter() - t0, log, unit_s)
 
 
 def stream_of(device) -> int:

@@ -1,7 +1,9 @@
 // Shared by the translation units of the port's kernels (kernels.cu,
-// sgn.cu, gf2.cu): the limits and parameter blocks of the fused streams,
-// the map of a squeezed draw into GF(p), the card's SM count for the
-// launchers that size their grid from n, and the shared squeeze stage.
+// reshare.cu, pow.cu, sgn.cu, gf2.cu, wide.cu): the limits and parameter
+// blocks of the fused streams, the map of a squeezed draw into GF(p), the
+// card's SM count for the launchers that size their grid from n, the copy
+// of a parameter block's constants into shared memory, and the shared
+// squeeze stage.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -14,6 +16,7 @@ namespace mtt {
 constexpr int MAX_NL = 6;      // limbs per element (_build.py MAX_NL)
 constexpr int MAX_NC = 4;      // chunks per draw
 constexpr int MAX_SEND = 9;    // senders aggregated by a reshare (2t + 1)
+constexpr int MAX_T = (MAX_SEND - 1) / 2;   // threshold t: 1 to 4
 constexpr int MAX_M = 16;      // parties
 constexpr int RATE_WORDS = 42; // 32-bit words in a 168-byte block
 
@@ -46,6 +49,13 @@ struct ReshareParams {
   uint32_t nonce_lo, nonce_hi; // per-call counter, XORed into lane 4
   int32_t t, m, n_send;
 };
+
+// Whether the kernels take threshold t with m parties: 1 <= t <= MAX_T,
+// 2t + 1 <= m <= MAX_M (t and m launch parameters; K3, K4 and K5 also
+// keep their instantiations of t = 1, m = 3, and K5 of t = 1).
+__host__ __device__ constexpr bool parties_ok(int t, int m) {
+  return t >= 1 && t <= MAX_T && 2 * t + 1 <= m && m <= MAX_M;
+}
 
 // Words a draw of the fused streams (K3, K4, K5) takes: fused_draw_bytes(p)
 // / 4 = NL + 2 (p's bytes and 8 of widening, in words: 12 bytes for every
@@ -84,6 +94,17 @@ __device__ __forceinline__ void reduce_draw(const uint64_t* A, int slot,
       add_mod<NL>(out, term, P.p, out);
     }
   }
+}
+
+// Copy `words` words of a parameter block's constants into shared memory,
+// each at a constant index (the loop unrolls), word k by thread k mod the
+// CTA's width; the caller synchronises before they are read.
+template <int WORDS>
+__device__ __forceinline__ void copy_consts(const uint32_t (&src)[WORDS],
+                                            uint32_t* dst, int words) {
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k)
+    if (k < words && (int)threadIdx.x == k % (int)blockDim.x) dst[k] = src[k];
 }
 
 }  // namespace mtt

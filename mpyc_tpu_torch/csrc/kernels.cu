@@ -1,5 +1,7 @@
-// CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication, K4
-// the split/recombine round, K5 the secure comparison (sgn.cuh), K6 a
+// CUDA kernels of the port (sm_90a): K1-K3 of secure multiplication (K3
+// in reshare.cuh: its instantiations at (t, m) = (1, 3) here, at a
+// run-time (t, m) in reshare.cu), K4 the split/recombine round, K5 the
+// secure comparison (sgn.cuh), K6 a
 // power with a public exponent and K7 the tail of a round of random bits
 // around it (pow.cuh), K9 elementwise field arithmetic (K8, the GF(2^d)
 // reshare, is gf2.cu).
@@ -22,6 +24,7 @@
 // canonical, so each kernel equals its plain PyTorch version (and the JAX
 // package) bit for bit.
 #include "common.cuh"
+#include "reshare.cuh"
 
 
 namespace mtt {
@@ -279,16 +282,17 @@ squeeze_mont_kernel(const uint32_t* __restrict__ state,
 // C_k of element e is draw k*n + e of the squeeze_mont stream of the
 // absorbed state S0 (16-byte draws, counter in lane 19). For k = 0 the
 // group's draws are exactly one sponge block; for k > 0 they may straddle
-// two, and the thread then squeezes both (written for general t).
-template <int T>
+// two, and the thread then squeezes both. t is a constant of the
+// instantiation at (t, m) = (1, 3) (the loop unrolls, C stays in
+// registers), else a launch parameter of at most MAX_T.
 __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
-                                            long long e0,
+                                            long long e0, int t,
                                             const DrawParams& P,
                                             uint32_t (*C)[RATE_WORDS / 4][2]) {
   constexpr int NL = 2, W = fused_words<NL>();  // 16-byte draws
   constexpr int EPB = RATE_WORDS / W;
 #pragma unroll
-  for (int k = 0; k < T; ++k) {
+  for (int k = 0; k < t; ++k) {
     const long long d0 = (long long)k * n + e0;
     if (k == 0 || d0 % EPB == 0) {
       uint64_t A[25];
@@ -323,108 +327,6 @@ __device__ __forceinline__ void group_coefs(const uint64_t* S0, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// K3: one whole GRR98 reshare round, with the local product when FUSE.
-// Replaces mpyc_tpu/models/pipelines.py:87 make_reshare_step ->
-// make_pallas.kernel (:179), in the stream layout of its XLA twin
-// step_xla (:145): coefficient C_k of element e is draw k*n + e of the
-// squeeze_mont stream (counter in lane 19) of the absorbed state with the
-// per-call nonce XORed into lane 4. Output row j (party j+1) is
-//   Horner(C, x_j) + S,  S = sum_{i < 2t+1} lag_i * s_i,
-//   s_i = a_i * b_i (FUSE) or a_i.
-// Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
-// and 11 Montgomery multiplies per element, against 72 bytes moved).
-// Design: a CTA of RESHARE_THREADS = 320 threads takes RESHARE_ELEMS =
-// 3,200 consecutive elements, whose k = 0 coefficients are exactly 320
-// sponge blocks: every thread squeezes one and reduces its ten draws
-// once, through the stage (stage.cuh; for k > 0 the draws may straddle
-// 321 blocks, and thread 0 takes the last), into shared memory. Then each
-// thread takes the elements e0 + r*320 + tid (r < 10): each share is one
-// 8-byte load and each output one 8-byte store at NL = 2, neighbouring
-// lanes on neighbouring elements, so a warp's access is 256 contiguous
-// bytes. At NL >= 3 an element is 4 NL bytes, which no vector access
-// loads: a share is NL 4-byte loads, each of a warp's 32 lanes 4 NL bytes
-// apart, so together they read the warp's 128 NL contiguous bytes. (With
-// one element a thread, one warp in ten squeezed while the others waited
-// at the barrier, and K3 took twice as long: PERF.md.) The staged
-// coefficients take 12,800 NL bytes, past the 48 KB of static shared
-// memory from NL = 4 on, so they are dynamic shared memory
-// (reshare_smem_bytes). Written for general t; built for t = 1, m = 3 and
-// NL = 1 to 6; draws of W = NL + 2 words (at NL = 1 three words, 14 a
-// block, so a CTA's 3,200 draws touch 229 blocks: fewer than its
-// threads, each squeezed once).
-// ---------------------------------------------------------------------------
-constexpr int RESHARE_THREADS = 320;
-constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
-
-// The staged coefficients of a K3 CTA: t of each of its elements.
-constexpr int reshare_smem_bytes(int t, int nl) {
-  return t * RESHARE_ELEMS * nl * 4;
-}
-
-template <int NL, bool FUSE, int T, int M>
-__global__ void __launch_bounds__(RESHARE_THREADS)
-reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, const uint32_t* __restrict__ state,
-               long long n, ReshareParams P) {
-  constexpr int NSEND = 2 * T + 1;
-  static_assert(NSEND <= MAX_SEND && M <= MAX_M && NSEND <= M, "shape");
-  // the staged coefficients, NL words an element (8-byte aligned: an
-  // element is one 8-byte word at NL = 2)
-  extern __shared__ uint2 reshare_smem[];
-  uint32_t* coefs = reinterpret_cast<uint32_t*>(reshare_smem);
-  const long long e0 = (long long)blockIdx.x * RESHARE_ELEMS;
-  const int cnt = (int)(n - e0 < RESHARE_ELEMS ? n - e0 : RESHARE_ELEMS);
-  const uint32_t* p = P.draw.p;
-  const uint32_t n0 = P.draw.n0inv;
-  const uint64_t nonce = ((uint64_t)P.nonce_hi << 32) | P.nonce_lo;
-#pragma unroll
-  for (int k = 0; k < T; ++k)
-    stage_draws<NL, fused_words<NL>()>(
-        state, nonce, 0, (long long)k * n + e0, cnt, 1, P.draw,
-        coefs + k * RESHARE_ELEMS * NL, RESHARE_ELEMS);
-  __syncthreads();
-
-#pragma unroll 1
-  for (int el = threadIdx.x; el < cnt; el += RESHARE_THREADS) {
-    const long long e = e0 + el;
-    uint32_t S[NL];
-#pragma unroll
-    for (int i = 0; i < NSEND; ++i) {
-      uint32_t si[NL], term[NL];
-      ldg_fe<NL>(a, (long long)i * n + e, si);
-      if (FUSE) {
-        uint32_t bi[NL];
-        ldg_fe<NL>(b, (long long)i * n + e, bi);
-        mont_mul<NL>(si, bi, p, n0, si);
-      }
-      mont_mul<NL>(si, P.lag[i], p, n0, term);
-      if (i == 0) {
-        fe_copy<NL>(term, S);
-      } else {
-        add_mod<NL>(S, term, p, S);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      uint32_t y[NL];
-#pragma unroll
-      for (int k = 0; k < T; ++k) {
-        uint32_t c[NL];
-        load_fe<NL>(coefs + k * RESHARE_ELEMS * NL, el, c);
-        if (k == 0) {
-          fe_copy<NL>(c, y);
-        } else {
-          add_mod<NL>(y, c, p, y);
-        }
-        mont_mul<NL>(y, P.xs[j], p, n0, y);
-      }
-      add_mod<NL>(y, S, p, y);
-      store_fe<NL>(out, (long long)j * n + e, y);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K4: one Shamir round trip, split at x = 1..m and recombined at 0.
 // Replaces mpyc_tpu/models/pipelines.py:378 make_split_recombine_fused ->
 // kernel (:415, pallas_call :475), in the stream layout of its XLA twin
@@ -433,16 +335,22 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 // is Horner(C, x_j) + s; the output is sum_{i < t+1} lag_i * share_i, the
 // secret again. `shares`, when not null, receives the (m, n) shares.
 // Bound: integer operations (at t = 1, m = 3: a tenth of a permutation
-// and 7 Montgomery multiplies per element, against 16 bytes moved).
+// and 7 Montgomery multiplies per element, against 16 bytes moved; in
+// general t draws, m t products of Horner and t + 1 of the opening).
 // Design: one thread per group of 10 elements whose coefficients are one
 // sponge block (group_coefs); everything between the read of the secret
 // and the write of the output stays in registers. K4 moves 16 bytes an
 // element, so its strided 4-byte accesses cost little (PERF.md has its
 // time against its bound), and it keeps this layout. Built for two-limb
-// fields.
+// fields: T, M = 1, 3 (loops unrolled, the coefficients in registers), and
+// T = M = 0 with t and m launch parameters (1 <= t <= MAX_T, 2t + 1 <= m
+// <= MAX_M; the coefficients in local memory, the points and Lagrange
+// coefficients copied into shared memory).
 // ---------------------------------------------------------------------------
+constexpr int SPLIT_THREADS = 128;
+
 template <int T, int M>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(SPLIT_THREADS)
 split_recombine_kernel(const uint32_t* __restrict__ sec,
                        uint32_t* __restrict__ out,
                        uint32_t* __restrict__ shares,
@@ -450,7 +358,24 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
                        ReshareParams P) {
   constexpr int NL = 2;
   constexpr int EPB = RATE_WORDS / fused_words<NL>();
-  static_assert(T + 1 <= MAX_SEND && M <= MAX_M && T < M, "shape");
+  constexpr bool FIXED = M > 0;
+  constexpr int TM = FIXED ? T : MAX_T;
+  static_assert(!FIXED || (T + 1 <= MAX_SEND && M <= MAX_M && T < M),
+                "shape");
+  const int t = FIXED ? T : P.t;
+  const int m = FIXED ? M : P.m;
+  __shared__ uint32_t cs[FIXED ? 1 : (MAX_M + MAX_SEND) * NL];
+  if constexpr (!FIXED) {
+#pragma unroll
+    for (int j = 0; j < MAX_M; ++j)
+      copy_consts<NL>(reinterpret_cast<const uint32_t(&)[NL]>(P.xs[j]),
+                      cs + j * NL, j < m ? NL : 0);
+#pragma unroll
+    for (int i = 0; i < MAX_SEND; ++i)
+      copy_consts<NL>(reinterpret_cast<const uint32_t(&)[NL]>(P.lag[i]),
+                      cs + (MAX_M + i) * NL, i < t + 1 ? NL : 0);
+    __syncthreads();
+  }
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long e0 = g * EPB;
   if (e0 >= n) return;
@@ -459,8 +384,8 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
   const uint32_t* p = P.draw.p;
   const uint32_t n0 = P.draw.n0inv;
 
-  uint32_t C[T][EPB][NL];
-  group_coefs<T>(S0, n, e0, P.draw, C);
+  uint32_t C[TM][EPB][NL];
+  group_coefs(S0, n, e0, t, P.draw, C);
 
 #pragma unroll
   for (int s = 0; s < EPB; ++s) {
@@ -470,17 +395,25 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 #pragma unroll
       for (int q = 0; q < NL; ++q) sv[q] = __ldg(sec + e * NL + q);
 #pragma unroll
-      for (int j = 0; j < M; ++j) {
+      for (int j = 0; j < m; ++j) {
+        const uint32_t *xj, *lj;
+        if constexpr (FIXED) {
+          xj = P.xs[j];
+          lj = P.lag[j < T + 1 ? j : 0];
+        } else {
+          xj = cs + j * NL;
+          lj = cs + (MAX_M + j) * NL;
+        }
         uint32_t y[NL];
 #pragma unroll
-        for (int k = 0; k < T; ++k) {
+        for (int k = 0; k < t; ++k) {
           if (k == 0) {
 #pragma unroll
             for (int q = 0; q < NL; ++q) y[q] = C[0][s][q];
           } else {
             add_mod<NL>(y, C[k][s], p, y);
           }
-          mont_mul<NL>(y, P.xs[j], p, n0, y);
+          mont_mul<NL>(y, xj, p, n0, y);
         }
         add_mod<NL>(y, sv, p, y);
         if (shares != nullptr) {
@@ -488,8 +421,8 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 #pragma unroll
           for (int q = 0; q < NL; ++q) shares[o + q] = y[q];
         }
-        if (j < T + 1) {
-          mont_mul<NL>(y, P.lag[j], p, n0, y);
+        if (j < t + 1) {
+          mont_mul<NL>(y, lj, p, n0, y);
           if (j == 0) {
 #pragma unroll
             for (int q = 0; q < NL; ++q) acc[q] = y[q];
@@ -507,88 +440,8 @@ split_recombine_kernel(const uint32_t* __restrict__ sec,
 }  // namespace mtt
 
 #include "sgn.cuh"
-#include "pow.cuh"
 
 namespace mtt {
-
-// The instantiation of K6 and K7 for a plan's field: LAZY where 4p < R
-// (p's top limb below 2^30; at one limb p itself: GF(1031) lazy, GF(2^31 -
-// 1) canonical).
-template <int NL, bool LAZY>
-struct PowKind {};
-
-template <class F>
-int pow_dispatch(const PowParams& P, F launch) {
-  if (P.nl < 1 || P.nl > MAX_NL) return -1;
-  const bool lazy = P.p[P.nl - 1] < (1u << 30);
-  switch (P.nl * 10 + lazy) {
-    case 10: return launch(PowKind<1, false>());
-    case 11: return launch(PowKind<1, true>());
-    case 20: return launch(PowKind<2, false>());
-    case 21: return launch(PowKind<2, true>());
-    case 30: return launch(PowKind<3, false>());
-    case 31: return launch(PowKind<3, true>());
-    case 40: return launch(PowKind<4, false>());
-    case 41: return launch(PowKind<4, true>());
-    case 50: return launch(PowKind<5, false>());
-    case 51: return launch(PowKind<5, true>());
-    case 60: return launch(PowKind<6, false>());
-    default: return launch(PowKind<6, true>());
-  }
-}
-
-
-// Whether a plan fits the kernels: its exponent's width, its table and
-// steps within their arrays, every table index within the table.
-inline bool plan_ok(const PowParams& P) {
-  if (P.nbits < 0 || P.nbits > 32 * MAX_NL) return false;
-  if (P.n_table < 1 || P.n_table > POW_TABLE) return false;
-  if (P.n_steps < 0 || P.n_steps > 32 * P.nl || P.tail < 0) return false;
-  if (P.first < 0 || P.first >= P.n_table) return false;
-  for (int k = 0; k < P.n_steps; ++k)
-    if ((int)(P.step[k] >> 8) >= P.n_table) return false;
-  return true;
-}
-
-template <int NL, bool LAZY>
-int launch_mont_pow(PowKind<NL, LAZY>, const void* a, void* out,
-                    long long n, const PowParams& P, cudaStream_t stream) {
-  constexpr int EPB = POW_THREADS * pow_ept<NL>();
-  constexpr int smem = pow_smem_bytes<NL>();
-  const long long grid = (n + EPB - 1) / EPB;
-  // past the 48 KB a CTA gets by default (the plan's steps included):
-  // allowed once
-  if constexpr (smem + 4 * POW_MAX_STEPS > 48 * 1024) {
-    static const cudaError_t rc = cudaFuncSetAttribute(
-        mont_pow_kernel<NL, LAZY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  mont_pow_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, smem, stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, n, P);
-  return (int)cudaGetLastError();
-}
-
-template <int NL, bool LAZY>
-int launch_random_bits_tail(PowKind<NL, LAZY>, const void* r,
-                            const void* z, void* bits, void* flags,
-                            void* count, long long n, const TailParams& P,
-                            cudaStream_t stream) {
-  constexpr int EPB = POW_THREADS * pow_ept<NL>();
-  constexpr int smem = pow_smem_bytes<NL>();
-  const long long grid = (n + EPB - 1) / EPB;
-  if constexpr (smem + 4 * POW_MAX_STEPS > 48 * 1024) {   // as K6's
-    static const cudaError_t rc = cudaFuncSetAttribute(
-        random_bits_tail_kernel<NL, LAZY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  random_bits_tail_kernel<NL, LAZY><<<(unsigned)grid, POW_THREADS, smem,
-                                     stream>>>(
-      (const uint32_t*)r, (const uint32_t*)z, (uint32_t*)bits,
-      (uint8_t*)flags, (int*)count, n, P);
-  return (int)cudaGetLastError();
-}
 
 template <int NL, int W>
 int launch_squeeze(const void* state, void* out, long long n_draws,
@@ -604,24 +457,6 @@ int launch_squeeze(const void* state, void* out, long long n_draws,
   return (int)cudaGetLastError();
 }
 
-template <int NL, bool FUSE>
-int launch_reshare(const void* a, const void* b, void* out, const void* state,
-                   long long n, const ReshareParams& P, cudaStream_t stream) {
-  const long long grid = (n + RESHARE_ELEMS - 1) / RESHARE_ELEMS;
-  constexpr int smem = reshare_smem_bytes(1, NL);
-  if (smem > 48 * 1024) {   // past the default: allowed once
-    static const cudaError_t rc = cudaFuncSetAttribute(
-        reshare_kernel<NL, FUSE, 1, 3>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  reshare_kernel<NL, FUSE, 1, 3><<<(unsigned)grid, RESHARE_THREADS, smem,
-                                   stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
-      (const uint32_t*)state, n, P);
-  return (int)cudaGetLastError();
-}
-
 template <int NL>
 int launch_field_op(const void* a, const void* b, void* out, long long n,
                     int a_step, int b_step, int op, const DrawParams& P,
@@ -633,29 +468,15 @@ int launch_field_op(const void* a, const void* b, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-template <bool FUSE>
-int launch_reshare_nl(const void* a, const void* b, void* out,
-                      const void* state, long long n,
-                      const ReshareParams& P, cudaStream_t s) {
-  switch (P.draw.nl) {
-    case 1: return launch_reshare<1, FUSE>(a, b, out, state, n, P, s);
-    case 2: return launch_reshare<2, FUSE>(a, b, out, state, n, P, s);
-    case 3: return launch_reshare<3, FUSE>(a, b, out, state, n, P, s);
-    case 4: return launch_reshare<4, FUSE>(a, b, out, state, n, P, s);
-    case 5: return launch_reshare<5, FUSE>(a, b, out, state, n, P, s);
-    case 6: return launch_reshare<6, FUSE>(a, b, out, state, n, P, s);
-    default: return -1;
-  }
-}
-
+template <int T, int M>
 int launch_split_recombine(const void* sec, void* out, void* shares,
                            const void* state, long long n,
                            const ReshareParams& P, cudaStream_t stream) {
   constexpr int EPB = RATE_WORDS / 4;
   const long long groups = (n + EPB - 1) / EPB;
-  const int threads = 128;
-  const long long grid = (groups + threads - 1) / threads;
-  split_recombine_kernel<1, 3><<<(unsigned)grid, threads, 0, stream>>>(
+  const long long grid = (groups + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  split_recombine_kernel<T, M><<<(unsigned)grid, SPLIT_THREADS, 0,
+                                 stream>>>(
       (const uint32_t*)sec, (uint32_t*)out, (uint32_t*)shares,
       (const uint32_t*)state, n, P);
   return (int)cudaGetLastError();
@@ -665,18 +486,31 @@ int launch_split_recombine(const void* sec, void* out, void* shares,
 
 extern "C" {
 
-// K5's launchers, one a limb count, each compiled from sgn.cu in a
-// translation unit of its own (_build.py builds them in parallel).
-#define MTT_SGN_LAUNCHER(NL)                                               \
-  int mtt_sgn_launch_nl##NL(const void* a, void* out, const void* state,  \
-                            long long n, long long chunk, long long n_last,\
-                            const void* params, int lb, int B,             \
-                            void* stream);
-MTT_SGN_LAUNCHER(2)
-MTT_SGN_LAUNCHER(3)
-MTT_SGN_LAUNCHER(4)
-MTT_SGN_LAUNCHER(5)
-MTT_SGN_LAUNCHER(6)
+// K3 at a run-time (t, m), compiled from reshare.cu in a translation unit
+// of its own (_build.py builds it beside this one).
+int mtt_reshare_t(const void* a, const void* b, void* out, const void* state,
+                  long long n, int fuse, const void* params, void* stream);
+
+// K5's launchers, one a limb count and threshold (nl<L>_t<t>; t0: a
+// run-time t >= 2), each compiled from sgn.cu in a translation unit of
+// its own (_build.py builds them in parallel).
+#define MTT_SGN_LAUNCHER(NAME)                                             \
+  int NAME(const void* a, void* out, const void* state, long long n,      \
+           long long chunk, long long n_last, const void* params, int lb, \
+           int B, void* stream);
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl2_t1)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl2_t2)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl2_t3)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl2_t4)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl3_t1)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl4_t1)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl5_t1)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl6_t1)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl3_t0)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl4_t0)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl5_t0)
+MTT_SGN_LAUNCHER(mtt_sgn_launch_nl6_t0)
+#undef MTT_SGN_LAUNCHERS
 #undef MTT_SGN_LAUNCHER
 
 // -1: an output that is not 16-byte aligned.
@@ -760,36 +594,43 @@ int mtt_squeeze_mont(const void* state, void* out, long long n_draws,
 }
 
 // b is ignored unless fuse. -1: a (t, m) or limb count the kernel was not
-// built for.
+// built for (1 <= t <= 4, 2t + 1 <= m <= 16, one to six limbs).
 int mtt_reshare(const void* a, const void* b, void* out, const void* state,
                 long long n, int fuse, const void* params, void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
-  if (P.t != 1 || P.m != 3 || P.n_send != 3) return -1;
+  if (!mtt::parties_ok(P.t, P.m) || P.n_send != 2 * P.t + 1) return -1;
   if (P.draw.nl < 1 || P.draw.nl > mtt::MAX_NL) return -1;
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return fuse ? mtt::launch_reshare_nl<true>(a, b, out, state, n, P, s)
-              : mtt::launch_reshare_nl<false>(a, b, out, state, n, P, s);
+  using mtt::launch_reshare_nl;
+  if (P.t == 1 && P.m == 3)
+    return fuse ? launch_reshare_nl<true, 1, 3>(a, b, out, state, n, P, s)
+                : launch_reshare_nl<false, 1, 3>(a, b, out, state, n, P, s);
+  return mtt_reshare_t(a, b, out, state, n, fuse, &P, stream);
 }
 
 // shares may be null. -1: a (t, m) or limb count the kernel was not built
-// for.
+// for (two limbs, 1 <= t <= 4, 2t + 1 <= m <= 16).
 int mtt_split_recombine(const void* sec, void* out, void* shares,
                         const void* state, long long n, const void* params,
                         void* stream) {
   const mtt::ReshareParams P = *(const mtt::ReshareParams*)params;
-  if (P.t != 1 || P.m != 3 || P.n_send != 2 || P.draw.nl != 2) return -1;
+  if (!mtt::parties_ok(P.t, P.m) || P.n_send != P.t + 1 || P.draw.nl != 2)
+    return -1;
   if (n <= 0) return 0;
-  return mtt::launch_split_recombine(sec, out, shares, state, n, P,
-                                     (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (P.t == 1 && P.m == 3)
+    return mtt::launch_split_recombine<1, 3>(sec, out, shares, state, n, P,
+                                             s);
+  return mtt::launch_split_recombine<0, 0>(sec, out, shares, state, n, P, s);
 }
 
 // n elements in calls of `chunk` (counters P's, P's + 1, ...), the last on
 // n_last >= its given elements (mtt_sgn(a, out, state, n, n, n, ...) is
 // one call). -1: a (mode, l, limbs, t, m, k) the kernel was not built for
-// (t = 1, m = 3, 0 <= k <= 64, two to six limbs, 1 <= l and the random
-// bits within sgn_lb_max(limbs): any l with l + k + 2 <= 32 limbs), or a
-// chunk geometry that does not hold.
+// (1 <= t <= 4, 2t + 1 <= m <= 16, 0 <= k <= 64, two to six limbs, 1 <= l
+// and the random bits within sgn_lb_fit(t, limbs): any l with l + k + 2
+// <= 32 limbs at t = 1), or a chunk geometry that does not hold.
 int mtt_sgn(const void* a, void* out, const void* state, long long n,
             long long chunk, long long n_last, const void* params,
             void* stream) {
@@ -800,47 +641,23 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
   if (n <= 0) return 0;
   if (chunk <= 0 || n_last > chunk || n_last < n - (n - 1) / chunk * chunk)
     return -1;
-  switch (P.draw.nl) {
-    case 2: return mtt_sgn_launch_nl2(a, out, state, n, chunk, n_last, &P,
-                                      lb, B, stream);
-    case 3: return mtt_sgn_launch_nl3(a, out, state, n, chunk, n_last, &P,
-                                      lb, B, stream);
-    case 4: return mtt_sgn_launch_nl4(a, out, state, n, chunk, n_last, &P,
-                                      lb, B, stream);
-    case 5: return mtt_sgn_launch_nl5(a, out, state, n, chunk, n_last, &P,
-                                      lb, B, stream);
-    default: return mtt_sgn_launch_nl6(a, out, state, n, chunk, n_last, &P,
-                                       lb, B, stream);
-  }
+  using L = int (*)(const void*, void*, const void*, long long, long long,
+                    long long, const void*, int, int, void*);
+  // two limbs: the instantiation of t; three to six: of t = 1, or of a
+  // run-time t
+  static const L at_nl2[] = {mtt_sgn_launch_nl2_t1, mtt_sgn_launch_nl2_t2,
+                             mtt_sgn_launch_nl2_t3, mtt_sgn_launch_nl2_t4};
+  static const L at_1[] = {mtt_sgn_launch_nl3_t1, mtt_sgn_launch_nl4_t1,
+                           mtt_sgn_launch_nl5_t1, mtt_sgn_launch_nl6_t1};
+  static const L at_t[] = {mtt_sgn_launch_nl3_t0, mtt_sgn_launch_nl4_t0,
+                           mtt_sgn_launch_nl5_t0, mtt_sgn_launch_nl6_t0};
+  const L launch = P.draw.nl == 2 ? at_nl2[P.t - 1]
+                   : (P.t == 1 ? at_1 : at_t)[P.draw.nl - 3];
+  return launch(a, out, state, n, chunk, n_last, &P, lb, B, stream);
 }
 
-// a^e R mod p for n elements (K6), e by its plan in params. -1: a limb
-// count the kernel was not built for, or a plan that does not fit it.
-int mtt_mont_pow(const void* a, void* out, long long n, const void* params,
-                 void* stream) {
-  const mtt::PowParams P = *(const mtt::PowParams*)params;
-  if (!mtt::plan_ok(P)) return -1;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return mtt::pow_dispatch(P, [&](auto kind) {
-    return n <= 0 ? 0 : mtt::launch_mont_pow(kind, a, out, n, P, s);
-  });
-}
-
-// The tail of a round of random bits (K7) on (3, n, limbs) shares r and
-// z: bits (3, n, limbs), flags (n bytes) and count (one int, which the
-// launch adds to). -1: a (t, m) or limb count the kernel was not built
-// for, or a plan that does not fit it.
-int mtt_random_bits_tail(const void* r, const void* z, void* bits,
-                         void* flags, void* count, long long n,
-                         const void* params, void* stream) {
-  const mtt::TailParams P = *(const mtt::TailParams*)params;
-  if (P.t != 1 || P.m != 3 || !mtt::plan_ok(P.pow)) return -1;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return mtt::pow_dispatch(P.pow, [&](auto kind) {
-    return n <= 0 ? 0 : mtt::launch_random_bits_tail(kind, r, z, bits, flags,
-                                                      count, n, P, s);
-  });
-}
+// K6's and K7's launchers (mtt_mont_pow, mtt_random_bits_tail) are in
+// pow.cu, one translation unit each.
 
 // Elements of a K5 thread block for a comparison's parameters (the
 // launch's sgn_threads), for models of its stage; -1 for a configuration

@@ -234,20 +234,27 @@ mont_pow_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 // Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py (K7).
 struct TailParams {
   PowParams pow;             // the plan of (3p - 5) / 4
-  uint32_t lag[3][MAX_NL];   // recombination at 0 of points 1, 2, 3
+  uint32_t lag[MAX_SEND][MAX_NL];  // recombination at 0 of points 1..2t+1
   uint32_t scale[MAX_NL];    // a bit is r s scale (+ offset), Montgomery
   uint32_t offset[MAX_NL];
   int32_t has_scale, has_offset;
   int32_t t, m;
 };
 
-// K7 on (3, n, NL) shares r and z: per element u = sum_i lag_i (r_i^2 +
-// z_i), the opening of r^2 + z at threshold 2 from parties 1..3; flag
-// u == 0 (and count it); s = u^((3p - 5) / 4) = 1 / sqrt(u) by the plan;
-// bit_i = r_i (s scale) + offset, with scale, offset = 2^(f - 1) for bits
-// in {0, 1} ((r / sqrt(u) + 1) / 2 times 2^f) and scale = 2^f, no offset,
-// for signed bits. Exact field values, so equal to the plain version.
-// Geometry as K6's; r_i stays in registers across the power.
+// K7 on (m, n, NL) shares r and z: per element u = sum_{i < 2t+1} lag_i
+// (r_i^2 + z_i), the opening of r^2 + z at threshold 2t from parties
+// 1..2t+1; flag u == 0 (and count it); s = u^((3p - 5) / 4) = 1 / sqrt(u)
+// by the plan; bit_i = r_i (s scale) + offset for the m parties, with
+// scale, offset = 2^(f - 1) for bits in {0, 1} ((r / sqrt(u) + 1) / 2
+// times 2^f) and scale = 2^f, no offset, for signed bits. Exact field
+// values, so equal to the plain version. Geometry as K6's. t and m are
+// launch parameters (1 <= t <= MAX_T, 2t + 1 <= m <= MAX_M): the first
+// three parties, senders at every t, are unrolled and their r stays in
+// registers across the power; the loops over the other senders and
+// parties are not unrolled (build time), read the Lagrange coefficients
+// from shared memory (a run-time index into the parameter block would put
+// the block in local memory) and their r again after the power (at m = 9
+// and six limbs the r of all would take 54 words an element).
 template <int NL, bool LAZY>
 __global__ void __launch_bounds__(POW_THREADS)
 random_bits_tail_kernel(const uint32_t* __restrict__ r,
@@ -256,21 +263,28 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
                         uint8_t* __restrict__ flags, int* __restrict__ count,
                         long long n, TailParams P) {
   constexpr int EPT = pow_ept<NL>();
+  constexpr int KEEP = 3;     // parties whose r stays in registers
   extern __shared__ uint32_t pow_tab[];   // pow_smem_bytes<NL>()
   __shared__ uint32_t steps[POW_MAX_STEPS];
+  __shared__ uint32_t lag_s[MAX_SEND * NL];
   uint32_t* tab = pow_tab;
-  load_plan<NL>(P.pow, steps);
+  const int ns = 2 * P.t + 1, m = P.m;
+#pragma unroll
+  for (int i = KEEP; i < MAX_SEND; ++i)
+    copy_consts<NL>(reinterpret_cast<const uint32_t(&)[NL]>(P.lag[i]),
+                    lag_s + i * NL, i < ns ? NL : 0);
+  load_plan<NL>(P.pow, steps);   // synchronises
   const uint32_t* p = P.pow.p;
   const uint32_t n0inv = P.pow.n0inv;
   const long long base =
       (long long)blockIdx.x * (POW_THREADS * EPT) + threadIdx.x;
-  uint32_t rs[EPT][3][NL], u[EPT][NL];
+  uint32_t rs[EPT][KEEP][NL], u[EPT][NL];
 #pragma unroll
   for (int s = 0; s < EPT; ++s) {
     const long long e = base + s * POW_THREADS;
     const long long ee = e < n ? e : n - 1;   // a slot past n: a copy
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < KEEP; ++i) {
       uint32_t zi[NL], v[NL];
       ldg_fe<NL>(r + i * n * NL, ee, rs[s][i]);
       ldg_fe<NL>(z + i * n * NL, ee, zi);
@@ -279,6 +293,16 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
       mont_mul<NL>(v, P.lag[i], p, n0inv, v);
       if (i == 0) fe_copy<NL>(v, u[s]);
       else add_mod<NL>(u[s], v, p, u[s]);
+    }
+#pragma unroll 1
+    for (int i = KEEP; i < ns; ++i) {
+      uint32_t ri[NL], zi[NL], v[NL];
+      ldg_fe<NL>(r + i * n * NL, ee, ri);
+      ldg_fe<NL>(z + i * n * NL, ee, zi);
+      mont_sqr<NL>(ri, p, n0inv, v);
+      add_mod<NL>(v, zi, p, v);
+      mont_mul<NL>(v, lag_s + i * NL, p, n0inv, v);
+      add_mod<NL>(u[s], v, p, u[s]);
     }
     if (e < n) {
       const bool zero = is_zero<NL>(u[s]);
@@ -292,11 +316,21 @@ random_bits_tail_kernel(const uint32_t* __restrict__ r,
     const long long e = base + s * POW_THREADS;
     if (P.has_scale) mont_mul<NL>(u[s], P.scale, p, n0inv, u[s]);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
+    for (int i = 0; i < KEEP; ++i) {
       uint32_t b[NL];
       mont_mul<NL>(rs[s][i], u[s], p, n0inv, b);
       if (P.has_offset) add_mod<NL>(b, P.offset, p, b);
       if (e < n) store_fe<NL>(bits + i * n * NL, e, b);
+    }
+    if (e < n) {
+#pragma unroll 1
+      for (int i = KEEP; i < m; ++i) {
+        uint32_t ri[NL], b[NL];
+        ldg_fe<NL>(r + i * n * NL, e, ri);
+        mont_mul<NL>(ri, u[s], p, n0inv, b);
+        if (P.has_offset) add_mod<NL>(b, P.offset, p, b);
+        store_fe<NL>(bits + i * n * NL, e, b);
+      }
     }
   }
 }

@@ -10,7 +10,7 @@
 // one block per range per CTA.
 //
 // Every draw keeps its index in the stream, so the layout is the JAX
-// package's XLA layout bit for bit (kernels.cu, sgn.cuh, gf2.cu).
+// package's XLA layout bit for bit (reshare.cuh, sgn.cuh, gf2.cu).
 //
 // Included by common.cuh after DrawParams and reduce_draw. Each function
 // is called by every thread of the CTA; the caller synchronises before

@@ -34,7 +34,7 @@ import time
 import numpy as np
 
 from mpyc_tpu_torch import mpctools
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 class Gates:
@@ -140,8 +140,8 @@ def main(argv=None) -> int:
                         help='length of the bit vectors (default 8)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.n)
     mpc.run(mpc.shutdown())

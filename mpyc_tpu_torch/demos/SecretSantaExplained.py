@@ -30,7 +30,7 @@ import math
 import sys
 from collections import Counter
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 class Tutorial:
@@ -122,8 +122,8 @@ def main(argv=None) -> int:
                         help='number of Secret Santa participants')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.n)
     mpc.run(mpc.shutdown())

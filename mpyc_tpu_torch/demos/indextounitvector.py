@@ -26,7 +26,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def bit_kron(mpc, a, n: int) -> list:
@@ -81,12 +81,12 @@ def main(argv=None) -> int:
                         help='length of the unit vectors (default 10)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
+    args = parties.parse_args(parser, argv)
     n = args.n
     if n is None:
         n = 10
         print('Setting input to default =', n)
-    mpc = SimRuntime(3, device=args.device)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     ok = run(mpc, n)
     mpc.run(mpc.shutdown())

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from mpyc_tpu_torch.demos.ridgeregression import linear_solve, plain_adj_det
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = os.path.join(os.path.dirname(__file__), '..', '..', 'demos', 'data',
                     'mlat')
@@ -220,8 +220,8 @@ def main(argv=None) -> int:
                         help='the first K measurements (default: all)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.datasets, args.accuracy, args.bit_length, args.rows)
     mpc.run(mpc.shutdown())

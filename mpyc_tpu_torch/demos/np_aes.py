@@ -27,7 +27,7 @@ import time
 import numpy as np
 
 from mpyc_tpu_torch.demos.np_sha3 import card_label, sync
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 C1_CT = '69c4e0d86a7b0430d8cdb78070b4c55a'   # FIPS-197 C.1
 C3_CT = '8ea2b7ca516745bfeafc49904b496089'   # FIPS-197 C.3
@@ -202,8 +202,8 @@ def main(argv=None) -> int:
                         help='AES-128 encryption only')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.start()
     nb = max(1, args.blocks)
     res = run(mpc, nb, args.only128)

@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data'
 LAYERS = ('fc1', 'fc2', 'fc3', 'fc4')
@@ -182,9 +182,9 @@ def main(argv=None) -> int:
     parser.add_argument('--device', default='cuda',
                         help="where the shares live (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
-    args = parser.parse_args(argv)
+    args = parties.parse_args(parser, argv)
 
-    rt = SimRuntime(3, device=args.device)
+    rt = parties.runtime(args)
     secint = rt.SecInt(L_IN)
     rt.start()
     B = args.batch_size

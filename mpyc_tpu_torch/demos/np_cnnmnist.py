@@ -51,7 +51,7 @@ import torch
 from mpyc_tpu_torch import sectypes
 from mpyc_tpu_torch.demos.np_bnnmnist import (load_mnist, plain_argmax,
                                               plain_less)
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'cnn'
 L_TYPE = 37      # SecInt(37): the field, and the bit length of the argmax
@@ -421,9 +421,9 @@ def main(argv=None) -> int:
     parser.add_argument('--device', default='cuda',
                         help="where the shares live (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
-    args = parser.parse_args(argv)
+    args = parties.parse_args(parser, argv)
 
-    rt = SimRuntime(3, device=args.device)
+    rt = parties.runtime(args)
     secnum = rt.SecFxp(L_FXP, F) if args.fxp else rt.SecInt(L_TYPE)
     rt.start()
     B = args.batch_size

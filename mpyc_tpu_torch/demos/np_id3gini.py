@@ -40,7 +40,7 @@ from pathlib import Path
 import numpy as np
 
 from mpyc_tpu_torch.demos.np_sha3 import card_label, sync
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'id3'
 
@@ -251,8 +251,8 @@ def main(argv=None) -> int:
                         help='print the raw tree instead of the pretty one')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     tree, nodes, seconds = build(mpc, args.dataset, args.bit_length,
                                  args.alpha, args.epsilon,
                                  pretty_tree=not args.no_pretty_tree)

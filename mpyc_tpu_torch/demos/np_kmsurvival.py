@@ -36,7 +36,7 @@ import sys
 import time
 from pathlib import Path
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'surv'
 
@@ -224,8 +224,8 @@ def main(argv=None) -> int:
                         help='also run the aggregated (compacted) variant')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     t0 = time.perf_counter()
     res = run(mpc, args.dataset, args.stride, args.accuracy, args.agg)
     good = close(res['chi'], res['chi_ref']) and \

@@ -39,7 +39,7 @@ from pathlib import Path
 
 import numpy as np
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'lp'
 
@@ -277,8 +277,8 @@ def main(argv=None) -> int:
                         default=0)
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     res = solve(mpc, args.dataset, args.bit_length)
     assert res['ok']
     name, _, scale, _ = DATASETS[args.dataset]

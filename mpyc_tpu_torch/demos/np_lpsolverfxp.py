@@ -43,7 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = Path(__file__).resolve().parents[2] / 'demos' / 'data' / 'lp'
 
@@ -299,8 +299,8 @@ def main(argv=None) -> int:
                         default=0)
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     t0 = time.perf_counter()
     res = solve(mpc, args.dataset, args.bit_length)
     s = time.perf_counter() - t0

@@ -35,7 +35,7 @@ from mpyc_tpu_torch.demos import pebbling
 from mpyc_tpu_torch.demos.np_aes import AES
 from mpyc_tpu_torch.demos.np_sha3 import (bits_to_bytes, bytes_to_bits,
                                           card_label, np_shake, sync)
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 # -- a plain AES-128 (FIPS-197) and the plain one-way functions ---------------
@@ -218,8 +218,8 @@ def main(argv=None) -> int:
                         help='use a fixed seed')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.order, args.eager, args.sha3, not args.no_one_way,
               not args.no_random_seed)

@@ -28,7 +28,7 @@ import time
 import numpy as np
 
 from mpyc_tpu_torch.ops.keccak import _RC as RC, _ROT as ROT
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def bytes_to_bits(data: bytes) -> np.ndarray:
@@ -189,8 +189,8 @@ def main(argv=None) -> int:
                              'ms a digest')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.start()
     b = args.batch
     if args.bench:

@@ -18,7 +18,7 @@ import argparse
 import random
 import sys
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def run(mpc, seed=None, out=print) -> bool:
@@ -51,8 +51,8 @@ def main(argv=None) -> int:
                         help='seed of the pairs and bits (default: fresh)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     ok = run(mpc, args.seed)
     mpc.run(mpc.shutdown())

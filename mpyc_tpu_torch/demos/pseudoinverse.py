@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def blocks(mpc, TL, TR, BL, BR):
@@ -171,9 +171,9 @@ def main(argv=None) -> int:
                         help='seed of A and U (default: fresh)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
+    args = parties.parse_args(parser, argv)
     m = args.m or args.n or args.r or 5
-    mpc = SimRuntime(3, device=args.device)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, m, args.n or m, args.r, args.b, args.seed)
     mpc.run(mpc.shutdown())

@@ -48,7 +48,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 DATA = os.path.join(os.path.dirname(__file__), '..', '..', 'demos', 'data',
                     'regr')
@@ -386,8 +386,8 @@ def main(argv=None) -> int:
                         help='seed of the synthetic data and the split')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.dataset, (args.accuracy,) if args.accuracy >= 0
               else None, args.lambda_, args.samples, args.features,

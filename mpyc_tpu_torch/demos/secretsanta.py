@@ -19,7 +19,7 @@ import sys
 import time
 
 from mpyc_tpu_torch import random
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def is_derangement(p: list) -> bool:
@@ -54,8 +54,8 @@ def main(argv=None) -> int:
                         help='derangements drawn (default 3)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     res = run(mpc, args.n, args.trials)
     mpc.run(mpc.shutdown())

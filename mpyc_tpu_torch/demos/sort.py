@@ -24,7 +24,7 @@ import sys
 import numpy as np
 
 from mpyc_tpu_torch import random, seclists
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def ramp(n: int) -> list:
@@ -81,13 +81,13 @@ def main(argv=None) -> int:
                         help='number of values (default 5)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
+    args = parties.parse_args(parser, argv)
     n = args.n
     if n is None:
         n = 5
         print('Setting input to default =', n)
     values = ramp(n)
-    mpc = SimRuntime(3, device=args.device)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     ok = demo_sorted_with_key(mpc, values)
     ok = demo_seclist_descending(mpc, values) and ok

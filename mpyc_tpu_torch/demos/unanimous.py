@@ -16,7 +16,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from mpyc_tpu_torch.parallel.simulator import SimRuntime
+from mpyc_tpu_torch.demos import parties
 
 
 def run(mpc, votes=None, out=print) -> bool:
@@ -42,8 +42,8 @@ def main(argv=None) -> int:
                         help='a 0/1 vote for each voter (default 1)')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
-    args = parser.parse_args(argv)
-    mpc = SimRuntime(3, device=args.device)
+    args = parties.parse_args(parser, argv)
+    mpc = parties.runtime(args)
     mpc.run(mpc.start())
     ok = run(mpc, args.votes)
     mpc.run(mpc.shutdown())

@@ -54,6 +54,13 @@ def _lagrange_consts_mont(p: int, xs, x_r: int = 0) -> list:
     return [ctx.encode_const(c) for c in vec]
 
 
+def parties_key(t: int, m: int) -> tuple:
+    """The end of a kernel's ``by_key`` key for threshold t and m
+    parties: nothing at (1, 3), the instantiations of the earlier slices
+    (whose keys stay as they were), else (t, m)."""
+    return () if (t, m) == (1, 3) else (t, m)
+
+
 class ReshareSpec:
     """The constants of one (p, t, m) reshare round."""
 
@@ -66,6 +73,14 @@ class ReshareSpec:
         self.lag = _lagrange_consts_mont(p, range(1, self.n_send + 1))
         self.xs_mont = [ctx.encode_const(i) for i in range(1, m + 1)]
         self.l_bytes = rng_mod.fused_draw_bytes(p)
+
+    def field_ops(self, fused: bool) -> tuple:
+        """(Montgomery products, modular adds) per element as K3 computes
+        them (csrc/kernels.cu reshare_kernel), the reduction of its t draws
+        left out: the 2t + 1 senders' local products (fused), their
+        Lagrange sum, and Horner's t steps at each of the m points."""
+        t, m, ns = self.t, self.m, self.n_send
+        return ns * (2 if fused else 1) + m * t, ns - 1 + m * t
 
     def wide_consts(self, device) -> torch.Tensor:
         """The wide K3's device buffer (csrc/wide.cu reshare_wide_kernel):
@@ -95,8 +110,7 @@ class ReshareSpec:
                 f'the CUDA reshare is built for fields of {_build.BUILT_NL} '
                 f'limbs with draws of 4 (L + 2) bytes; not L={L} '
                 f'({self.l_bytes}-byte draws)')
-        if self.m > _build.MAX_M:
-            raise NotImplementedError(f'{self.m} parties')
+        _build.check_parties('reshare', self.t, self.m)
         P = _build.ReshareParams()
         P.draw = _build.draw_params(self.ctx, -(-W // L))
         for i, c in enumerate(self.lag):
@@ -202,12 +216,13 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
                     state.data_ptr(), a.shape[1], int(b is not None),
                     ctypes.addressof(params), _build.stream_of(a.device))
     reshare_mul.launches += 1
-    reshare_mul.by_key[(L, b is not None)] += 1
+    reshare_mul.by_key[(L, b is not None)
+                       + parties_key(spec.t, spec.m)] += 1
     return out
 
 
 reshare_mul.launches = 0
-reshare_mul.by_key = collections.Counter()
+reshare_mul.by_key = collections.Counter()   # (L, fused) + parties_key
 
 
 def make_reshare_step(p: int, t: int, m: int, fuse_mul: bool = False):
@@ -470,11 +485,11 @@ class SplitSpec:
     def params(self):
         """Kernel parameter block (``ReshareParams``, lag of t + 1)."""
         from mpyc_tpu_torch import _build
-        if self.ctx.L != 2 or (self.t, self.m) not in _build.SPLIT_BUILT:
+        if self.ctx.L != 2:
             raise NotImplementedError(
-                f'the CUDA split/recombine is built for 2-limb fields at '
-                f'(t, m) in {_build.SPLIT_BUILT}, not L = {self.ctx.L}, '
-                f'(t, m) = ({self.t}, {self.m})')
+                f'the CUDA split/recombine is built for 2-limb fields, not '
+                f'L = {self.ctx.L}')
+        _build.check_parties('split/recombine', self.t, self.m)
         P = _build.ReshareParams()
         P.draw = _build.draw_params(self.ctx, 2)
         for i, c in enumerate(self.lag):
@@ -552,10 +567,12 @@ def split_recombine(secrets: torch.Tensor, state: torch.Tensor,
                     state.data_ptr(), n, ctypes.addressof(params),
                     _build.stream_of(secrets.device))
         split_recombine.launches += 1
+        split_recombine.by_key[(spec.t, spec.m)] += 1
     return out
 
 
 split_recombine.launches = 0
+split_recombine.by_key = collections.Counter()   # launches by (t, m)
 
 
 def make_split_recombine(p: int, t: int, m: int):
@@ -666,29 +683,47 @@ class SgnSpec:
         its stream draws left out: public bits enter by selects, r mod 2^l
         by doubling, products by 2 and 3 as additions. c_ones is the mean
         number of ones among the l bits of the opened c mod 2^l, each of
-        which costs a subtraction in the xor vector and, unless EQ, in the
-        E vector; c mod 2^l is uniform (r mod 2^l is), so it is l/2."""
+        which costs a subtraction in the senders' xor vector and, unless
+        EQ, in their E vector (and at l = 1 in EQ mode one more for each
+        party past the senders); c mod 2^l is uniform (r mod 2^l is), so
+        it is l/2. The value arrays hold the 2t + 1 senders' shares: the
+        x = m - 2t - 1 parties past them take their bit shares where the
+        output needs them (LT mode: a_r and rb_l; EQ mode at l = 1: rb_0)
+        and otherwise their output from the last reshare's coefficients."""
         t, m, l = self.t, self.m, self.l
-        split = m * t                            # products = adds
-        reshare = (2 * t + 1 + split, 2 * t + split)
-        node = (m + reshare[0], reshare[1])      # one product of a tree
+        ns = 2 * t + 1
+        x = m - ns
+        split = ns * t                           # products = adds
+        reshare = (ns + split, ns - 1 + split)
+        node = (ns + reshare[0], reshare[1])     # one product of a tree
         # bit splits, r_divl, a + r mod 2^l + 2^l, open c, c mod 2^l
         mont = self.lb * split + 1 + split + 2 * (t + 1) + 2
-        adds = self.lb * split + split + 2 * l * m + 2 * t + 1 + m
-        adds += m * c_ones                       # xor vector
+        adds = self.lb * split + split + 2 * l * ns + 2 * t + 1 + ns
+        adds += ns * c_ones                      # xor vector
+        if self.mode == 'LT':
+            # the parties past the senders: their bit shares, a_r, c mod
+            # 2^l - a_r, and their output as the senders'
+            mont += x * ((l + 1) * t + 2)
+            adds += x * ((l + 1) * t + 2 * l + 5)
+        elif self.mode == 'EQ' and l == 1:
+            mont += x * t
+            adds += x * (t + 1 + c_ones)
+        else:
+            mont += x * t                        # Horner(C, x_j) + S
+            adds += x * t
         if self.mode != 'EQ':
             trees = sum(_tree_levels(l + 1))
             # E vector, its tree, the blinded zero test, h and z
-            mont += trees * node[0] + split + 2 * (2 * t + 1) + 2 * m
-            adds += (5 * l * m + m * c_ones + 6 * m + trees * node[1]
-                     + split + 2 * t + 2 * m)
+            mont += trees * node[0] + split + 2 * ns + 2 * ns
+            adds += (5 * l * ns + ns * c_ones + 6 * ns + trees * node[1]
+                     + split + ns - 1 + 2 * ns)
         if self.mode != 'LT':
             trees = sum(_tree_levels(l))
             mont += trees * node[0]
-            adds += l * m + trees * node[1]
+            adds += l * ns + trees * node[1]
             if self.mode == 'sgn':
-                mont += m + reshare[0]
-                adds += 3 * m + reshare[1]
+                mont += ns + reshare[0]
+                adds += 3 * ns + reshare[1]
         if self.f:
             mont += m
         return mont, adds
@@ -696,19 +731,26 @@ class SgnSpec:
     def params(self, nonce):
         """Kernel parameter block for a call with counter (lo, hi); raises
         NotImplementedError for a configuration the card has no
-        instantiation of: (t, m) other than (1, 3), k above 64, a field of
-        a limb count not built (``_build.SGN_BUILT_NL``). Any l the spec
-        takes (l + k + 2 <= bit length of p) is a launch parameter."""
+        instantiation of: (t, m) outside 1 <= t <= 4, 2t + 1 <= m <= 16,
+        k above 64, a field of a limb count not built
+        (``_build.SGN_BUILT_NL``), random bits past what t of their draws
+        leave room for (``_build.sgn_lb_fit``). Any l the spec takes (l + k
+        + 2 <= bit length of p) is a launch parameter at t = 1."""
         from mpyc_tpu_torch import _build
         L = self.ctx.L
-        if (self.t, self.m) != (1, 3) or self.k > 64 or \
-                L not in _build.SGN_BUILT_NL or self.l_bytes != 4 * (L + 2):
+        if self.k > 64 or L not in _build.SGN_BUILT_NL or \
+                self.l_bytes != 4 * (L + 2):
             raise NotImplementedError(
-                f'the CUDA comparison is built for t=1, m=3, k <= 64 and '
-                f'fields of {_build.SGN_BUILT_NL} limbs with draws of 4 '
-                f'(L + 2) bytes; not t={self.t}, m={self.m}, k={self.k}, '
-                f'L={L} '
-                f'({self.l_bytes}-byte draws)')
+                f'the CUDA comparison is built for k <= 64 and fields of '
+                f'{_build.SGN_BUILT_NL} limbs with draws of 4 (L + 2) bytes; '
+                f'not k={self.k}, L={L} ({self.l_bytes}-byte draws)')
+        _build.check_parties('comparison', self.t, self.m)
+        lb_max = _build.sgn_lb_fit(self.t, L)
+        if self.lb > lb_max:
+            raise NotImplementedError(
+                f'the CUDA comparison takes at most {lb_max} random bits at '
+                f't={self.t} on {L} limbs (t lb draws an element in a CTA '
+                f'of one warp), not {self.lb} (l={self.l})')
         P = _build.SgnParams()
         P.draw = _build.draw_params(self.ctx, 2)
         for i, c in enumerate(self.lag_t):
@@ -907,7 +949,8 @@ def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
                     state.data_ptr(), n, chunk, n_last,
                     ctypes.addressof(params), _build.stream_of(a.device))
         sgn_step.launches += 1
-        sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L, spec.f)] += 1
+        sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L, spec.f)
+                        + parties_key(spec.t, spec.m)] += 1
         sgn_step.chunks += -(-n // chunk)
     return out
 
@@ -1084,12 +1127,10 @@ def _random_bits_tail_plain(r: torch.Tensor, z: torch.Tensor, field,
 
 def _tail_params(field, t: int, m: int, signed: bool, f: int):
     """K7's parameter block: the plan of (3p - 5) / 4, the recombination
-    vector at 0 of points 1..2t+1, and a bit's scale and offset."""
+    vector at 0 of points 1..2t+1, a bit's scale and offset, t and m."""
     from mpyc_tpu_torch import _build
     p, ctx = field.modulus, field.array.ctx
-    if (t, m) != (1, 3):
-        raise NotImplementedError(f'K7 is built for (t, m) = (1, 3), not '
-                                  f'({t}, {m})')
+    _build.check_parties('random bits\' tail (K7)', t, m)
     if p % 4 != 3:
         raise NotImplementedError('the random bits\' inverse square root '
                                   'needs p = 3 mod 4')
@@ -1135,16 +1176,19 @@ def _wide_tail_params(field, t: int, m: int, signed: bool, f: int,
     return cache[key]
 
 
-def random_bits_tail_ops(p: int, signed: bool, f: int) -> tuple:
+def random_bits_tail_ops(p: int, signed: bool, f: int, t: int = 1,
+                        m: int = 3) -> tuple:
     """(Montgomery products, modular adds) of K7 an element, as its source
     computes them (held against it by tests/test_torch_kernels_host.py):
-    per party r_i^2, + z_i, times lag_i, the opening's two adds; the power
-    by its plan (``fieldops.plan_products``); a bit's scale, once, unless
-    it is 1; per party r_i s and the offset of bits in {0, 1}."""
+    per sender (2t + 1 of them) r_i^2, + z_i, times lag_i, the opening's
+    2t adds; the power by its plan (``fieldops.plan_products``); a bit's
+    scale, once, unless it is 1; per party (m) r_i s and the offset of
+    bits in {0, 1}."""
     from mpyc_tpu_torch.ops.fieldops import plan_products
+    ns = 2 * t + 1
     scale = int(not signed or f > 0)
-    return (3 + 3 + plan_products((3 * p - 5) // 4) + scale + 3,
-            3 + 2 + (0 if signed else 3))
+    return (2 * ns + plan_products((3 * p - 5) // 4) + scale + m,
+            2 * ns - 1 + (0 if signed else m))
 
 
 def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
@@ -1197,9 +1241,10 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
                         n, ctypes.addressof(params),
                         _build.stream_of(r.device))
         random_bits_tail.launches += 1
-        random_bits_tail.by_key[(L, field.array.ctx.lazy and not wide)] += 1
+        random_bits_tail.by_key[(L, field.array.ctx.lazy and not wide)
+                                + parties_key(t, m)] += 1
     return bits, flags, count
 
 
 random_bits_tail.launches = 0
-random_bits_tail.by_key = collections.Counter()   # by (limbs, lazy)
+random_bits_tail.by_key = collections.Counter()   # (L, lazy) + parties_key

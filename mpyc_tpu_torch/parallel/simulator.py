@@ -55,18 +55,48 @@ from mpyc_tpu_torch.runtime import Runtime
 class SimRuntime(Runtime):
     """All parties in one runtime, with party-stacked shares."""
 
-    def __init__(self, m: int, device=None):
-        super().__init__(m, device)
+    def __init__(self, m: int, device=None, threshold=None):
+        super().__init__(m, device, threshold)
         self._rng = KeccakRNG(device=self.device)
         self._fused_key = _secrets.token_bytes(32)
         self._fused_state = None
         self._fused_ctr = np.zeros(2, np.uint32)
         self._fused_steps = {}
         self._sgn_specs = {}
-        # all PRSS keys live here, one per (m - t)-subset
+
+    # the co-located plane of the JAX package fails at t = 0 on every PRSS
+    # draw (its f_S is None there: mpyc_tpu/parallel/simulator.py:667), so
+    # on every comparison and random bit; the port raises there
+    _AT_T0 = ('comparisons, random bits and other PRSS draws need t >= 1: '
+              'the reference\'s co-located plane fails at t = 0 too '
+              '(mpyc_tpu/parallel/simulator.py:667)')
+
+    def prfs(self, bound: int) -> dict:
+        """The PRSS keys' PRFs of codomain range(bound); raises
+        NotImplementedError at t = 0 (``_AT_T0``)."""
+        if self.threshold == 0:
+            raise NotImplementedError(self._AT_T0)
+        return super().prfs(bound)
+
+    @property
+    def threshold(self) -> int:
+        return self._threshold
+
+    @threshold.setter
+    def threshold(self, t: int) -> None:
+        """Set the threshold t and draw new PRSS keys, all of them, one
+        per (m - t)-subset of the parties (``mpyc_tpu/parallel/
+        simulator.py:68-74``). A product needs 2t + 1 <= m (its
+        ``ReshareSpec`` raises otherwise); the card takes 1 <= t <= 4 and
+        m <= 16, and t = 0 computes products locally."""
+        m = len(self.parties)
+        if not 0 <= t < max(m, 1):
+            raise ValueError(f'threshold {t} outside [0, {m})')
+        self._threshold = t
+        self._prfs = {}
         self._prss_keys = {
             S: _secrets.token_bytes(16)
-            for S in itertools.combinations(range(m), m - self.threshold)}
+            for S in itertools.combinations(range(m), m - t)}
 
     def load_state(self, fused_key: bytes, ctr, rng_key: bytes,
                    rng_nonce: int, prss_keys=None, pc=None) -> None:
@@ -357,10 +387,14 @@ class SimRuntime(Runtime):
 
     def _mul_reshare_fused(self, sa, sb):
         """Whole secure multiplication (local product + GRR98 reshare) as
-        one fused step: kernel K3 on the card."""
+        one fused step: kernel K3 on the card. At t = 0 the local product
+        alone, as the JAX package computes it there (its ``_reshare``
+        returns the shares, ``mpyc_tpu/parallel/simulator.py:223``)."""
         field = sa.field
         t = self.threshold
         m = len(self.parties)
+        if t == 0:
+            return sa.from_data(sa.ctx.mul(sa.data, sb.data))
         out = self._fused_flat(
             (field.modulus, t, 'mul'),
             lambda: pipelines.make_reshare_step(field.modulus, t, m,
@@ -384,9 +418,12 @@ class SimRuntime(Runtime):
     def _mul_reshare2_fused(self, sa, sb):
         """Whole GF(2^d) secure multiplication (carry-less product and
         GRR98 reshare) as one fused step (``mpyc_tpu/parallel/simulator.py:
-        346``): K1's stream and one launch of K8 on the card."""
+        346``): K1's stream and one launch of K8 on the card; at t = 0 the
+        local product alone."""
         field = sa.field
         t, m = self.threshold, len(self.parties)
+        if t == 0:
+            return sa * sb
         md = int(field.modulus)
         out = self._fused_flat(
             (2, md, t, 'mul'),
@@ -412,8 +449,6 @@ class SimRuntime(Runtime):
             c = sa.from_data(sa.ctx.mul(self._broadcast(sa.data, 1, shape),
                                         self._broadcast(b.data, 0, shape)))
             return self._wrap(stype, c, True, array)
-        if self.threshold == 0:
-            raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
         fused = self._mul_reshare2_fused if stype.field.characteristic == 2 \
             else self._mul_reshare_fused
@@ -458,8 +493,6 @@ class SimRuntime(Runtime):
                 c = c >> f if a_int or b_int else \
                     self._trunc_field(c, f, l_f)
             return self._wrap(stype, c, a_int and b_int, array)
-        if self.threshold == 0:
-            raise NotImplementedError('the port needs t >= 1')
         sa, sb = self._share2(a, b)
         if f and (a_int or b_int):
             c = self._reshare(sa.from_data(sa.ctx.mul(sa.data, sb.data))
@@ -501,7 +534,7 @@ class SimRuntime(Runtime):
             raise NotImplementedError('the port compares secure integers '
                                       'and fixed-point numbers')
         if self.threshold == 0:
-            raise NotImplementedError('the port needs t >= 1')
+            raise NotImplementedError(self._AT_T0)
         p = stype.field.modulus
         l = l or stype.sectype.bit_length
         t, m, k = self.threshold, len(self.parties), self.sec_param

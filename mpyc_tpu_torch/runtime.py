@@ -82,17 +82,17 @@ class Party:
 
 class Runtime:
     """MPC runtime for m parties holding Shamir shares over GF(p), with
-    threshold t = (m - 1) // 2 and statistical security parameter k = 30
-    (``sec_param``), the JAX package's defaults.
+    threshold t (default (m - 1) // 2, as the JAX package's ``-T``
+    defaults, ``mpyc_tpu/runtime.py:144-145``) and statistical security
+    parameter k = 30 (``sec_param``), the JAX package's defaults.
 
     ``device``: where shares live (default: the card)."""
 
-    def __init__(self, m: int, device=None):
+    def __init__(self, m: int, device=None, threshold=None):
         self.parties = [Party(i) for i in range(m)]
         # the party whose view a call returns: one process plays them all,
         # and the JAX package's co-located plane is party 0
         self.pid = 0
-        self.threshold = (m - 1) // 2
         self.sec_param = sectypes._SEC_PARAM
         self.device = resolve_device(device)
         self.start_time = None
@@ -104,6 +104,7 @@ class Runtime:
         self._prss_keys = {}
         self._program_counter = [0]
         self._prfs = {}
+        self.threshold = (m - 1) // 2 if threshold is None else threshold
 
     def start(self):
         self.start_time = time.time()

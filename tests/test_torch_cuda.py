@@ -141,11 +141,24 @@ def test_kernels_refuse_shares_off_an_8_byte_boundary(cuda_device):
 
 
 def test_reshare_kernel_refuses_other_parties(cuda_device):
-    """The card's K3 is built for t = 1, m = 3: other (t, m) raise."""
-    spec = pipelines.ReshareSpec(P, 1, 4)
-    a = torch.zeros((4, 64, 2), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(RuntimeError):
-        pipelines.reshare_mul(a, a, _state(cuda_device), (0, 0), spec)
+    """The card's K3 takes 1 <= t <= 4 and 2t + 1 <= m <= 16: more parties
+    or a higher threshold raise NotImplementedError; the wide K3 (7 to 48
+    limbs) and K8 take (t, m) = (1, 3) only."""
+    st = _state(cuda_device)
+    for t, m in ((1, 17), (5, 11)):
+        spec = pipelines.ReshareSpec(P, t, m)
+        a = torch.zeros((m, 64, 2), dtype=torch.int32, device=cuda_device)
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            pipelines.reshare_mul(a, a, st, (0, 0), spec)
+    p200 = 1606938044258990275541962092341162602522202993782792835301259
+    a = torch.zeros((5, 64, 7), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match='(1, 3)'):
+        pipelines.reshare_mul(a, a, st, (0, 0),
+                              pipelines.ReshareSpec(p200, 2, 5))
+    a = torch.zeros((5, 64, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match='(1, 3)'):
+        pipelines.reshare2(a, a, st, (0, 0),
+                           pipelines.Reshare2Spec(0x11B, 2, 5))
 
 
 def test_split_recombine_kernel_matches_plain(cuda_device):
@@ -222,14 +235,20 @@ def test_sgn_kernel_takes_many_chunks_in_one_launch(cuda_device, p, l, n,
 
 
 def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
-    """The card's K5 takes any width l as a launch parameter, at t = 1,
-    m = 3 and two to five limbs: other (t, m) raise, and so does a field
-    of 19 limbs (the LP solver's kb2, SecInt(560))."""
+    """The card's K5 takes any width l as a launch parameter, at 1 <= t <=
+    4, 2t + 1 <= m <= 16 and two to six limbs: more parties raise, and so
+    does a field of 19 limbs (the LP solver's kb2, SecInt(560)), and at t
+    = 4 random bits past their draws' room (SecFxp(96, 48): lb = 97 of
+    at most 75 on six limbs)."""
     st = _state(cuda_device)
-    a = _shares(64, 8, cuda_device)
-    a4 = torch.cat([a, a[:1]])
-    with pytest.raises(NotImplementedError, match='t=1, m=3'):
-        pipelines.sgn_step(a4, st, (0, 0), pipelines.SgnSpec(P, 1, 4, 16))
+    a = torch.zeros((17, 64, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match='t <= 4'):
+        pipelines.sgn_step(a, st, (0, 0), pipelines.SgnSpec(P, 1, 17, 16))
+    p176 = 95780971304118053647396689196894323976171195136474903
+    a9 = torch.zeros((9, 64, 6), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match='random bits'):
+        pipelines.sgn_step(a9, st, (0, 0), pipelines.SgnSpec(
+            p176, 4, 9, 96, 30, LT=True, f=48))
     p = (1 << 607) - 1            # a Mersenne prime of 19 limbs
     a19 = torch.zeros((3, 64, 19), dtype=torch.int32, device=cuda_device)
     with pytest.raises(NotImplementedError, match='L=19'):
@@ -870,3 +889,83 @@ def test_linear_algebra_on_the_card(cuda_device):
     assert pipelines.reshare_mul.by_key[(12, True)] > n3
     assert fieldops.mont_pow.by_key[(12, False)] > n6
     assert fieldops.field_op.by_key[12] > n9
+
+
+# -- parties other than three -------------------------------------------------
+
+def _parties_shares(n, seed, device, p, m):
+    """(m, n) canonical field elements (< p) as stored limbs."""
+    g = np.random.default_rng(seed)
+    L = prime_field_ctx(p).L
+    words = g.integers(0, 1 << 32, (m, n, L), dtype=np.uint64)
+    words[..., -1] = g.integers(0, p >> 32 * (L - 1), (m, n))
+    return limbs_from_numpy(words.astype(np.uint32), device)
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+@pytest.mark.parametrize('t,m', [(1, 4), (2, 5), (3, 7), (4, 9)])
+def test_reshare_kernel_matches_plain_at_parties(cuda_device, t, m, fuse):
+    st = _state(cuda_device)
+    spec = pipelines.ReshareSpec(P, t, m)
+    a = _parties_shares(100003, 31, cuda_device, P, m)
+    b = _parties_shares(100003, 32, cuda_device, P, m) if fuse else None
+    n0 = pipelines.reshare_mul.by_key[(2, fuse, t, m)]
+    got = pipelines.reshare_mul(a, b, st, (0xFFFFFFFF, 2), spec)
+    assert pipelines.reshare_mul.by_key[(2, fuse, t, m)] == n0 + 1
+    want = pipelines._reshare_mul_plain(a, b, st, (0xFFFFFFFF, 2), spec)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('t,m', [(1, 4), (2, 5), (4, 9)])
+def test_split_recombine_kernel_matches_plain_at_parties(cuda_device, t, m):
+    st = _state(cuda_device)
+    spec = pipelines.SplitSpec(P, t, m)
+    sec = _parties_shares(100003, 33, cuda_device, P, 1)[0].contiguous()
+    shares = torch.empty((m, 100003, 2), dtype=torch.int32,
+                         device=cuda_device)
+    got = pipelines.split_recombine(sec, st, spec, shares=shares)
+    want, want_shares = pipelines._split_recombine_plain(sec, st, spec)
+    assert torch.equal(got, want) and torch.equal(got, sec)
+    assert torch.equal(shares, want_shares)
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+@pytest.mark.parametrize('t,m', [(1, 4), (2, 5), (4, 9)])
+def test_sgn_kernel_matches_plain_at_parties(cuda_device, t, m, mode):
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(P, t, m, 32, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    a = _parties_shares(20011, 34, cuda_device, P, m)
+    got = pipelines.sgn_step(a, st, (0xFFFFFFFF, 1), spec)
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, (0xFFFFFFFF, 1),
+                                                      spec))
+
+
+@pytest.mark.parametrize('t,m', [(1, 4), (2, 5), (4, 9)])
+def test_random_bits_tail_kernel_matches_plain_at_parties(cuda_device, t,
+                                                          m):
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P52)
+    ctx = prime_field_ctx(P52)
+    r = _parties_shares(100003, 35, cuda_device, P52, m)
+    z = _parties_shares(100003, 36, cuda_device, P52, m)
+    r[:, ::1000] = 0
+    z[:, ::1000] = ctx.encode(np.array([[x + x * x] for x in range(1, m + 1)]),
+                              cuda_device)
+    got = pipelines.random_bits_tail(r, z, field, False, 6, t)
+    want = pipelines._random_bits_tail_plain(r, z, field, False, 6, t)
+    assert got[2].item() == want[2].item() == 101
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+def test_parties_on_the_card(cuda_device):
+    """The main path at (2, 5) and (4, 9), the comparison at (2, 5), the
+    BNN's selftest through its runner's -M 5, every output checked."""
+    import chip_smoke
+    from mpyc_tpu_torch.demos import np_bnnmnist
+    for t, m in ((2, 5), (4, 9)):
+        chip_smoke.run_main_path(cuda_device, n_big=1 << 16, rounds=2, m=m,
+                                 t=t)
+    chip_smoke.run_compare(cuda_device, n=5000, calls=1, m=5, t=2)
+    assert np_bnnmnist.main(['--selftest', '-M', '5']) == 0

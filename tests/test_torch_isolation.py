@@ -189,3 +189,53 @@ def test_port_sources_never_name_jax_or_mpyc_tpu():
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
+
+
+_RUNNERS = _SCRIPT.split('import chip_smoke')[0] + textwrap.dedent('''
+    import importlib, pkgutil
+    import mpyc_tpu_torch.demos as demos
+    names = sorted(m.name for m in pkgutil.iter_modules(demos.__path__))
+    mods = {n: importlib.import_module('mpyc_tpu_torch.demos.' + n)
+            for n in names}
+    from mpyc_tpu_torch.demos import helloworld, np_bnnmnist, parties
+    assert helloworld.main(['--device', 'cpu', '-M', '5']) == 0
+    assert np_bnnmnist.main(['--selftest', '--device', 'cpu', '-M', '5',
+                             '-T', '1', '-b', '2']) == 0
+    parser = __import__('argparse').ArgumentParser()
+    parser.add_argument('--device')
+    rt = parties.runtime(parties.parse_args(parser,
+                                            ['-M', '7', '--device', 'cpu']))
+    assert (len(rt.parties), rt.threshold, len(rt._prss_keys)) == \\
+        (7, 3, 35)
+    loaded = [m for m in sys.modules
+              if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+    assert not loaded, loaded
+    print('OK', len(names))
+''')
+
+
+def test_runners_take_parties_without_jax_or_mpyc_tpu():
+    """Every runner of mpyc_tpu_torch/demos imports with jax and mpyc_tpu
+    blocked, and takes -M and -T through the one helper
+    (``demos/parties.py``): helloworld at -M 5, the BNN's selftest at -M 5
+    -T 1, the helper's runtime at m = 7 (t = 3, C(7, 4) PRSS keys). No
+    runner makes a SimRuntime of its own."""
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    env.pop('PYTHONPATH', None)
+    proc = subprocess.run([sys.executable, '-c', _RUNNERS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == 'OK 24'
+    demos = os.path.join(REPO, 'mpyc_tpu_torch', 'demos')
+    runners = []
+    for name in sorted(n for n in os.listdir(demos) if n.endswith('.py')):
+        with open(os.path.join(demos, name)) as fh:
+            src = fh.read()
+        if 'def main(' in src:
+            runners.append(name)
+            assert 'parties.runtime(args)' in src, name
+            assert 'parties.parse_args(parser, argv)' in src, name
+            assert 'SimRuntime(' not in src.replace('``SimRuntime(3)``', ''), \
+                name
+    assert len(runners) == 22

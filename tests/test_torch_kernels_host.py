@@ -380,13 +380,23 @@ def test_launchers_refuse_what_was_not_built(host_lib, state):
     assert host_lib.mtt_squeeze_mont(st.data_ptr(), out.data_ptr(), 10, 5,
                                      lane, 0, ctypes.addressof(params),
                                      None) == -1
-    spec = pipelines.ReshareSpec(P, 1, 4)
-    a = _shares(10, 3)
-    a4 = torch.cat([a, a[:1]])
-    params = spec.params((0, 0))
-    assert host_lib.mtt_reshare(a4.data_ptr(), None, a4.data_ptr(),
-                                st.data_ptr(), 10, 0,
-                                ctypes.addressof(params), None) == -1
+    # K3 takes 1 <= t <= 4 and 2t + 1 <= m <= 16 (the Python side names
+    # the limits), and n_send must be 2t + 1
+    for t, m in ((1, 17), (5, 11)):
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            pipelines.ReshareSpec(P, t, m).params((0, 0))
+    with pytest.raises(ValueError, match='2t'):
+        pipelines.ReshareSpec(P, 2, 4)
+    a = _parties_shares(10, 3, P, 17)
+    for field, value in (('m', 17), ('t', 5), ('n_send', 3), ('m', 2)):
+        params = pipelines.ReshareSpec(P, 2, 5).params((0, 0))
+        setattr(params, field, value)
+        if field == 't':
+            params.m, params.n_send = 11, 11
+        assert host_lib.mtt_reshare(a.data_ptr(), None, a.data_ptr(),
+                                    st.data_ptr(), 10, 0,
+                                    ctypes.addressof(params), None) == -1, \
+            field
 
 
 @pytest.mark.parametrize('n', [7, 64, 1003])
@@ -522,7 +532,7 @@ def test_sgn_field_ops_match_the_source_at_three_limbs(host_lib, state, l):
     _check_sgn_field_ops(host_lib, state, 'LT', 0, l, P69)
 
 
-def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
+def _check_sgn_field_ops(host_lib, state, mode, f, l, p, t=1, m=3):
     """SgnSpec.field_ops, from which chip_smoke.py bounds K5, counts the
     products the kernel's source runs exactly, and its adds up to the
     subtractions that the ones of c mod 2^l select. n = 1280 fills whole
@@ -532,12 +542,12 @@ def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     6, so an error of 1, 2, 4 or 5 adds per element leaves a remainder and
     one of 3 moves the ones by n / 2."""
     st, _ = state
-    spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
+    spec = pipelines.SgnSpec(p, t, m, l, 30, LT=mode == 'LT',
                              EQ=mode == 'EQ', f=f)
     n = 1280
     params = spec.params((3, 0))
     assert n % host_lib.mtt_sgn_threads(ctypes.addressof(params)) == 0
-    a = _shares(n, 8, p)
+    a = _shares(n, 8, p) if m == 3 else _parties_shares(n, 8, p, m)
     out = torch.empty_like(a)
     counts = _op_counts(host_lib)
     counts[0] = counts[1] = 0
@@ -546,7 +556,8 @@ def _check_sgn_field_ops(host_lib, state, mode, f, l, p):
     draws = spec.draws_per_element()
     mont, adds = spec.field_ops(0)
     per_one = spec.field_ops(1)[1] - adds
-    assert per_one == (3 if mode == 'EQ' else 6)
+    ns = 2 * t + 1     # the senders, and at l = 1 in EQ mode every party
+    assert per_one == ((m if l == 1 else ns) if mode == 'EQ' else 2 * ns)
     assert counts[0] == n * (mont + draws * DRAW_OPS[0])
     ones, rest = divmod(counts[1] - n * (adds + draws * DRAW_OPS[1]),
                         per_one)
@@ -587,26 +598,35 @@ def test_comparison_and_round_trip_refuse_what_was_not_built(host_lib,
                                                              state):
     """The Python side names what is built; the launchers refuse the rest:
     K5 takes any width whose random bits fit its limb count (l + 1 <= 63
-    at two limbs), and (t, m) = (1, 3) only."""
+    at two limbs), and K4 and K5 every (t, m) with 1 <= t <= 4 and 2t + 1
+    <= m <= 16."""
     st, _ = state
-    with pytest.raises(NotImplementedError, match='t=1, m=3'):
-        pipelines.SgnSpec(P, 1, 4, 16).params((0, 0))
-    with pytest.raises(NotImplementedError, match='built for'):
-        pipelines.SplitSpec(P, 1, 4).params()
-    params = pipelines.SgnSpec(P, 1, 3, 32).params((0, 0))
-    a = _shares(10, 7)
-    for field, value in (('l', 63), ('l', 0), ('k', 65), ('m', 4)):
+    for t, m in ((1, 17), (5, 11)):
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            pipelines.SgnSpec(P, t, m, 16).params((0, 0))
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            pipelines.SplitSpec(P, t, m).params()
+    with pytest.raises(NotImplementedError, match='2-limb'):
+        pipelines.SplitSpec(P69, 1, 3).params()
+    a = _parties_shares(10, 7, P, 17)
+    for field, value in (('l', 63), ('l', 0), ('k', 65), ('m', 17),
+                         ('t', 5), ('m', 2)):
         params = pipelines.SgnSpec(P, 1, 3, 32).params((0, 0))
         setattr(params, field, value)
+        if field == 't':
+            params.m = 11
         assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(),
                                 10, 10, 10, ctypes.addressof(params),
                                 None) == -1, field
         assert host_lib.mtt_sgn_threads(ctypes.addressof(params)) == -1
-    params = pipelines.SplitSpec(P, 1, 3).params()
-    params.m = 4
-    assert host_lib.mtt_split_recombine(a.data_ptr(), a.data_ptr(), None,
-                                        st.data_ptr(), 10,
-                                        ctypes.addressof(params), None) == -1
+    for field, value in (('m', 17), ('t', 5), ('n_send', 3)):
+        params = pipelines.SplitSpec(P, 1, 3).params()
+        setattr(params, field, value)
+        if field == 't':
+            params.m, params.n_send = 11, 6
+        assert host_lib.mtt_split_recombine(
+            a.data_ptr(), a.data_ptr(), None, st.data_ptr(), 10,
+            ctypes.addressof(params), None) == -1, field
 
 
 @pytest.mark.parametrize('mode', pipelines.SGN_MODES)
@@ -731,17 +751,18 @@ def test_mont_pow_products_match_the_plan(host_lib, p, e):
     assert fieldops.plan_products(e) < fieldops.pow_products(e)
 
 
-def _tail_shares(p, n, seed, every=7):
-    """(3, n, L) shares r and z, every ``every``-th element planted so that
-    the opening of r^2 + z at threshold 2 is 0 with no share 0 (r a
-    sharing of 0 of degree 1, z one of degree 2), the rest random."""
+def _tail_shares(p, n, seed, every=7, m=3):
+    """(m, n, L) shares r and z, every ``every``-th element planted so that
+    the opening of r^2 + z at threshold 2t (2t <= m - 1) is 0 with no
+    share 0 (r a sharing of 0 of degree 1, z one of degree 2), the rest
+    random."""
     g = np.random.default_rng(seed)
     ctx = prime_field_ctx(p)
-    rv = np.empty((3, n), dtype=object)
-    zv = np.empty((3, n), dtype=object)
+    rv = np.empty((m, n), dtype=object)
+    zv = np.empty((m, n), dtype=object)
     for j in range(n):
         a, b, c = (int(v) for v in g.integers(1, 1 << 62, 3))
-        for i in range(3):
+        for i in range(m):
             x = i + 1
             if j % every == 0:
                 rv[i, j], zv[i, j] = a * x % p, (b * x + c * x * x) % p
@@ -750,12 +771,12 @@ def _tail_shares(p, n, seed, every=7):
     return ctx.encode(rv, 'cpu'), ctx.encode(zv, 'cpu')
 
 
-def _tail_launch(host_lib, r, z, field, signed, f):
+def _tail_launch(host_lib, r, z, field, signed, f, t=1):
     n = r.shape[1]
     bits = torch.empty_like(r)
     flags = torch.empty(n, dtype=torch.uint8)
     count = torch.zeros(1, dtype=torch.int32)
-    params = pipelines._tail_params(field, 1, 3, signed, f)
+    params = pipelines._tail_params(field, t, r.shape[0], signed, f)
     assert host_lib.mtt_random_bits_tail(
         r.data_ptr(), z.data_ptr(), bits.data_ptr(), flags.data_ptr(),
         count.data_ptr(), n, ctypes.addressof(params), None) == 0
@@ -800,14 +821,21 @@ def test_random_bits_tail_refuses_what_was_not_built(host_lib):
     the rest."""
     from mpyc_tpu_torch import finfields
     field = finfields.GF(P52)
-    with pytest.raises(NotImplementedError, match='built for'):
-        pipelines._tail_params(field, 1, 4, False, 0)
+    for t, m in ((1, 17), (5, 11)):
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            pipelines._tail_params(field, t, m, False, 0)
     with pytest.raises(NotImplementedError, match='3 mod 4'):
         pipelines._tail_params(finfields.GF(4503599627370449), 1, 3, False,
                                0)
     r, z = _tail_shares(P52, 10, 38)
+    for field_name, value in (('m', 17), ('t', 5), ('m', 4)):
+        params = pipelines._tail_params(field, 2, 5, False, 0)
+        setattr(params, field_name, value)
+        assert host_lib.mtt_random_bits_tail(
+            r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
+            r.data_ptr(), 10, ctypes.addressof(params), None) == -1
     params = pipelines._tail_params(field, 1, 3, False, 0)
-    params.m = 4
+    params.m = 17
     assert host_lib.mtt_random_bits_tail(
         r.data_ptr(), z.data_ptr(), r.data_ptr(), r.data_ptr(),
         r.data_ptr(), 10, ctypes.addressof(params), None) == -1
@@ -1023,8 +1051,9 @@ def test_reshare2_refuses_what_was_not_built():
     kernel's parameters exist only at (t, m) = (1, 3)."""
     with pytest.raises(ZeroDivisionError):
         pipelines.Reshare2Spec(0b11, 1, 3)
-    with pytest.raises(NotImplementedError):
-        pipelines.Reshare2Spec(0b111, 1, 4).params((0, 0))
+    for t, m in ((1, 4), (2, 5)):
+        with pytest.raises(NotImplementedError, match='(1, 3)'):
+            pipelines.Reshare2Spec(0x11B, t, m).params((0, 0))
 
 
 # -- the fixed-point fields: six limbs, and four with 4p >= R -----------------
@@ -1510,3 +1539,259 @@ def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
         pipelines.ReshareSpec(big, 1, 3).wide_consts('cpu')
     with pytest.raises(NotImplementedError, match='limbs'):
         pipelines.SgnSpec(P367, 1, 3, 335, LT=True).params((0, 0))
+    # the wide K3 and K7 are built for (t, m) = (1, 3) only
+    with pytest.raises(NotImplementedError, match='(1, 3)'):
+        pipelines.ReshareSpec(P200, 2, 5).wide_consts('cpu')
+    from mpyc_tpu_torch import finfields
+    with pytest.raises(NotImplementedError, match='(1, 3)'):
+        pipelines._wide_tail_params(finfields.GF(P200), 2, 5, False, 0,
+                                    'cpu')
+
+
+# -- parties other than three: 1 <= t <= 4, 2t + 1 <= m <= 16 -----------------
+
+def _parties_shares(n, seed, p, m):
+    """(m, n) canonical field elements (< p) as stored limbs."""
+    g = np.random.default_rng(seed)
+    L = prime_field_ctx(p).L
+    words = g.integers(0, 1 << 32, (m, n, L), dtype=np.uint64)
+    words[..., -1] = g.integers(0, p >> 32 * (L - 1), (m, n))
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32))
+
+
+# (1, 4) and (3, 9) have parties past the 2t + 1 senders, (2, 5) and (4, 9)
+# none; (1, 3) is the instantiation of its own
+PARTIES = [(1, 4), (2, 5), (3, 9), (4, 9)]
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+@pytest.mark.parametrize('t,m', PARTIES)
+def test_reshare_source_matches_plain_at_parties(host_lib, state, t, m,
+                                                 fuse):
+    """K3 at a run-time (t, m): 6,407 elements span three thread blocks of
+    3,200, the last ragged."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P, t, m)
+    n = 6407
+    a, b = _parties_shares(n, 61, P, m), _parties_shares(n, 62, P, m)
+    nonce = (0xFFFFFFFF, 9)
+    params = spec.params(nonce)
+    out = torch.empty_like(a)
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr() if fuse else None,
+                                out.data_ptr(), st.data_ptr(), n, int(fuse),
+                                ctypes.addressof(params), None) == 0
+    want = pipelines._reshare_mul_plain(a, b if fuse else None, st, nonce,
+                                        spec)
+    assert torch.equal(out, want)
+
+
+def test_reshare_source_takes_fewer_elements_a_block_at_six_limbs(
+        host_lib, state):
+    """At t = 4 on six limbs the coefficients of 3,200 elements would pass
+    a CTA's shared memory: a block takes 2,240, so 2,300 elements span two
+    blocks."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P176, 4, 9)
+    n = 2300
+    a, b = _parties_shares(n, 63, P176, 9), _parties_shares(n, 64, P176, 9)
+    params = spec.params((5, 0))
+    out = torch.empty_like(a)
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                st.data_ptr(), n, 1,
+                                ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._reshare_mul_plain(a, b, st, (5, 0),
+                                                         spec))
+
+
+@pytest.mark.parametrize('t,m', [(1, 3), (2, 5), (3, 9)])
+@pytest.mark.parametrize('fuse', [True, False])
+def test_reshare_field_ops_match_the_source(host_lib, state, t, m, fuse):
+    """ReshareSpec.field_ops, from which chip_smoke.py bounds K3, counts
+    the source's products and adds (whole thread blocks: 3,200 elements)."""
+    st, _ = state
+    spec = pipelines.ReshareSpec(P, t, m)
+    n = 3200
+    a, b = _parties_shares(n, 65, P, m), _parties_shares(n, 66, P, m)
+    params = spec.params((7, 0))
+    out = torch.empty_like(a)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    assert host_lib.mtt_reshare(a.data_ptr(), b.data_ptr() if fuse else None,
+                                out.data_ptr(), st.data_ptr(), n, int(fuse),
+                                ctypes.addressof(params), None) == 0
+    mont, adds = spec.field_ops(fuse)
+    assert tuple(counts) == (n * (mont + t * DRAW_OPS[0]),
+                             n * (adds + t * DRAW_OPS[1]))
+
+
+@pytest.mark.parametrize('t,m', PARTIES)
+def test_split_recombine_source_matches_plain_at_parties(host_lib, state,
+                                                         t, m):
+    st, _ = state
+    spec = pipelines.SplitSpec(P, t, m)
+    n = 1003
+    sec = _parties_shares(n, 67, P, 1)[0].contiguous()
+    out = torch.empty_like(sec)
+    shares = torch.empty((m, n, 2), dtype=torch.int32)
+    params = spec.params()
+    assert host_lib.mtt_split_recombine(
+        sec.data_ptr(), out.data_ptr(), shares.data_ptr(), st.data_ptr(), n,
+        ctypes.addressof(params), None) == 0
+    want, want_shares = pipelines._split_recombine_plain(sec, st, spec)
+    assert torch.equal(out, want) and torch.equal(out, sec)
+    assert torch.equal(shares, want_shares)
+
+
+@pytest.mark.parametrize('t,m', [(2, 5), (4, 9)])
+def test_split_field_ops_match_the_source_at_parties(host_lib, state, t, m):
+    st, _ = state
+    spec = pipelines.SplitSpec(P, t, m)
+    n = 1000
+    sec = _parties_shares(n, 68, P, 1)[0].contiguous()
+    out = torch.empty_like(sec)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    params = spec.params()         # alive across the call
+    assert host_lib.mtt_split_recombine(
+        sec.data_ptr(), out.data_ptr(), None, st.data_ptr(), n,
+        ctypes.addressof(params), None) == 0
+    mont, adds = spec.field_ops()
+    assert tuple(counts) == (n * (mont + t * DRAW_OPS[0]),
+                             n * (adds + t * DRAW_OPS[1]))
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+@pytest.mark.parametrize('t,m', PARTIES)
+def test_sgn_source_matches_plain_at_parties(host_lib, state, t, m, mode):
+    """K5 at l = 32 (k = 30) on two thread blocks, the last ragged, the
+    instantiation of its t; the parties past the senders from their own
+    shares (LT) or the last reshare (sgn, EQ)."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P, t, m, 32, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    n = 300
+    a = _parties_shares(n, 69, P, m)
+    nonce = (0xFFFFFFFF, 4)
+    out = torch.empty_like(a)
+    params = spec.params(nonce)
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, nonce, spec))
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+@pytest.mark.parametrize('t,m', [(1, 4), (2, 7)])
+def test_sgn_source_matches_plain_at_one_bit(host_lib, state, t, m, mode):
+    """At l = 1 the xor tree has one leaf and no reshare: in EQ mode the
+    parties past the senders take their output from their own bit
+    shares."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P46, t, m, 1, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    n = 100
+    a = _parties_shares(n, 70, P46, m)
+    out = torch.empty_like(a)
+    params = spec.params((3, 0))
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, (3, 0), spec))
+
+
+@pytest.mark.parametrize('p,l,f,t,m', [(P52, 14, 6, 2, 5), (P69, 37, 0, 2, 5),
+                                       (P176, 74, 0, 4, 9),
+                                       (P176, 96, 48, 2, 7)])
+def test_sgn_source_matches_plain_at_parties_and_limbs(host_lib, state, p, l,
+                                                       f, t, m):
+    """K5 (LT) at (t, m) on the fixed-point CNN's field with its scale,
+    at three limbs, and at six limbs: the widest l at t = 4 there (lb =
+    75), and kb2's SecFxp(96, 48) at t = 2."""
+    st, _ = state
+    spec = pipelines.SgnSpec(p, t, m, l, 30, LT=True, f=f)
+    n = 70
+    a = _parties_shares(n, 71, p, m)
+    out = torch.empty_like(a)
+    params = spec.params((9, 0))
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            n, n, ctypes.addressof(params), None) == 0
+    assert torch.equal(out, pipelines._sgn_step_plain(a, st, (9, 0), spec))
+
+
+def test_sgn_source_takes_many_chunks_at_parties(host_lib, state):
+    """One launch of K5 on chunks at (2, 5), against the plain version
+    chunk by chunk (``sgn_chunks`` on the CPU)."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P69, 2, 5, 23, 30, LT=True)
+    n, chunk = 300, 256
+    a = _parties_shares(n, 72, P69, 5)
+    ctr = (0xFFFFFFFE, 7)
+    out = torch.empty_like(a)
+    params = spec.params(ctr)      # alive across the call
+    assert host_lib.mtt_sgn(a.data_ptr(), out.data_ptr(), st.data_ptr(), n,
+                            chunk, pipelines.bucket(n - chunk, chunk),
+                            ctypes.addressof(params), None) == 0
+    want, _ = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize('mode,l,t,m', [('sgn', 32, 2, 5), ('LT', 32, 1, 4),
+                                        ('EQ', 32, 3, 9), ('LT', 14, 3, 9),
+                                        ('EQ', 1, 2, 7), ('sgn', 10, 4, 9)])
+def test_sgn_field_ops_match_the_source_at_parties(host_lib, state, mode, l,
+                                                   t, m):
+    """SgnSpec.field_ops counts the source's products and adds at (t, m),
+    the parties past the senders included."""
+    _check_sgn_field_ops(host_lib, state, mode, 0, l, P, t, m)
+
+
+def test_sgn_refuses_bits_past_their_draws(host_lib, state):
+    """At t > 1 the bit call's t lb draws an element bound lb: kb2's
+    SecFxp(96, 48) (lb = 97, six limbs) runs at t = 2 but not at t = 4
+    (lb <= 75), raising NotImplementedError on the Python side; the
+    launcher refuses it too."""
+    st, _ = state
+    assert [_build.sgn_lb_fit(t, 6) for t in (1, 2, 3, 4)] == \
+        [191, 150, 100, 75]
+    assert [_build.sgn_lb_fit(4, L) for L in (2, 3, 4, 5)] == \
+        [63, 95, 112, 90]
+    spec = pipelines.SgnSpec(P176, 4, 9, 96, 30, LT=True, f=48)
+    with pytest.raises(NotImplementedError, match='at most 75 random bits'):
+        spec.params((0, 0))
+    params = pipelines.SgnSpec(P176, 2, 7, 96, 30, LT=True,
+                               f=48).params((0, 0))
+    assert host_lib.mtt_sgn_threads(ctypes.addressof(params)) == 32
+    params.t, params.m = 4, 9
+    a = _parties_shares(10, 73, P176, 9)
+    assert host_lib.mtt_sgn_threads(ctypes.addressof(params)) == -1
+    assert host_lib.mtt_sgn(a.data_ptr(), a.data_ptr(), st.data_ptr(), 10,
+                            10, 10, ctypes.addressof(params), None) == -1
+
+
+@pytest.mark.parametrize('signed,f', [(False, 6), (True, 0)])
+@pytest.mark.parametrize('t,m', PARTIES)
+def test_random_bits_tail_source_matches_plain_at_parties(host_lib, t, m,
+                                                          signed, f):
+    """K7 on (m, n) shares: the opening at 2t from 2t + 1 senders, the
+    bits of all m parties (past the third read again after the power)."""
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P52)
+    n = 300
+    r, z = _tail_shares(P52, n, 74, m=m)
+    bits, flags, count = _tail_launch(host_lib, r, z, field, signed, f, t)
+    want = pipelines._random_bits_tail_plain(r, z, field, signed, f, t)
+    assert torch.equal(flags, want[1])
+    assert count.item() == want[2].item() == -(-n // 7)
+    assert torch.equal(bits, want[0])
+
+
+@pytest.mark.parametrize('t,m', [(2, 5), (3, 9)])
+def test_random_bits_tail_field_ops_match_the_source_at_parties(host_lib, t,
+                                                                m):
+    from mpyc_tpu_torch import finfields
+    field = finfields.GF(P52)
+    r, z = _tail_shares(P52, 256, 75, m=m)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
+    _tail_launch(host_lib, r, z, field, False, 6, t)
+    mont, adds = pipelines.random_bits_tail_ops(P52, False, 6, t, m)
+    assert tuple(counts) == (256 * mont, 256 * adds)
+    assert (mont, adds) == (2 * (2 * t + 1) + 68 + 1 + m, 4 * t + 1 + m)

@@ -18,9 +18,18 @@ the design where K8 read K1's blocks) and a GF(2^d) reshare round
 read K1's blocks) at SHA3's chi (3, 2^19) in GF(4) and AES's S-box (3,
 32,768) in GF(2^8), each the device time of launches replayed from a CUDA
 graph (``chip_smoke.graph_ms``); K2 at 2^22 draws of 24 bytes, K3 fused
-at (3, 2^22, 2) and K5 (LT, l = 32) at (3, 2^20, 2), each the mean of 10
+and not at (3, 2^22, 2), K4 at the split/recombine round's 3,010,560
+secrets, K5 (LT, l = 32) at (3, 2^20, 2) and K7 at conv1's 15,052,800
+random bits (SecFxp(14, 6)'s field), each the mean of 10 (K4: 20)
 launches by CUDA events (``chip_smoke.cuda_ms``), as chip_smoke.py times
-them.
+them: the (1, 3) rows of PERF.md section 6 that K3, K4, K5 and K7 own.
+
+With ``--parties`` each run also times K5 (l = 32) at 2^20 elements in
+its three modes at (t, m) = (2, 5) and in LT mode at (3, 7) and (4, 9),
+and K7 at conv1's random bits at (2, 5), after holding K3 and K4 at (1,
+3) and each of those K5 against their plain versions at 2^16 elements
+(bit for bit), and prints the ptxas report of K3, K4 and K5 on two limbs
+and of K7 where its process built the library.
 """
 
 from __future__ import annotations
@@ -32,10 +41,15 @@ import sys
 
 
 K1_BLOCKS = (293, 512, 1024, 3168, 4224, 9363, 599187)
+# K5's (t, m, mode) of --parties: the three modes at (2, 5), LT at (3, 7)
+# and (4, 9)
+K5_PARTIES = ((2, 5, 'sgn'), (2, 5, 'LT'), (2, 5, 'EQ'), (3, 7, 'LT'),
+              (4, 9, 'LT'))
 
 
-def one(root: str, label: str) -> None:
-    """Time the kernels of the checkout at root."""
+def one(root: str, label: str, parties: bool = False) -> None:
+    """Time the kernels of the checkout at root (with ``parties``, also
+    at (2, 5))."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -50,6 +64,14 @@ def one(root: str, label: str) -> None:
     st = keccak.state_tensor(st_np, 'cuda')
     nonce = (5, 0)
     res = {}
+    if parties:
+        from mpyc_tpu_torch import _build
+        lib = _build.library()
+        for fn, r in c.ptxas_report(lib.log).items():
+            if shown(fn):
+                print(f'{label}: ptxas {fn}: ' + ', '.join(
+                    f'{k} {v}' for k, v in r.items()), flush=True)
+        check_plain(c, pipelines, p, st, nonce, gen)
     for n in K1_BLOCKS:
         res[f'K1 {n}'] = c.graph_ms(lambda: keccak.keccak_ctr(st, n, lane),
                                     20)
@@ -65,24 +87,89 @@ def one(root: str, label: str) -> None:
     a, b = (c.random_field(p, (3, 1 << 22), gen) for _ in range(2))
     res['K3 fused 2^22'] = c.cuda_ms(
         lambda: pipelines.reshare_mul(a, b, st, nonce, spec3), 10)
+    res['K3 2^22'] = c.cuda_ms(
+        lambda: pipelines.reshare_mul(a, None, st, nonce, spec3), 10)
     del a, b
+    spec4 = pipelines.SplitSpec(p, 1, 3)
+    sec = c.random_field(p, (c.N_SPLIT,), gen)
+    res[f'K4 {c.N_SPLIT}'] = c.cuda_ms(
+        lambda: pipelines.split_recombine(sec, st, spec4), 20)
+    del sec
     spec5 = pipelines.SgnSpec(p, 1, 3, 32, LT=True)
     a = c.random_field(p, (3, 1 << 20), gen)
     res['K5 LT 2^20'] = c.cuda_ms(
         lambda: pipelines.sgn_chunks(a, st, nonce, spec5, 1 << 20), 10)
+    del a
+    from mpyc_tpu_torch import finfields
+    p52 = sectypes.SecFxp(c.FXP_L, c.FXP_F, 'cuda').field.modulus
+    r, z = c.tail_shares(p52, c.FXP_BITS, gen)
+    field = finfields.GF(p52)
+    res[f'K7 {c.FXP_BITS}'] = c.cuda_ms(
+        lambda: pipelines.random_bits_tail(r, z, field, False, 0), 10)
+    del r, z
+    if parties:
+        for t, m, mode in K5_PARTIES:
+            spec5 = pipelines.SgnSpec(p, t, m, 32, LT=mode == 'LT',
+                                      EQ=mode == 'EQ')
+            a = c.random_field(p, (m, 1 << 20), gen)
+            res[f'K5 {mode} ({t}, {m}) 2^20'] = c.cuda_ms(
+                lambda: pipelines.sgn_chunks(a, st, nonce, spec5, 1 << 20),
+                10)
+            del a
+        r, z = c.tail_shares(p52, c.FXP_BITS, gen, m=5)
+        res[f'K7 (2, 5) {c.FXP_BITS}'] = c.cuda_ms(
+            lambda: pipelines.random_bits_tail(r, z, field, False, 0, 2), 10)
+        del r, z
     print(f'{label}: ' + ', '.join(f'{k} {v:.4f} ms' for k, v in res.items()),
           flush=True)
+
+
+def shown(fn: str) -> bool:
+    """Whether --parties prints the ptxas report of the kernel fn."""
+    return fn.startswith(('reshare_kernel<2,', 'split_recombine_kernel',
+                          'random_bits_tail_kernel<2,')) or (
+        fn.startswith('sgn_kernel<') and fn.endswith(',2>'))
+
+
+def check_plain(c, pipelines, p, st, nonce, gen) -> None:
+    """Hold K3 (fused and not) and K4 at (1, 3) and K5 in each mode at (2,
+    5) against their plain versions at 2^16 elements; raise unless equal
+    bit for bit."""
+    n = c.N_KCHECK
+    spec3 = pipelines.ReshareSpec(p, 1, 3)
+    a, b = (c.random_field(p, (3, n), gen) for _ in range(2))
+    for bb in (b, None):
+        c.check(c.max_abs_err(
+            pipelines.reshare_mul(a, bb, st, nonce, spec3),
+            pipelines._reshare_mul_plain(a, bb, st, nonce, spec3)) == 0,
+            'K3 at (1, 3) differs from its plain version')
+    spec4 = pipelines.SplitSpec(p, 1, 3)
+    sec = c.random_field(p, (n,), gen)
+    c.check(c.max_abs_err(pipelines.split_recombine(sec, st, spec4),
+                          pipelines._split_recombine_plain(
+                              sec, st, spec4)[0]) == 0,
+            'K4 at (1, 3) differs from its plain version')
+    for t, m, mode in K5_PARTIES:
+        spec5 = pipelines.SgnSpec(p, t, m, 32, LT=mode == 'LT',
+                                  EQ=mode == 'EQ')
+        a5 = c.random_field(p, (m, n), gen)
+        c.check(c.max_abs_err(
+            pipelines.sgn_step(a5, st, nonce, spec5),
+            pipelines._sgn_step_plain(a5, st, nonce, spec5)) == 0,
+            f'K5 ({mode}) at ({t}, {m}) differs from its plain version')
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('trees', nargs='*', metavar='LABEL=DIR')
     parser.add_argument('--rounds', type=int, default=2)
+    parser.add_argument('--parties', action='store_true',
+                        help='also time K5 and K7 at other (t, m)')
     parser.add_argument('--one', nargs=2, metavar=('DIR', 'LABEL'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
-        one(*args.one)
+        one(*args.one, args.parties)
         return 0
     if not args.trees:
         parser.error('name at least one LABEL=DIR')
@@ -90,7 +177,9 @@ def main() -> int:
     for r in range(args.rounds):
         for label, root in (trees if r % 2 == 0 else trees[::-1]):
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            '--one', root, label], check=True, timeout=900)
+                            '--one', root, label]
+                           + ['--parties'] * args.parties, check=True,
+                           timeout=900)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=30).stdout.strip())
