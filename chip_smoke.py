@@ -39,8 +39,11 @@ secure linear algebra over wide prime fields (7 to 42 limbs: the wide
 kernels of ``csrc/wide.cu``): ridge regression (``demos/
 ridgeregression.py``), the pseudoinverse (``demos/pseudoinverse.py``) and
 multilateration (``demos/multilateration.py``), with the small runners of
-``demos/run-all.sh`` (helloworld, oneliners, parallelsort, ot). Phases,
-each printing one line with its elapsed seconds:
+``demos/run-all.sh`` (helloworld, oneliners, parallelsort, ot); and the
+comparisons over wide prime fields (7 to 48 limbs: the wide K5 of
+``csrc/sgn_wide.cu``): the integer LP solver on kb2 (SecInt(560), 19
+limbs) and secure comparisons at SecInt(192), SecInt(560) and
+SecInt(1504). Phases, each printing one line with its elapsed seconds:
 
 1. probe: a CUDA card must be present (else exit 1, no result); print its
    name and its power limit as nvidia-smi reports them;
@@ -99,8 +102,20 @@ each printing one line with its elapsed seconds:
    (``check_wide_kernels``): the wide K3 (fused and not), K9 and K6 at
    each of its fields' limb counts (7, 8, 9, 10, 12, 42), K7 at seven,
    K5 EQ at l = 31, each against its plain version at the paths' shapes;
-   and the parties' (``check_parties_kernels``): K3 (fused and not), K4
-   with its shares, K5 in its three modes at l = 32 and K7 (with planted
+   and the wide comparison's (``check_wide_sgn_kernels``): the wide K5 at
+   seven limbs (l = 192) in its three modes and in LT mode at (2, 5) and
+   (4, 9), at 19 limbs at l = 64 and 560 (LT on kb2's field at kb2's
+   widest call, 68 elements; at (2, 5) too) and at 48 at l = 32 and 1504,
+   on 8 elements, each bit for bit against its plain version (each plain
+   call's seconds printed), then one launch at each path's shape (2^14
+   at 7 and 19 limbs in 16 chunks, 2^10 at 48 in chunks of 32, kb2's 68
+   at (2, 5)), its first and last chunk bit for bit against the plain
+   version; the wide K3 (fused and not) at (2, 5) at 7, 8, 9, 12, 19 and
+   42 limbs and at (4, 9) at 7, 12 and 42, K7 at 7 and 12 limbs at both;
+   at kb2's 19 limbs K3 on its rank-1 update and K6 at e = p - 2; and
+   this tree's (1, 3) rows of the wide K3 and K7 beside PERF.md's; and
+   the parties' (``check_parties_kernels``): K3 (fused and not), K4 with
+   its shares, K5 in its three modes at l = 32 and K7 (with planted
    zero openings) at (t, m) = (1, 4), (2, 5), (3, 7) and (4, 9) on 2^16
    elements, then each at the shapes phase "parties" launches it
    (``check_parties_paths``: K3 on (m, 2^22, 2) at (2, 5), (3, 7), (4,
@@ -187,19 +202,25 @@ each printing one line with its elapsed seconds:
    main path at (t, m) = (2, 5), (3, 7) and (4, 9), the comparison at
    (2, 5) and (3, 7), the split/recombine round, the BNN (the runner's
    ``-M 5``) and the fixed-point CNN (``--fxp -M 5``) at (2, 5), the
-   networks cold and once warm; ms a call, s a pass and images/s
+   networks cold and once warm; kb2 (``np_lpsolver -i 6 -M 5 -T 2``)
+   stopped after 2 pivots, its tableau the plain exact solver's; ridge
+   regression's synthetic set at accuracies 4-7 (7-9 limbs) and 2
+   multilateration measurements (12 limbs) at (2, 5); ms a call, s a
+   pass and images/s
    beside the (1, 3) numbers of the phases above, the launches by kernel
    of each, and this tree's (1, 3) times of K3, K4, K5 and K7 beside
    PERF.md's;
-14. lp: the LP solver on datasets 0-5 and 7 (uvlp, wiki, tb2x2, woody,
-   LPExample_R20, sc50b, LPExample; SimRuntime(3)): each with the demo's
-   pivot count, its opened max, common denominator and solution equal to
-   the plain exact solver's (``plain_solve``, Python ints), and its
-   certificate true; seconds a solve and a pivot, launches a solve by
-   instantiation; kb2 (SecInt(560), 19 limbs) raises NotImplementedError
-   naming its limb count at its first comparison (K5), its tableau's
-   encoding done by the wide K9; one try of torch.profiler over pivots 11 and 12
-   of LPExample (device time by kernel, idle share, the host's operators);
+14. lp: the LP solver on datasets 0-7 (uvlp, wiki, tb2x2, woody,
+   LPExample_R20, sc50b, kb2, LPExample; SimRuntime(3)): each with the
+   demo's pivot count, its opened max, common denominator and solution
+   equal to the plain exact solver's (``plain_solve``, Python ints), and
+   its certificate true, but kb2 (SecInt(560), 19 limbs: the wide K5, K3,
+   K6, K9) stopped after 12 of its 154 pivots (a cut for time), its
+   opened tableau and denominator ``plain_solve``'s after as many;
+   seconds a solve and a pivot, launches a solve (kb2: a pivot) by
+   instantiation; one try of torch.profiler over pivots 11 and 12 of
+   LPExample and over pivot 2 of kb2 (device time by kernel, idle share,
+   the host's operators);
 15. lp fxp: the fixed-point LP solver on datasets 0-6 (uvlp, wiki,
    tb2x2, woody, LPExample_R20, sc50b, kb2; each at its own SecFxp(l)):
    each certificate true, the opened max within 1% of the optimum, the
@@ -277,16 +298,22 @@ each printing one line with its elapsed seconds:
    first 8 measurements of sets 1 and 3, each solve equal to the plain
    integer solve and the median error under 2,000 m; seconds a call, a
    solve and a measurement;
-25. k1 shapes: K1's launches on each path by block count (each driven
+25. wide comparison: 2^14 random SecInt(192) and SecInt(560) values and
+   2^10 SecInt(1504) (7, 19 and 48 limbs; the range's ends, 0 and equal
+   pairs planted), and SecInt(560) at (2, 5): np_less, np_sgn and the
+   comparison in EQ mode (np_sgn(..., EQ=True)), np_equal at SecInt(192)
+   ([NO07] above 60 bits), every opened output equal to Python's; the
+   median ms of 3 calls and comparisons/s;
+26. k1 shapes: K1's launches on each path by block count (each driven
    path prints its own; a record of the launcher's calls, no counter of
    the wrapper's), and K1 timed at each block count the paths launched
    (CTAs, device time replayed from a CUDA graph, bound, the launch
    floor);
-26. report: one JSON line of the kernels (every instantiation that a path
+27. report: one JSON line of the kernels (every instantiation that a path
    launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each of phases 4-11, 13-16, 18-24 zeroes the launch counters just
+Each of phases 4-11, 13-16, 18-25 zeroes the launch counters just
 before it and reads them just after, and records K1's launches by block
 count; each must show that the
 instantiations of its path ran (``PATH_ENTRIES``), and that it launched
@@ -378,15 +405,22 @@ TAIL_SLICE = 1 << 22           # K7's plain version at conv1's bits, a slice
 PR_MS = {'reshare_mul<L=2, fused>': 0.2463, 'reshare_mul<L=2>': 0.2164,
          'split_recombine': 0.1474, 'sgn_step<LT, l=32, L=2>': 5.4808,
          'random_bits_tail<L=2, lazy>': 1.9924}
-# the LP solver (demos/np_lpsolver.py): the datasets the lp phase solves
-# (kb2, dataset 6, needs 19 limbs and raises on the card), and each
-# field's widest comparison on its path (the elements of the widest
-# np_less: a cost row or a certificate's row) and the secure numbers of
-# a [NO07] zero test (one: c.x == y.b) with its k = 30 random bits
-LP_DATASETS = (0, 1, 2, 3, 4, 5, 7)
+# the LP solver (demos/np_lpsolver.py): the datasets the lp phase solves,
+# and each field's widest comparison on its path (the elements of the
+# widest np_less: a cost row or a certificate's row) and the secure
+# numbers of a [NO07] zero test (one: c.x == y.b) with its k = 30 random
+# bits
+LP_DATASETS = (0, 1, 2, 3, 4, 5, 6, 7)
+# datasets stopped after a number of pivots, their tableau held against
+# plain_solve's: kb2 (SecInt(560), 19 limbs) after 12 of its 154 (a cut
+# for time: 0.37 s a pivot, PERF.md section 2), and after
+# LP_KB2_PARTIES[1] at (t, m) = LP_KB2_PARTIES[0] in phase "parties"
 LP_KB2 = 6
-LP_PROFILE = 7                 # the dataset traced by torch.profiler,
-LP_WINDOW = (11, 13)           # over its pivots 11 and 12 (of 175)
+LP_PIVOTS = {LP_KB2: 12}
+LP_KB2_PARTIES = ((2, 5), 2)
+# the datasets traced by torch.profiler, each over its pivots window[0]
+# .. window[1] - 1: LPExample's 11 and 12 (of 175), kb2's 2
+LP_PROFILES = ((7, (11, 13)), (LP_KB2, (2, 3)))
 LP_FIELDS = {                  # l -> (m + n, the widest comparison)
     8: (5, 3), 6: (5, 3), 70: (40, 20), 104: (118, 70), 110: (490, 288)}
 LP_UPDATE = {70: 21 * 21, 104: 71 * 49, 110: 203 * 289}  # rank-1 update
@@ -486,6 +520,69 @@ PINV_RUNS = ((5, 5, 5, 4, 1), (20, 20, 16, 6, 1))
 N_MLAT = 8                     # multilateration's measurements (of 615;
 #                                a cut for the run's time)
 LINALG_SEED = 31
+# comparisons over wide prime fields (csrc/sgn_wide.cu): phase "wide
+# comparison" compares (np_less, np_sgn, and at WIDE_EQUAL_BITS np_equal)
+# random values at each (bits of SecInt, values) of WIDE_CMP, 7, 19 and
+# 48 limbs, and at SecInt(560) at (t, m) = (2, 5) too, the median of
+# WIDE_CMP_CALLS calls
+WIDE_CMP = ((192, 1 << 14), (560, 1 << 14), (1504, 1 << 10))
+WIDE_CMP_PARTIES = (560, 1 << 14, 2, 5)
+WIDE_CMP_CALLS = 3
+WIDE_EQUAL_BITS = 192
+# the wide K5 held against its plain version (check_wide_sgn_kernels):
+# (bits of SecInt, or 0 for kb2's field; its limbs; l; modes; (t, m);
+# elements: 68, kb2's widest call (its ratios' rows), as np_sgn makes it
+# (on its bucket of 128), else 8 in one call of their own: the plain
+# version's time grows with the elements, at 48 limbs and l = 1504 from
+# 5-10 s a mode on a bucket of 64)
+WIDE_SGN_CHECK = (
+    (192, 7, 192, pipelines.SGN_MODES, (1, 3), 8),
+    (192, 7, 192, ('LT',), (2, 5), 8), (192, 7, 192, ('LT',), (4, 9), 8),
+    (560, 19, 64, pipelines.SGN_MODES, (1, 3), 8),
+    (0, 19, 560, ('LT',), (1, 3), 68),
+    (560, 19, 560, ('sgn', 'EQ'), (1, 3), 8),
+    (560, 19, 560, pipelines.SGN_MODES, (2, 5), 8),
+    (1504, 48, 32, pipelines.SGN_MODES, (1, 3), 8),
+    (1504, 48, 1504, pipelines.SGN_MODES, (1, 3), 8))
+# the wide K5 at the paths' shapes, one launch each, its first and last
+# chunk held against the plain version (bits of SecInt, or 0 for kb2's
+# field; mode; (t, m); elements; chunk, 0 for np_sgn's 1,024): phase
+# "wide comparison"'s 2^14 at 7 and 19 limbs (16 chunks: 1,024 CTAs of 16
+# elements each) and 2^10 at 48 (a full grid of 1,024 CTAs, in chunks of
+# 32: the plain version of a 1,024-element call at l = 1504 does not fit
+# in the card's memory), kb2's 68 at (2, 5); l the field's bits, one mode
+# a shape, the modes in turn
+WIDE_SGN_PATHS = ((192, 'sgn', (1, 3), 1 << 14, 0),
+                  (560, 'LT', (1, 3), 1 << 14, 0),
+                  (1504, 'EQ', (1, 3), 1 << 10, 32),
+                  (0, 'LT', (2, 5), 68, 0))
+# the wide K3 (fused and not) and K7 at (t, m) other than (1, 3): K3 at
+# SecInt(bits) of L limbs for each (bits, L) (7, 8, 9, 12, 19, 42 limbs:
+# the fields phase "parties" and kb2 take at (2, 5), and 7, 12, 42 at
+# (4, 9)) on WIDE_PARTIES_N elements, K7 at 7 and 12 limbs (at 42 its
+# plain version's 1,300-bit power takes about 20 s on the card: the
+# host build holds it, tests/test_torch_kernels_host.py)
+WIDE_PARTIES_CHECK = {
+    (2, 5): ((192, 7), (220, 8), (250, 9), (335, 12), (560, 19),
+             (1300, 42)),
+    (4, 9): ((192, 7), (335, 12), (1300, 42))}
+WIDE_TAIL_BITS = (192, 335)
+WIDE_PARTIES_N = 64
+# phase "parties" over wide fields at PARTIES_NET: ridge regression's
+# synthetic set at accuracies LINALG_ALPHAS, multilateration's first
+# N_MLAT_PARTIES measurements
+N_MLAT_PARTIES = 2
+# the (1, 3) rows of PERF.md section 6 that the wide K3 and K7 own, ms on
+# NVIDIA H100 80GB HBM3, 700 W, measured before they took every (t, m):
+# phase "kernels" prints this tree's beside them
+WIDE_MS_BEFORE = {
+    'reshare_mul<L=7, fused>': 0.0953, 'reshare_mul<L=8, fused>': 0.1017,
+    'reshare_mul<L=9, fused>': 0.1046, 'reshare_mul<L=10, fused>': 0.1189,
+    'reshare_mul<L=12, fused>': 0.1398, 'reshare_mul<L=42, fused>': 0.7946,
+    'reshare_mul<L=7>': 0.0812, 'reshare_mul<L=8>': 0.0867,
+    'reshare_mul<L=9>': 0.0880, 'reshare_mul<L=10>': 0.1032,
+    'reshare_mul<L=12>': 0.1157, 'reshare_mul<L=42>': 0.6617,
+    'random_bits_tail<L=7>': 1.2087}
 DEADLINE_S = 1100              # hard stop, inside the 1200 s limit
 
 # Peaks for bound_ms (H100 SXM, 700 W; see PERF.md). Integer work is
@@ -668,8 +765,15 @@ ENTRIES = {
     'random_bits_tail<L=7>': ('random_bits_tail', (7, False)),
     'sgn_step<EQ, l=31, L=2>': ('sgn_step', ('EQ', 31, 2, 0)),
     # the integer LP's kb2 (SecInt(560), 19 limbs): its tableau's encoding
-    # before its first comparison raises (K5 refuses 19 limbs)
+    # and arithmetic (K9), its products (K3), its reciprocals' public
+    # inverses (K6), its comparisons (the wide K5, LT at l = 560)
     'field_op<L=19>': ('field_op', 19),
+    'reshare_mul<L=19, fused>': ('reshare_mul', (19, True)),
+    'reshare_mul<L=19>': ('reshare_mul', (19, False)),
+    'mont_pow<L=19>': ('mont_pow', (19, False)),
+    # phase "wide comparison": K9 at 48 limbs (SecInt(1504)'s input and
+    # differences)
+    'field_op<L=48>': ('field_op', 48),
 }
 
 
@@ -701,7 +805,33 @@ def parties_entries() -> dict:
 
 
 ENTRIES.update(parties_entries())
+
+
+def wide_entries() -> dict:
+    """The wide K5's instantiations (csrc/sgn_wide.cu, one compiled kernel:
+    the keys name the launch's parameters) of WIDE_SGN_CHECK, and the wide
+    K3 and K7 at the (t, m) of WIDE_PARTIES_CHECK, as the kernels line
+    lists them."""
+    res = {}
+    for bits, L, l, modes, (t, m), _ in WIDE_SGN_CHECK:
+        at = '' if (t, m) == (T, M) else f', t={t}, m={m}'
+        for mode in modes:
+            res[f'sgn_step<{mode}, l={l}, L={L}{at}>'] = (
+                'sgn_step', (mode, l, L, 0) + pipelines.parties_key(t, m))
+    for (t, m), fields in WIDE_PARTIES_CHECK.items():
+        for bits, L in fields:
+            for fused, s in ((True, ', fused'), (False, '')):
+                res[f'reshare_mul<L={L}{s}, t={t}, m={m}>'] = (
+                    'reshare_mul', (L, fused, t, m))
+            if bits in WIDE_TAIL_BITS:
+                res[f'random_bits_tail<L={L}, t={t}, m={m}>'] = (
+                    'random_bits_tail', (L, False, t, m))
+    return res
+
+
+ENTRIES.update(wide_entries())
 WIDE_SOURCE = 'mpyc_tpu_torch/csrc/wide.cu'
+SGN_WIDE_SOURCE = 'mpyc_tpu_torch/csrc/sgn_wide.cu'
 
 
 def entry_source(name: str, key) -> str:
@@ -711,6 +841,8 @@ def entry_source(name: str, key) -> str:
     L = key if isinstance(key, int) else None
     if name in ('reshare_mul', 'mont_pow', 'random_bits_tail'):
         L = key[0]
+    if name == 'sgn_step' and _build.wide(key[2]):
+        return SGN_WIDE_SOURCE
     return WIDE_SOURCE if L is not None and _build.wide(L) else \
         KERNELS[name]['source']
 # the instantiations each path must launch
@@ -752,7 +884,8 @@ PATH_ENTRIES = {
            'sgn_step<LT, l=110, L=5>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
            *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5)),
-           'field_op<L=19>'),
+           'field_op<L=19>', 'reshare_mul<L=19, fused>', 'reshare_mul<L=19>',
+           'sgn_step<LT, l=560, L=19>', 'mont_pow<L=19>'),
     # every truncated product (K3 fused) and every product by an integral
     # operand (K3 without the product), the comparisons at each type's
     # width and scale 2^f (K5), the truncations' random bits (K7)
@@ -856,6 +989,46 @@ def parties_path_entries() -> dict:
 
 
 PATH_ENTRIES.update(parties_path_entries())
+
+
+def wide_path_entries() -> dict:
+    """The instantiations each path over wide fields at other (t, m), and
+    each of phase "wide comparison", must launch."""
+    t, m = PARTIES_NET
+    at = f't={t}, m={m}'
+    res = {
+        # kb2's pivots: products (K3), comparisons (the wide K5), the
+        # reciprocals' public inverses (K6), the arithmetic between (K9)
+        f'lp kb2 ({t}, {m})': (
+            f'reshare_mul<L=19, fused, {at}>', f'reshare_mul<L=19, {at}>',
+            f'sgn_step<LT, l=560, L=19, {at}>', 'mont_pow<L=19>',
+            'field_op<L=19>'),
+        # ridge regression's synthetic set (7, 8, 9 limbs) and
+        # multilateration (12): products and reshares (K3), det R's
+        # inverse (K6), the arithmetic (K9)
+        f'linear algebra ({t}, {m})': (
+            *(f'reshare_mul<L={L}{s}, {at}>' for L in (7, 8, 9, 12)
+              for s in (', fused', '')),
+            *(f'mont_pow<L={L}>' for L in (7, 8, 9, 12)),
+            *(f'field_op<L={L}>' for L in (7, 8, 9, 12))),
+        # the three comparisons at each width (the wide K5), the inputs'
+        # draws reduced and the differences (K9); np_equal at SecInt(192):
+        # [NO07]'s random bits (K7), Legendre symbols (K6) and products
+        # (K3)
+        'wide comparison': (
+            'random_bits_tail<L=7>', 'mont_pow<L=7>', 'reshare_mul<L=7>',
+            *(f'sgn_step<{mode}, l={l}, L={L}>' for l, L in
+              ((192, 7), (560, 19), (1504, 48))
+              for mode in pipelines.SGN_MODES),
+            'field_op<L=7>', 'field_op<L=19>', 'field_op<L=48>'),
+        f'wide comparison ({t}, {m})': (
+            *(f'sgn_step<{mode}, l=560, L=19, {at}>'
+              for mode in pipelines.SGN_MODES), 'field_op<L=19>'),
+    }
+    return res
+
+
+PATH_ENTRIES.update(wide_path_entries())
 
 
 def say(msg: str) -> None:
@@ -1174,6 +1347,36 @@ def trace_lines(prof, top: int | None = None) -> list:
     return lines
 
 
+def trace_steps(run, window) -> tuple:
+    """One try of torch.profiler over the steps window[0] .. window[1] - 1
+    of ``run`` (a solve or a learning, called with the hook its runner
+    calls with a step's number before each step; it stops at window[1]):
+    the window's seconds (host clock, between synchronizes) and
+    ``trace_lines``' lines."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+    prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    t0 = []
+
+    class Window(Exception):
+        pass
+
+    def on_step(k):
+        if k in window:
+            torch.cuda.synchronize()
+            t0.append(time.perf_counter())
+        if k == window[0]:
+            prof.start()
+        elif k == window[1]:
+            prof.stop()
+            raise Window
+    try:
+        run(on_step)
+    except Window:
+        pass
+    return t0[1] - t0[0], trace_lines(prof, top=12)
+
+
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
     """Largest difference of two uint32 word tensors (held as int32)."""
     xa = x.to(torch.int64) & 0xFFFFFFFF
@@ -1466,6 +1669,28 @@ def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> tuple:
           f'of {chunks} chunks of {chunk} ({n} elements) differs from its '
           'plain version chunk by chunk')
     return err, ms
+
+
+def sgn_ends_check(spec, a, st, chunk: int) -> dict:
+    """K5's launch of a's chunks (``pipelines.sgn_chunks``; from chunk 8
+    on the counter carries into its high word) at a path's shape, its
+    first and last chunk each held bit for bit against that chunk's call
+    of the plain version (counter ctr + c): a check of a launch too large
+    to hold whole against the plain version. Raises on a difference;
+    returns the plain version's ms (host clock, between synchronizes) by
+    chunk."""
+    n, ctr = a.shape[1], (0xFFFFFFF8, 4)
+    out, _ = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
+    res = {}
+    for c in sorted({0, (n - 1) // chunk}):
+        part = slice(c * chunk, (c + 1) * chunk)
+        (want, _), res[c] = timed_once(lambda: pipelines._sgn_chunks_plain(
+            a[:, part], st, pipelines._add_ctr(ctr, c), spec, chunk))
+        check(max_abs_err(out[:, part], want) == 0,
+              f'K5 ({spec.mode}, l = {spec.l}, L = {spec.ctx.L}, '
+              f'({spec.t}, {spec.m})): chunk {c} of one launch on {n} '
+              'elements differs from its plain version')
+    return res
 
 
 def sgn_meas(spec, a, st, nonce, chunk: int, err: int,
@@ -3000,32 +3225,52 @@ def _build_lib():
     return _build.library().lib
 
 
-def run_lp(device, datasets=LP_DATASETS, profile=None,
-           window=LP_WINDOW) -> dict:
+def per_pivot(r: dict) -> dict:
+    """A stopped solve's launches (``run_lp``) a pivot, by instantiation."""
+    return {k: round(v / r['pivots'], 2) for k, v in r['launches'].items()}
+
+
+def run_lp(device, datasets=LP_DATASETS, pivots=LP_PIVOTS, profiles=(),
+           m=M, t=T) -> dict:
     """Phase "lp": the secure LP solver (``mpyc_tpu_torch.demos.
-    np_lpsolver``, SimRuntime(3)) on each dataset: the pivots must be the
-    demo's count (``DATASETS``), the opened max, common denominator and
-    solution those of the plain exact solver (``plain_solve``, Python
-    ints), and the certificate true. Per dataset: seconds a solve (host
-    clock, after a synchronize) and a pivot, launches by instantiation.
-    ``profile``: a dataset solved once more, under torch.profiler over
-    its pivots window[0] .. window[1] - 1 only (the solve stops there):
-    device busy ms and idle share. kb2 (19 limbs) must raise
-    NotImplementedError naming its limb count on the card."""
+    np_lpsolver``, SimRuntime(m, threshold=t)) on each dataset: the
+    pivots must be the demo's count (``DATASETS``), the opened max,
+    common denominator and solution those of the plain exact solver
+    (``plain_solve``, Python ints), and the certificate true; a dataset of
+    ``pivots`` stopped after its pivots there, its opened tableau and
+    denominator plain_solve's after as many. Per dataset: seconds a solve
+    (host clock, after a synchronize) and a pivot, launches by
+    instantiation. ``profiles``: (dataset, window) pairs, each dataset
+    solved once more under torch.profiler over its pivots window[0] ..
+    window[1] - 1 only (``trace_steps``; the solve stops there): under
+    'traces', by name, the window's seconds and the trace's lines."""
     from mpyc_tpu_torch.demos import np_lpsolver as lp
     res = {}
     for i in datasets:
         name, _, scale, n_iter = lp.DATASETS[i]
+        stop = pivots.get(i, 0)
         before = counts()
-        rt = SimRuntime(M, device=device)
+        rt = SimRuntime(m, device=device, threshold=t)
         sync = torch.cuda.synchronize if rt.device.type == 'cuda' else \
             (lambda: None)
         sync()
         t0 = time.perf_counter()
-        got = lp.solve(rt, i, out=lambda s: None)
+        got = lp.solve(rt, i, out=lambda s: None, max_pivots=stop)
         sync()
         s = time.perf_counter() - t0
         after = counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if stop:
+            want = lp.plain_solve(lp.tableau_ints(name, scale), stop)
+            check(got.get('stopped') and (got['iterations'], got['T'],
+                                          got['cd']) == want,
+                  f'lp {name} at ({t}, {m}): the tableau after {stop} '
+                  'pivots differs from the plain exact solver\'s')
+            res[name] = dict(s=s, pivots=stop, s_pivot=s / stop,
+                             stopped=True, of=n_iter, cd=got['cd'],
+                             launches=launches)
+            continue
         want = lp.plain_solve(lp.tableau_ints(name, scale))
         check(got['iterations'] == n_iter, f'lp {name}: {got["iterations"]} '
               f'pivots, not {n_iter}')
@@ -3036,43 +3281,11 @@ def run_lp(device, datasets=LP_DATASETS, profile=None,
         res[name] = dict(
             s=s, pivots=n_iter, s_pivot=s / max(n_iter, 1),
             mx=got['mx'], cd=got['cd'], value=got['mx'] / got['cd'] / scale,
-            launches={k: after[k] - before[k] for k in after
-                      if after[k] != before[k]})
-    rt = SimRuntime(M, device=device)
-    if rt.device.type == 'cuda':       # the plain versions take any field
-        try:
-            lp.solve(rt, LP_KB2, out=lambda s: None)
-            raise AssertionError('lp kb2: no NotImplementedError on the '
-                                 'card')
-        except NotImplementedError as e:
-            check('L=19' in str(e), 'lp kb2: the error names no limb '
-                  f'count: {e}')
-            res['kb2'] = str(e)
-    if profile is not None:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as profiler
-        prof = profiler(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
-
-        class Window(Exception):
-            pass
-
-        def on_pivot(k):
-            if k in window:
-                torch.cuda.synchronize()
-            if k == window[0]:
-                prof.start()
-                res['window_t0'] = time.perf_counter()
-            elif k == window[1]:
-                res['window_s'] = time.perf_counter() - res['window_t0']
-                prof.stop()
-                raise Window
-        try:
-            lp.solve(SimRuntime(M, device=device), profile,
-                     out=lambda s: None, on_pivot=on_pivot)
-        except Window:
-            pass
-        res['trace'] = trace_lines(prof, top=12)
+            launches=launches)
+    res['traces'] = {lp.DATASETS[i][0]: trace_steps(
+        lambda on_pivot, i=i: lp.solve(
+            SimRuntime(m, device=device, threshold=t), i, out=lambda s: None,
+            on_pivot=on_pivot), window) for i, window in profiles}
     return res
 
 
@@ -3184,31 +3397,10 @@ def run_lp_fxp(device, datasets=LPFXP_DATASETS, profile=None,
             launches={k: after[k] - before[k] for k in after
                       if after[k] != before[k]})
     if profile is not None:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as profiler
-        prof = profiler(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
-
-        class Window(Exception):
-            pass
-
-        def on_pivot(k):
-            if k in window:
-                torch.cuda.synchronize()
-            if k == window[0]:
-                prof.start()
-                res['window_t0'] = time.perf_counter()
-            elif k == window[1]:
-                res['window_s'] = time.perf_counter() - res['window_t0']
-                prof.stop()
-                raise Window
-        try:
-            lpf.solve(lpfxp_runtime(device, lpf.DATASETS[profile][0]),
-                      profile,
-                      out=lambda s: None, on_pivot=on_pivot)
-        except Window:
-            pass
-        res['trace'] = trace_lines(prof, top=12)
+        res['window_s'], res['trace'] = trace_steps(
+            lambda on_pivot: lpf.solve(
+                lpfxp_runtime(device, lpf.DATASETS[profile][0]), profile,
+                out=lambda s: None, on_pivot=on_pivot), window)
     return res
 
 
@@ -3607,29 +3799,10 @@ def run_id3(device, datasets=ID3_DATASETS, profile=None) -> dict:
             launches={k: round((after[k] - before[k]) / nodes, 1)
                       for k in after if after[k] != before[k]})
     if profile is not None:
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as profiler
-        prof = profiler(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
-
-        class Window(Exception):
-            pass
-
-        def on_node(k):
-            torch.cuda.synchronize()
-            if k == 0:
-                prof.start()
-                res['window_t0'] = time.perf_counter()
-            else:
-                res['window_s'] = time.perf_counter() - res['window_t0']
-                prof.stop()
-                raise Window
-        try:
-            id3.build(SimRuntime(M, device=device), profile,
-                      out=lambda s: None, on_node=on_node)
-        except Window:
-            pass
-        res['trace'] = trace_lines(prof, top=12)
+        res['window_s'], res['trace'] = trace_steps(
+            lambda on_node: id3.build(SimRuntime(M, device=device), profile,
+                                      out=lambda s: None, on_node=on_node),
+            (0, 1))
     return res
 
 
@@ -4093,26 +4266,264 @@ def check_wide_kernels() -> dict:
     return res
 
 
+def wide_field(bits: int) -> int:
+    """The prime of SecInt(bits) (bits + 32 bits: 7 limbs at 192, 19 at
+    560, 48 at 1504), or at 0 kb2's (SecInt(560) with a root of unity of
+    order m + n)."""
+    if bits == 0:
+        from mpyc_tpu_torch.demos import np_lpsolver as lp
+        probe = lp.read_csv(lp.DATASETS[LP_KB2][0])
+        return sectypes.SecInt(560, 'cpu', n=sum(probe.shape) - 2).field \
+            .modulus
+    return sectypes.SecInt(bits, 'cpu').field.modulus
+
+
+def check_wide_sgn_kernels(ptx: dict) -> dict:
+    """Phase "kernels", the wide comparison's part (csrc/sgn_wide.cu): the
+    wide K5 at each (field, l, mode, (t, m), elements) of WIDE_SGN_CHECK
+    (kb2's 68 as np_sgn calls them, ``sgn_chunks_check``; else one call
+    of 8), bit for bit against its plain version (tolerance: exact; each
+    plain call's seconds printed) and timed beside it and its bound
+    (``sgn_meas``: SgnSpec.field_ops at L limbs through int_lane_ops); at
+    seven limbs in all three modes at l = 192 (SecInt(192)) and in LT mode
+    at (2, 5) and (4, 9); at 19 limbs in all three modes at l = 64 and at
+    l = 560 (LT on kb2's own field, the others on SecInt(560)'s), and at
+    (2, 5); at 48 limbs in all three modes at l = 32 and 1504. Then one
+    launch at each path shape of WIDE_SGN_PATHS, its first and last chunk
+    each held bit for bit against the plain version of that chunk's call
+    (counter ctr + c), each plain call's seconds printed. Then the
+    wide K3 (fused and not) and K7 at the (t, m) of WIDE_PARTIES_CHECK
+    on (m, WIDE_PARTIES_N, L) shares (K7 with one element in 7 planted to
+    open to 0), and at kb2's 19 limbs at (1, 3) K3 on its rank-1 update
+    (2,898 elements) and K6 at e = p - 2 on one element (its reciprocals'
+    public inverses), and K9 at 48 limbs on 1,024 elements (phase "wide
+    comparison"'s inputs at SecInt(1504)). Each row gets its kernel's
+    ptxas report."""
+    from mpyc_tpu_torch import finfields
+    gen = np.random.default_rng(41)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFF0, 3)
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    entries = wide_entries()
+    for bits, L, l, modes, (t, m), n in WIDE_SGN_CHECK:
+        p = wide_field(bits)
+        check(prime_field_ctx(p).L == L, f'SecInt({bits}) has not {L} limbs')
+        at = '' if (t, m) == (T, M) else f', t={t}, m={m}'
+        for mode in modes:
+            spec = pipelines.SgnSpec(p, t, m, l, 30, LT=mode == 'LT',
+                                     EQ=mode == 'EQ')
+            a = random_field(p, (m, n), gen)
+            name = f'sgn_step<{mode}, l={l}, L={L}{at}>'
+            if bits == 0:
+                err, plain = sgn_chunks_check(spec, a, st, nonce, chunk)
+                call = chunk
+            else:
+                got = pipelines.sgn_step(a, st, nonce, spec)
+                want, plain = timed_once(
+                    lambda: pipelines._sgn_step_plain(a, st, nonce, spec))
+                err = max_abs_err(got, want)
+                check(err == 0, f'wide K5 {name} differs from its plain '
+                      'version')
+                call = n
+            res[name] = sgn_meas(spec, a, st, nonce, call, err, plain)
+            say(f'  wide K5 {name}: ({m}, {n}, {L}) shares equal '
+                f'to plain; plain {plain / 1e3:.3f} s, kernel '
+                f'{res[name]["ms"]:.4f} ms')
+    for bits, mode, (t, m), n, ch in WIDE_SGN_PATHS:
+        p = wide_field(bits)
+        spec = pipelines.SgnSpec(p, t, m, bits or 560, 30, LT=mode == 'LT',
+                                 EQ=mode == 'EQ')
+        a = random_field(p, (m, n), gen)
+        ch = ch or chunk
+        for c, plain in sgn_ends_check(spec, a, st, ch).items():
+            say(f'  wide K5 {mode}, l = {spec.l}, L = {spec.ctx.L} at ({t}, '
+                f'{m}), one launch on {n} elements in chunks of {ch}: '
+                f'chunk {c} (counter + {c}) equal to plain; plain '
+                f'{plain / 1e3:.3f} s')
+    for (t, m), fields in WIDE_PARTIES_CHECK.items():
+        for bits, L in fields:
+            p = wide_field(bits)
+            check(prime_field_ctx(p).L == L, f'SecInt({bits}) has not {L} '
+                  'limbs')
+            spec = pipelines.ReshareSpec(p, t, m)
+            n = WIDE_PARTIES_N
+            for fused, s in ((True, ', fused'), (False, '')):
+                a = random_field(p, (m, n), gen)
+                b = random_field(p, (m, n), gen) if fused else None
+                got = pipelines.reshare_mul(a, b, st, nonce, spec)
+                want, plain = timed_once(lambda: pipelines._reshare_mul_plain(
+                    a, b, st, nonce, spec))
+                err = max_abs_err(got, want)
+                check(err == 0, f'wide K3{s} (L = {L}) at ({t}, {m}) '
+                      'differs from its plain version')
+                res[f'reshare_mul<L={L}{s}, t={t}, m={m}>'] = reshare_meas(
+                    spec, a, b, st, nonce, err, plain)
+            if bits in WIDE_TAIL_BITS:
+                field = finfields.GF(p)
+                r, z = tail_shares(p, 30, gen, every=7, m=m)
+                got = pipelines.random_bits_tail(r, z, field, False, 0, t)
+                want, plain = timed_once(
+                    lambda: pipelines._random_bits_tail_plain(
+                        r, z, field, False, 0, t))
+                err = max(max_abs_err(got[0], want[0]),
+                          int((got[1] != want[1]).sum()),
+                          abs(int(got[2].item()) - int(want[2].item())))
+                check(err == 0 and int(got[2].item()) >= 30 // 7,
+                      f'wide K7 (L = {L}) at ({t}, {m}) differs from its '
+                      'plain version')
+                res[f'random_bits_tail<L={L}, t={t}, m={m}>'] = tail_meas(
+                    field, r, z, err, t, plain)
+            k7 = ', K7' if bits in WIDE_TAIL_BITS else ''
+            say(f'  wide K3 fused and not{k7} at L = {L}, ({t}, {m}): equal '
+                'to plain')
+    p = wide_field(0)
+    ctx = prime_field_ctx(p)
+    spec = pipelines.ReshareSpec(p, T, M)
+    n = 69 * 42    # kb2's rank-1 update: its tableau, 69 x 42
+    for fused, s in ((True, ', fused'), (False, '')):
+        a = random_field(p, (M, n), gen)
+        b = random_field(p, (M, n), gen) if fused else None
+        got = pipelines.reshare_mul(a, b, st, nonce, spec)
+        want, plain = timed_once(lambda: pipelines._reshare_mul_plain(
+            a, b, st, nonce, spec))
+        err = max_abs_err(got, want)
+        check(err == 0, f'wide K3{s} (L = 19) differs from its plain '
+              'version')
+        res[f'reshare_mul<L=19{s}>'] = reshare_meas(spec, a, b, st, nonce,
+                                                    err, plain)
+    z = random_field(p, (1,), gen)
+    e = p - 2
+    want, plain_ms = timed_once(lambda: fieldops._mont_pow_plain(z, e, ctx))
+    err = max_abs_err(fieldops.mont_pow(z, e, ctx), want)
+    check(err == 0, 'wide K6 (L = 19) differs from its plain version')
+    k, least = fieldops.plan_products(e), chain_products(e)
+    bd, o = bound(ctx.L * 4 * 2, least * least_product_ops(ctx))
+    res['mont_pow<L=19>'] = dict(
+        shape=f'1 element, L = 19, a {e.bit_length()}-bit exponent: the '
+        f'plan\'s {k} products (any chain {least} at the least)',
+        max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(z, e, ctx), 3),
+        plain_ms=plain_ms, bound_ms=bd, bound_by=o)
+    say('  wide K3 fused and not on (3, 2898, 19), K6 at L = 19 (kb2): '
+        'equal to plain')
+    p = wide_field(1504)
+    ctx = prime_field_ctx(p)
+    x, y = random_field(p, (1024,), gen), random_field(p, (1024,), gen)
+    err = max(max_abs_err(fieldops.field_op(x, y, op, ctx),
+                          fieldops._field_op_plain(x, y, op, ctx))
+              for op in ('mul', 'add', 'sub'))
+    check(ctx.L == 48 and err == 0, 'wide K9 (L = 48) differs from its '
+          'plain version')
+    bd, o = bound(3 * 1024 * 48 * 4, 1024 * mont_mul_ops(48))
+    res['field_op<L=48>'] = dict(
+        shape='(1024, 48), a Montgomery product (SecInt(1504)\'s 2^10 '
+        'inputs)', max_abs_err=err,
+        ms=graph_ms(lambda: fieldops.field_op(x, y, 'mul', ctx), 20),
+        plain_ms=cuda_ms(lambda: fieldops._field_op_plain(x, y, 'mul', ctx),
+                         1), bound_ms=bd, bound_by=o)
+    say('  wide K9 at L = 48 (SecInt(1504)): (1024, 48), its three ops, '
+        'equal to plain')
+    check(set(entries) <= set(res),
+          'check_wide_sgn_kernels: an entry without a row')
+    for name, r in res.items():
+        fn = ('sgn_wide_kernel' if name.startswith('sgn_step') else
+              'reshare_wide_kernel' if name.startswith('reshare_mul') else
+              'random_bits_tail_wide_kernel'
+              if name.startswith('random_bits') else 'mont_pow_wide_kernel'
+              if name.startswith('mont_pow') else 'field_op_wide_kernel')
+        rep_ = ', '.join(f'{k} {v}' for k, v in ptx.get(fn, {}).items())
+        say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
+            f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
+            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x; ptxas {fn}: '
+            f'{rep_ or "not in the report"}')
+    return res
+
+
+def rand_ints(gen, bits: int, n: int) -> np.ndarray:
+    """n random signed Python ints in [-2^(bits - 1), 2^(bits - 1)) (object
+    array), from 62-bit draws of gen."""
+    words = -(-bits // 62)
+    raw = gen.integers(0, 1 << 62, (n, words), dtype=np.int64)
+    vals = [sum(int(w) << 62 * k for k, w in enumerate(row))
+            % (1 << bits) - (1 << bits - 1) for row in raw]
+    return np.array(vals, dtype=object)
+
+
+def run_wide_compare(device, cases=WIDE_CMP, calls=WIDE_CMP_CALLS, seed=43,
+                     m=M, t=T) -> dict:
+    """Phase "wide comparison": for each (bits, n) of ``cases``, SecInt(bits)
+    values A and B (n each, |a|, |b| < 2^(bits - 2), so that a - b fits
+    the bits compared; one pair in 8 equal, 0 and the range's ends
+    planted) input by two parties at m parties and threshold t; np_less,
+    np_sgn(A - B) and np_sgn(A - B, EQ=True) (the wide K5 in its three
+    modes), and at WIDE_EQUAL_BITS np_equal too (above 60 bits [NO07]'s
+    zero test: K7, K6 and K3, not K5), each output opened and held against
+    Python's comparison of the inputs; then on the card each timed over
+    ``calls`` calls (device time, CUDA events). Returns per case and op
+    the ms of each call."""
+    rt = SimRuntime(m, device=device, threshold=t)
+    rt.start()
+    gen = np.random.default_rng(seed)
+    on_card = rt.device.type == 'cuda'
+    res = {}
+    for bits, n in cases:
+        secint = rt.SecInt(bits)
+        a = rand_ints(gen, bits - 2, n)
+        b = rand_ints(gen, bits - 2, n)
+        same = gen.choice(n, max(n // 8, 1), replace=False)
+        b[same] = a[same]
+        lim = (1 << bits - 3) - 1
+        for i, (x, y) in enumerate([(0, 0), (-lim, lim), (lim, -lim),
+                                    (lim, lim)][:n]):
+            a[i], b[i] = x, y
+        A = rt.input(secint.array(a))[0]
+        B = rt.input(secint.array(b))[1]
+        eq = [int(x == y) for x, y in zip(a, b)]
+        ops = {
+            'np_less': (lambda: rt.np_less(A, B),
+                        [int(x < y) for x, y in zip(a, b)]),
+            'np_sgn': (lambda: rt.np_sgn(A - B),
+                       [(x > y) - (x < y) for x, y in zip(a, b)]),
+            'np_sgn EQ': (lambda: rt.np_sgn(A - B, EQ=True), eq),
+        }
+        if bits == WIDE_EQUAL_BITS:
+            ops['np_equal'] = (lambda: rt.np_equal(A, B), eq)
+        for name, (secure, want) in ops.items():
+            got = [int(v) for v in np.asarray(rt.output(secure())).tolist()]
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            check(len(got) == n and not bad, f'{name} at SecInt({bits}), '
+                  f'({t}, {m}): {len(bad)} of {n} outputs wrong, first at '
+                  f'{bad[:5]}')
+            ms = []
+            for _ in range(calls if on_card else 0):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                secure()
+                ev1.record()
+                torch.cuda.synchronize()
+                ms.append(ev0.elapsed_time(ev1))
+            res[f'{name} of {n} at SecInt({bits}) (L = '
+                f'{secint.field.array.ctx.L}), ({t}, {m})'] = ms
+    rt.shutdown()
+    return res
+
+
 def run_linalg(device, alphas=LINALG_ALPHAS, datasets=LINALG_DATASETS,
                pinv=PINV_RUNS, k_mlat=N_MLAT, n=1000, d=10,
                seed=LINALG_SEED) -> dict:
     """Phase "linear algebra": the runners of ``demos/run-all.sh``'s
     helloworld, oneliners, parallelsort and ot at m = 3; ridge regression
-    (``mpyc_tpu_torch/demos/ridgeregression.py``) on the synthetic set (n
-    samples, d features, one target) at each accuracy of ``alphas`` and on
-    ``datasets`` (winequality-red, -white, student-mat); the pseudoinverse
-    of each of ``pinv`` ((m, n, rank, bits, seed)); multilateration at
-    SecInt(335) on the first ``k_mlat`` measurements of sets 1 and 3.
-    Every runner checks its results itself (ridge: (adj A) B and det A
-    exactly against a plain integer Bareiss, the train error within 0.2
-    of a plain ridge solve; the pseudoinverse: the Penrose equations mod
-    p, the denominators, numpy's pinv; multilateration: each solve
-    exactly, the median error under 2,000 m) and fails the phase
-    otherwise. Seconds a call, a solve or a measurement, on the host clock
-    after a synchronize."""
-    from mpyc_tpu_torch.demos import (helloworld, multilateration,
-                                      oneliners, ot, parallelsort,
-                                      pseudoinverse, ridgeregression)
+    (``run_ridge``: the synthetic set at each accuracy of ``alphas``, and
+    ``datasets``); the pseudoinverse of each of ``pinv`` ((m, n, rank,
+    bits, seed)); multilateration (``run_mlat``) on ``k_mlat``
+    measurements. Every runner checks its results itself (the
+    pseudoinverse: the Penrose equations mod p, the denominators, numpy's
+    pinv) and fails the phase otherwise. Seconds a call, a solve or a
+    measurement, on the host clock after a synchronize."""
+    from mpyc_tpu_torch.demos import (helloworld, oneliners, ot,
+                                      parallelsort, pseudoinverse)
     rt = SimRuntime(M, device=device)
     on_card = rt.device.type == 'cuda'
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -4129,9 +4540,29 @@ def run_linalg(device, alphas=LINALG_ALPHAS, datasets=LINALG_DATASETS,
         sync()
         res[name] = time.perf_counter() - t0
         check(ok, f'{name}: a result differs from Python\'s')
+    res.update(run_ridge(rt, alphas, datasets, n, d, seed))
+    for m, n_, r_, b, sd in pinv:
+        r = pseudoinverse.run(rt, m, n_, r_, b, sd, out=quiet)
+        check(r['ok'], f'pseudoinverse {m} x {n_}: a check failed')
+        res[f'pseudoinverse {m} x {n_} of rank {r_}, SecInt({r["l"]}) '
+            f'(L = {r["L"]}): s'] = r['s']
+    res.update(run_mlat(rt, k_mlat))
+    return res
+
+
+def run_ridge(rt, alphas=LINALG_ALPHAS, datasets=LINALG_DATASETS, n=1000,
+              d=10, seed=LINALG_SEED) -> dict:
+    """Ridge regression (``mpyc_tpu_torch/demos/ridgeregression.py``) on
+    runtime rt: the synthetic set (n samples, d features, one target) at
+    each accuracy of ``alphas``, and ``datasets`` (winequality-red,
+    -white, student-mat). Each solve checks itself ((adj A) B and det A
+    exactly against a plain integer Bareiss, the train error within 0.2 of
+    a plain ridge solve) and fails the phase otherwise. Seconds a solve."""
+    from mpyc_tpu_torch.demos import ridgeregression
+    res = {}
     for ds in (0,) + tuple(datasets):
         r = ridgeregression.run(rt, ds, alphas if ds == 0 else None, n=n,
-                                d=d, seed=seed, out=quiet)
+                                d=d, seed=seed, out=lambda s: None)
         name = 'synthetic' if ds == 0 else ridgeregression.DATASETS[ds][0]
         for alpha, sol in r['solves'].items():
             check(sol['ok'], f'ridge regression, {name} at alpha {alpha}: '
@@ -4141,18 +4572,21 @@ def run_linalg(device, alphas=LINALG_ALPHAS, datasets=LINALG_DATASETS,
                 f'{alpha}, {sol["bits"]}-bit field (L = {sol["L"]}): s a '
                 f'solve; relative train error {sol["rel"][0]:.6f}'] = \
                 sol['s']
-    for m, n_, r_, b, sd in pinv:
-        r = pseudoinverse.run(rt, m, n_, r_, b, sd, out=quiet)
-        check(r['ok'], f'pseudoinverse {m} x {n_}: a check failed')
-        res[f'pseudoinverse {m} x {n_} of rank {r_}, SecInt({r["l"]}) '
-            f'(L = {r["L"]}): s'] = r['s']
-    r = multilateration.run(rt, k=k_mlat, out=quiet)
+    return res
+
+
+def run_mlat(rt, k: int) -> dict:
+    """Multilateration (``mpyc_tpu_torch/demos/multilateration.py``) at
+    SecInt(335) on runtime rt, on the first k measurements of sets 1 and
+    3: each solve exact and the median error under 2,000 m, else the
+    phase fails. Seconds a measurement (median)."""
+    from mpyc_tpu_torch.demos import multilateration
+    r = multilateration.run(rt, k=k, out=lambda s: None)
     check(r['ok'], f'multilateration: exact solves and median error '
           f'{r["median"]:.3f} m')
-    res[f'multilateration of {r["n"]} measurements, SecInt({r["bits"]}) '
-        f'(L = {r["L"]}): s a measurement (median); median error '
-        f'{r["median"]:.3f} m'] = float(np.median(r['s_each']))
-    return res
+    return {f'multilateration of {r["n"]} measurements, SecInt({r["bits"]}) '
+            f'(L = {r["L"]}): s a measurement (median); median error '
+            f'{r["median"]:.3f} m': float(np.median(r['s_each']))}
 
 
 def warm_stats(pass_s: list) -> tuple:
@@ -4230,12 +4664,18 @@ def main() -> int:
                            (check_field_ops, ()), (check_id3_kernels, ()),
                            (check_one_limb_kernels, ()),
                            (check_wide_kernels, ()),
+                           (check_wide_sgn_kernels, (ptx,)),
                            (check_parties_kernels, (p, ptx))):
             t_part = time.perf_counter()
             meas.update(part(*args))
             part_s[part.__name__] = time.perf_counter() - t_part
         say('  seconds to check and time each part: ' + ', '.join(
             f'{k} {v:.1f}' for k, v in part_s.items()))
+        for name, pr in WIDE_MS_BEFORE.items():
+            r = meas[name]
+            say(f'  (1, 3) {name} [{r["shape"]}]: {r["ms"]:.4f} ms on this '
+                f'tree (the wide K3 and K7 at every (t, m)), {pr:.4f} ms in '
+                f'PERF.md ({r["ms"] / pr:.3f}x) on {smi}')
         for name, r in meas.items():
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
@@ -4525,6 +4965,29 @@ def main() -> int:
         for name, r in res['layers'].items():
             say(f'  ({t_}, {m_}): {name} in a marked pass: {r["ms"]:.4f} ms '
                 'device time between the barriers')
+        t_s = time.perf_counter()
+        (t_, m_), k_ = LP_KB2_PARTIES
+        res = drive(f'lp kb2 ({t_}, {m_})', lambda: run_lp(
+            'cuda', datasets=(LP_KB2,), pivots={LP_KB2: k_}, m=m_,
+            t=t_))['kb2']
+        res_parties[f'lp kb2 ({t_}, {m_})'] = res
+        say(f'  ({t_}, {m_}): kb2 (np_lpsolver -i 6 -M {m_} -T {t_}) at '
+            f'SecInt(560), 19 limbs: stopped after {k_} pivots, its opened '
+            f'tableau equal to the plain exact solver\'s; {res["s"]:.4f} s, '
+            f'{res["s_pivot"]:.4f} s a pivot on {smi}; launches a pivot: '
+            f'{per_pivot(res)}')
+        rt_w = SimRuntime(m_, device='cuda', threshold=t_)
+        res = drive(f'linear algebra ({t_}, {m_})', lambda: {
+            **run_ridge(rt_w, datasets=()), **run_mlat(rt_w, N_MLAT_PARTIES)})
+        res_parties[f'linear algebra ({t_}, {m_})'] = res
+        say(f'  ({t_}, {m_}): ridge regression\'s synthetic set and '
+            f'{N_MLAT_PARTIES} multilateration measurements, each checked; '
+            f'seconds on {smi}:')
+        for name, v in res.items():
+            say(f'    {name}: {v:.4f}')
+        say(f'  the wide paths at ({t_}, {m_}) in '
+            f'{time.perf_counter() - t_s:.3f} s')
+        torch.cuda.empty_cache()
         for name, pr in PR_MS.items():
             r = meas[name]
             say(f'  (1, 3) {name} [{r["shape"]}]: {r["ms"]:.4f} ms on this '
@@ -4534,21 +4997,31 @@ def main() -> int:
 
     with Phase('lp'):
         res_lp = res = drive('lp', lambda: run_lp('cuda',
-                                                  profile=LP_PROFILE))
+                                                  profiles=LP_PROFILES))
+        traces = res.pop('traces')
         for name, r in res.items():
-            if not isinstance(r, dict):
+            if r.get('stopped'):
+                say(f'  {name}: stopped after {r["pivots"]} of {r["of"]} '
+                    'pivots (a cut for time), its opened tableau and '
+                    f'denominator ({r["cd"]}) equal to the plain exact '
+                    f'solver\'s after as many; {r["s"]:.4f} s, '
+                    f'{r["s_pivot"]:.4f} s a pivot on {smi}')
+                say(f'    launches a pivot: {per_pivot(r)}')
                 continue
             say(f'  {name}: {r["pivots"]} pivots, max = {r["mx"]} / '
                 f'{r["cd"]} / scale = {r["value"]!r}, equal to the plain '
                 f'exact solver, certificate true; {r["s"]:.4f} s a solve, '
                 f'{r["s_pivot"]:.4f} s a pivot on {smi}')
             say(f'    launches a solve: {r["launches"]}')
-        say(f'  kb2 on the card: NotImplementedError: {res["kb2"]}')
-        say(f'  torch.profiler over pivots {LP_WINDOW[0]}-{LP_WINDOW[1] - 1} '
-            f'of dataset {LP_PROFILE} ({res["window_s"]:.4f} s on the host '
-            f'clock, traced) on {smi}:')
-        for line in res['trace']:
-            say(f'    {line}')
+        for (_, window), (name, (s_w, lines)) in zip(LP_PROFILES,
+                                                     traces.items()):
+            first, last = window[0], window[1] - 1
+            pivots = f'pivot {first}' if first == last else \
+                f'pivots {first}-{last}'
+            say(f'  torch.profiler over {pivots} of {name} ({s_w:.4f} s on '
+                f'the host clock, traced) on {smi}:')
+            for line in lines:
+                say(f'    {line}')
         torch.cuda.empty_cache()
 
     with Phase('lp fxp'):
@@ -4717,6 +5190,22 @@ def main() -> int:
             say(f'    {name}: {v:.4f}')
         torch.cuda.empty_cache()
 
+    with Phase('wide comparison'):
+        t_, m_ = WIDE_CMP_PARTIES[2:]
+        res_wc = drive('wide comparison', lambda: run_wide_compare('cuda'))
+        res_wc.update(drive(f'wide comparison ({t_}, {m_})',
+                            lambda: run_wide_compare(
+                                'cuda', cases=(WIDE_CMP_PARTIES[:2],),
+                                m=m_, t=t_)))
+        for name, ms in res_wc.items():
+            med_w = sorted(ms)[len(ms) // 2]
+            n_w = int(name.split(' of ')[1].split(' ')[0])
+            say(f'  {name}: every output equal to Python\'s; median '
+                f'{med_w:.4f} ms of {len(ms)} calls ('
+                f'{", ".join(f"{x:.4f}" for x in ms)}), '
+                f'{n_w / (med_w / 1e3):.6g} comparisons/s on {smi}')
+        torch.cuda.empty_cache()
+
     with Phase('k1 shapes'):
         shapes = collections.Counter()
         for path, hist in k1_blocks.items():
@@ -4790,6 +5279,7 @@ def main() -> int:
                             if isinstance(v, dict)},
                     'sort': res_sort, 'hash_chains': res_hc,
                     'colocated': res_co, 'linear_algebra': res_la,
+                    'wide_comparison': res_wc,
                     'parties': res_parties,
                     'card': smi}))
     say(f'total {time.perf_counter() - t_all:.3f} s')

@@ -3,8 +3,9 @@
 The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
 with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
 ``sgn.cu`` once for each limb count and threshold of K5 (at three to
-six limbs t = 1 and a run-time t), ``gf2.cu``, K8, and ``wide.cu``,
-K3, K6, K7 and K9 on fields of 7 to 48 limbs) in an
+six limbs t = 1 and a run-time t), ``gf2.cu``, K8, ``wide.cu``,
+K3, K6, K7 and K9 on fields of 7 to 48 limbs, and ``sgn_wide.cu``, K5 on
+fields of 7 to 48 limbs) in an
 ``nvcc -c`` of its own, all started together, then one ``nvcc -shared`` links them. The
 library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
 version>/`` beside the package, is written under a temporary name and
@@ -35,8 +36,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / 'csrc'
 # every source file, all hashed into the build's directory
 SOURCES = ('kernels.cu', 'reshare.cu', 'pow.cu', 'sgn.cu', 'gf2.cu',
-           'wide.cu', 'common.cuh', 'keccak.cuh', 'limb.cuh', 'stage.cuh',
-           'reshare.cuh', 'sgn.cuh', 'pow.cuh')
+           'wide.cu', 'sgn_wide.cu', 'common.cuh', 'keccak.cuh', 'limb.cuh',
+           'stage.cuh', 'reshare.cuh', 'sgn.cuh', 'pow.cuh', 'wide.cuh')
 # the translation units: (object name, source, extra nvcc flags); K3 at a
 # run-time (t, m), K6 and K7 a unit each (MTT_POW_KERNEL); K5's
 # launchers one limb count (MTT_SGN_NL) and threshold (MTT_SGN_T) a unit,
@@ -48,7 +49,8 @@ UNITS = (('kernels', 'kernels.cu', ()), ('reshare', 'reshare.cu', ()),
     (f'sgn{nl}t{T}', 'sgn.cu', (f'-DMTT_SGN_NL={nl}', f'-DMTT_SGN_T={T}'))
     for nl, ts in ((2, (4, 3, 2, 1)), (3, (1, 0)), (4, (1, 0)),
                    (5, (1, 0)), (6, (1, 0))) for T in ts) \
-    + (('gf2', 'gf2.cu', ()), ('wide', 'wide.cu', ()))
+    + (('gf2', 'gf2.cu', ()), ('wide', 'wide.cu', ()),
+       ('sgn_wide', 'sgn_wide.cu', ()))
 # units whose objects stay beside the library: the powers' kernels, whose
 # SASS chip_smoke.py reads from them rather than from the whole library
 KEPT_UNITS = ('pow6', 'pow7')
@@ -61,10 +63,17 @@ BUILD_TIMEOUT_S = 600
 
 # limits of the kernels' parameter blocks (csrc/kernels.cu)
 MAX_NL = 6       # limbs of a field element (p < 2^192; csrc/common.cuh)
-# the wide kernels' limb counts (csrc/wide.cu: L a launch parameter, the
-# field's constants in a device buffer, not in a parameter block)
+# the wide kernels' limb counts (csrc/wide.cu, csrc/sgn_wide.cu: L a launch
+# parameter, the field's constants in a device buffer, not in a parameter
+# block)
 WIDE_MIN_NL = 7
 WIDE_MAX_NL = 48  # p < 2^1536
+# the wide K5 (csrc/sgn_wide.cu): a CTA of SGN_WIDE_THREADS threads takes
+# one element at a time, a launch at most SGN_WIDE_GRID CTAs, whose
+# workspaces (sgn_wide_ws_words each) take at most SGN_WIDE_WS_BYTES
+SGN_WIDE_THREADS = 128
+SGN_WIDE_GRID = 1024
+SGN_WIDE_WS_BYTES = 1 << 31
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_T = (MAX_SEND - 1) // 2   # threshold t: 1 to 4
@@ -136,7 +145,20 @@ class WideTail(ctypes.Structure):
     """Mirror of ``struct WideTail`` in csrc/wide.cu (K7 at 7 to 48
     limbs)."""
     _fields_ = [('pow', WidePow), ('has_scale', ctypes.c_int32),
-                ('has_offset', ctypes.c_int32)]
+                ('has_offset', ctypes.c_int32), ('t', ctypes.c_int32),
+                ('m', ctypes.c_int32)]
+
+
+class SgnWide(ctypes.Structure):
+    """Mirror of ``struct SgnWide`` in csrc/sgn_wide.cu (K5 at 7 to 48
+    limbs): the comparison's parameters, the call's counter and the
+    workspace words of a CTA."""
+    _fields_ = [('nl', ctypes.c_int32), ('t', ctypes.c_int32),
+                ('m', ctypes.c_int32), ('l', ctypes.c_int32),
+                ('k', ctypes.c_int32), ('mode', ctypes.c_int32),
+                ('has_f', ctypes.c_int32), ('n0inv', ctypes.c_uint32),
+                ('nonce_lo', ctypes.c_uint32), ('nonce_hi', ctypes.c_uint32),
+                ('ws_stride', ctypes.c_longlong)]
 
 
 class TailParams(ctypes.Structure):
@@ -158,9 +180,9 @@ class TailParams(ctypes.Structure):
 # threshold t and party count m with 1 <= t <= MAX_T and 2t + 1 <= m <=
 # MAX_M (``check_parties``).
 # Fields of 7 to 48 limbs take the wide kernels instead (csrc/wide.cu: K3,
-# K6, K7 and K9 with L a launch parameter; ``wide(L)``, at (t, m) = (1, 3)
-# only); K5 refuses them, and fields of more than 48 limbs raise
-# NotImplementedError on the card.
+# K6, K7 and K9, csrc/sgn_wide.cu: K5, with L a launch parameter;
+# ``wide(L)``; K3, K5 and K7 at every (t, m) of ``check_parties``), and
+# fields of more than 48 limbs raise NotImplementedError on the card.
 BUILT_NL = (1, 2, 3, 4, 5, 6)
 SGN_BUILT_NL = (2, 3, 4, 5, 6)
 # (limbs, words a draw) of K2's instantiations (csrc/kernels.cu
@@ -191,6 +213,23 @@ def sgn_lb_fit(t: int, L: int) -> int:
             > SGN_SMEM_MAX:
         lb -= 1
     return lb
+
+
+def sgn_wide_ws_words(t: int, L: int, l: int, mode: int) -> int:
+    """Workspace words of a wide K5 CTA (csrc/sgn_wide.cu
+    sgn_wide_ws_words): the bit shares, lb = l + 1 (l in EQ mode, mode 2)
+    values of the 2t + 1 senders' shares, and unless LT (mode 1) the xor
+    vector, l of them; L words a value."""
+    lb = l + (0 if mode == 2 else 1)
+    return (lb + (0 if mode == 1 else l)) * (2 * t + 1) * L
+
+
+def sgn_wide_grid(n: int, ws_words: int) -> int:
+    """CTAs of a wide K5 launch on n elements: one an element, at most
+    SGN_WIDE_GRID, and as many as SGN_WIDE_WS_BYTES of workspace hold
+    (at least one)."""
+    return max(1, min(n, SGN_WIDE_GRID,
+                      SGN_WIDE_WS_BYTES // (4 * ws_words)))
 
 
 def set_limbs(dst, limbs) -> None:
@@ -294,7 +333,12 @@ _SIGNATURES = {
                           ctypes.c_int, _C],
     'mtt_reshare_wide': [_C, _C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
                          ctypes.c_uint, ctypes.c_int, ctypes.c_uint,
-                         ctypes.c_uint, _C],
+                         ctypes.c_uint, ctypes.c_int, ctypes.c_int, _C],
+    'mtt_sgn_wide': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_longlong, _C, _C, ctypes.c_longlong, _C, _C],
+    'mtt_sgn_wide_smem': [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    'mtt_sgn_wide_ws': [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int],
     'mtt_mont_pow_wide': [_C, _C, ctypes.c_longlong, _C, _C, _C],
     'mtt_random_bits_tail_wide': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C,
                                   _C, _C],

@@ -6,14 +6,16 @@
 // secure integers.
 //
 // - K3 (reshare_wide_kernel): one GRR98 reshare round, with the local
-//   product when fused. Replaces mpyc_tpu/models/pipelines.py:87
-//   make_reshare_step (the Pallas call at :249 tiles (..., L, ...) for any
-//   L), in the stream layout of its XLA twin step_xla, as kernels.cu's
-//   reshare_kernel: coefficient C_0 of element e is draw e of the
-//   squeeze_mont stream, W = L + 2 words, EPB = 42 / W draws a sponge
-//   block (4 at L = 7, 3 at L = 12, 1 from L = 19 on); from L = 41 on a
-//   draw is wider than a block and owns two whole blocks, as the JAX
-//   package's words_to_elements lays them out.
+//   product when fused, at every threshold t and party count m of
+//   parties_ok (launch parameters). Replaces mpyc_tpu/models/
+//   pipelines.py:87 make_reshare_step (the Pallas call at :249 tiles (...,
+//   L, ...) for any L and (t, m)), in the stream layout of its XLA twin
+//   step_xla, as reshare.cuh's reshare_kernel: coefficient C_k of element
+//   e is draw k n + e of the squeeze_mont stream, W = L + 2 words, EPB =
+//   42 / W draws a sponge block (4 at L = 7, 3 at L = 12, 2 at L = 19, 1
+//   from L = 20 on); from L = 41 on a draw is wider than a block and owns
+//   two whole blocks, as the JAX package's words_to_elements lays them
+//   out.
 // - K9 (field_op_wide_kernel): an elementwise product, add or subtraction
 //   mod p, an operand of step 0 a constant: the field context's arithmetic
 //   between the kernels, the PRSS draws' reduction into the field (two
@@ -22,7 +24,10 @@
 //   (fieldops.pow_plan): the public inverses of the reciprocals, the
 //   Legendre symbols of [NO07]'s zero tests.
 // - K7 (random_bits_tail_wide_kernel): the tail of a round of random bits
-//   around the inverse square root, as pow.cuh's random_bits_tail_kernel.
+//   around the inverse square root, as pow.cuh's random_bits_tail_kernel,
+//   at every (t, m) too.
+// K5 on these fields is csrc/sgn_wide.cu; the field arithmetic of both is
+// wide.cuh's.
 //
 // Design. One thread an element, WIDE_THREADS a CTA. At 42 limbs three
 // shares and the CIOS accumulator alone would take about 170 registers,
@@ -36,138 +41,15 @@
 // nothing here changes their registers or stack. One instantiation a
 // kernel serves every L, so the build takes seconds, not thirty
 // instantiations. K3 stages its CTA's draws in shared memory as
-// reshare_kernel does: each sponge block the CTA's 128 draws touch is
+// reshare_kernel does: each sponge block each of the CTA's t sets of 128
+// draws touches is
 // squeezed once, by one thread, which reduces its draws into GF(p). Every
 // result is canonical, so each kernel equals its plain version bit for
 // bit.
 #include "common.cuh"
+#include "wide.cuh"
 
 namespace mtt {
-
-constexpr int WIDE_MIN_NL = 7;       // _build.WIDE_MIN_NL
-constexpr int WIDE_MAX_NL = 48;      // _build.WIDE_MAX_NL (p < 2^1536)
-constexpr int WIDE_THREADS = 128;
-constexpr int WIDE_POW_TABLE = 8;   // x^1, x^3, .., x^15 (pow.cuh POW_TABLE)
-static_assert(WIDE_MAX_NL + 2 <= 2 * RATE_WORDS,
-              "a fused draw of at most two sponge blocks");
-
-// (a + b) mod p for a, b < p; out may be a or b.
-static __device__ void wadd_mod(const uint32_t* a, const uint32_t* b,
-                                const uint32_t* p, int L, uint32_t* out) {
-  MTT_COUNT_OP(1);
-  uint32_t s[WIDE_MAX_NL];
-  uint32_t carry = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint64_t v = (uint64_t)a[i] + b[i] + carry;
-    s[i] = (uint32_t)v;
-    carry = (uint32_t)(v >> 32);
-  }
-  uint32_t borrow = 0;
-  for (int i = 0; i < L; ++i)
-    borrow = (uint32_t)(((uint64_t)s[i] - p[i] - borrow) >> 63);
-  if (carry || !borrow) {
-    borrow = 0;
-    for (int i = 0; i < L; ++i) {
-      const uint64_t v = (uint64_t)s[i] - p[i] - borrow;
-      out[i] = (uint32_t)v;
-      borrow = (uint32_t)(v >> 63);
-    }
-  } else {
-    for (int i = 0; i < L; ++i) out[i] = s[i];
-  }
-}
-
-// (a - b) mod p for a, b < p; out may be a or b.
-static __device__ void wsub_mod(const uint32_t* a, const uint32_t* b,
-                                const uint32_t* p, int L, uint32_t* out) {
-  MTT_COUNT_OP(1);
-  uint32_t d[WIDE_MAX_NL];
-  uint32_t borrow = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint64_t v = (uint64_t)a[i] - b[i] - borrow;
-    d[i] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  const uint32_t mask = 0u - borrow;   // add p back after a borrow
-  uint32_t carry = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint64_t v = (uint64_t)d[i] + (p[i] & mask) + carry;
-    out[i] = (uint32_t)v;
-    carry = (uint32_t)(v >> 32);
-  }
-}
-
-// Montgomery product a * b * R^-1 mod p by CIOS (limb.cuh mont_mul with L
-// a run-time count). a < R, b < p (or both < p). Result < p; out may be
-// a or b.
-static __device__ void wmont_mul(const uint32_t* a, const uint32_t* b,
-                                 const uint32_t* p, uint32_t n0inv, int L,
-                                 uint32_t* out) {
-  MTT_COUNT_OP(0);
-  uint32_t t[WIDE_MAX_NL + 2];
-  for (int i = 0; i < L + 2; ++i) t[i] = 0;
-  for (int i = 0; i < L; ++i) {
-    const uint32_t bi = b[i];
-    uint32_t c = 0;
-    for (int j = 0; j < L; ++j) {
-      const uint64_t v = (uint64_t)a[j] * bi + t[j] + c;
-      t[j] = (uint32_t)v;
-      c = (uint32_t)(v >> 32);
-    }
-    uint64_t v = (uint64_t)t[L] + c;
-    t[L] = (uint32_t)v;
-    t[L + 1] += (uint32_t)(v >> 32);
-    const uint32_t m = t[0] * n0inv;
-    v = (uint64_t)m * p[0] + t[0];
-    c = (uint32_t)(v >> 32);
-    for (int j = 1; j < L; ++j) {
-      v = (uint64_t)m * p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)v;
-      c = (uint32_t)(v >> 32);
-    }
-    v = (uint64_t)t[L] + c;
-    t[L - 1] = (uint32_t)v;
-    t[L] = t[L + 1] + (uint32_t)(v >> 32);
-    t[L + 1] = 0;
-  }
-  // t < 2p: subtract p where t >= p (or the word above it is set)
-  uint32_t borrow = 0;
-  for (int i = 0; i < L; ++i)
-    borrow = (uint32_t)(((uint64_t)t[i] - p[i] - borrow) >> 63);
-  if (t[L] || !borrow) {
-    borrow = 0;
-    for (int i = 0; i < L; ++i) {
-      const uint64_t v = (uint64_t)t[i] - p[i] - borrow;
-      out[i] = (uint32_t)v;
-      borrow = (uint32_t)(v >> 63);
-    }
-  } else {
-    for (int i = 0; i < L; ++i) out[i] = t[i];
-  }
-}
-
-static __device__ __forceinline__ void wload(const uint32_t* base,
-                                             long long e, int L,
-                                             uint32_t* v) {
-  for (int q = 0; q < L; ++q) v[q] = __ldg(base + e * L + q);
-}
-
-static __device__ __forceinline__ void wstore(uint32_t* base, long long e,
-                                              int L, const uint32_t* v) {
-  for (int q = 0; q < L; ++q) base[e * L + q] = v[q];
-}
-
-static __device__ __forceinline__ void wcopy(const uint32_t* a, int L,
-                                             uint32_t* out) {
-  for (int q = 0; q < L; ++q) out[q] = a[q];
-}
-
-// Words 0 .. n - 1 of a device buffer into shared memory, by the whole CTA
-// (the caller synchronises).
-static __device__ __forceinline__ void wstage(const uint32_t* src, int n,
-                                              uint32_t* sm) {
-  for (int q = threadIdx.x; q < n; q += blockDim.x) sm[q] = __ldg(src + q);
-}
 
 // Mirrored by ctypes structures in mpyc_tpu_torch/_build.py. The plan of
 // e (fieldops.pow_plan): x^(2 first + 1), then per step k square
@@ -184,6 +66,7 @@ struct WidePow {
 struct WideTail {
   WidePow pow;
   int32_t has_scale, has_offset;
+  int32_t t, m;   // threshold and parties (parties_ok)
 };
 
 // x <- x^e R mod p by the plan (x < p). one: R mod p, the power for e = 0.
@@ -241,32 +124,16 @@ field_op_wide_kernel(const uint32_t* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// K3 at (t, m) = (1, 3). consts: p, radix_0, radix_1 (2^(32 L c) R^2 mod
-// p), lag_0..2 (Lagrange coefficients at 0 of the points 1..3), x_1..3
-// (the points), each L words, Montgomery form. Dynamic shared memory:
-// those 9 L words, then the CTA's WIDE_THREADS coefficients.
+// K3 at threshold t and m parties (1 <= t <= MAX_T, 2t + 1 <= m <= MAX_M,
+// launch parameters). consts: p, radix_0, radix_1 (2^(32 L c) R^2 mod p),
+// lag_0..2t (Lagrange coefficients at 0 of the points 1..2t + 1), x_1..m
+// (the points), each L words, Montgomery form (wide_reshare_consts words
+// a limb). Dynamic shared memory: those words, then the CTA's t x
+// WIDE_THREADS coefficients (coefficient k of element e is draw k n + e,
+// as reshare.cuh lays them out).
 // ---------------------------------------------------------------------------
-constexpr int WIDE_RESHARE_CONSTS = 9;
-
-// A draw of W words (words[0 .. W - 1] of a block) into GF(p), Montgomery
-// form: sum over its L-word chunks c of chunk_c * radix_c (reduce_draw).
-static __device__ void wreduce_draw(const uint32_t* words, int W,
-                                    const uint32_t* C, uint32_t n0inv, int L,
-                                    uint32_t* out) {
-  const int nc = (W + L - 1) / L;
-  for (int c = 0; c < nc; ++c) {
-    uint32_t chunk[WIDE_MAX_NL];
-    for (int q = 0; q < L; ++q) {
-      const int w = c * L + q;
-      chunk[q] = w < W ? words[w] : 0u;
-    }
-    if (c == 0) {
-      wmont_mul(chunk, C + L, C, n0inv, L, out);
-    } else {
-      wmont_mul(chunk, C + (1 + c) * L, C, n0inv, L, chunk);
-      wadd_mod(out, chunk, C, L, out);
-    }
-  }
+__host__ __device__ constexpr int wide_reshare_consts(int t, int m) {
+  return 3 + 2 * t + 1 + m;
 }
 
 __global__ void __launch_bounds__(WIDE_THREADS)
@@ -275,48 +142,56 @@ reshare_wide_kernel(const uint32_t* __restrict__ a,
                     uint32_t* __restrict__ out,
                     const uint32_t* __restrict__ state, long long n,
                     const uint32_t* __restrict__ consts, uint32_t n0inv,
-                    int L, uint32_t nonce_lo, uint32_t nonce_hi, int fuse) {
+                    int L, uint32_t nonce_lo, uint32_t nonce_hi, int fuse,
+                    int t, int m) {
   extern __shared__ uint32_t wide_smem[];
+  const int ns = 2 * t + 1;
   uint32_t* C = wide_smem;
-  uint32_t* coefs = wide_smem + WIDE_RESHARE_CONSTS * L;
-  wstage(consts, WIDE_RESHARE_CONSTS * L, C);
+  uint32_t* coefs = wide_smem + wide_reshare_consts(t, m) * L;
+  const uint32_t* lag = C + 3 * L;
+  const uint32_t* xs = lag + ns * L;
+  wstage(consts, wide_reshare_consts(t, m) * L, C);
   __syncthreads();
   const uint64_t nonce = ((uint64_t)nonce_hi << 32) | nonce_lo;
   const long long e0 = (long long)blockIdx.x * WIDE_THREADS;
   const int cnt = (int)(n - e0 < WIDE_THREADS ? n - e0 : WIDE_THREADS);
   const int W = L + 2;
-  if (W <= RATE_WORDS) {
-    const int epb = RATE_WORDS / W;
-    const long long first = e0 / epb;
-    const int nb = (int)((e0 + cnt - 1) / epb - first + 1);
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-      const long long blk = first + k;
-      uint64_t A[25];
-      squeeze_block(state, nonce, (unsigned long long)blk, A);
-      uint32_t w[RATE_WORDS];
-#pragma unroll
-      for (int q = 0; q < RATE_WORDS; ++q) w[q] = rate_word(A, q);
-      for (int s = 0; s < epb; ++s) {
-        const long long d = blk * epb + s - e0;
-        if (d >= 0 && d < cnt)
-          wreduce_draw(w + s * W, W, C, n0inv, L, coefs + d * L);
-      }
-    }
-  } else {
-    // from 41 limbs on a draw is wider than a block: draw d owns the two
-    // whole blocks 2 d and 2 d + 1, its words the first W of their rate
-    // words in order (rng.words_to_elements); a thread a draw
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
-      uint32_t w[2 * RATE_WORDS];
-      for (int h = 0; h < 2; ++h) {
+  for (int k = 0; k < t; ++k) {
+    const long long d0 = (long long)k * n + e0;   // the set's first draw
+    uint32_t* dst = coefs + k * WIDE_THREADS * L;
+    if (W <= RATE_WORDS) {
+      const int epb = RATE_WORDS / W;
+      const long long first = d0 / epb;
+      const int nb = (int)((d0 + cnt - 1) / epb - first + 1);
+      for (int q = threadIdx.x; q < nb; q += blockDim.x) {
+        const long long blk = first + q;
         uint64_t A[25];
-        squeeze_block(state, nonce, (unsigned long long)(2 * (e0 + k) + h),
-                      A);
+        squeeze_block(state, nonce, (unsigned long long)blk, A);
+        uint32_t w[RATE_WORDS];
 #pragma unroll
-        for (int q = 0; q < RATE_WORDS; ++q)
-          w[h * RATE_WORDS + q] = rate_word(A, q);
+        for (int r = 0; r < RATE_WORDS; ++r) w[r] = rate_word(A, r);
+        for (int s = 0; s < epb; ++s) {
+          const long long d = blk * epb + s - d0;
+          if (d >= 0 && d < cnt)
+            wreduce_draw(w + s * W, W, C, n0inv, L, dst + d * L);
+        }
       }
-      wreduce_draw(w, W, C, n0inv, L, coefs + k * L);
+    } else {
+      // from 41 limbs on a draw is wider than a block: draw d owns the
+      // two whole blocks 2 d and 2 d + 1, its words the first W of their
+      // rate words in order (rng.words_to_elements); a thread a draw
+      for (int q = threadIdx.x; q < cnt; q += blockDim.x) {
+        uint32_t w[2 * RATE_WORDS];
+        for (int h = 0; h < 2; ++h) {
+          uint64_t A[25];
+          squeeze_block(state, nonce,
+                        (unsigned long long)(2 * (d0 + q) + h), A);
+#pragma unroll
+          for (int r = 0; r < RATE_WORDS; ++r)
+            w[h * RATE_WORDS + r] = rate_word(A, r);
+        }
+        wreduce_draw(w, W, C, n0inv, L, dst + q * L);
+      }
     }
   }
   __syncthreads();
@@ -325,7 +200,7 @@ reshare_wide_kernel(const uint32_t* __restrict__ a,
   const long long e = e0 + el;
   const uint32_t* p = C;
   uint32_t S[WIDE_MAX_NL], si[WIDE_MAX_NL];
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < ns; ++i) {
     wload(a, (long long)i * n + e, L, si);
     if (fuse) {
       uint32_t bi[WIDE_MAX_NL];
@@ -333,17 +208,21 @@ reshare_wide_kernel(const uint32_t* __restrict__ a,
       wmont_mul(si, bi, p, n0inv, L, si);
     }
     if (i == 0) {
-      wmont_mul(si, C + 3 * L, p, n0inv, L, S);
+      wmont_mul(si, lag, p, n0inv, L, S);
     } else {
-      wmont_mul(si, C + (3 + i) * L, p, n0inv, L, si);
+      wmont_mul(si, lag + i * L, p, n0inv, L, si);
       wadd_mod(S, si, p, L, S);
     }
   }
-  uint32_t c[WIDE_MAX_NL];
-  wcopy(coefs + el * L, L, c);
-  for (int j = 0; j < 3; ++j) {
+  for (int j = 0; j < m; ++j) {
+    // Horner(C, x_j) + S
     uint32_t y[WIDE_MAX_NL];
-    wmont_mul(c, C + (6 + j) * L, p, n0inv, L, y);
+    for (int k = 0; k < t; ++k) {
+      const uint32_t* c = coefs + (k * WIDE_THREADS + el) * L;
+      if (k == 0) wcopy(c, L, y);
+      else wadd_mod(y, c, p, L, y);
+      wmont_mul(y, xs + j * L, p, n0inv, L, y);
+    }
     wadd_mod(y, S, p, L, y);
     wstore(out, (long long)j * n + e, L, y);
   }
@@ -370,12 +249,15 @@ mont_pow_wide_kernel(const uint32_t* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// K7 at (t, m) = (1, 3), as random_bits_tail_kernel: per element u = sum_i
-// lag_i (r_i^2 + z_i), its flag u == 0 (counted), s = u^((3p - 5) / 4) by
-// the plan, bit_i = r_i (s scale) + offset. consts: p, one, lag_0..2,
-// scale, offset (L words each), then the plan's steps.
+// K7 at threshold t and m parties, as random_bits_tail_kernel: per
+// element u = sum_{i <= 2t} lag_i (r_i^2 + z_i), its flag u == 0
+// (counted), s = u^((3p - 5) / 4) by the plan, bit_i = r_i (s scale) +
+// offset for each of the m parties. consts: p, one, lag_0..2t, scale,
+// offset (L words each: wide_tail_consts), then the plan's steps.
 // ---------------------------------------------------------------------------
-constexpr int WIDE_TAIL_CONSTS = 7;
+__host__ __device__ constexpr int wide_tail_consts(int t) {
+  return 4 + 2 * t + 1;
+}
 
 __global__ void __launch_bounds__(WIDE_THREADS)
 random_bits_tail_wide_kernel(const uint32_t* __restrict__ r,
@@ -387,19 +269,22 @@ random_bits_tail_wide_kernel(const uint32_t* __restrict__ r,
                              WideTail P) {
   extern __shared__ uint32_t wide_smem[];
   const int L = P.pow.nl;
+  const int ns = 2 * P.t + 1;
+  const int nc = wide_tail_consts(P.t);
   const uint32_t n0inv = P.pow.n0inv;
-  wstage(consts, WIDE_TAIL_CONSTS * L + 2 * P.pow.n_steps,
-         wide_smem);
+  wstage(consts, nc * L + 2 * P.pow.n_steps, wide_smem);
   __syncthreads();
   const uint32_t* p = wide_smem;
+  const uint32_t* scale = wide_smem + (2 + ns) * L;
+  const uint32_t* offset = scale + L;
   const long long e = (long long)blockIdx.x * WIDE_THREADS + threadIdx.x;
   if (e >= n) return;
-  uint32_t rs[3][WIDE_MAX_NL], u[WIDE_MAX_NL];
-  for (int i = 0; i < 3; ++i) {
+  uint32_t u[WIDE_MAX_NL];
+  for (int i = 0; i < ns; ++i) {
     uint32_t v[WIDE_MAX_NL], zi[WIDE_MAX_NL];
-    wload(r + i * n * L, e, L, rs[i]);
+    wload(r + i * n * L, e, L, v);
     wload(z + i * n * L, e, L, zi);
-    wmont_mul(rs[i], rs[i], p, n0inv, L, v);
+    wmont_mul(v, v, p, n0inv, L, v);
     wadd_mod(v, zi, p, L, v);
     wmont_mul(v, wide_smem + (2 + i) * L, p, n0inv, L, v);
     if (i == 0) wcopy(v, L, u);
@@ -409,12 +294,13 @@ random_bits_tail_wide_kernel(const uint32_t* __restrict__ r,
   for (int q = 0; q < L; ++q) acc |= u[q];
   flags[e] = (uint8_t)(acc == 0);
   if (acc == 0) atomicAdd(count, 1);
-  wpow(u, P.pow, p, wide_smem + L, wide_smem + WIDE_TAIL_CONSTS * L);
-  if (P.has_scale) wmont_mul(u, wide_smem + 5 * L, p, n0inv, L, u);
-  for (int i = 0; i < 3; ++i) {
+  wpow(u, P.pow, p, wide_smem + L, wide_smem + nc * L);
+  if (P.has_scale) wmont_mul(u, scale, p, n0inv, L, u);
+  for (int i = 0; i < P.m; ++i) {
     uint32_t bit[WIDE_MAX_NL];
-    wmont_mul(rs[i], u, p, n0inv, L, bit);
-    if (P.has_offset) wadd_mod(bit, wide_smem + 6 * L, p, L, bit);
+    wload(r + i * n * L, e, L, bit);
+    wmont_mul(bit, u, p, n0inv, L, bit);
+    if (P.has_offset) wadd_mod(bit, offset, p, L, bit);
     wstore(bits + i * n * L, e, L, bit);
   }
 }
@@ -454,23 +340,33 @@ int mtt_field_op_wide(const void* a, const void* b, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// K3 at (t, m) = (1, 3) and L = 7..48 limbs on (3, n, L) shares (times
-// b's when fuse), the call's counter (nonce_lo, nonce_hi) XORed into lane
-// 4 of the absorbed state; consts: the 9 L words of reshare_wide_kernel.
-// -1: a limb count not built.
+// K3 at threshold t with m parties (1 <= t <= 4, 2t + 1 <= m <= 16) and L
+// = 7..48 limbs on (m, n, L) shares (times b's when fuse), the call's
+// counter (nonce_lo, nonce_hi) XORed into lane 4 of the absorbed state;
+// consts: the wide_reshare_consts(t, m) L words of reshare_wide_kernel. -1:
+// a limb count or (t, m) not built.
 int mtt_reshare_wide(const void* a, const void* b, void* out,
                      const void* state, long long n, int fuse,
                      const void* consts, unsigned n0inv, int L,
-                     unsigned nonce_lo, unsigned nonce_hi, void* stream) {
-  if (L < mtt::WIDE_MIN_NL || L > mtt::WIDE_MAX_NL) return -1;
+                     unsigned nonce_lo, unsigned nonce_hi, int t, int m,
+                     void* stream) {
+  if (L < mtt::WIDE_MIN_NL || L > mtt::WIDE_MAX_NL ||
+      !mtt::parties_ok(t, m))
+    return -1;
   if (n <= 0) return 0;
+  // the most any (t, m) and L take, allowed once past the default 48 KB
+  static const cudaError_t rc = cudaFuncSetAttribute(
+      mtt::reshare_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (mtt::wide_reshare_consts(mtt::MAX_T, mtt::MAX_M) +
+       mtt::MAX_T * mtt::WIDE_THREADS) * mtt::WIDE_MAX_NL * 4);
+  if (rc != cudaSuccess) return (int)rc;
   const int smem =
-      (mtt::WIDE_RESHARE_CONSTS + mtt::WIDE_THREADS) * L * 4;
+      (mtt::wide_reshare_consts(t, m) + t * mtt::WIDE_THREADS) * L * 4;
   mtt::reshare_wide_kernel<<<mtt::wide_grid(n), mtt::WIDE_THREADS, smem,
                              (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
       (const uint32_t*)state, n, (const uint32_t*)consts, n0inv, L,
-      nonce_lo, nonce_hi, fuse);
+      nonce_lo, nonce_hi, fuse, t, m);
   return (int)cudaGetLastError();
 }
 
@@ -489,19 +385,20 @@ int mtt_mont_pow_wide(const void* a, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// K7 at (t, m) = (1, 3) and L = 7..48 limbs on (3, n, L) shares r and z:
-// bits (3, n, L), flags (n bytes), count (one int, added to); params: a
-// WideTail on the host; consts: the 7 L words of the kernel and the
-// steps. -1: a limb count not built, or a plan that does not fit.
+// K7 at threshold t with m parties (1 <= t <= 4, 2t + 1 <= m <= 16) and L
+// = 7..48 limbs on (m, n, L) shares r and z: bits (m, n, L), flags (n
+// bytes), count (one int, added to); params: a WideTail on the host;
+// consts: the wide_tail_consts(t) L words of the kernel and the steps. -1:
+// a limb count or (t, m) not built, or a plan that does not fit.
 int mtt_random_bits_tail_wide(const void* r, const void* z, void* bits,
                               void* flags, void* count, long long n,
                               const void* consts, const void* params,
                               void* stream) {
   const mtt::WideTail P = *(const mtt::WideTail*)params;
-  if (!mtt::wide_plan_ok(P.pow)) return -1;
+  if (!mtt::wide_plan_ok(P.pow) || !mtt::parties_ok(P.t, P.m)) return -1;
   if (n <= 0) return 0;
   const int smem =
-      (mtt::WIDE_TAIL_CONSTS * P.pow.nl + 2 * P.pow.n_steps) * 4;
+      (mtt::wide_tail_consts(P.t) * P.pow.nl + 2 * P.pow.n_steps) * 4;
   mtt::random_bits_tail_wide_kernel<<<mtt::wide_grid(n), mtt::WIDE_THREADS,
                                       smem, (cudaStream_t)stream>>>(
       (const uint32_t*)r, (const uint32_t*)z, (uint32_t*)bits,

@@ -2,7 +2,7 @@
 port.
 
     python -m mpyc_tpu_torch.demos.np_lpsolver [-i I] [-l L]
-        [--device cuda|cpu]
+        [--max-pivots K] [-M m] [-T t] [--device cuda|cpu]
 
 The co-located path of ``demos/np_lpsolver.py`` on ``SimRuntime(3)``
 (t = 1), line for line (``solve`` is the body of its ``main``): the
@@ -20,8 +20,11 @@ Datasets (``demos/data/lp``): 0 = uvlp (default), 1 = wiki, 2 = tb2x2,
 fields have l + 32 bits (SecInt(l) with a root of unity of order at
 least m + n): two limbs at l = 6-8, four at l = 70 (LPExample_R20), five
 at l = 104 and 110 (sc50b, LPExample); kb2's SecInt(560) takes 19 limbs,
-whose comparisons the card's K5 does not take (NotImplementedError
-there, at the first comparison: the wide kernels take its products).
+whose products and comparisons the wide kernels take on the card
+(csrc/wide.cu, csrc/sgn_wide.cu), at every (t, m) of ``-M``/``-T``.
+``--max-pivots K`` stops the solve after K pivots and opens its tableau
+(``solve``'s ``max_pivots``), which the runner holds against
+``plain_solve``'s after as many.
 
 ``plain_solve`` runs the same integer-pivoting simplex on the host in
 Python ints (the same pivot rules: the first least cost, the first least
@@ -119,12 +122,16 @@ def idft_extract(mpc, w_powers, N, scaled, registers, offsets):
     return coefs @ spectrum
 
 
-def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None):
+def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None,
+          max_pivots=0):
     """Solve dataset I on runtime mpc as ``demos/np_lpsolver.py``'s main
     does, printing its lines through ``out`` (and calling ``on_pivot``
     with the pivot's number before each pivot's work, if given). Returns
     the opened results: iterations, max (mx), common denominator (cd),
-    solution x (ints, the values times cd) and the certificate."""
+    solution x (ints, the values times cd) and the certificate. With
+    ``max_pivots`` the solve stops after that many pivots and returns its
+    opened tableau then (T, a list of rows of ints) and common denominator
+    (cd; ``stopped`` True), no solution or certificate."""
     name, bit_length_, scale, n_iter = DATASETS[dataset]
     if bit_length:
         bit_length_ = bit_length
@@ -176,6 +183,14 @@ def solve(mpc, dataset, bit_length=0, out=print, on_pivot=None):
         mix = row_ext @ T + denom * col_ext
         T = T * (pivot * inv_d) - np.outer(drop, mix)
         denom = pivot
+        if iteration == max_pivots:
+            T = np.asarray(mpc.run(mpc.output(T)))
+            cd = mpc.run(mpc.output(denom))
+            out(f'objective {T[0, -1]} / {cd} after {iteration} pivots '
+                '(stopped)')
+            mpc.run(mpc.shutdown())
+            return dict(iterations=iteration, stopped=True, cd=int(cd),
+                        T=[[int(v) for v in row] for row in T.tolist()])
 
     mx = mpc.run(mpc.output(T[0, -1]))
     cd = mpc.run(mpc.output(denom))
@@ -217,7 +232,7 @@ def _plain_argmin(keys, less):
     return idx[0]
 
 
-def plain_solve(T):
+def plain_solve(T, max_pivots=0):
     """The integer-pivoting simplex of ``solve`` in Python ints on the
     tableau ``T`` ((m + 1) x (n + 1) ints: the cost row, then [A | b]):
     the entering column is the first least cost (while it is negative),
@@ -227,7 +242,9 @@ def plain_solve(T):
     (T pivot - col row) / denom outside the pivot row and column, the
     column by -col and its pivot by the old denom, and denom by the
     pivot. Returns (iterations, mx, cd, x): the objective and the
-    solution times the common denominator cd."""
+    solution times the common denominator cd. With ``max_pivots``, as
+    ``solve``'s, it stops after that many pivots and returns (iterations,
+    T, cd): the tableau then (a list of rows of ints)."""
     T = [[int(v) for v in row] for row in T]
     m, n = len(T) - 1, len(T[0]) - 1
     basis = [n + i for i in range(m)]      # variable of each row
@@ -260,6 +277,8 @@ def plain_solve(T):
                     row.append(q)
             new.append(row)
         T, denom = new, pivot
+        if iterations == max_pivots:
+            return iterations, T, denom
     x = [0] * n
     for r, v in enumerate(basis):
         if v < n:
@@ -275,13 +294,22 @@ def main(argv=None) -> int:
                               '7=LPExample'))
     parser.add_argument('-l', '--bit-length', type=int, metavar='L',
                         default=0)
+    parser.add_argument('--max-pivots', type=int, metavar='K', default=0,
+                        help='stop after K pivots and check the tableau')
     parser.add_argument('--device', default='cuda',
                         help='device of the shares (default: the card)')
     args = parties.parse_args(parser, argv)
     mpc = parties.runtime(args)
-    res = solve(mpc, args.dataset, args.bit_length)
-    assert res['ok']
+    res = solve(mpc, args.dataset, args.bit_length,
+                max_pivots=args.max_pivots)
     name, _, scale, _ = DATASETS[args.dataset]
+    if res.get('stopped'):
+        want = plain_solve(tableau_ints(name, scale), args.max_pivots)
+        same = want == (res['iterations'], res['T'], res['cd'])
+        print(f'plain exact solver after {want[0]} pivots: the same '
+              f'tableau and denominator: {same}')
+        return 0 if same else 1
+    assert res['ok']
     want = plain_solve(tableau_ints(name, scale))
     got = (res['iterations'], res['mx'], res['cd'], res['x'])
     print(f'plain exact solver: {want[0]} iterations, max = '

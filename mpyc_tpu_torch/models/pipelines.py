@@ -7,7 +7,8 @@ twin over GF(2^d), kernel K8), ``make_split_recombine``
 secure comparison, kernel K5), and the tail of a round of random bits
 around its inverse square root (``random_bits_tail``, kernel K7, which the
 JAX package leaves to XLA). On the card each step is one launch of its kernel
-(``csrc/kernels.cu``, ``csrc/sgn.cuh``, ``csrc/pow.cuh``, ``csrc/gf2.cu``);
+(``csrc/kernels.cu``, ``csrc/sgn.cuh``, ``csrc/pow.cuh``, ``csrc/gf2.cu``;
+from 7 to 48 limbs ``csrc/wide.cu`` and ``csrc/sgn_wide.cu``);
 on the CPU its plain version (``_reshare_mul_plain``,
 ``_reshare2_plain``, ``_split_recombine_plain``, ``_sgn_step_plain``,
 ``_random_bits_tail_plain``) runs the same arithmetic in torch. The plain versions draw their
@@ -84,16 +85,17 @@ class ReshareSpec:
 
     def wide_consts(self, device) -> torch.Tensor:
         """The wide K3's device buffer (csrc/wide.cu reshare_wide_kernel):
-        p, the radix table of its two-chunk draws, the Lagrange coefficients
-        and the points, L words each; made once for each device."""
+        p, the radix table of its two-chunk draws, the 2t + 1 Lagrange
+        coefficients and the m points, L words each; made once for each
+        device."""
         from mpyc_tpu_torch import _build
         W, L = self.l_bytes // 4, self.ctx.L
-        if not _build.wide(L) or W != L + 2 or (self.t, self.m) != (1, 3):
+        if not _build.wide(L) or W != L + 2:
             raise NotImplementedError(
-                f'the wide CUDA reshare is built for (t, m) = (1, 3) and '
-                f'{_build.WIDE_MIN_NL} to {_build.WIDE_MAX_NL} limbs with '
-                f'draws of 4 (L + 2) bytes; not L={L} ({self.l_bytes}-byte '
-                f'draws) at ({self.t}, {self.m})')
+                f'the wide CUDA reshare is built for {_build.WIDE_MIN_NL} to '
+                f'{_build.WIDE_MAX_NL} limbs with draws of 4 (L + 2) bytes; '
+                f'not L={L} ({self.l_bytes}-byte draws)')
+        _build.check_parties('wide reshare', self.t, self.m)
         cache = self.__dict__.setdefault('_wide', {})
         if str(device) not in cache:
             cache[str(device)] = _build.wide_words(
@@ -209,7 +211,8 @@ def reshare_mul(a: torch.Tensor, b, state: torch.Tensor, nonce,
                     b.data_ptr() if b is not None else None, out.data_ptr(),
                     state.data_ptr(), a.shape[1], int(b is not None),
                     consts.data_ptr(), spec.ctx.n0inv, L, int(nonce[0]),
-                    int(nonce[1]), _build.stream_of(a.device))
+                    int(nonce[1]), spec.t, spec.m,
+                    _build.stream_of(a.device))
     else:
         _build.call('mtt_reshare', a.data_ptr(),
                     b.data_ptr() if b is not None else None, out.data_ptr(),
@@ -733,17 +736,20 @@ class SgnSpec:
         NotImplementedError for a configuration the card has no
         instantiation of: (t, m) outside 1 <= t <= 4, 2t + 1 <= m <= 16,
         k above 64, a field of a limb count not built
-        (``_build.SGN_BUILT_NL``), random bits past what t of their draws
-        leave room for (``_build.sgn_lb_fit``). Any l the spec takes (l + k
-        + 2 <= bit length of p) is a launch parameter at t = 1."""
+        (``_build.SGN_BUILT_NL``; 7 to 48 limbs take ``wide_params``),
+        random bits past what t of their draws leave room for
+        (``_build.sgn_lb_fit``). Any l the spec takes (l + k + 2 <= bit
+        length of p) is a launch parameter at t = 1."""
         from mpyc_tpu_torch import _build
         L = self.ctx.L
         if self.k > 64 or L not in _build.SGN_BUILT_NL or \
                 self.l_bytes != 4 * (L + 2):
             raise NotImplementedError(
                 f'the CUDA comparison is built for k <= 64 and fields of '
-                f'{_build.SGN_BUILT_NL} limbs with draws of 4 (L + 2) bytes; '
-                f'not k={self.k}, L={L} ({self.l_bytes}-byte draws)')
+                f'{_build.SGN_BUILT_NL[0]} to {_build.WIDE_MAX_NL} limbs '
+                f'({_build.SGN_BUILT_NL[-1] + 1} to {_build.WIDE_MAX_NL}: '
+                f'the wide kernel) with draws of 4 (L + 2) bytes; not '
+                f'k={self.k}, L={L} ({self.l_bytes}-byte draws)')
         _build.check_parties('comparison', self.t, self.m)
         lb_max = _build.sgn_lb_fit(self.t, L)
         if self.lb > lb_max:
@@ -768,6 +774,47 @@ class SgnSpec:
         P.t, P.m, P.l, P.k = self.t, self.m, self.l, self.k
         P.mode, P.has_f = SGN_MODES.index(self.mode), int(bool(self.f))
         return P
+
+    def wide_params(self, nonce):
+        """The wide K5's parameter block (csrc/sgn_wide.cu SgnWide) for a
+        call with counter (lo, hi), with the workspace words of a CTA
+        (``_build.sgn_wide_ws_words``); raises NotImplementedError for a
+        configuration it does not take: (t, m) outside 1 <= t <= 4, 2t + 1
+        <= m <= 16, k above 64, a field outside 7 to 48 limbs. Every l the
+        spec takes is a launch parameter, at every (t, m)."""
+        from mpyc_tpu_torch import _build
+        L = self.ctx.L
+        if self.k > 64 or not _build.wide(L) or \
+                self.l_bytes != 4 * (L + 2):
+            raise NotImplementedError(
+                f'the wide CUDA comparison is built for k <= 64 and fields '
+                f'of {_build.WIDE_MIN_NL} to {_build.WIDE_MAX_NL} limbs with '
+                f'draws of 4 (L + 2) bytes; not k={self.k}, L={L} '
+                f'({self.l_bytes}-byte draws)')
+        _build.check_parties('comparison', self.t, self.m)
+        P = _build.SgnWide()
+        P.nl, P.t, P.m, P.l, P.k = L, self.t, self.m, self.l, self.k
+        P.mode, P.has_f = SGN_MODES.index(self.mode), int(bool(self.f))
+        P.n0inv = self.ctx.n0inv
+        P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
+        P.ws_stride = _build.sgn_wide_ws_words(self.t, L, self.l, P.mode)
+        return P
+
+    def wide_consts(self, device) -> torch.Tensor:
+        """The wide K5's device buffer (csrc/sgn_wide.cu sgn_wide_consts):
+        p, the radix table of its two-chunk draws, lag_t, lag_2t, the m
+        points, one, three, r2, 2^l, 2^-l, 2^(l-1) and 2^f (1 without a
+        scale), L words each; made once for each device."""
+        from mpyc_tpu_torch import _build
+        cache = self.__dict__.setdefault('_wide', {})
+        if str(device) not in cache:
+            ctx = self.ctx
+            cache[str(device)] = _build.wide_words(
+                device, ctx.p_limbs, *ctx.radix_limbs(2), *self.lag_t,
+                *self.lag_2t, *self.xs, self.one, self.three, self.r2,
+                self.pow2[self.l], self.inv2l, self.pow2l1,
+                self.powf or self.one)
+        return cache[str(device)]
 
 
 def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
@@ -848,9 +895,20 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
             x = y
         return at(x, (..., 0))
 
+    def bits_of(w, count):          # (n, words) -> (n, count) bits
+        jj = torch.arange(count, device=w.device)
+        return (w[:, jj // 32] >> (jj % 32)) & 1
+
+    def scan(x):                    # inclusive prefix sums on the last axis
+        off = 1
+        while off < x[0].shape[-1]:
+            x = add(x, [torch.cat([torch.zeros_like(v[..., :off]),
+                                   v[..., :-off]], dim=-1) for v in x])
+            off *= 2
+        return x
+
     # random bits: a dealer split of stream bits
-    bits = torch.stack([(words[:, j // 32] >> (j % 32)) & 1
-                        for j in range(lb)], dim=1)          # (n, lb)
+    bits = bits_of(words, lb)                                # (n, lb)
     zero = torch.zeros_like(bits)
     rb = split(mul([bits] + [zero] * (L - 1), spec.r2),
                draw((t, n, lb)))                             # (m, n, lb)
@@ -866,11 +924,11 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
         k_limbs.append(col)
     r_divl_sh = split(mul(k_limbs, spec.r2), draw((t, n)))   # (m, n)
 
-    # mask and open: c = a + 2^l + r_modl + 2^l r_divl
-    r_modl = None
-    for j in range(l):
-        term = mul(at(rb, (..., j)), spec.pow2[j])
-        r_modl = term if r_modl is None else add(r_modl, term)
+    # mask and open: c = a + 2^l + r_modl + 2^l r_divl, r_modl the sum of
+    # rb_j 2^j (a scan of the products, its last position)
+    pow2 = [torch.tensor([c[q] for c in spec.pow2[:l]], dtype=torch.int64,
+                         device=a.device) for q in range(L)]
+    r_modl = at(scan(mul(at(rb, (..., slice(0, l))), pow2)), (..., l - 1))
     a_r = add(add(limb.unstack(a), r_modl), spec.pow2[l])
     c_in = add(a_r, mul(r_divl_sh, spec.pow2[l]))
     c_std = mul(open_deg(c_in, spec.lag_t), (1,) + (0,) * (L - 1))
@@ -886,21 +944,15 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
     z = sub(mul(cm, spec.r2), a_r)                           # (m, n)
 
     # public bits of c mod 2^l; xor = c_bits XOR r_bits
-    cb = torch.stack([(c_std[j // 32] >> (j % 32)) & 1
-                      for j in range(l)], dim=1)             # (n, l)
+    cb = bits_of(torch.stack(c_std, dim=-1), l)              # (n, l)
     cb_m = [cb * c for c in spec.one]
     rbl = at(rb, (..., slice(0, l)))
     xor = add(sub(rbl, mul(rbl, [cb * c for c in spec.two])), cb_m)
 
     if spec.mode != 'EQ':
         s_sign = sub(add(at(rb, (..., l)), at(rb, (..., l))), spec.one)
-        incl, acc = [], None
-        for j in range(l):
-            xj = at(xor, (..., j))
-            acc = xj if acc is None else add(acc, xj)
-            incl.append(acc)
-        incl = stack(incl, 2)                                # (m, n, l)
-        total = acc
+        incl = scan(xor)                                     # (m, n, l)
+        total = at(incl, (..., l - 1))
         suffix = sub(at(total, (..., None)), incl)
         e_bits = add(add(at(s_sign, (..., None)), sub(rbl, cb_m)),
                      mul(suffix, spec.three))
@@ -935,19 +987,31 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
 
 def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
                 spec: SgnSpec, chunk: int, n_last: int) -> torch.Tensor:
-    """K5 on the card: the calls of a's chunks in one launch (``mtt_sgn``),
-    counted on ``sgn_step``."""
+    """K5 on the card: the calls of a's chunks in one launch (``mtt_sgn``;
+    from 7 to 48 limbs ``mtt_sgn_wide``, with its workspace), counted on
+    ``sgn_step``."""
     from mpyc_tpu_torch import _build
-    params = spec.params(nonce)
+    wide = _build.wide(spec.ctx.L)
+    params = spec.wide_params(nonce) if wide else spec.params(nonce)
     a = a.contiguous()
     _check_aligned(a)
     state = state.contiguous()
     out = torch.empty_like(a)
     n = a.shape[1]
     if n:
-        _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
-                    state.data_ptr(), n, chunk, n_last,
-                    ctypes.addressof(params), _build.stream_of(a.device))
+        if wide:
+            consts = spec.wide_consts(a.device)
+            grid = _build.sgn_wide_grid(n, params.ws_stride)
+            ws = torch.empty(grid * params.ws_stride, dtype=torch.int32,
+                             device=a.device)
+            _build.call('mtt_sgn_wide', a.data_ptr(), out.data_ptr(),
+                        state.data_ptr(), n, chunk, n_last,
+                        consts.data_ptr(), ws.data_ptr(), grid,
+                        ctypes.addressof(params), _build.stream_of(a.device))
+        else:
+            _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
+                        state.data_ptr(), n, chunk, n_last,
+                        ctypes.addressof(params), _build.stream_of(a.device))
         sgn_step.launches += 1
         sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L, spec.f)
                         + parties_key(spec.t, spec.m)] += 1
@@ -973,7 +1037,8 @@ def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
     Replaces ``mpyc_tpu/models/pipelines.py:make_sgn_step`` ->
     ``_build_pallas.kernel``, in the stream layout of its XLA step.
     nonce: the call counter (lo, hi). CPU tensors take the plain version;
-    CUDA tensors launch the kernel, or raise NotImplementedError for a
+    CUDA tensors launch the kernel (``csrc/sgn.cuh``; from 7 to 48 limbs
+    ``csrc/sgn_wide.cu``), or raise NotImplementedError for a
     configuration it is not built for."""
     _check_sgn_operands(a, state, spec)
     if a.device.type == 'cpu':
@@ -1041,11 +1106,19 @@ def _sgn_chunks_plain(a: torch.Tensor, state: torch.Tensor, ctr,
     chunks run as one batch (``torch.func.vmap`` over them, each with its
     own counter's state) and the ragged last one alone on its bucket. On
     the card it is the reference a launch is held against: one batch of
-    small operations, not one for each of a thousand chunks."""
+    small operations, not one for each of a thousand chunks. From seven
+    limbs on the full chunks run one by one: the vector product's carries
+    (``limb._carry``) loop until nothing moves, which vmap does not take."""
     m, n, L = a.shape
     n_full = n // chunk
     outs = []
-    if n_full:
+    if n_full and L >= limb._VEC_MIN_L:
+        for c in range(n_full):
+            nonce = _add_ctr(ctr, c)
+            outs.append(_sgn_step_plain(
+                a[:, c * chunk:(c + 1) * chunk], state,
+                (int(nonce[0]), int(nonce[1])), spec))
+    elif n_full:
         states = torch.stack([_nonce_state(state, _add_ctr(ctr, c))
                               for c in range(n_full)])
         parts = a[:, :n_full * chunk].reshape(m, n_full, chunk, L)
@@ -1151,29 +1224,31 @@ def _tail_params(field, t: int, m: int, signed: bool, f: int):
 def _wide_tail_params(field, t: int, m: int, signed: bool, f: int,
                       device) -> tuple:
     """The wide K7's WideTail and device buffer (csrc/wide.cu: p, R mod
-    p, the recombination vector at 0 of points 1..3, a bit's scale and
-    offset, then the plan's steps of (3p - 5) / 4), made once for each
-    field, kind of bit and device."""
+    p, the recombination vector at 0 of points 1..2t + 1, a bit's scale
+    and offset, then the plan's steps of (3p - 5) / 4), made once for each
+    field, threshold, kind of bit and device."""
     from mpyc_tpu_torch import _build
     p, ctx = field.modulus, field.array.ctx
-    if (t, m) != (1, 3):
-        raise NotImplementedError(f'K7 is built for (t, m) = (1, 3), not '
-                                  f'({t}, {m})')
+    _build.check_parties('wide random bits\' tail (K7)', t, m)
     if p % 4 != 3:
         raise NotImplementedError('the random bits\' inverse square root '
                                   'needs p = 3 mod 4')
     cache = ctx.__dict__.setdefault('_wide_tail', {})
-    key = (signed, f, str(device))
+    key = (t, signed, f, str(device))
     if key not in cache:
         P = _build.WideTail()
         P.pow, steps = _build.wide_pow(ctx, (3 * p - 5) // 4)
         c = pow(2, f, p) * (1 if signed else pow(2, -1, p)) % p
         P.has_scale, P.has_offset = int(c != 1), int(not signed)
+        P.t = t
         cache[key] = P, _build.wide_words(
             device, ctx.p_limbs, ctx.one_mont,
             *_lagrange_consts_mont(p, range(1, 2 * t + 2)),
             ctx.encode_const(c), ctx.encode_const(c), steps)
-    return cache[key]
+    P, consts = cache[key]
+    P = _build.WideTail.from_buffer_copy(P)
+    P.m = m
+    return P, consts
 
 
 def random_bits_tail_ops(p: int, signed: bool, f: int, t: int = 1,
@@ -1204,9 +1279,9 @@ def random_bits_tail(r: torch.Tensor, z: torch.Tensor, field, signed: bool,
     take the plain version; CUDA tensors launch the kernel
     (``csrc/pow.cuh random_bits_tail_kernel``; from 7 to 48 limbs
     ``csrc/wide.cu random_bits_tail_wide_kernel``), or raise
-    NotImplementedError for a configuration it is not built for ((t, m) =
-    (1, 3), fields of ``_build.BUILT_NL`` or 7 to 48 limbs, p = 3 mod
-    4)."""
+    NotImplementedError for a configuration it is not built for ((t, m)
+    outside ``_build.check_parties``, fields of other limb counts than
+    ``_build.BUILT_NL`` and 7 to 48, p = 1 mod 4)."""
     m = r.shape[0]
     L = field.array.ctx.L
     if r.dim() != 3 or r.shape[2] != L or r.dtype != torch.int32 or \

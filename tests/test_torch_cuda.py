@@ -554,11 +554,10 @@ def test_lp_solver_on_the_card(cuda_device, dataset):
     import chip_smoke
     n5, n6 = pipelines.sgn_step.launches, fieldops.mont_pow.launches
     res = chip_smoke.run_lp(cuda_device, datasets=(dataset,))
-    (name, r), = [(k, v) for k, v in res.items() if k != 'kb2']
+    (name, r), = [(k, v) for k, v in res.items() if k != 'traces']
     assert r['pivots'] > 0
     assert pipelines.sgn_step.launches > n5
     assert fieldops.mont_pow.launches > n6
-    assert 'L=19' in res['kb2']
 
 
 # -- the fixed-point fields: six limbs, and four with 4p >= R -----------------
@@ -840,10 +839,11 @@ def test_colocated_demos_on_the_card(cuda_device):
 
 def test_seven_limb_secure_field_raises_on_the_card(cuda_device):
     """A secure field of seven limbs (a 200-bit prime) runs its products
-    on the card through the wide kernels (csrc/wide.cu); what still raises
-    NotImplementedError there, with nothing falling back to a plain
-    version, is the comparison (K5) of a seven-limb secure integer
-    (SecInt(170)), and any field past 48 limbs."""
+    on the card through the wide kernels (csrc/wide.cu), and the
+    comparison of a seven-limb secure integer (SecInt(170)) through the
+    wide K5 (csrc/sgn_wide.cu); what still raises NotImplementedError
+    there, with nothing falling back to a plain version, is any field past
+    48 limbs."""
     from mpyc_tpu_torch import gmpy
     from mpyc_tpu_torch.parallel.simulator import SimRuntime
     rt = SimRuntime(3, device=cuda_device)
@@ -854,12 +854,72 @@ def test_seven_limb_secure_field_raises_on_the_card(cuda_device):
     secint = rt.SecInt(170)
     assert secint.field.array.ctx.L == 7
     x = rt.input(secint.array(np.arange(5, dtype=object)), senders=0)
-    with pytest.raises(NotImplementedError, match='limbs'):
-        rt.output(rt.np_less(x, 2))
+    n5 = pipelines.sgn_step.by_key[('LT', 170, 7, 0)]
+    assert [int(v) for v in rt.output(rt.np_less(x, 2))] == [1, 1, 0, 0, 0]
+    assert pipelines.sgn_step.by_key[('LT', 170, 7, 0)] == n5 + 1
     big = rt.SecFld(gmpy.next_prime(1 << 32 * 48))
     with pytest.raises(NotImplementedError, match='limbs'):
         b = rt.input(big.array(np.arange(3, dtype=object)), senders=0)
         rt.output(b * b)
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+@pytest.mark.parametrize('bits,l,t,m', [(192, 192, 1, 3), (192, 64, 2, 5),
+                                        (560, 64, 1, 3), (560, 40, 4, 9)])
+def test_wide_sgn_kernel_matches_plain(cuda_device, mode, bits, l, t, m):
+    """The wide K5 (csrc/sgn_wide.cu) at seven and 19 limbs (SecInt(192),
+    SecInt(560)) on 70 elements in chunks of 32 (three calls in one
+    launch, the last on its bucket), bit for bit against its plain
+    version chunk by chunk."""
+    from mpyc_tpu_torch import sectypes
+    st = _state(cuda_device)
+    p = sectypes.SecInt(bits, 'cpu').field.modulus
+    spec = pipelines.SgnSpec(p, t, m, l, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    a = _parties_shares(70, 37, cuda_device, p, m)
+    key = (mode, l, spec.ctx.L, 0) + pipelines.parties_key(t, m)
+    n5 = pipelines.sgn_step.by_key[key]
+    ctr = np.array([0xFFFFFFFF, 3], np.uint32)
+    got, ctr_k = pipelines.sgn_chunks(a, st, ctr, spec, 32)
+    assert pipelines.sgn_step.by_key[key] == n5 + 1
+    want, ctr_p = pipelines._sgn_chunks_plain(a, st, ctr, spec, 32)
+    assert torch.equal(got, want) and list(ctr_k) == list(ctr_p)
+
+
+@pytest.mark.parametrize('fuse', [True, False])
+@pytest.mark.parametrize('bits', [192, 1300])
+def test_wide_reshare_and_tail_match_plain_at_five_parties(cuda_device,
+                                                           bits, fuse):
+    """The wide K3 at (t, m) = (2, 5) at seven and 42 limbs, and the wide
+    K7 at seven, bit for bit against their plain versions."""
+    from mpyc_tpu_torch import finfields, sectypes
+    st = _state(cuda_device)
+    p = sectypes.SecInt(bits, 'cpu').field.modulus
+    spec = pipelines.ReshareSpec(p, 2, 5)
+    a = _parties_shares(300, 38, cuda_device, p, 5)
+    b = _parties_shares(300, 39, cuda_device, p, 5) if fuse else None
+    got = pipelines.reshare_mul(a, b, st, (0xFFFFFFFF, 2), spec)
+    assert torch.equal(got, pipelines._reshare_mul_plain(
+        a, b, st, (0xFFFFFFFF, 2), spec))
+    if bits == 192 and fuse:
+        field = finfields.GF(p)
+        r = _parties_shares(50, 40, cuda_device, p, 5)
+        z = _parties_shares(50, 41, cuda_device, p, 5)
+        got = pipelines.random_bits_tail(r, z, field, False, 0, 2)
+        want = pipelines._random_bits_tail_plain(r, z, field, False, 0, 2)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_kb2_pivots_on_the_card(cuda_device):
+    """kb2 (SecInt(560), 19 limbs) stopped after two pivots: its opened
+    tableau is the plain exact solver's after as many (run_lp raises
+    otherwise); the wide K5 launched."""
+    import chip_smoke
+    n5 = pipelines.sgn_step.by_key[('LT', 560, 19, 0)]
+    res = chip_smoke.run_lp(cuda_device, datasets=(chip_smoke.LP_KB2,),
+                            pivots={chip_smoke.LP_KB2: 2})
+    assert res['kb2']['pivots'] == 2
+    assert pipelines.sgn_step.by_key[('LT', 560, 19, 0)] > n5
 
 
 def test_wide_kernels_on_the_card(cuda_device):

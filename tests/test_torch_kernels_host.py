@@ -71,7 +71,7 @@ _SHIM = '''
 #define __launch_bounds__(x)
 #define __restrict__
 struct HostDim3 { unsigned x, y, z; };
-inline HostDim3 blockIdx, blockDim, threadIdx;
+inline HostDim3 blockIdx, blockDim, threadIdx, gridDim;
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
@@ -149,6 +149,7 @@ void mtt_host_launch(unsigned grid, unsigned threads, unsigned smem,
   mtt_body = [](void* f) { (*static_cast<F*>(f))(); };
   mtt_body_arg = &body;
   blockDim = {threads, 1, 1};
+  gridDim = {grid, 1, 1};
   for (unsigned b = 0; b < grid; ++b) {
     mtt_dynamic_smem.assign((smem + 7) / 8, 0);
     mtt_shfl_slots[0].assign(threads, 0);
@@ -210,7 +211,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 15, 'every launch must become a host loop'
+    assert launches == 16, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -1369,7 +1370,7 @@ def _wide_reshare(host_lib, st, spec, a, b, nonce):
         a.data_ptr(), b.data_ptr() if b is not None else None,
         out.data_ptr(), st.data_ptr(), a.shape[1], int(b is not None),
         consts.data_ptr(), spec.ctx.n0inv, spec.ctx.L, nonce[0], nonce[1],
-        None) == 0
+        spec.t, spec.m, None) == 0
     return out
 
 
@@ -1383,13 +1384,13 @@ def _wide_pow(host_lib, x, e, ctx):
     return out
 
 
-def _wide_tail(host_lib, r, z, field, signed, f):
+def _wide_tail(host_lib, r, z, field, signed, f, t=1):
     n = r.shape[1]
     bits = torch.empty_like(r)
     flags = torch.empty(n, dtype=torch.uint8)
     count = torch.zeros(1, dtype=torch.int32)
-    params, consts = pipelines._wide_tail_params(field, 1, 3, signed, f,
-                                                 'cpu')
+    params, consts = pipelines._wide_tail_params(field, t, r.shape[0],
+                                                 signed, f, 'cpu')
     assert host_lib.mtt_random_bits_tail_wide(
         r.data_ptr(), z.data_ptr(), bits.data_ptr(), flags.data_ptr(),
         count.data_ptr(), n, consts.data_ptr(), ctypes.addressof(params),
@@ -1513,8 +1514,9 @@ def test_wide_reshare_field_ops_match_the_source(host_lib, state):
 
 def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
     """The wide launchers take 7 to 48 limbs; fewer take the narrow
-    kernels, more raise NotImplementedError on the Python side, and K5
-    refuses every wide field."""
+    kernels, more raise NotImplementedError on the Python side. K3, K5 and
+    K7 take every (t, m) of ``_build.check_parties`` and refuse the rest,
+    on both sides; K5 also a workspace smaller than a CTA's."""
     st, _ = state
     ctx = prime_field_ctx(P200)
     a = _shares(10, 92, P200)
@@ -1525,7 +1527,11 @@ def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
             consts.data_ptr(), ctx.n0inv, L, None) == -1
         assert host_lib.mtt_reshare_wide(
             a.data_ptr(), None, a.data_ptr(), st.data_ptr(), 10, 0,
-            consts.data_ptr(), ctx.n0inv, L, 0, 0, None) == -1
+            consts.data_ptr(), ctx.n0inv, L, 0, 0, 1, 3, None) == -1
+    for t, m in ((0, 3), (5, 11), (2, 4), (1, 17)):
+        assert host_lib.mtt_reshare_wide(
+            a.data_ptr(), None, a.data_ptr(), st.data_ptr(), 10, 0,
+            consts.data_ptr(), ctx.n0inv, 7, 0, 0, t, m, None) == -1
     params, _ = _build.wide_pow(ctx, 5)
     params.nl = 49
     assert host_lib.mtt_mont_pow_wide(a.data_ptr(), a.data_ptr(), 10,
@@ -1539,13 +1545,43 @@ def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
         pipelines.ReshareSpec(big, 1, 3).wide_consts('cpu')
     with pytest.raises(NotImplementedError, match='limbs'):
         pipelines.SgnSpec(P367, 1, 3, 335, LT=True).params((0, 0))
-    # the wide K3 and K7 are built for (t, m) = (1, 3) only
-    with pytest.raises(NotImplementedError, match='(1, 3)'):
-        pipelines.ReshareSpec(P200, 2, 5).wide_consts('cpu')
+    # past 48 limbs K5 raises too, naming the wide kernel's range
+    with pytest.raises(NotImplementedError, match='7 to 48 limbs'):
+        pipelines.SgnSpec(big, 1, 3, 64, LT=True).wide_params((0, 0))
+    # the wide K3 and K7 at (t, m) other than (1, 3); beyond t = 4 or m =
+    # 16 they raise
     from mpyc_tpu_torch import finfields
-    with pytest.raises(NotImplementedError, match='(1, 3)'):
-        pipelines._wide_tail_params(finfields.GF(P200), 2, 5, False, 0,
+    pipelines.ReshareSpec(P200, 2, 5).wide_consts('cpu')
+    pipelines._wide_tail_params(finfields.GF(P200), 4, 16, False, 0, 'cpu')
+    with pytest.raises(NotImplementedError, match='t <= 4'):
+        pipelines.ReshareSpec(P200, 5, 11).wide_consts('cpu')
+    with pytest.raises(NotImplementedError, match='m <= 16'):
+        pipelines._wide_tail_params(finfields.GF(P200), 1, 17, False, 0,
                                     'cpu')
+    with pytest.raises(NotImplementedError, match='t <= 4'):
+        pipelines.SgnSpec(P200, 5, 11, 64, LT=True).wide_params((0, 0))
+    params, consts = pipelines._wide_tail_params(finfields.GF(P200), 1, 3,
+                                                 False, 0, 'cpu')
+    params.m = 2
+    assert host_lib.mtt_random_bits_tail_wide(
+        a.data_ptr(), a.data_ptr(), a.data_ptr(), a.data_ptr(),
+        a.data_ptr(), 10, consts.data_ptr(), ctypes.addressof(params),
+        None) == -1
+    # K5: the workspace of a CTA, the limbs, (t, m)
+    spec = pipelines.SgnSpec(P200, 1, 3, 64, LT=True)
+    wconsts = spec.wide_consts('cpu')
+    ws = torch.empty(spec.wide_params((0, 0)).ws_stride, dtype=torch.int32)
+    for field, v in (('ws_stride', None), ('nl', 6), ('nl', 49),
+                     ('t', 5), ('m', 2), ('k', 65), ('l', 0)):
+        params = spec.wide_params((0, 0))
+        if v is None:
+            params.ws_stride -= 1
+        else:
+            setattr(params, field, v)
+        assert host_lib.mtt_sgn_wide(
+            a.data_ptr(), a.data_ptr(), st.data_ptr(), 10, 10, 10,
+            wconsts.data_ptr(), ws.data_ptr(), 1, ctypes.addressof(params),
+            None) == -1, field
 
 
 # -- parties other than three: 1 <= t <= 4, 2t + 1 <= m <= 16 -----------------
@@ -1795,3 +1831,232 @@ def test_random_bits_tail_field_ops_match_the_source_at_parties(host_lib, t,
     mont, adds = pipelines.random_bits_tail_ops(P52, False, 6, t, m)
     assert tuple(counts) == (256 * mont, 256 * adds)
     assert (mont, adds) == (2 * (2 * t + 1) + 68 + 1 + m, 4 * t + 1 + m)
+
+
+# -- the wide K5: comparisons at 7 to 48 limbs (csrc/sgn_wide.cu) -------------
+
+def _value_shares(values, p, t, m, seed):
+    """(m, n) Montgomery limbs of degree-t Shamir shares of the integers
+    ``values`` (mod p) at the points 1..m, random coefficients."""
+    g = np.random.default_rng(seed)
+    coefs = [[int(c) for c in g.integers(0, 1 << 62, t)] for _ in values]
+    rows = [[(v + sum(c * x ** (k + 1) for k, c in enumerate(cs))) % p
+             for v, cs in zip(values, coefs)] for x in range(1, m + 1)]
+    return prime_field_ctx(p).encode(np.array(rows, dtype=object), 'cpu')
+
+
+def _open(sh, p, t):
+    """The values of (m, n, L) degree-t shares, from the points 1..t + 1,
+    as signed ints (|v| < p / 2)."""
+    vals = prime_field_ctx(p).decode(sh)
+    xs = range(1, t + 2)
+    out = []
+    for e in range(sh.shape[1]):
+        v = 0
+        for i in xs:
+            lam = 1
+            for j in xs:
+                if j != i:
+                    lam = lam * j * pow(j - i, -1, p) % p
+            v += lam * int(vals[i - 1][e])
+        v %= p
+        out.append(v - p if v > p // 2 else v)
+    return out
+
+
+def _wide_sgn(host_lib, st, spec, a, nonce, chunk=None, n_last=None,
+              grid=None):
+    """The wide K5's host launch on (m, n, L) shares a, in chunks of
+    ``chunk`` (one call by default), on ``grid`` CTAs (the launcher's
+    default: one an element)."""
+    n = a.shape[1]
+    params = spec.wide_params(nonce)
+    grid = grid or _build.sgn_wide_grid(n, params.ws_stride)
+    ws = torch.zeros(grid * params.ws_stride, dtype=torch.int32)
+    out = torch.empty_like(a)
+    consts = spec.wide_consts('cpu')
+    assert host_lib.mtt_sgn_wide(
+        a.data_ptr(), out.data_ptr(), st.data_ptr(), n, chunk or n,
+        n_last or n, consts.data_ptr(), ws.data_ptr(), grid,
+        ctypes.addressof(params), None) == 0
+    return out
+
+
+def _compare(mode, v):
+    return (v > 0) - (v < 0) if mode == 'sgn' else int(
+        v < 0 if mode == 'LT' else v == 0)
+
+
+# (p, l, t, m): seven limbs at (1, 3), at (2, 5) and with a party past the
+# senders (1, 4); twelve limbs; 42, whose draws own two sponge blocks each
+WIDE_SGN = [(P200, 40, 1, 3), (P200, 24, 2, 5), (P200, 20, 1, 4),
+            (P200, 1, 1, 4), (P200, 12, 4, 9), (P367, 48, 1, 3),
+            (P1314, 12, 1, 3)]
+WIDE_SGN_IDS = ['L7', 'L7-t2m5', 'L7-t1m4', 'L7-l1-t1m4', 'L7-t4m9', 'L12',
+                'L42']
+
+
+@pytest.mark.parametrize('case', WIDE_SGN, ids=WIDE_SGN_IDS)
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_wide_sgn_source_matches_plain(host_lib, state, mode, case):
+    """The wide K5 equals its plain version bit for bit on degree-t shares
+    of l-bit values (the range ends, 0, +-1 and random ones), and its
+    opened outputs are the comparisons of the values: one call on six to
+    eight elements, two CTAs taking them in turn (the persistent grid), the
+    counter's high word set; the parties past the senders at (1, 4), also
+    at l = 1 (EQ: their xor bit)."""
+    p, l, t, m = case
+    st, _ = state
+    g = np.random.default_rng(l + t + m)
+    lim = 1 << l - 1
+    vals = [v for v in [0, 1, -1, -lim, lim - 1] if -lim <= v < lim] + [
+        int(v) for v in g.integers(-lim, lim, 3)]
+    a = _value_shares(vals, p, t, m, seed=len(vals) + l)
+    spec = pipelines.SgnSpec(p, t, m, l, LT=mode == 'LT', EQ=mode == 'EQ')
+    nonce = (0xFFFFFFFE, 5)
+    got = _wide_sgn(host_lib, st, spec, a, nonce, grid=2)
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, nonce, spec))
+    assert _open(got, p, t) == [_compare(mode, v) for v in vals]
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_wide_sgn_source_takes_many_chunks_in_one_launch(host_lib, state,
+                                                          mode):
+    """One launch of the wide K5 on 11 elements in chunks of 4 (the last
+    call on its bucket of 4 of which 3 are given; each chunk its own
+    counter, carried into the high word) equals the plain version chunk by
+    chunk (``_sgn_chunks_plain``, as ``sgn_chunks`` cuts them), with a
+    grid of 3 CTAs."""
+    st, _ = state
+    spec = pipelines.SgnSpec(P200, 1, 3, 33, LT=mode == 'LT',
+                             EQ=mode == 'EQ', f=5)
+    a = _shares(11, 95, P200)
+    ctr = np.array([0xFFFFFFFF, 2], np.uint32)
+    got = _wide_sgn(host_lib, st, spec, a, (int(ctr[0]), int(ctr[1])),
+                    chunk=4, n_last=pipelines.bucket(3, 4), grid=3)
+    want, ctr_p = pipelines._sgn_chunks_plain(a, st, ctr, spec, 4)
+    assert torch.equal(got, want) and list(ctr_p) == [2, 3]
+
+
+def test_wide_sgn_sizes(host_lib):
+    """The wide K5's workspace and shared memory: a CTA's workspace is
+    (lb + l [not LT]) (2t + 1) L words (lb = l + 1, l in EQ mode), so
+    kb2's LT comparison at t = 1 takes 561 x 3 x 19 words (125 KiB) and
+    one at 48 limbs in sgn mode 3,009 x 3 x 48, the same in ``_build`` as
+    in the source (``mtt_sgn_wide_ws``); a launch's workspace stays within
+    SGN_WIDE_WS_BYTES; a CTA's shared memory (``mtt_sgn_wide_smem``)
+    within the 227 KB a CTA may have at every (t, m) and L."""
+    assert _build.sgn_wide_ws_words(1, 19, 560, 1) == 561 * 3 * 19
+    assert _build.sgn_wide_ws_words(1, 19, 560, 1) * 4 == 127908
+    assert _build.sgn_wide_ws_words(1, 48, 1504, 0) == 3009 * 3 * 48
+    assert _build.sgn_wide_ws_words(4, 7, 64, 2) == 128 * 9 * 7
+    for t, L, l, mode in ((1, 19, 560, 1), (4, 48, 1504, 0), (2, 7, 8, 2)):
+        w = _build.sgn_wide_ws_words(t, L, l, mode)
+        grid = _build.sgn_wide_grid(1 << 20, w)
+        assert 1 <= grid <= _build.SGN_WIDE_GRID
+        assert grid * w * 4 <= _build.SGN_WIDE_WS_BYTES
+    assert _build.sgn_wide_grid(70, 561 * 3 * 19) == 70
+    for t in range(1, 5):
+        for m in (2 * t + 1, 16):
+            for L in (7, 19, 48):
+                assert 0 < host_lib.mtt_sgn_wide_smem(t, m, L) <= 232448
+                for l, mode in ((560, 1), (31, 0), (64, 2)):
+                    assert host_lib.mtt_sgn_wide_ws(t, L, l, mode) == \
+                        _build.sgn_wide_ws_words(t, L, l, mode)
+
+
+def test_wide_sgn_routes_by_limbs(monkeypatch):
+    """K5's launch takes the wide kernel (``mtt_sgn_wide``, its workspace
+    of grid x ws_stride words) at 7 to 48 limbs and the narrow one
+    (``mtt_sgn``) at two to six; at 49 limbs, and at t > 4 or m > 16,
+    both parameter blocks raise NotImplementedError naming their limits."""
+    from mpyc_tpu_torch import gmpy, sectypes
+    calls = []
+    monkeypatch.setattr(_build, 'call', lambda name, *a: calls.append(
+        (name, a)))
+    monkeypatch.setattr(_build, 'stream_of', lambda device: 0)
+    st = keccak.state_tensor(keccak._absorb_host(bytes(40)), 'cpu')
+    p48 = sectypes.SecInt(1504, 'cpu').field.modulus
+    for p, wide in ((P176, False), (P200, True), (P367, True),
+                    (p48, True)):
+        L = prime_field_ctx(p).L
+        spec = pipelines.SgnSpec(p, 1, 3, 40, LT=True)
+        a = _shares(5, 1, p)
+        pipelines._launch_sgn(a, st, (0, 0), spec, 5, 5)
+        name, args = calls.pop()
+        assert name == ('mtt_sgn_wide' if wide else 'mtt_sgn')
+        assert _build.wide(L) == wide
+        if wide:
+            params = spec.wide_params((0, 0))
+            assert args[8] == 5 == _build.sgn_wide_grid(5, params.ws_stride)
+            assert params.ws_stride == _build.sgn_wide_ws_words(1, L, 40, 1)
+            with pytest.raises(NotImplementedError, match='limbs'):
+                spec.params((0, 0))
+        else:
+            with pytest.raises(NotImplementedError, match='7 to 48 limbs'):
+                spec.wide_params((0, 0))
+    assert prime_field_ctx(p48).L == 48
+    p49 = gmpy.next_prime(1 << 32 * 48)
+    spec = pipelines.SgnSpec(p49, 1, 3, 40, LT=True)
+    for make in (spec.params, spec.wide_params):
+        with pytest.raises(NotImplementedError, match='48'):
+            make((0, 0))
+    for t, m in ((5, 11), (1, 17)):
+        spec = pipelines.SgnSpec(P200, t, m, 40, LT=True)
+        with pytest.raises(NotImplementedError, match='t <= 4'):
+            spec.wide_params((0, 0))
+
+
+def _mont_values(words, L):
+    """Montgomery-form values of a buffer's L-word constants."""
+    w = words.numpy().view(np.uint32).reshape(-1, L)
+    return [sum(int(v) << 32 * q for q, v in enumerate(row)) for row in w]
+
+
+@pytest.mark.parametrize('t,m', [(1, 3), (2, 5), (4, 9), (1, 4)])
+def test_wide_constants_layout(t, m):
+    """The wide kernels' device buffers, in their order (csrc/
+    sgn_wide.cu sgn_wide_consts, csrc/wide.cu wide_reshare_consts,
+    wide_tail_consts): K5's p, radix_0, radix_1, lag_t (t + 1), lag_2t
+    (2t + 1), the m points, 1, 3, R^2, 2^l, 2^-l, 2^(l-1), 2^f; K3's p,
+    the radix table, the 2t + 1 Lagrange coefficients and the m points;
+    K7's p, 1, the 2t + 1 coefficients, the scale and offset, then the
+    power's steps; each value in Montgomery form but p, the radix table
+    and R^2."""
+    from mpyc_tpu_torch import finfields
+    p = P200
+    ctx = prime_field_ctx(p)
+    L, R = ctx.L, 1 << 32 * ctx.L
+    ns, l, f = 2 * t + 1, 40, 5
+    mont = [x * R % p for x in range(m + 4)]
+
+    def lag(k):
+        xs = range(1, k + 1)
+        out = []
+        for i in xs:
+            v = 1
+            for j in xs:
+                if j != i:
+                    v = v * j * pow(j - i, -1, p) % p
+            out.append(v * R % p)
+        return out
+    spec = pipelines.SgnSpec(p, t, m, l, EQ=True, f=f)
+    vals = _mont_values(spec.wide_consts('cpu'), L)
+    assert len(vals) == 3 + (t + 1) + ns + m + 7
+    radix = [(1 << 32 * L * c) * R * R % p for c in range(2)]
+    assert vals[:3] == [p] + radix
+    assert vals[3:3 + t + 1] == lag(t + 1)
+    assert vals[4 + t:4 + t + ns] == lag(ns)
+    assert vals[4 + t + ns:4 + t + ns + m] == mont[1:m + 1]
+    assert vals[4 + t + ns + m:] == [
+        R % p, 3 * R % p, R * R % p, (1 << l) * R % p,
+        pow(1 << l, -1, p) * R % p, (1 << l - 1) * R % p, (1 << f) * R % p]
+    vals = _mont_values(pipelines.ReshareSpec(p, t, m).wide_consts('cpu'), L)
+    assert vals == [p] + radix + lag(ns) + mont[1:m + 1]
+    P, consts = pipelines._wide_tail_params(finfields.GF(p), t, m, True, 0,
+                                            'cpu')
+    assert (P.t, P.m) == (t, m)
+    words = consts.numpy().view(np.uint32)
+    assert words.size == (4 + ns) * L + 2 * P.pow.n_steps
+    vals = _mont_values(consts[:(4 + ns) * L], L)
+    assert vals == [p, R % p] + lag(ns) + [R % p, R % p]
