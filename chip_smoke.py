@@ -1080,6 +1080,37 @@ def bound(n_bytes: float, n_ops):
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
+SMS = 132                      # the H100 SXM's SMs
+
+
+def sm_bound(n_bytes: float, n_ops, sms: int) -> float:
+    """The least ms for n_bytes and the integer instructions n_ops on the
+    sms SMs that a launch can fill (its CTAs, at most SMS): the operations
+    at those SMs' share of the card's integer rate, the bytes at the whole
+    card's. A one-element wide K6 launch fills one SM."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int_lane_ops(n_ops) / INT_OPS_PER_S * 1e3 * SMS / min(sms, SMS)
+    return max(t_bytes, t_ops)
+
+
+def wide_ctas(name: str, spec_or_ctx, n: int) -> int:
+    """CTAs of a wide K5 (``sgn_step``) or K6 (``mont_pow``) launch on n
+    elements: the K5's persistent grid (``_build.sgn_wide_grid``), the
+    K6's groups of ``_build.wide_group`` lanes, 128 threads a CTA."""
+    from mpyc_tpu_torch import _build
+    if name == 'sgn_step':
+        return _build.sgn_wide_grid(n, spec_or_ctx.wide_params(
+            (0, 0)).ws_stride)
+    return -(-n // (128 // _build.wide_group(spec_or_ctx.L)))
+
+
+def wide_fn(fn: str, L: int) -> str:
+    """The ptxas name of the wide K5's or K6's instantiation at L limbs
+    (csrc/wide.cuh wide_dispatch: words a lane, and whether a group is a
+    whole warp: <1,0> to 16 limbs, <1,1> to 32, <2,1> above)."""
+    return f'{fn}<{"1,0" if L <= 16 else "1,1" if L <= 32 else "2,1"}>'
+
+
 def draw_ops(n_draws: int, W: int, L: int = 2) -> np.ndarray:
     """Montgomery work to map n_draws W-word draws into GF(p)."""
     nc = -(-W // L)
@@ -1634,17 +1665,22 @@ def check_slice_kernels(p: int) -> dict:
 def sgn_ops(spec, n: int, chunk: int | None = None) -> tuple:
     """(field products, adds/subs per element, integer instructions) of
     K5 on n elements as the kernel does them: its field operations
-    (SgnSpec.field_ops, held against the source by
+    (SgnSpec.field_ops, with the wide K5's groups from 7 limbs on, held
+    against the source by
     tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
     reduction of its draws and the stream's blocks, these of each call
     when the n elements are cut into chunks of ``chunk``."""
+    from mpyc_tpu_torch import _build
     L = spec.ctx.L
     draws = n * spec.draws_per_element()
-    mont, adds = spec.field_ops(spec.l / 2)
+    mont, adds = spec.field_ops(spec.l / 2, _build.sgn_wide_groups(L)
+                                if _build.wide(L) else None)
     sizes = [n] if chunk is None else \
         [min(chunk, n - j0) for j0 in range(0, n, chunk)]
-    ops = (sum(spec.blocks(c) for c in sizes) * KECCAK_F_OPS
-           + draw_ops(draws, spec.l_bytes // 4, L)
+    # the wide K5 takes a draw's top two words by a product of two rows
+    draw = draws * (mont_mul_ops(L) * (1 + 2 / L) + add_mod_ops(L)) \
+        if _build.wide(L) else draw_ops(draws, spec.l_bytes // 4, L)
+    ops = (sum(spec.blocks(c) for c in sizes) * KECCAK_F_OPS + draw
            + n * (mont * mont_mul_ops(L) + adds * add_mod_ops(L)))
     return mont, adds, ops
 
@@ -1706,10 +1742,16 @@ def sgn_meas(spec, a, st, nonce, chunk: int, err: int,
         f' on a bucket of {pipelines.bucket(n, chunk)}'
     if (spec.t, spec.m) != (T, M):
         where += f' at (t, m) = ({spec.t}, {spec.m})'
+    from mpyc_tpu_torch import _build
+    extra = {}
+    if _build.wide(L):    # the wide K5: an element a CTA, its SMs filled
+        ctas = wide_ctas('sgn_step', spec, n)
+        extra = dict(ctas=ctas, sm_bound_ms=sm_bound(
+            n * spec.m * L * 4 * 2, ops, ctas))
     return dict(
         shape=f'({spec.m}, {n}, {L}) shares, {spec.mode}, l = {spec.l}'
         f'{where}',
-        max_abs_err=err, mont=mont, adds=adds,
+        max_abs_err=err, mont=mont, adds=adds, **extra,
         ms=cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec, chunk),
                    10),
         plain_ms=plain_ms if plain_ms is not None else once_ms(
@@ -4217,7 +4259,9 @@ def check_wide_kernels() -> dict:
             f'the plan\'s {k} products (any chain {least} at the least)',
             max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(z, e, ctx),
                                         3),
-            plain_ms=plain_ms, bound_ms=bd, bound_by=o)
+            plain_ms=plain_ms, bound_ms=bd, bound_by=o, ctas=1,
+            sm_bound_ms=sm_bound(L * 4 * 2, least * least_product_ops(ctx),
+                                 wide_ctas('mont_pow', ctx, 1)))
         if L == 7:
             field = finfields.GF(p)
             rr, zz = tail_shares(p, 30, gen, every=7)
@@ -4404,7 +4448,9 @@ def check_wide_sgn_kernels(ptx: dict) -> dict:
         shape=f'1 element, L = 19, a {e.bit_length()}-bit exponent: the '
         f'plan\'s {k} products (any chain {least} at the least)',
         max_abs_err=err, ms=cuda_ms(lambda: fieldops.mont_pow(z, e, ctx), 3),
-        plain_ms=plain_ms, bound_ms=bd, bound_by=o)
+        plain_ms=plain_ms, bound_ms=bd, bound_by=o, ctas=1,
+        sm_bound_ms=sm_bound(ctx.L * 4 * 2, least * least_product_ops(ctx),
+                             wide_ctas('mont_pow', ctx, 1)))
     say('  wide K3 fused and not on (3, 2898, 19), K6 at L = 19 (kb2): '
         'equal to plain')
     p = wide_field(1504)
@@ -4427,16 +4473,20 @@ def check_wide_sgn_kernels(ptx: dict) -> dict:
     check(set(entries) <= set(res),
           'check_wide_sgn_kernels: an entry without a row')
     for name, r in res.items():
-        fn = ('sgn_wide_kernel' if name.startswith('sgn_step') else
-              'reshare_wide_kernel' if name.startswith('reshare_mul') else
-              'random_bits_tail_wide_kernel'
-              if name.startswith('random_bits') else 'mont_pow_wide_kernel'
+        L = int(re.search(r'L=(\d+)', name).group(1))
+        fn = (wide_fn('sgn_wide_kernel', L) if name.startswith('sgn_step')
+              else 'reshare_wide_kernel' if name.startswith('reshare_mul')
+              else 'random_bits_tail_wide_kernel'
+              if name.startswith('random_bits') else
+              wide_fn('mont_pow_wide_kernel', L)
               if name.startswith('mont_pow') else 'field_op_wide_kernel')
         rep_ = ', '.join(f'{k} {v}' for k, v in ptx.get(fn, {}).items())
+        fill = f', on its {r["ctas"]} CTAs\' SMs {r["sm_bound_ms"]:.4f} ' \
+            f'ms ({r["ms"] / r["sm_bound_ms"]:.2f}x)' if 'ctas' in r else ''
         say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
             f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
-            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x; ptxas {fn}: '
-            f'{rep_ or "not in the report"}')
+            f'({r["bound_by"]}), {r["ms"] / r["bound_ms"]:.2f}x{fill}; '
+            f'ptxas {fn}: {rep_ or "not in the report"}')
     return res
 
 
@@ -4677,9 +4727,11 @@ def main() -> int:
                 f'tree (the wide K3 and K7 at every (t, m)), {pr:.4f} ms in '
                 f'PERF.md ({r["ms"] / pr:.3f}x) on {smi}')
         for name, r in meas.items():
+            fill = f', on its {r["ctas"]} CTAs\' SMs ' \
+                f'{r["sm_bound_ms"]:.4f} ms' if 'ctas' in r else ''
             say(f'  {name} [{r["shape"]}]: {r["ms"]:.4f} ms, plain '
                 f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms '
-                f'({r["bound_by"]}) on {smi}')
+                f'({r["bound_by"]}){fill} on {smi}')
         torch.cuda.empty_cache()
 
     launches = dict.fromkeys(ENTRIES, 0)

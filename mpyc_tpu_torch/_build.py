@@ -68,10 +68,16 @@ MAX_NL = 6       # limbs of a field element (p < 2^192; csrc/common.cuh)
 # block)
 WIDE_MIN_NL = 7
 WIDE_MAX_NL = 48  # p < 2^1536
-# the wide K5 (csrc/sgn_wide.cu): a CTA of SGN_WIDE_THREADS threads takes
-# one element at a time, a launch at most SGN_WIDE_GRID CTAs, whose
-# workspaces (sgn_wide_ws_words each) take at most SGN_WIDE_WS_BYTES
-SGN_WIDE_THREADS = 128
+# the wide K5 (csrc/sgn_wide.cu): a CTA of SGN_WIDE_THREADS threads (groups
+# of wide_group(L) lanes) takes one element at a time, a launch at most
+# SGN_WIDE_GRID CTAs; its draws staged SGN_WIDE_STAGE a set at a time; the
+# element's vectors in shared memory where they fit in SGN_WIDE_SMEM_MAX
+# bytes with the rest, else in a workspace (sgn_wide_ws_words a CTA), the
+# launch's at most SGN_WIDE_WS_BYTES
+SGN_WIDE_THREADS = 512
+SGN_WIDE_STAGE = 128
+SGN_WIDE_WORDS = 64
+SGN_WIDE_SMEM_MAX = 232448
 SGN_WIDE_GRID = 1024
 SGN_WIDE_WS_BYTES = 1 << 31
 MAX_NC = 4       # chunks per draw
@@ -215,19 +221,57 @@ def sgn_lb_fit(t: int, L: int) -> int:
     return lb
 
 
-def sgn_wide_ws_words(t: int, L: int, l: int, mode: int) -> int:
-    """Workspace words of a wide K5 CTA (csrc/sgn_wide.cu
-    sgn_wide_ws_words): the bit shares, lb = l + 1 (l in EQ mode, mode 2)
-    values of the 2t + 1 senders' shares, and unless LT (mode 1) the xor
+def wide_group(L: int) -> int:
+    """Lanes of a group that holds an L-limb value in the wide K5 and K6
+    (csrc/wide.cuh wide_group): 8 to 8 limbs, 16 to 16, else 32, one or
+    two words a lane."""
+    return 8 if L <= 8 else 16 if L <= 16 else 32
+
+
+def sgn_wide_groups(L: int) -> int:
+    """Groups of lanes in a wide K5 CTA at L limbs."""
+    return SGN_WIDE_THREADS // wide_group(L)
+
+
+def sgn_wide_vec_words(t: int, L: int, l: int, mode: int) -> int:
+    """Words of a wide K5 element's vectors (csrc/sgn_wide.cu
+    sgn_wide_vec_words): the bit shares, lb = l + 1 (l in EQ mode, mode
+    2) values of the 2t + 1 senders' shares, and unless LT (mode 1) the xor
     vector, l of them; L words a value."""
     lb = l + (0 if mode == 2 else 1)
     return (lb + (0 if mode == 1 else l)) * (2 * t + 1) * L
 
 
+def sgn_wide_base_words(t: int, m: int, L: int) -> int:
+    """Shared memory words of a wide K5 CTA but the vectors (csrc/
+    sgn_wide.cu sgn_wide_base_words): the constants, t sets of
+    SGN_WIDE_STAGE staged draws of L + 2 words, the stream-A words, the
+    element's values and the groups' scratch."""
+    ns = 2 * t + 1
+    consts = 10                              # SGN_WIDE_CONSTS
+    state = 1 + m + 2 * ns + (t + 1) + t + m + t + 3
+    return (consts + state + 2 * sgn_wide_groups(L) + 2) * L \
+        + t * SGN_WIDE_STAGE * (L + 2) + SGN_WIDE_WORDS
+
+
+def sgn_wide_layout(t: int, m: int, L: int, l: int, mode: int) -> tuple:
+    """(dynamic shared memory bytes of a wide K5 CTA, its workspace
+    words): the vectors in shared memory where they fit in
+    SGN_WIDE_SMEM_MAX bytes beside the rest (no workspace), else in the
+    workspace (csrc/sgn_wide.cu sgn_wide_smem_bytes, sgn_wide_ws_words)."""
+    base, vec = sgn_wide_base_words(t, m, L), sgn_wide_vec_words(t, L, l,
+                                                                 mode)
+    if (base + vec) * 4 <= SGN_WIDE_SMEM_MAX:
+        return (base + vec) * 4, 0
+    return base * 4, vec
+
+
 def sgn_wide_grid(n: int, ws_words: int) -> int:
     """CTAs of a wide K5 launch on n elements: one an element, at most
-    SGN_WIDE_GRID, and as many as SGN_WIDE_WS_BYTES of workspace hold
-    (at least one)."""
+    SGN_WIDE_GRID, and as many as SGN_WIDE_WS_BYTES of workspace hold (at
+    least one; ws_words 0: the vectors in shared memory)."""
+    if not ws_words:
+        return max(1, min(n, SGN_WIDE_GRID))
     return max(1, min(n, SGN_WIDE_GRID,
                       SGN_WIDE_WS_BYTES // (4 * ws_words)))
 
@@ -336,10 +380,11 @@ _SIGNATURES = {
                          ctypes.c_uint, ctypes.c_int, ctypes.c_int, _C],
     'mtt_sgn_wide': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
                      ctypes.c_longlong, _C, _C, ctypes.c_longlong, _C, _C],
-    'mtt_sgn_wide_smem': [ctypes.c_int, ctypes.c_int, ctypes.c_int],
-    'mtt_sgn_wide_ws': [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int],
+    'mtt_sgn_wide_smem': [ctypes.c_int] * 5,
+    'mtt_sgn_wide_ws': [ctypes.c_int] * 5,
     'mtt_mont_pow_wide': [_C, _C, ctypes.c_longlong, _C, _C, _C],
+    'mtt_group_op_wide': [_C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
+                          ctypes.c_uint, ctypes.c_int, _C],
     'mtt_random_bits_tail_wide': [_C, _C, _C, _C, _C, ctypes.c_longlong, _C,
                                   _C, _C],
 }

@@ -17,31 +17,42 @@
 // every value is canonical, and the field values are the same however the
 // sums are ordered.
 //
-// Design. The narrow K5 runs one thread an element, its bit shares (lb x
-// (2t + 1) values) in local memory and a call's draws for its CTA in
-// shared memory. At kb2's SecInt(560) (L = 19, lb = 561) an element's bit
-// shares take 125 KiB, at 48 limbs 847 KiB, past what a thread may have;
-// and kb2's comparisons are small (about 70 elements a call), so one thread
-// an element would run each comparison's 10^7 dependent instructions in
-// series. Here a CTA of SGN_WIDE_THREADS threads takes one element at a
-// time (a persistent grid walks over the elements), its vectors (the bit
-// shares E, lb x (2t + 1) values, and outside LT mode the xor vector X, l
-// x (2t + 1)) in a device workspace of the launch, one region a CTA
-// (sgn_wide_ws_words). The bit positions, and each level of the two
-// product trees, are spread over the CTA's threads with a barrier between
-// steps; the suffix sums of the E vector are a blocked scan (each thread a
-// run of bits, a Hillis-Steele scan of the runs' sums in shared memory);
-// r mod 2^l's shares come from the sums R_k = sum_{j < l} 2^j C_{k, j} of
-// the bit split's coefficients (the Horner form is linear in them), a CTA
-// reduction, not a doubling chain. So an element takes about log2(l)
-// barrier-separated levels rather than l dependent steps. Each call's
-// draws for the element are staged in shared memory, SGN_WIDE_THREADS a
-// set at a time: each sponge block they touch is squeezed once, by one
-// thread, which reduces its draws into GF(p) (a draw of the element's
-// neighbour in the same block is squeezed again by the neighbour's CTA).
+// Design. A CTA of SGN_WIDE_THREADS (512) threads takes one element at a
+// time (a persistent grid walks over the elements), as groups of 8, 16 or
+// 32 lanes (wide.cuh WGroup: the limbs in registers, S = 1 or 2 words a
+// lane, a whole warp from 17 limbs on; wide_dispatch: three
+// instantiations), 64, 32 or 16 groups a CTA. Every field
+// operation is one group's: the bit split's Horner forms at the senders,
+// the R_k terms and a draw's reduction, each node of the product trees
+// and the zero test. Each phase hands its items (a bit and a sender, a
+// node and a sender, a party) to the groups in turn, with a barrier
+// between phases, so kb2's element (L = 19: 16 groups) keeps 16 products
+// in flight on its SM, each about L times shorter than one thread's
+// whose limbs were in local memory. The element's vectors (the bit shares
+// E, lb x (2t + 1) values, and outside LT mode the xor vector X, l x (2t +
+// 1)) live in shared memory where they fit beside the rest (kb2's LT E:
+// 127,908 bytes), else in a device workspace of the launch, one region a
+// CTA (sgn_wide_ws_words; SecInt(1504), or sgn mode at SecInt(560)): a
+// generic pointer to either, one code. The suffix sums of the E vector
+// are a blocked scan (each group a run of bits, a Hillis-Steele scan of
+// the runs' sums over the groups); r mod 2^l's shares come from the sums
+// R_k = sum_{j < l} 2^j C_{k, j} of the bit split's coefficients (the
+// Horner form is linear in them): each group doubles its run of bits
+// from the top and scales the run by one product, and the groups' sums
+// are added in a tree. A product is L rows of shuffles and multiply-adds,
+// an add two ballot lookaheads, so the small integers among the factors
+// enter by doubling and adding, not by a product: a party's point x_i =
+// i + 1 in the Horner forms, and the Lagrange coefficients at 0 of the
+// points 1..n, (-1)^(i - 1) C(n, i). Each call's draws for the element
+// are staged in shared memory, SGN_WIDE_STAGE a set at a time: each
+// sponge block they touch is squeezed once, by one thread, which stores
+// the draws' raw words; then the groups reduce them into GF(p) (a draw
+// of the element's neighbour in the same block is squeezed again by the
+// neighbour's CTA).
 // The field's constants come from a device buffer that each CTA copies
-// into shared memory (SgnSpec.wide_consts): p, the radix table, lag_t,
-// lag_2t, the m points, one, three, r2, pow2l, inv2l, pow2l1 and powf.
+// into shared memory (SgnSpec.wide_consts): p, the radix table of a draw
+// (radix_1 times 2^64 R^-1: a draw's top two words enter by a product of
+// two rows), one, three, r2, pow2l, inv2l, pow2l1 and powf.
 //
 // Parties. As in sgn.cuh, the vectors keep the 2t + 1 senders' shares;
 // the parties past them take their output in LT mode from their own a_r
@@ -55,22 +66,22 @@
 
 namespace mtt {
 
-constexpr int SGN_WIDE_THREADS = 128;  // _build.SGN_WIDE_THREADS
+constexpr int SGN_WIDE_THREADS = 512;  // _build.SGN_WIDE_THREADS
+constexpr int SGN_WIDE_STAGE = 128;    // draws of a set staged at a time
 constexpr int SGN_WIDE_WORDS = 64;     // stream A words of an element, at most
+constexpr int SGN_WIDE_SMEM_MAX = 232448;   // a CTA's shared memory, at most
 
 // Mirrored by a ctypes structure in mpyc_tpu_torch/_build.py.
 struct SgnWide {
   int32_t nl, t, m, l, k, mode, has_f;
   uint32_t n0inv, nonce_lo, nonce_hi;
-  long long ws_stride;   // workspace words of a CTA
+  long long ws_stride;   // workspace words of a CTA (0: shared memory)
 };
 
-// The constants' L-word values in the device buffer: p, radix_0, radix_1,
-// lag_t (t + 1), lag_2t (2t + 1), the m points, one, three, r2, pow2l,
-// inv2l, pow2l1, powf (pipelines.SgnSpec.wide_consts).
-__host__ __device__ constexpr int sgn_wide_consts(int t, int m) {
-  return 3 + (t + 1) + (2 * t + 1) + m + 7;
-}
+// The constants' L-word values in the device buffer: p, radix_0, radix_1
+// 2^64 R^-1, one, three, r2, pow2l, inv2l, pow2l1, powf
+// (pipelines.SgnSpec.wide_consts).
+constexpr int SGN_WIDE_CONSTS = 10;
 
 // The element's values in shared memory beside the constants and the
 // staged draws, in L-word values: c (standard form), a_r then z (m), s
@@ -81,73 +92,82 @@ __host__ __device__ constexpr int sgn_wide_state(int t, int m) {
   return 1 + m + 2 * (2 * t + 1) + (t + 1) + t + m + t + 1 + 1 + 1;
 }
 
-// Dynamic shared memory of a CTA: the constants, the staged draws (t sets
-// of SGN_WIDE_THREADS draws; the scans reuse the first set), the stream-A
-// words and the element's values.
-__host__ __device__ constexpr long long sgn_wide_smem_bytes(int t, int m,
+__host__ __device__ constexpr int sgn_wide_groups(int L) {
+  return SGN_WIDE_THREADS / wide_group(L);
+}
+
+// Shared memory words of a CTA but the vectors: the constants, the staged
+// draws (t sets of SGN_WIDE_STAGE draws of L + 2 words), the stream-A
+// words, the element's values and the groups' scratch (two values a
+// group for the scans, and two).
+__host__ __device__ constexpr long long sgn_wide_base_words(int t, int m,
                                                             int L) {
-  return ((long long)(sgn_wide_consts(t, m) + t * SGN_WIDE_THREADS +
-                      sgn_wide_state(t, m)) * L + SGN_WIDE_WORDS) * 4;
+  return (long long)(SGN_WIDE_CONSTS + sgn_wide_state(t, m) +
+                     2 * sgn_wide_groups(L) + 2) * L +
+         (long long)t * SGN_WIDE_STAGE * (L + 2) + SGN_WIDE_WORDS;
 }
 
-// Workspace words of a CTA: the bit shares E (lb x (2t + 1)) and, unless
-// LT, the xor vector X (l x (2t + 1)), L words each.
-__host__ __device__ constexpr long long sgn_wide_ws_words(int t, int L,
-                                                          int l, int mode) {
-  const int lb = l + (mode == 2 ? 0 : 1);
-  return (long long)(lb + (mode == 1 ? 0 : l)) * (2 * t + 1) * L;
+// The vectors' words: the bit shares E (lb x (2t + 1)) and, unless LT,
+// the xor vector X (l x (2t + 1)), L words each.
+__host__ __device__ constexpr long long sgn_wide_vec_words(int t, int L,
+                                                           int l, int mode) {
+  return (long long)(l + (mode == 2 ? 0 : 1) + (mode == 1 ? 0 : l)) *
+         (2 * t + 1) * L;
 }
 
-// The field operations of wide.cuh out of line: a product of 7 to 48 limbs
-// is hundreds of instructions, against which a call costs little, and the
-// kernel's many call sites each inlined took the unit's build from about
-// 35 s (wide.cu) to 100 s.
-static __device__ __noinline__ void sw_mul(const uint32_t* a,
-                                           const uint32_t* b,
-                                           const uint32_t* p, uint32_t n0,
-                                           int L, uint32_t* out) {
-  wmont_mul(a, b, p, n0, L, out);
+// Whether the vectors fit in shared memory beside the rest; the dynamic
+// shared memory of a CTA; the workspace words of a CTA (0 when they fit).
+__host__ __device__ constexpr bool sgn_wide_in_smem(int t, int m, int L,
+                                                    int l, int mode) {
+  return (sgn_wide_base_words(t, m, L) + sgn_wide_vec_words(t, L, l, mode))
+         * 4 <= SGN_WIDE_SMEM_MAX;
+}
+__host__ __device__ constexpr long long sgn_wide_smem_bytes(int t, int m,
+                                                            int L, int l,
+                                                            int mode) {
+  return (sgn_wide_base_words(t, m, L) +
+          (sgn_wide_in_smem(t, m, L, l, mode)
+               ? sgn_wide_vec_words(t, L, l, mode) : 0)) * 4;
+}
+__host__ __device__ constexpr long long sgn_wide_ws_words(int t, int m,
+                                                          int L, int l,
+                                                          int mode) {
+  return sgn_wide_in_smem(t, m, L, l, mode)
+             ? 0 : sgn_wide_vec_words(t, L, l, mode);
 }
 
-static __device__ __noinline__ void sw_add(const uint32_t* a,
-                                           const uint32_t* b,
-                                           const uint32_t* p, int L,
-                                           uint32_t* out) {
-  wadd_mod(a, b, p, L, out);
+// The group's field operations out of line: a product of 7 to 48 limbs
+// is hundreds of instructions, against which a call costs little, and
+// the kernel's many call sites each inlined would multiply the unit's
+// build time.
+template <int S, bool WARP>
+static __device__ __noinline__ WV<S> sw_mul(const WGroup<S, WARP> G,
+                                            const WV<S> a, const WV<S> b,
+                                            int rows) {
+  return G.mul(a, b, rows);
 }
 
-static __device__ __noinline__ void sw_sub(const uint32_t* a,
-                                           const uint32_t* b,
-                                           const uint32_t* p, int L,
-                                           uint32_t* out) {
-  wsub_mod(a, b, p, L, out);
+template <int S, bool WARP>
+static __device__ __noinline__ WV<S> sw_add(const WGroup<S, WARP> G,
+                                            const WV<S> a, const WV<S> b) {
+  return G.add(a, b);
 }
 
-// Horner(C, x) + v: C_kk at C + kk * cstride (t of them); out may be v.
-static __device__ void whorner(const uint32_t* v, const uint32_t* C,
-                               int cstride, int t, const uint32_t* x,
-                               const uint32_t* p, uint32_t n0, int L,
-                               uint32_t* out) {
-  uint32_t y[WIDE_MAX_NL];
-  wcopy(C, L, y);
-  sw_mul(y, x, p, n0, L, y);
-  for (int kk = 1; kk < t; ++kk) {
-    sw_add(y, C + kk * cstride, p, L, y);
-    sw_mul(y, x, p, n0, L, y);
-  }
-  sw_add(y, v, p, L, out);
+template <int S, bool WARP>
+static __device__ __noinline__ WV<S> sw_sub(const WGroup<S, WARP> G,
+                                            const WV<S> a, const WV<S> b) {
+  return G.sub(a, b);
 }
 
-// Draws base + kk setstride + j (kk < sets, j0 <= j < j0 + cnt) of stream B
-// (W-word draws from block blocks_a on), each reduced into GF(p), to
-// sm[(kk SGN_WIDE_THREADS + j - j0) L ..]. Every thread of the CTA calls
-// it; each block is squeezed once, by one thread. Out of line, so the
-// permutation is compiled once.
-static __device__ __noinline__ void sgnw_stage(
+// The raw words of draws base + kk setstride + j0 + r (kk < sets, r <
+// cnt) of stream B (W-word draws from block blocks_a on) to sm[(kk
+// SGN_WIDE_STAGE + r) W ..]. Every thread of the CTA calls it; each block
+// is squeezed once, by one thread. Out of line, so the permutation is
+// compiled once.
+static __device__ __noinline__ void sgnw_squeeze(
     const uint32_t* __restrict__ state, uint64_t nonce, long long blocks_a,
-    long long base, long long setstride, int sets, int j0, int cnt,
-    const uint32_t* C, uint32_t n0, int L, uint32_t* sm) {
-  const int W = L + 2;
+    long long base, long long setstride, int sets, int j0, int cnt, int W,
+    uint32_t* sm) {
   if (W <= RATE_WORDS) {
     const int epb = RATE_WORDS / W;
     int total = 0;
@@ -168,58 +188,28 @@ static __device__ __noinline__ void sgnw_stage(
       const long long blk = d0 / epb + rem;
       uint64_t A[25];
       squeeze_block(state, nonce, (unsigned long long)(blocks_a + blk), A);
-      uint32_t w[RATE_WORDS];
-#pragma unroll
-      for (int r = 0; r < RATE_WORDS; ++r) w[r] = rate_word(A, r);
       for (int s = 0; s < epb; ++s) {
         const long long r = blk * epb + s - d0;
-        if (r >= 0 && r < cnt)
-          wreduce_draw(w + s * W, W, C, n0, L,
-                       sm + (kk * SGN_WIDE_THREADS + r) * L);
+        if (r >= 0 && r < cnt) {
+          uint32_t* dst = sm + (kk * SGN_WIDE_STAGE + r) * W;
+          for (int w = 0; w < W; ++w) dst[w] = rate_word(A, s * W + w);
+        }
       }
     }
   } else {
-    // from 41 limbs on: draw d owns the whole blocks 2 d and 2 d + 1
-    for (int q = threadIdx.x; q < sets * cnt; q += blockDim.x) {
-      const int kk = q / cnt, r = q - kk * cnt;
+    // from 41 limbs on: draw d owns the whole blocks 2 d and 2 d + 1, its
+    // words the first W of their rate words; a thread a block
+    for (int q = threadIdx.x; q < 2 * sets * cnt; q += blockDim.x) {
+      const int h = q & 1, dq = q >> 1;
+      const int kk = dq / cnt, r = dq - kk * cnt;
       const long long d = base + kk * setstride + j0 + r;
-      uint32_t w[2 * RATE_WORDS];
-      for (int h = 0; h < 2; ++h) {
-        uint64_t A[25];
-        squeeze_block(state, nonce,
-                      (unsigned long long)(blocks_a + 2 * d + h), A);
-#pragma unroll
-        for (int x = 0; x < RATE_WORDS; ++x)
-          w[h * RATE_WORDS + x] = rate_word(A, x);
-      }
-      wreduce_draw(w, W, C, n0, L, sm + (kk * SGN_WIDE_THREADS + r) * L);
+      uint64_t A[25];
+      squeeze_block(state, nonce,
+                    (unsigned long long)(blocks_a + 2 * d + h), A);
+      uint32_t* dst = sm + (kk * SGN_WIDE_STAGE + r) * W + h * RATE_WORDS;
+      const int nw = h ? W - RATE_WORDS : RATE_WORDS;
+      for (int w = 0; w < nw; ++w) dst[w] = rate_word(A, w);
     }
-  }
-}
-
-// Inclusive suffix sums mod p of the CTA's values buf[tau] (L words each,
-// one a thread): buf[tau] <- sum_{tau' >= tau} buf[tau'] (Hillis-Steele).
-// The caller synchronises before (the values written) and the function
-// ends with a barrier.
-static __device__ void sgnw_suffix_scan(uint32_t* buf, const uint32_t* p,
-                                        int L) {
-  const int B = blockDim.x, tid = threadIdx.x;
-  for (int off = 1; off < B; off <<= 1) {
-    uint32_t v[WIDE_MAX_NL];
-    const bool has = tid + off < B;
-    if (has) wcopy(buf + (tid + off) * L, L, v);
-    __syncthreads();
-    if (has) sw_add(buf + tid * L, v, p, L, buf + tid * L);
-    __syncthreads();
-  }
-}
-
-// The value of an l-bit prefix of little-endian words as L limbs.
-static __device__ __forceinline__ void low_bits(const uint32_t* w, int l,
-                                                int L, uint32_t* out) {
-  for (int q = 0; q < L; ++q) {
-    const int rem = l - 32 * q;
-    out[q] = rem <= 0 ? 0u : rem < 32 ? w[q] & ((1u << rem) - 1u) : w[q];
   }
 }
 
@@ -227,86 +217,153 @@ static __device__ __forceinline__ bool wbit(const uint32_t* w, int j) {
   return (w[j >> 5] >> (j & 31)) & 1u;
 }
 
-static __device__ __forceinline__ bool wis_zero(const uint32_t* v, int L) {
-  uint32_t acc = 0;
-  for (int q = 0; q < L; ++q) acc |= v[q];
-  return acc == 0;
-}
-
-// The element's view of one launch: the constants and its place in the
-// stream.
-struct SgnwElem {
+// The CTA's view of one launch and element: the group of this thread, the
+// constants, the staged draws and the element's place in the stream.
+template <int S, bool WARP>
+struct Sgnw {
+  WGroup<S, WARP> G;
+  int gi, NG, L, t, ns, W;
+  const uint32_t *C, *p, *one, *three, *r2, *pow2l,
+      *inv2l, *pow2l1, *powf;
+  uint32_t* stage;
   const uint32_t* state;
   uint64_t nonce;
   long long blocks_a, nc, el, off;   // the call's n, the element, next draw
-  const uint32_t *C, *p, *lag_t, *lag_2t, *xs, *one, *three, *r2, *pow2l,
-      *inv2l, *pow2l1, *powf;
-  uint32_t n0;
-  int L, t, ns;
-  uint32_t* stage;
 
-  // Stage draws j0 .. j0 + cnt - 1 of every set of the current call (c
-  // draws an element and set).
-  __device__ void stage_pass(int sets, int c, int j0, int cnt) const {
-    sgnw_stage(state, nonce, blocks_a, off + el * c, nc * c, sets, j0, cnt,
-               C, n0, L, stage);
+  __device__ WV<S> mul(const WV<S>& a, const WV<S>& b, int rows = 0) const {
+    return sw_mul<S, WARP>(G, a, b, rows);
+  }
+  __device__ WV<S> add(const WV<S>& a, const WV<S>& b) const {
+    return sw_add<S, WARP>(G, a, b);
+  }
+  __device__ WV<S> sub(const WV<S>& a, const WV<S>& b) const {
+    return sw_sub<S, WARP>(G, a, b);
+  }
+  __device__ WV<S> ld(const uint32_t* v) const { return G.ld(v); }
+  __device__ void st(uint32_t* v, const WV<S>& x) const { G.st(v, x); }
+
+  // The staged coefficients of draw slot r (t of them, stride cstride()).
+  __device__ const uint32_t* coefs(int r) const { return stage + r * W; }
+  __device__ long long cstride() const {
+    return (long long)SGN_WIDE_STAGE * W;
   }
   // The call is taken: the next call's draws follow.
   __device__ void next(int sets, int c) { off += (long long)sets * nc * c; }
-  // The staged coefficients of draw slot r (t of them, stride cstride()).
-  __device__ const uint32_t* coefs(int r) const {
-    return stage + r * L;
-  }
-  __device__ int cstride() const { return SGN_WIDE_THREADS * L; }
-};
 
-// Log-depth product of x[0..w-1] (each 2t + 1 shares of L words, the
-// element's workspace) into x[0]: level by level, x_j <- reshare(x_j
-// x_{h+j}) for j < h = w / 2, an odd last one moved to x_h. A level is one
-// call of h draws per element and set, staged SGN_WIDE_THREADS at a time.
-// With keep, the coefficients and S of each level's reshare of x_0 go to
-// lastC and lastS.
-static __device__ void sgnw_tree(uint32_t* x, int w, SgnwElem& E, bool keep,
-                                 uint32_t* lastC, uint32_t* lastS) {
-  const int L = E.L, t = E.t, ns = E.ns, B = SGN_WIDE_THREADS;
-  const long long row = (long long)ns * L;
-  while (w > 1) {
-    const int h = w >> 1;
-    for (int j0 = 0; j0 < h; j0 += B) {
-      const int cnt = h - j0 < B ? h - j0 : B;
-      E.stage_pass(t, h, j0, cnt);
-      __syncthreads();
-      const int j = j0 + threadIdx.x;
-      if (j < h) {
-        uint32_t S[WIDE_MAX_NL], y[WIDE_MAX_NL];
-        for (int i = 0; i < ns; ++i) {
-          sw_mul(x + j * row + i * L, x + (h + j) * row + i * L, E.p,
-                    E.n0, L, y);
-          sw_mul(y, E.lag_2t + i * L, E.p, E.n0, L, y);
-          if (i == 0) wcopy(y, L, S);
-          else sw_add(S, y, E.p, L, S);
-        }
-        const uint32_t* Cj = E.coefs(threadIdx.x);
-        for (int i = 0; i < ns; ++i)
-          whorner(S, Cj, E.cstride(), t, E.xs + i * L, E.p, E.n0, L,
-                  x + j * row + i * L);
-        if (keep && j == 0) {
-          for (int kk = 0; kk < t; ++kk)
-            wcopy(Cj + kk * E.cstride(), L, lastC + kk * L);
-          wcopy(S, L, lastS);
-        }
+  // Stage draws j0 .. j0 + cnt - 1 of every set of the current call (c
+  // draws an element and set), each reduced into GF(p) by a group: chunk
+  // 0 (words 0 .. L - 1) times radix_0 plus chunk 1 (the last two words)
+  // times radix_1: a product of two rows, chunk 1 times radix_1 2^64 R^-1
+  // times 2^-64. In place. Every thread calls it; it ends with a
+  // barrier.
+  __device__ void stage_pass(int sets, int c, int j0, int cnt) {
+    sgnw_squeeze(state, nonce, blocks_a, off + el * c, nc * c, sets, j0, cnt,
+                 W, stage);
+    __syncthreads();
+    const WV<S> rad0 = ld(C + L), rad1 = ld(C + 2 * L);
+    for (int it = gi; it < sets * cnt; it += NG) {
+      const int kk = it / cnt, r = it - kk * cnt;
+      uint32_t* d = stage + (kk * SGN_WIDE_STAGE + r) * W;
+      WV<S> c1;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int j = G.q + G.g * s;
+        c1.w[s] = j < W - L ? d[L + j] : 0u;
       }
-      __syncthreads();
+      const WV<S> v = mul(ld(d), rad0);
+      st(d, add(v, mul(rad1, c1, 2)));
     }
-    E.next(t, h);
-    if (w & 1) {
-      for (long long q = threadIdx.x; q < row; q += blockDim.x)
-        x[h * row + q] = x[2 * h * row + q];
-      __syncthreads();
-    }
-    w = h + (w & 1);
+    __syncthreads();
   }
-}
+
+  // y k for a small integer k >= 1 (a party's point, a Lagrange
+  // coefficient's size): by doubling and adding.
+  __device__ WV<S> mul_pt(const WV<S>& y, int k) const {
+    int top = 0;
+    while (k >> (top + 1)) ++top;
+    WV<S> r = y;
+    for (int b = top - 1; b >= 0; --b) {
+      r = add(r, r);
+      if ((k >> b) & 1) r = add(r, y);
+    }
+    return r;
+  }
+
+  // y times the Lagrange coefficient at 0 of point i + 1 among the points
+  // 1..n: (-1)^i C(n, i + 1), a small integer (at most 126, at n = 9).
+  __device__ WV<S> mul_lag(const WV<S>& y, int n, int i) const {
+    int c = 1;
+    for (int j = 1; j <= i + 1; ++j) c = c * (n - j + 1) / j;
+    const WV<S> r = mul_pt(y, c);
+    if (!(i & 1)) return r;
+    WV<S> z;
+#pragma unroll
+    for (int s = 0; s < S; ++s) z.w[s] = 0u;
+    return sub(z, r);
+  }
+
+  // Horner(C, x_i) + v: C_kk at Cr + kk cs (t of them), x_i = i + 1 party
+  // i's point.
+  __device__ WV<S> horner(const WV<S>& v, const uint32_t* Cr, long long cs,
+                          int i) const {
+    WV<S> y = mul_pt(ld(Cr), i + 1);
+    for (int kk = 1; kk < t; ++kk)
+      y = mul_pt(add(y, ld(Cr + kk * cs)), i + 1);
+    return add(y, v);
+  }
+
+  // Log-depth product of x[0..w-1] (each 2t + 1 shares of L words) into
+  // x[0]: level by level, x_j <- reshare(x_j x_{h+j}) for j < h = w / 2,
+  // an odd last one moved to x_h. A level is one call of h draws per
+  // element and set, staged SGN_WIDE_STAGE at a time; its nodes' products
+  // and Lagrange terms (a node and a sender an item) go to x_{h+j}, their
+  // sum S_j to x_{h+j}'s first share, then each new share (a node and a
+  // sender) is Horner(C_j, x_i) + S_j. With keep, the coefficients and S
+  // of each level's reshare of x_0 go to lastC and lastS.
+  __device__ void tree(uint32_t* x, int w, bool keep, uint32_t* lastC,
+                       uint32_t* lastS) {
+    const long long row = (long long)ns * L;
+    while (w > 1) {
+      const int h = w >> 1;
+      for (int j0 = 0; j0 < h; j0 += SGN_WIDE_STAGE) {
+        const int cnt = h - j0 < SGN_WIDE_STAGE ? h - j0 : SGN_WIDE_STAGE;
+        stage_pass(t, h, j0, cnt);
+        for (int it = gi; it < cnt * ns; it += NG) {
+          const int r = it / ns, i = it - r * ns, j = j0 + r;
+          uint32_t* y = x + (h + j) * row + i * L;
+          st(y, mul_lag(mul(ld(x + j * row + i * L), ld(y)), ns, i));
+        }
+        __syncthreads();
+        for (int r = gi; r < cnt; r += NG) {
+          uint32_t* y = x + (h + j0 + r) * row;
+          WV<S> s = ld(y);
+          for (int i = 1; i < ns; ++i) s = add(s, ld(y + i * L));
+          st(y, s);
+        }
+        __syncthreads();
+        for (int it = gi; it < cnt * ns; it += NG) {
+          const int r = it / ns, i = it - r * ns, j = j0 + r;
+          const uint32_t* Sj = x + (h + j) * row;
+          st(x + j * row + i * L,
+             horner(ld(Sj), coefs(r), cstride(), i));
+          if (keep && j == 0 && i == 0) {
+            for (int kk = 0; kk < t; ++kk)
+              st(lastC + kk * L, ld(coefs(0) + kk * cstride()));
+            st(lastS, ld(Sj));
+          }
+        }
+        __syncthreads();
+      }
+      next(t, h);
+      if (w & 1) {
+        for (long long q = threadIdx.x; q < row; q += blockDim.x)
+          x[h * row + q] = x[2 * h * row + q];
+        __syncthreads();
+      }
+      w = h + (w & 1);
+    }
+  }
+};
 
 // MODE 0: sgn(a); 1: a < 0; 2: a == 0; times 2^f when P.has_f; at bit
 // width P.l, threshold P.t and P.m parties. a and out are (m, n) elements
@@ -314,8 +371,9 @@ static __device__ void sgnw_tree(uint32_t* x, int w, SgnwElem& E, bool keep,
 // c; the last chunk's call is on n_last elements (its bucket), of which
 // the given ones are its CTAs' (the padding rows' draws are skipped, as
 // an element's draws depend only on its index and the call's n). CTA b
-// takes the elements b, b + gridDim.x, ..., its vectors at ws + b
-// ws_stride.
+// takes the elements b, b + gridDim.x, ..., its vectors in shared memory
+// or at ws + b ws_stride.
+template <int S, bool WARP>
 __global__ void __launch_bounds__(SGN_WIDE_THREADS)
 sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
                 const uint32_t* __restrict__ state, long long n,
@@ -327,12 +385,16 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   const bool LT = P.mode == 1, EQ = P.mode == 2;
   const int lb = l + (EQ ? 0 : 1);       // random bits (+ sign bit)
   const int wb = (lb + 31) / 32, wk = (P.k + 31) / 32, wpe = wb + wk;
-  const int B = blockDim.x, tid = threadIdx.x;
-  const int nconst = sgn_wide_consts(t, m);
-  SgnwElem E;
-  E.C = sgnw_smem;
-  E.stage = sgnw_smem + nconst * L;
-  uint32_t* words = E.stage + t * SGN_WIDE_THREADS * L;
+  Sgnw<S, WARP> K;
+  K.L = L;
+  K.t = t;
+  K.ns = ns;
+  K.W = L + 2;
+  K.NG = sgn_wide_groups(L);
+  K.gi = threadIdx.x / wide_group(L);
+  K.C = sgnw_smem;
+  K.stage = sgnw_smem + SGN_WIDE_CONSTS * L;
+  uint32_t* words = K.stage + t * SGN_WIDE_STAGE * K.W;
   uint32_t* cstd = words + SGN_WIDE_WORDS;
   uint32_t* zs = cstd + L;               // a_r, then z, of each party
   uint32_t* ss = zs + m * L;             // s = 2 rb_l - 1 of each sender
@@ -344,147 +406,164 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   uint32_t* fS = fC + t * L;
   uint32_t* bl = fS + L;                 // the blinder
   uint32_t* flag = bl + L;
-  wstage(consts, nconst * L, sgnw_smem);
-  E.p = E.C;
-  E.lag_t = E.C + 3 * L;
-  E.lag_2t = E.lag_t + (t + 1) * L;
-  E.xs = E.lag_2t + ns * L;
-  E.one = E.xs + m * L;
-  E.three = E.one + L;
-  E.r2 = E.three + L;
-  E.pow2l = E.r2 + L;
-  E.inv2l = E.pow2l + L;
-  E.pow2l1 = E.inv2l + L;
-  E.powf = E.pow2l1 + L;
-  E.n0 = P.n0inv;
-  E.L = L;
-  E.t = t;
-  E.ns = ns;
-  E.state = state;
-  const uint32_t* p = E.p;
-  const uint32_t n0 = P.n0inv;
-  const long long row = (long long)ns * L;
-  uint32_t* Ev = ws + blockIdx.x * P.ws_stride;  // bit shares, E vector
-  uint32_t* Xv = Ev + lb * row;                  // xor vector (not LT)
+  uint32_t* scr = flag + L;              // two values a group, and two
+  uint32_t* tmp = scr + 2 * K.NG * L;
+  uint32_t* vec = tmp + 2 * L;           // the vectors, where they fit
+  wstage(consts, SGN_WIDE_CONSTS * L, sgnw_smem);
+  K.p = K.C;
+  K.one = K.C + 3 * L;
+  K.three = K.one + L;
+  K.r2 = K.three + L;
+  K.pow2l = K.r2 + L;
+  K.inv2l = K.pow2l + L;
+  K.pow2l1 = K.inv2l + L;
+  K.powf = K.pow2l1 + L;
+  K.state = state;
   __syncthreads();
+  K.G.init(L, K.p, P.n0inv);
+  const WGroup<S, WARP>& G = K.G;
+  const int gi = K.gi, NG = K.NG;
+  const long long row = (long long)ns * L;
+  const long long cs = K.cstride();
+  uint32_t* Ev = sgn_wide_in_smem(t, m, L, l, P.mode)
+                     ? vec : ws + blockIdx.x * P.ws_stride;
+  uint32_t* Xv = Ev + lb * row;          // xor vector (not LT)
+  WV<S> zero;
+#pragma unroll
+  for (int s = 0; s < S; ++s) zero.w[s] = 0u;
 
 #pragma unroll 1
-  for (long long g = blockIdx.x; g < n; g += gridDim.x) {
-    const long long ch = g / chunk;
-    E.el = g - ch * chunk;
-    E.nc = (ch + 1) * chunk < n ? chunk : n_last;
-    E.nonce = (((uint64_t)P.nonce_hi << 32) | P.nonce_lo) + (uint64_t)ch;
-    E.blocks_a = (E.nc * wpe + RATE_WORDS - 1) / RATE_WORDS;
-    if (E.blocks_a < 1) E.blocks_a = 1;
-    E.off = 0;
-    stage_words(state, E.nonce, E.el * wpe, wpe, words);
+  for (long long e = blockIdx.x; e < n; e += gridDim.x) {
+    const long long ch = e / chunk;
+    K.el = e - ch * chunk;
+    K.nc = (ch + 1) * chunk < n ? chunk : n_last;
+    K.nonce = (((uint64_t)P.nonce_hi << 32) | P.nonce_lo) + (uint64_t)ch;
+    K.blocks_a = (K.nc * wpe + RATE_WORDS - 1) / RATE_WORDS;
+    if (K.blocks_a < 1) K.blocks_a = 1;
+    K.off = 0;
+    stage_words(state, K.nonce, K.el * wpe, wpe, words);
     __syncthreads();
 
-    // the bit split, call (t, lb): E[j] = split(rb_j); R_k = sum_{j < l}
-    // 2^j C_{k, j} (this thread's bits); the parties past the senders take
-    // their share of rb_l (LT) or rb_0 (EQ at l = 1)
-    uint32_t acc[MAX_T][WIDE_MAX_NL];
-    for (int kk = 0; kk < t; ++kk)
-      for (int q = 0; q < L; ++q) acc[kk][q] = 0u;
+    // the bit split, call (t, lb): E[j] = split(rb_j), a bit and a sender
+    // an item; R_k = sum_{j < l} 2^j C_{k, j} (this group's bits); the
+    // parties past the senders take their share of rb_l (LT) or rb_0 (EQ
+    // at l = 1)
+    WV<S> acc[MAX_T];
+#pragma unroll
+    for (int kk = 0; kk < MAX_T; ++kk) acc[kk] = zero;
     const int j_top = LT ? l : EQ && l == 1 ? 0 : -1;
-    for (int j0 = 0; j0 < lb; j0 += B) {
-      const int cnt = lb - j0 < B ? lb - j0 : B;
-      E.stage_pass(t, lb, j0, cnt);
-      __syncthreads();
-      const int j = j0 + tid;
-      if (j < lb) {
-        uint32_t bm[WIDE_MAX_NL];
-        const bool bit = wbit(words, j);
-        for (int q = 0; q < L; ++q) bm[q] = bit ? E.one[q] : 0u;
-        const uint32_t* Cj = E.coefs(tid);
-        for (int i = 0; i < ns; ++i)
-          whorner(bm, Cj, E.cstride(), t, E.xs + i * L, p, n0, L,
-                  Ev + j * row + i * L);
-        if (j < l) {
-          uint32_t pw[WIDE_MAX_NL], v[WIDE_MAX_NL];
-          for (int q = 0; q < L; ++q)
-            pw[q] = q == (j >> 5) ? 1u << (j & 31) : 0u;
-          for (int kk = 0; kk < t; ++kk) {
-            sw_mul(pw, Cj + kk * E.cstride(), p, n0, L, v);
-            sw_add(acc[kk], v, p, L, acc[kk]);
+    for (int j0 = 0; j0 < lb; j0 += SGN_WIDE_STAGE) {
+      const int cnt = lb - j0 < SGN_WIDE_STAGE ? lb - j0 : SGN_WIDE_STAGE;
+      K.stage_pass(t, lb, j0, cnt);
+      const int past = j_top >= j0 && j_top < j0 + cnt ? m - ns : 0;
+      for (int it = gi; it < cnt * ns + past; it += NG) {
+        int r, i;
+        if (it < cnt * ns) {
+          r = it / ns;
+          i = it - r * ns;
+        } else {
+          r = j_top - j0;
+          i = ns + it - cnt * ns;
+        }
+        const int j = j0 + r;
+        const WV<S> bm = wbit(words, j) ? K.ld(K.one) : zero;
+        K.st(i < ns ? Ev + j * row + i * L : xs1 + i * L,
+             K.horner(bm, K.coefs(r), cs, i));
+      }
+      // this pass's bits below l, a run of q a group: its sum of 2^(j -
+      // lo) C_{k, j} by doubling from the top, times 2^(j0 + lo) R^-1
+      const int nb = l - j0 < cnt ? l - j0 : cnt;
+      const int q = nb > 0 ? (nb + NG - 1) / NG : 0, lo = gi * q;
+      const int hi = lo + q < nb ? lo + q : nb;
+      if (lo < hi) {
+        const WV<S> pw = G.pow2(j0 + lo);
+#pragma unroll
+        for (int kk = 0; kk < MAX_T; ++kk) {
+          if (kk < t) {
+            WV<S> sr = K.ld(K.coefs(hi - 1) + kk * cs);
+            for (int r = hi - 2; r >= lo; --r)
+              sr = K.add(K.add(sr, sr), K.ld(K.coefs(r) + kk * cs));
+            acc[kk] = K.add(acc[kk], K.mul(pw, sr));
           }
         }
-        if (j == j_top)
-          for (int i = ns; i < m; ++i)
-            whorner(bm, Cj, E.cstride(), t, E.xs + i * L, p, n0, L,
-                    xs1 + i * L);
       }
       __syncthreads();
     }
-    E.next(t, lb);
-    // R_k: the CTA's sum of the threads' 2^j C_{k, j} R^-1, times R^2
-    for (int kk = 0; kk < t; ++kk) {
-      wcopy(acc[kk], L, E.stage + tid * L);
-      __syncthreads();
-      sgnw_suffix_scan(E.stage, p, L);
-      if (tid == 0) sw_mul(E.stage, E.r2, p, n0, L, R + kk * L);
-      __syncthreads();
+    K.next(t, lb);
+    // R_k: the groups' sums of 2^j C_{k, j} R^-1 added in a tree, times R^2
+#pragma unroll
+    for (int kk = 0; kk < MAX_T; ++kk) {
+      if (kk < t) {
+        K.st(scr + gi * L, acc[kk]);
+        __syncthreads();
+        for (int h = NG >> 1; h > 0; h >>= 1) {
+          if (gi < h)
+            K.st(scr + gi * L,
+                 K.add(K.ld(scr + gi * L), K.ld(scr + (gi + h) * L)));
+          __syncthreads();
+        }
+        if (gi == 0) K.st(R + kk * L, K.mul(K.ld(scr), K.ld(K.r2)));
+      }
     }
 
-    // r_divl < 2^k, call (t, 1): its shares at the points 1..t + 1
-    E.stage_pass(t, 1, 0, 1);
+    // r_divl < 2^k, call (t, 1): its shares at the points 1..t + 1; a_r =
+    // a + r_modl + 2^l at every party, r_modl's shares Horner(R, x_i) + r
+    // mod 2^l
+    K.stage_pass(t, 1, 0, 1);
+    if (gi == 0) K.st(tmp, K.mul(G.low_bits(words + wb, P.k), K.ld(K.r2)));
+    if (gi == 1) K.st(tmp + L, K.mul(G.low_bits(words, l), K.ld(K.r2)));
     __syncthreads();
-    if (tid <= t) {
-      uint32_t kl[WIDE_MAX_NL];
-      low_bits(words + wb, P.k, L, kl);
-      sw_mul(kl, E.r2, p, n0, L, kl);
-      whorner(kl, E.coefs(0), E.cstride(), t, E.xs + tid * L, p, n0, L,
-              rdiv + tid * L);
+    for (int it = gi; it < t + 1 + m; it += NG) {
+      if (it <= t) {
+        K.st(rdiv + it * L, K.horner(K.ld(tmp), K.coefs(0), cs, it));
+      } else {
+        const int i = it - t - 1;
+        const WV<S> rm = K.horner(K.ld(tmp + L), R, L, i);
+        const WV<S> ai = K.add(K.ld(a + ((long long)i * n + e) * L), rm);
+        K.st(zs + i * L, K.add(ai, K.ld(K.pow2l)));
+      }
     }
-    E.next(t, 1);
-    // a_r = a + r_modl + 2^l at every party, r_modl's shares
-    // Horner(R, x_i) + r mod 2^l
-    if (tid < m) {
-      uint32_t rm[WIDE_MAX_NL], ai[WIDE_MAX_NL];
-      low_bits(words, l, L, rm);
-      sw_mul(rm, E.r2, p, n0, L, rm);
-      whorner(rm, R, L, t, E.xs + tid * L, p, n0, L, rm);
-      wload(a, (long long)tid * n + g, L, ai);
-      sw_add(ai, rm, p, L, ai);
-      sw_add(ai, E.pow2l, p, L, zs + tid * L);
-    }
+    K.next(t, 1);
     __syncthreads();
     // open c = a_r + 2^l r_divl from shares 1..t + 1, to standard form
-    if (tid == 0) {
-      uint32_t c[WIDE_MAX_NL], ci[WIDE_MAX_NL];
-      for (int i = 0; i <= t; ++i) {
-        sw_mul(rdiv + i * L, E.pow2l, p, n0, L, ci);
-        sw_add(zs + i * L, ci, p, L, ci);
-        sw_mul(ci, E.lag_t + i * L, p, n0, L, ci);
-        if (i == 0) wcopy(ci, L, c);
-        else sw_add(c, ci, p, L, c);
-      }
-      uint32_t unit[WIDE_MAX_NL];
-      for (int q = 0; q < L; ++q) unit[q] = q == 0 ? 1u : 0u;
-      sw_mul(c, unit, p, n0, L, cstd);
+    for (int i = gi; i <= t; i += NG) {
+      const WV<S> ci = K.add(K.ld(zs + i * L),
+                             K.mul(K.ld(rdiv + i * L), K.ld(K.pow2l)));
+      K.st(pb + i * L, K.mul_lag(ci, t + 1, i));
+    }
+    __syncthreads();
+    if (gi == 0) {
+      WV<S> c = K.ld(pb);
+      for (int i = 1; i <= t; ++i) c = K.add(c, K.ld(pb + i * L));
+      K.st(cstd, K.mul(c, G.word0(1u)));
+      // each lane reads back the words it wrote
+      K.st(tmp, K.mul(G.low_bits(cstd, l), K.ld(K.r2)));
     }
     __syncthreads();
     // z = (c mod 2^l) - a_r at every party; in EQ mode at l = 1 the
-    // parties past the senders take 1 - xor_0
-    if (tid < m) {
-      uint32_t cm[WIDE_MAX_NL];
-      low_bits(cstd, l, L, cm);
-      sw_mul(cm, E.r2, p, n0, L, cm);
-      sw_sub(cm, zs + tid * L, p, L, zs + tid * L);
-      if (EQ && l == 1 && tid >= ns) {
-        if (wbit(cstd, 0)) sw_sub(E.one, xs1 + tid * L, p, L, xs1 + tid * L);
-        sw_sub(E.one, xs1 + tid * L, p, L, xs1 + tid * L);
-      }
-    }
-    // xor_j = c_j XOR r_j, as shares: c_j ? 1 - rb_j : rb_j (not in LT
-    // mode, whose suffix sums recompute it)
-    if (!LT) {
-      for (int j = tid; j < l; j += B) {
-        const bool cb = wbit(cstd, j);
-        for (int i = 0; i < ns; ++i) {
-          if (cb) sw_sub(E.one, Ev + j * row + i * L, p, L,
-                           Xv + j * row + i * L);
-          else wcopy(Ev + j * row + i * L, L, Xv + j * row + i * L);
+    // parties past the senders take 1 - xor_0. xor_j = c_j XOR r_j, as
+    // shares: c_j ? 1 - rb_j : rb_j (not in LT mode, whose suffix sums
+    // recompute it); s = 2 rb_l - 1 (not in EQ mode)
+    {
+      const int nx = LT ? 0 : l * ns, nz = EQ ? 0 : ns;
+      for (int it = gi; it < m + nx + nz; it += NG) {
+        if (it < m) {
+          const int i = it;
+          K.st(zs + i * L, K.sub(K.ld(tmp), K.ld(zs + i * L)));
+          if (EQ && l == 1 && i >= ns) {
+            WV<S> v = K.ld(xs1 + i * L);
+            if (wbit(cstd, 0)) v = K.sub(K.ld(K.one), v);
+            K.st(xs1 + i * L, K.sub(K.ld(K.one), v));
+          }
+        } else if (it < m + nx) {
+          const int j = (it - m) / ns, i = it - m - j * ns;
+          const uint32_t* x = Ev + j * row + i * L;
+          K.st(Xv + j * row + i * L,
+               wbit(cstd, j) ? K.sub(K.ld(K.one), K.ld(x)) : K.ld(x));
+        } else {
+          const int i = it - m - nx;
+          const WV<S> rl = K.ld(Ev + l * row + i * L);
+          K.st(ss + i * L, K.sub(K.add(rl, rl), K.ld(K.one)));
         }
       }
     }
@@ -492,161 +571,173 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
 
     bool gz = false;
     if (!EQ) {
-      // s = 2 rb_l - 1; E_j = s + (rb_j - c_j) + 3 sum_{j' > j} xor_j';
-      // E_l = s - 1 + 3 sum_j xor_j. Thread tid takes the bits lo .. hi - 1.
-      if (tid < ns) {
-        sw_add(Ev + l * row + tid * L, Ev + l * row + tid * L, p, L,
-                 ss + tid * L);
-        sw_sub(ss + tid * L, E.one, p, L, ss + tid * L);
-      }
-      const int qb = (l + B - 1) / B;
-      const int lo = tid * qb < l ? tid * qb : l;
+      // E_j = s + (rb_j - c_j) + 3 sum_{j' > j} xor_j'; E_l = s - 1 + 3
+      // sum_j xor_j. Group gi takes the bits lo .. hi - 1 of each sender.
+      const int qb = (l + NG - 1) / NG;
+      const int lo = gi * qb < l ? gi * qb : l;
       const int hi = lo + qb < l ? lo + qb : l;
+      const WV<S> onev = K.ld(K.one), threev = K.ld(K.three);
       for (int i = 0; i < ns; ++i) {
-        uint32_t part[WIDE_MAX_NL], x[WIDE_MAX_NL];
-        for (int q = 0; q < L; ++q) part[q] = 0u;
+        WV<S> part = zero;
         for (int j = lo; j < hi; ++j) {
-          const uint32_t* e = Ev + j * row + i * L;
-          if (LT) {
-            if (wbit(cstd, j)) sw_sub(E.one, e, p, L, x);
-            else wcopy(e, L, x);
-            sw_add(part, x, p, L, part);
-          } else {
-            sw_add(part, Xv + j * row + i * L, p, L, part);
-          }
+          const uint32_t* ej = Ev + j * row + i * L;
+          WV<S> x;
+          if (LT) x = wbit(cstd, j) ? K.sub(onev, K.ld(ej)) : K.ld(ej);
+          else x = K.ld(Xv + j * row + i * L);
+          part = K.add(part, x);
         }
-        wcopy(part, L, E.stage + tid * L);
+        K.st(scr + gi * L, part);
         __syncthreads();
-        sgnw_suffix_scan(E.stage, p, L);
-        uint32_t suf[WIDE_MAX_NL], s3[WIDE_MAX_NL], v[WIDE_MAX_NL];
-        if (tid + 1 < B) wcopy(E.stage + (tid + 1) * L, L, suf);
-        else for (int q = 0; q < L; ++q) suf[q] = 0u;
-        for (int j = hi - 1; j >= lo; --j) {
-          uint32_t* e = Ev + j * row + i * L;
-          const bool cb = wbit(cstd, j);
-          if (LT) {   // xor_j, from rb_j before E_j replaces it
-            if (cb) sw_sub(E.one, e, p, L, x);
-            else wcopy(e, L, x);
-          } else {
-            wcopy(Xv + j * row + i * L, L, x);
-          }
-          if (cb) sw_sub(e, E.one, p, L, v);
-          else wcopy(e, L, v);
-          sw_add(v, ss + i * L, p, L, v);
-          sw_add(suf, suf, p, L, s3);
-          sw_add(s3, suf, p, L, s3);
-          sw_add(v, s3, p, L, e);
-          sw_add(suf, x, p, L, suf);
+        // inclusive suffix sums of the runs' sums over the groups
+        uint32_t *src = scr, *dst = scr + NG * L;
+        for (int h = 1; h < NG; h <<= 1) {
+          WV<S> v = K.ld(src + gi * L);
+          if (gi + h < NG) v = K.add(v, K.ld(src + (gi + h) * L));
+          K.st(dst + gi * L, v);
+          __syncthreads();
+          uint32_t* sw = src;
+          src = dst;
+          dst = sw;
         }
-        if (tid == 0) {   // the total: every run's sum
-          uint32_t* e = Ev + l * row + i * L;
-          sw_add(E.stage, E.stage, p, L, s3);
-          sw_add(s3, E.stage, p, L, s3);
-          sw_sub(ss + i * L, E.one, p, L, e);
-          sw_add(e, s3, p, L, e);
+        const WV<S> si = K.ld(ss + i * L);
+        if (lo < hi) {
+          // T_j = s + 3 (the sum of xor_j' over j' > j): E_j = rb_j - c_j
+          // + T_j, T_(j-1) = T_j + 3 xor_j, 3 xor_j in LT mode from rb_j
+          // (c_j ? 3 - 3 rb_j : 3 rb_j) before E_j replaces it
+          const WV<S> suf = gi + 1 < NG ? K.ld(src + (gi + 1) * L) : zero;
+          WV<S> T = K.add(K.add(K.add(suf, suf), suf), si);
+          for (int j = hi - 1; j >= lo; --j) {
+            uint32_t* ej = Ev + j * row + i * L;
+            const bool cb = wbit(cstd, j);
+            const WV<S> ev = K.ld(ej);
+            const WV<S> x = LT ? ev : K.ld(Xv + j * row + i * L);
+            const WV<S> x3 = K.add(K.add(x, x), x);
+            const WV<S> ej1 = K.add(ev, T);
+            K.st(ej, cb ? K.sub(ej1, onev) : ej1);
+            T = LT && cb ? K.add(K.sub(T, x3), threev) : K.add(T, x3);
+          }
+        }
+        if (gi == 0) {   // the total: every run's sum
+          const WV<S> tot = K.ld(src);
+          const WV<S> s3 = K.add(K.add(tot, tot), tot);
+          K.st(Ev + l * row + i * L, K.add(K.sub(si, onev), s3));
         }
         __syncthreads();
       }
-      sgnw_tree(Ev, l + 1, E, false, nullptr, nullptr);
+      K.tree(Ev, l + 1, false, nullptr, nullptr);
 
       // blinded public zero test of the product, one blinder per element
-      E.stage_pass(1, 1, 0, 1);
-      __syncthreads();
-      if (tid == 0) {
-        wcopy(E.coefs(0), L, bl);
-        if (wis_zero(bl, L)) wcopy(E.one, L, bl);
+      K.stage_pass(1, 1, 0, 1);
+      if (gi == 0) {
+        const WV<S> b = K.ld(K.coefs(0));
+        K.st(bl, G.is_zero(b) ? K.ld(K.one) : b);
       }
-      E.next(1, 1);
+      K.next(1, 1);
       __syncthreads();
-      E.stage_pass(t, 1, 0, 1);
-      __syncthreads();
-      if (tid < ns) {
-        uint32_t bsh[WIDE_MAX_NL];
-        whorner(bl, E.coefs(0), E.cstride(), t, E.xs + tid * L, p, n0, L,
-                bsh);
-        sw_mul(Ev + tid * L, bsh, p, n0, L, bsh);
-        sw_mul(bsh, E.lag_2t + tid * L, p, n0, L, pb + tid * L);
+      K.stage_pass(t, 1, 0, 1);
+      for (int i = gi; i < ns; i += NG) {
+        const WV<S> bsh =
+            K.horner(K.ld(bl), K.coefs(0), cs, i);
+        K.st(pb + i * L, K.mul_lag(K.mul(K.ld(Ev + i * L), bsh), ns, i));
       }
-      E.next(t, 1);
+      K.next(t, 1);
       __syncthreads();
-      if (tid == 0) {
-        uint32_t po[WIDE_MAX_NL];
-        wcopy(pb, L, po);
-        for (int i = 1; i < ns; ++i) sw_add(po, pb + i * L, p, L, po);
-        flag[0] = wis_zero(po, L);
+      if (gi == 0) {
+        WV<S> po = K.ld(pb);
+        for (int i = 1; i < ns; ++i) po = K.add(po, K.ld(pb + i * L));
+        const bool z = G.is_zero(po);
+        if (G.lead()) flag[0] = z;
       }
       __syncthreads();
       gz = flag[0] != 0;
       // h = s - 2 g s + 3; z = (z + 2^(l-1) h) / 2^l
-      if (tid < ns) {
-        uint32_t h[WIDE_MAX_NL];
-        if (gz) sw_sub(E.three, ss + tid * L, p, L, h);
-        else sw_add(ss + tid * L, E.three, p, L, h);
-        sw_mul(h, E.pow2l1, p, n0, L, h);
-        sw_add(zs + tid * L, h, p, L, zs + tid * L);
-        sw_mul(zs + tid * L, E.inv2l, p, n0, L, zs + tid * L);
+      for (int i = gi; i < ns; i += NG) {
+        const WV<S> si = K.ld(ss + i * L), three = K.ld(K.three);
+        const WV<S> h =
+            K.mul(gz ? K.sub(three, si) : K.add(si, three), K.ld(K.pow2l1));
+        K.st(zs + i * L,
+             K.mul(K.add(K.ld(zs + i * L), h), K.ld(K.inv2l)));
       }
       __syncthreads();
     }
 
     if (!LT) {
-      for (int j = tid; j < l; j += B)
-        for (int i = 0; i < ns; ++i)
-          sw_sub(E.one, Xv + j * row + i * L, p, L, Xv + j * row + i * L);
+      for (int it = gi; it < l * ns; it += NG) {
+        const int j = it / ns, i = it - j * ns;
+        uint32_t* x = Xv + j * row + i * L;
+        K.st(x, K.sub(K.ld(K.one), K.ld(x)));
+      }
       __syncthreads();
-      sgnw_tree(Xv, l, E, EQ, fC, fS);
+      K.tree(Xv, l, EQ, fC, fS);
       if (EQ) {
-        if (tid < ns) wcopy(Xv + tid * L, L, zs + tid * L);
+        for (int i = gi; i < ns; i += NG) K.st(zs + i * L, K.ld(Xv + i * L));
       } else {
         // sgn = reshare((h_all - 1) (2z - 1)), call (t, 1)
-        if (tid < ns) {
-          uint32_t u[WIDE_MAX_NL], v[WIDE_MAX_NL];
-          sw_sub(Xv + tid * L, E.one, p, L, u);
-          sw_add(zs + tid * L, zs + tid * L, p, L, v);
-          sw_sub(v, E.one, p, L, v);
-          sw_mul(u, v, p, n0, L, u);
-          sw_mul(u, E.lag_2t + tid * L, p, n0, L, pb + tid * L);
+        for (int i = gi; i < ns; i += NG) {
+          const WV<S> u = K.sub(K.ld(Xv + i * L), K.ld(K.one));
+          const WV<S> zi = K.ld(zs + i * L);
+          const WV<S> v = K.sub(K.add(zi, zi), K.ld(K.one));
+          K.st(pb + i * L, K.mul_lag(K.mul(u, v), ns, i));
         }
-        E.stage_pass(t, 1, 0, 1);
-        __syncthreads();
-        if (tid == 0) {
-          wcopy(pb, L, fS);
-          for (int i = 1; i < ns; ++i) sw_add(fS, pb + i * L, p, L, fS);
+        K.stage_pass(t, 1, 0, 1);
+        if (gi == 0) {
+          WV<S> s = K.ld(pb);
+          for (int i = 1; i < ns; ++i) s = K.add(s, K.ld(pb + i * L));
+          K.st(fS, s);
           for (int kk = 0; kk < t; ++kk)
-            wcopy(E.coefs(0) + kk * E.cstride(), L, fC + kk * L);
+            K.st(fC + kk * L, K.ld(K.coefs(0) + kk * cs));
         }
-        E.next(t, 1);
+        K.next(t, 1);
         __syncthreads();
-        if (tid < ns)
-          whorner(fS, fC, L, t, E.xs + tid * L, p, n0, L, zs + tid * L);
+        for (int i = gi; i < ns; i += NG)
+          K.st(zs + i * L, K.horner(K.ld(fS), fC, L, i));
       }
     }
     __syncthreads();
 
-    if (tid < m) {
-      uint32_t y[WIDE_MAX_NL];
-      if (tid < ns) {
-        wcopy(zs + tid * L, L, y);
+    for (int i = gi; i < m; i += NG) {
+      WV<S> y;
+      if (i < ns) {
+        y = K.ld(zs + i * L);
       } else if (LT) {   // as the senders' z, from c mod 2^l - a_r and s
-        uint32_t h[WIDE_MAX_NL], s1[WIDE_MAX_NL];
-        sw_add(xs1 + tid * L, xs1 + tid * L, p, L, s1);
-        sw_sub(s1, E.one, p, L, s1);
-        if (gz) sw_sub(E.three, s1, p, L, h);
-        else sw_add(s1, E.three, p, L, h);
-        sw_mul(h, E.pow2l1, p, n0, L, h);
-        sw_add(zs + tid * L, h, p, L, y);
-        sw_mul(y, E.inv2l, p, n0, L, y);
+        const WV<S> x1 = K.ld(xs1 + i * L), three = K.ld(K.three);
+        const WV<S> s1 = K.sub(K.add(x1, x1), K.ld(K.one));
+        const WV<S> h =
+            K.mul(gz ? K.sub(three, s1) : K.add(s1, three), K.ld(K.pow2l1));
+        y = K.mul(K.add(K.ld(zs + i * L), h), K.ld(K.inv2l));
       } else if (EQ && l == 1) {
-        wcopy(xs1 + tid * L, L, y);
+        y = K.ld(xs1 + i * L);
       } else {
-        whorner(fS, fC, L, t, E.xs + tid * L, p, n0, L, y);
+        y = K.horner(K.ld(fS), fC, L, i);
       }
-      if (P.has_f) sw_mul(y, E.powf, p, n0, L, y);
-      wstore(out, (long long)tid * n + g, L, y);
+      if (P.has_f) y = K.mul(y, K.ld(K.powf));
+      K.st(out + ((long long)i * n + e) * L, y);
     }
     __syncthreads();   // the element's shared values are read
   }
 }
+
+// A launch at an instantiation of the group arithmetic (wide_dispatch).
+struct SgnWideLaunch {
+  const void *a, *state, *consts;
+  void *out, *ws, *stream;
+  long long n, chunk, n_last, grid;
+  int smem;
+  SgnWide P;
+  template <int S, bool WARP>
+  int run() const {
+    // the most a CTA may take, allowed once past the default 48 KB
+    static const cudaError_t rc = cudaFuncSetAttribute(
+        sgn_wide_kernel<S, WARP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SGN_WIDE_SMEM_MAX);
+    if (rc != cudaSuccess) return (int)rc;
+    sgn_wide_kernel<S, WARP><<<(unsigned)grid, SGN_WIDE_THREADS, smem,
+                            (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n,
+        chunk, n_last, (const uint32_t*)consts, (uint32_t*)ws, P);
+    return (int)cudaGetLastError();
+  }
+};
 
 }  // namespace mtt
 
@@ -655,11 +746,12 @@ extern "C" {
 // K5 at L = 7..48 limbs: the comparison of (m, n, L) shares cut into chunks
 // of `chunk` (the last call on n_last >= its given elements), one launch
 // of `grid` CTAs (1 <= grid <= n), each an element at a time; ws: grid x
-// P.ws_stride words of device workspace; consts: the
-// sgn_wide_consts(t, m) L words of the kernel. -1: a (mode, l, limbs, t,
-// m, k) the kernel does not take (1 <= t <= 4, 2t + 1 <= m <= 16, 0 <= k
-// <= 64, 1 <= l with l + 1 random bits below 32 L), a workspace too small
-// or a chunk geometry that does not hold.
+// P.ws_stride words of device workspace where the vectors do not fit in
+// shared memory (sgn_wide_ws_words; else unused, may be null); consts:
+// the SGN_WIDE_CONSTS L-word values of the kernel. -1: a (mode, l, limbs,
+// t, m, k) the kernel does not take (1 <= t <= 4, 2t + 1 <= m <= 16, 0 <=
+// k <= 64, 1 <= l with l + 1 random bits below 32 L), a workspace too
+// small or a chunk geometry that does not hold.
 int mtt_sgn_wide(const void* a, void* out, const void* state, long long n,
                  long long chunk, long long n_last, const void* consts,
                  void* ws, long long grid, const void* params, void* stream) {
@@ -668,36 +760,31 @@ int mtt_sgn_wide(const void* a, void* out, const void* state, long long n,
   if (P.nl < mtt::WIDE_MIN_NL || P.nl > mtt::WIDE_MAX_NL ||
       !mtt::parties_ok(P.t, P.m) || P.k < 0 || P.k > 64 || P.mode < 0 ||
       P.mode > 2 || P.l < 1 || lb > 32 * P.nl - 1 ||
-      (lb + 31) / 32 + (P.k + 31) / 32 > mtt::SGN_WIDE_WORDS ||
-      P.ws_stride < mtt::sgn_wide_ws_words(P.t, P.nl, P.l, P.mode))
+      (lb + 31) / 32 + (P.k + 31) / 32 > mtt::SGN_WIDE_WORDS)
     return -1;
+  const long long need =
+      mtt::sgn_wide_ws_words(P.t, P.m, P.nl, P.l, P.mode);
+  if (need > 0 && (P.ws_stride < need || ws == nullptr)) return -1;
   if (n <= 0) return 0;
   if (chunk <= 0 || n_last > chunk || n_last < n - (n - 1) / chunk * chunk ||
       grid < 1 || grid > n)
     return -1;
-  // the most any (t, m) and L take, allowed once past the default 48 KB
-  static const cudaError_t rc = cudaFuncSetAttribute(
-      mtt::sgn_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mtt::sgn_wide_smem_bytes(mtt::MAX_T, mtt::MAX_M,
-                                    mtt::WIDE_MAX_NL));
-  if (rc != cudaSuccess) return (int)rc;
-  const int smem = (int)mtt::sgn_wide_smem_bytes(P.t, P.m, P.nl);
-  mtt::sgn_wide_kernel<<<(unsigned)grid, mtt::SGN_WIDE_THREADS, smem,
-                         (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n, chunk,
-      n_last, (const uint32_t*)consts, (uint32_t*)ws, P);
-  return (int)cudaGetLastError();
+  const int smem =
+      (int)mtt::sgn_wide_smem_bytes(P.t, P.m, P.nl, P.l, P.mode);
+  return mtt::wide_dispatch(
+      P.nl, mtt::SgnWideLaunch{a, state, consts, out, ws, stream, n, chunk,
+                               n_last, grid, smem, P});
 }
 
-// Dynamic shared memory bytes of a K5 CTA at (t, m) and L limbs, and the
-// workspace words of a CTA at (t, L, l, mode), for the tests and
+// Dynamic shared memory bytes of a K5 CTA and its workspace words (0: the
+// vectors in shared memory) at (t, m, L, l, mode), for the tests and
 // chip_smoke.py's reports.
-int mtt_sgn_wide_smem(int t, int m, int L) {
-  return (int)mtt::sgn_wide_smem_bytes(t, m, L);
+int mtt_sgn_wide_smem(int t, int m, int L, int l, int mode) {
+  return (int)mtt::sgn_wide_smem_bytes(t, m, L, l, mode);
 }
 
-int mtt_sgn_wide_ws(int t, int L, int l, int mode) {
-  return (int)mtt::sgn_wide_ws_words(t, L, l, mode);
+int mtt_sgn_wide_ws(int t, int m, int L, int l, int mode) {
+  return (int)mtt::sgn_wide_ws_words(t, m, L, l, mode);
 }
 
 }  // extern "C"

@@ -22,30 +22,35 @@
 //   products and an add a draw) and the field matmul's fold.
 // - K6 (mont_pow_wide_kernel): a^e R mod p by the host's plan of e
 //   (fieldops.pow_plan): the public inverses of the reciprocals, the
-//   Legendre symbols of [NO07]'s zero tests.
+//   Legendre symbols of [NO07]'s zero tests. A group of lanes an element
+//   (wide.cuh WGroup: the limbs in registers, each product the group's),
+//   the odd powers x, x^3, .., x^15 in shared memory, a table a group.
 // - K7 (random_bits_tail_wide_kernel): the tail of a round of random bits
 //   around the inverse square root, as pow.cuh's random_bits_tail_kernel,
 //   at every (t, m) too.
 // K5 on these fields is csrc/sgn_wide.cu; the field arithmetic of both is
 // wide.cuh's.
 //
-// Design. One thread an element, WIDE_THREADS a CTA. At 42 limbs three
-// shares and the CIOS accumulator alone would take about 170 registers,
-// so the limbs stay in local memory (arrays of WIDE_MAX_NL words indexed
-// by loops to L: L1-cached, no register spills, a stack frame ptxas
-// reports) and the field's constants (p, the radix table, the Lagrange
-// coefficients and points, the power's plan) come from a device buffer
-// that each CTA first copies into shared memory, where every thread of a
-// warp reads the same word at once. The narrow kernels' parameter blocks
-// (DrawParams, PowParams: MAX_NL-sized arrays) stay as they were, so
-// nothing here changes their registers or stack. One instantiation a
+// Design. K3, K7 and K9: one thread an element, WIDE_THREADS a CTA. At
+// 42 limbs three shares and the CIOS accumulator alone would take about
+// 170 registers, so the limbs stay in local memory (arrays of WIDE_MAX_NL
+// words indexed by loops to L: L1-cached, no register spills, a stack
+// frame ptxas reports) and the field's constants (p, the radix table, the
+// Lagrange coefficients and points, the power's plan) come from a device
+// buffer that each CTA first copies into shared memory, where every thread
+// of a warp reads the same word at once. The narrow kernels' parameter
+// blocks (DrawParams, PowParams: MAX_NL-sized arrays) stay as they were,
+// so nothing here changes their registers or stack. One instantiation a
 // kernel serves every L, so the build takes seconds, not thirty
 // instantiations. K3 stages its CTA's draws in shared memory as
 // reshare_kernel does: each sponge block each of the CTA's t sets of 128
-// draws touches is
-// squeezed once, by one thread, which reduces its draws into GF(p). Every
-// result is canonical, so each kernel equals its plain version bit for
-// bit.
+// draws touches is squeezed once, by one thread, which reduces its draws
+// into GF(p). K6: a group of 8, 16 or 32 lanes an element (wide.cuh
+// WGroup), S = 1 or 2 words a lane, a whole warp from 17 limbs on
+// (wide_dispatch: three instantiations): a power is a chain of dependent
+// products, which a group runs about L times faster than one thread whose
+// limbs are in local memory. Every result is canonical, so each kernel
+// equals its plain version bit for bit.
 #include "common.cuh"
 #include "wide.cuh"
 
@@ -69,9 +74,9 @@ struct WideTail {
   int32_t t, m;   // threshold and parties (parties_ok)
 };
 
-// x <- x^e R mod p by the plan (x < p). one: R mod p, the power for e = 0.
-// The table of odd powers x^1, x^3, .., x^15 lives in local memory, its
-// entry chosen at run time.
+// x <- x^e R mod p by the plan (x < p), one thread (K7). one: R mod p,
+// the power for e = 0. The table of odd powers x^1, x^3, .., x^15 lives
+// in local memory, its entry chosen at run time.
 static __device__ void wpow(uint32_t* x, const WidePow& P, const uint32_t* p,
                             const uint32_t* one, const uint32_t* steps) {
   const int L = P.nl;
@@ -96,6 +101,31 @@ static __device__ void wpow(uint32_t* x, const WidePow& P, const uint32_t* p,
     wmont_mul(x, tab[steps[2 * k + 1]], p, P.n0inv, L, x);
   }
   for (int q = P.tail; q > 0; --q) wmont_mul(x, x, p, P.n0inv, L, x);
+}
+
+// The same by the group G: x^e R mod p, the odd powers in tab (8 L words,
+// the group's own: each lane reads back only the words it wrote).
+template <int S, bool W>
+static __device__ WV<S> gpow(const WGroup<S, W>& G, WV<S> x, const WidePow& P,
+                             const uint32_t* one, const uint32_t* steps,
+                             uint32_t* tab) {
+  const int L = P.nl;
+  if (P.nbits == 0) return G.ld(one);
+  G.st(tab, x);
+  if (P.n_table > 1) {
+    const WV<S> x2 = G.mul(x, x);
+    for (int k = 1; k < P.n_table; ++k) {
+      x = G.mul(x, x2);
+      G.st(tab + k * L, x);
+    }
+  }
+  x = G.ld(tab + P.first * L);
+  for (int k = 0; k < P.n_steps; ++k) {
+    for (int q = (int)steps[2 * k]; q > 0; --q) x = G.mul(x, x);
+    x = G.mul(x, G.ld(tab + steps[2 * k + 1] * L));
+  }
+  for (int q = P.tail; q > 0; --q) x = G.mul(x, x);
+  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -230,22 +260,58 @@ reshare_wide_kernel(const uint32_t* __restrict__ a,
 
 // ---------------------------------------------------------------------------
 // K6. consts: p, one (R mod p), L words each, then the plan's n_steps
-// steps (two words each). Dynamic shared memory: the same words.
+// steps (two words each). Dynamic shared memory: the same words, then a
+// table of 8 L words for each group of the CTA. Element e is group e of
+// the grid's; a group past n returns whole.
 // ---------------------------------------------------------------------------
+__host__ __device__ constexpr int wide_pow_groups(int L) {
+  return WIDE_THREADS / wide_group(L);
+}
+
+template <int S, bool W>
 __global__ void __launch_bounds__(WIDE_THREADS)
 mont_pow_wide_kernel(const uint32_t* __restrict__ a,
                      uint32_t* __restrict__ out, long long n,
                      const uint32_t* __restrict__ consts, WidePow P) {
   extern __shared__ uint32_t wide_smem[];
-  const int L = P.nl;
-  wstage(consts, 2 * L + 2 * P.n_steps, wide_smem);
+  const int L = P.nl, g = wide_group(L);
+  const int nc = 2 * L + 2 * P.n_steps;
+  wstage(consts, nc, wide_smem);
   __syncthreads();
-  const long long e = (long long)blockIdx.x * WIDE_THREADS + threadIdx.x;
+  const int gi = threadIdx.x / g;
+  const long long e = (long long)blockIdx.x * wide_pow_groups(L) + gi;
   if (e >= n) return;
-  uint32_t x[WIDE_MAX_NL];
-  wload(a, e, L, x);
-  wpow(x, P, wide_smem, wide_smem + L, wide_smem + 2 * L);
-  wstore(out, e, L, x);
+  WGroup<S, W> G;
+  G.init(L, wide_smem, P.n0inv);
+  WV<S> x = G.ld(a + e * L);
+  x = gpow(G, x, P, wide_smem + L, wide_smem + 2 * L,
+           wide_smem + nc + gi * WIDE_POW_TABLE * L);
+  G.st(out + e * L, x);
+}
+
+// ---------------------------------------------------------------------------
+// The group arithmetic alone, for the tests: out_e = a_e op b_e as K9's
+// (op 0 a Montgomery product, a below R; 1 an add, 2 a subtraction mod
+// p; 3 (a - b) (a + b) R^-1, the results of two operations the operands
+// of a third in registers), a group an element. consts: p (L words).
+// ---------------------------------------------------------------------------
+template <int S, bool W>
+__global__ void __launch_bounds__(WIDE_THREADS)
+group_op_wide_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b,
+                     uint32_t* __restrict__ out, long long n, int op,
+                     const uint32_t* __restrict__ consts, uint32_t n0inv,
+                     int L) {
+  const int gi = threadIdx.x / wide_group(L);
+  const long long e = (long long)blockIdx.x * wide_pow_groups(L) + gi;
+  if (e >= n) return;
+  WGroup<S, W> G;
+  G.init(L, consts, n0inv);
+  const WV<S> x = G.ld(a + e * L), y = G.ld(b + e * L);
+  G.st(out + e * L, op == 0   ? G.mul(x, y)
+                    : op == 1 ? G.add(x, y)
+                    : op == 2 ? G.sub(x, y)
+                              : G.mul(G.sub(x, y), G.add(x, y)));
 }
 
 // ---------------------------------------------------------------------------
@@ -318,6 +384,40 @@ static unsigned wide_grid(long long n) {
   return (unsigned)((n + WIDE_THREADS - 1) / WIDE_THREADS);
 }
 
+// K6's and the group test kernel's launches at an instantiation of the
+// group arithmetic (wide_dispatch).
+struct PowWideLaunch {
+  const void *a, *consts;
+  void *out, *stream;
+  long long n;
+  unsigned grid;
+  int smem;
+  WidePow P;
+  template <int S, bool W>
+  int run() const {
+    mont_pow_wide_kernel<S, W><<<grid, WIDE_THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (uint32_t*)out, n, (const uint32_t*)consts, P);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct GroupOpLaunch {
+  const void *a, *b, *consts;
+  void *out, *stream;
+  long long n;
+  unsigned grid, n0inv;
+  int op, L;
+  template <int S, bool W>
+  int run() const {
+    group_op_wide_kernel<S, W><<<grid, WIDE_THREADS, 0,
+                                 (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, op,
+        (const uint32_t*)consts, n0inv, L);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace mtt
 
 extern "C" {
@@ -378,11 +478,28 @@ int mtt_mont_pow_wide(const void* a, void* out, long long n,
   const mtt::WidePow P = *(const mtt::WidePow*)params;
   if (!mtt::wide_plan_ok(P)) return -1;
   if (n <= 0) return 0;
-  const int smem = (2 * P.nl + 2 * P.n_steps) * 4;
-  mtt::mont_pow_wide_kernel<<<mtt::wide_grid(n), mtt::WIDE_THREADS, smem,
-                              (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (uint32_t*)out, n, (const uint32_t*)consts, P);
-  return (int)cudaGetLastError();
+  const int ng = mtt::wide_pow_groups(P.nl);
+  const unsigned grid = (unsigned)((n + ng - 1) / ng);
+  const int smem =
+      (2 * P.nl + 2 * P.n_steps + ng * mtt::WIDE_POW_TABLE * P.nl) * 4;
+  return mtt::wide_dispatch(
+      P.nl, mtt::PowWideLaunch{a, consts, out, stream, n, grid, smem, P});
+}
+
+// The group arithmetic alone at L = 7..48 limbs (tests): out = a op b for
+// n elements (op 0 a Montgomery product, 1 an add, 2 a subtraction mod
+// p, 3 (a - b) (a + b) R^-1); consts: p's L limbs on the device. -1: a
+// limb count or op not built.
+int mtt_group_op_wide(const void* a, const void* b, void* out, long long n,
+                      int op, const void* consts, unsigned n0inv, int L,
+                      void* stream) {
+  if (L < mtt::WIDE_MIN_NL || L > mtt::WIDE_MAX_NL || op < 0 || op > 3)
+    return -1;
+  if (n <= 0) return 0;
+  const int ng = mtt::wide_pow_groups(L);
+  return mtt::wide_dispatch(
+      L, mtt::GroupOpLaunch{a, b, consts, out, stream, n,
+                (unsigned)((n + ng - 1) / ng), n0inv, op, L});
 }
 
 // K7 at threshold t with m parties (1 <= t <= 4, 2t + 1 <= m <= 16) and L

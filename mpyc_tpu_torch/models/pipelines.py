@@ -609,6 +609,31 @@ def _tree_levels(w: int) -> list:
     return levels
 
 
+def _point_adds(k: int) -> int:
+    """Adds that multiply a field element by the small integer k >= 1 by
+    doubling and adding (csrc/sgn_wide.cu mul_pt): a doubling for each bit
+    below the top, an add for each set one."""
+    return k.bit_length() - 1 + bin(k).count('1') - 1
+
+
+def _lag_adds(n: int) -> int:
+    """Adds that multiply a field element by each Lagrange coefficient at
+    0 of the points 1..n, (-1)^(i - 1) C(n, i) (csrc/sgn_wide.cu
+    mul_lag): the size's ``_point_adds``, and a subtraction from 0 for
+    each negative one."""
+    return sum(_point_adds(math.comb(n, i)) + (i + 1) % 2
+               for i in range(1, n + 1))
+
+
+def _powers_below(n: int) -> list:
+    """1, 2, 4, ... below n: the steps of a Hillis-Steele scan of n."""
+    out, h = [], 1
+    while h < n:
+        out.append(h)
+        h *= 2
+    return out
+
+
 SGN_MODES = ('sgn', 'LT', 'EQ')
 
 
@@ -680,9 +705,11 @@ class SgnSpec:
         return self.blocks_a(n) + max(rng_mod.blocks_needed(
             n * self.draws_per_element(), self.l_bytes), 1)
 
-    def field_ops(self, c_ones: float) -> tuple:
+    def field_ops(self, c_ones: float, groups: int | None = None) -> tuple:
         """(Montgomery products, modular adds and subtracts) per element of
-        the comparison as K5 computes it (csrc/sgn.cuh), the reduction of
+        the comparison as K5 computes it (csrc/sgn.cuh; with ``groups``, as
+        the wide K5 of csrc/sgn_wide.cu does with that many groups of lanes
+        a CTA: ``_wide_field_ops``), the reduction of
         its stream draws left out: public bits enter by selects, r mod 2^l
         by doubling, products by 2 and 3 as additions. c_ones is the mean
         number of ones among the l bits of the opened c mod 2^l, each of
@@ -693,6 +720,8 @@ class SgnSpec:
         x = m - 2t - 1 parties past them take their bit shares where the
         output needs them (LT mode: a_r and rb_l; EQ mode at l = 1: rb_0)
         and otherwise their output from the last reshare's coefficients."""
+        if groups is not None:
+            return self._wide_field_ops(c_ones, groups)
         t, m, l = self.t, self.m, self.l
         ns = 2 * t + 1
         x = m - ns
@@ -727,6 +756,82 @@ class SgnSpec:
             if self.mode == 'sgn':
                 mont += ns + reshare[0]
                 adds += 3 * ns + reshare[1]
+        if self.f:
+            mont += m
+        return mont, adds
+
+    def _wide_field_ops(self, c_ones: float, groups: int) -> tuple:
+        """The wide K5's (products, adds) per element, groups the groups of
+        lanes of its CTA (``_build.sgn_wide_groups``): its algebra takes
+        r mod 2^l's shares from the sums R_k of 2^j C_{k, j} (each group
+        doubles its run of bits and scales it by one product, the groups'
+        sums added in a tree) rather than by one doubling chain, computes c
+        mod 2^l's and r mod 2^l's values once, runs the E vector's suffix
+        sums as a scan over the groups' runs (E_j from a running s + 3
+        times the xor bits' sum above j), and multiplies by a party's
+        point and by a Lagrange coefficient by doubling and adding
+        (``_point_adds``, ``_lag_adds``). c_ones as
+        ``field_ops``: each one costs a subtraction in the xor vector (not
+        LT), and in the E vector's runs three (LT) or one (sgn), and at l
+        = 1 in EQ mode one for each party past the senders."""
+        from mpyc_tpu_torch import _build
+        t, m, l, lb = self.t, self.m, self.l, self.lb
+        ns = 2 * t + 1
+        x = m - ns
+        LT, EQ = self.mode == 'LT', self.mode == 'EQ'
+        # a Horner form at the senders' points, and at the other parties'
+        pt_s = t * sum(_point_adds(i + 1) for i in range(ns))
+        pt_x = t * sum(_point_adds(i + 1) for i in range(ns, m))
+        # Horner(C, x_i) + v: t adds and the point's
+        mont, adds = 0, lb * (ns * t + pt_s)         # the bit split
+        if LT or (EQ and l == 1):
+            adds += x * t + pt_x
+        # R_k by runs, their tree over the groups, times R^2
+        runs = 0
+        for j0 in range(0, lb, _build.SGN_WIDE_STAGE):
+            nb = min(lb - j0, _build.SGN_WIDE_STAGE, l - j0)
+            if nb > 0:
+                runs += -(-nb // -(-nb // groups))
+        mont += runs * t + t
+        adds += (2 * l - runs) * t + t * (groups - 1)
+        # r_divl and r mod 2^l to Montgomery form, r_divl's t + 1 shares,
+        # a_r at every party, the opening of c, c to standard form, c mod
+        # 2^l, z at every party
+        mont += 2 + (t + 1) + 2
+        adds += (t + 1) * t + t * sum(_point_adds(i + 1)
+                                      for i in range(t + 1)) + _lag_adds(t + 1)
+        adds += m * (t + 2) + pt_s + pt_x + (t + 1) + t + m
+        adds += c_ones * (ns if not LT else 0)
+        if EQ and l == 1:                        # 1 - xor_0 past the senders
+            adds += x * (1 + c_ones)
+        lag = _lag_adds(ns)
+        node = (ns, ns - 1 + ns * t + pt_s + lag)
+        if not EQ:
+            # the E vector: each group's run of bits, the scan of the runs'
+            # sums, then E_j from T_j = s + 3 (the xor bits' sum above j)
+            scan = sum(groups - h for h in _powers_below(groups))
+            qb = -(-l // groups)
+            adds += 2 * ns                       # s
+            adds += ns * (5 * l + 4 + scan + 3 * -(-l // qb)) \
+                + ns * c_ones * (3 if LT else 1)
+            trees = sum(_tree_levels(l + 1))
+            mont += trees * node[0]
+            adds += trees * node[1]
+            # the blinded zero test, h and z
+            mont += ns + 2 * ns
+            adds += ns * t + pt_s + lag + ns - 1 + 2 * ns
+        if not LT:
+            trees = sum(_tree_levels(l))
+            mont += trees * node[0]
+            adds += l * ns + trees * node[1]
+            if self.mode == 'sgn':
+                mont += ns
+                adds += 3 * ns + lag + ns - 1 + ns * t + pt_s
+        if LT:
+            mont += 2 * x
+            adds += 4 * x
+        elif not (EQ and l == 1):
+            adds += x * t + pt_x
         if self.f:
             mont += m
         return mont, adds
@@ -778,7 +883,8 @@ class SgnSpec:
     def wide_params(self, nonce):
         """The wide K5's parameter block (csrc/sgn_wide.cu SgnWide) for a
         call with counter (lo, hi), with the workspace words of a CTA
-        (``_build.sgn_wide_ws_words``); raises NotImplementedError for a
+        (``_build.sgn_wide_layout``: 0 where the element's vectors fit in
+        shared memory); raises NotImplementedError for a
         configuration it does not take: (t, m) outside 1 <= t <= 4, 2t + 1
         <= m <= 16, k above 64, a field outside 7 to 48 limbs. Every l the
         spec takes is a launch parameter, at every (t, m)."""
@@ -797,23 +903,26 @@ class SgnSpec:
         P.mode, P.has_f = SGN_MODES.index(self.mode), int(bool(self.f))
         P.n0inv = self.ctx.n0inv
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
-        P.ws_stride = _build.sgn_wide_ws_words(self.t, L, self.l, P.mode)
+        P.ws_stride = _build.sgn_wide_layout(self.t, self.m, L, self.l,
+                                             P.mode)[1]
         return P
 
     def wide_consts(self, device) -> torch.Tensor:
-        """The wide K5's device buffer (csrc/sgn_wide.cu sgn_wide_consts):
-        p, the radix table of its two-chunk draws, lag_t, lag_2t, the m
-        points, one, three, r2, 2^l, 2^-l, 2^(l-1) and 2^f (1 without a
-        scale), L words each; made once for each device."""
+        """The wide K5's device buffer (csrc/sgn_wide.cu SGN_WIDE_CONSTS):
+        p, the radix table of its two-chunk draws (radix_1 times 2^64
+        R^-1: the kernel takes a draw's top two words by a product of two
+        rows), one, three, r2, 2^l, 2^-l, 2^(l-1) and 2^f (1 without a
+        scale), L words each; made once for each device. The Lagrange
+        coefficients and the points are small integers there."""
         from mpyc_tpu_torch import _build
         cache = self.__dict__.setdefault('_wide', {})
         if str(device) not in cache:
             ctx = self.ctx
+            rad1 = limb.const_limbs((ctx.R2 << 64) % ctx.p, ctx.L)
             cache[str(device)] = _build.wide_words(
-                device, ctx.p_limbs, *ctx.radix_limbs(2), *self.lag_t,
-                *self.lag_2t, *self.xs, self.one, self.three, self.r2,
-                self.pow2[self.l], self.inv2l, self.pow2l1,
-                self.powf or self.one)
+                device, ctx.p_limbs, ctx.radix_limbs(1)[0], rad1, self.one,
+                self.three, self.r2, self.pow2[self.l], self.inv2l,
+                self.pow2l1, self.powf or self.one)
         return cache[str(device)]
 
 
@@ -988,7 +1097,8 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
 def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
                 spec: SgnSpec, chunk: int, n_last: int) -> torch.Tensor:
     """K5 on the card: the calls of a's chunks in one launch (``mtt_sgn``;
-    from 7 to 48 limbs ``mtt_sgn_wide``, with its workspace), counted on
+    from 7 to 48 limbs ``mtt_sgn_wide``, with its workspace where the
+    element's vectors do not fit in shared memory), counted on
     ``sgn_step``."""
     from mpyc_tpu_torch import _build
     wide = _build.wide(spec.ctx.L)
@@ -1003,10 +1113,11 @@ def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
             consts = spec.wide_consts(a.device)
             grid = _build.sgn_wide_grid(n, params.ws_stride)
             ws = torch.empty(grid * params.ws_stride, dtype=torch.int32,
-                             device=a.device)
+                             device=a.device) if params.ws_stride else None
             _build.call('mtt_sgn_wide', a.data_ptr(), out.data_ptr(),
                         state.data_ptr(), n, chunk, n_last,
-                        consts.data_ptr(), ws.data_ptr(), grid,
+                        consts.data_ptr(),
+                        ws.data_ptr() if ws is not None else None, grid,
                         ctypes.addressof(params), _build.stream_of(a.device))
         else:
             _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),

@@ -886,6 +886,70 @@ def test_wide_sgn_kernel_matches_plain(cuda_device, mode, bits, l, t, m):
     assert torch.equal(got, want) and list(ctr_k) == list(ctr_p)
 
 
+@pytest.mark.parametrize('L', range(7, 49))
+def test_wide_group_arithmetic_matches_plain(cuda_device, L):
+    """The group arithmetic of the wide K5 and K6 (csrc/wide.cuh WGroup)
+    at every limb count from 7 to 48, on 1,000 random operand pairs and
+    the edges (0, 1, p - 1, a below R of all-ones limbs), bit for bit
+    against the plain limb arithmetic: the Montgomery product, the add and
+    the subtraction mod p, and (a - b) (a + b) R^-1 (results in registers
+    the operands of a product)."""
+    from mpyc_tpu_torch import _build, gmpy
+    from mpyc_tpu_torch.ops import limb
+    p = int(gmpy.next_prime((1 << 32 * L - 1) + (1 << 32 * L - 3)))
+    ctx = prime_field_ctx(p)
+    g = np.random.default_rng(L)
+    n = 1000
+    words = g.integers(0, 1 << 32, (2, n, L), dtype=np.uint64)
+    words[..., -1] %= p >> 32 * (L - 1)
+    vals = [[0, 1, p - 1, p - 1, (1 << 32 * L) - 1],
+            [p - 1, p - 1, p - 1, 1, p - 1]]
+    for k in range(2):
+        for e, v in enumerate(vals[k]):
+            words[k, e] = [v >> 32 * i & 0xFFFFFFFF for i in range(L)]
+    a, b = (torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(
+        cuda_device) for w in words)
+    consts = fieldops.wide_field_consts(ctx, cuda_device)
+    P, N0 = ctx.p_limbs, ctx.n0inv
+    A, B = limb.unstack(a.cpu()), limb.unstack(b.cpu())
+    want = [limb.mont_mul(A, B, P, N0), limb.add_mod(A, B, P),
+            limb.sub_mod(A, B, P),
+            limb.mont_mul(limb.sub_mod(A, B, P), limb.add_mod(A, B, P), P,
+                          N0)]
+    for op in range(4):
+        out = torch.empty_like(a)
+        _build.call('mtt_group_op_wide', a.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), n, op, consts.data_ptr(), N0, L,
+                    _build.stream_of(cuda_device))
+        assert torch.equal(out.cpu(), limb.stack(want[op])), op
+
+
+@pytest.mark.parametrize('bits,L', [(0, 19), (1300, 42)])
+def test_wide_sgn_and_pow_at_kb2_shapes(cuda_device, bits, L):
+    """At kb2's 19 limbs the wide K5 on its widest call, (3, 68, 19) LT at
+    l = 560 as np_sgn makes it (a bucket of 128), and the wide K6 on one
+    element at e = p - 2 (its reciprocals' public inverses); at 42 limbs
+    K6 so too: each bit for bit against its plain version."""
+    import chip_smoke
+    from mpyc_tpu_torch import sectypes
+    p = chip_smoke.wide_field(bits) if bits == 0 else \
+        sectypes.SecInt(bits, 'cpu').field.modulus
+    ctx = prime_field_ctx(p)
+    assert ctx.L == L
+    gen = np.random.default_rng(L)
+    z = chip_smoke.random_field(p, (1,), gen)
+    assert torch.equal(fieldops.mont_pow(z, p - 2, ctx),
+                       fieldops._mont_pow_plain(z, p - 2, ctx))
+    if bits == 0:
+        st = _state(cuda_device)
+        spec = pipelines.SgnSpec(p, 1, 3, 560, 30, LT=True)
+        a = chip_smoke.random_field(p, (3, 68), gen)
+        err, _ = chip_smoke.sgn_chunks_check(spec, a, st,
+                                             np.array([5, 0], np.uint32),
+                                             1024)
+        assert err == 0
+
+
 @pytest.mark.parametrize('fuse', [True, False])
 @pytest.mark.parametrize('bits', [192, 1300])
 def test_wide_reshare_and_tail_match_plain_at_five_parties(cuda_device,

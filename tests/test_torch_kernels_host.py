@@ -28,7 +28,7 @@ import torch
 
 from mpyc_tpu_torch import _build
 from mpyc_tpu_torch.models import pipelines
-from mpyc_tpu_torch.ops import fieldops, keccak, rng
+from mpyc_tpu_torch.ops import fieldops, keccak, limb, rng
 from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
 
 
@@ -58,8 +58,9 @@ _SHIM = '''
 #pragma once
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <sys/mman.h>
-#include <ucontext.h>
 #include <vector>
 #define __global__
 #define __device__
@@ -106,73 +107,164 @@ extern "C" { extern unsigned long long mtt_op_counts[2], mtt_perm_count; }
 #define MTT_COUNT_PERM() \\
   __atomic_fetch_add(&mtt_perm_count, 1ull, __ATOMIC_RELAXED)
 // A block's threads are fibers: one stack each (reserved once, touched
-// only as deep as a thread goes), switched by the launch's scheduler.
-struct MttFiber { ucontext_t ctx; void* stack; bool done; unsigned parity; };
+// only as deep as a thread goes), switched by the launch's scheduler
+// through mtt_switch(save, load): the callee-saved registers pushed on the
+// stack that is left, its pointer stored to *save, the one entered loaded
+// from load and its registers popped (x86-64; no system call).
+__attribute__((naked, noinline)) static void mtt_switch(void**, void*) {
+  asm("pushq %rbp\\n pushq %rbx\\n pushq %r12\\n pushq %r13\\n pushq %r14\\n"
+      " pushq %r15\\n movq %rsp, (%rdi)\\n movq %rsi, %rsp\\n popq %r15\\n"
+      " popq %r14\\n popq %r13\\n popq %r12\\n popq %rbx\\n popq %rbp\\n"
+      " ret\\n");
+}
+enum MttState { MTT_RUN, MTT_BLOCK, MTT_WARP, MTT_DONE };
+enum MttOp { MTT_SHFL, MTT_DOWN, MTT_UP, MTT_BALLOT, MTT_SYNCWARP };
+struct MttFiber {
+  void* sp; void* stack; MttState state;
+  unsigned mask, val, result; MttOp op; int arg, width;
+};
 constexpr size_t MTT_STACK = size_t(1) << 20;
 inline std::vector<MttFiber> mtt_fibers;
-inline ucontext_t mtt_scheduler;
-inline unsigned mtt_current;
+inline void* mtt_scheduler_sp;
+inline unsigned mtt_current, mtt_threads;
 inline void (*mtt_body)(void*);
 inline void* mtt_body_arg;
 inline std::vector<uint64_t> mtt_dynamic_smem;
-inline std::vector<unsigned> mtt_shfl_slots[2];
-inline void mtt_fiber_main() {
+inline void mtt_yield(MttState s) {
+  mtt_fibers[mtt_current].state = s;
+  mtt_switch(&mtt_fibers[mtt_current].sp, mtt_scheduler_sp);
+}
+inline void mtt_fiber_entry() {      // entered by a fiber's first switch
   mtt_body(mtt_body_arg);
-  mtt_fibers[mtt_current].done = true;    // back to uc_link: the scheduler
+  mtt_yield(MTT_DONE);               // never resumed
 }
-inline void __syncthreads() {
-  swapcontext(&mtt_fibers[mtt_current].ctx, &mtt_scheduler);
+inline void __syncthreads() { mtt_yield(MTT_BLOCK); }
+// A warp collective: the thread waits until every live lane of its mask
+// has reached a collective with that mask; the scheduler then gives each
+// its result, as the card gives it to a warp (or to the lanes of mask)
+// that meet there. A warp whose lanes take other paths waits for none of
+// the block's other warps.
+inline unsigned mtt_collective(unsigned mask, MttOp op, unsigned v, int arg,
+                               int width) {
+  MttFiber& f = mtt_fibers[mtt_current];
+  f.mask = mask; f.op = op; f.val = v; f.arg = arg; f.width = width;
+  mtt_yield(MTT_WARP);
+  return mtt_fibers[mtt_current].result;
 }
-// A warp shuffle through a slot a thread and a barrier of the block: every
-// thread of the block must take part, as every thread of a warp must on
-// the card. Shuffles alternate between two sets of slots, so a thread
-// writes a set again only after every thread has read it.
-inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
-  std::vector<unsigned>& slots =
-      mtt_shfl_slots[mtt_fibers[mtt_current].parity ^= 1];
-  slots[threadIdx.x] = v;
-  __syncthreads();
-  return slots[(threadIdx.x & ~31u) + (src & 31)];
+inline unsigned __shfl_sync(unsigned mask, unsigned v, int src,
+                            int width = 32) {
+  return mtt_collective(mask, MTT_SHFL, v, src, width);
 }
-// One launch: the blocks in turn. A block runs in phases: each thread
-// still running runs up to its next __syncthreads() or its return, so a
-// barrier is passed once every thread still running has reached it; a
-// thread that returns leaves the barrier, as on the card.
+inline unsigned __shfl_down_sync(unsigned mask, unsigned v, unsigned d,
+                                 int width = 32) {
+  return mtt_collective(mask, MTT_DOWN, v, (int)d, width);
+}
+inline unsigned __shfl_up_sync(unsigned mask, unsigned v, unsigned d,
+                               int width = 32) {
+  return mtt_collective(mask, MTT_UP, v, (int)d, width);
+}
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  return mtt_collective(mask, MTT_BALLOT, pred != 0, 0, 32);
+}
+inline void __syncwarp(unsigned mask = 0xFFFFFFFFu) {
+  mtt_collective(mask, MTT_SYNCWARP, 0, 0, 32);
+}
+// Complete the collective that thread t waits at, if every live lane of
+// its mask (within the block) has reached one with the same mask.
+inline void mtt_try_release(unsigned t) {
+  const unsigned w0 = t & ~31u, mask = mtt_fibers[t].mask;
+  unsigned part = 0, ballot = 0;
+  // from the top lane down: the scheduler runs a warp's lanes in order, so
+  // a lane that is not the last to arrive finds one still running at once
+  for (unsigned lane = 32; lane-- > 0;) {
+    if (!(mask >> lane & 1u) || w0 + lane >= mtt_threads) continue;
+    const MttFiber& g = mtt_fibers[w0 + lane];
+    if (g.state == MTT_DONE) continue;
+    if (g.state != MTT_WARP || g.mask != mask || g.op != mtt_fibers[t].op)
+      return;
+    part |= 1u << lane;
+    ballot |= (g.val != 0) << lane;
+  }
+  for (unsigned lane = 0; lane < 32; ++lane) {
+    if (!(part >> lane & 1u)) continue;
+    MttFiber& g = mtt_fibers[w0 + lane];
+    const unsigned w = (unsigned)g.width, seg = lane & ~(w - 1);
+    unsigned src = lane;
+    if (g.op == MTT_SHFL) src = seg | ((unsigned)g.arg & (w - 1));
+    else if (g.op == MTT_DOWN && (lane & (w - 1)) + g.arg < w)
+      src = lane + g.arg;
+    else if (g.op == MTT_UP && (lane & (w - 1)) >= (unsigned)g.arg)
+      src = lane - g.arg;
+    g.result = g.op == MTT_BALLOT ? ballot
+               : part >> src & 1u ? mtt_fibers[w0 + src].val : g.val;
+  }
+  for (unsigned lane = 0; lane < 32; ++lane)
+    if (part >> lane & 1u) mtt_fibers[w0 + lane].state = MTT_RUN;
+}
+// One launch: the blocks in turn. A block's fibers run in passes, each
+// runnable one up to its next barrier, collective or return; a barrier is
+// passed once every thread still running has reached it (a thread that
+// returns leaves it, as on the card), a collective once its lanes have.
 template <class F>
 void mtt_host_launch(unsigned grid, unsigned threads, unsigned smem,
                      F body) {
   while (mtt_fibers.size() < threads) {
     void* stack = mmap(nullptr, MTT_STACK, PROT_READ | PROT_WRITE,
                        MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
-    mtt_fibers.push_back({{}, stack, true, 0});
+    mtt_fibers.push_back({});
+    mtt_fibers.back().stack = stack;
   }
   mtt_body = [](void* f) { (*static_cast<F*>(f))(); };
   mtt_body_arg = &body;
+  mtt_threads = threads;
   blockDim = {threads, 1, 1};
   gridDim = {grid, 1, 1};
   for (unsigned b = 0; b < grid; ++b) {
     mtt_dynamic_smem.assign((smem + 7) / 8, 0);
-    mtt_shfl_slots[0].assign(threads, 0);
-    mtt_shfl_slots[1].assign(threads, 0);
     for (unsigned t = 0; t < threads; ++t) {
       MttFiber& f = mtt_fibers[t];
-      getcontext(&f.ctx);
-      f.ctx.uc_stack.ss_sp = f.stack;
-      f.ctx.uc_stack.ss_size = MTT_STACK;
-      f.ctx.uc_link = &mtt_scheduler;
-      makecontext(&f.ctx, mtt_fiber_main, 0);
-      f.done = false;
-      f.parity = 0;
+      // the first switch pops six zero registers and returns into
+      // mtt_fiber_entry, its stack aligned as after a call
+      void** sp = reinterpret_cast<void**>(
+          static_cast<char*>(f.stack) + MTT_STACK - 64);
+      for (int r = 0; r < 6; ++r) sp[r] = nullptr;
+      sp[6] = reinterpret_cast<void*>(&mtt_fiber_entry);
+      sp[7] = nullptr;
+      f.sp = sp;
+      f.state = MTT_RUN;
     }
-    for (bool running = true; running;) {
-      running = false;
+    for (;;) {
+      bool ran = false;
+      unsigned live = 0, waiting = 0;
       for (unsigned t = 0; t < threads; ++t) {
-        if (mtt_fibers[t].done) continue;
-        mtt_current = t;
-        blockIdx = {b, 0, 0};
-        threadIdx = {t, 0, 0};
-        swapcontext(&mtt_scheduler, &mtt_fibers[t].ctx);
-        running |= !mtt_fibers[t].done;
+        MttFiber& f = mtt_fibers[t];
+        if (f.state == MTT_RUN) {
+          mtt_current = t;
+          blockIdx = {b, 0, 0};
+          threadIdx = {t, 0, 0};
+          mtt_switch(&mtt_scheduler_sp, f.sp);
+          ran = true;
+          if (f.state == MTT_WARP) {
+            mtt_try_release(t);
+          } else if (f.state == MTT_DONE) {   // it may complete one
+            for (unsigned u = t & ~31u; u < (t | 31u) + 1 && u < threads;
+                 ++u)
+              if (mtt_fibers[u].state == MTT_WARP) mtt_try_release(u);
+          }
+        }
+      }
+      for (unsigned t = 0; t < threads; ++t) {
+        live += mtt_fibers[t].state != MTT_DONE;
+        waiting += mtt_fibers[t].state == MTT_BLOCK;
+      }
+      if (live == 0) break;
+      if (waiting == live) {
+        for (unsigned t = 0; t < threads; ++t)
+          if (mtt_fibers[t].state == MTT_BLOCK)
+            mtt_fibers[t].state = MTT_RUN;
+      } else if (!ran) {
+        fprintf(stderr, "host launch: block %u deadlocked\\n", b);
+        abort();
       }
     }
   }
@@ -211,7 +303,7 @@ def host_lib(tmp_path_factory):
         src = (_build.CSRC / name).read_text()
         launches += len(_LAUNCH.findall(src))
         (d / name).write_text(_host_source(src))
-    assert launches == 16, 'every launch must become a host loop'
+    assert launches == 17, 'every launch must become a host loop'
     (d / 'cuda_runtime.h').write_text(_SHIM)
     (d / 'counters.cpp').write_text(
         'extern "C" { unsigned long long mtt_op_counts[2], '
@@ -1482,6 +1574,70 @@ def test_wide_plain_product_matches_python_ints():
         assert list(got) == [x * y * r_inv % p for x, y in zip(xs, ys)]
 
 
+# a prime of each limb count the group arithmetic is checked at: the ends
+# of each group size (8 lanes to 8 limbs, 16 to 16, 32 above, two words a
+# lane from 33 limbs), a group with lanes past L (9, 12), kb2's 19 and
+# student-mat's 42
+GROUP_LIMBS = (7, 8, 9, 12, 16, 19, 32, 33, 42, 48)
+
+
+def _group_prime(L: int) -> int:
+    from mpyc_tpu_torch import gmpy
+    return int(gmpy.next_prime((1 << 32 * L - 1) + (1 << 32 * L - 3)))
+
+
+def _group_operands(L: int, p: int):
+    """Operand pairs that the carries and borrows of the group's
+    arithmetic show on: random ones, 0, 1, p - 1, the all-ones limbs of
+    R - 1 (as a, below R), and values of all-ones limbs below p."""
+    g = np.random.default_rng(L)
+    R = 1 << 32 * L
+    rnd = [int.from_bytes(g.bytes(4 * L), 'little') % p for _ in range(24)]
+    ones = [(1 << 32 * k) - 1 for k in range(1, L)]     # all-ones limbs < p
+    edge = [0, 1, p - 1, p - 2, (p - 1) // 2] + ones[-3:]
+    pairs = [(x, y) for x in edge for y in edge]
+    pairs += list(zip(rnd[:12], rnd[12:])) + [(y, x) for x, y in pairs[:8]]
+    wide = [(R - 1, p - 1), (R - 1, 1), (R - 1, R % p), (R - 2, p - 1)]
+    return pairs, wide
+
+
+@pytest.mark.parametrize('L', GROUP_LIMBS)
+def test_wide_group_arithmetic_matches_python_ints(host_lib, L):
+    """The group arithmetic of the wide K5 and K6 (csrc/wide.cuh WGroup:
+    8, 16 or 32 lanes, one or two words a lane) against Python ints: the
+    Montgomery product a b R^-1 mod p (also with a below R: all-ones
+    limbs), the add and the subtraction mod p, and (a - b) (a + b) R^-1
+    (results in registers the operands of a product: a value's words past
+    L stay 0), on operands with all-ones limbs, p - 1, 0 and random ones,
+    at each limb count of GROUP_LIMBS; a group a product, many in a
+    block."""
+    p = _group_prime(L)
+    ctx = prime_field_ctx(p)
+    assert ctx.L == L and (p >> 32 * (L - 1)) >> 31 == 1
+    R = 1 << 32 * L
+    pairs, wide = _group_operands(L, p)
+    consts = fieldops.wide_field_consts(ctx, 'cpu')
+
+    def enc(vals):
+        w = np.array([[v >> 32 * i & 0xFFFFFFFF for i in range(L)]
+                      for v in vals], dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32))
+    r_inv = pow(R, -1, p)
+    ops = {'mul': lambda x, y: x * y * r_inv % p,
+           'add': lambda x, y: (x + y) % p, 'sub': lambda x, y: (x - y) % p,
+           'chain': lambda x, y: (x - y) * (x + y) * r_inv % p}
+    for k, (op, fn) in enumerate(ops.items()):
+        cases = pairs + wide if op == 'mul' else pairs
+        a, b = enc([x for x, _ in cases]), enc([y for _, y in cases])
+        out = torch.empty_like(a)
+        assert host_lib.mtt_group_op_wide(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), len(cases), k,
+            consts.data_ptr(), ctx.n0inv, L, None) == 0
+        got = [int(v) for v in limb.limbs_to_ints(out.numpy().view(
+            np.uint32))]
+        assert got == [fn(x, y) for x, y in cases], op
+
+
 @pytest.mark.parametrize('p', [P200, P1030], ids=['L7', 'L33'])
 def test_wide_pow_products_match_the_plan(host_lib, p):
     """The wide K6 runs its exponent's plan (fieldops.plan_products
@@ -1516,7 +1672,8 @@ def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
     """The wide launchers take 7 to 48 limbs; fewer take the narrow
     kernels, more raise NotImplementedError on the Python side. K3, K5 and
     K7 take every (t, m) of ``_build.check_parties`` and refuse the rest,
-    on both sides; K5 also a workspace smaller than a CTA's."""
+    on both sides; K5 also a workspace smaller than a CTA's, or none,
+    where the vectors do not fit in shared memory."""
     st, _ = state
     ctx = prime_field_ctx(P200)
     a = _shares(10, 92, P200)
@@ -1567,21 +1724,30 @@ def test_wide_launchers_refuse_what_was_not_built(host_lib, state):
         a.data_ptr(), a.data_ptr(), a.data_ptr(), a.data_ptr(),
         a.data_ptr(), 10, consts.data_ptr(), ctypes.addressof(params),
         None) == -1
-    # K5: the workspace of a CTA, the limbs, (t, m)
+    # K5: the limbs, (t, m), k, l; a workspace smaller than a CTA's, or
+    # none, where the vectors do not fit in shared memory
     spec = pipelines.SgnSpec(P200, 1, 3, 64, LT=True)
     wconsts = spec.wide_consts('cpu')
-    ws = torch.empty(spec.wide_params((0, 0)).ws_stride, dtype=torch.int32)
-    for field, v in (('ws_stride', None), ('nl', 6), ('nl', 49),
-                     ('t', 5), ('m', 2), ('k', 65), ('l', 0)):
+    for field, v in (('nl', 6), ('nl', 49), ('t', 5), ('m', 2), ('k', 65),
+                     ('l', 0)):
         params = spec.wide_params((0, 0))
-        if v is None:
-            params.ws_stride -= 1
-        else:
-            setattr(params, field, v)
+        setattr(params, field, v)
         assert host_lib.mtt_sgn_wide(
             a.data_ptr(), a.data_ptr(), st.data_ptr(), 10, 10, 10,
-            wconsts.data_ptr(), ws.data_ptr(), 1, ctypes.addressof(params),
+            wconsts.data_ptr(), None, 1, ctypes.addressof(params),
             None) == -1, field
+    spec = pipelines.SgnSpec(P1314, 1, 3, 197)
+    a42 = _shares(10, 92, P1314)
+    wconsts = spec.wide_consts('cpu')
+    ws = torch.empty(spec.wide_params((0, 0)).ws_stride, dtype=torch.int32)
+    assert ws.numel() == 49770
+    for short, buf in ((1, ws), (0, None)):
+        params = spec.wide_params((0, 0))
+        params.ws_stride -= short
+        assert host_lib.mtt_sgn_wide(
+            a42.data_ptr(), a42.data_ptr(), st.data_ptr(), 10, 10, 10,
+            wconsts.data_ptr(), buf if buf is None else buf.data_ptr(), 1,
+            ctypes.addressof(params), None) == -1
 
 
 # -- parties other than three: 1 <= t <= 4, 2t + 1 <= m <= 16 -----------------
@@ -1882,6 +2048,27 @@ def _wide_sgn(host_lib, st, spec, a, nonce, chunk=None, n_last=None,
     return out
 
 
+def _wide_sgn_ops(spec, vals, st, nonce):
+    """The products and adds the wide K5 runs on one call of the l-bit
+    values vals: ``SgnSpec.field_ops`` with its groups, each element at the
+    ones of its c mod 2^l = (v + r mod 2^l) mod 2^l (r's bits the first
+    of its stream-A words), and two products and an add a draw."""
+    n, l = len(vals), spec.l
+    words = keccak._keccak_ctr_plain(pipelines._nonce_state(st, nonce),
+                                     spec.blocks_a(n), 19)
+    words = (words.to(torch.int64) & 0xFFFFFFFF).reshape(-1)
+    groups = _build.sgn_wide_groups(spec.ctx.L)
+    mont = adds = 0
+    for e, v in enumerate(vals):
+        w = words[e * spec.wpe:e * spec.wpe + spec.wb].tolist()
+        r = sum(int(x) << 32 * q for q, x in enumerate(w)) % (1 << l)
+        ones = bin((v + r) % (1 << l)).count('1')
+        mo, ad = spec.field_ops(ones, groups)
+        mont += mo + 2 * spec.draws_per_element()
+        adds += ad + spec.draws_per_element()
+    return mont, adds
+
+
 def _compare(mode, v):
     return (v > 0) - (v < 0) if mode == 'sgn' else int(
         v < 0 if mode == 'LT' else v == 0)
@@ -1904,7 +2091,10 @@ def test_wide_sgn_source_matches_plain(host_lib, state, mode, case):
     opened outputs are the comparisons of the values: one call on six to
     eight elements, two CTAs taking them in turn (the persistent grid), the
     counter's high word set; the parties past the senders at (1, 4), also
-    at l = 1 (EQ: their xor bit)."""
+    at l = 1 (EQ: their xor bit). The source's products and adds (counted
+    once a group's operation) are ``SgnSpec.field_ops`` with its groups at
+    each element's ones of c mod 2^l, and two products and an add a
+    draw."""
     p, l, t, m = case
     st, _ = state
     g = np.random.default_rng(l + t + m)
@@ -1914,9 +2104,36 @@ def test_wide_sgn_source_matches_plain(host_lib, state, mode, case):
     a = _value_shares(vals, p, t, m, seed=len(vals) + l)
     spec = pipelines.SgnSpec(p, t, m, l, LT=mode == 'LT', EQ=mode == 'EQ')
     nonce = (0xFFFFFFFE, 5)
+    counts = _op_counts(host_lib)
+    counts[0] = counts[1] = 0
     got = _wide_sgn(host_lib, st, spec, a, nonce, grid=2)
     assert torch.equal(got, pipelines._sgn_step_plain(a, st, nonce, spec))
     assert _open(got, p, t) == [_compare(mode, v) for v in vals]
+    assert tuple(counts) == _wide_sgn_ops(spec, vals, st, nonce)
+
+
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_wide_sgn_source_matches_plain_in_both_placements(host_lib, state,
+                                                          mode):
+    """At 42 limbs and l = 197 an element's vectors fill a CTA's shared
+    memory in EQ mode to within 336 of its 232,448 bytes (E and X), fit in
+    LT mode (E alone), and in sgn mode (E and X, one bit share more) go to
+    the device workspace: the wide K5 equals its plain version bit for bit
+    in each placement, on three values, two CTAs."""
+    p, l = P1314, 197
+    st, _ = state
+    spec = pipelines.SgnSpec(p, 1, 3, l, LT=mode == 'LT', EQ=mode == 'EQ')
+    smem, ws = _build.sgn_wide_layout(1, 3, 42, l,
+                                      pipelines.SGN_MODES.index(mode))
+    assert (smem, ws) == {'sgn': (33536, 49770), 'LT': (133328, 0),
+                          'EQ': (232112, 0)}[mode]
+    assert spec.wide_params((0, 0)).ws_stride == ws
+    vals = [0, -1, 1 << 150]
+    a = _value_shares(vals, p, 1, 3, seed=96)
+    nonce = (7, 0)
+    got = _wide_sgn(host_lib, st, spec, a, nonce, grid=2)
+    assert torch.equal(got, pipelines._sgn_step_plain(a, st, nonce, spec))
+    assert _open(got, p, 1) == [_compare(mode, v) for v in vals]
 
 
 @pytest.mark.parametrize('mode', pipelines.SGN_MODES)
@@ -1939,35 +2156,50 @@ def test_wide_sgn_source_takes_many_chunks_in_one_launch(host_lib, state,
 
 
 def test_wide_sgn_sizes(host_lib):
-    """The wide K5's workspace and shared memory: a CTA's workspace is
-    (lb + l [not LT]) (2t + 1) L words (lb = l + 1, l in EQ mode), so
-    kb2's LT comparison at t = 1 takes 561 x 3 x 19 words (125 KiB) and
-    one at 48 limbs in sgn mode 3,009 x 3 x 48, the same in ``_build`` as
-    in the source (``mtt_sgn_wide_ws``); a launch's workspace stays within
-    SGN_WIDE_WS_BYTES; a CTA's shared memory (``mtt_sgn_wide_smem``)
-    within the 227 KB a CTA may have at every (t, m) and L."""
-    assert _build.sgn_wide_ws_words(1, 19, 560, 1) == 561 * 3 * 19
-    assert _build.sgn_wide_ws_words(1, 19, 560, 1) * 4 == 127908
-    assert _build.sgn_wide_ws_words(1, 48, 1504, 0) == 3009 * 3 * 48
-    assert _build.sgn_wide_ws_words(4, 7, 64, 2) == 128 * 9 * 7
-    for t, L, l, mode in ((1, 19, 560, 1), (4, 48, 1504, 0), (2, 7, 8, 2)):
-        w = _build.sgn_wide_ws_words(t, L, l, mode)
+    """The wide K5's vectors, shared memory and workspace: an element's
+    vectors are (lb + l [not LT]) (2t + 1) L words (lb = l + 1, l in EQ
+    mode), so kb2's LT comparison at t = 1 takes 561 x 3 x 19 words (125
+    KiB) and one at 48 limbs in sgn mode 3,009 x 3 x 48; they live in
+    shared memory where they fit beside the rest within a CTA's 232,448
+    bytes (kb2's LT: no workspace), else in a workspace of that many words
+    a CTA (kb2's field in sgn mode, SecInt(1504)), the same in ``_build``
+    as in the source (``mtt_sgn_wide_smem``, ``mtt_sgn_wide_ws``) at every
+    (t, m), L, l and mode here; a launch's workspace stays within
+    SGN_WIDE_WS_BYTES, its grid within SGN_WIDE_GRID."""
+    assert _build.sgn_wide_vec_words(1, 19, 560, 1) == 561 * 3 * 19
+    assert _build.sgn_wide_vec_words(1, 19, 560, 1) * 4 == 127908
+    assert _build.sgn_wide_vec_words(1, 48, 1504, 0) == 3009 * 3 * 48
+    assert _build.sgn_wide_vec_words(4, 7, 64, 2) == 128 * 9 * 7
+    assert _build.sgn_wide_layout(1, 3, 19, 560, 1)[1] == 0
+    assert _build.sgn_wide_layout(1, 3, 19, 560, 0)[1] == 1121 * 3 * 19
+    assert _build.sgn_wide_layout(1, 3, 48, 1504, 0)[1] == 3009 * 3 * 48
+    for t, m, L, l, mode in ((1, 3, 19, 560, 1), (4, 9, 48, 1504, 0),
+                             (2, 5, 7, 8, 2), (1, 3, 19, 560, 0)):
+        w = _build.sgn_wide_layout(t, m, L, l, mode)[1]
         grid = _build.sgn_wide_grid(1 << 20, w)
         assert 1 <= grid <= _build.SGN_WIDE_GRID
         assert grid * w * 4 <= _build.SGN_WIDE_WS_BYTES
+    assert _build.sgn_wide_grid(70, 0) == 70
     assert _build.sgn_wide_grid(70, 561 * 3 * 19) == 70
     for t in range(1, 5):
         for m in (2 * t + 1, 16):
             for L in (7, 19, 48):
-                assert 0 < host_lib.mtt_sgn_wide_smem(t, m, L) <= 232448
                 for l, mode in ((560, 1), (31, 0), (64, 2)):
-                    assert host_lib.mtt_sgn_wide_ws(t, L, l, mode) == \
-                        _build.sgn_wide_ws_words(t, L, l, mode)
+                    if l + 1 > 32 * L - 1:
+                        continue
+                    smem, ws = _build.sgn_wide_layout(t, m, L, l, mode)
+                    assert 0 < smem <= 232448
+                    assert host_lib.mtt_sgn_wide_smem(t, m, L, l, mode) == \
+                        smem
+                    assert host_lib.mtt_sgn_wide_ws(t, m, L, l, mode) == ws
+                    assert ws == 0 or smem + 4 * _build.sgn_wide_vec_words(
+                        t, L, l, mode) > 232448
 
 
 def test_wide_sgn_routes_by_limbs(monkeypatch):
-    """K5's launch takes the wide kernel (``mtt_sgn_wide``, its workspace
-    of grid x ws_stride words) at 7 to 48 limbs and the narrow one
+    """K5's launch takes the wide kernel (``mtt_sgn_wide``; its workspace
+    of grid x ws_stride words where the vectors do not fit in shared
+    memory, else none) at 7 to 48 limbs and the narrow one
     (``mtt_sgn``) at two to six; at 49 limbs, and at t > 4 or m > 16,
     both parameter blocks raise NotImplementedError naming their limits."""
     from mpyc_tpu_torch import gmpy, sectypes
@@ -1989,7 +2221,9 @@ def test_wide_sgn_routes_by_limbs(monkeypatch):
         if wide:
             params = spec.wide_params((0, 0))
             assert args[8] == 5 == _build.sgn_wide_grid(5, params.ws_stride)
-            assert params.ws_stride == _build.sgn_wide_ws_words(1, L, 40, 1)
+            assert params.ws_stride == _build.sgn_wide_layout(
+                1, 3, L, 40, 1)[1] == 0
+            assert args[7] is None    # the vectors in shared memory
             with pytest.raises(NotImplementedError, match='limbs'):
                 spec.params((0, 0))
         else:
@@ -2016,9 +2250,11 @@ def _mont_values(words, L):
 @pytest.mark.parametrize('t,m', [(1, 3), (2, 5), (4, 9), (1, 4)])
 def test_wide_constants_layout(t, m):
     """The wide kernels' device buffers, in their order (csrc/
-    sgn_wide.cu sgn_wide_consts, csrc/wide.cu wide_reshare_consts,
-    wide_tail_consts): K5's p, radix_0, radix_1, lag_t (t + 1), lag_2t
-    (2t + 1), the m points, 1, 3, R^2, 2^l, 2^-l, 2^(l-1), 2^f; K3's p,
+    sgn_wide.cu SGN_WIDE_CONSTS, csrc/wide.cu wide_reshare_consts,
+    wide_tail_consts): K5's p, radix_0, radix_1 2^64 R^-1 (a draw's top
+    two words enter by a product of two rows), 1, 3, R^2, 2^l, 2^-l,
+    2^(l-1), 2^f (its Lagrange coefficients and points are small
+    integers in the kernel); K3's p,
     the radix table, the 2t + 1 Lagrange coefficients and the m points;
     K7's p, 1, the 2t + 1 coefficients, the scale and offset, then the
     power's steps; each value in Montgomery form but p, the radix table
@@ -2042,13 +2278,11 @@ def test_wide_constants_layout(t, m):
         return out
     spec = pipelines.SgnSpec(p, t, m, l, EQ=True, f=f)
     vals = _mont_values(spec.wide_consts('cpu'), L)
-    assert len(vals) == 3 + (t + 1) + ns + m + 7
+    assert len(vals) == 10
     radix = [(1 << 32 * L * c) * R * R % p for c in range(2)]
-    assert vals[:3] == [p] + radix
-    assert vals[3:3 + t + 1] == lag(t + 1)
-    assert vals[4 + t:4 + t + ns] == lag(ns)
-    assert vals[4 + t + ns:4 + t + ns + m] == mont[1:m + 1]
-    assert vals[4 + t + ns + m:] == [
+    assert vals[:3] == [p, radix[0], radix[1] * (1 << 64) * pow(R, -1, p)
+                        % p]
+    assert vals[3:] == [
         R % p, 3 * R % p, R * R % p, (1 << l) * R % p,
         pow(1 << l, -1, p) * R % p, (1 << l - 1) * R % p, (1 << f) * R % p]
     vals = _mont_values(pipelines.ReshareSpec(p, t, m).wide_consts('cpu'), L)

@@ -30,6 +30,19 @@ and K7 at conv1's random bits at (2, 5), after holding K3 and K4 at (1,
 3) and each of those K5 against their plain versions at 2^16 elements
 (bit for bit), and prints the ptxas report of K3, K4 and K5 on two limbs
 and of K7 where its process built the library.
+
+With ``--wide`` each run times only the wide K5 and K6 (csrc/sgn_wide.cu,
+csrc/wide.cu), at the shapes of their rows in PERF.md section 6: the wide
+K5 in LT mode on kb2's widest call ((3, 68, 19) shares at l = 560 on
+kb2's SecInt(560) field, one launch in chunks of 1,024, as np_sgn makes
+it) and in its three modes on (3, 8, 48) shares at l = 1504 (SecInt(1504),
+one call of 8), each the mean of 10 launches by CUDA events, and the wide
+K6 on one element at e = p - 2 at 19 limbs (kb2's field) and 42
+(SecInt(1300)), the mean of 3; each is first held bit for bit against its
+plain version, and where its process built the library it prints the
+ptxas report of sgn_wide_kernel and mont_pow_wide_kernel and the seconds
+of the units sgn_wide and wide. About three minutes a checkout and round
+on an H100, builds and plain checks included.
 """
 
 from __future__ import annotations
@@ -45,11 +58,17 @@ K1_BLOCKS = (293, 512, 1024, 3168, 4224, 9363, 599187)
 # and (4, 9)
 K5_PARTIES = ((2, 5, 'sgn'), (2, 5, 'LT'), (2, 5, 'EQ'), (3, 7, 'LT'),
               (4, 9, 'LT'))
+# --wide: the wide K5's (bits of SecInt, 0 for kb2's field; l; modes;
+# elements; chunk) and the wide K6's fields (bits, limbs)
+WIDE_K5 = ((0, 560, ('LT',), 68, 1024),
+           (1504, 1504, ('sgn', 'LT', 'EQ'), 8, 8))
+WIDE_K6 = ((0, 19), (1300, 42))
 
 
-def one(root: str, label: str, parties: bool = False) -> None:
+def one(root: str, label: str, parties: bool = False,
+        wide: bool = False) -> None:
     """Time the kernels of the checkout at root (with ``parties``, also
-    at (2, 5))."""
+    at (2, 5); with ``wide``, only the wide K5 and K6)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -64,6 +83,11 @@ def one(root: str, label: str, parties: bool = False) -> None:
     st = keccak.state_tensor(st_np, 'cuda')
     nonce = (5, 0)
     res = {}
+    if wide:
+        res = time_wide(c, pipelines, st, gen, label)
+        print(f'{label}: ' + ', '.join(f'{k} {v:.4f} ms'
+                                       for k, v in res.items()), flush=True)
+        return
     if parties:
         from mpyc_tpu_torch import _build
         lib = _build.library()
@@ -124,6 +148,47 @@ def one(root: str, label: str, parties: bool = False) -> None:
           flush=True)
 
 
+def time_wide(c, pipelines, st, gen, label: str) -> dict:
+    """--wide: the wide K5 and K6 at WIDE_K5 and WIDE_K6, each held
+    against its plain version (raise unless equal bit for bit), then
+    timed; the ptxas report and unit seconds where this process built."""
+    import numpy as np
+    from mpyc_tpu_torch import _build
+    from mpyc_tpu_torch.ops import fieldops
+    from mpyc_tpu_torch.ops.fieldops import prime_field_ctx
+    lib = _build.library()
+    if lib.built:
+        for fn, r in c.ptxas_report(lib.log).items():
+            if fn.startswith(('sgn_wide_kernel', 'mont_pow_wide_kernel')):
+                print(f'{label}: ptxas {fn}: ' + ', '.join(
+                    f'{k} {v}' for k, v in r.items()), flush=True)
+        print(f'{label}: units sgn_wide {lib.unit_s.get("sgn_wide")} s, '
+              f'wide {lib.unit_s.get("wide")} s', flush=True)
+    ctr = np.array([5, 0], np.uint32)
+    res = {}
+    for bits, l, modes, n, chunk in WIDE_K5:
+        p = c.wide_field(bits)
+        L = prime_field_ctx(p).L
+        for mode in modes:
+            spec = pipelines.SgnSpec(p, 1, 3, l, 30, LT=mode == 'LT',
+                                     EQ=mode == 'EQ')
+            a = c.random_field(p, (3, n), gen)
+            c.sgn_chunks_check(spec, a, st, ctr, chunk)
+            res[f'K5 {mode} (3, {n}, {L}) l = {l}'] = c.cuda_ms(
+                lambda: pipelines.sgn_chunks(a, st, ctr, spec, chunk), 10)
+    for bits, L in WIDE_K6:
+        p = c.wide_field(bits)
+        ctx = prime_field_ctx(p)
+        c.check(ctx.L == L, f'SecInt({bits}) has not {L} limbs')
+        z = c.random_field(p, (1,), gen)
+        c.check(c.max_abs_err(fieldops.mont_pow(z, p - 2, ctx),
+                              fieldops._mont_pow_plain(z, p - 2, ctx)) == 0,
+                f'the wide K6 at {L} limbs differs from its plain version')
+        res[f'K6 1 element, L = {L}, e = p - 2'] = c.cuda_ms(
+            lambda: fieldops.mont_pow(z, p - 2, ctx), 3)
+    return res
+
+
 def shown(fn: str) -> bool:
     """Whether --parties prints the ptxas report of the kernel fn."""
     return fn.startswith(('reshare_kernel<2,', 'split_recombine_kernel',
@@ -165,11 +230,13 @@ def main() -> int:
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--parties', action='store_true',
                         help='also time K5 and K7 at other (t, m)')
+    parser.add_argument('--wide', action='store_true',
+                        help='time only the wide K5 and K6')
     parser.add_argument('--one', nargs=2, metavar=('DIR', 'LABEL'),
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:
-        one(*args.one, args.parties)
+        one(*args.one, args.parties, args.wide)
         return 0
     if not args.trees:
         parser.error('name at least one LABEL=DIR')
@@ -178,7 +245,8 @@ def main() -> int:
         for label, root in (trees if r % 2 == 0 else trees[::-1]):
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             '--one', root, label]
-                           + ['--parties'] * args.parties, check=True,
+                           + ['--parties'] * args.parties
+                           + ['--wide'] * args.wide, check=True,
                            timeout=900)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
