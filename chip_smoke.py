@@ -832,6 +832,45 @@ def wide_entries() -> dict:
 ENTRIES.update(wide_entries())
 WIDE_SOURCE = 'mpyc_tpu_torch/csrc/wide.cu'
 SGN_WIDE_SOURCE = 'mpyc_tpu_torch/csrc/sgn_wide.cu'
+# K5's instantiations on three to six limbs whose paths call it on few
+# elements, (mode, l, limbs, f): the LP solver's, the fixed-point LP's and
+# the survival test's, the ID3 trees', the co-located demos', the CNN's
+# argmax (at most 500 elements a call, N_CNN_ARGMAX). Their calls
+# take K5's CTA route (csrc/sgn_wide.cu, ``mtt_sgn_cta``; the key's last
+# element ``pipelines.SGN_CTA``); the narrow kernel's entry of each stays
+# beside it, held and timed at the same shape (forced onto that route).
+CTA_K5 = ((('LT', 70, 4, 0), ('LT', 104, 5, 0), ('LT', 110, 5, 0))
+          + tuple(('LT', l, L, f) for l, L, f in ((24, 3, 12), (36, 3, 18),
+                                                  (52, 4, 26), (96, 6, 48)))
+          + (('EQ', 56, 4, 28),)
+          + tuple(('LT', l, L, 0) for l, L in ID3_WIDTHS)
+          + (('EQ', 42, 3, 0), ('EQ', 32, 3, 16), ('LT', 32, 3, 16),
+             ('LT', 37, 3, 0)))
+N_CNN_ARGMAX = 5 * N_CNN
+
+
+def k5_name(mode: str, l: int, L: int, f: int = 0, t: int = T, m: int = M,
+            cta: bool = False) -> str:
+    """A K5 entry's name in the kernels line."""
+    at = '' if (t, m) == (T, M) else f', t={t}, m={m}'
+    return (f'sgn_step<{mode}, l={l}, L={L}{f", f={f}" if f else ""}{at}'
+            f'{", cta" if cta else ""}>')
+
+
+def cta_name(name: str) -> str:
+    """The CTA route's entry beside a K5 entry of the narrow kernel."""
+    return name[:-1] + ', cta>'
+
+
+ENTRIES.update({k5_name(*key, cta=True): ('sgn_step', key + (
+    pipelines.SGN_CTA,)) for key in CTA_K5})
+# the CTA route at (t, m) past the narrow kernel's random bits
+# (``_build.sgn_lb_fit``: the fixed-point kb2's width at (4, 9)) and K3 at
+# kb2's rank-1 update at (2, 5), held by ``check_small_calls``
+ENTRIES[k5_name('LT', 96, 6, 48, 4, 9, cta=True)] = (
+    'sgn_step', ('LT', 96, 6, 48, 4, 9, pipelines.SGN_CTA))
+ENTRIES['reshare_mul<L=6, fused, t=2, m=5>'] = ('reshare_mul',
+                                                (6, True, 2, 5))
 
 
 def entry_source(name: str, key) -> str:
@@ -841,7 +880,8 @@ def entry_source(name: str, key) -> str:
     L = key if isinstance(key, int) else None
     if name in ('reshare_mul', 'mont_pow', 'random_bits_tail'):
         L = key[0]
-    if name == 'sgn_step' and _build.wide(key[2]):
+    if name == 'sgn_step' and (_build.wide(key[2])
+                               or key[-1] == pipelines.SGN_CTA):
         return SGN_WIDE_SOURCE
     return WIDE_SOURCE if L is not None and _build.wide(L) else \
         KERNELS[name]['source']
@@ -858,11 +898,16 @@ PATH_ENTRIES = {
     'selftest': ('keccak_ctr', 'reshare_mul<L=2>', 'reshare_mul<L=2, fused>',
                  'sgn_step<LT, l=14, L=2>'),
     'wide product': ('squeeze_mont<L=3, W=7>', 'reshare_mul<L=3, fused>'),
+    # the products (K3), the maxpools' and ReLUs' comparisons (K5), the
+    # argmax's (l = 37, at most 500 elements a call: K5's CTA route)
     'cnn': ('reshare_mul<L=3>', 'reshare_mul<L=3, fused>',
-            *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
+            *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS[:-1]),
+            'sgn_step<LT, l=37, L=3, cta>'),
     'cnn selftest': ('keccak_ctr', 'reshare_mul<L=3>',
                      'reshare_mul<L=3, fused>',
-                     *(f'sgn_step<LT, l={l}, L=3>' for l in CNN_WIDTHS)),
+                     *(f'sgn_step<LT, l={l}, L=3>'
+                       for l in CNN_WIDTHS[:-1]),
+                     'sgn_step<LT, l=37, L=3, cta>'),
     # PRSS streams (K1), every product's reshare (by a comparison's
     # integral bit, or a matmul's before its truncation: K3 without the
     # product), the comparisons at 2^6 (K5), the random bits' tails with
@@ -880,8 +925,8 @@ PATH_ENTRIES = {
              for s in (', fused', '')),
            *(f'sgn_step<{mode}, l={l}, L=2>' for l in (8, 6)
              for mode in ('LT', 'EQ')),
-           'sgn_step<LT, l=70, L=4>', 'sgn_step<LT, l=104, L=5>',
-           'sgn_step<LT, l=110, L=5>',
+           'sgn_step<LT, l=70, L=4, cta>', 'sgn_step<LT, l=104, L=5, cta>',
+           'sgn_step<LT, l=110, L=5, cta>',
            *(f'mont_pow<L={L}, lazy>' for L in (2, 4, 5)),
            *(f'random_bits_tail<L={L}, lazy>' for L in (4, 5)),
            'field_op<L=19>', 'reshare_mul<L=19, fused>', 'reshare_mul<L=19>',
@@ -891,9 +936,9 @@ PATH_ENTRIES = {
     # width and scale 2^f (K5), the truncations' random bits (K7)
     'lp fxp': (*(f'reshare_mul<L={L}{s}>' for L in (2, 3, 4, 6)
                  for s in (', fused', '')),
-               *(f'sgn_step<LT, l={l}, L={L}, f={f}>' for l, L, f in
-                 ((18, 2, 9), (24, 3, 12), (36, 3, 18), (52, 4, 26),
-                  (96, 6, 48))),
+               'sgn_step<LT, l=18, L=2, f=9>',
+               *(f'sgn_step<LT, l={l}, L={L}, f={f}, cta>' for l, L, f in
+                 ((24, 3, 12), (36, 3, 18), (52, 4, 26), (96, 6, 48))),
                *(f'random_bits_tail<L={L}, lazy>' for L in (2, 3, 4, 6)),
            *(f'field_op<L={L}>' for L in (2, 3, 4, 6))),
     # the maximum time (SecInt(32) comparisons), btrial's zero tests (K5
@@ -902,7 +947,7 @@ PATH_ENTRIES = {
     # limbs, the divisions' truncations (K7), every product (K3)
     'km': ('reshare_mul<L=4, fused>', 'reshare_mul<L=4>',
            'reshare_mul<L=6, fused>', 'reshare_mul<L=6>',
-           'sgn_step<LT, l=32, L=2>', 'sgn_step<EQ, l=56, L=4, f=28>',
+           'sgn_step<LT, l=32, L=2>', 'sgn_step<EQ, l=56, L=4, f=28, cta>',
            'mont_pow<L=4>', 'mont_pow<L=6, lazy>',
            'random_bits_tail<L=4, lazy>', 'random_bits_tail<L=4>',
            'random_bits_tail<L=6, lazy>', 'field_op<L=4>',
@@ -922,8 +967,8 @@ PATH_ENTRIES = {
     'id3': (*(f'reshare_mul<L={L}{s}>' for L in (2, 3, 4)
               for s in (', fused', '')),
             'sgn_step<LT, l=32, L=2>', 'sgn_step<EQ, l=32, L=2>',
-            *(f'sgn_step<LT, l={l}, L={L}>' for l, L in ID3_WIDTHS),
-            'sgn_step<EQ, l=42, L=3>',
+            *(f'sgn_step<LT, l={l}, L={L}, cta>' for l, L in ID3_WIDTHS),
+            'sgn_step<EQ, l=42, L=3, cta>',
             'mont_pow<L=2>', 'mont_pow<L=3, lazy>',
             'mont_pow<L=4, lazy>', 'mont_pow<L=4>',
             'random_bits_tail<L=3, lazy>', 'random_bits_tail<L=4, lazy>',
@@ -948,8 +993,9 @@ PATH_ENTRIES = {
                          'mont_pow<L=1, lazy>', 'mont_pow<L=1>',
                          'random_bits_tail<L=1, lazy>',
                          'random_bits_tail<L=1>', 'field_op<L=1>',
-                         'sgn_step<EQ, l=32, L=3, f=16>',
-                         'sgn_step<LT, l=32, L=3, f=16>', 'reshare2<d=2>'),
+                         'sgn_step<EQ, l=32, L=3, f=16, cta>',
+                         'sgn_step<LT, l=32, L=3, f=16, cta>',
+                         'reshare2<d=2>'),
     # every wide field's products and reshares (K3), its arithmetic and
     # its draws' reduction (K9), det R's public inverse (K6); the 20 x 20
     # pseudoinverse's zero tests (K7 at seven limbs); the 5 x 5's (K5 EQ)
@@ -1093,22 +1139,26 @@ def sm_bound(n_bytes: float, n_ops, sms: int) -> float:
     return max(t_bytes, t_ops)
 
 
-def wide_ctas(name: str, spec_or_ctx, n: int) -> int:
-    """CTAs of a wide K5 (``sgn_step``) or K6 (``mont_pow``) launch on n
-    elements: the K5's persistent grid (``_build.sgn_wide_grid``), the
-    K6's groups of ``_build.wide_group`` lanes, 128 threads a CTA."""
+def wide_ctas(name: str, spec_or_ctx, n: int, route: str = 'wide') -> int:
+    """CTAs of a wide K5 (``sgn_step``; its CTA route with ``route``
+    'cta') or K6 (``mont_pow``) launch on n elements: the K5's persistent
+    grid (``_build.sgn_wide_grid``), the K6's groups of
+    ``_build.wide_group`` lanes, 128 threads a CTA."""
     from mpyc_tpu_torch import _build
     if name == 'sgn_step':
-        return _build.sgn_wide_grid(n, spec_or_ctx.wide_params(
-            (0, 0)).ws_stride)
+        params = spec_or_ctx.cta_params((0, 0), n) if route == 'cta' else \
+            spec_or_ctx.wide_params((0, 0))
+        return _build.sgn_wide_grid(n, params.ws_stride)
     return -(-n // (128 // _build.wide_group(spec_or_ctx.L)))
 
 
 def wide_fn(fn: str, L: int) -> str:
     """The ptxas name of the wide K5's or K6's instantiation at L limbs
     (csrc/wide.cuh wide_dispatch: words a lane, and whether a group is a
-    whole warp: <1,0> to 16 limbs, <1,1> to 32, <2,1> above)."""
-    return f'{fn}<{"1,0" if L <= 16 else "1,1" if L <= 32 else "2,1"}>'
+    whole warp: <1,0> to 16 limbs, <1,1> to 32, <2,1> above; the wide K5
+    also its CTA of 512 and groups of wide_group(L) lanes, 0)."""
+    sw = "1,0" if L <= 16 else "1,1" if L <= 32 else "2,1"
+    return f'{fn}<{sw},512,0>' if fn == 'sgn_wide_kernel' else f'{fn}<{sw}>'
 
 
 def draw_ops(n_draws: int, W: int, L: int = 2) -> np.ndarray:
@@ -1662,47 +1712,56 @@ def check_slice_kernels(p: int) -> dict:
     return res
 
 
-def sgn_ops(spec, n: int, chunk: int | None = None) -> tuple:
+def sgn_ops(spec, n: int, chunk: int | None = None,
+            route: str | None = None) -> tuple:
     """(field products, adds/subs per element, integer instructions) of
-    K5 on n elements as the kernel does them: its field operations
-    (SgnSpec.field_ops, with the wide K5's groups from 7 limbs on, held
-    against the source by
-    tests/test_torch_kernels_host.py), with c mod 2^l uniform, the
-    reduction of its draws and the stream's blocks, these of each call
-    when the n elements are cut into chunks of ``chunk``."""
+    K5 on n elements as the kernel of ``route`` (the launch's,
+    ``pipelines.sgn_route``, by default) does them: its field operations
+    (SgnSpec.field_ops, with the wide K5's groups from 7 limbs on and the
+    CTA route's on its calls, held against the source by
+    tests/test_torch_kernels_host.py and test_torch_small_calls_host.py),
+    with c mod 2^l uniform, the reduction of its draws and the stream's
+    blocks, these of each call when the n elements are cut into chunks of
+    ``chunk``."""
     from mpyc_tpu_torch import _build
     L = spec.ctx.L
+    route = route or pipelines.sgn_route(L, n)
     draws = n * spec.draws_per_element()
-    mont, adds = spec.field_ops(spec.l / 2, _build.sgn_wide_groups(L)
-                                if _build.wide(L) else None)
+    mont, adds = spec.field_ops(
+        spec.l / 2, _build.sgn_wide_groups(L) if route == 'wide' else
+        _build.sgn_cta_groups(n) if route == 'cta' else None)
     sizes = [n] if chunk is None else \
         [min(chunk, n - j0) for j0 in range(0, n, chunk)]
     # the wide K5 takes a draw's top two words by a product of two rows
     draw = draws * (mont_mul_ops(L) * (1 + 2 / L) + add_mod_ops(L)) \
-        if _build.wide(L) else draw_ops(draws, spec.l_bytes // 4, L)
+        if route != 'narrow' else draw_ops(draws, spec.l_bytes // 4, L)
     ops = (sum(spec.blocks(c) for c in sizes) * KECCAK_F_OPS + draw
            + n * (mont * mont_mul_ops(L) + adds * add_mod_ops(L)))
     return mont, adds, ops
 
 
-def sgn_chunks_check(spec, a, st, ctr, chunk: int) -> tuple:
+def sgn_chunks_check(spec, a, st, ctr, chunk: int, route=None,
+                     plain=None) -> tuple:
     """K5's launch of a's chunks ((m, n, L) shares cut into chunks of
-    ``chunk`` as np_sgn cuts them: ``pipelines.sgn_chunks``) against its
-    plain version chunk by chunk (``pipelines._sgn_chunks_plain``): raises
-    unless the outputs are equal bit for bit and both counters are ctr
-    advanced by the number of chunks. Returns the error (0) and the plain
-    version's ms (host clock, between synchronizes) in that check."""
+    ``chunk`` as np_sgn cuts them: ``pipelines.sgn_chunks``, on ``route``
+    or the launch's) against its plain version chunk by chunk
+    (``pipelines._sgn_chunks_plain``, or ``plain``: its output, counter
+    and ms from an earlier check): raises unless the outputs are equal bit
+    for bit and both counters are ctr advanced by the number of chunks.
+    Returns the error (0) and the plain version's ms (host clock, between
+    synchronizes) in that check."""
     n = a.shape[1]
-    out, ctr_k = pipelines.sgn_chunks(a, st, ctr, spec, chunk)
-    (want, ctr_p), ms = timed_once(
+    out, ctr_k = pipelines.sgn_chunks(a, st, ctr, spec, chunk, route)
+    (want, ctr_p), ms = plain or timed_once(
         lambda: pipelines._sgn_chunks_plain(a, st, ctr, spec, chunk))
     err = max_abs_err(out, want)
     chunks = -(-n // chunk)
-    v = (ctr[0] | ctr[1] << 32) + chunks
+    v = (int(ctr[0]) | int(ctr[1]) << 32) + chunks
     check(err == 0 and list(ctr_k) == list(ctr_p)
           == [v & 0xFFFFFFFF, v >> 32],
           f'K5 ({spec.mode}, l = {spec.l}, L = {spec.ctx.L}) in one launch '
-          f'of {chunks} chunks of {chunk} ({n} elements) differs from its '
+          f'of {chunks} chunks of {chunk} ({n} elements, route '
+          f'{route or pipelines.sgn_route(spec.ctx.L, n)}) differs from its '
           'plain version chunk by chunk')
     return err, ms
 
@@ -1730,39 +1789,67 @@ def sgn_ends_check(spec, a, st, chunk: int) -> dict:
 
 
 def sgn_meas(spec, a, st, nonce, chunk: int, err: int,
-             plain_ms: float | None = None) -> dict:
+             plain_ms: float | None = None, route: str | None = None) -> dict:
     """K5's time on a's chunks ((m, n, L) shares in chunks of ``chunk``:
-    one launch), its plain version's on the same chunks
-    (``pipelines._sgn_chunks_plain``) and its bound."""
+    one launch, on ``route`` or the launch's), its plain version's on the
+    same chunks (``pipelines._sgn_chunks_plain``) and its bound."""
     L, n = spec.ctx.L, a.shape[1]
-    mont, adds, ops = sgn_ops(spec, n, chunk)
+    route = route or pipelines.sgn_route(L, n)
+    mont, adds, ops = sgn_ops(spec, n, chunk, route)
     b, o = bound(n * spec.m * L * 4 * 2, ops)
     chunks = -(-n // chunk)
     where = f' in {chunks} chunks of {chunk}' if chunks > 1 else \
         f' on a bucket of {pipelines.bucket(n, chunk)}'
     if (spec.t, spec.m) != (T, M):
         where += f' at (t, m) = ({spec.t}, {spec.m})'
-    from mpyc_tpu_torch import _build
     extra = {}
-    if _build.wide(L):    # the wide K5: an element a CTA, its SMs filled
-        ctas = wide_ctas('sgn_step', spec, n)
+    if route != 'narrow':   # an element a CTA: the SMs its CTAs fill
+        ctas = wide_ctas('sgn_step', spec, n, route)
         extra = dict(ctas=ctas, sm_bound_ms=sm_bound(
             n * spec.m * L * 4 * 2, ops, ctas))
+    if route == 'cta':
+        where += ', the CTA route'
     return dict(
         shape=f'({spec.m}, {n}, {L}) shares, {spec.mode}, l = {spec.l}'
         f'{where}',
         max_abs_err=err, mont=mont, adds=adds, **extra,
-        ms=cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec, chunk),
-                   10),
+        ms=cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec, chunk,
+                                                route), 10),
         plain_ms=plain_ms if plain_ms is not None else once_ms(
             lambda: pipelines._sgn_chunks_plain(a, st, nonce, spec, chunk)),
         bound_ms=b, bound_by=o)
 
 
+def sgn_rows(name: str, spec, a, st, nonce, chunk: int) -> dict:
+    """K5's rows of the kernels line at a's shape, each launch held bit for
+    bit against the plain version (computed once): where the launch takes
+    the CTA route (``pipelines.sgn_route``), that route's row
+    (``cta_name(name)``) and the narrow kernel's forced onto the same
+    shape (``name``; none where its random bits run out,
+    ``_build.sgn_lb_fit``), else the launch's row (``name``)."""
+    n, L = a.shape[1], spec.ctx.L
+    plain = timed_once(lambda: pipelines._sgn_chunks_plain(a, st, nonce,
+                                                          spec, chunk))
+    if pipelines.sgn_route(L, n) != 'cta':
+        err, ms = sgn_chunks_check(spec, a, st, nonce, chunk, plain=plain)
+        return {name: sgn_meas(spec, a, st, nonce, chunk, err, ms)}
+    res = {}
+    for route, key in (('cta', cta_name(name)), ('narrow', name)):
+        try:
+            err, ms = sgn_chunks_check(spec, a, st, nonce, chunk, route,
+                                       plain)
+        except NotImplementedError:
+            continue
+        res[key] = sgn_meas(spec, a, st, nonce, chunk, err, ms, route)
+    return res
+
+
 def reshare_meas(spec, a, b, st, nonce, err: int,
                  plain_ms: float | None = None) -> dict:
-    """K3's time on (m, n, L) shares a (times b's when b is given), its
-    plain version's (``plain_ms`` if given) and its bound: the stream's
+    """K3's time on (m, n, L) shares a (times b's when b is given: replayed
+    from a CUDA graph, as a small call's launch is shorter than its host
+    call), its plain version's (``plain_ms`` if given) and its bound: the
+    stream's
     blocks and the reduction of its draws, the products (the local one
     when fused, the Lagrange sum, Horner at m points), against the shares
     read and written."""
@@ -1778,7 +1865,8 @@ def reshare_meas(spec, a, b, st, nonce, err: int,
     at = '' if (t, m) == (T, M) else f' at (t, m) = ({t}, {m})'
     return dict(
         shape=f'({m}, {n}, {L}) shares, {what}{at}', max_abs_err=err,
-        ms=cuda_ms(lambda: pipelines.reshare_mul(a, b, st, nonce, spec), 10),
+        ms=graph_ms(lambda: pipelines.reshare_mul(a, b, st, nonce, spec),
+                    10),
         plain_ms=plain_ms if plain_ms is not None else once_ms(
             lambda: pipelines._reshare_mul_plain(a, b, st, nonce, spec)),
         bound_ms=bd, bound_by=o)
@@ -3053,15 +3141,17 @@ def check_lp_kernels() -> dict:
         L = spec.ctx.L
         ch = SimRuntime._SGN_CHUNK if L <= 2 else chunk
         a = random_field(p, (M, n), gen)
-        err, plain = sgn_chunks_check(spec, a, st, nonce, ch)
+        if entry:
+            res.update(sgn_rows(f'sgn_step<{mode}, l={l}, L={L}>', spec, a,
+                                st, nonce, ch))
+        else:
+            sgn_chunks_check(spec, a, st, nonce, ch)
         params = spec.params(nonce)
         threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, {n}, {L}) on '
-            f'a bucket of {pipelines.bucket(n, ch)}, equal to plain; CTAs '
-            f'of {threads} elements')
-        if entry:
-            res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
-                spec, a, st, nonce, ch, err, plain)
+            f'a bucket of {pipelines.bucket(n, ch)}, route '
+            f'{pipelines.sgn_route(L, n)}, equal to plain; the narrow '
+            f'kernel\'s CTAs of {threads} elements')
     # K6: the reciprocal's inverse and the Legendre symbols
     for l in (70, 110):
         p = lp_field(l)
@@ -3100,6 +3190,149 @@ def check_lp_kernels() -> dict:
             field, rr, zz, err, T, plain)
         say(f'  K7 random_bits_tail at L = {ctx.L}: {LP_NO07_BITS} and '
             '1,000 shares, one in 7 planted to 0, equal to plain')
+    return res
+
+
+# the small calls' part of phase "kernels" (``check_small_calls``): each
+# limb count's path width for the crossovers (limbs, l, f, field: 'int'
+# SecInt(l), 'lp' the LP solver's, 'fxp' SecFxp(l, f)); K3's fields of
+# one to six limbs and its elements (the fixed-point kb2's rank-1
+# update); K5's elements at (t, m)
+CROSS_K5 = ((3, 42, 0, 'int'), (4, 70, 0, 'lp'), (5, 110, 0, 'lp'),
+            (6, 96, 48, 'fxp'))
+SMALL_K3_FIELDS = ((1, 'prime', 1031, 0), (2, 'int', 32, 0),
+                   (3, 'int', 42, 0), (4, 'lp', 70, 0), (5, 'lp', 110, 0),
+                   (6, 'fxp', 96, 48))
+N_SMALL_K3 = 69 * 42
+N_SMALL_K5 = 5
+
+
+def small_field(kind: str, l: int, f: int) -> int:
+    """The prime of a field named by kind: 'lp' the LP solver's SecInt(l),
+    'fxp' SecFxp(l, f), 'prime' p = l, 'int' SecInt(l) (CROSS_K5,
+    SMALL_K3_FIELDS)."""
+    return lp_field(l) if kind == 'lp' else fxp_field(l, f) \
+        if kind == 'fxp' else l if kind == 'prime' else \
+        sectypes.SecInt(l, 'cuda').field.modulus
+
+
+def check_small_calls(ptx: dict) -> dict:
+    """Phase "kernels", the small calls' part. K5's route by limb count
+    (``_build.SGN_CTA_MAX``, ``SGN_CTA_SHAPE``: the crossovers and the
+    CTA route's shapes, with their instantiations' ptxas report from
+    ``ptx``, printed), each crossover timed
+    again at each limb count's path width (CROSS_K5): the narrow kernel and
+    the CTA route at SGN_CTA_MAX[L] and twice as many elements, held equal
+    to each other; at two limbs both routes at the LP solvers' calls (l =
+    8 and 6 on 3 elements, SecFxp(18, 9) on 2), held against the plain
+    version and timed (the narrow kernel keeps them); the CTA route at the
+    CNN's argmax (l = 37 on 500 elements), an entry. K5's CTA route bit for
+    bit against its plain version at the fixed-point kb2's width (l = 96,
+    f = 48, six limbs) on 5 elements, in its three modes at (2, 5) and LT
+    at (4, 9), where the narrow kernel's random bits run out
+    (``_build.sgn_lb_fit``): timed there, an entry (tests/
+    test_torch_small_calls_host.py holds the source at more (t, m) and
+    modes). K3 bit for bit against its plain version at one to six limbs,
+    fused and not, at (1, 3), (2, 5) and (4, 9) on kb2's 2,898 elements
+    (CTAs of 32), and timed at (2, 5) on six limbs, an entry. Returns
+    per-entry measurements."""
+    from mpyc_tpu_torch import _build
+    gen = np.random.default_rng(23)
+    res = {}
+    st = keccak.state_tensor(keccak._absorb_host(bytes(gen.integers(
+        0, 256, 32, dtype=np.uint8)) + bytes(8)), 'cuda')
+    nonce = (0xFFFFFFFF, 6)
+    chunk = SimRuntime._SGN_CHUNK_WIDE
+    say('  K5 routes: the CTA route (csrc/sgn_wide.cu, mtt_sgn_cta) on calls '
+        'of at most ' + ', '.join(
+            f'{_build.SGN_CTA_MAX[L]} elements at L = {L}'
+            for L in _build.SGN_CTA_NL)
+        + '; the narrow kernel (csrc/sgn.cuh) above; the CTA route\'s CTAs '
+        + ', '.join(f'{t} threads in groups of {g} lanes to {most} '
+                    'elements' if most else f'{t} in groups of {g} above'
+                    for most, t, g in _build.SGN_CTA_SHAPE))
+    for _, threads, group in _build.SGN_CTA_SHAPE:
+        fn = f'sgn_wide_kernel<1,{int(group == 32)},{threads},{group}>'
+        say(f'  ptxas {fn} (the CTA route): ' + (', '.join(
+            f'{k} {v}' for k, v in ptx.get(fn, {}).items())
+            or 'not in the report'))
+    for L, l, f, kind in CROSS_K5:
+        p = small_field(kind, l, f)
+        spec = pipelines.SgnSpec(p, T, M, l, 30, LT=True, f=f)
+        check(spec.ctx.L == L, f'{kind} {l} has not {L} limbs')
+        times = []
+        for n in (_build.SGN_CTA_MAX[L], 2 * _build.SGN_CTA_MAX[L]):
+            a = random_field(p, (M, n), gen)
+            outs = {r: pipelines.sgn_chunks(a, st, nonce, spec, chunk, r)[0]
+                    for r in ('narrow', 'cta')}
+            check(max_abs_err(outs['narrow'], outs['cta']) == 0,
+                  f'K5\'s two routes differ at L = {L} on {n} elements')
+            for r in ('narrow', 'cta'):
+                ms = cuda_ms(lambda: pipelines.sgn_chunks(a, st, nonce, spec,
+                                                          chunk, r), 5)
+                times.append(f'{r} {ms:.4f} ms')
+        say(f'  K5 crossover at L = {L} (LT, l = {l}): at '
+            f'{_build.SGN_CTA_MAX[L]} elements {times[0]}, {times[1]}; at '
+            f'{2 * _build.SGN_CTA_MAX[L]} {times[2]}, {times[3]}; the two '
+            'routes equal')
+    # two limbs: the LP solvers' calls of 2 and 3 elements
+    times = []
+    for l, f, n in ((8, 0, 3), (6, 0, 3), (18, 9, 2)):
+        p = fxp_field(l, f) if f else lp_field(l)
+        spec = pipelines.SgnSpec(p, T, M, l, 30, LT=True, f=f)
+        a = random_field(p, (M, n), gen)
+        for r in ('narrow', 'cta'):
+            sgn_chunks_check(spec, a, st, nonce, SimRuntime._SGN_CHUNK, r)
+            ms = cuda_ms(lambda: pipelines.sgn_chunks(
+                a, st, nonce, spec, SimRuntime._SGN_CHUNK, r), 10)
+            times.append(f'l = {l}{f", f = {f}" if f else ""} on {n} '
+                         f'{r} {ms:.4f} ms')
+    say('  K5 at two limbs (SGN_CTA_MAX[2] = 0: the narrow kernel), both '
+        'routes equal to plain: ' + ', '.join(times))
+    p = sectypes.SecInt(37, 'cuda').field.modulus
+    spec = pipelines.SgnSpec(p, T, M, 37, 30, LT=True)
+    a = random_field(p, (M, N_CNN_ARGMAX), gen)
+    err, plain = sgn_chunks_check(spec, a, st, nonce, chunk, 'cta')
+    res[k5_name('LT', 37, 3, cta=True)] = sgn_meas(spec, a, st, nonce, chunk,
+                                                   err, plain, 'cta')
+    say(f'  K5 CTA route at the CNN\'s argmax (l = 37, L = 3, '
+        f'{N_CNN_ARGMAX} elements), equal to plain')
+    p = fxp_field(96, 48)
+    for (t, m), modes in (((2, 5), pipelines.SGN_MODES), ((4, 9), ('LT',))):
+        for mode in modes:
+            spec = pipelines.SgnSpec(p, t, m, 96, 30, LT=mode == 'LT',
+                                     EQ=mode == 'EQ', f=48)
+            a = random_field(p, (m, N_SMALL_K5), gen)
+            err, plain = sgn_chunks_check(spec, a, st, nonce, chunk, 'cta')
+            if (t, m, mode) == (4, 9, 'LT'):
+                check(spec.lb > _build.sgn_lb_fit(t, 6),
+                      'kb2\'s width fits the narrow kernel at (4, 9)')
+                res[k5_name('LT', 96, 6, 48, t, m, cta=True)] = sgn_meas(
+                    spec, a, st, nonce, chunk, err, plain, 'cta')
+    say(f'  K5 CTA route at SecFxp(96, 48), l = 96, f = 48, L = 6: sgn, LT, '
+        f'EQ at (2, 5), LT at (4, 9) (past the narrow kernel\'s random '
+        f'bits) on {N_SMALL_K5} elements, equal to plain')
+    n = N_SMALL_K3
+    for L, kind, l, f in SMALL_K3_FIELDS:
+        p = small_field(kind, l, f)
+        for t, m in ((T, M), (2, 5), (4, 9)):
+            spec = pipelines.ReshareSpec(p, t, m)
+            check(spec.ctx.L == L, f'{kind} {l} has not {L} limbs')
+            a, b = random_field(p, (m, n), gen), random_field(p, (m, n), gen)
+            for bb in (b, None):
+                out = pipelines.reshare_mul(a, bb, st, nonce, spec)
+                want = pipelines._reshare_mul_plain(a, bb, st, nonce, spec)
+                torch.cuda.synchronize()
+                err = max_abs_err(out, want)
+                check(err == 0, f'K3 at ({m}, {n}, {L}) at (t, m) = ({t}, '
+                      f'{m}){" fused" if bb is not None else ""} differs '
+                      'from its plain version')
+            if (L, t, m) == (6, 2, 5):
+                res['reshare_mul<L=6, fused, t=2, m=5>'] = reshare_meas(
+                    spec, a, b, st, nonce, err)
+    say(f'  K3 at one to six limbs, fused and not, at (1, 3), (2, 5) and '
+        f'(4, 9) on {n} elements (CTAs of '
+        f'{_build_lib().mtt_reshare_cta(n, 1, 6)}), equal to plain')
     return res
 
 
@@ -3157,13 +3390,13 @@ def check_fxp_lp_kernels() -> dict:
         L = spec.ctx.L
         ch = SimRuntime._SGN_CHUNK if L <= 2 else SimRuntime._SGN_CHUNK_WIDE
         a = random_field(p, (M, n), gen)
-        err, plain = sgn_chunks_check(spec, a, st, nonce, ch)
+        res.update(sgn_rows(f'sgn_step<{mode}, l={l}, L={L}, f={f}>', spec,
+                            a, st, nonce, ch))
         params = spec.params(nonce)
         threads = _build_lib().mtt_sgn_threads(ctypes.addressof(params))
         say(f'  K5 sgn_step {mode} at l = {l}, f = {f}, L = {L}: ({M}, {n}, '
-            f'{L}), equal to plain; CTAs of {threads} elements')
-        res[f'sgn_step<{mode}, l={l}, L={L}, f={f}>'] = sgn_meas(
-            spec, a, st, nonce, ch, err, plain)
+            f'{L}), route {pipelines.sgn_route(L, n)}, equal to plain; the '
+            f'narrow kernel\'s CTAs of {threads} elements')
     for l, f in ((96, 48), (64, 32)):
         p = fxp_field(l, f)
         ctx = prime_field_ctx(p)
@@ -3764,11 +3997,10 @@ def check_id3_kernels() -> dict:
         spec = pipelines.SgnSpec(p, T, M, l, 30, LT=mode == 'LT',
                                  EQ=mode == 'EQ')
         L = spec.ctx.L
-        for n in (300, 1):
-            a = random_field(p, (M, n), gen)
-            err, plain = sgn_chunks_check(spec, a, st, nonce, chunk)
-        res[f'sgn_step<{mode}, l={l}, L={L}>'] = sgn_meas(
-            spec, a, st, nonce, chunk, err, plain)
+        sgn_chunks_check(spec, random_field(p, (M, 300), gen), st, nonce,
+                         chunk)
+        res.update(sgn_rows(f'sgn_step<{mode}, l={l}, L={L}>', spec,
+                            random_field(p, (M, 1), gen), st, nonce, chunk))
         say(f'  K5 sgn_step {mode} at l = {l}, L = {L}: ({M}, 300, {L}) and '
             f'({M}, 1, {L}), equal to plain')
     p = sectypes.SecInt(62, 'cuda').field.modulus
@@ -4014,11 +4246,10 @@ def check_one_limb_kernels() -> dict:
         spec = pipelines.SgnSpec(p, T, M, 32, 30, LT=mode == 'LT',
                                  EQ=mode == 'EQ', f=16)
         L = spec.ctx.L
-        for nn in (300, n):
-            a = random_field(p, (M, nn), gen)
-            err, plain = sgn_chunks_check(spec, a, st, nonce, chunk)
-        res[f'sgn_step<{mode}, l=32, L={L}, f=16>'] = sgn_meas(
-            spec, a, st, nonce, chunk, err, plain)
+        sgn_chunks_check(spec, random_field(p, (M, 300), gen), st, nonce,
+                         chunk)
+        res.update(sgn_rows(f'sgn_step<{mode}, l=32, L={L}, f=16>', spec,
+                            random_field(p, (M, n), gen), st, nonce, chunk))
         say(f'  K5 sgn_step {mode} at l = 32, L = {L}, f = 16: ({M}, 300) '
             f'and ({M}, {n}), equal to plain')
     spec = pipelines.Reshare2Spec(GF4, T, M)
@@ -4711,6 +4942,7 @@ def main() -> int:
         for part, args in ((check_kernels, (p,)), (check_slice_kernels, (p,)),
                            (check_three_limb_kernels, ()),
                            (check_lp_kernels, ()), (check_fxp_lp_kernels, ()),
+                           (check_small_calls, (ptx,)),
                            (check_field_ops, ()), (check_id3_kernels, ()),
                            (check_one_limb_kernels, ()),
                            (check_wide_kernels, ()),

@@ -4,8 +4,9 @@ The sources under ``csrc/`` compile for ``sm_90a`` into one shared library
 with a plain C interface: each translation unit (``UNITS``: ``kernels.cu``,
 ``sgn.cu`` once for each limb count and threshold of K5 (at three to
 six limbs t = 1 and a run-time t), ``gf2.cu``, K8, ``wide.cu``,
-K3, K6, K7 and K9 on fields of 7 to 48 limbs, and ``sgn_wide.cu``, K5 on
-fields of 7 to 48 limbs) in an
+K3, K6, K7 and K9 on fields of 7 to 48 limbs, and ``sgn_wide.cu`` twice,
+K5 on fields of 7 to 48 limbs and K5's CTA route for the small calls of
+two to six limbs) in an
 ``nvcc -c`` of its own, all started together, then one ``nvcc -shared`` links them. The
 library goes to ``build/mpyc_tpu_torch/<hash of sources, flags and nvcc
 version>/`` beside the package, is written under a temporary name and
@@ -42,7 +43,8 @@ SOURCES = ('kernels.cu', 'reshare.cu', 'pow.cu', 'sgn.cu', 'gf2.cu',
 # run-time (t, m), K6 and K7 a unit each (MTT_POW_KERNEL); K5's
 # launchers one limb count (MTT_SGN_NL) and threshold (MTT_SGN_T) a unit,
 # sgn<nl>t<t>: at two limbs t = 1 to MAX_T, at three to six t = 1 and a
-# run-time t (t0)
+# run-time t (t0); sgn_wide.cu's kernel for 7 to 48 limbs, and again for
+# K5's CTA route (MTT_SGN_CTA)
 UNITS = (('kernels', 'kernels.cu', ()), ('reshare', 'reshare.cu', ()),
          ('pow6', 'pow.cu', ('-DMTT_POW_KERNEL=6',)),
          ('pow7', 'pow.cu', ('-DMTT_POW_KERNEL=7',))) + tuple(
@@ -50,7 +52,8 @@ UNITS = (('kernels', 'kernels.cu', ()), ('reshare', 'reshare.cu', ()),
     for nl, ts in ((2, (4, 3, 2, 1)), (3, (1, 0)), (4, (1, 0)),
                    (5, (1, 0)), (6, (1, 0))) for T in ts) \
     + (('gf2', 'gf2.cu', ()), ('wide', 'wide.cu', ()),
-       ('sgn_wide', 'sgn_wide.cu', ()))
+       ('sgn_wide', 'sgn_wide.cu', ()),
+       ('sgn_cta', 'sgn_wide.cu', ('-DMTT_SGN_CTA',)))
 # units whose objects stay beside the library: the powers' kernels, whose
 # SASS chip_smoke.py reads from them rather than from the whole library
 KEPT_UNITS = ('pow6', 'pow7')
@@ -80,6 +83,20 @@ SGN_WIDE_WORDS = 64
 SGN_WIDE_SMEM_MAX = 232448
 SGN_WIDE_GRID = 1024
 SGN_WIDE_WS_BYTES = 1 << 31
+# K5's CTA route (csrc/sgn_wide.cu built with MTT_SGN_CTA): the same
+# kernel at two to six limbs, one element a CTA, for the calls of at most
+# SGN_CTA_MAX[L] elements (the crossover with csrc/sgn.cuh's one element a
+# thread, measured on the card by ``tools/kernel_ab.py --small --tune``:
+# PERF.md). SGN_CTA_SHAPE: (most elements, threads, lanes a group) in
+# order (``sgn_cta_shape``): CTAs of 512, 256 and 128 threads fill the
+# H100's 132 SMs once each (at most 128 registers a thread: 1, 2 and 4
+# CTAs an SM), whole-warp groups where a CTA takes few items at a time,
+# groups of 8 lanes where it is narrow. All six pairs are built.
+SGN_CTA_NL = (2, 3, 4, 5, 6)
+SGN_CTA_GROUPS_BUILT = (8, 32)
+SGN_CTA_THREADS_BUILT = (128, 256, 512)
+SGN_CTA_SHAPE = ((132, 512, 32), (264, 256, 32), (None, 128, 8))
+SGN_CTA_MAX = {2: 0, 3: 528, 4: 528, 5: 1024, 6: 1056}
 MAX_NC = 4       # chunks per draw
 MAX_SEND = 9     # 2t + 1
 MAX_T = (MAX_SEND - 1) // 2   # threshold t: 1 to 4
@@ -157,13 +174,15 @@ class WideTail(ctypes.Structure):
 
 class SgnWide(ctypes.Structure):
     """Mirror of ``struct SgnWide`` in csrc/sgn_wide.cu (K5 at 7 to 48
-    limbs): the comparison's parameters, the call's counter and the
+    limbs, and its CTA route at two to six): the comparison's parameters,
+    the call's counter, the lanes of a group and threads of a CTA, and the
     workspace words of a CTA."""
     _fields_ = [('nl', ctypes.c_int32), ('t', ctypes.c_int32),
                 ('m', ctypes.c_int32), ('l', ctypes.c_int32),
                 ('k', ctypes.c_int32), ('mode', ctypes.c_int32),
                 ('has_f', ctypes.c_int32), ('n0inv', ctypes.c_uint32),
                 ('nonce_lo', ctypes.c_uint32), ('nonce_hi', ctypes.c_uint32),
+                ('group', ctypes.c_int32), ('threads', ctypes.c_int32),
                 ('ws_stride', ctypes.c_longlong)]
 
 
@@ -182,9 +201,10 @@ class TailParams(ctypes.Structure):
 # (SGN_BUILT_NL: a secure integer's field has l + k + 2 > 32 bits) and
 # takes its bit width l as a launch parameter: every l with l + k + 2 <= 32
 # limbs, in every mode (csrc/sgn.cuh sgn_lb_max), at t = 1; at t > 1 the
-# bit call's draws bound it (``sgn_lb_fit``). K3, K4, K5 and K7 take every
-# threshold t and party count m with 1 <= t <= MAX_T and 2t + 1 <= m <=
-# MAX_M (``check_parties``).
+# bit call's draws bound it (``sgn_lb_fit``; the CTA route's calls, of
+# few elements, keep no such bound: ``sgn_cta``). K3, K4, K5 and K7 take
+# every threshold t and party count m with 1 <= t <= MAX_T and 2t + 1 <= m
+# <= MAX_M (``check_parties``).
 # Fields of 7 to 48 limbs take the wide kernels instead (csrc/wide.cu: K3,
 # K6, K7 and K9, csrc/sgn_wide.cu: K5, with L a launch parameter;
 # ``wide(L)``; K3, K5 and K7 at every (t, m) of ``check_parties``), and
@@ -213,7 +233,8 @@ def sgn_lb_fit(t: int, L: int) -> int:
     """The widest random bits lb (l + 1, l in EQ mode) of a comparison
     K5 takes at threshold t on L limbs (csrc/sgn.cuh sgn_lb_fit): at most
     32 L - 1, and the bit call's draws, t lb of 4 L bytes an element, with
-    the stream's words in a CTA of one warp."""
+    the stream's words in a CTA of one warp. Calls on the CTA route
+    (``sgn_cta``) take every lb up to 32 L - 1."""
     lb = 32 * L - 1
     while lb > 0 and (t * lb * L * 4 + (-(-lb // 32) + 2) * 4) * 32 \
             > SGN_SMEM_MAX:
@@ -233,6 +254,25 @@ def sgn_wide_groups(L: int) -> int:
     return SGN_WIDE_THREADS // wide_group(L)
 
 
+def sgn_cta_shape(n: int) -> tuple:
+    """(threads, lanes a group) of a CTA of K5's CTA route on a launch of
+    n elements."""
+    return next((t, g) for most, t, g in SGN_CTA_SHAPE if most is None
+                or n <= most)
+
+
+def sgn_cta_groups(n: int) -> int:
+    """Groups of lanes in a CTA of K5's CTA route on n elements."""
+    threads, group = sgn_cta_shape(n)
+    return threads // group
+
+
+def sgn_cta(L: int, n: int) -> bool:
+    """Whether K5 takes a call of n elements at L limbs on its CTA route
+    (calls of at most SGN_CTA_MAX[L] elements)."""
+    return L in SGN_CTA_NL and n <= SGN_CTA_MAX[L]
+
+
 def sgn_wide_vec_words(t: int, L: int, l: int, mode: int) -> int:
     """Words of a wide K5 element's vectors (csrc/sgn_wide.cu
     sgn_wide_vec_words): the bit shares, lb = l + 1 (l in EQ mode, mode
@@ -242,25 +282,30 @@ def sgn_wide_vec_words(t: int, L: int, l: int, mode: int) -> int:
     return (lb + (0 if mode == 1 else l)) * (2 * t + 1) * L
 
 
-def sgn_wide_base_words(t: int, m: int, L: int) -> int:
-    """Shared memory words of a wide K5 CTA but the vectors (csrc/
-    sgn_wide.cu sgn_wide_base_words): the constants, t sets of
-    SGN_WIDE_STAGE staged draws of L + 2 words, the stream-A words, the
-    element's values and the groups' scratch."""
+def sgn_wide_base_words(t: int, m: int, L: int,
+                        groups: int | None = None) -> int:
+    """Shared memory words of a wide K5 CTA (of ``groups`` groups; the
+    wide route's by default) but the vectors (csrc/sgn_wide.cu
+    sgn_wide_base_words): the constants, t sets of SGN_WIDE_STAGE staged
+    draws of L + 2 words, the stream-A words, the element's values and the
+    groups' scratch."""
     ns = 2 * t + 1
     consts = 10                              # SGN_WIDE_CONSTS
     state = 1 + m + 2 * ns + (t + 1) + t + m + t + 3
-    return (consts + state + 2 * sgn_wide_groups(L) + 2) * L \
+    groups = groups or sgn_wide_groups(L)
+    return (consts + state + 2 * groups + 2) * L \
         + t * SGN_WIDE_STAGE * (L + 2) + SGN_WIDE_WORDS
 
 
-def sgn_wide_layout(t: int, m: int, L: int, l: int, mode: int) -> tuple:
-    """(dynamic shared memory bytes of a wide K5 CTA, its workspace
-    words): the vectors in shared memory where they fit in
-    SGN_WIDE_SMEM_MAX bytes beside the rest (no workspace), else in the
-    workspace (csrc/sgn_wide.cu sgn_wide_smem_bytes, sgn_wide_ws_words)."""
-    base, vec = sgn_wide_base_words(t, m, L), sgn_wide_vec_words(t, L, l,
-                                                                 mode)
+def sgn_wide_layout(t: int, m: int, L: int, l: int, mode: int,
+                    groups: int | None = None) -> tuple:
+    """(dynamic shared memory bytes of a wide K5 CTA of ``groups`` groups
+    (the wide route's by default), its workspace words): the vectors in
+    shared memory where they fit in SGN_WIDE_SMEM_MAX bytes beside the rest
+    (no workspace), else in the workspace (csrc/sgn_wide.cu
+    sgn_wide_smem_bytes, sgn_wide_ws_words)."""
+    base = sgn_wide_base_words(t, m, L, groups)
+    vec = sgn_wide_vec_words(t, L, l, mode)
     if (base + vec) * 4 <= SGN_WIDE_SMEM_MAX:
         return (base + vec) * 4, 0
     return base * 4, vec
@@ -382,6 +427,11 @@ _SIGNATURES = {
                      ctypes.c_longlong, _C, _C, ctypes.c_longlong, _C, _C],
     'mtt_sgn_wide_smem': [ctypes.c_int] * 5,
     'mtt_sgn_wide_ws': [ctypes.c_int] * 5,
+    'mtt_sgn_cta': [_C, _C, _C, ctypes.c_longlong, ctypes.c_longlong,
+                    ctypes.c_longlong, _C, _C, ctypes.c_longlong, _C, _C],
+    'mtt_sgn_cta_smem': [ctypes.c_int] * 6,
+    'mtt_sgn_cta_ws': [ctypes.c_int] * 6,
+    'mtt_reshare_cta': [ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
     'mtt_mont_pow_wide': [_C, _C, ctypes.c_longlong, _C, _C, _C],
     'mtt_group_op_wide': [_C, _C, _C, ctypes.c_longlong, ctypes.c_int, _C,
                           ctypes.c_uint, ctypes.c_int, _C],

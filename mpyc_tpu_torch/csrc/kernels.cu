@@ -659,6 +659,12 @@ int mtt_sgn(const void* a, void* out, const void* state, long long n,
 // K6's and K7's launchers (mtt_mont_pow, mtt_random_bits_tail) are in
 // pow.cu, one translation unit each.
 
+// Elements of a K3 CTA on a call of n at threshold t and nl limbs (its
+// threads: as many, up to 320), for the tests and chip_smoke.py's rows.
+int mtt_reshare_cta(long long n, int t, int nl) {
+  return mtt::reshare_cta_elems(n, t, nl, mtt::sm_count());
+}
+
 // Elements of a K5 thread block for a comparison's parameters (the
 // launch's sgn_threads), for models of its stage; -1 for a configuration
 // mtt_sgn refuses.

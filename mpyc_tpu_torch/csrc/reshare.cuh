@@ -48,6 +48,15 @@ namespace mtt {
 // in local memory). NL = 1 to 6; draws of W = NL + 2 words (at NL = 1
 // three words, 14 a block, so a CTA's 3,200 draws touch 229 blocks:
 // fewer than its threads, each squeezed once).
+// Small calls. The LP solvers reshare a few thousand elements a call (the
+// fixed-point kb2's rank-1 update is 2,898 at six limbs), which at 3,200
+// elements a CTA ran on one CTA of one SM, its threads taking nine
+// elements each in turn. So the launch takes the CTA's elements from n
+// (reshare_cta_elems): below the SM count times the most a CTA takes, n
+// spread over the SMs in multiples of a warp (at least 32), a CTA's
+// threads its elements up to RESHARE_THREADS; from there on the geometry
+// above. The staged coefficients stay dynamic shared memory, and a sponge
+// block whose draws straddle two CTAs is squeezed by both.
 // ---------------------------------------------------------------------------
 constexpr int RESHARE_THREADS = 320;
 constexpr int RESHARE_ELEMS = 10 * RESHARE_THREADS;
@@ -62,9 +71,20 @@ __host__ __device__ constexpr int reshare_elems(int t, int nl) {
   return r * RESHARE_THREADS;
 }
 
-// The staged coefficients of a K3 CTA: t of each of its elements.
+// The staged coefficients of a K3 CTA of the most elements: t of each.
 __host__ __device__ constexpr int reshare_smem_bytes(int t, int nl) {
   return t * reshare_elems(t, nl) * nl * 4;
+}
+
+// Elements of a K3 CTA on a call of n on a card of sms SMs: the most a CTA
+// takes (reshare_elems) where the call fills every SM with them, else n
+// spread over the SMs, rounded up to a multiple of a warp (at least 32).
+__host__ __device__ constexpr int reshare_cta_elems(long long n, int t,
+                                                    int nl, int sms) {
+  const int most = reshare_elems(t, nl);
+  if (n >= (long long)sms * most) return most;
+  const long long per = ((n + sms - 1) / sms + 31) / 32 * 32;
+  return per < most ? (int)per : most;
 }
 
 // The most any t takes (the run-time t instantiations' opt-in).
@@ -103,7 +123,7 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       copy_consts<NL>(reinterpret_cast<const uint32_t(&)[NL]>(P.lag[i]),
                       cs + (MAX_M + i) * NL, i < ns ? NL : 0);
   }
-  const int per = FIXED ? RESHARE_ELEMS : elems;
+  const int per = elems;
   const long long e0 = (long long)blockIdx.x * per;
   const int cnt = (int)(n - e0 < per ? n - e0 : per);
   const uint32_t* p = P.draw.p;
@@ -117,7 +137,7 @@ reshare_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   __syncthreads();
 
 #pragma unroll 1
-  for (int el = threadIdx.x; el < cnt; el += RESHARE_THREADS) {
+  for (int el = threadIdx.x; el < cnt; el += blockDim.x) {
     const long long e = e0 + el;
     uint32_t S[NL];
 #pragma unroll
@@ -172,9 +192,10 @@ template <int NL, bool FUSE, int T, int M>
 int launch_reshare(const void* a, const void* b, void* out, const void* state,
                    long long n, const ReshareParams& P, cudaStream_t stream) {
   const int t = M > 0 ? T : P.t;
-  const int elems = reshare_elems(t, NL);
+  const int elems = reshare_cta_elems(n, t, NL, sm_count());
   const long long grid = (n + elems - 1) / elems;
-  const int smem = reshare_smem_bytes(t, NL);
+  const int threads = elems < RESHARE_THREADS ? elems : RESHARE_THREADS;
+  const int smem = t * elems * NL * 4;
   // the most any t takes, allowed once past the default 48 KB
   constexpr int most = M > 0 ? reshare_smem_bytes(T, NL)
                              : reshare_smem_most(NL);
@@ -184,7 +205,7 @@ int launch_reshare(const void* a, const void* b, void* out, const void* state,
         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (rc != cudaSuccess) return (int)rc;
   }
-  reshare_kernel<NL, FUSE, T, M><<<(unsigned)grid, RESHARE_THREADS, smem,
+  reshare_kernel<NL, FUSE, T, M><<<(unsigned)grid, threads, smem,
                                    stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
       (const uint32_t*)state, n, P, elems);

@@ -54,6 +54,27 @@
 // (radix_1 times 2^64 R^-1: a draw's top two words enter by a product of
 // two rows), one, three, r2, pow2l, inv2l, pow2l1 and powf.
 //
+// The CTA route (built a second time with -DMTT_SGN_CTA, unit sgn_cta:
+// mtt_sgn_cta). The same kernel takes two to six limbs for the calls of
+// few elements that the LP solvers and the ID3 trees make: sgn.cuh runs
+// one element a thread, so LPExample's 288 elements at five limbs filled
+// 5 of the 132 SMs (CTAs of 64: shared memory) and an ID3 node's one
+// element one thread, with its limbs and vectors in local memory. Here an
+// element has a CTA, a product is L rows of a group, and the vectors sit
+// in shared memory, which also takes every t at the widths where
+// sgn.cuh's draws run out (sgn_lb_fit). The CTA's shape follows the call
+// (_build.sgn_cta_shape): 512 threads while one CTA an SM takes every
+// element, then 256, then 128 (at most 128 registers a thread: 1, 2 or 4
+// CTAs an SM), as a wider CTA runs an element sooner and a narrower one
+// more elements at once; groups of a whole warp at 512 and 256 threads,
+// whose shuffles and ballots name a constant mask (a group of 8 lanes
+// among others in its warp names one at run time, and each collective
+// pays a convergence check), and of 8 lanes (a template constant) at 128,
+// where more groups a CTA won (groups of 4 lost everywhere: PERF.md).
+// Calls of up to _build.SGN_CTA_MAX elements take it (measured per limb
+// count); larger ones stay on sgn.cuh, whose one element a thread wins
+// once the card is full.
+//
 // Parties. As in sgn.cuh, the vectors keep the 2t + 1 senders' shares;
 // the parties past them take their output in LT mode from their own a_r
 // and sign bit, in EQ mode at l = 1 from their xor bit, and otherwise from
@@ -75,6 +96,7 @@ constexpr int SGN_WIDE_SMEM_MAX = 232448;   // a CTA's shared memory, at most
 struct SgnWide {
   int32_t nl, t, m, l, k, mode, has_f;
   uint32_t n0inv, nonce_lo, nonce_hi;
+  int32_t group, threads;  // lanes of a group, threads of a CTA
   long long ws_stride;   // workspace words of a CTA (0: shared memory)
 };
 
@@ -92,18 +114,20 @@ __host__ __device__ constexpr int sgn_wide_state(int t, int m) {
   return 1 + m + 2 * (2 * t + 1) + (t + 1) + t + m + t + 1 + 1 + 1;
 }
 
+// The groups of a wide K5 CTA at L limbs (the CTA route's: its threads
+// over its group's lanes).
 __host__ __device__ constexpr int sgn_wide_groups(int L) {
   return SGN_WIDE_THREADS / wide_group(L);
 }
 
-// Shared memory words of a CTA but the vectors: the constants, the staged
-// draws (t sets of SGN_WIDE_STAGE draws of L + 2 words), the stream-A
-// words, the element's values and the groups' scratch (two values a
-// group for the scans, and two).
+// Shared memory words of a CTA of ng groups but the vectors: the
+// constants, the staged draws (t sets of SGN_WIDE_STAGE draws of L + 2
+// words), the stream-A words, the element's values and the groups'
+// scratch (two values a group for the scans, and two).
 __host__ __device__ constexpr long long sgn_wide_base_words(int t, int m,
-                                                            int L) {
-  return (long long)(SGN_WIDE_CONSTS + sgn_wide_state(t, m) +
-                     2 * sgn_wide_groups(L) + 2) * L +
+                                                            int L, int ng) {
+  return (long long)(SGN_WIDE_CONSTS + sgn_wide_state(t, m) + 2 * ng + 2) *
+             L +
          (long long)t * SGN_WIDE_STAGE * (L + 2) + SGN_WIDE_WORDS;
 }
 
@@ -116,23 +140,26 @@ __host__ __device__ constexpr long long sgn_wide_vec_words(int t, int L,
 }
 
 // Whether the vectors fit in shared memory beside the rest; the dynamic
-// shared memory of a CTA; the workspace words of a CTA (0 when they fit).
+// shared memory of a CTA; the workspace words of a CTA (0 when they fit);
+// ng groups a CTA.
 __host__ __device__ constexpr bool sgn_wide_in_smem(int t, int m, int L,
-                                                    int l, int mode) {
-  return (sgn_wide_base_words(t, m, L) + sgn_wide_vec_words(t, L, l, mode))
-         * 4 <= SGN_WIDE_SMEM_MAX;
+                                                    int l, int mode,
+                                                    int ng) {
+  return (sgn_wide_base_words(t, m, L, ng) +
+          sgn_wide_vec_words(t, L, l, mode)) * 4 <= SGN_WIDE_SMEM_MAX;
 }
 __host__ __device__ constexpr long long sgn_wide_smem_bytes(int t, int m,
                                                             int L, int l,
-                                                            int mode) {
-  return (sgn_wide_base_words(t, m, L) +
-          (sgn_wide_in_smem(t, m, L, l, mode)
+                                                            int mode,
+                                                            int ng) {
+  return (sgn_wide_base_words(t, m, L, ng) +
+          (sgn_wide_in_smem(t, m, L, l, mode, ng)
                ? sgn_wide_vec_words(t, L, l, mode) : 0)) * 4;
 }
 __host__ __device__ constexpr long long sgn_wide_ws_words(int t, int m,
                                                           int L, int l,
-                                                          int mode) {
-  return sgn_wide_in_smem(t, m, L, l, mode)
+                                                          int mode, int ng) {
+  return sgn_wide_in_smem(t, m, L, l, mode, ng)
              ? 0 : sgn_wide_vec_words(t, L, l, mode);
 }
 
@@ -140,21 +167,21 @@ __host__ __device__ constexpr long long sgn_wide_ws_words(int t, int m,
 // is hundreds of instructions, against which a call costs little, and
 // the kernel's many call sites each inlined would multiply the unit's
 // build time.
-template <int S, bool WARP>
-static __device__ __noinline__ WV<S> sw_mul(const WGroup<S, WARP> G,
+template <int S, bool WARP, int GL>
+static __device__ __noinline__ WV<S> sw_mul(const WGroup<S, WARP, GL> G,
                                             const WV<S> a, const WV<S> b,
                                             int rows) {
   return G.mul(a, b, rows);
 }
 
-template <int S, bool WARP>
-static __device__ __noinline__ WV<S> sw_add(const WGroup<S, WARP> G,
+template <int S, bool WARP, int GL>
+static __device__ __noinline__ WV<S> sw_add(const WGroup<S, WARP, GL> G,
                                             const WV<S> a, const WV<S> b) {
   return G.add(a, b);
 }
 
-template <int S, bool WARP>
-static __device__ __noinline__ WV<S> sw_sub(const WGroup<S, WARP> G,
+template <int S, bool WARP, int GL>
+static __device__ __noinline__ WV<S> sw_sub(const WGroup<S, WARP, GL> G,
                                             const WV<S> a, const WV<S> b) {
   return G.sub(a, b);
 }
@@ -219,9 +246,9 @@ static __device__ __forceinline__ bool wbit(const uint32_t* w, int j) {
 
 // The CTA's view of one launch and element: the group of this thread, the
 // constants, the staged draws and the element's place in the stream.
-template <int S, bool WARP>
+template <int S, bool WARP, int GL>
 struct Sgnw {
-  WGroup<S, WARP> G;
+  WGroup<S, WARP, GL> G;
   int gi, NG, L, t, ns, W;
   const uint32_t *C, *p, *one, *three, *r2, *pow2l,
       *inv2l, *pow2l1, *powf;
@@ -231,13 +258,13 @@ struct Sgnw {
   long long blocks_a, nc, el, off;   // the call's n, the element, next draw
 
   __device__ WV<S> mul(const WV<S>& a, const WV<S>& b, int rows = 0) const {
-    return sw_mul<S, WARP>(G, a, b, rows);
+    return sw_mul<S, WARP, GL>(G, a, b, rows);
   }
   __device__ WV<S> add(const WV<S>& a, const WV<S>& b) const {
-    return sw_add<S, WARP>(G, a, b);
+    return sw_add<S, WARP, GL>(G, a, b);
   }
   __device__ WV<S> sub(const WV<S>& a, const WV<S>& b) const {
-    return sw_sub<S, WARP>(G, a, b);
+    return sw_sub<S, WARP, GL>(G, a, b);
   }
   __device__ WV<S> ld(const uint32_t* v) const { return G.ld(v); }
   __device__ void st(uint32_t* v, const WV<S>& x) const { G.st(v, x); }
@@ -372,9 +399,11 @@ struct Sgnw {
 // the given ones are its CTAs' (the padding rows' draws are skipped, as
 // an element's draws depend only on its index and the call's n). CTA b
 // takes the elements b, b + gridDim.x, ..., its vectors in shared memory
-// or at ws + b ws_stride.
-template <int S, bool WARP>
-__global__ void __launch_bounds__(SGN_WIDE_THREADS)
+// or at ws + b ws_stride. THREADS threads a CTA, in groups of GL lanes (0:
+// wide_group(L), 7 to 48 limbs), at most 128 registers a thread, so that
+// 512 / THREADS CTAs fit an SM by registers.
+template <int S, bool WARP, int THREADS, int GL>
+__global__ void __launch_bounds__(THREADS, SGN_WIDE_THREADS / THREADS)
 sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
                 const uint32_t* __restrict__ state, long long n,
                 long long chunk, long long n_last,
@@ -385,13 +414,14 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   const bool LT = P.mode == 1, EQ = P.mode == 2;
   const int lb = l + (EQ ? 0 : 1);       // random bits (+ sign bit)
   const int wb = (lb + 31) / 32, wk = (P.k + 31) / 32, wpe = wb + wk;
-  Sgnw<S, WARP> K;
+  Sgnw<S, WARP, GL> K;
+  const int g = WARP ? 32 : GL ? GL : wide_group(L);
   K.L = L;
   K.t = t;
   K.ns = ns;
   K.W = L + 2;
-  K.NG = sgn_wide_groups(L);
-  K.gi = threadIdx.x / wide_group(L);
+  K.NG = THREADS / g;
+  K.gi = threadIdx.x / g;
   K.C = sgnw_smem;
   K.stage = sgnw_smem + SGN_WIDE_CONSTS * L;
   uint32_t* words = K.stage + t * SGN_WIDE_STAGE * K.W;
@@ -421,11 +451,11 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   K.state = state;
   __syncthreads();
   K.G.init(L, K.p, P.n0inv);
-  const WGroup<S, WARP>& G = K.G;
+  const WGroup<S, WARP, GL>& G = K.G;
   const int gi = K.gi, NG = K.NG;
   const long long row = (long long)ns * L;
   const long long cs = K.cstride();
-  uint32_t* Ev = sgn_wide_in_smem(t, m, L, l, P.mode)
+  uint32_t* Ev = sgn_wide_in_smem(t, m, L, l, P.mode, NG)
                      ? vec : ws + blockIdx.x * P.ws_stride;
   uint32_t* Xv = Ev + lb * row;          // xor vector (not LT)
   WV<S> zero;
@@ -717,60 +747,127 @@ sgn_wide_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
   }
 }
 
-// A launch at an instantiation of the group arithmetic (wide_dispatch).
+// A launch at an instantiation of the group arithmetic: the wide route's
+// by wide_dispatch (CTAs of SGN_WIDE_THREADS, groups of wide_group(L)
+// lanes), the CTA route's by its CTA width and group.
 struct SgnWideLaunch {
   const void *a, *state, *consts;
   void *out, *ws, *stream;
   long long n, chunk, n_last, grid;
   int smem;
   SgnWide P;
-  template <int S, bool WARP>
-  int run() const {
+  template <int S, bool WARP, int THREADS, int GL>
+  int launch() const {
     // the most a CTA may take, allowed once past the default 48 KB
     static const cudaError_t rc = cudaFuncSetAttribute(
-        sgn_wide_kernel<S, WARP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SGN_WIDE_SMEM_MAX);
+        sgn_wide_kernel<S, WARP, THREADS, GL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SGN_WIDE_SMEM_MAX);
     if (rc != cudaSuccess) return (int)rc;
-    sgn_wide_kernel<S, WARP><<<(unsigned)grid, SGN_WIDE_THREADS, smem,
-                            (cudaStream_t)stream>>>(
+    sgn_wide_kernel<S, WARP, THREADS, GL><<<(unsigned)grid, THREADS, smem,
+                                            (cudaStream_t)stream>>>(
         (const uint32_t*)a, (uint32_t*)out, (const uint32_t*)state, n,
         chunk, n_last, (const uint32_t*)consts, (uint32_t*)ws, P);
     return (int)cudaGetLastError();
   }
+  template <int S, bool WARP>
+  int run() const {
+    return launch<S, WARP, SGN_WIDE_THREADS, 0>();
+  }
 };
+
+// The checks both routes share: a (mode, l, t, m, k) the kernel takes, a
+// workspace where the vectors need one, a chunk geometry that holds.
+inline bool sgn_wide_ok(const SgnWide& P, const void* ws, long long n,
+                        long long chunk, long long n_last, long long grid,
+                        int ng) {
+  const int lb = P.l + (P.mode == 2 ? 0 : 1);
+  if (!parties_ok(P.t, P.m) || P.k < 0 || P.k > 64 || P.mode < 0 ||
+      P.mode > 2 || P.l < 1 || lb > 32 * P.nl - 1 ||
+      (lb + 31) / 32 + (P.k + 31) / 32 > SGN_WIDE_WORDS)
+    return false;
+  const long long need = sgn_wide_ws_words(P.t, P.m, P.nl, P.l, P.mode, ng);
+  if (need > 0 && (P.ws_stride < need || ws == nullptr)) return false;
+  return n <= 0 || (chunk > 0 && n_last <= chunk &&
+                    n_last >= n - (n - 1) / chunk * chunk && grid >= 1 &&
+                    grid <= n);
+}
+
+#ifdef MTT_SGN_CTA
+// The CTA route: two to six limbs, CTAs of 128, 256 or 512 threads in
+// groups of SGN_CTA_GROUP lanes or of a whole warp (_build.sgn_cta_shape).
+constexpr int SGN_CTA_MIN_NL = 2;   // _build.SGN_CTA_NL
+constexpr int SGN_CTA_GROUP = 8;    // _build.SGN_CTA_GROUPS_BUILT
+#endif
 
 }  // namespace mtt
 
 extern "C" {
 
+#ifdef MTT_SGN_CTA
+// K5's CTA route at L = 2..6 limbs, for calls of few elements: as
+// mtt_sgn_wide, a CTA of P.threads (128, 256 or 512) threads an element,
+// each field operation a group's of P.group (SGN_CTA_GROUP or 32) lanes.
+// -1: a configuration it does not take.
+int mtt_sgn_cta(const void* a, void* out, const void* state, long long n,
+                long long chunk, long long n_last, const void* consts,
+                void* ws, long long grid, const void* params, void* stream) {
+  const mtt::SgnWide P = *(const mtt::SgnWide*)params;
+  if (P.nl < mtt::SGN_CTA_MIN_NL || P.nl > mtt::MAX_NL ||
+      (P.group != mtt::SGN_CTA_GROUP && P.group != 32) ||
+      (P.threads != 128 && P.threads != 256 && P.threads != 512))
+    return -1;
+  const int ng = P.threads / P.group;
+  if (!mtt::sgn_wide_ok(P, ws, n, chunk, n_last, grid, ng)) return -1;
+  if (n <= 0) return 0;
+  const int smem =
+      (int)mtt::sgn_wide_smem_bytes(P.t, P.m, P.nl, P.l, P.mode, ng);
+  const mtt::SgnWideLaunch f{a, state, consts, out, ws, stream, n, chunk,
+                             n_last, grid, smem, P};
+  constexpr int G = mtt::SGN_CTA_GROUP;
+  // whole-warp groups: GL 32 keeps these instantiations apart from the
+  // wide route's (GL 0), which the unit sgn_wide compiles
+  if (P.group == 32)
+    return P.threads == 128   ? f.launch<1, true, 128, 32>()
+           : P.threads == 256 ? f.launch<1, true, 256, 32>()
+                              : f.launch<1, true, 512, 32>();
+  return P.threads == 128   ? f.launch<1, false, 128, G>()
+         : P.threads == 256 ? f.launch<1, false, 256, G>()
+                            : f.launch<1, false, 512, G>();
+}
+
+// Dynamic shared memory bytes of a CTA-route CTA of ng groups and its
+// workspace words (0: the vectors in shared memory), for the tests.
+int mtt_sgn_cta_smem(int t, int m, int L, int l, int mode, int ng) {
+  return (int)mtt::sgn_wide_smem_bytes(t, m, L, l, mode, ng);
+}
+
+int mtt_sgn_cta_ws(int t, int m, int L, int l, int mode, int ng) {
+  return (int)mtt::sgn_wide_ws_words(t, m, L, l, mode, ng);
+}
+#else
 // K5 at L = 7..48 limbs: the comparison of (m, n, L) shares cut into chunks
 // of `chunk` (the last call on n_last >= its given elements), one launch
 // of `grid` CTAs (1 <= grid <= n), each an element at a time; ws: grid x
 // P.ws_stride words of device workspace where the vectors do not fit in
 // shared memory (sgn_wide_ws_words; else unused, may be null); consts:
-// the SGN_WIDE_CONSTS L-word values of the kernel. -1: a (mode, l, limbs,
-// t, m, k) the kernel does not take (1 <= t <= 4, 2t + 1 <= m <= 16, 0 <=
-// k <= 64, 1 <= l with l + 1 random bits below 32 L), a workspace too
-// small or a chunk geometry that does not hold.
+// the SGN_WIDE_CONSTS L-word values of the kernel; P.threads and P.group
+// SGN_WIDE_THREADS and wide_group(L). -1: a (mode, l, limbs, t, m, k) the
+// kernel does not take (1 <= t <= 4, 2t + 1 <= m <= 16, 0 <= k <= 64, 1
+// <= l with l + 1 random bits below 32 L), a workspace too small or a
+// chunk geometry that does not hold.
 int mtt_sgn_wide(const void* a, void* out, const void* state, long long n,
                  long long chunk, long long n_last, const void* consts,
                  void* ws, long long grid, const void* params, void* stream) {
   const mtt::SgnWide P = *(const mtt::SgnWide*)params;
-  const int lb = P.l + (P.mode == 2 ? 0 : 1);
   if (P.nl < mtt::WIDE_MIN_NL || P.nl > mtt::WIDE_MAX_NL ||
-      !mtt::parties_ok(P.t, P.m) || P.k < 0 || P.k > 64 || P.mode < 0 ||
-      P.mode > 2 || P.l < 1 || lb > 32 * P.nl - 1 ||
-      (lb + 31) / 32 + (P.k + 31) / 32 > mtt::SGN_WIDE_WORDS)
+      P.threads != mtt::SGN_WIDE_THREADS ||
+      P.group != mtt::wide_group(P.nl))
     return -1;
-  const long long need =
-      mtt::sgn_wide_ws_words(P.t, P.m, P.nl, P.l, P.mode);
-  if (need > 0 && (P.ws_stride < need || ws == nullptr)) return -1;
+  const int ng = mtt::sgn_wide_groups(P.nl);
+  if (!mtt::sgn_wide_ok(P, ws, n, chunk, n_last, grid, ng)) return -1;
   if (n <= 0) return 0;
-  if (chunk <= 0 || n_last > chunk || n_last < n - (n - 1) / chunk * chunk ||
-      grid < 1 || grid > n)
-    return -1;
   const int smem =
-      (int)mtt::sgn_wide_smem_bytes(P.t, P.m, P.nl, P.l, P.mode);
+      (int)mtt::sgn_wide_smem_bytes(P.t, P.m, P.nl, P.l, P.mode, ng);
   return mtt::wide_dispatch(
       P.nl, mtt::SgnWideLaunch{a, state, consts, out, ws, stream, n, chunk,
                                n_last, grid, smem, P});
@@ -780,11 +877,14 @@ int mtt_sgn_wide(const void* a, void* out, const void* state, long long n,
 // vectors in shared memory) at (t, m, L, l, mode), for the tests and
 // chip_smoke.py's reports.
 int mtt_sgn_wide_smem(int t, int m, int L, int l, int mode) {
-  return (int)mtt::sgn_wide_smem_bytes(t, m, L, l, mode);
+  return (int)mtt::sgn_wide_smem_bytes(t, m, L, l, mode,
+                                       mtt::sgn_wide_groups(L));
 }
 
 int mtt_sgn_wide_ws(int t, int m, int L, int l, int mode) {
-  return (int)mtt::sgn_wide_ws_words(t, m, L, l, mode);
+  return (int)mtt::sgn_wide_ws_words(t, m, L, l, mode,
+                                     mtt::sgn_wide_groups(L));
 }
+#endif
 
 }  // extern "C"

@@ -201,8 +201,10 @@ struct WV {
 // is a whole warp (g = 32, from 17 limbs on), so its shuffles and ballots
 // name the full mask as a constant; a mask known only at run time (8 or
 // 16 lanes, a group among others in the warp) costs each of them a
-// convergence check.
-template <int S, bool W>
+// convergence check. GL: the lanes of a group as a constant (4 or 8, the
+// comparison of two to six limbs, sgn_wide.cu's CTA route), else
+// wide_group(L) at run time.
+template <int S, bool W, int GL = 0>
 struct WGroup {
   int L, g, q;       // limbs, lanes, this lane
   int base;          // the warp lane of the group's lane 0
@@ -212,7 +214,7 @@ struct WGroup {
 
   __device__ void init(int L_, const uint32_t* pw, uint32_t n0_) {
     L = L_;
-    g = W ? 32 : wide_group(L_);
+    g = W ? 32 : GL ? GL : wide_group(L_);
     q = threadIdx.x & (g - 1);
     base = W ? 0 : threadIdx.x & 31 & ~(g - 1);
     mask = W ? 0xFFFFFFFFu : ((1u << g) - 1u) << base;
@@ -223,8 +225,9 @@ struct WGroup {
       p[s] = j < L ? pw[j] : 0u;
     }
   }
-  // lanes, mask and base as constants where the group is a warp
-  __device__ int lanes() const { return W ? 32 : g; }
+  // lanes, mask and base as constants where the group is a warp; the
+  // lanes where GL gives them
+  __device__ int lanes() const { return W ? 32 : GL ? GL : g; }
   __device__ unsigned msk() const { return W ? 0xFFFFFFFFu : mask; }
   __device__ int bse() const { return W ? 0 : base; }
   __device__ bool lead() const { return q == 0; }

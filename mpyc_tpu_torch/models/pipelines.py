@@ -650,9 +650,14 @@ class SgnSpec:
             raise ValueError('LT and EQ exclude each other')
         if 2 * t + 1 > m or t < 1:
             raise ValueError('GRR98 needs 1 <= t and 2t+1 <= m')
-        if l < 1 or l + k + 2 > p.bit_length():
-            raise ValueError('the masked open needs l + k + 2 <= '
-                             'bit length of p')
+        if l < 1:
+            raise ValueError('a comparison needs l >= 1')
+        if l + k + 2 > p.bit_length():
+            raise NotImplementedError(
+                f'the masked open needs l + k + 2 <= bit length of p; the '
+                f'JAX package compares wider values (l={l}, k={k}, '
+                f'{p.bit_length()}-bit p) with its eager np_sgn '
+                f'(mpyc_tpu/runtime.py:2728), which is not ported')
         self.p, self.t, self.m, self.l, self.k, self.f = p, t, m, l, k, f
         self.mode = 'LT' if LT else 'EQ' if EQ else 'sgn'
         self.ctx = ctx = prime_field_ctx(p)
@@ -897,14 +902,43 @@ class SgnSpec:
                 f'of {_build.WIDE_MIN_NL} to {_build.WIDE_MAX_NL} limbs with '
                 f'draws of 4 (L + 2) bytes; not k={self.k}, L={L} '
                 f'({self.l_bytes}-byte draws)')
+        return self._wide_block(nonce, _build.SGN_WIDE_THREADS,
+                                _build.wide_group(L))
+
+    def cta_params(self, nonce, n: int):
+        """The parameter block of K5's CTA route (csrc/sgn_wide.cu
+        ``mtt_sgn_cta``: the wide kernel's at two to six limbs, one element
+        a CTA of ``_build.sgn_cta_shape(n)``: threads, and lanes a group)
+        for a launch of n elements, as ``wide_params``; raises
+        NotImplementedError for a configuration it does not take. It keeps
+        the element's vectors in shared memory or its workspace, so every
+        lb the spec takes runs at every (t, m)."""
+        from mpyc_tpu_torch import _build
+        L = self.ctx.L
+        if self.k > 64 or L not in _build.SGN_CTA_NL or \
+                self.l_bytes != 4 * (L + 2):
+            raise NotImplementedError(
+                f'K5\'s CTA route is built for k <= 64 and fields of '
+                f'{_build.SGN_CTA_NL[0]} to {_build.SGN_CTA_NL[-1]} limbs '
+                f'with draws of 4 (L + 2) bytes; not k={self.k}, L={L} '
+                f'({self.l_bytes}-byte draws)')
+        return self._wide_block(nonce, *_build.sgn_cta_shape(n))
+
+    def _wide_block(self, nonce, threads: int, group: int):
+        """The SgnWide block of a CTA of ``threads`` threads in groups of
+        ``group`` lanes, with its workspace words (``_build.
+        sgn_wide_layout``: 0 where the vectors fit in shared memory)."""
+        from mpyc_tpu_torch import _build
         _build.check_parties('comparison', self.t, self.m)
+        L = self.ctx.L
         P = _build.SgnWide()
         P.nl, P.t, P.m, P.l, P.k = L, self.t, self.m, self.l, self.k
         P.mode, P.has_f = SGN_MODES.index(self.mode), int(bool(self.f))
         P.n0inv = self.ctx.n0inv
         P.nonce_lo, P.nonce_hi = int(nonce[0]), int(nonce[1])
+        P.group, P.threads = group, threads
         P.ws_stride = _build.sgn_wide_layout(self.t, self.m, L, self.l,
-                                             P.mode)[1]
+                                             P.mode, threads // group)[1]
         return P
 
     def wide_consts(self, device) -> torch.Tensor:
@@ -1094,38 +1128,59 @@ def _sgn_step_plain(a: torch.Tensor, state: torch.Tensor, nonce,
     return limb.stack(z)
 
 
-def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
-                spec: SgnSpec, chunk: int, n_last: int) -> torch.Tensor:
-    """K5 on the card: the calls of a's chunks in one launch (``mtt_sgn``;
-    from 7 to 48 limbs ``mtt_sgn_wide``, with its workspace where the
-    element's vectors do not fit in shared memory), counted on
-    ``sgn_step``."""
+# The tag that ``sgn_step.by_key`` appends to a launch of K5's CTA route
+SGN_CTA = 'cta'
+
+
+def sgn_route(L: int, n: int) -> str:
+    """K5's kernel for a launch of n elements at L limbs: 'wide' (csrc/
+    sgn_wide.cu, 7 to 48 limbs), 'cta' (its CTA route, two to six limbs,
+    calls of at most ``_build.SGN_CTA_MAX[L]`` elements) or 'narrow'
+    (csrc/sgn.cuh)."""
     from mpyc_tpu_torch import _build
-    wide = _build.wide(spec.ctx.L)
-    params = spec.wide_params(nonce) if wide else spec.params(nonce)
+    if _build.wide(L):
+        return 'wide'
+    return SGN_CTA if _build.sgn_cta(L, n) else 'narrow'
+
+
+def _launch_sgn(a: torch.Tensor, state: torch.Tensor, nonce,
+                spec: SgnSpec, chunk: int, n_last: int,
+                route: str | None = None) -> torch.Tensor:
+    """K5 on the card: the calls of a's chunks in one launch, on the
+    kernel ``sgn_route`` picks from the limbs and the elements (or
+    ``route``: 'cta' or 'narrow', for measurements): ``mtt_sgn``,
+    ``mtt_sgn_cta`` or from 7 to 48 limbs ``mtt_sgn_wide``, the latter two
+    with their workspace where the element's vectors do not fit in shared
+    memory; counted on ``sgn_step`` (the CTA route's keys end in
+    ``SGN_CTA``)."""
+    from mpyc_tpu_torch import _build
+    n = a.shape[1]
+    route = route or sgn_route(spec.ctx.L, n)
+    params = spec.wide_params(nonce) if route == 'wide' else \
+        spec.cta_params(nonce, n) if route == SGN_CTA else spec.params(nonce)
     a = a.contiguous()
     _check_aligned(a)
     state = state.contiguous()
     out = torch.empty_like(a)
-    n = a.shape[1]
     if n:
-        if wide:
+        if route == 'narrow':
+            _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
+                        state.data_ptr(), n, chunk, n_last,
+                        ctypes.addressof(params), _build.stream_of(a.device))
+        else:
             consts = spec.wide_consts(a.device)
             grid = _build.sgn_wide_grid(n, params.ws_stride)
             ws = torch.empty(grid * params.ws_stride, dtype=torch.int32,
                              device=a.device) if params.ws_stride else None
-            _build.call('mtt_sgn_wide', a.data_ptr(), out.data_ptr(),
-                        state.data_ptr(), n, chunk, n_last,
-                        consts.data_ptr(),
+            _build.call('mtt_sgn_wide' if route == 'wide' else 'mtt_sgn_cta',
+                        a.data_ptr(), out.data_ptr(), state.data_ptr(), n,
+                        chunk, n_last, consts.data_ptr(),
                         ws.data_ptr() if ws is not None else None, grid,
-                        ctypes.addressof(params), _build.stream_of(a.device))
-        else:
-            _build.call('mtt_sgn', a.data_ptr(), out.data_ptr(),
-                        state.data_ptr(), n, chunk, n_last,
                         ctypes.addressof(params), _build.stream_of(a.device))
         sgn_step.launches += 1
         sgn_step.by_key[(spec.mode, spec.l, spec.ctx.L, spec.f)
-                        + parties_key(spec.t, spec.m)] += 1
+                        + parties_key(spec.t, spec.m)
+                        + ((SGN_CTA,) if route == SGN_CTA else ())] += 1
         sgn_step.chunks += -(-n // chunk)
     return out
 
@@ -1148,9 +1203,10 @@ def sgn_step(a: torch.Tensor, state: torch.Tensor, nonce,
     Replaces ``mpyc_tpu/models/pipelines.py:make_sgn_step`` ->
     ``_build_pallas.kernel``, in the stream layout of its XLA step.
     nonce: the call counter (lo, hi). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (``csrc/sgn.cuh``; from 7 to 48 limbs
-    ``csrc/sgn_wide.cu``), or raise NotImplementedError for a
-    configuration it is not built for."""
+    CUDA tensors launch the kernel (``csrc/sgn.cuh``; from 7 to 48 limbs,
+    and for calls of few elements from two to six, ``csrc/sgn_wide.cu``:
+    ``sgn_route``), or raise NotImplementedError for a configuration it is
+    not built for."""
     _check_sgn_operands(a, state, spec)
     if a.device.type == 'cpu':
         return _sgn_step_plain(a, state, nonce, spec)
@@ -1174,7 +1230,7 @@ def bucket(n: int, cap: int | None = None) -> int:
 
 
 def sgn_chunks(a: torch.Tensor, state: torch.Tensor, ctr, spec: SgnSpec,
-               chunk: int):
+               chunk: int, route: str | None = None):
     """The comparison of (m, n, L) shares cut into chunks of ``chunk``
     elements, each one comparison call on its shares padded with zero rows
     to its bucket (``bucket(size, chunk)``), with the counters ctr, ctr +
@@ -1182,7 +1238,8 @@ def sgn_chunks(a: torch.Tensor, state: torch.Tensor, ctr, spec: SgnSpec,
     ``SimRuntime._np_sgn_fused`` calls its step chunk by chunk.
 
     On the CPU each chunk is one call of ``sgn_step`` (the plain version);
-    on the card all of them are one launch of K5, bit for bit the same."""
+    on the card all of them are one launch of K5, bit for bit the same, on
+    the kernel ``sgn_route`` picks (or ``route``, for measurements)."""
     _check_sgn_operands(a, state, spec)
     n = a.shape[1]
     ctr = np.asarray(ctr, dtype=np.uint32)
@@ -1192,7 +1249,7 @@ def sgn_chunks(a: torch.Tensor, state: torch.Tensor, ctr, spec: SgnSpec,
     n_last = bucket(n - starts[-1], chunk)
     if a.device.type != 'cpu':
         out = _launch_sgn(a, state, (int(ctr[0]), int(ctr[1])), spec, chunk,
-                          n_last)
+                          n_last, route)
         return out, _add_ctr(ctr, len(starts))
     outs = []
     for c, j0 in enumerate(starts):
@@ -1283,7 +1340,10 @@ def _random_bits_tail_plain(r: torch.Tensor, z: torch.Tensor, field,
     the shares of the bits, the n flags of the opening u = r^2 + z at
     threshold 2t equal to 0 (uint8) and their count ((1,) int32). The bit
     of r is (r / sqrt(u) + 1) / 2 (with ``signed`` r / sqrt(u)), times
-    2^f; where u is 0 it is not a bit, and the caller drops it."""
+    2^f; where u is 0 it is not a bit, and the caller drops it. 1 / sqrt(u)
+    is u^((3p - 5) / 4) for p = 3 mod 4, else the JAX package's
+    Tonelli-Shanks (``fieldops.tonelli_shanks``), whose root fixes the
+    bit; K7 takes only the former."""
     ctx, p = field.array.ctx, field.modulus
     P, N0 = ctx.p_limbs, ctx.n0inv
     ra = [limb.unstack(r[i]) for i in range(2 * t + 1)]
@@ -1294,7 +1354,13 @@ def _random_bits_tail_plain(r: torch.Tensor, z: torch.Tensor, field,
         term = limb.mont_mul(s, lag, P, N0)
         u = term if u is None else limb.add_mod(u, term, P)
     flags = limb.iszero_ll(u).to(torch.uint8)
-    inv = fieldops._mont_pow_plain(limb.stack(u), (3 * p - 5) // 4, ctx)
+    if p % 4 == 3:
+        inv = fieldops._mont_pow_plain(limb.stack(u), (3 * p - 5) // 4, ctx)
+    else:   # the JAX package's Tonelli-Shanks, and so its root
+        inv = fieldops.tonelli_shanks(
+            limb.stack(u), ctx, True,
+            lambda x, y: fieldops._field_op_plain(x, y, 'mul', ctx),
+            lambda x, e: fieldops._mont_pow_plain(x, e, ctx))
     # bits in {0, 1}: (r s + 1) / 2 * 2^f = r s c + c with c = 2^f / 2
     c = pow(2, f, p) * (1 if signed else pow(2, -1, p)) % p
     c_mont = list(ctx.encode_const(c))

@@ -209,6 +209,47 @@ mont_pow.launches = 0
 mont_pow.by_key = collections.Counter()   # launches by (limbs, lazy)
 
 
+@functools.cache
+def ts_params(p: int) -> tuple:
+    """(q, s, z) with p - 1 = q 2^s, q odd, and z = b^q for the smallest
+    quadratic non-residue b (``mpyc_tpu/ops/fieldops.py:602``)."""
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    b = 2
+    while pow(b, (p - 1) // 2, p) != p - 1:
+        b += 1
+    return q, s, pow(b, q, p)
+
+
+def tonelli_shanks(a: torch.Tensor, ctx, INV: bool, mul, power):
+    """Square roots (INV: their inverses) of the quadratic residues a
+    ((..., L) Montgomery limbs) for p = 1 mod 4 by the JAX package's
+    constant-round Tonelli-Shanks (``mpyc_tpu/ops/fieldops.py:616``), so
+    that the root is the same: w = a^((q - 1) / 2), x = a w, t = x w, then
+    s - 1 rounds k, each squaring t s - k - 2 times and, where that is not
+    1, multiplying x by z^(2^k) and t by z^(2^(k + 1)); with INV the
+    inverse of x, x^(p - 2) (0 for 0). mul(x, y) is a Montgomery product
+    and power(x, e) x^e: K9 and K6, or their plain versions."""
+    p = ctx.p
+    q, s, z = ts_params(p)
+    zk = [ctx.encode_const(pow(z, 1 << k, p)) for k in range(s)]
+    one = torch.tensor(ctx.one_mont, dtype=torch.int64).to(
+        torch.int32).to(a.device)
+    w = power(a, (q - 1) >> 1)
+    x = mul(a, w)
+    t = mul(x, w)
+    for k in range(s - 1):
+        y = t
+        for _ in range(s - k - 2):
+            y = mul(y, y)
+        flip = (y != one).any(-1, keepdim=True)
+        x = torch.where(flip, mul(x, zk[k]), x)
+        t = torch.where(flip, mul(t, zk[k + 1]), t)
+    return power(x, p - 2) if INV else x
+
+
 def _field_op_plain(a, b, op: str, ctx) -> torch.Tensor:
     """Plain version of K9: a op b elementwise (shapes broadcast; either
     operand may be a tuple of limbs, a constant) in ``limb``'s arithmetic:
@@ -463,15 +504,17 @@ class PrimeFieldCtx:
             is_one, 1, -1)).to(torch.int32)
 
     def sqrt(self, a, INV=False):
-        """Square roots (or their inverses) of quadratic residues, by the
-        exponent (p + 1) / 4 (INV: (3 p - 5) / 4) for p = 3 mod 4, as
-        ``mpyc_tpu/ops/fieldops.py:616``; sqrt(0) = 0. Fields with p = 1
-        mod 4 (the JAX package's Tonelli-Shanks) are not ported."""
-        if self.p % 4 != 3:
-            raise NotImplementedError('sqrt for p = 1 mod 4 (Tonelli-'
-                                      'Shanks) is not ported')
-        return self.pow_const(a, (3 * self.p - 5) >> 2 if INV
-                              else (self.p + 1) >> 2)
+        """Square roots (or their inverses) of quadratic residues, as
+        ``mpyc_tpu/ops/fieldops.py:616``: by the exponent (p + 1) / 4 (INV:
+        (3 p - 5) / 4) for p = 3 mod 4, else by the constant-round
+        Tonelli-Shanks (``tonelli_shanks``: K6's powers and K9's products
+        on the card), which picks the JAX package's root; sqrt(0) = 0."""
+        if self.p % 4 == 3:
+            return self.pow_const(a, (3 * self.p - 5) >> 2 if INV
+                                  else (self.p + 1) >> 2)
+        return tonelli_shanks(
+            a, self, INV, lambda x, y: field_op(x, y, 'mul', self),
+            lambda x, e: mont_pow(x, e, self))
 
     def mod_pow2(self, a, f: int):
         """Each value mod 2^f, Montgomery in and out

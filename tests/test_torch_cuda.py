@@ -216,6 +216,33 @@ def test_sgn_kernel_matches_plain_at_three_limbs(cuda_device, l):
     assert torch.equal(got, pipelines._sgn_step_plain(a, st, (5, 0), spec))
 
 
+@pytest.mark.parametrize('n', [1, 70, 288])
+@pytest.mark.parametrize('mode', pipelines.SGN_MODES)
+def test_cta_route_matches_the_narrow_kernel_and_plain(cuda_device, mode, n):
+    """K5's CTA route (one element a CTA, csrc/sgn_wide.cu) and the narrow
+    kernel (csrc/sgn.cuh), each forced onto LPExample's SecInt(110) at l =
+    110 on five limbs, equal the plain version bit for bit on one
+    element, sc50b's 70 and LPExample's 288 on its bucket of 512; a
+    launch of that size takes the CTA route, counted under its key."""
+    p = 2787593149816327892691964784081045188544327
+    st = _state(cuda_device)
+    spec = pipelines.SgnSpec(p, 1, 3, 110, 30, LT=mode == 'LT',
+                             EQ=mode == 'EQ')
+    a = _shares(n, 23, cuda_device, p)
+    want, want_ctr = pipelines._sgn_chunks_plain(a, st, (0xFFFFFFFE, 3),
+                                                 spec, 1024)
+    for route in ('narrow', 'cta'):
+        got, ctr = pipelines.sgn_chunks(a, st, (0xFFFFFFFE, 3), spec, 1024,
+                                        route)
+        assert torch.equal(got, want), route
+        assert ctr.tolist() == want_ctr.tolist()
+    key = (mode, 110, 5, 0, pipelines.SGN_CTA)
+    n0 = pipelines.sgn_step.by_key[key]
+    pipelines.sgn_chunks(a, st, (0xFFFFFFFE, 3), spec, 1024)
+    assert pipelines.sgn_route(5, n) == 'cta'
+    assert pipelines.sgn_step.by_key[key] == n0 + 1
+
+
 @pytest.mark.parametrize('p,l,n,chunk', [(P69, 16, 5000, 1024),
                                          (P46, 14, 70000, 1 << 15)])
 def test_sgn_kernel_takes_many_chunks_in_one_launch(cuda_device, p, l, n,
@@ -239,13 +266,16 @@ def test_sgn_kernel_refuses_what_was_not_built(cuda_device):
     4, 2t + 1 <= m <= 16 and two to six limbs: more parties raise, and so
     does a field of 19 limbs (the LP solver's kb2, SecInt(560)), and at t
     = 4 random bits past their draws' room (SecFxp(96, 48): lb = 97 of
-    at most 75 on six limbs)."""
+    at most 75 on six limbs) on a call too large for the CTA route, which
+    takes them on smaller calls."""
+    from mpyc_tpu_torch import _build
     st = _state(cuda_device)
     a = torch.zeros((17, 64, 2), dtype=torch.int32, device=cuda_device)
     with pytest.raises(NotImplementedError, match='t <= 4'):
         pipelines.sgn_step(a, st, (0, 0), pipelines.SgnSpec(P, 1, 17, 16))
     p176 = 95780971304118053647396689196894323976171195136474903
-    a9 = torch.zeros((9, 64, 6), dtype=torch.int32, device=cuda_device)
+    a9 = torch.zeros((9, _build.SGN_CTA_MAX[6] + 1, 6), dtype=torch.int32,
+                     device=cuda_device)
     with pytest.raises(NotImplementedError, match='random bits'):
         pipelines.sgn_step(a9, st, (0, 0), pipelines.SgnSpec(
             p176, 4, 9, 96, 30, LT=True, f=48))
@@ -646,14 +676,16 @@ def test_lp_fxp_solver_on_the_card(cuda_device, dataset):
 def test_kmsurvival_on_the_card(cuda_device):
     """The survival test on btrial (SecFxp(56, 28)) with --agg on the card:
     chi2 within 1e-3 of the plain statistic; K5 in EQ mode (the
-    compaction's zero tests) and K7 launched."""
+    compaction's zero tests, one element a call: K5's CTA route) and K7
+    launched."""
     import chip_smoke
-    n5 = pipelines.sgn_step.by_key[('EQ', 56, 4, 28)]
+    key = ('EQ', 56, 4, 28, pipelines.SGN_CTA)
+    n5 = pipelines.sgn_step.by_key[key]
     n7 = pipelines.random_bits_tail.launches
     res = chip_smoke.run_km(cuda_device, runs=((0, 0, True),))
     (r,) = res.values()
     assert abs(r['chi'] - r['chi_ref']) < 1e-3 * max(1, r['chi_ref'])
-    assert pipelines.sgn_step.by_key[('EQ', 56, 4, 28)] > n5
+    assert pipelines.sgn_step.by_key[key] > n5
     assert pipelines.random_bits_tail.launches > n7
 
 

@@ -15,11 +15,13 @@ Powers: the port's ``limb.mont_pow_const`` (K6's plain version),
 ``fieldops.pow_const`` and ``sqrt(INV)`` against the JAX package's at two
 and three limbs (SecFxp(14, 6)'s 52-bit field, SecInt(37)'s 69-bit one),
 e = 0, 1, p - 2, (3p - 5) / 4 and (p + 1) / 4 and exponents it reduces,
-on inputs with 0 and 1; ``mod_pow2``. The program of K6's plan
-(``fieldops.pow_plan``, a sliding window) with the plain limb product
-against the ladders, the JAX package's included, at named and at
-exponents drawn from a seeded generator, also on SecInt(32)'s 64-bit
-field.
+on inputs with 0 and 1; ``sqrt(INV)`` over fields with p = 1 mod 4
+(the JAX package's Tonelli-Shanks root) at one and two limbs, and
+``np_random_bits`` over such fields share for share; ``mod_pow2``. The
+program of K6's plan (``fieldops.pow_plan``, a sliding window) with the
+plain limb product against the ladders, the JAX package's included, at
+named and at exponents drawn from a seeded generator, also on
+SecInt(32)'s 64-bit field.
 
 SecFxp(14, 6) arithmetic through the port's operators on the CPU, opened
 against numpy: +, -, products (truncated: floor(v / 2^6) or one more, v
@@ -143,6 +145,26 @@ def test_np_random_bits_rejection_rounds_match_the_jax_package(runtimes, n):
     assert tr._program_counter[0] == jr._program_counter[0]
     bits = tr.output(got).value
     assert set(bits.tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize('n', (7, 300))
+@pytest.mark.parametrize('p', (13, 101, 257))
+def test_np_random_bits_over_p_1_mod_4_match_the_jax_package(runtimes, p,
+                                                              n):
+    """Over GF(13), GF(101) and GF(257) (p = 1 mod 4) the bits take the
+    inverse square root by Tonelli-Shanks: shares, rejection rounds and
+    program counter equal the JAX package's, and the bits open to 0 and
+    1."""
+    jr, tr = runtimes
+    _sync(jr, tr)
+    got = tr.np_random_bits(finfields.GF(p), n)
+    want = jr.np_random_bits(jfinfields.GF(p), n)
+    _same(want, got)
+    assert tr._program_counter[0] == jr._program_counter[0]
+    bits = tr.output(got).value
+    assert set(bits.tolist()) <= {0, 1} and len(bits) == n
+    signed = tr.output(tr.np_random_bits(finfields.GF(p), n, signed=True))
+    assert set(signed.signed().tolist()) <= {-1, 1}
 
 
 @pytest.mark.parametrize('n', SIZES)
@@ -344,11 +366,45 @@ def test_mod_pow2_matches_the_jax_package(p, f):
     np.testing.assert_array_equal(limbs_to_numpy(got.data), np.asarray(want))
 
 
-def test_sqrt_refuses_p_1_mod_4():
-    p = 97
-    ctx = prime_field_ctx(p)
-    with pytest.raises(NotImplementedError, match='Tonelli'):
-        ctx.sqrt(ctx.encode(np.array([4]), 'cpu'))
+# p = 1 mod 4: the Tonelli-Shanks fields, p - 1 = q 2^s with s = 2 (13,
+# 101), 5 (97), 8 (257: q = 1) and 32 (2^64 - 2^32 + 1, two limbs)
+P64_1 = (1 << 64) - (1 << 32) + 1
+TS_PRIMES = (13, 97, 101, 257, P64_1)
+
+
+def _mont_ints(data) -> list:
+    """Montgomery values of (..., L) limbs (numpy or torch) as ints."""
+    limbs = np.asarray(data).astype(np.uint64).reshape(-1, np.shape(data)[-1])
+    return [sum(int(w) << 32 * q for q, w in enumerate(row))
+            for row in limbs]
+
+
+@pytest.mark.parametrize('INV', [False, True])
+@pytest.mark.parametrize('p', TS_PRIMES)
+def test_tonelli_shanks_sqrt_matches_the_jax_package(p, INV):
+    """For p = 1 mod 4 the port's sqrt (and inverse sqrt) of squares of
+    seeded values and of 0 is the JAX package's constant-round
+    Tonelli-Shanks root, word for word of its Montgomery form (the JAX
+    package keeps the two-limb field's small arrays as ints on its host
+    plane: compared as the limbs' integers), and a root."""
+    assert p % 4 == 1
+    g = np.random.default_rng(p % 997)
+    x = np.array([int(v) for v in g.integers(1, min(p, 1 << 62), 24)],
+                 dtype=object)
+    sq = x * x % p
+    if not INV:
+        sq = np.concatenate([np.array([0], dtype=object), sq])
+    got = finfields.GF(p).array(sq, 'cpu').sqrt(INV)
+    want = jfinfields.GF(p).array(sq).sqrt(INV)
+    jdata = np.asarray(want._data)
+    wants = [int(v) for v in jdata.reshape(-1)] if jdata.dtype == object \
+        else _mont_ints(jdata)
+    assert _mont_ints(limbs_to_numpy(got.data)) == wants
+    r = got.value.astype(object)
+    if INV:
+        assert ((r * r % p) * sq % p == 1).all()
+    else:
+        assert (r * r % p == sq).all() and r[0] == 0
 
 
 def test_shifts_by_powers_of_two():

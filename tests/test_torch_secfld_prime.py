@@ -15,7 +15,8 @@ JAX generator's pools dropped, so both draw from a new nonce):
   moves its shares to jax arrays, as they are on its TPU, so that its
   SimRuntime takes the fused round the port takes;
 * powers by 0 and by -1 (a reciprocal), and random bits, by their opened
-  values;
+  values, also over GF(13), GF(257) and GF(101) (p = 1 mod 4: the
+  Tonelli-Shanks root);
 * odd extension fields and too-small prime fields raise
   NotImplementedError; the module-level ``sectypes.SecFld`` places its
   arrays on the card by default, so without one it raises the package's
@@ -175,6 +176,25 @@ def test_powers_by_zero_and_minus_one_and_equality_operators(jr, name):
     tbits = tr.random_bits(tf, 8)
     got = [int(tr.output(b)) for b in tbits]
     assert got == [int(jr.output(b)) for b in jbits]
+    assert set(got) <= {0, 1}
+
+
+@pytest.mark.parametrize('kw', [dict(order=13), dict(order=257),
+                                dict(min_order=100)],
+                         ids=['GF(13)', 'GF(257)', 'GF(101)'])
+def test_random_bits_over_p_1_mod_4_match_the_jax_package(jr, kw):
+    """Over fields with p = 1 mod 4 (``SecFld(min_order=100)`` is GF(101))
+    a bit's inverse square root is the JAX package's Tonelli-Shanks root:
+    ``random_bits`` and ``random_bit`` open to the JAX package's values,
+    each 0 or 1."""
+    tr = _port(jr)
+    jf, tf = jr.SecFld(**kw), tr.SecFld(**kw)
+    p = tf.field.modulus
+    assert p == jf.field.modulus and p % 4 == 1
+    got = [int(tr.output(b)) for b in tr.random_bits(tf, 24)]
+    assert got == [int(jr.output(b)) for b in jr.random_bits(jf, 24)]
+    got += [int(tr.output(tr.random_bit(tf))) for _ in range(4)]
+    assert got[24:] == [int(jr.output(jr.random_bit(jf))) for _ in range(4)]
     assert set(got) <= {0, 1}
 
 

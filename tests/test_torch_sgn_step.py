@@ -157,3 +157,18 @@ def test_bnn_widths_match_jax_beyond_the_range(l):
     np.testing.assert_array_equal(tout, jout)
     np.testing.assert_array_equal(tctr, jctr)
     assert opened(P46, tout) == [-(int(x) >> l) for x in v]
+
+
+@pytest.mark.parametrize('l,k', [(33, 30), (1, 62), (20, 43)])
+def test_widths_past_the_field_are_not_ported(l, k):
+    """l + k + 2 above p's bit length (64 at SecInt(32)'s field): the JAX
+    package compares such values with its eager np_sgn
+    (``mpyc_tpu/runtime.py:2728``), which the port has not, so the spec
+    raises NotImplementedError naming it; l + k + 2 = 64 is taken, and
+    l < 1 is a ValueError."""
+    p = 18446744073709551427
+    with pytest.raises(NotImplementedError, match='eager np_sgn'):
+        tpipe.SgnSpec(p, 1, 3, l, k, LT=True)
+    assert tpipe.SgnSpec(p, 1, 3, l, 62 - l, LT=True).l == l
+    with pytest.raises(ValueError, match='l >= 1'):
+        tpipe.SgnSpec(p, 1, 3, 0, k)
